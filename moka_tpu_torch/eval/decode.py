@@ -1,0 +1,164 @@
+"""Batched generation: multimodal prefill + text-only decode loop (port of
+``moka_tpu/eval/decode.py``).
+
+Prompts are LEFT-padded, so every sample's last prompt token sits at the
+same index.  The prefill carries the modality masks; each decode step uses
+the text-adapter path (masks None) and eager attention over the cache.  The
+KV cache is written in place.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from moka_tpu_torch.core.config import LlamaConfig
+from moka_tpu_torch.models import llama
+from moka_tpu_torch.ops.moka import MokaSpec
+
+
+def positions_from_mask(attn_mask: torch.Tensor) -> torch.Tensor:
+    """HF-style: cumsum(mask) - 1, clipped at 0 (pad rows get position 0)."""
+    return torch.clamp(torch.cumsum(attn_mask, dim=-1) - 1, min=0)
+
+
+def paged_decode_auto(cfg: LlamaConfig, capacity: int,
+                      kv_quant: bool = False) -> bool:
+    """Whether to take the length-aware paged decode loop.  The JAX gate is
+    a TPU measurement and the loop is not ported (ROADMAP.md, decode), so
+    the port always answers False."""
+    return False
+
+
+def _on_card(t: torch.Tensor, flag: bool | None) -> bool:
+    return t.device.type == "cuda" if flag is None else flag
+
+
+def prefill(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask, masks,
+            max_new_tokens, use_flash, use_fused_moka, kv_quant=False):
+    """The prefill of ``greedy_generate`` / ``sample_generate``: a KV cache
+    of L + max_new_tokens positions is made and filled in place with the
+    prompt.  Returns (final-normed hidden states (b, L, d), cache, the
+    cache's (b, S) valid-key mask)."""
+    b, L, _ = inputs_embeds.shape
+    S = L + max_new_tokens
+    cache = llama.init_kv_cache(cfg, b, S, dtype=inputs_embeds.dtype,
+                                quantized=kv_quant,
+                                device=inputs_embeds.device)
+    cache_mask = F.pad(prompt_mask, (0, S - L))
+    h, cache = llama.forward(
+        base, cfg, adapters=adapters, spec=spec, inputs_embeds=inputs_embeds,
+        masks=masks, attn_mask=cache_mask,
+        positions=positions_from_mask(prompt_mask), cache=cache,
+        use_flash=use_flash, use_fused_moka=use_fused_moka, logits=False)
+    return h, cache, cache_mask
+
+
+def _generate(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask,
+              masks, max_new_tokens, eos_id, pad_id, use_flash,
+              use_fused_moka, paged_decode, kv_quant, generator=None,
+              temperature=None, top_k=None, top_p=None) -> torch.Tensor:
+    if paged_decode:
+        raise NotImplementedError("paged decode is not ported yet "
+                                  "(ROADMAP.md, decode)")
+    b, L, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+
+    def pick(step_logits):
+        if temperature is None:
+            return torch.argmax(step_logits, dim=-1).to(torch.int32)
+        from moka_tpu_torch.eval.sampling import sample_tokens
+        return sample_tokens(step_logits, generator, temperature, top_k,
+                             top_p)
+
+    h, cache, cache_mask = prefill(
+        base, adapters, cfg=cfg, spec=spec, inputs_embeds=inputs_embeds,
+        prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
+        use_flash=use_flash, use_fused_moka=use_fused_moka, kv_quant=kv_quant)
+    # only the last position's logits are read: the head runs on that row
+    tok = pick(llama.head_logits(h[:, -1:], base["lm_head"])[:, 0])
+
+    n_prompt = prompt_mask.sum(dim=-1)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    out = []
+    for t in range(max_new_tokens):
+        out.append(torch.where(done, torch.full_like(tok, pad_id), tok))
+        done = done | (tok == eos_id)
+        if t + 1 == max_new_tokens:
+            break  # the last step's logits would be discarded
+        cache_mask[:, L + t] = 1
+        embeds = base["embed"][tok[:, None].long()]
+        logits, cache = llama.forward(
+            base, cfg, adapters=adapters, spec=spec, inputs_embeds=embeds,
+            masks=None, attn_mask=cache_mask,
+            positions=(n_prompt + t)[:, None], cache=cache)
+        new_tok = pick(logits[:, -1, :])
+        tok = torch.where(done, torch.full_like(new_tok, eos_id), new_tok)
+    return torch.stack(out, dim=1)  # (b, max_new_tokens)
+
+
+def greedy_generate(base: dict, adapters: dict | None, *,
+                    cfg: LlamaConfig, spec: MokaSpec | None,
+                    inputs_embeds: torch.Tensor, prompt_mask: torch.Tensor,
+                    masks: llama.MaskBundle | None,
+                    max_new_tokens: int, eos_id: int, pad_id: int = 0,
+                    use_flash: bool | None = None,
+                    use_fused_moka: bool | None = None,
+                    paged_decode: bool | None = None,
+                    kv_quant: bool = False) -> torch.Tensor:
+    """Greedy decode of left-padded prompts.
+
+    inputs_embeds (b, L, d); prompt_mask (b, L) 0/1; masks: modality masks
+    over the prompt or None.  ``use_flash`` / ``use_fused_moka``: the prefill
+    through the flash and fused-MokA kernels; None means on for CUDA tensors
+    (the JAX package leaves the fused delta off by default because its TPU
+    kernel rounds A to bf16; the CUDA kernel is fp32).  Returns
+    (b, max_new_tokens) int32, pad_id after eos."""
+    if paged_decode is None:
+        paged_decode = paged_decode_auto(
+            cfg, inputs_embeds.shape[1] + max_new_tokens, kv_quant=kv_quant)
+    return _generate(
+        base, adapters, cfg=cfg, spec=spec, inputs_embeds=inputs_embeds,
+        prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
+        eos_id=eos_id, pad_id=pad_id,
+        use_flash=_on_card(inputs_embeds, use_flash),
+        use_fused_moka=_on_card(inputs_embeds, use_fused_moka),
+        paged_decode=paged_decode, kv_quant=kv_quant)
+
+
+def sample_generate(base: dict, adapters: dict | None, *,
+                    cfg: LlamaConfig, spec: MokaSpec | None,
+                    inputs_embeds: torch.Tensor, prompt_mask: torch.Tensor,
+                    masks: llama.MaskBundle | None,
+                    max_new_tokens: int, eos_id: int, pad_id: int = 0,
+                    generator: torch.Generator | None = None,
+                    temperature=1.0, top_k=0, top_p=1.0,
+                    use_flash: bool | None = None,
+                    use_fused_moka: bool | None = None,
+                    paged_decode: bool | None = None,
+                    kv_quant: bool = False) -> torch.Tensor:
+    """Stochastic decode with per-sample temperature / top-k / top-p
+    (scalars or (b,) tensors; temperature 0 rows run greedy).  Without a
+    ``generator`` the noise comes from a fresh generator seeded 0, so the
+    default is deterministic."""
+    dev = inputs_embeds.device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if paged_decode is None:
+        paged_decode = paged_decode_auto(
+            cfg, inputs_embeds.shape[1] + max_new_tokens, kv_quant=kv_quant)
+    b = inputs_embeds.shape[0]
+
+    def row(x, dtype):
+        t = torch.as_tensor(x, dtype=dtype, device=dev).reshape(-1)
+        return t.expand(b) if t.numel() == 1 else t
+
+    return _generate(
+        base, adapters, cfg=cfg, spec=spec, inputs_embeds=inputs_embeds,
+        prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
+        eos_id=eos_id, pad_id=pad_id,
+        use_flash=_on_card(inputs_embeds, use_flash),
+        use_fused_moka=_on_card(inputs_embeds, use_fused_moka),
+        paged_decode=paged_decode, kv_quant=kv_quant, generator=generator,
+        temperature=row(temperature, torch.float32),
+        top_k=row(top_k, torch.int64), top_p=row(top_p, torch.float32))

@@ -1,0 +1,100 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded through ``ctypes``.
+Libraries go to ``build/moka_tpu_torch/`` at the root of the checkout and
+are named by a hash of the source and flags, so an edited source rebuilds
+and an unchanged one is reused.  Nothing is built or loaded at import:
+the first wrapper that launches a kernel calls ``library(name)``.  A failed
+build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moka_tpu_torch"
+SOURCES = {
+    "flash_fwd": "flash_fwd.cu",
+    "moka_delta_fwd": "moka_delta_fwd.cu",
+}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile the named kernels (default: all) that are not built yet, one
+    ``nvcc`` per source, all started together.  Returns seconds per
+    compiled source; the compiler's resource report goes to
+    ``build/moka_tpu_torch/<name>.log``.  Raises if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        log = open(BUILD_DIR / f"{name}.log", "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), tmp, out,
+                       log)
+    seconds, failed = {}, []
+    for name, (proc, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
+                         for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` right after the launch)."""
+    if status != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error "
+                           f"{status}")
