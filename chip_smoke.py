@@ -5,12 +5,13 @@
 
 Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build both CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
+  2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (flash only:
-     ``scaled_dot_product_attention``, never called by the port) and the
-     least time the card could take (the bound);
+     ``scaled_dot_product_attention``, forward, or forward + backward less
+     forward for the three backward kernels; never called by the port) and
+     the least time the card could take (the bound);
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -20,13 +21,23 @@ Phases, in order; any failed build, launch or check exits non-zero:
   5. ``serve_continuous`` over a ``DecodeEngine``: three concurrent
      /generate requests of different prompt buckets and one
      /generate_stream request, each answered with its full token count;
-  6. one JSON line with every kernel's numbers, then the card's line.
+  6. training (bench.py's 7B row with a bf16 base: vocab 32011, MokA AVT
+     r=4 with dropout 0.05, full remat, flash, chunked CE, AdamW with
+     warmup + cosine) at b 4, L 1024, full width and depth: the loss and
+     every projection's adapter gradients through the kernels against the
+     plain attention and an fp32 run, then 2 warm-up and 5 timed steps of
+     ``make_train_step`` (launch counts zeroed before the timed steps and
+     read after: 64 flash forward, 32 fused backward a step);
+  7. one long-context step (b 1, L 4096, dynamic-NTK RoPE, full depth),
+     which runs the dq + dkv backward pair (32 launches each);
+  8. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -47,8 +58,20 @@ FLASH_OUT_TOL = (4e-3, 2 ** -7)  # |d| <= atol + rtol*|plain| per element:
                       # both sides round P and out to bf16 (one ulp is 2^-8
                       # to 2^-7 relative) at different scales
 FLASH_LSE_TOL = 1e-3  # fp32 lse, only the summation order differs
+BWD_TOL = (2e-2, 1e-2)  # flash backward: max|err| as a fraction of
+                      # max|plain|, and relative L2 error.  Both sides round p
+                      # and ds to bf16 (2^-8 relative) at the same points but
+                      # sum in other orders (the fused kernel's dq by atomics
+                      # in a varying order), and dq is rounded to bf16 at the
+                      # end; a wrong mask, scale or skipped tile is O(1)
 MOKA_TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # of max|plain|: one bf16
                       # rounding of the output (2^-8) / fp32 summation order
+TRAIN_RATIO = 1.5  # training step: the kernel path's loss and per-projection
+TRAIN_FLOOR = 1e-3  # adapter gradients may be up to 1.5x (+ 1e-3) as far
+                    # from an fp32 run as the plain bf16 path's: both paths
+                    # round the same activations to bf16 and differ only in
+                    # where attention rounds p and ds
+SHALLOW = 2  # layers of the second training-gradient check
 LOGIT_RATIO = 1.5  # prefill logits: the kernel path's distance from an fp32
                    # run may exceed the plain bf16 path's by half: both only
                    # round differently (+1e-3 / 1e-2 of the logit std)
@@ -81,6 +104,24 @@ def bound_ms(n_bytes: float, n_ops: float, peak: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _counts() -> dict:
+    from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_fused": fa.flash_bwd_fused.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "moka_delta_fwd": moka_delta_fused.launches}
+
+
+def _zero_counts() -> None:
+    from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
+    for fn in (fa.flash_fwd, fa.flash_bwd_fused, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv, moka_delta_fused):
+        fn.launches = 0
 
 
 # ------------------------------------------------------------------ phase 3
@@ -131,7 +172,7 @@ def check_flash(name, q, k, v, mask, q_offset=0) -> float:
 
 
 def flash_record(b, L, S) -> dict:
-    """Check kernel A at the issue shapes and time it at the main path's
+    """Check kernel A at the checked shapes and time it at the main path's
     prefill shape (b, L, S)."""
     import torch
     import torch.nn.functional as F
@@ -177,6 +218,137 @@ def flash_record(b, L, S) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms,
             "shape": f"b {b} H 32 L {L} S {S} hd 128, one layer"}
+
+
+def bwd_case(b, H, KH, L, S, pads=None, q_offset=0, seed=0):
+    """Inputs of the backward kernels: the forward kernel's own out and lse
+    on random bf16 q, k, v, a random dO and delta = rowsum(dO * out)."""
+    import torch
+    from moka_tpu_torch.ops.flash_attention import flash_fwd
+    q, k, v, mask = flash_case(b, H, KH, L, S, pads, seed)
+    out, lse = flash_fwd(q, k, v, mask, q_offset)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    return (q, k, v, mask, dout, lse, delta.contiguous()), q_offset
+
+
+def check_flash_bwd(name, which, args, q_offset) -> float:
+    """One backward kernel against ``flash_bwd_plain`` on the same inputs:
+    every output within BWD_TOL, and exact zeros on the rows of queries
+    that see no key and of keys that no query sees."""
+    import torch
+    from moka_tpu_torch.ops import flash_attention as fa
+    fn = {"fused": fa.flash_bwd_fused, "dq": fa.flash_bwd_dq,
+          "dkv": fa.flash_bwd_dkv}[which]
+    got = fn(*args, q_offset)
+    got = (got,) if which == "dq" else got
+    torch.cuda.synchronize()
+    ref = fa.flash_bwd_plain(*args, q_offset)
+    ref = {"fused": ref, "dq": ref[:1], "dkv": ref[1:]}[which]
+    names = {"fused": ("dq", "dk", "dv"), "dq": ("dq",),
+             "dkv": ("dk", "dv")}[which]
+    q, mask = args[0], args[3]
+    vis = _visible(mask, q.shape[1], mask.shape[1], q_offset)
+    dead = {"dq": ~vis.any(dim=-1), "dk": ~vis.any(dim=1),
+            "dv": ~vis.any(dim=1)}  # (b, L) / (b, S)
+    frac, l2_tol = BWD_TOL
+    worst, msgs = 0.0, []
+    for n, x, y in zip(names, got, ref):
+        x, y = x.float(), y.float()
+        d = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        rel_l2 = float((x - y).norm() / y.norm())
+        zeros = bool((x[dead[n]] == 0).all())
+        msgs.append(f"{n} max|err| {d:.3e} ({d / scale:.2e} of max|plain|),"
+                    f" rel L2 {rel_l2:.2e}, dead rows zero {zeros}")
+        if not (d <= frac * scale and rel_l2 <= l2_tol and zeros):
+            raise AssertionError(f"flash backward {which} disagrees with its "
+                                 f"plain version ({name}): {msgs[-1]}")
+        worst = max(worst, d)
+    log(f"  flash bwd {which} {name}: q {tuple(q.shape)} k "
+        f"{tuple(args[1].shape)} q_offset {q_offset}: " + "; ".join(msgs) +
+        f" (tol {frac} of max|plain|, rel L2 {l2_tol})")
+    return worst
+
+
+def flash_bwd_records() -> list[dict]:
+    """Check the three backward kernels (main-path shapes, GQA, left
+    padding with ragged L, a query offset) and time each at its main-path
+    shape: fused at (b 4, H 32, L 1024), dq and dkv at (b 1, H 32,
+    L 4096), the training steps' shapes."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops import flash_attention as fa
+    errs = {"fused": 0.0, "dq": 0.0, "dkv": 0.0}
+    cases = [("main path shape", "fused", (4, 32, 32, 1024, 1024), {}),
+             ("GQA 32:8", "fused", (2, 32, 8, 512, 512), {"seed": 1}),
+             ("left pad + ragged L", "fused", (4, 32, 32, 333, 333),
+              {"seed": 2, "pads": (0, 17, 64, 100)}),
+             ("q_offset", "fused", (2, 32, 32, 128, 1024),
+              {"seed": 3, "q_offset": 896})]
+    for which in ("dq", "dkv"):
+        cases += [("main path shape", which, (1, 32, 32, 4096, 4096), {}),
+                  ("GQA 32:8", which, (2, 32, 8, 512, 512), {"seed": 1}),
+                  ("left pad + ragged L", which, (4, 32, 32, 1333, 1333),
+                   {"seed": 2, "pads": (0, 17, 64, 700)}),
+                  ("q_offset", which, (2, 32, 32, 1100, 2048),
+                   {"seed": 3, "q_offset": 948})]
+    for name, which, shape, kw in cases:
+        args, qo = bwd_case(*shape, **kw)
+        errs[which] = max(errs[which], check_flash_bwd(name, which, args, qo))
+        del args
+    records = []
+    for which, shape, products, tpu_line in (
+            ("fused", (4, 32, 32, 1024, 1024), 5, 230),
+            ("dq", (1, 32, 32, 4096, 4096), 3, 136),
+            ("dkv", (1, 32, 32, 4096, 4096), 4, 180)):
+        args, qo = bwd_case(*shape, seed=4)
+        q, k, v, mask, dout = args[:5]
+        fn = {"fused": fa.flash_bwd_fused, "dq": fa.flash_bwd_dq,
+              "dkv": fa.flash_bwd_dkv}[which]
+        ms = time_ms(lambda: fn(*args, qo))
+        plain_ms = time_ms(lambda: fa.flash_bwd_plain(*args, qo), iters=3,
+                           warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
+
+        lib_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
+        b, L, H, hd = q.shape
+        vis = _visible(mask, L, k.shape[1], qo)
+        pairs = float(vis.sum()) * H
+        seen = int(vis.any(dim=1).sum())
+        kv_bytes = seen * (2 * k.shape[2] * hd * k.element_size()
+                           + mask.element_size())
+        rows = b * H * L * 4 * 2  # lse and delta
+        outs = {"fused": nbytes(q) + 2 * seen * k.shape[2] * hd * 4,
+                "dq": nbytes(q), "dkv": 2 * seen * k.shape[2] * hd * 4}
+        n_bytes = 2 * nbytes(q) + kv_bytes + rows + outs[which]
+        bms, by = bound_ms(n_bytes, products * 2.0 * hd * pairs, BF16_FLOPS)
+        log(f"  flash bwd {which} timing at (b {b}, H {H}, L {L}, S "
+            f"{k.shape[1]}, hd {hd}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        records.append({
+            "name": f"flash_bwd_{which}", "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": f"moka_tpu/ops/flash_attention.py:{tpu_line}",
+            "launches": None, "max_abs_err": errs[which],
+            "tolerance": "max|err| <= %g max|plain|, rel L2 <= %g" % BWD_TOL,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention(is_causal) forward + "
+                       "backward less forward (all three gradients)",
+            "shape": f"b {b} H {H} L {L} S {k.shape[1]} hd {hd}, one layer"})
+        del args, qt, kt, vt
+    return records
 
 
 def moka_inputs(b, L, d_in, d_out, flavour, dtype, seed):
@@ -365,8 +537,6 @@ def main_path(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
     (the main path: launch counts zeroed just before, read just after).
     Decode = the difference; its cache is new_tokens - 1 positions longer."""
     import torch
-    from moka_tpu_torch.ops.flash_attention import flash_fwd
-    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
 
     def timed(n):
         torch.cuda.synchronize()
@@ -378,10 +548,9 @@ def main_path(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
     with torch.inference_mode():
         generate(cfg, spec, base, adapters, inputs, new_tokens)  # warm-up
         prefill_s = sorted(timed(1)[1] for _ in range(3))[1]
-        flash_fwd.launches = moka_delta_fused.launches = 0
+        _zero_counts()
         toks, total_s = timed(new_tokens)
-        launches = {"flash_fwd": flash_fwd.launches,
-                    "moka_delta_fwd": moka_delta_fused.launches}
+        launches = _counts()
     batch = inputs["inputs_embeds"].shape[0]
     if tuple(toks.shape) != (batch, new_tokens) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -392,7 +561,8 @@ def main_path(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
         f"{total_s * 1e3:.1f} ms, prefill (1 new token) {prefill_s * 1e3:.1f}"
         f" ms, decode {tps:.1f} tok/s ({new_tokens - 1} decode steps), "
         f"launches {launches}")
-    if launches != {"flash_fwd": cfg.n_layers,
+    if launches != {"flash_fwd": cfg.n_layers, "flash_bwd_fused": 0,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                     "moka_delta_fwd": 7 * cfg.n_layers}:
         raise AssertionError(f"main path launches {launches}")
     return {"launches": launches, "prefill_ms": prefill_s * 1e3,
@@ -409,8 +579,6 @@ def serve_requests(cfg, spec, base, adapters, n_slots=8,
     from moka_tpu_torch.eval.engine import DecodeEngine
     from moka_tpu_torch.eval.server import serve_continuous
     from moka_tpu_torch.models import llama
-    from moka_tpu_torch.ops.flash_attention import flash_fwd
-    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
 
     engine = DecodeEngine(base, adapters, cfg=cfg, spec=spec,
                           n_slots=n_slots, cache_capacity=capacity,
@@ -456,7 +624,7 @@ def serve_requests(cfg, spec, base, adapters, n_slots=8,
 
     jobs = [("/generate", n) for n in prompt_lens] + \
         [("/generate_stream", stream_len)]
-    flash_fwd.launches = moka_delta_fused.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=post, args=j) for j in jobs]
     try:
@@ -470,8 +638,7 @@ def serve_requests(cfg, spec, base, adapters, n_slots=8,
         engine.stop()
         server_thread.join(timeout=10)
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_fwd.launches,
-                "moka_delta_fwd": moka_delta_fused.launches}
+    launches = _counts()
     log(f"  served {len(jobs)} requests in {wall:.2f} s: tokens "
         f"{ {f'{p} {n}': c for (p, n), c in results.items()} }, launches "
         f"{launches}")
@@ -479,6 +646,239 @@ def serve_requests(cfg, spec, base, adapters, n_slots=8,
             any(c != new_tokens for c in results.values()):
         raise AssertionError(f"serving: wrong token counts {results}")
     return {"wall_s": wall, "launches": launches}
+
+
+# ------------------------------------------------------------- phases 6-7
+
+PROJS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def train_config(long_context=False):
+    """bench.py's 7B row with a bf16 base: vocab 32011, MokA AVT r=4 with
+    dropout 0.05 and a 256-key question window; the long-context row adds
+    dynamic-NTK RoPE (bench.py:680-683)."""
+    import dataclasses
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.ops.moka import MokaSpec
+    cfg = LlamaConfig.llama2_7b(vocab_size=32011)
+    if long_context:
+        cfg = dataclasses.replace(cfg, rope_scaling=("dynamic", 2.0))
+    spec = MokaSpec.avt(rank=4, dropout_rate=0.05).with_question_window(256)
+    return cfg, spec
+
+
+def build_trainer(cfg, spec, seed=1):
+    """bf16 base and fp32 adapters (B seeded non-zero) on the card."""
+    base, adapters = build_model(cfg, spec, seed)
+    return base, {"adapters": adapters}
+
+
+def train_batch(cfg, b, L, seed=0) -> dict:
+    """bench.py:91-104: random tokens, a quarter of the labels ignored,
+    text / video / audio = 1/2, 1/4, 1/4, question span 2:L//8."""
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(4, cfg.vocab_size, (b, L))
+    labels = np.where(rng.random((b, L)) < 0.25, -100, toks)
+    mod = np.zeros((3, b, L), np.float32)
+    mod[0, :, : L // 2] = 1
+    mod[1, :, L // 2: 3 * L // 4] = 1
+    mod[2, :, 3 * L // 4:] = 1
+    q = np.zeros((b, L), np.float32)
+    q[:, 2: L // 8] = 1
+    return {k: torch.as_tensor(v, device="cuda") for k, v in
+            dict(tokens=toks, labels=labels, modality_masks=mod,
+                 question_mask=q).items()}
+
+
+def train_loss(cfg, spec, use_flash):
+    """The fine-tune loss as bench.py::run builds it (full remat, chunked
+    lm_head + CE of 128 positions)."""
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    return make_llama_moka_loss(cfg, spec, remat=True, use_flash=use_flash,
+                                fused_loss=True, ce_chunk=128)
+
+
+def loss_and_grads(cfg, spec, frozen, trainable, batch, use_flash, key):
+    """(loss, {projection: its adapter gradients of every layer, flat})."""
+    import torch
+    from moka_tpu_torch.train.optim import tree_leaves
+    leaves = tree_leaves(trainable)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = train_loss(cfg, spec, use_flash)(trainable, frozen, batch, key)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    flat = {}
+    for (name, _), g in zip(sorted((n, ab) for n in PROJS for ab in "ab"),
+                            grads):
+        flat.setdefault(name, []).append(g.flatten())
+    return float(loss.detach()), {n: torch.cat(v) for n, v in flat.items()}
+
+
+def first_layers(tree, n):
+    """A layer-stacked parameter tree cut to its first ``n`` layers
+    (views)."""
+    out = dict(tree)
+    out["layers"] = {k: ({kk: t[:n] for kk, t in v.items()}
+                         if isinstance(v, dict) else v[:n])
+                     for k, v in tree["layers"].items()}
+    return out
+
+
+def check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
+    """Loss and adapter gradients of one step through the kernels, through
+    the plain attention (eager ``mha``, bf16 base) and in fp32 (eager, the
+    same base values in fp32), same dropout key; fails unless the kernel
+    path is within TRAIN_RATIO of the plain path's distance from fp32, per
+    projection (relative L2 over every layer's A and B gradients).  Run at
+    full depth and at SHALLOW layers: through 32 layers of random bf16
+    weights both paths drift ~16% from fp32, enough to hide a kernel that
+    drops the causal diagonal; at 2 layers the same rule catches it."""
+    import dataclasses
+    out = {}
+    for n in (cfg.n_layers, SHALLOW):
+        log(f"  {n} layers:")
+        out[f"{n}_layers"] = _check_train_grads(
+            dataclasses.replace(cfg, n_layers=n), spec,
+            first_layers(frozen, n), {"adapters": first_layers(
+                trainable["adapters"], n)}, batch)
+    return out
+
+
+def _check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    key = DropoutKey(11)
+    kern = loss_and_grads(cfg, spec, frozen, trainable, batch, True, key)
+    plain = loss_and_grads(cfg, spec, frozen, trainable, batch, False, key)
+    frozen32 = {k: ({n: t.float() for n, t in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in frozen.items()}
+    exact = loss_and_grads(cfg, spec, frozen32, trainable, batch, False, key)
+    del frozen32
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {"loss": {"kernels": kern[0], "plain": plain[0], "fp32": exact[0]},
+           "grad_rel_l2": {}}
+    ok = all(math.isfinite(x) for x in out["loss"].values())
+    dk, dp = abs(kern[0] - exact[0]), abs(plain[0] - exact[0])
+    ok &= dk <= TRAIN_RATIO * dp + TRAIN_FLOOR * abs(exact[0])
+    log(f"  loss: kernels {kern[0]:.6f}, plain {plain[0]:.6f}, fp32 "
+        f"{exact[0]:.6f} (|kernels - fp32| {dk:.3e} vs plain {dp:.3e})")
+    for n in PROJS:
+        ek, ep = rel(kern[1][n], exact[1][n]), rel(plain[1][n], exact[1][n])
+        ekp = rel(kern[1][n], plain[1][n])
+        finite = bool(torch.isfinite(kern[1][n]).all())
+        good = finite and ek <= TRAIN_RATIO * ep + TRAIN_FLOOR
+        ok &= good
+        out["grad_rel_l2"][n] = {"kernels_vs_fp32": ek, "plain_vs_fp32": ep,
+                                 "kernels_vs_plain": ekp}
+        log(f"  grad {n}: rel L2 vs fp32 kernels {ek:.3e}, plain {ep:.3e}; "
+            f"kernels vs plain {ekp:.3e}; norm {float(exact[1][n].norm()):.3e}"
+            f"{'' if good else '  <-- FAIL'}")
+    log(f"  (tol: kernels <= {TRAIN_RATIO} x plain + {TRAIN_FLOOR}, per "
+        f"projection and for the loss)")
+    if not ok:
+        raise AssertionError("training step: the kernel path is further from "
+                             "fp32 than the plain bf16 path allows")
+    return out
+
+
+def train_steps(cfg, spec, frozen, trainable, batch) -> dict:
+    """The main training path: ``make_train_step`` with
+    ``make_optimizer(TrainConfig(), total_steps=1000)``.  Two warm-up steps
+    (the first has learning rate 0; the adapters must have moved after the
+    second), then five timed steps with the launch counts zeroed just
+    before and read just after."""
+    import torch
+    from moka_tpu_torch.core.config import TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.optim import make_optimizer, tree_leaves
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    n_warm, n_timed = 2, 5
+    tx = make_optimizer(TrainConfig(), total_steps=1000)
+    state = init_train_state(trainable, tx, DropoutKey(0))
+    step = make_train_step(train_loss(cfg, spec, True), tx)
+    start = [p.clone() for p in tree_leaves(state.params)]
+
+    def moved():
+        return any(not torch.equal(a, b)
+                   for a, b in zip(start, tree_leaves(state.params)))
+
+    losses, norms = [], []
+    for i in range(n_warm):
+        state, m = step(state, frozen, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0 and moved():
+            raise AssertionError("step 1 moved the adapters at LR 0")
+    if not moved():
+        raise AssertionError("the adapters did not change after step 2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        losses.append(float(m["loss"]))  # synchronises
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n_timed for k, v in counts.items()}
+    b, L = batch["tokens"].shape
+    step_ms = float(np.median(times)) * 1e3
+    log(f"  train steps b {b} L {L}: losses {[round(x, 5) for x in losses]}"
+        f", grad_norm {[round(x, 5) for x in norms]}")
+    log(f"  step {step_ms:.1f} ms median of {n_timed} "
+        f"({[round(t * 1e3, 1) for t in times]}), "
+        f"{b * L / (step_ms / 1e3):.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, launches a step {per_step}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("non-finite loss or grad norm")
+    return {"step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": b * L / (step_ms / 1e3), "losses": losses,
+            "grad_norms": norms, "peak_memory_bytes": peak,
+            "launches_per_step": per_step}
+
+
+def long_context_step(frozen, trainable) -> dict:
+    """One step at b 1, L 4096 with dynamic-NTK RoPE, full depth: the
+    backward runs the dq + dkv pair (the padded length exceeds 1024)."""
+    import torch
+    from moka_tpu_torch.core.config import TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.optim import make_optimizer
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    cfg, spec = train_config(long_context=True)
+    batch = train_batch(cfg, 1, 4096, seed=2)
+    tx = make_optimizer(TrainConfig(), total_steps=1000)
+    step = make_train_step(train_loss(cfg, spec, True), tx)
+    state = init_train_state(trainable, tx, DropoutKey(5))
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, frozen, batch)
+    loss = float(m["loss"])
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"  long-context step b 1 L 4096 ({cfg.n_layers} layers, rope "
+        f"{cfg.rope_scaling}): {wall * 1e3:.1f} ms (first step of a fresh "
+        f"state), loss {loss:.5f}, grad_norm {float(m['grad_norm']):.5f}, "
+        f"launches {counts}")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": 0,
+            "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+            "moka_delta_fwd": 0}
+    if counts != want or not math.isfinite(loss):
+        raise AssertionError(f"long-context step: launches {counts}, loss "
+                             f"{loss}")
+    return {"step_ms": wall * 1e3, "loss": loss, "launches": counts}
 
 
 # ------------------------------------------------------------------- main
@@ -525,22 +925,58 @@ def main() -> int:
     batch, prompt_len, new_tokens = 8, 896, 32
     log("[3] kernels against their plain versions")
     records = [flash_record(batch, prompt_len, prompt_len + new_tokens),
-               moka_record(batch, prompt_len, cfg.dim, cfg.intermediate)]
+               moka_record(batch, prompt_len, cfg.dim, cfg.intermediate),
+               *flash_bwd_records()]
+    torch.cuda.empty_cache()
 
     log(f"[4] LLaMA-2-7B + MokA AVT r4 at full width, {cfg.n_layers} layers")
     base, adapters = build_model(cfg, spec)
     inputs = main_path_inputs(cfg, base, batch, prompt_len)
     check_logits(cfg, spec, base, adapters, inputs, new_tokens)
     timings = main_path(cfg, spec, base, adapters, inputs, new_tokens)
-    for rec in records:
-        rec["launches"] = timings["launches"][rec["name"]]
 
     log("[5] HTTP serving over the continuous-batching engine")
     served = serve_requests(cfg, spec, base, adapters, new_tokens=new_tokens)
-    if min(served["launches"].values()) <= 0:
+    if min(served["launches"][k] for k in ("flash_fwd", "moka_delta_fwd")) \
+            <= 0:
         raise AssertionError("serving did not launch the kernels")
+    del base, adapters, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    log(json.dumps({"main_path": timings, "serving": served}))
+    tcfg, tspec = train_config()
+    log(f"[6] training step: LLaMA-2-7B (vocab {tcfg.vocab_size}) + MokA AVT "
+        f"r4 dropout {tspec.dropout_rate}, full remat, {tcfg.n_layers} "
+        f"layers, b 4 L 1024")
+    frozen, trainable = build_trainer(tcfg, tspec)
+    batch = train_batch(tcfg, 4, 1024)
+    train_check = check_train_grads(tcfg, tspec, frozen, trainable, batch)
+    train = train_steps(tcfg, tspec, frozen, trainable, batch)
+    want = {"flash_fwd": 2 * tcfg.n_layers, "flash_bwd_fused": tcfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "moka_delta_fwd": 0}
+    if train["launches_per_step"] != want:
+        raise AssertionError(f"training step launches "
+                             f"{train['launches_per_step']}, want {want}")
+
+    log("[7] long-context training step: b 1 L 4096, dynamic-NTK RoPE")
+    long_step = long_context_step(frozen, trainable)
+
+    paths = {"serving main path (greedy_generate)": timings["launches"],
+             "training step": train["launches_per_step"],
+             "long-context training step": long_step["launches"]}
+    own = {"flash_fwd": "serving main path (greedy_generate)",
+           "moka_delta_fwd": "serving main path (greedy_generate)",
+           "flash_bwd_fused": "training step",
+           "flash_bwd_dq": "long-context training step",
+           "flash_bwd_dkv": "long-context training step"}
+    for rec in records:
+        rec["launches"] = int(paths[own[rec["name"]]][rec["name"]])
+        rec["launches_path"] = own[rec["name"]]
+        rec["launches_by_path"] = {p: c.get(rec["name"], 0) for p, c in
+                                   paths.items()}
+    log(json.dumps({"main_path": timings, "serving": served,
+                    "train_check": train_check, "train": train,
+                    "long_context": long_step}))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Decoder config and config snapshots (port of ``moka_tpu/core/config.py``).
+"""Decoder and training configs and config snapshots (port of
+``moka_tpu/core/config.py``).
 
-Only what the serving slice needs: ``LlamaConfig`` with the presets the
-port runs, and ``dump_config``.  Frozen dataclasses, so configs hash and
-compare cleanly.
+What the ported slices need: ``LlamaConfig`` with the presets the port
+runs, ``TrainConfig`` and ``dump_config``.  Frozen dataclasses, so configs
+hash and compare cleanly.
 """
 
 from __future__ import annotations
@@ -52,6 +53,35 @@ class LlamaConfig:
         return LlamaConfig(vocab_size=vocab_size, dim=64, n_layers=n_layers,
                            n_heads=4, n_kv_heads=2, intermediate=128,
                            max_seq_len=256)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and loop settings (same fields and defaults as the JAX
+    one): AdamW with fp32 state, warmup + cosine schedule, global-norm
+    clipping, gradient accumulation over ``grad_accum`` micro-steps."""
+
+    learning_rate: float = 1e-4
+    lr_schedule: str = "cosine"        # cosine | linear | constant
+    warmup_ratio: float = 0.03
+    weight_decay: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    num_epochs: int = 3
+    global_batch_size: int = 32
+    grad_accum: int = 1
+    seed: int = 42
+    remat: bool = True                 # gradient checkpointing per layer
+    remat_policy: str | None = None    # None / "full" only (ROADMAP.md)
+    rng_impl: str | None = None        # a JAX PRNG choice; unused here
+    log_every: int = 1
+    save_every_steps: float = 0        # 0 = only final; 0<x<1 = fraction
+                                       # of total steps
+    adalora_budget: int = 0            # >0: the AdaLoRA rank allocator
+    adalora_update_every: int = 100
+    output_dir: str = "runs/default"
 
 
 def dump_config(cfg, path: str) -> None:

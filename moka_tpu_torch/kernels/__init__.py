@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded through ``ctypes``.
 Libraries go to ``build/moka_tpu_torch/`` at the root of the checkout and
-are named by a hash of the source and flags, so an edited source rebuilds
-and an unchanged one is reused.  Nothing is built or loaded at import:
+are named by a hash of the source, the headers under ``csrc/`` and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  Nothing is built or loaded at import:
 the first wrapper that launches a kernel calls ``library(name)``.  A failed
 build raises; there is no fallback.
 """
@@ -23,6 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moka_tpu_torch"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
     "moka_delta_fwd": "moka_delta_fwd.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,10 +41,15 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    """The library path of kernel ``name``: keyed by its source, every
+    header under ``csrc`` (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256((csrc / SOURCES[name]).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:

@@ -13,7 +13,7 @@
 //     average of V over the key tiles that ran) and callers use valid rows
 //     only;
 //   * outputs: out (bf16, same layout as q) and lse (fp32, natural log,
-//     (B, H, L)), which the training slice's backward will read.
+//     (B, H, L)), which the backward kernels (flash_bwd.cu) read.
 //
 // Layout: q/out (B, L, H, hd), k/v (B, S, KH, hd), mask (B, S) int32, all
 // contiguous; the kernel computes its own offsets, so no transposes and no
@@ -34,50 +34,23 @@
 // mma.sync without TMA/wgmma or double buffering; its measured time is in
 // PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace moka_flash;
 
 constexpr int BQ = 64;  // query rows per CTA (4 warps x 16)
 constexpr int BK = 64;  // keys per tile
 constexpr int NTHREADS = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
-  return __uint_as_float(bits << 16);
-}
-
-__device__ __forceinline__ uint32_t float_to_bf16_bits(float f) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(f)));
-}
-
-// two fp32 -> one register of two bf16 (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return float_to_bf16_bits(lo) | (float_to_bf16_bits(hi) << 16);
-}
-
-// D += A * B, m16n8k16, A row-major bf16, B col-major bf16, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two adjacent q elements of one row, scaled by qscale and rounded to bf16
 __device__ __forceinline__ uint32_t load_q_pair(const uint16_t* qb, int row,
                                                 int col, int L, long row_stride,
                                                 float qscale) {
   if (row >= L) return 0u;
-  uint32_t raw = *reinterpret_cast<const uint32_t*>(qb + row * row_stride + col);
-  float lo = bf16_bits_to_float(raw & 0xffffu) * qscale;
-  float hi = bf16_bits_to_float(raw >> 16) * qscale;
-  return pack_bf16(lo, hi);
+  return scale_pair(
+      *reinterpret_cast<const uint32_t*>(qb + row * row_stride + col), qscale);
 }
 
 template <int HD>

@@ -1,16 +1,23 @@
-"""LLaMA-2 decoder with MokA adapter slots (port of
-``moka_tpu/models/llama.py``, serving subset).
+"""LLaMA-2 decoder with MokA adapter slots and its losses (port of
+``moka_tpu/models/llama.py``).
 
 Parameters keep the JAX layout: layer-stacked dicts (a leading
 ``n_layers`` axis) with ``(d_in, d_out)`` projection matrices, so a JAX tree
 converts with ``convert.params_from_numpy`` and no renaming.  The layer
 ``scan``/``fori_loop`` becomes a Python loop that indexes the stacked
 tensors.  Every one of the seven projections goes through ``_apply_proj``
-(frozen matmul + MokA delta).
+(frozen matmul + MokA delta, with LoRA dropout in training).
 
-Not ported in this slice (each raises ``NotImplementedError``): quantized
-bases and int8 KV caches, dropout, remat, ``host_stream``,
-``context_parallel`` and ``paged_decode`` (ROADMAP.md).
+Training: ``remat`` wraps each layer in ``torch.utils.checkpoint``
+(non-reentrant), which keeps only the layer inputs, as
+``jax.checkpoint(policy=None)`` does; the dropout key is split per layer and
+folded per projection as in JAX, and ``core.rng.DropoutKey`` draws its bits
+from the key alone, so the recompute regenerates the same masks.
+
+Not ported yet (each raises ``NotImplementedError``): the named remat
+policies, quantized bases and int8 KV caches, ``a8_dots``/``save_q8``, the
+fused CE kernel (``pallas_ce``), ``host_stream``, ``context_parallel`` and
+``paged_decode`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,13 +27,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from moka_tpu_torch.core.config import LlamaConfig
 from moka_tpu_torch.core.device import resolve_device
 from moka_tpu_torch.ops.attention import causal_bias, mha
 from moka_tpu_torch.ops.flash_attention import flash_mha
 from moka_tpu_torch.ops.moka import (MokaSpec, decode_scale, lora_delta,
-                                     moka_delta)
+                                     lora_dropout, moka_delta)
 from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
 from moka_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -35,6 +43,14 @@ PROJ_DIMS = {  # name -> (d_in_attr, d_out_attr)
     "o": ("q_out", "dim"), "gate": ("dim", "intermediate"),
     "up": ("dim", "intermediate"), "down": ("intermediate", "dim"),
 }
+
+_PROJ_INDEX = {name: i for i, name in enumerate(PROJ_DIMS)}
+
+# projections grouped by the input they read (q/k/v: the attention norm's
+# output, gate/up: the MLP norm's): MokaSpec.dropout_shared_masks folds one
+# dropout key per group instead of one per projection
+_PROJ_GROUP = {"q": 0, "k": 0, "v": 0, "o": 1, "gate": 2, "up": 2,
+               "down": 3}
 
 _NOT_PORTED = "{} is not ported yet (ROADMAP.md, {})"
 
@@ -109,10 +125,12 @@ class MaskBundle:
 
 def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
                 spec: MokaSpec | None, masks: MaskBundle | None,
-                fused: bool = False) -> torch.Tensor:
+                dropout_rng=None, fused: bool = False) -> torch.Tensor:
     """Frozen projection ``x @ base_w`` plus the adapter delta: the text
     adapter alone when masks are None (decode steps), else the MokA delta
-    (the fused kernel when ``fused``)."""
+    (the fused kernel when ``fused``).  With a layer's dropout key and a
+    rate > 0, LoRA dropout on the adapter input under the key folded with
+    this projection's index (or its group's, with shared masks)."""
     if isinstance(base_w, dict):
         raise NotImplementedError(_NOT_PORTED.format(
             "a quantized base", "frozen-base quantization"))
@@ -122,10 +140,19 @@ def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
     a, b = adapters[name]["a"], adapters[name]["b"]
     if masks is None:
         return y + lora_delta(x, a[0], b, decode_scale(spec))
+    rng = None
+    if dropout_rng is not None and spec.dropout_rate > 0:
+        rng = dropout_rng.fold_in(_PROJ_GROUP[name] if
+                                  spec.dropout_shared_masks else
+                                  _PROJ_INDEX[name])
     if fused:
-        return y + moka_delta_fused(x, a, b, masks.modality, masks.question,
-                                    spec)
-    return y + moka_delta(x, a, b, masks.modality, masks.question, spec)
+        # dropout applies to the adapter's input only: outside the kernel,
+        # the base matmul keeps the clean x
+        x_d = x if rng is None else lora_dropout(x, rng, spec.dropout_rate)
+        return y + moka_delta_fused(x_d, a, b, masks.modality,
+                                    masks.question, spec)
+    return y + moka_delta(x, a, b, masks.modality, masks.question, spec,
+                          dropout_rng=rng)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -175,7 +202,7 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
                    adapters: dict | None, masks: MaskBundle | None,
                    bias: torch.Tensor | None, attn_mask: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, cache: dict | None,
-                   layer_idx: int) -> torch.Tensor:
+                   layer_idx: int, dropout_rng=None) -> torch.Tensor:
     """One decoder block; with a cache, writes this layer's k/v into it in
     place and attends over the whole cache."""
     b, L, _ = h.shape
@@ -183,7 +210,7 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
 
     def proj(name, x):
         return _apply_proj(name, x, layer[name], adapters, spec, masks,
-                           fused=use_fused_moka)
+                           dropout_rng, fused=use_fused_moka)
 
     x = rmsnorm(h, layer["attn_norm"], cfg.rms_eps)
     q = apply_rope(proj("q", x).reshape(b, L, H, hd), cos, sin)
@@ -234,14 +261,21 @@ def forward(base: dict, cfg: LlamaConfig, *,
       into ``cache["k"]``/``cache["v"]`` IN PLACE at [length, length + L)
       and returns a new dict holding the same tensors with ``length``
       advanced; the caller's dict is not modified otherwise.
-    use_flash: attention through ``flash_mha`` (the CUDA kernel on the card).
+    use_flash: attention through ``flash_mha`` (the CUDA kernels on the
+      card, forward and backward).
     use_fused_moka: MokA deltas through ``moka_delta_fused``.
+    remat: recompute each layer in the backward from its input
+      (``remat_policy`` None or "full"; while gradients are recorded).
+    dropout_rng: a ``core.rng.DropoutKey``; LoRA dropout on the adapter
+      inputs when ``spec.dropout_rate`` > 0.
     Returns (fp32 logits, or the final-normed hidden state when
     ``logits=False``; the new cache or None).
     """
+    if remat_policy not in (None, "full"):
+        raise NotImplementedError(_NOT_PORTED.format(
+            f"remat policy {remat_policy!r}", "module item 4, remat "
+            "policies"))
     for flag, value, item in (
-            ("remat", remat or remat_policy is not None, "remat policies"),
-            ("dropout", dropout_rng is not None, "training slice"),
             ("paged_decode", paged_decode, "decode"),
             ("a8_dots", a8_dots, "frozen-base quantization"),
             ("save_q8", save_q8, "frozen-base quantization"),
@@ -277,14 +311,21 @@ def forward(base: dict, cfg: LlamaConfig, *,
     else:
         bias = causal_bias(attn_mask, L, S, q_offset=q_offset)
 
+    layer_rngs = dropout_rng.split(cfg.n_layers) \
+        if dropout_rng is not None else [None] * cfg.n_layers
+    recompute = remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         layer = {name: t[i] for name, t in base["layers"].items()}
         ad = None
         if adapters is not None:
             ad = {name: {"a": p["a"][i], "b": p["b"][i]}
                   for name, p in adapters["layers"].items()}
-        h = _decoder_layer(cfg, spec, use_flash, use_fused_moka, h, layer,
-                           ad, masks, bias, attn_mask, cos, sin, cache, i)
+        args = (cfg, spec, use_flash, use_fused_moka, h, layer, ad, masks,
+                bias, attn_mask, cos, sin, cache, i, layer_rngs[i])
+        if recompute:  # keeps h; the layer reruns in the backward
+            h = checkpoint(_decoder_layer, *args, use_reentrant=False)
+        else:
+            h = _decoder_layer(*args)
 
     new_cache = None
     if cache is not None:
@@ -302,3 +343,76 @@ def head_logits(h: torch.Tensor, lm_head, a8: bool | str = False
         raise NotImplementedError(_NOT_PORTED.format(
             "a quantized lm_head", "frozen-base quantization"))
     return torch.matmul(h.float(), lm_head.float())
+
+
+def _masked_nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+                    ignore_index: int) -> torch.Tensor:
+    """Sum of -log softmax(logits)[target] over the targets that are not
+    ``ignore_index``."""
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, nll.new_zeros(())).sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Shift-by-one CE over the supervised positions: the mean over
+    targets ``labels[:, 1:]`` that are not ``ignore_index``."""
+    targets = labels[:, 1:]
+    count = torch.clamp((targets != ignore_index).sum(), min=1)
+    return _masked_nll_sum(logits[:, :-1], targets, ignore_index) / count
+
+
+def _chunk_nll(h: torch.Tensor, lm_head, targets: torch.Tensor,
+               ignore_index: int) -> torch.Tensor:
+    return _masked_nll_sum(head_logits(h, lm_head), targets, ignore_index)
+
+
+def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
+                          ignore_index: int = -100, chunk: int = 128,
+                          a8: bool | str = False, pallas_ce: bool = False,
+                          rows_layout: bool = False) -> torch.Tensor:
+    """``cross_entropy_loss(head_logits(h, lm_head), labels)`` without the
+    full (b, L, V) fp32 logits: the lm_head product and the CE run over
+    chunks, each recomputed in the backward (``torch.utils.checkpoint``,
+    as ``jax.checkpoint`` on the JAX scan body).
+
+    Default layout: ``chunk`` positions of every sequence at a time
+    (h[:, :-1] against labels[:, 1:]).  ``rows_layout``: ``chunk`` rows of
+    the flattened (b*L, d) hidden state at a time, the shift done in the
+    labels (each row's last target is ignored).  The last chunk may be
+    shorter; the JAX package pads it with ignored targets, which add 0.
+    ``pallas_ce`` (the fused CE kernel on an int8 lm_head) and ``a8`` are
+    not ported yet."""
+    if pallas_ce:
+        raise NotImplementedError(_NOT_PORTED.format(
+            "pallas_ce (the fused lm_head + CE kernel, TPU kernels 8-9)",
+            "frozen-base quantization"))
+    if a8 or isinstance(lm_head, dict):
+        raise NotImplementedError(_NOT_PORTED.format(
+            "a quantized lm_head", "frozen-base quantization"))
+    b, L, d = h.shape
+    if rows_layout:
+        ignored = torch.full((b, 1), ignore_index, dtype=labels.dtype,
+                             device=labels.device)
+        targets = torch.cat([labels[:, 1:], ignored], dim=1).reshape(b * L)
+        rows = h.reshape(b * L, d)
+        pieces = [(rows[i:i + chunk], targets[i:i + chunk])
+                  for i in range(0, b * L, chunk)]
+    else:
+        targets, hs = labels[:, 1:], h[:, :-1]
+        pieces = [(hs[:, i:i + chunk], targets[:, i:i + chunk])
+                  for i in range(0, L - 1, chunk)]
+    recompute = torch.is_grad_enabled()
+    loss_sum = h.new_zeros((), dtype=torch.float32)
+    for hc, tc in pieces:
+        if recompute:
+            part = checkpoint(_chunk_nll, hc, lm_head, tc, ignore_index,
+                              use_reentrant=False)
+        else:
+            part = _chunk_nll(hc, lm_head, tc, ignore_index)
+        loss_sum = loss_sum + part
+    count = torch.clamp((targets != ignore_index).sum(), min=1)
+    return loss_sum / count

@@ -1,19 +1,24 @@
-"""Flash attention forward (port of ``moka_tpu/ops/flash_attention.py``,
-forward only).
+"""Flash attention, forward and backward (port of
+``moka_tpu/ops/flash_attention.py``).
 
 ``flash_fwd`` computes causal + key-padding attention with GQA and a query
 offset into the key axis, returning the output and the per-row
-log-sum-exp.  On a CUDA tensor it launches the hand-written kernel
-``kernels/csrc/flash_fwd.cu`` (or raises); on a CPU tensor it runs
-``flash_fwd_plain``, the same arithmetic in plain torch.  The backward
-kernels are not ported yet (ROADMAP.md, TPU kernels 2-4), so a query that
-requires grad raises.
+log-sum-exp.  The three backward functions take the forward's lse and
+``delta = rowsum(dO * O)`` and return the gradients: ``flash_bwd_fused``
+(dq, dk, dv in one kernel, for short sequences), ``flash_bwd_dq`` and
+``flash_bwd_dkv`` (the blocked pair; ring attention calls them per key
+shard with the global lse and delta).  On a CUDA tensor each launches its
+hand-written kernel (``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``) or
+raises; on a CPU tensor it runs ``flash_fwd_plain`` / ``flash_bwd_plain``,
+the same arithmetic in plain torch.  ``flash_mha`` is the differentiable
+entry point (a ``torch.autograd.Function``) and dispatches the backward
+as the JAX custom VJP does (``use_fused_bwd``).
 
-Numerics follow the JAX kernel: q is pre-scaled by ``scale * log2(e)``
+Numerics follow the JAX kernels: q is pre-scaled by ``scale * log2(e)``
 rounded in q's dtype, the softmax runs in fp32 base 2 (``exp2``), and lse
-is returned in natural-log units.  Rows whose keys are all masked have an
-unspecified output (the kernel and the plain version differ there);
-callers read valid rows only.
+is in natural-log units.  Rows whose keys are all masked have an
+unspecified forward output (the kernel and the plain version differ
+there) and zero gradients; callers read valid rows only.
 """
 
 from __future__ import annotations
@@ -27,9 +32,6 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-_NOT_PORTED = ("flash attention backward is not ported yet (ROADMAP.md, "
-               "TPU kernels 2-4)")
-
 
 def _valid(attn_mask: torch.Tensor, L: int, S: int, q_offset: int,
            causal: bool) -> torch.Tensor:
@@ -42,6 +44,12 @@ def _valid(attn_mask: torch.Tensor, L: int, S: int, q_offset: int,
     return ok
 
 
+def _prescaled(q: torch.Tensor) -> torch.Tensor:
+    """q * (scale * log2 e), the scalar and the product rounded in q's
+    dtype, as the JAX wrappers fold it."""
+    return q * torch.tensor(LOG2E / math.sqrt(q.shape[-1]), dtype=q.dtype)
+
+
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attn_mask: torch.Tensor, q_offset: int = 0,
                     causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +59,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, L, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
-    qs = q * torch.tensor(LOG2E / math.sqrt(hd), dtype=q.dtype)
+    qs = _prescaled(q)
     s = torch.einsum("blkgh,bskh->bkgls", qs.reshape(b, L, K, G, hd).float(),
                      k.float())
     ok = _valid(attn_mask, L, S, q_offset, causal)[:, None, None]
@@ -66,27 +74,104 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), lse
 
 
-_lib = None
+def flash_bwd_plain(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
+                    causal: bool = True):
+    """The backward kernels' arithmetic in plain torch, over the whole key
+    axis at once.  q/dout (b, L, H, hd), k/v (b, S, K, hd), lse/delta
+    (b, H, L) fp32.  Returns dq (b, L, H, hd) in q's dtype and dk, dv
+    (b, S, K, hd) fp32, summed over each GQA group.
 
-
-def _library():
-    global _lib
-    if _lib is None:
-        from moka_tpu_torch import kernels
-        lib = kernels.library("flash_fwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.moka_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                       i, ctypes.c_float, p]
-        lib.moka_flash_fwd.restype = i
-        _lib = lib
-    return _lib
-
-
-def _launch(q, k, v, attn_mask, q_offset: int, causal: bool):
-    from moka_tpu_torch import kernels
+    p = exp2(s - lse * log2 e), zero on rows whose lse marks them fully
+    masked; p is rounded to dout's dtype before p^T dO, ds = p (dp - delta)
+    to q's dtype before ds K and ds^T q; dq carries the softmax scale and
+    dk the ln 2 that undoes the log2 e folded into q."""
     b, L, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    G = H // K
+    qs = _prescaled(q).reshape(b, L, K, G, hd).float()
+    s = torch.einsum("blkgh,bskh->bkgls", qs, k.float())
+    ok = _valid(attn_mask, L, S, q_offset, causal)[:, None, None]
+    s = torch.where(ok, s, s.new_tensor(NEG_INF))
+    lse_row = (lse.float() * LOG2E).reshape(b, K, G, L, 1)
+    p = torch.where(lse_row > NEG_INF * 0.5, torch.exp2(s - lse_row),
+                    s.new_zeros(()))
+    do = dout.reshape(b, L, K, G, hd)
+    dp = torch.einsum("blkgh,bskh->bkgls", do.float(), v.float())
+    ds = p * (dp - delta.float().reshape(b, K, G, L, 1))
+    dsb = ds.to(q.dtype).float()
+    dq = torch.einsum("bkgls,bskh->blkgh", dsb, k.float()) * \
+        (1.0 / math.sqrt(hd))
+    dv = torch.einsum("bkgls,blkgh->bskh", p.to(dout.dtype).float(),
+                      do.float())
+    dk = torch.einsum("bkgls,blkgh->bskh", dsb, qs) * LN2
+    return dq.reshape(b, L, H, hd).to(q.dtype), dk, dv
+
+
+def flash_bwd_dq_plain(q, k, v, attn_mask, dout, lse, delta,
+                       q_offset: int = 0, causal: bool = True):
+    """dq alone of ``flash_bwd_plain``."""
+    return flash_bwd_plain(q, k, v, attn_mask, dout, lse, delta, q_offset,
+                           causal)[0]
+
+
+def flash_bwd_dkv_plain(q, k, v, attn_mask, dout, lse, delta,
+                        q_offset: int = 0, causal: bool = True):
+    """(dk, dv) alone of ``flash_bwd_plain``."""
+    return flash_bwd_plain(q, k, v, attn_mask, dout, lse, delta, q_offset,
+                           causal)[1:]
+
+
+def use_fused_bwd(L: int, S: int) -> bool:
+    """The JAX dispatch (``flash_mha``'s block clamping with its default
+    blocks, forward 512 and backward 1024, then ``_flash_vjp_bwd``): the
+    fused whole-sequence backward when L and S, each padded to its forward
+    block (clamped to the length), fit one backward block; the dq + dkv
+    pair otherwise."""
+    def fits(n: int) -> bool:
+        blk = min(512, n)
+        padded = -(-n // blk) * blk
+        bwd = min(1024, padded)
+        if padded % bwd:
+            bwd = blk
+        return bwd >= padded
+    return fits(L) and fits(S)
+
+
+# ----------------------------------------------------------- CUDA kernels
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _library(name: str):
+    lib = _libs.get(name)
+    if lib is None:
+        from moka_tpu_torch import kernels
+        lib = kernels.library(name)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        dims = [i] * 8  # B, H, KH, L, S, hd, q_offset, causal
+        if name == "flash_fwd":
+            lib.moka_flash_fwd.argtypes = [p] * 6 + dims + [f, p]
+            lib.moka_flash_fwd.restype = i
+        else:
+            for fn, n_out in (("moka_flash_bwd_fused", 3),
+                              ("moka_flash_bwd_dq", 1),
+                              ("moka_flash_bwd_dkv", 2)):
+                getattr(lib, fn).argtypes = [p] * (7 + n_out) + dims + \
+                    [f, f, p]
+                getattr(lib, fn).restype = i
+        _libs[name] = lib
+    return lib
+
+
+def _kernel_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
+    """Check what the kernels take (bf16, head_dim 128, contiguous,
+    16-byte aligned, one device) and return the tensors as they pass."""
+    b, L, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    named = [("q", q), ("k", k), ("v", v)]
+    if dout is not None:
+        named.append(("dout", dout))
+    for name, t in named:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash kernel takes bf16 tensors, {name} is "
                             f"{t.dtype}")
@@ -99,21 +184,89 @@ def _launch(q, k, v, attn_mask, q_offset: int, causal: bool):
                          f"v {tuple(v.shape)}")
     if tuple(attn_mask.shape) != (b, S):
         raise ValueError(f"attn_mask {tuple(attn_mask.shape)} != {(b, S)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash kernel needs 16-byte aligned q, k, v")
-    mask = attn_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    if dout is not None and dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    out = [t.contiguous() for _, t in named]
+    if any(t.data_ptr() % 16 for t in out):
+        raise ValueError("flash kernel needs 16-byte aligned q, k, v, dout")
+    out.insert(3, attn_mask.to(device=q.device, dtype=torch.int32)
+               .contiguous())
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (b, H, L) or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device}, want "
+                             f"{(b, H, L)} on {q.device}")
+        out.append(t.to(torch.float32).contiguous())
+    return out
+
+
+def _dims(q, k, q_offset, causal):
+    b, L, H, hd = q.shape
+    return (b, H, k.shape[2], L, k.shape[1], hd, int(q_offset),
+            int(bool(causal)))
+
+
+def _scales(hd: int) -> tuple[float, float]:
+    """(bf16-rounded scale * log2 e, as the kernels pre-scale q; scale)."""
+    return (float(torch.tensor(LOG2E / math.sqrt(hd), dtype=torch.bfloat16)),
+            1.0 / math.sqrt(hd))
+
+
+def _group_sum(t: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(b, S, H, hd) per-head fp32 -> (b, S, KH, hd), summed over each
+    GQA group (head h belongs to kv head h // (H // KH))."""
+    b, S, H, hd = t.shape
+    if H == kv_heads:
+        return t
+    return t.reshape(b, S, kv_heads, H // kv_heads, hd).sum(dim=3)
+
+
+def _launch_fwd(q, k, v, attn_mask, q_offset: int, causal: bool):
+    from moka_tpu_torch import kernels
+    q, k, v, mask = _kernel_inputs(q, k, v, attn_mask)
+    b, L, H, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
-    qscale = float(torch.tensor(LOG2E / math.sqrt(hd), dtype=torch.bfloat16))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _library().moka_flash_fwd(
+    status = _library("flash_fwd").moka_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, H, K, L, S, hd, int(q_offset),
-        int(bool(causal)), qscale, stream)
+        out.data_ptr(), lse.data_ptr(), *_dims(q, k, q_offset, causal),
+        _scales(hd)[0], torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(status, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
+
+
+def _launch_bwd(which: str, q, k, v, attn_mask, dout, lse, delta,
+                q_offset: int, causal: bool):
+    """One backward kernel; returns its outputs as the kernel leaves them:
+    dq fp32 (fused) or bf16 (dq), dk/dv fp32 per head (b, S, H, hd)."""
+    from moka_tpu_torch import kernels
+    q, k, v, mask, dout, lse, delta = _kernel_inputs(q, k, v, attn_mask,
+                                                     dout, lse, delta)
+    b, L, H, hd = q.shape
+    S = k.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    if which == "fused":  # dq accumulates across key tiles by atomics
+        outs.append(torch.zeros((b, L, H, hd), **f32))
+    elif which == "dq":
+        outs.append(torch.empty_like(q))
+    if which in ("fused", "dkv"):
+        outs += [torch.empty((b, S, H, hd), **f32) for _ in range(2)]
+    qscale, scale = _scales(hd)
+    status = getattr(_library("flash_bwd"), f"moka_flash_bwd_{which}")(
+        *(t.data_ptr() for t in (q, k, v, mask, dout, lse, delta, *outs)),
+        *_dims(q, k, q_offset, causal), qscale, scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(status, f"flash_bwd_{which}")
+    return outs
+
+
+def _device(q: torch.Tensor) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    return q.device.type
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,22 +275,92 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(out, lse) of flash attention: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  q (b, L, H, hd), k/v (b, S, K, hd),
     attn_mask (b, S) validity, q_offset = position of query 0 on the key
-    axis (an int)."""
-    if torch.is_grad_enabled() and q.requires_grad:
-        raise NotImplementedError(_NOT_PORTED)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, attn_mask, q_offset, causal)
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
-    raise ValueError(f"no flash attention for device {q.device}")
+    axis (an int).  Not differentiable by itself: ``flash_mha`` is."""
+    if _device(q) == "cuda":
+        return _launch_fwd(q, k, v, attn_mask, q_offset, causal)
+    return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
 
 
-flash_fwd.launches = 0  # kernel launches (CUDA tensors only)
+def flash_bwd_fused(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
+                    causal: bool = True):
+    """(dq in q's dtype, dk, dv fp32 GQA-summed (b, S, K, hd)) in one
+    kernel: every (q, k) score, probability and dp is computed once for
+    all three gradients.  Layouts as ``flash_bwd_plain``."""
+    if _device(q) == "cpu":
+        return flash_bwd_plain(q, k, v, attn_mask, dout, lse, delta,
+                               q_offset, causal)
+    dq, dk, dv = _launch_bwd("fused", q, k, v, attn_mask, dout, lse, delta,
+                             q_offset, causal)
+    flash_bwd_fused.launches += 1
+    kv_heads = k.shape[2]
+    return (dq.to(q.dtype), _group_sum(dk, kv_heads),
+            _group_sum(dv, kv_heads))
+
+
+def flash_bwd_dq(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
+                 causal: bool = True):
+    """dq (b, L, H, hd) in q's dtype, given the global-row lse and delta
+    (so it decomposes over key shards)."""
+    if _device(q) == "cpu":
+        return flash_bwd_dq_plain(q, k, v, attn_mask, dout, lse, delta,
+                                  q_offset, causal)
+    (dq,) = _launch_bwd("dq", q, k, v, attn_mask, dout, lse, delta,
+                        q_offset, causal)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
+                  causal: bool = True):
+    """(dk, dv) fp32 (b, S, K, hd), GQA-summed, given the global-row lse
+    and delta."""
+    if _device(q) == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, attn_mask, dout, lse, delta,
+                                   q_offset, causal)
+    dk, dv = _launch_bwd("dkv", q, k, v, attn_mask, dout, lse, delta,
+                         q_offset, causal)
+    flash_bwd_dkv.launches += 1
+    kv_heads = k.shape[2]
+    return _group_sum(dk, kv_heads), _group_sum(dv, kv_heads)
+
+
+# kernel launches (CUDA tensors only)
+flash_fwd.launches = 0
+flash_bwd_fused.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves (q, k, v, mask, out, lse); backward forms delta in
+    fp32 and runs the fused kernel or the dq + dkv pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_mask, q_offset, causal):
+        out, lse = flash_fwd(q, k, v, attn_mask, q_offset, causal)
+        ctx.save_for_backward(q, k, v, attn_mask, out, lse)
+        ctx.q_offset, ctx.causal = q_offset, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, attn_mask, out, lse = ctx.saved_tensors
+        args = (ctx.q_offset, ctx.causal)
+        dout = dout.to(q.dtype)
+        delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+        if use_fused_bwd(q.shape[1], k.shape[1]):
+            dq, dk, dv = flash_bwd_fused(q, k, v, attn_mask, dout, lse,
+                                         delta, *args)
+        else:
+            dq = flash_bwd_dq(q, k, v, attn_mask, dout, lse, delta, *args)
+            dk, dv = flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
+                                   *args)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               attn_mask: torch.Tensor, q_offset: int = 0,
               causal: bool = True) -> torch.Tensor:
     """Drop-in for ``ops.attention.mha`` with the mask given as a (b, S)
-    validity vector: returns (b, L, H, hd)."""
-    return flash_fwd(q, k, v, attn_mask, q_offset, causal)[0]
+    validity vector: returns (b, L, H, hd), differentiable in q, k, v."""
+    return _FlashAttention.apply(q, k, v, attn_mask, q_offset, causal)

@@ -18,8 +18,10 @@ Two flavours share one function: AVT (A outputs pre-scaled by alpha/r,
 attention for video and audio, no post-B scaling) and VT (unscaled A,
 attention for the image stream, per-modality post-B scales).
 
-Not ported in this slice (they raise ``NotImplementedError``): LoRA dropout
-(training), the fused-dropout kernel and the flash rank attention.
+LoRA dropout (``lora_dropout``) follows the JAX rule bit for bit given the
+same 16-bit random values; the key type is ``core.rng.DropoutKey``.  Not
+ported yet (they raise ``NotImplementedError``): the fused-dropout kernel
+(TPU kernels 6-7) and the flash rank attention.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from moka_tpu_torch.core.device import resolve_device
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, training slice: {})"
+_NOT_PORTED = "not ported yet (ROADMAP.md, {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +50,10 @@ class MokaSpec:
     post_scales: per-modality scalars on B's output rows (VT), or None.
     dropout_rate: LoRA dropout on the A input (training only).
     bf16_dots: round the adapter matmul inputs to bf16 (fp32 accumulate).
-    flash_rank_attn / fused_dropout / dropout_shared_masks: training-path
-      switches of the JAX package; the port raises on the first two.
+    flash_rank_attn / fused_dropout: switches of the JAX package the port
+      raises on (not ported yet).
+    dropout_shared_masks: one dropout key per input group of projections
+      instead of one per projection (``models.llama._PROJ_GROUP``).
     max_question_tokens: static key window around the question span.
     """
 
@@ -124,9 +128,10 @@ def rank_space_cross_attention(q: torch.Tensor, keys: torch.Tensor,
     zero attention."""
     scores = torch.einsum("blr,bkr->blk", q.float(), keys.float())
     scores = scores / math.sqrt(dk)
-    neg = torch.finfo(torch.float32).min
+    # a Python scalar, not a new device tensor: that would be a blocking
+    # host-to-device copy on every call
     scores = torch.where(question_mask[:, None, :] > 0, scores,
-                         scores.new_tensor(neg))
+                         torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
     has_q = question_mask.sum(dim=-1) > 0
     probs = torch.where(has_q[:, None, None], probs, probs.new_zeros(()))
@@ -165,18 +170,27 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
 
     x: (b, L, d_in); lora_a: (M, d_in, r); lora_b: (r, d_out);
     modality_masks: (M, b, L) 0/1 (disjoint); question_mask: (b, L) 0/1.
+    dropout_rng: a key (``core.rng.DropoutKey``); with a rate > 0, LoRA
+      dropout on the A input (training).
     Returns the (b, L, d_out) delta in x's dtype."""
     m, _, r = lora_a.shape
     if m != spec.num_modalities or r != spec.rank:
         raise ValueError(f"adapter shape {tuple(lora_a.shape)} does not "
                          f"match {spec}")
-    if dropout_rng is not None and spec.dropout_rate > 0.0:
-        raise NotImplementedError(_NOT_PORTED.format("LoRA dropout"))
     if spec.flash_rank_attn:
-        raise NotImplementedError(_NOT_PORTED.format("flash rank attention"))
+        raise NotImplementedError(_NOT_PORTED.format(
+            "flash rank attention, with the fused-dropout slice"))
+    x_d = x
+    if dropout_rng is not None and spec.dropout_rate > 0.0:
+        if spec.fused_dropout:
+            raise NotImplementedError(_NOT_PORTED.format(
+                "fused dropout, TPU kernels 6-7"))
+        if spec.bf16_dots:  # JAX drops out the bf16-rounded x
+            x_d = x.to(torch.bfloat16)
+        x_d = lora_dropout(x_d, dropout_rng, spec.dropout_rate)
     masks = modality_masks.float()
     qmask = question_mask.float()
-    a_all = torch.einsum("bld,mdr->mblr", _dot_operand(x, spec),
+    a_all = torch.einsum("bld,mdr->mblr", _dot_operand(x_d, spec),
                          _dot_operand(lora_a, spec))
     a_all = a_all * masks[..., None] * spec.pre_scale
 
@@ -192,12 +206,24 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
 
     delta = torch.einsum("blr,rd->bld", _dot_operand(buffer, spec),
                          _dot_operand(lora_b, spec))
-    if spec.post_scales is not None:
-        post = torch.tensor(spec.post_scales, dtype=delta.dtype,
-                            device=delta.device)
-        token_scale = torch.einsum("mbl,m->bl", masks, post)
+    if spec.post_scales is not None:  # disjoint masks: exact either way
+        token_scale = sum(masks[i] * ps
+                          for i, ps in enumerate(spec.post_scales))
         delta = delta * token_scale[..., None]
     return delta.to(x.dtype)
+
+
+def lora_dropout(x: torch.Tensor, rng, rate: float) -> torch.Tensor:
+    """LoRA dropout on the adapter input, the JAX rule exactly: with 16-bit
+    values ``bits`` from ``rng.bits``, keep where ``bits < round(keep *
+    2^16)`` (capped at 65535) and scale kept values by ``1/keep`` in x's
+    dtype."""
+    keep = 1.0 - rate
+    thresh = min(65535, int(round(keep * 65536.0)))
+    bits = rng.bits(x.shape, x.device)
+    return torch.where(bits < thresh,
+                       x * torch.tensor(1.0 / keep, dtype=x.dtype),
+                       x.new_zeros(()))
 
 
 def lora_delta(x: torch.Tensor, lora_a0: torch.Tensor, lora_b: torch.Tensor,

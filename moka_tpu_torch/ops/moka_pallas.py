@@ -158,7 +158,8 @@ class _FusedDelta(torch.autograd.Function):
 def moka_delta_fused(x, lora_a, lora_b, modality_masks, question_mask,
                      spec: MokaSpec) -> torch.Tensor:
     """Fused MokA delta, same contract as ``moka.moka_delta`` without
-    dropout (the fused path serves inference and prefill)."""
+    dropout: in training the caller passes the dropped-out x
+    (``models.llama._apply_proj``), as the JAX package does."""
     return _FusedDelta.apply(x, lora_a, lora_b, modality_masks,
                              question_mask, spec)
 

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Where the port's serving time goes on one card: ``torch.profiler``
-around chip_smoke's main path, ``greedy_generate`` of LLaMA-2-7B + MokA
-AVT r=4 (bf16 base, random weights from a seed, B non-zero) at its shapes.
+"""Where the port's time goes on one card: ``torch.profiler`` around
+chip_smoke's serving main path, ``greedy_generate`` of LLaMA-2-7B + MokA
+AVT r=4 (bf16 base, random weights from a seed, B non-zero), and around
+one step of its training path (``make_train_step`` at b 4, L 1024), at
+chip_smoke's shapes.
 
     python3 profile_port.py        # from the root of a checkout, one card
 
-Two windows: ``greedy_generate`` for one new token (the prefill and the
-head on its last row, no decode step) and for NEW_TOKENS (the main path).
-The decode steps are the second window less the first, per device
-operation.  For each it prints the wall time untraced (measured before any
-tracing) and traced (host clock around work that ends in a synchronise),
-the device busy time (the sum of kernel and copy self times on the card,
-so busy / traced wall is the device's busy share), the device operations
-launched, and the largest entries by device self time.  The last line is one JSON object with those
-numbers and the card's name and power limit.  Imports nothing of JAX.
+Serving, two windows: ``greedy_generate`` for one new token (the prefill
+and the head on its last row, no decode step) and for NEW_TOKENS (the main
+path).  The decode steps are the second window less the first, per device
+operation.  Training, one window: one step after two warm-up steps.  For
+each it prints the wall time untraced (measured before any tracing) and
+traced (host clock around work that ends in a synchronise), the device
+busy time (the sum of kernel and copy self times on the card, so busy /
+traced wall is the device's busy share), the device operations launched,
+and the largest entries by device self time.  The last line is one JSON
+object with those numbers and the card's name and power limit.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -26,7 +31,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH, PROMPT, NEW_TOKENS = 8, 896, 32  # chip_smoke's main path
-TOP = 12
+TRAIN_BATCH, TRAIN_LEN = 4, 1024        # chip_smoke's training step
+TOP = 16
 
 
 def _self_us(e) -> float:
@@ -45,9 +51,9 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def trace(fn) -> tuple[float, dict]:
-    """(traced wall ms, {device entry: (count, self µs)}) of one run of
-    ``fn``."""
+def trace(fn) -> tuple[float, dict, dict]:
+    """(traced wall ms, {device entry: (count, self µs)}, {host entry:
+    (count, self CPU µs)}) of one run of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -58,13 +64,39 @@ def trace(fn) -> tuple[float, dict]:
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
-    ops = {e.key: (e.count, _self_us(e)) for e in prof.key_averages()
+    events = prof.key_averages()
+    ops = {e.key: (e.count, _self_us(e)) for e in events
            if e.device_type == cuda}
-    return traced, ops
+    host = {e.key: (e.count, float(e.self_cpu_time_total)) for e in events
+            if e.device_type != cuda and e.self_cpu_time_total > 0}
+    return traced, ops, host
 
 
-def summary(name, wall, traced, ops, per=1) -> dict:
-    """Print and return a window's numbers, divided by ``per``."""
+GROUPS = (  # device entries by name, first match wins
+    ("flash kernels (port)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("fused MokA kernels (port)", ("moka_delta_kernel",
+                                   "question_keys_kernel")),
+    ("bf16 GEMMs (cuBLAS)", ("nvjet",)),
+    ("fp32 GEMMs and GEMVs (cuBLAS, CUTLASS SIMT)", ("gemm_f32", "sgemm",
+                                                     "gemv", "splitK")),
+    ("dropout bits (randint)", ("distribution_elementwise",)),
+    ("copies and casts", ("copy",)),
+    ("other elementwise and reductions", ("",)),
+)
+
+
+def groups(ops) -> dict:
+    """Device self time (ms) summed by GROUPS."""
+    out = {g: 0.0 for g, _ in GROUPS}
+    for key, (_, us) in ops.items():
+        g = next(g for g, pats in GROUPS if any(p in key for p in pats))
+        out[g] += us / 1e3
+    return out
+
+
+def summary(name, wall, traced, ops, per=1, host=None) -> dict:
+    """Print and return a window's numbers, divided by ``per``; with
+    ``host``, also the largest host entries by self CPU time."""
     busy = sum(us for _, us in ops.values()) / 1e3
     n_ops = sum(c for c, _ in ops.values())
     print(f"== {name}: wall {wall / per:.3f} ms untraced, {traced / per:.3f}"
@@ -77,9 +109,25 @@ def summary(name, wall, traced, ops, per=1) -> dict:
                      "ms": us / 1e3 / per})
         print(f"  {us / 1e3 / per:10.3f} ms {count / per:8.1f}x  {key[:90]}",
               flush=True)
-    return {"wall_ms": wall / per, "traced_ms": traced / per,
-            "busy_ms": busy / per, "busy_share": busy / traced,
-            "device_ops": n_ops / per, "top": rows}
+    by_group = {g: ms / per for g, ms in groups(ops).items()}
+    print("  by group: " + "; ".join(f"{g} {ms:.3f} ms"
+                                     for g, ms in by_group.items()),
+          flush=True)
+    out = {"wall_ms": wall / per, "traced_ms": traced / per,
+           "busy_ms": busy / per, "busy_share": busy / traced,
+           "device_ops": n_ops / per, "top": rows, "groups": by_group}
+    if host is not None:
+        total = sum(us for _, us in host.values()) / 1e3
+        print(f"  host, by self CPU time (traced; {total:.1f} ms in all):",
+              flush=True)
+        out["host_top"] = []
+        for key, (count, us) in sorted(host.items(),
+                                       key=lambda kv: -kv[1][1])[:TOP]:
+            out["host_top"].append({"name": key[:90], "count": count,
+                                    "ms": us / 1e3})
+            print(f"  {us / 1e3:10.3f} ms {count:8d}x  {key[:90]}",
+                  flush=True)
+    return out
 
 
 def main() -> int:
@@ -115,7 +163,7 @@ def main() -> int:
         # untraced walls first: after a profiler session launches cost
         # more on the host, which would inflate a later untraced wall
         w1, wn = wall_ms(one), wall_ms(all_tokens)
-        (t1, ops1), (tn, opsn) = trace(one), trace(all_tokens)
+        (t1, ops1, _), (tn, opsn, _) = trace(one), trace(all_tokens)
     steps = NEW_TOKENS - 1
     decode_ops = {}
     for key, (count, us) in opsn.items():
@@ -130,8 +178,42 @@ def main() -> int:
            "decode_step": summary(f"decode, a step ({steps} steps: the "
                                   f"second window less the first)",
                                   wn - w1, tn - t1, decode_ops, per=steps)}
+    del base, adapters, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_step"] = train_window()
     print(json.dumps(out), flush=True)
     return 0
+
+
+def train_window() -> dict:
+    """One ``make_train_step`` step of chip_smoke's training path after two
+    warm-up steps: untraced first, then traced."""
+    import torch
+    from chip_smoke import (build_trainer, train_batch, train_config,
+                            train_loss)
+    from moka_tpu_torch.core.config import TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.optim import make_optimizer
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    cfg, spec = train_config()
+    frozen, trainable = build_trainer(cfg, spec)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_LEN)
+    tx = make_optimizer(TrainConfig(), total_steps=1000)
+    step = make_train_step(train_loss(cfg, spec, True), tx)
+    state = init_train_state(trainable, tx, DropoutKey(0))
+
+    def one():
+        nonlocal state
+        state, m = step(state, frozen, batch)
+        float(m["loss"])
+
+    one()
+    wall = wall_ms(one)  # a warm-up step, then the untraced one
+    traced, ops, host = trace(one)
+    return summary(f"training step b {TRAIN_BATCH} L {TRAIN_LEN} "
+                   f"(make_train_step, full remat)", wall, traced, ops,
+                   host=host)
 
 
 if __name__ == "__main__":

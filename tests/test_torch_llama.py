@@ -290,11 +290,62 @@ def test_params_from_numpy_keeps_layout_and_bf16():
 def test_unported_forward_options_raise(model):
     _, (tb, ta) = model
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    for kw in (dict(remat=True), dict(paged_decode=True), dict(a8_dots=True),
-               dict(save_q8=True), dict(context_parallel=object()),
-               dict(host_stream={}), dict(dropout_rng=object())):
+    for kw in (dict(remat=True, remat_policy="attn"),
+               dict(remat_policy="proj_lse"), dict(paged_decode=True),
+               dict(a8_dots=True), dict(save_q8=True),
+               dict(context_parallel=object()), dict(host_stream={})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
                            **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllama.init_kv_cache(CFG, 1, 8, quantized=True, device="cpu")
+
+
+class JaxKey:
+    """``DropoutKey``'s interface over a ``jax.random`` key."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, n=2):
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, i):
+        return JaxKey(jax.random.fold_in(self.key, i))
+
+    def bits(self, shape, device):
+        bits = jax.random.bits(self.key, tuple(shape), jnp.uint16)
+        return torch.from_numpy(np.asarray(bits).astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("fused,shared", [(False, False), (True, False),
+                                          (False, True)])
+def test_forward_with_dropout_matches_jax(model, fused, shared):
+    """LoRA dropout in the decoder: the key split per layer and folded per
+    projection (or per input group with shared masks) as in JAX, the port
+    fed the bits JAX draws; the port's fused MokA path drops out x outside
+    the kernel, against the JAX unfused path on the same masks."""
+    (jb, ja), (tb, ta) = model
+    emb, pm, mod, q = _batch(seed=7)
+    js, ts = (JSpec.avt(rank=4, dropout_rate=0.3),
+              MokaSpec.avt(rank=4, dropout_rate=0.3))
+    if shared:
+        js, ts = js.with_shared_dropout_masks(), ts.with_shared_dropout_masks()
+    key = jax.random.key(3)
+    want, _ = jllama.forward(jb, JCFG, adapters=ja, spec=js,
+                             inputs_embeds=jnp.asarray(emb),
+                             masks=jllama.MaskBundle(jnp.asarray(mod),
+                                                     jnp.asarray(q)),
+                             attn_mask=jnp.asarray(pm), dropout_rng=key)
+    tm = params_from_numpy(jllama.MaskBundle(mod, q), "cpu")
+    got, _ = tllama.forward(tb, CFG, adapters=ta, spec=ts,
+                            inputs_embeds=torch.from_numpy(emb), masks=tm,
+                            attn_mask=torch.from_numpy(pm), use_flash=True,
+                            use_fused_moka=fused, dropout_rng=JaxKey(key))
+    valid = pm[..., None] > 0
+    np.testing.assert_allclose(got.numpy() * valid, np.asarray(want) * valid,
+                               **TOL)
+    clean, _ = tllama.forward(tb, CFG, adapters=ta, spec=ts,
+                              inputs_embeds=torch.from_numpy(emb), masks=tm,
+                              attn_mask=torch.from_numpy(pm))
+    assert not np.allclose(got.numpy() * valid, clean.numpy() * valid)

@@ -3,7 +3,12 @@ the JAX package on the CPU, fp32, same numpy inputs on both sides.
 
 Tolerances: both sides compute in fp32 with different summation orders
 (XLA vs torch/MKL), so 1e-5 relative + absolute; the fused JAX kernel runs
-in Pallas interpret mode as its own tests run it."""
+in Pallas interpret mode as its own tests run it.  LoRA dropout: the port
+is given the 16-bit values ``jax.random.bits`` draws for the same key
+(``JaxKey``), so both sides drop the same elements."""
+
+import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -13,6 +18,7 @@ import torch
 
 from moka_tpu.ops import moka as jm
 from moka_tpu.ops.moka_pallas import moka_delta_fused as j_fused
+from moka_tpu_torch.core.rng import DropoutKey
 from moka_tpu_torch.ops import moka as tm
 from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
                                             moka_delta_fused_plain)
@@ -145,8 +151,9 @@ def test_init_moka_params_and_unported_paths():
     assert p["a"].shape == (3, 16, 4) and p["b"].shape == (4, 8)
     assert float(p["a"].abs().max()) <= 0.25 and not p["b"].any()
     x, a, bm, mod, q = _inputs(6, 1, 6, 16, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.moka_delta(*_t(x, a, bm, mod, q), ts, dropout_rng=g)
+    with pytest.raises(NotImplementedError, match="kernels 6-7"):
+        tm.moka_delta(*_t(x, a, bm, mod, q), ts.with_fused_dropout(),
+                      dropout_rng=DropoutKey(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.moka_delta(*_t(x, a, bm, mod, q),
                       tm.MokaSpec.avt(dropout_rate=0.0).with_flash_rank_attn())
@@ -186,3 +193,118 @@ def test_fused_grads_match_jax():
     for g_t, g_j in zip((xt.grad, at.grad, bt.grad), want):
         np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-4,
                                    atol=1e-5)
+
+
+class JaxKey:
+    """``DropoutKey``'s interface over a ``jax.random`` key."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, n=2):
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, i):
+        return JaxKey(jax.random.fold_in(self.key, i))
+
+    def bits(self, shape, device):
+        bits = jax.random.bits(self.key, tuple(shape), jnp.uint16)
+        return torch.from_numpy(np.asarray(bits).astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.05, 0.5])
+def test_lora_dropout_matches_jax(dtype, rate):
+    """Same bits, same kept elements, same 1/keep scaling in x's dtype:
+    bit-exact."""
+    x = np.random.default_rng(10).standard_normal((3, 7, 16)).astype(
+        np.float32)
+    key = jax.random.key(4)
+    want = jm.lora_dropout(jnp.asarray(x, dtype), key, rate)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tm.lora_dropout(xt, JaxKey(key), rate)
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("flavour,bf16_dots", [("avt", False), ("vt", False),
+                                               ("avt", True)])
+def test_moka_delta_with_dropout_matches_jax(flavour, bf16_dots):
+    """Dropout on the adapter input: the delta and its gradients in x, A
+    and B (with bf16_dots the dropout applies to the bf16-rounded x, as in
+    JAX)."""
+    js, ts = _specs(flavour, window=4)
+    js = dataclasses.replace(js, dropout_rate=0.1)
+    ts = dataclasses.replace(ts, dropout_rate=0.1)
+    if bf16_dots:
+        js, ts = js.with_bf16_dots(), ts.with_bf16_dots()
+    x, a, bm, mod, q = _inputs(11, 2, 12, 16, 8, js.num_modalities)
+    w = np.random.default_rng(11).standard_normal((2, 12, 8)).astype(
+        np.float32)
+    key = jax.random.key(5)
+
+    def jloss(x_, a_, b_):
+        out = jm.moka_delta(x_, a_, b_, jnp.asarray(mod), jnp.asarray(q), js,
+                            dropout_rng=key)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, want), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                       has_aux=True)(
+        *map(jnp.asarray, (x, a, bm)))
+    xt, at, bt = (t.requires_grad_(True) for t in _t(x, a, bm))
+    got = tm.moka_delta(xt, at, bt, *_t(mod, q), ts, dropout_rng=JaxKey(key))
+    (got * torch.from_numpy(w)).sum().backward()
+    for g_t, g_j in zip((got.detach(), xt.grad, at.grad, bt.grad),
+                        (want, *jg)):
+        g_j = np.asarray(g_j)
+        # bf16 dots: the two sides round operands and cotangents to bf16
+        # in other orders; allow two bf16 ulps (2^-7) of the largest value
+        tol = dict(rtol=0, atol=2 ** -7 * np.abs(g_j).max()) if bf16_dots \
+            else dict(rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(g_t.numpy(), g_j, **tol)
+    assert np.any(np.asarray(jg[0]) == 0)  # dropped inputs get no gradient
+
+
+def test_dropout_key_bits():
+    """Bits are a pure function of the key's path: the same path gives
+    the same bits, other paths other bits; the keep rate of
+    ``lora_dropout`` is Bernoulli(keep) within five standard deviations."""
+    key = DropoutKey(42)
+    a = key.split(3)[1].fold_in(4).bits((64, 512), "cpu")
+    b = DropoutKey(42).split(3)[1].fold_in(4).bits((64, 512), "cpu")
+    assert torch.equal(a, b) and a.dtype == torch.int32
+    assert int(a.min()) >= 0 and int(a.max()) < 1 << 16
+    others = [key.split(3)[0].fold_in(4), key.split(3)[1].fold_in(5),
+              key.split(2)[1].fold_in(4), key.fold_in(4)]
+    for k in others:
+        assert not torch.equal(k.bits((64, 512), "cpu"), a)
+    x = torch.ones((256, 1024))
+    for rate in (0.05, 0.5):
+        kept = float((tm.lora_dropout(x, key, rate) != 0).float().mean())
+        n, keep = x.numel(), 1.0 - rate
+        assert abs(kept - keep) <= 5 * math.sqrt(keep * rate / n)
+        out = tm.lora_dropout(x, key, rate)
+        assert torch.all((out == 0) | (out == torch.tensor(1 / keep)))
+
+
+def test_dropout_survives_checkpoint_recompute():
+    """A checkpointed function that drops its input out: the recompute in
+    the backward draws the same bits (the key is not global RNG state), so
+    the gradient equals that of the run without the checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+    x = torch.randn((4, 33, 16), generator=torch.Generator().manual_seed(0))
+    w = torch.randn((16, 8), generator=torch.Generator().manual_seed(1))
+    key = DropoutKey(7).fold_in(2)
+
+    def f(x_):
+        return (tm.lora_dropout(x_, key, 0.3) @ w).pow(2).sum()
+
+    grads = []
+    for ckpt in (False, True):
+        xg = x.clone().requires_grad_(True)
+        loss = checkpoint(f, xg, use_reentrant=False) if ckpt else f(xg)
+        loss.backward()
+        grads.append(xg.grad)
+    assert torch.equal(grads[0], grads[1])
+    assert (grads[0] == 0).any()

@@ -48,10 +48,13 @@ def test_entry_points_need_cuda_unless_told_cpu():
         (2, 1, 8, 2, 16)
 
 
-def test_kernel_loader_builds_nothing_at_import():
+def test_kernel_loader_builds_nothing_at_import(tmp_path):
     """Importing every port module touches no compiler; the loader names a
-    source per kernel and keys the library by its content."""
+    source per kernel and keys the library by its content and that of the
+    headers under csrc/ (checked on a copy: an edited header changes the
+    key of every kernel, an edited source only its own)."""
     import importlib
+    import shutil
     from moka_tpu_torch import kernels
     for path in (ROOT / "moka_tpu_torch").rglob("*.py"):
         mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
@@ -64,6 +67,18 @@ def test_kernel_loader_builds_nothing_at_import():
     with pytest.raises(RuntimeError, match="CUDA error 7"):
         kernels.check(7, "flash_fwd")
     kernels.check(0, "flash_fwd")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    keys = {n: kernels._target(n, csrc) for n in kernels.SOURCES}
+    assert keys == {n: kernels._target(n) for n in kernels.SOURCES}
+    header = csrc / "flash_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(kernels._target(n, csrc) != keys[n] for n in kernels.SOURCES)
+    keys = {n: kernels._target(n, csrc) for n in kernels.SOURCES}
+    src = csrc / kernels.SOURCES["flash_bwd"]
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert {n for n in kernels.SOURCES
+            if kernels._target(n, csrc) != keys[n]} == {"flash_bwd"}
 
 
 @pytest.fixture
@@ -89,6 +104,39 @@ def test_flash_kernel_matches_plain_on_card(card):
     assert (out.float() - ref.float()).abs().max() <= \
         4e-3 + 2 ** -7 * ref.float().abs().max()
     assert (lse - ref_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fused", "dq", "dkv"])
+def test_flash_bwd_kernels_match_plain_on_card(card, which):
+    """Each backward kernel against ``flash_bwd_plain`` with GQA 8:2, a
+    left-padded row, ragged lengths and a query offset; max|err| within 2%
+    of max|plain| (bf16 roundings of p and ds summed in another order) and
+    exact zeros on the dq rows of queries that see no key."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=card).manual_seed(1)
+    q, dout = (torch.randn((2, 77, 8, 128), generator=g, device=card)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn((2, 100, 2, 128), generator=g, device=card)
+            .bfloat16() for _ in range(2))
+    mask = torch.ones((2, 100), dtype=torch.int32, device=card)
+    mask[1, :40] = 0  # with q_offset 23, queries 0..16 of row 1 see no key
+    out, lse = fa.flash_fwd(q, k, v, mask, q_offset=23)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, mask, dout, lse, delta, 23)
+    fn = getattr(fa, f"flash_bwd_{which}")
+    before = fn.launches
+    got = fn(*args)
+    got = (got,) if which == "dq" else got
+    ref = fa.flash_bwd_plain(*args)
+    ref = {"fused": ref, "dq": ref[:1], "dkv": ref[1:]}[which]
+    assert fn.launches == before + 1
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert (x.float() - y.float()).abs().max() <= \
+            2e-2 * y.float().abs().max()
+    if which != "dkv":
+        assert (got[0][1, :17] == 0).all()
 
 
 @pytest.mark.cuda
