@@ -8,10 +8,12 @@ Phases, in order; any failed build, launch or check exits non-zero:
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, with its
-     time, the plain version's time, the library call's time (flash only:
-     ``scaled_dot_product_attention``, forward, or forward + backward less
-     forward for the three backward kernels; never called by the port) and
-     the least time the card could take (the bound);
+     time, the plain version's time, the library call's time (never called
+     by the port: ``scaled_dot_product_attention``, forward, or forward +
+     backward less forward for the three flash backward kernels;
+     ``F.dropout(x) @ A`` for the fused dropout pair) and the least time
+     the card could take (the bound); the fused dropout kernels (6-7) in
+     Philox and forced-words modes, masks held exactly;
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -30,13 +32,22 @@ Phases, in order; any failed build, launch or check exits non-zero:
      read after: 64 flash forward, 32 fused backward a step);
   7. one long-context step (b 1, L 4096, dynamic-NTK RoPE, full depth),
      which runs the dq + dkv backward pair (32 launches each);
-  8. one JSON line with every kernel's numbers, then the card's line.
+  8. the fused-dropout step (phase 6's model and batch with bf16 dots,
+     fused dropout and remat policy ``proj_lse``): at 2 layers the kernel
+     path's gradients against the plain path (same Philox masks) and fp32,
+     and proj_lse against full remat; then 2 warm-up and 5 timed steps
+     (32 flash forward, 32 fused backward, 448 dropout forward and 224
+     dropout backward launches a step), one traced step for the device's
+     busy share (``profile_port.trace``), and one step under each of full,
+     qkvod_lse, proj_nokv_lse and proj_lse (step time, peak memory);
+  9. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -72,6 +83,21 @@ TRAIN_FLOOR = 1e-3  # adapter gradients may be up to 1.5x (+ 1e-3) as far
                     # round the same activations to bf16 and differ only in
                     # where attention rounds p and ds
 SHALLOW = 2  # layers of the second training-gradient check
+REMAT_NOISE = (3.0, 1e-3)  # proj_lse vs full remat gradients, relative L2:
+                 # at most 3x the spread of two full-remat runs (the fused
+                 # flash backward adds dq by atomics in a varying order) +
+                 # 1e-3; both runs see the same masks and forward values
+DROP_TOL = 1e-4  # fused dropout out and fp32 dA: max|err| as a fraction of
+                 # max|plain|: fp32 sums over d (out) or N (dA) terms in
+                 # another order, on exactly the same kept elements
+DROP_DX_MISMATCH = 1e-2  # dx: share of bf16 elements that may differ from
+                 # the plain version's, each by one ulp at most: g @ A^T sums
+                 # its 12 terms in another order, which can move a rounding
+LANE_INSTR = 33.5e12  # lane instructions a second: 132 SMs x 128 lanes x
+                 # 1.98 GHz, the issue limit behind the 67 TFLOP/s fp32 peak
+PHILOX_INSTR = 98  # integer instructions of one Philox4x32-10 call (four
+                 # words): 10 rounds of 2 multiplies high and low and 4 xors,
+                 # 9 key bumps of 2 adds
 LOGIT_RATIO = 1.5  # prefill logits: the kernel path's distance from an fp32
                    # run may exceed the plain bf16 path's by half: both only
                    # round differently (+1e-3 / 1e-2 of the logit std)
@@ -96,9 +122,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float, peak: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, peak: float,
+             *more_ops: tuple[float, float]) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' time; operations
+    of other types, each at its own peak, are further (count, peak) pairs,
+    and the slowest unit counts."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak * 1e3
+    t_ops = max(n / p for n, p in ((n_ops, peak), *more_ops)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -106,22 +136,31 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _counts() -> dict:
+def _wrappers() -> dict:
+    """Every kernel wrapper by kernel name."""
     from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops import fused_dropout as fd
     from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
-    return {"flash_fwd": fa.flash_fwd.launches,
-            "flash_bwd_fused": fa.flash_bwd_fused.launches,
-            "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
-            "moka_delta_fwd": moka_delta_fused.launches}
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "moka_delta_fwd": moka_delta_fused,
+            "dropout_a_fwd": fd.dropout_a_fwd,
+            "dropout_a_bwd": fd.dropout_a_bwd}
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _zero_counts() -> None:
-    from moka_tpu_torch.ops import flash_attention as fa
-    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
-    for fn in (fa.flash_fwd, fa.flash_bwd_fused, fa.flash_bwd_dq,
-               fa.flash_bwd_dkv, moka_delta_fused):
+    for fn in _wrappers().values():
         fn.launches = 0
+
+
+def _launches(**nonzero) -> dict:
+    """The launch counts of a path: ``nonzero`` kernels, every other 0."""
+    return {name: nonzero.get(name, 0) for name in _wrappers()}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -440,6 +479,169 @@ def moka_record(b, L, dim, inter) -> dict:
                      f"projections summed"}
 
 
+DROP_RATE = 0.05   # the training path's LoRA dropout
+DROP_MR = 12       # M * r of MokA AVT at rank 4
+
+
+def dropout_case(n, d, x_dtype, a_dtype, forced, seed):
+    """Inputs of the fused-dropout kernels: random x (n, d), A (d, 12)
+    kaiming-uniform, a cotangent g (n, 12) fp32, a key, and (forced mode)
+    random 32-bit words."""
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device="cuda").to(x_dtype)
+    bound = 1.0 / math.sqrt(d)
+    a = (torch.rand((d, DROP_MR), generator=g, device="cuda") * 2 - 1) \
+        * bound
+    gout = torch.randn((n, DROP_MR), generator=g, device="cuda")
+    bits = torch.randint(0, 1 << 32, (n, d), generator=g, device="cuda",
+                         dtype=torch.int64) if forced else None
+    return x, a.to(a_dtype), gout, DropoutKey(1000 + seed), bits
+
+
+def check_dropout(name, x, a, gout, key, bits) -> float:
+    """Kernels 6 and 7 against ``dropout_a_fwd_plain`` /
+    ``dropout_a_bwd_plain`` on the same words: out and dA within DROP_TOL
+    (fp32 sums in another order; a bf16 dA within one bf16 ulp), dx within
+    one bf16 ulp and bit-identical on all but DROP_DX_MISMATCH of its
+    elements, dx's zeros exactly the plain mask, two calls bit-identical,
+    the forward's mask the backward's (the kernel's out equals the plain
+    forward over dx's non-zero pattern), the keep share within 5 sigma."""
+    import torch
+    from moka_tpu_torch.ops import fused_dropout as fd
+    n, d = x.shape
+    runs = []
+    for _ in range(2):
+        out = fd.dropout_a_fwd(x, a, key, DROP_RATE, bits)
+        dx, da = fd.dropout_a_bwd(x, a, gout, key, DROP_RATE, bits)
+        runs.append((out, dx, da))
+    torch.cuda.synchronize()
+    (out, dx, da), again = runs
+    same = all(torch.equal(p, q) for p, q in zip(runs[0], again))
+    ref = fd.dropout_a_fwd_plain(x, a, key, DROP_RATE, bits)
+    rdx, rda = fd.dropout_a_bwd_plain(x, a, gout, key, DROP_RATE, bits)
+    words = bits if bits is not None else key.bits32((n, d), x.device)
+    keep = words < fd.threshold(DROP_RATE)
+    kept = dx != 0
+    pattern = torch.equal(kept, keep)
+    share = float(kept.float().mean())
+    sigma = math.sqrt(DROP_RATE * (1 - DROP_RATE) / kept.numel())
+    own = torch.where(kept, 0, (1 << 32) - 1)
+    out_own = fd.dropout_a_fwd_plain(x, a, key, DROP_RATE, own)
+
+    def frac(p, q):
+        return float((p.float() - q.float()).abs().max() /
+                     q.float().abs().max())
+
+    e_out, e_own = frac(out, ref), frac(out, out_own)
+    dxf, rdxf = dx.float(), rdx.float()
+    ulp = float(((dxf - rdxf).abs() - 2 ** -7 * rdxf.abs()).max())
+    mism = float((dx != rdx).float().mean())
+    if da.dtype == torch.bfloat16:
+        e_da = float(((da.float() - rda.float()).abs()
+                      - 2 ** -7 * rda.float().abs()).max())
+        da_ok = e_da <= 1e-6 * float(rda.float().abs().max())
+    else:
+        e_da = frac(da, rda)
+        da_ok = e_da <= DROP_TOL
+    ok = (same and pattern and e_out <= DROP_TOL and e_own <= DROP_TOL
+          and ulp <= 0 and mism <= DROP_DX_MISMATCH and da_ok
+          and abs(share - (1 - DROP_RATE)) <= 5 * sigma)
+    log(f"  dropout {name}: x {tuple(x.shape)} {str(x.dtype)[6:]}, A "
+        f"{str(a.dtype)[6:]}, {'forced bits' if bits is not None else 'Philox'}"
+        f": out rel err {e_out:.2e}, vs own-mask forward {e_own:.2e} (tol "
+        f"{DROP_TOL}); dx beyond one ulp {ulp:.2e}, not bit-identical "
+        f"{mism:.2e} (tol {DROP_DX_MISMATCH}); dA err {e_da:.2e}; zeros = "
+        f"plain mask {pattern}; repeat bit-identical {same}; keep share "
+        f"{share:.6f} ({(share - 1 + DROP_RATE) / sigma:+.2f} sigma)")
+    if not ok:
+        raise AssertionError(f"fused dropout kernels disagree with their "
+                             f"plain versions ({name})")
+    return float((out - ref).abs().max())
+
+
+def dropout_records(n, dim, inter) -> list[dict]:
+    """Check kernels 6-7 at the training path's shapes (N = b·L 4096, d
+    4096 and 11008, x bf16, A fp32 and bf16, Philox and forced words) and a
+    ragged case, then time them over one layer's seven projections (x and A
+    bf16, Philox: the path's dtypes) beside the plain versions and the
+    library's ``F.dropout(x) @ A`` (forward, and its autograd backward
+    alone on one recorded forward)."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops import fused_dropout as fd
+    err = 0.0
+    cases = [(n, d, torch.bfloat16, adt, forced)
+             for d in (dim, inter) for adt in (torch.float32, torch.bfloat16)
+             for forced in (False, True)]
+    cases.append((333, 200, torch.float32, torch.float32, False))
+    for i, (rows, d, xdt, adt, forced) in enumerate(cases):
+        args = dropout_case(rows, d, xdt, adt, forced, seed=i)
+        err = max(err, check_dropout(f"case {i}", *args))
+        del args
+    dims = [dim] * 6 + [inter]  # q, k, v, o, gate, up read dim; down inter
+    tot = {k: 0.0 for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
+                            "fwd_lib", "bwd_lib", "fwd_bytes", "bwd_bytes",
+                            "fwd_flops", "bwd_flops", "philox")}
+    for d in dims:
+        x, a, gout, key, _ = dropout_case(n, d, torch.bfloat16,
+                                          torch.bfloat16, False, seed=50)
+        tot["fwd"] += time_ms(lambda: fd.dropout_a_fwd(x, a, key, DROP_RATE))
+        tot["bwd"] += time_ms(lambda: fd.dropout_a_bwd(x, a, gout, key,
+                                                       DROP_RATE))
+        tot["fwd_plain"] += time_ms(lambda: fd.dropout_a_fwd_plain(
+            x, a, key, DROP_RATE), iters=3, warmup=1)
+        tot["bwd_plain"] += time_ms(lambda: fd.dropout_a_bwd_plain(
+            x, a, gout, key, DROP_RATE), iters=3, warmup=1)
+        xg, ag = x.clone().requires_grad_(True), a.clone().requires_grad_(True)
+        gb = gout.to(torch.bfloat16)
+
+        def lib():
+            return F.dropout(xg, DROP_RATE) @ ag
+
+        lib_out = lib()
+
+        def lib_bwd():  # the backward alone, on one recorded forward
+            torch.autograd.grad(lib_out, (xg, ag), gb, retain_graph=True)
+
+        tot["fwd_lib"] += time_ms(lib, iters=30, warmup=3)
+        tot["bwd_lib"] += time_ms(lib_bwd, iters=30, warmup=3)
+        elems = n * d
+        tot["fwd_bytes"] += nbytes(x, a) + n * DROP_MR * 4
+        tot["bwd_bytes"] += 2 * nbytes(x) + nbytes(a, gout) + d * DROP_MR * 4
+        # the rank-M·r products of bf16 x and A (tensor cores), apart from
+        # the generator's integer work (the ordinary cores), each its time
+        tot["fwd_flops"] += 2 * elems * DROP_MR
+        tot["bwd_flops"] += 2 * elems * 2 * DROP_MR
+        tot["philox"] += elems / 4 * PHILOX_INSTR
+        del x, a, gout, xg, ag, gb, lib_out
+    records = []
+    for which, line, kernel in (("fwd", 55, 6), ("bwd", 70, 7)):
+        bms, by = bound_ms(tot[f"{which}_bytes"], tot[f"{which}_flops"],
+                           BF16_FLOPS, (tot["philox"], LANE_INSTR))
+        log(f"  dropout {which} (kernel {kernel}) timing, one layer's seven "
+            f"projections (N {n}, d {dim} x6 + {inter}, bf16 x and A): "
+            f"kernel {tot[which]:.4f} ms, plain {tot[which + '_plain']:.4f} "
+            f"ms, F.dropout + matmul {tot[which + '_lib']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        records.append({
+            "name": f"dropout_a_{which}", "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/fused_dropout.cu",
+            "replaces": f"moka_tpu/ops/fused_dropout.py:{line}",
+            "launches": None, "max_abs_err": err,
+            "tolerance": f"out, dA {DROP_TOL} of max|plain|; dx one bf16 "
+                         f"ulp; masks exact",
+            "ms": tot[which], "plain_ms": tot[which + "_plain"],
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": tot[which + "_lib"],
+            "library": "F.dropout(x) @ A_flat in bf16" + (
+                "" if which == "fwd" else ", its autograd backward alone"),
+            "shape": f"N {n}, d {dim} (6 projections) and {inter} (down), "
+                     f"x and A bf16, Philox: one layer, seven launches"})
+    return records
+
+
 # ------------------------------------------------------------------ phase 4
 
 def build_model(cfg, spec, seed=0):
@@ -561,9 +763,8 @@ def main_path(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
         f"{total_s * 1e3:.1f} ms, prefill (1 new token) {prefill_s * 1e3:.1f}"
         f" ms, decode {tps:.1f} tok/s ({new_tokens - 1} decode steps), "
         f"launches {launches}")
-    if launches != {"flash_fwd": cfg.n_layers, "flash_bwd_fused": 0,
-                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                    "moka_delta_fwd": 7 * cfg.n_layers}:
+    if launches != _launches(flash_fwd=cfg.n_layers,
+                             moka_delta_fwd=7 * cfg.n_layers):
         raise AssertionError(f"main path launches {launches}")
     return {"launches": launches, "prefill_ms": prefill_s * 1e3,
             "decode_tok_s": tps, "total_ms": total_s * 1e3}
@@ -691,22 +892,25 @@ def train_batch(cfg, b, L, seed=0) -> dict:
                  question_mask=q).items()}
 
 
-def train_loss(cfg, spec, use_flash):
-    """The fine-tune loss as bench.py::run builds it (full remat, chunked
-    lm_head + CE of 128 positions)."""
+def train_loss(cfg, spec, use_flash, policy=None):
+    """The fine-tune loss as bench.py::run builds it (remat under
+    ``policy``, full by default; chunked lm_head + CE of 128 positions)."""
     from moka_tpu_torch.train.objectives import make_llama_moka_loss
     return make_llama_moka_loss(cfg, spec, remat=True, use_flash=use_flash,
-                                fused_loss=True, ce_chunk=128)
+                                fused_loss=True, ce_chunk=128,
+                                remat_policy=policy)
 
 
-def loss_and_grads(cfg, spec, frozen, trainable, batch, use_flash, key):
+def loss_and_grads(cfg, spec, frozen, trainable, batch, use_flash, key,
+                   policy=None):
     """(loss, {projection: its adapter gradients of every layer, flat})."""
     import torch
     from moka_tpu_torch.train.optim import tree_leaves
     leaves = tree_leaves(trainable)
     for p in leaves:
         p.requires_grad_(True)
-    loss, _ = train_loss(cfg, spec, use_flash)(trainable, frozen, batch, key)
+    loss, _ = train_loss(cfg, spec, use_flash, policy)(trainable, frozen,
+                                                       batch, key)
     grads = torch.autograd.grad(loss, leaves)
     for p in leaves:
         p.requires_grad_(False)
@@ -747,21 +951,43 @@ def check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
     return out
 
 
-def _check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
+@contextlib.contextmanager
+def plain_dropout():
+    """Within: ``moka_delta``'s fused dropout runs its plain versions
+    (``dropout_a_proj_plain``, same Philox words) instead of kernels 6-7."""
+    from moka_tpu_torch.ops import fused_dropout as fd
+    kernel = fd.dropout_a_proj
+    fd.dropout_a_proj = fd.dropout_a_proj_plain
+    try:
+        yield
+    finally:
+        fd.dropout_a_proj = kernel
+
+
+def rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def _check_train_grads(cfg, spec, frozen, trainable, batch, policy=None,
+                       key_seed=11) -> dict:
+    """The kernel path (flash kernels and, with fused dropout, kernels 6-7)
+    against the plain path (eager attention, plain dropout, the same masks)
+    and an fp32 run, under remat ``policy``."""
     import torch
     from moka_tpu_torch.core.rng import DropoutKey
-    key = DropoutKey(11)
-    kern = loss_and_grads(cfg, spec, frozen, trainable, batch, True, key)
-    plain = loss_and_grads(cfg, spec, frozen, trainable, batch, False, key)
+    key = DropoutKey(key_seed)
+    kern = loss_and_grads(cfg, spec, frozen, trainable, batch, True, key,
+                          policy)
     frozen32 = {k: ({n: t.float() for n, t in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in frozen.items()}
-    exact = loss_and_grads(cfg, spec, frozen32, trainable, batch, False, key)
+    with plain_dropout():
+        plain = loss_and_grads(cfg, spec, frozen, trainable, batch, False,
+                               key, policy)
+        exact = loss_and_grads(cfg, spec, frozen32, trainable, batch, False,
+                               key, policy)
     del frozen32
     torch.cuda.empty_cache()
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm())
 
     out = {"loss": {"kernels": kern[0], "plain": plain[0], "fp32": exact[0]},
            "grad_rel_l2": {}}
@@ -789,12 +1015,15 @@ def _check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
     return out
 
 
-def train_steps(cfg, spec, frozen, trainable, batch) -> dict:
-    """The main training path: ``make_train_step`` with
-    ``make_optimizer(TrainConfig(), total_steps=1000)``.  Two warm-up steps
-    (the first has learning rate 0; the adapters must have moved after the
-    second), then five timed steps with the launch counts zeroed just
-    before and read just after."""
+def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
+                busy=False) -> dict:
+    """A training path: ``make_train_step`` with
+    ``make_optimizer(TrainConfig(), total_steps=1000)`` and remat under
+    ``policy``.  Two warm-up steps (the first has learning rate 0; the
+    adapters must have moved after the second), then five timed steps with
+    the launch counts zeroed just before and read just after; with
+    ``busy``, then one step under ``profile_port.trace`` for the device's
+    busy time."""
     import torch
     from moka_tpu_torch.core.config import TrainConfig
     from moka_tpu_torch.core.rng import DropoutKey
@@ -803,7 +1032,7 @@ def train_steps(cfg, spec, frozen, trainable, batch) -> dict:
     n_warm, n_timed = 2, 5
     tx = make_optimizer(TrainConfig(), total_steps=1000)
     state = init_train_state(trainable, tx, DropoutKey(0))
-    step = make_train_step(train_loss(cfg, spec, True), tx)
+    step = make_train_step(train_loss(cfg, spec, True, policy), tx)
     start = [p.clone() for p in tree_leaves(state.params)]
 
     def moved():
@@ -842,10 +1071,109 @@ def train_steps(cfg, spec, frozen, trainable, batch) -> dict:
         f"{peak / 2**30:.2f} GiB, launches a step {per_step}")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError("non-finite loss or grad norm")
-    return {"step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
-            "tokens_per_s": b * L / (step_ms / 1e3), "losses": losses,
-            "grad_norms": norms, "peak_memory_bytes": peak,
-            "launches_per_step": per_step}
+    out = {"step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": b * L / (step_ms / 1e3), "losses": losses,
+           "grad_norms": norms, "peak_memory_bytes": peak,
+           "launches_per_step": per_step}
+    if busy:
+        import profile_port
+
+        def one():
+            nonlocal state
+            state, m = step(state, frozen, batch)
+            float(m["loss"])
+
+        traced, ops, _ = profile_port.trace(one)
+        busy_ms = sum(us for _, us in ops.values()) / 1e3
+        out.update(busy_ms=busy_ms, traced_ms=traced,
+                   busy_share=busy_ms / step_ms,
+                   device_ops=sum(c for c, _ in ops.values()),
+                   device_ms_by_group=profile_port.groups(ops))
+        log(f"  traced step {traced:.1f} ms: device busy {busy_ms:.1f} ms, "
+            f"{100 * busy_ms / step_ms:.1f}% of the untraced median step; "
+            f"{out['device_ops']} device operations; by group "
+            f"{ {g: round(v, 1) for g, v in out['device_ms_by_group'].items()} }")
+    return out
+
+
+def policy_ladder(cfg, spec, frozen, trainable, batch,
+                  policies=("full", "qkvod_lse", "proj_nokv_lse",
+                            "proj_lse")) -> dict:
+    """One step of the fused-dropout path under each remat policy (after
+    one untimed step): step ms, peak memory, launches."""
+    import torch
+    from moka_tpu_torch.core.config import TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.optim import make_optimizer
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    out = {}
+    for policy in policies:
+        tx = make_optimizer(TrainConfig(), total_steps=1000)
+        state = init_train_state(trainable, tx, DropoutKey(6))
+        step = make_train_step(train_loss(
+            cfg, spec, True, None if policy == "full" else policy), tx)
+        state, m = step(state, frozen, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        out[policy] = {"step_ms": wall * 1e3, "loss": loss,
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": {k: v for k, v in _counts().items() if v}}
+        log(f"  policy {policy}: step {wall * 1e3:.1f} ms, peak memory "
+            f"{out[policy]['peak_memory_bytes'] / 2**30:.2f} GiB, loss "
+            f"{loss:.5f}, launches {out[policy]['launches']}")
+        del state, step, tx
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_train_config():
+    """The fused-dropout path's spec: bench.py:55-70 with bf16 dots, the
+    256-key question window and fused dropout."""
+    cfg, spec = train_config()
+    return cfg, spec.with_bf16_dots().with_fused_dropout()
+
+
+def check_fused_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
+    """At SHALLOW layers, under ``proj_lse``: the kernel path (flash and
+    kernels 6-7) against the plain path (eager attention and plain dropout
+    on the same Philox masks) and an fp32 run; then ``proj_lse`` against
+    full remat with the same key, which may differ only by the fused flash
+    backward's dq atomics (measured as the spread of two full-remat runs)."""
+    import dataclasses
+    from moka_tpu_torch.core.rng import DropoutKey
+    n = SHALLOW
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    frozen = first_layers(frozen, n)
+    trainable = {"adapters": first_layers(trainable["adapters"], n)}
+    log(f"  {n} layers, proj_lse:")
+    out = _check_train_grads(cfg, spec, frozen, trainable, batch,
+                             policy="proj_lse", key_seed=12)
+    key = DropoutKey(12)
+    lse = loss_and_grads(cfg, spec, frozen, trainable, batch, True, key,
+                         "proj_lse")
+    full, again = (loss_and_grads(cfg, spec, frozen, trainable, batch, True,
+                                  key) for _ in range(2))
+    out["proj_lse_vs_full"] = {}
+    ok = True
+    for p in PROJS:
+        d, noise = rel(lse[1][p], full[1][p]), rel(again[1][p], full[1][p])
+        out["proj_lse_vs_full"][p] = {"rel_l2": d, "full_vs_full": noise}
+        ok &= d <= REMAT_NOISE[0] * noise + REMAT_NOISE[1]
+        log(f"  grad {p}: proj_lse vs full remat rel L2 {d:.3e}; full vs "
+            f"full (dq atomics) {noise:.3e}")
+    log(f"  loss proj_lse {lse[0]:.6f}, full {full[0]:.6f}, {again[0]:.6f} "
+        f"(tol: proj_lse vs full <= {REMAT_NOISE[0]} x full vs full + "
+        f"{REMAT_NOISE[1]})")
+    if not ok:
+        raise AssertionError("proj_lse gradients differ from full remat "
+                             "beyond the flash backward's atomics noise")
+    return out
 
 
 def long_context_step(frozen, trainable) -> dict:
@@ -872,9 +1200,8 @@ def long_context_step(frozen, trainable) -> dict:
         f"{cfg.rope_scaling}): {wall * 1e3:.1f} ms (first step of a fresh "
         f"state), loss {loss:.5f}, grad_norm {float(m['grad_norm']):.5f}, "
         f"launches {counts}")
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": 0,
-            "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
-            "moka_delta_fwd": 0}
+    want = _launches(flash_fwd=2 * cfg.n_layers, flash_bwd_dq=cfg.n_layers,
+                     flash_bwd_dkv=cfg.n_layers)
     if counts != want or not math.isfinite(loss):
         raise AssertionError(f"long-context step: launches {counts}, loss "
                              f"{loss}")
@@ -926,7 +1253,8 @@ def main() -> int:
     log("[3] kernels against their plain versions")
     records = [flash_record(batch, prompt_len, prompt_len + new_tokens),
                moka_record(batch, prompt_len, cfg.dim, cfg.intermediate),
-               *flash_bwd_records()]
+               *flash_bwd_records(),
+               *dropout_records(4 * 1024, cfg.dim, cfg.intermediate)]
     torch.cuda.empty_cache()
 
     log(f"[4] LLaMA-2-7B + MokA AVT r4 at full width, {cfg.n_layers} layers")
@@ -952,8 +1280,8 @@ def main() -> int:
     batch = train_batch(tcfg, 4, 1024)
     train_check = check_train_grads(tcfg, tspec, frozen, trainable, batch)
     train = train_steps(tcfg, tspec, frozen, trainable, batch)
-    want = {"flash_fwd": 2 * tcfg.n_layers, "flash_bwd_fused": tcfg.n_layers,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "moka_delta_fwd": 0}
+    want = _launches(flash_fwd=2 * tcfg.n_layers,
+                     flash_bwd_fused=tcfg.n_layers)
     if train["launches_per_step"] != want:
         raise AssertionError(f"training step launches "
                              f"{train['launches_per_step']}, want {want}")
@@ -961,14 +1289,36 @@ def main() -> int:
     log("[7] long-context training step: b 1 L 4096, dynamic-NTK RoPE")
     long_step = long_context_step(frozen, trainable)
 
+    fcfg, fspec = fused_train_config()
+    log(f"[8] fused-dropout training step: the same model, bf16 dots, fused "
+        f"dropout (kernels 6-7), remat policy proj_lse, b 4 L 1024")
+    fused_check = check_fused_train_grads(fcfg, fspec, frozen, trainable,
+                                          batch)
+    fused = train_steps(fcfg, fspec, frozen, trainable, batch,
+                        policy="proj_lse", busy=True)
+    n_proj = 7 * fcfg.n_layers
+    want = _launches(flash_fwd=fcfg.n_layers, flash_bwd_fused=fcfg.n_layers,
+                     dropout_a_fwd=2 * n_proj, dropout_a_bwd=n_proj)
+    if fused["launches_per_step"] != want:
+        raise AssertionError(f"fused-dropout step launches "
+                             f"{fused['launches_per_step']}, want {want}")
+    if not fused["losses"][-1] < fused["losses"][0]:
+        raise AssertionError(f"the loss did not move: {fused['losses']}")
+    log("  policy ladder (one step each, fused dropout):")
+    ladder = policy_ladder(fcfg, fspec, frozen, trainable, batch)
+
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "training step": train["launches_per_step"],
-             "long-context training step": long_step["launches"]}
+             "long-context training step": long_step["launches"],
+             "fused-dropout training step (proj_lse)":
+                 fused["launches_per_step"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
            "flash_bwd_dq": "long-context training step",
-           "flash_bwd_dkv": "long-context training step"}
+           "flash_bwd_dkv": "long-context training step",
+           "dropout_a_fwd": "fused-dropout training step (proj_lse)",
+           "dropout_a_bwd": "fused-dropout training step (proj_lse)"}
     for rec in records:
         rec["launches"] = int(paths[own[rec["name"]]][rec["name"]])
         rec["launches_path"] = own[rec["name"]]
@@ -976,7 +1326,8 @@ def main() -> int:
                                    paths.items()}
     log(json.dumps({"main_path": timings, "serving": served,
                     "train_check": train_check, "train": train,
-                    "long_context": long_step}))
+                    "long_context": long_step, "fused_check": fused_check,
+                    "fused_train": fused, "policy_ladder": ladder}))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,7 +74,7 @@ class TrainConfig:
     grad_accum: int = 1
     seed: int = 42
     remat: bool = True                 # gradient checkpointing per layer
-    remat_policy: str | None = None    # None / "full" only (ROADMAP.md)
+    remat_policy: str | None = None    # see models.llama.REMAT_POLICIES
     rng_impl: str | None = None        # a JAX PRNG choice; unused here
     log_every: int = 1
     save_every_steps: float = 0        # 0 = only final; 0<x<1 = fraction

@@ -16,3 +16,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """Whether a kernel wrapper launches its CUDA kernel for ``t`` (True) or
+    runs its plain version (False, a CPU tensor); any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {what} for device {t.device}")
+    return t.device.type == "cuda"

@@ -26,6 +26,7 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "moka_delta_fwd": "moka_delta_fwd.cu",
+    "fused_dropout": "fused_dropout.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

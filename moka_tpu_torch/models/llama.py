@@ -9,15 +9,16 @@ tensors.  Every one of the seven projections goes through ``_apply_proj``
 (frozen matmul + MokA delta, with LoRA dropout in training).
 
 Training: ``remat`` wraps each layer in ``torch.utils.checkpoint``
-(non-reentrant), which keeps only the layer inputs, as
-``jax.checkpoint(policy=None)`` does; the dropout key is split per layer and
-folded per projection as in JAX, and ``core.rng.DropoutKey`` draws its bits
-from the key alone, so the recompute regenerates the same masks.
+(non-reentrant), which keeps the layer input and, under a named
+``remat_policy``, the tensors JAX's policy keeps by tag name
+(``_RematSaves``); the dropout key is split per layer and folded per
+projection as in JAX, and ``core.rng.DropoutKey`` draws its bits from the
+key alone, so the recompute regenerates the same masks.
 
-Not ported yet (each raises ``NotImplementedError``): the named remat
-policies, quantized bases and int8 KV caches, ``a8_dots``/``save_q8``, the
-fused CE kernel (``pallas_ce``), ``host_stream``, ``context_parallel`` and
-``paged_decode`` (ROADMAP.md).
+Not ported yet (each raises ``NotImplementedError``): quantized bases and
+int8 KV caches, ``a8_dots``/``save_q8``, the fused CE kernel
+(``pallas_ce``), ``host_stream``, ``context_parallel`` and ``paged_decode``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -123,23 +124,168 @@ class MaskBundle:
     question: torch.Tensor
 
 
+class _FrozenMatmul(torch.autograd.Function):
+    """``x @ w`` for a frozen ``w``, kept on ``ctx`` rather than saved:
+    the product then leaves nothing for a checkpoint recompute to
+    reproduce, so a recompute may skip it (a kept product, or the down
+    projection, whose output no backward of its layer reads)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.w = w
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.matmul(g, ctx.w.t()), None
+
+
+# The JAX remat policies (``moka_tpu/models/llama.py::_remat_policy``) as the
+# tag names each keeps: ``proj_{name}`` a frozen projection's product,
+# ``attn_out`` the attention output, ``flash_out``/``flash_lse`` the flash
+# forward's residuals.  "dots" (JAX's ``dots_saveable``, every dot product)
+# keeps the seven frozen products, the dots whose recompute costs; the
+# adapters' rank-r products and the eager attention's rerun in the port.
+_PROJ_TAGS = tuple(f"proj_{n}" for n in PROJ_DIMS)
+_FLASH_TAGS = ("flash_out", "flash_lse")
+REMAT_POLICIES = {
+    None: (), "full": (),
+    "attn": ("attn_out",),
+    "qkv": ("attn_out", "proj_q", "proj_k", "proj_v"),
+    "qkvod": ("attn_out", "proj_q", "proj_k", "proj_v", "proj_o",
+              "proj_down"),
+    "qkvod_lse": _FLASH_TAGS + ("proj_q", "proj_k", "proj_v", "proj_o",
+                                "proj_down"),
+    "mlp": ("attn_out", "proj_gate", "proj_up"),
+    "proj": ("attn_out",) + _PROJ_TAGS,
+    "proj_nokv": ("attn_out", "proj_q", "proj_o", "proj_down", "proj_gate",
+                  "proj_up"),
+    "proj_nokv_lse": _FLASH_TAGS + ("proj_q", "proj_o", "proj_down",
+                                    "proj_gate", "proj_up"),
+    "proj_noqkv": ("attn_out", "proj_o", "proj_down", "proj_gate",
+                   "proj_up"),
+    "proj_lse": _FLASH_TAGS + _PROJ_TAGS,
+    "dots": _PROJ_TAGS,
+}
+
+
+def _remat_policy(name: str | None) -> frozenset:
+    """The tags policy ``name`` keeps (None / "full": none, only the layer
+    input)."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}")
+    return frozenset(REMAT_POLICIES[name])
+
+
+# The projections each named policy keeps: ``save_q8=True`` would quantize
+# exactly these (``save_q8`` itself is not ported yet).
+_POLICY_SAVED_PROJS = {
+    "qkv": ("q", "k", "v"),
+    "qkvod": ("q", "k", "v", "o", "down"),
+    "qkvod_lse": ("q", "k", "v", "o", "down"),
+    "mlp": ("gate", "up"),
+    "proj": tuple(PROJ_DIMS),
+    "proj_nokv": ("q", "o", "down", "gate", "up"),
+    "proj_nokv_lse": ("q", "o", "down", "gate", "up"),
+    "proj_noqkv": ("o", "down", "gate", "up"),
+    "proj_lse": tuple(PROJ_DIMS),
+}
+
+
+def _resolve_save_q8(save_q8, remat_policy: str | None) -> tuple:
+    """-> (mode, proj_names), as the JAX function: True/"fp8" take the
+    policy's set (int8 / fp8-e4m3), a tuple of names selects (int8, or fp8
+    with a leading "fp8")."""
+    if not save_q8:
+        return ("int8", ())
+    if save_q8 is True:
+        return ("int8", _POLICY_SAVED_PROJS.get(remat_policy, ()))
+    if save_q8 == "fp8":
+        return ("fp8", _POLICY_SAVED_PROJS.get(remat_policy, ()))
+    names = tuple(save_q8)
+    if names and names[0] == "fp8":
+        return ("fp8", names[1:])
+    return ("int8", names)
+
+
+class _RematSaves:
+    """What one layer's checkpoint keeps for its recompute, by tag name.
+
+    ``torch.utils.checkpoint`` reruns the whole layer and has no
+    ``checkpoint_name``; this object, passed to the layer, stands in for
+    it.  In the forward it keeps the tagged tensors; once ``replay`` is set
+    (after the checkpointed call returns), the recompute takes them instead
+    of computing them: a kept projection skips its frozen product, kept
+    flash residuals skip the flash forward, a kept attention output replaces
+    the recomputed one.  Skipping is safe because neither skipped producer
+    saves anything for the checkpoint to match (``_FrozenMatmul`` keeps
+    its weight on ctx; the flash function still saves the same tensors,
+    the kept ones).  JAX's tag on a projection marks its output with the
+    delta added; the port keeps the frozen product itself, the same bytes,
+    and the delta reruns in both (its backward needs its inner values).
+    Like JAX, which keeps only the tagged values a backward reads, it
+    never keeps ``proj_down``: the recompute stops before the down product
+    (``_apply_proj``), so that tensor would only hold memory."""
+
+    def __init__(self, names: frozenset):
+        self.names = names - {"proj_down"}
+        self.kept: dict[str, torch.Tensor] = {}
+        self.replay = False
+
+    def product(self, name: str, x: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+        if w.requires_grad:  # a trained weight: saves x for dW, reruns
+            return torch.matmul(x, w)
+        tag = f"proj_{name}"
+        if self.replay and tag in self.kept:
+            return self.kept[tag].detach()
+        y = _FrozenMatmul.apply(x, w)
+        if tag in self.names:
+            self.kept[tag] = y.detach()
+        return y
+
+    def flash_residuals(self) -> dict | None:
+        """The dict ``flash_mha`` fills in the forward and reads in the
+        recompute, when the policy keeps the flash residuals."""
+        return self.kept if "flash_out" in self.names else None
+
+    def keep(self, tag: str, t: torch.Tensor) -> torch.Tensor:
+        if tag not in self.names:
+            return t
+        if self.replay:
+            return self.kept[tag].detach()
+        self.kept[tag] = t.detach()
+        return t
+
+
 def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
                 spec: MokaSpec | None, masks: MaskBundle | None,
-                dropout_rng=None, fused: bool = False) -> torch.Tensor:
+                dropout_rng=None, fused: bool = False,
+                saves: _RematSaves | None = None) -> torch.Tensor:
     """Frozen projection ``x @ base_w`` plus the adapter delta: the text
     adapter alone when masks are None (decode steps), else the MokA delta
     (the fused kernel when ``fused``).  With a layer's dropout key and a
     rate > 0, LoRA dropout on the adapter input under the key folded with
-    this projection's index (or its group's, with shared masks)."""
+    this projection's index (or its group's, with shared masks).  The delta
+    runs before the frozen product, so that a checkpoint recompute, which
+    stops after the last tensor the backward needs, stops before the down
+    projection's product (``saves``: the layer's ``_RematSaves``)."""
     if isinstance(base_w, dict):
         raise NotImplementedError(_NOT_PORTED.format(
             "a quantized base", "frozen-base quantization"))
-    y = torch.matmul(x, base_w)
-    if adapters is None or name not in adapters:
-        return y
-    a, b = adapters[name]["a"], adapters[name]["b"]
+    delta = None
+    if adapters is not None and name in adapters:
+        delta = _adapter_delta(name, x, adapters[name], spec, masks,
+                               dropout_rng, fused)
+    y = torch.matmul(x, base_w) if saves is None else \
+        saves.product(name, x, base_w)
+    return y if delta is None else y + delta
+
+
+def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused):
+    a, b = adapter["a"], adapter["b"]
     if masks is None:
-        return y + lora_delta(x, a[0], b, decode_scale(spec))
+        return lora_delta(x, a[0], b, decode_scale(spec))
     rng = None
     if dropout_rng is not None and spec.dropout_rate > 0:
         rng = dropout_rng.fold_in(_PROJ_GROUP[name] if
@@ -149,10 +295,10 @@ def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
         # dropout applies to the adapter's input only: outside the kernel,
         # the base matmul keeps the clean x
         x_d = x if rng is None else lora_dropout(x, rng, spec.dropout_rate)
-        return y + moka_delta_fused(x_d, a, b, masks.modality,
-                                    masks.question, spec)
-    return y + moka_delta(x, a, b, masks.modality, masks.question, spec,
-                          dropout_rng=rng)
+        return moka_delta_fused(x_d, a, b, masks.modality, masks.question,
+                                spec)
+    return moka_delta(x, a, b, masks.modality, masks.question, spec,
+                      dropout_rng=rng)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -202,15 +348,17 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
                    adapters: dict | None, masks: MaskBundle | None,
                    bias: torch.Tensor | None, attn_mask: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, cache: dict | None,
-                   layer_idx: int, dropout_rng=None) -> torch.Tensor:
+                   layer_idx: int, dropout_rng=None,
+                   saves: _RematSaves | None = None) -> torch.Tensor:
     """One decoder block; with a cache, writes this layer's k/v into it in
-    place and attends over the whole cache."""
+    place and attends over the whole cache.  ``saves``: the tensors a remat
+    policy keeps for the recompute (under ``torch.utils.checkpoint``)."""
     b, L, _ = h.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     def proj(name, x):
         return _apply_proj(name, x, layer[name], adapters, spec, masks,
-                           dropout_rng, fused=use_fused_moka)
+                           dropout_rng, fused=use_fused_moka, saves=saves)
 
     x = rmsnorm(h, layer["attn_norm"], cfg.rms_eps)
     q = apply_rope(proj("q", x).reshape(b, L, H, hd), cos, sin)
@@ -226,10 +374,15 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
         v = _kv_layer(cache["v"], layer_idx, q.dtype)
 
     if use_flash:
-        attn = flash_mha(q, k, v, attn_mask, q_offset=q_offset)
+        attn = flash_mha(q, k, v, attn_mask, q_offset=q_offset,
+                         residuals=None if saves is None else
+                         saves.flash_residuals())
     else:
         attn = mha(q, k, v, bias)
-    h = h + proj("o", attn.reshape(b, L, H * hd))
+    attn = attn.reshape(b, L, H * hd)
+    if saves is not None:
+        attn = saves.keep("attn_out", attn)
+    h = h + proj("o", attn)
 
     x = rmsnorm(h, layer["mlp_norm"], cfg.rms_eps)
     gate = proj("gate", x)
@@ -264,17 +417,20 @@ def forward(base: dict, cfg: LlamaConfig, *,
     use_flash: attention through ``flash_mha`` (the CUDA kernels on the
       card, forward and backward).
     use_fused_moka: MokA deltas through ``moka_delta_fused``.
-    remat: recompute each layer in the backward from its input
-      (``remat_policy`` None or "full"; while gradients are recorded).
+    remat: recompute each layer in the backward (while gradients are
+      recorded), keeping its input and what ``remat_policy`` keeps: None or
+      "full" nothing else, a name of ``REMAT_POLICIES`` its tags.  Per
+      layer the recompute reruns the frozen products of q, k, v, o, gate
+      and up the policy does not keep (the down product's output is read by
+      no backward of the layer, so the recompute stops before it, as XLA
+      drops it) and, with ``use_flash``, the flash forward unless the
+      policy keeps its residuals (the ``*_lse`` policies).
     dropout_rng: a ``core.rng.DropoutKey``; LoRA dropout on the adapter
       inputs when ``spec.dropout_rate`` > 0.
     Returns (fp32 logits, or the final-normed hidden state when
     ``logits=False``; the new cache or None).
     """
-    if remat_policy not in (None, "full"):
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"remat policy {remat_policy!r}", "module item 4, remat "
-            "policies"))
+    kept = _remat_policy(remat_policy) if remat else frozenset()
     for flag, value, item in (
             ("paged_decode", paged_decode, "decode"),
             ("a8_dots", a8_dots, "frozen-base quantization"),
@@ -322,8 +478,10 @@ def forward(base: dict, cfg: LlamaConfig, *,
                   for name, p in adapters["layers"].items()}
         args = (cfg, spec, use_flash, use_fused_moka, h, layer, ad, masks,
                 bias, attn_mask, cos, sin, cache, i, layer_rngs[i])
-        if recompute:  # keeps h; the layer reruns in the backward
-            h = checkpoint(_decoder_layer, *args, use_reentrant=False)
+        if recompute:  # keeps h and the policy's tags; reruns the rest
+            saves = _RematSaves(kept)
+            h = checkpoint(_decoder_layer, *args, saves, use_reentrant=False)
+            saves.replay = True
         else:
             h = _decoder_layer(*args)
 

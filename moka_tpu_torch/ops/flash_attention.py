@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from moka_tpu_torch.core.device import on_card
+
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -263,12 +265,6 @@ def _launch_bwd(which: str, q, k, v, attn_mask, dout, lse, delta,
     return outs
 
 
-def _device(q: torch.Tensor) -> str:
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no flash attention for device {q.device}")
-    return q.device.type
-
-
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               attn_mask: torch.Tensor, q_offset: int = 0,
               causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
@@ -276,7 +272,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version for CPU tensors.  q (b, L, H, hd), k/v (b, S, K, hd),
     attn_mask (b, S) validity, q_offset = position of query 0 on the key
     axis (an int).  Not differentiable by itself: ``flash_mha`` is."""
-    if _device(q) == "cuda":
+    if on_card(q, "flash attention"):
         return _launch_fwd(q, k, v, attn_mask, q_offset, causal)
     return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
 
@@ -286,7 +282,7 @@ def flash_bwd_fused(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
     """(dq in q's dtype, dk, dv fp32 GQA-summed (b, S, K, hd)) in one
     kernel: every (q, k) score, probability and dp is computed once for
     all three gradients.  Layouts as ``flash_bwd_plain``."""
-    if _device(q) == "cpu":
+    if not on_card(q, "flash attention"):
         return flash_bwd_plain(q, k, v, attn_mask, dout, lse, delta,
                                q_offset, causal)
     dq, dk, dv = _launch_bwd("fused", q, k, v, attn_mask, dout, lse, delta,
@@ -301,7 +297,7 @@ def flash_bwd_dq(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
                  causal: bool = True):
     """dq (b, L, H, hd) in q's dtype, given the global-row lse and delta
     (so it decomposes over key shards)."""
-    if _device(q) == "cpu":
+    if not on_card(q, "flash attention"):
         return flash_bwd_dq_plain(q, k, v, attn_mask, dout, lse, delta,
                                   q_offset, causal)
     (dq,) = _launch_bwd("dq", q, k, v, attn_mask, dout, lse, delta,
@@ -314,7 +310,7 @@ def flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
                   causal: bool = True):
     """(dk, dv) fp32 (b, S, K, hd), GQA-summed, given the global-row lse
     and delta."""
-    if _device(q) == "cpu":
+    if not on_card(q, "flash attention"):
         return flash_bwd_dkv_plain(q, k, v, attn_mask, dout, lse, delta,
                                    q_offset, causal)
     dk, dv = _launch_bwd("dkv", q, k, v, attn_mask, dout, lse, delta,
@@ -336,8 +332,16 @@ class _FlashAttention(torch.autograd.Function):
     fp32 and runs the fused kernel or the dq + dkv pair."""
 
     @staticmethod
-    def forward(ctx, q, k, v, attn_mask, q_offset, causal):
-        out, lse = flash_fwd(q, k, v, attn_mask, q_offset, causal)
+    def forward(ctx, q, k, v, attn_mask, q_offset, causal, residuals):
+        if residuals is not None and "flash_out" in residuals:
+            # a remat recompute: the forward's own residuals, no kernel
+            out = residuals["flash_out"].detach()
+            lse = residuals["flash_lse"].detach()
+        else:
+            out, lse = flash_fwd(q, k, v, attn_mask, q_offset, causal)
+            if residuals is not None:
+                residuals["flash_out"] = out.detach()
+                residuals["flash_lse"] = lse.detach()
         ctx.save_for_backward(q, k, v, attn_mask, out, lse)
         ctx.q_offset, ctx.causal = q_offset, causal
         return out
@@ -355,12 +359,21 @@ class _FlashAttention(torch.autograd.Function):
             dq = flash_bwd_dq(q, k, v, attn_mask, dout, lse, delta, *args)
             dk, dv = flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
                                    *args)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               attn_mask: torch.Tensor, q_offset: int = 0,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, residuals: dict | None = None
+              ) -> torch.Tensor:
     """Drop-in for ``ops.attention.mha`` with the mask given as a (b, S)
-    validity vector: returns (b, L, H, hd), differentiable in q, k, v."""
-    return _FlashAttention.apply(q, k, v, attn_mask, q_offset, causal)
+    validity vector: returns (b, L, H, hd), differentiable in q, k, v.
+
+    residuals: the forward's output and lse under the JAX tag names
+    ``flash_out`` and ``flash_lse`` (``moka_tpu/ops/flash_attention.py``
+    names them for the remat policies): a dict without them is filled; a
+    dict with them is used instead of running the forward, as a remat
+    recompute that kept them does (``models.llama``, the ``*_lse``
+    policies)."""
+    return _FlashAttention.apply(q, k, v, attn_mask, q_offset, causal,
+                                 residuals)

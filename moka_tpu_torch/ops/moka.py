@@ -19,9 +19,10 @@ attention for video and audio, no post-B scaling) and VT (unscaled A,
 attention for the image stream, per-modality post-B scales).
 
 LoRA dropout (``lora_dropout``) follows the JAX rule bit for bit given the
-same 16-bit random values; the key type is ``core.rng.DropoutKey``.  Not
-ported yet (they raise ``NotImplementedError``): the fused-dropout kernel
-(TPU kernels 6-7) and the flash rank attention.
+same 16-bit random values; the key type is ``core.rng.DropoutKey``.  With
+``fused_dropout`` the dropout is fused into the A projection
+(``ops.fused_dropout``, TPU kernels 6-7 as CUDA).  Not ported yet (raises
+``NotImplementedError``): the flash rank attention.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import math
 import torch
 
 from moka_tpu_torch.core.device import resolve_device
+from moka_tpu_torch.ops import fused_dropout
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, {})"
 
@@ -50,8 +52,10 @@ class MokaSpec:
     post_scales: per-modality scalars on B's output rows (VT), or None.
     dropout_rate: LoRA dropout on the A input (training only).
     bf16_dots: round the adapter matmul inputs to bf16 (fp32 accumulate).
-    flash_rank_attn / fused_dropout: switches of the JAX package the port
-      raises on (not ported yet).
+    flash_rank_attn: the rank attention on the flash kernel (not ported
+      yet: raises).
+    fused_dropout: LoRA dropout fused into the A projection
+      (``ops.fused_dropout``).
     dropout_shared_masks: one dropout key per input group of projections
       instead of one per projection (``models.llama._PROJ_GROUP``).
     max_question_tokens: static key window around the question span.
@@ -171,7 +175,8 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
     x: (b, L, d_in); lora_a: (M, d_in, r); lora_b: (r, d_out);
     modality_masks: (M, b, L) 0/1 (disjoint); question_mask: (b, L) 0/1.
     dropout_rng: a key (``core.rng.DropoutKey``); with a rate > 0, LoRA
-      dropout on the A input (training).
+      dropout on the A input (training), fused into the A product with
+      ``spec.fused_dropout``.
     Returns the (b, L, d_out) delta in x's dtype."""
     m, _, r = lora_a.shape
     if m != spec.num_modalities or r != spec.rank:
@@ -179,19 +184,27 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
                          f"match {spec}")
     if spec.flash_rank_attn:
         raise NotImplementedError(_NOT_PORTED.format(
-            "flash rank attention, with the fused-dropout slice"))
-    x_d = x
-    if dropout_rng is not None and spec.dropout_rate > 0.0:
-        if spec.fused_dropout:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "fused dropout, TPU kernels 6-7"))
-        if spec.bf16_dots:  # JAX drops out the bf16-rounded x
-            x_d = x.to(torch.bfloat16)
-        x_d = lora_dropout(x_d, dropout_rng, spec.dropout_rate)
+            "flash rank attention: TPU kernels 1-4 at head_dim r in fp32, "
+            "after frozen-base quantization"))
+    drop = dropout_rng is not None and spec.dropout_rate > 0.0
+    if drop and spec.fused_dropout:
+        # dropout fused into the A product: with bf16_dots x and A reach
+        # it in bf16, as in JAX
+        x_a, a_a = x, lora_a
+        if spec.bf16_dots:
+            x_a, a_a = x.to(torch.bfloat16), lora_a.to(torch.bfloat16)
+        a_all = fused_dropout.dropout_a_proj(x_a, a_a, dropout_rng,
+                                             spec.dropout_rate)
+    else:
+        x_d = x
+        if drop:
+            if spec.bf16_dots:  # JAX drops out the bf16-rounded x
+                x_d = x.to(torch.bfloat16)
+            x_d = lora_dropout(x_d, dropout_rng, spec.dropout_rate)
+        a_all = torch.einsum("bld,mdr->mblr", _dot_operand(x_d, spec),
+                             _dot_operand(lora_a, spec))
     masks = modality_masks.float()
     qmask = question_mask.float()
-    a_all = torch.einsum("bld,mdr->mblr", _dot_operand(x_d, spec),
-                         _dot_operand(lora_a, spec))
     a_all = a_all * masks[..., None] * spec.pre_scale
 
     keys = a_all[0] * qmask[..., None]  # (b, L, r)

@@ -29,9 +29,9 @@ def make_llama_moka_loss(cfg: LlamaConfig, spec: MokaSpec,
     ``question_mask`` (b, L), ``attn_mask`` (b, L), ``positions`` (b, L).
     use_flash: the flash attention kernels (forward and backward);
     fused_loss: the chunked lm_head + CE (``ce_chunk`` positions, or rows
-    with ``ce_rows``); remat: recompute each layer in the backward
-    (``remat_policy`` None or "full"); use_fused_moka: the fused MokA
-    kernel, dropout applied outside it.  ``context_parallel``,
+    with ``ce_rows``); remat: recompute each layer in the backward, keeping
+    what ``remat_policy`` keeps (``llama.REMAT_POLICIES``); use_fused_moka:
+    the fused MokA kernel, dropout applied outside it.  ``context_parallel``,
     ``host_stream``, ``a8_dots``, ``save_q8`` and ``pallas_ce`` are not
     ported yet and raise."""
     for flag, value, item in (
@@ -46,10 +46,6 @@ def make_llama_moka_loss(cfg: LlamaConfig, spec: MokaSpec,
              "quantization")):
         if value:
             raise NotImplementedError(_NOT_PORTED.format(flag, item))
-    if remat_policy not in (None, "full"):
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"remat policy {remat_policy!r}", "module item 4, remat "
-            "policies"))
 
     def loss_fn(trainable, frozen, batch, rng):
         masks = None

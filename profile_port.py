@@ -2,8 +2,9 @@
 """Where the port's time goes on one card: ``torch.profiler`` around
 chip_smoke's serving main path, ``greedy_generate`` of LLaMA-2-7B + MokA
 AVT r=4 (bf16 base, random weights from a seed, B non-zero), and around
-one step of its training path (``make_train_step`` at b 4, L 1024), at
-chip_smoke's shapes.
+one step of each of its training paths (``make_train_step`` at b 4,
+L 1024: full remat, and fused dropout under ``proj_lse``), at chip_smoke's
+shapes.
 
     python3 profile_port.py        # from the root of a checkout, one card
 
@@ -76,6 +77,9 @@ GROUPS = (  # device entries by name, first match wins
     ("flash kernels (port)", ("flash_fwd_kernel", "flash_bwd_")),
     ("fused MokA kernels (port)", ("moka_delta_kernel",
                                    "question_keys_kernel")),
+    ("fused dropout kernels (port)", ("dropout_a_fwd_kernel",
+                                      "dropout_a_bwd_kernel",
+                                      "sum_tiles_kernel")),
     ("bf16 GEMMs (cuBLAS)", ("nvjet",)),
     ("fp32 GEMMs and GEMVs (cuBLAS, CUTLASS SIMT)", ("gemm_f32", "sgemm",
                                                      "gemv", "splitK")),
@@ -182,25 +186,30 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out["train_step"] = train_window()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_step_fused_proj_lse"] = train_window(fused=True)
     print(json.dumps(out), flush=True)
     return 0
 
 
-def train_window() -> dict:
-    """One ``make_train_step`` step of chip_smoke's training path after two
-    warm-up steps: untraced first, then traced."""
+def train_window(fused: bool = False) -> dict:
+    """One ``make_train_step`` step of chip_smoke's training path (phase 6,
+    full remat; with ``fused``, phase 8: fused dropout under ``proj_lse``)
+    after two warm-up steps: untraced first, then traced."""
     import torch
-    from chip_smoke import (build_trainer, train_batch, train_config,
-                            train_loss)
+    from chip_smoke import (build_trainer, fused_train_config, train_batch,
+                            train_config, train_loss)
     from moka_tpu_torch.core.config import TrainConfig
     from moka_tpu_torch.core.rng import DropoutKey
     from moka_tpu_torch.train.optim import make_optimizer
     from moka_tpu_torch.train.step import init_train_state, make_train_step
-    cfg, spec = train_config()
+    cfg, spec = fused_train_config() if fused else train_config()
+    policy = "proj_lse" if fused else None
     frozen, trainable = build_trainer(cfg, spec)
     batch = train_batch(cfg, TRAIN_BATCH, TRAIN_LEN)
     tx = make_optimizer(TrainConfig(), total_steps=1000)
-    step = make_train_step(train_loss(cfg, spec, True), tx)
+    step = make_train_step(train_loss(cfg, spec, True, policy), tx)
     state = init_train_state(trainable, tx, DropoutKey(0))
 
     def one():
@@ -211,8 +220,9 @@ def train_window() -> dict:
     one()
     wall = wall_ms(one)  # a warm-up step, then the untraced one
     traced, ops, host = trace(one)
+    what = "fused dropout, proj_lse" if fused else "full remat"
     return summary(f"training step b {TRAIN_BATCH} L {TRAIN_LEN} "
-                   f"(make_train_step, full remat)", wall, traced, ops,
+                   f"(make_train_step, {what})", wall, traced, ops,
                    host=host)
 
 

@@ -290,13 +290,16 @@ def test_params_from_numpy_keeps_layout_and_bf16():
 def test_unported_forward_options_raise(model):
     _, (tb, ta) = model
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    for kw in (dict(remat=True, remat_policy="attn"),
-               dict(remat_policy="proj_lse"), dict(paged_decode=True),
-               dict(a8_dots=True), dict(save_q8=True),
-               dict(context_parallel=object()), dict(host_stream={})):
+    for kw in (dict(paged_decode=True), dict(a8_dots=True),
+               dict(save_q8=True), dict(context_parallel=object()),
+               dict(host_stream={})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
                            **kw)
+    # the named remat policies are ported; an unknown name raises as in JAX
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
+                       remat=True, remat_policy="nope")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllama.init_kv_cache(CFG, 1, 8, quantized=True, device="cpu")
 

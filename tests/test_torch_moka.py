@@ -151,9 +151,9 @@ def test_init_moka_params_and_unported_paths():
     assert p["a"].shape == (3, 16, 4) and p["b"].shape == (4, 8)
     assert float(p["a"].abs().max()) <= 0.25 and not p["b"].any()
     x, a, bm, mod, q = _inputs(6, 1, 6, 16, 8, 3)
-    with pytest.raises(NotImplementedError, match="kernels 6-7"):
-        tm.moka_delta(*_t(x, a, bm, mod, q), ts.with_fused_dropout(),
-                      dropout_rng=DropoutKey(0))
+    fused = tm.moka_delta(*_t(x, a, bm, mod, q), ts.with_fused_dropout(),
+                          dropout_rng=DropoutKey(0))  # ported: runs
+    assert fused.shape == (1, 6, 8) and torch.isfinite(fused).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.moka_delta(*_t(x, a, bm, mod, q),
                       tm.MokaSpec.avt(dropout_rate=0.0).with_flash_rank_attn())

@@ -156,3 +156,35 @@ def test_moka_kernel_matches_plain_on_card(card):
     got = moka_delta_fused(x, a, bm, mod, qm, spec)
     ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True])
+def test_fused_dropout_kernels_match_plain_on_card(card, forced):
+    """Kernels 6 and 7 against their plain versions on the same words: the
+    same mask exactly, out and dA to fp32 summation order, dx to one bf16
+    ulp; two calls bit-identical."""
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops import fused_dropout as fd
+    g = torch.Generator(device=card).manual_seed(2)
+    n, d = 300, 1000
+    x = torch.randn((n, d), generator=g, device=card).bfloat16()
+    a = torch.randn((d, 12), generator=g, device=card) * 0.03
+    gout = torch.randn((n, 12), generator=g, device=card)
+    key = DropoutKey(4)
+    bits = torch.randint(0, 1 << 32, (n, d), generator=g, device=card,
+                         dtype=torch.int64) if forced else None
+    before = (fd.dropout_a_fwd.launches, fd.dropout_a_bwd.launches)
+    out = fd.dropout_a_fwd(x, a, key, 0.05, bits)
+    dx, da = fd.dropout_a_bwd(x, a, gout, key, 0.05, bits)
+    assert torch.equal(out, fd.dropout_a_fwd(x, a, key, 0.05, bits))
+    assert (fd.dropout_a_fwd.launches, fd.dropout_a_bwd.launches) == \
+        (before[0] + 2, before[1] + 1)
+    ref = fd.dropout_a_fwd_plain(x, a, key, 0.05, bits)
+    rdx, rda = fd.dropout_a_bwd_plain(x, a, gout, key, 0.05, bits)
+    words = bits if forced else key.bits32((n, d), card)
+    assert torch.equal(dx != 0, words < fd.threshold(0.05))
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert (da - rda).abs().max() <= 1e-5 * rda.abs().max()
+    assert ((dx.float() - rdx.float()).abs()
+            <= 2 ** -7 * rdx.float().abs()).all()

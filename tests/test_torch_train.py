@@ -65,6 +65,11 @@ class JaxKey:
         bits = jax.random.bits(self.key, tuple(shape), jnp.uint16)
         return torch.from_numpy(np.asarray(bits).astype(np.int32)).to(device)
 
+    def bits32(self, shape, device):
+        """The uint32 words JAX's fused dropout draws in interpret mode."""
+        bits = jax.random.bits(self.key, tuple(shape), jnp.uint32)
+        return torch.from_numpy(np.asarray(bits).astype(np.int64)).to(device)
+
 
 def _np(tree):
     return jax.tree.map(np.array, tree)
@@ -312,8 +317,7 @@ def test_remat_gives_the_same_gradients(world, use_flash, fused):
 
 def test_loss_unported_options_raise():
     for kw in (dict(context_parallel=object()), dict(host_stream={}),
-               dict(a8_dots=True), dict(save_q8=True), dict(pallas_ce=True),
-               dict(remat_policy="proj_lse")):
+               dict(a8_dots=True), dict(save_q8=True), dict(pallas_ce=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_llama_moka_loss(CFG, SPEC, **kw)
     h = torch.zeros((1, 4, 8))
