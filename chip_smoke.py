@@ -11,9 +11,13 @@ Phases, in order; any failed build, launch or check exits non-zero:
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
      backward less forward for the three flash backward kernels;
-     ``F.dropout(x) @ A`` for the fused dropout pair) and the least time
+     ``F.dropout(x) @ A`` for the fused dropout pair; the head's int8 ->
+     bf16 cast, ``torch.matmul``, the scale and ``F.cross_entropy`` for the
+     fused CE pair, kernel 9 against that forward's backward alone) and
+     the least time
      the card could take (the bound); the fused dropout kernels (6-7) in
-     Philox and forced-words modes, masks held exactly;
+     Philox and forced-words modes, masks held exactly; the fused CE
+     kernels (8-9) on an int8 head at route B's shape and two ragged ones;
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -40,7 +44,15 @@ Phases, in order; any failed build, launch or check exits non-zero:
      dropout backward launches a step), one traced step for the device's
      busy share (``profile_port.trace``), and one step under each of full,
      qkvod_lse, proj_nokv_lse and proj_lse (step time, peak memory);
-  9. one JSON line with every kernel's numbers, then the card's line.
+  9. the shipping quantized recipe (``llama2_7b_int4a8_qh_sq8_plse``:
+     int4 base and int8 head built on the card, a8_dots "full", save_q8,
+     proj_lse, bf16 dots): at 2 layers route B's gradients (flash and the
+     fused CE kernels 8-9) against the plain path and fp32; route B
+     (``pallas_ce``) for 2 + 5 steps (32 flash forward, 32 fused backward,
+     1 fused CE forward and 1 backward launch a step) with a traced step,
+     route A (the chunked CE on the a8 head) for 1 + 3 (flash only), their
+     first losses within the head's rounding;
+ 10. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -101,6 +113,29 @@ PHILOX_INSTR = 98  # integer instructions of one Philox4x32-10 call (four
 LOGIT_RATIO = 1.5  # prefill logits: the kernel path's distance from an fp32
                    # run may exceed the plain bf16 path's by half: both only
                    # round differently (+1e-3 / 1e-2 of the logit std)
+CE_LSE_TOL = 1e-3  # fused CE nll and lse (nats, ~10.4 at V 32011): fp32 sums
+                   # of exact bf16 x int8 products over d in another order
+CE_DX_TOL = (2e-2, 1e-3)  # fused CE dx, both versions fed the plain lse:
+                   # max|err| as a fraction of max|plain| and relative L2.
+                   # Both round p to bf16 at the same point; the fp32 sums
+                   # (logits over d, dx over V by atomics) run in other
+                   # orders, which can move a rounding of p or of dx by one
+                   # bf16 ulp: 1.2e-4 rel L2 at the main shape
+CE_SOFTMAX_TOL = 2e-2  # dx's L2 error over the norm of its softmax term
+                   # (dx less the exact one-hot term, 2.4% of dx's norm at
+                   # the main shape): sound 5.1-5.4e-3, p doubled on a
+                   # quarter of the rows (``wrong_softmax``) 0.49-0.50
+CE_GRAD_NOISE = (4.0, 1e-3)  # route B with kernels 8-9 against the same
+                   # step with the plain CE, per projection over all layers:
+                   # the int8 roundings of the cotangents turn one-ulp
+                   # differences of dx into 0.5-2.7e-2 rel L2, 1.5-2.8x the
+                   # spread of two kernel runs (flash's dq atomics)
+CE_LAST_DOWN_TOL = 3e-3  # the same for the last layer's down adapter, whose
+                   # cotangent reaches it with no int8 rounding: sound
+                   # 1.2-1.5e-3, p doubled on a quarter of the rows 7.1-7.6e-3
+HEAD_ROUTES_TOL = 1e-3  # route A's loss against route B's, relative: they
+                   # differ only in the head product, h rounded to per-token
+                   # int8 codes (1/127 of a row's max) against bf16
 
 
 def log(*a):
@@ -139,6 +174,7 @@ def nbytes(*ts) -> int:
 def _wrappers() -> dict:
     """Every kernel wrapper by kernel name."""
     from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
     from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
     return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
@@ -146,7 +182,8 @@ def _wrappers() -> dict:
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "moka_delta_fwd": moka_delta_fused,
             "dropout_a_fwd": fd.dropout_a_fwd,
-            "dropout_a_bwd": fd.dropout_a_bwd}
+            "dropout_a_bwd": fd.dropout_a_bwd,
+            "fused_ce_fwd": fc.fused_ce_fwd, "fused_ce_bwd": fc.fused_ce_bwd}
 
 
 def _counts() -> dict:
@@ -642,6 +679,185 @@ def dropout_records(n, dim, inter) -> list[dict]:
     return records
 
 
+def ce_case(n, d, v, seed):
+    """Inputs of the fused CE kernels: x (n, d) bf16, an int8 head from
+    ``quantize_int8`` of a (d, v) normal(0.02) matrix, targets with a
+    quarter ignored, and a per-row cotangent (0 on the ignored rows, as the
+    mean gives them)."""
+    import torch
+    from moka_tpu_torch.ops.quant import quantize_int8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device="cuda").bfloat16()
+    head = quantize_int8(torch.randn((d, v), generator=g, device="cuda")
+                         * 0.02)
+    t = torch.randint(0, v, (n,), generator=g, device="cuda")
+    ignored = torch.rand((n,), generator=g, device="cuda") < 0.25
+    t = torch.where(ignored, -100, t)
+    cot = torch.rand((n,), generator=g, device="cuda") / max(
+        1, int((~ignored).sum())) * (~ignored)
+    return x, head["w_i8"], head["scale"].reshape(-1), t, cot
+
+
+def onehot_part(w, scale, t, cot):
+    """The one-hot term of kernel 9's dx, -(g * scale[t]) * w[:, t]^T, in
+    fp32 (zero on ignored rows): subtracted from the plain dx it leaves
+    the softmax term, which a wrong p changes."""
+    import torch
+    valid = t >= 0
+    tt = torch.where(valid, t, 0).long()
+    coef = torch.where(valid, -cot * scale[tt], 0.0)
+    return coef[:, None] * w[:, tt].t().float()
+
+
+@contextlib.contextmanager
+def wrong_softmax():
+    """Within: kernel 9 computes p from an lse that is log 2 too small on
+    every fourth row (p doubled there), a fault the CE checks must catch
+    and that the forward's nll would not show."""
+    import torch
+    from moka_tpu_torch.ops import fused_ce as fc
+    launch = fc._launch_bwd
+
+    def shifted(x, w_q, w_scale, targets, lse, g):
+        rows = torch.arange(lse.numel(), device=lse.device) % 4 == 0
+        return launch(x, w_q, w_scale, targets, lse - math.log(2) * rows, g)
+
+    fc._launch_bwd = shifted
+    try:
+        yield
+    finally:
+        fc._launch_bwd = launch
+
+
+def dx_errors(dx, rdx, soft) -> dict:
+    """Kernel 9's dx against the plain one: max|err| over max|plain|,
+    relative L2, and the L2 error over the norm of the plain softmax term
+    ``soft`` (the one-hot term dominates dx at the main shape)."""
+    d = dx.float() - rdx.float()
+    return {"max_frac": float(d.abs().max() / rdx.float().abs().max()),
+            "rel_l2": float(d.norm() / rdx.float().norm()),
+            "softmax_rel_l2": float(d.norm() / soft.norm()),
+            "max_abs": float(d.abs().max())}
+
+
+def dx_ok(e) -> bool:
+    return (e["max_frac"] <= CE_DX_TOL[0] and e["rel_l2"] <= CE_DX_TOL[1]
+            and e["softmax_rel_l2"] <= CE_SOFTMAX_TOL)
+
+
+def check_ce(name, x, w, scale, t, cot, fault=False) -> tuple[float, float]:
+    """Kernels 8 and 9 against ``fused_ce_fwd_plain`` /
+    ``fused_ce_bwd_plain`` on the same inputs: nll and lse within
+    CE_LSE_TOL; dx, both backward versions fed the plain lse, within
+    CE_DX_TOL and CE_SOFTMAX_TOL and exactly zero on rows whose cotangent
+    is 0.  ``fault``: kernel 9 also runs under ``wrong_softmax``, which
+    the dx check must fail."""
+    import torch
+    from moka_tpu_torch.ops import fused_ce as fc
+    nll, lse = fc.fused_ce_fwd(x, w, scale, t)
+    rnll, rlse = fc.fused_ce_fwd_plain(x, w, scale, t)
+    dx = fc.fused_ce_bwd(x, w, scale, t, rlse, cot)
+    rdx = fc.fused_ce_bwd_plain(x, w, scale, t, rlse, cot)
+    soft = rdx.float() - onehot_part(w, scale, t, cot)
+    e_nll = float((nll - rnll).abs().max())
+    e_lse = float((lse - rlse).abs().max())
+    e = dx_errors(dx, rdx, soft)
+    zeros = bool((dx[cot == 0] == 0).all())
+    ok = (e_nll <= CE_LSE_TOL and e_lse <= CE_LSE_TOL and zeros and dx_ok(e)
+          and bool(torch.isfinite(dx.float()).all()))
+    log(f"  fused CE {name}: x {tuple(x.shape)}, head {tuple(w.shape)}: "
+        f"max|nll err| {e_nll:.3e}, max|lse err| {e_lse:.3e} (tol "
+        f"{CE_LSE_TOL}); dx max|err| {e['max_abs']:.3e} "
+        f"({e['max_frac']:.2e} of max|plain|), rel L2 {e['rel_l2']:.2e}, "
+        f"{e['softmax_rel_l2']:.2e} of the softmax term (softmax term "
+        f"{float(soft.norm() / rdx.float().norm()):.2e} of dx; tol "
+        f"{CE_DX_TOL[0]}, {CE_DX_TOL[1]}, {CE_SOFTMAX_TOL}); zero-cotangent "
+        f"rows zero {zeros}")
+    if not ok:
+        raise AssertionError(f"fused CE kernels disagree with their plain "
+                             f"versions ({name})")
+    if fault:
+        with wrong_softmax():
+            bad = dx_errors(fc.fused_ce_bwd(x, w, scale, t, rlse, cot), rdx,
+                            soft)
+        log(f"  kernel 9 under wrong_softmax (p x 2 on every fourth row): "
+            f"{bad['max_frac']:.2e} of max|plain|, rel L2 "
+            f"{bad['rel_l2']:.2e}, {bad['softmax_rel_l2']:.2e} of the "
+            f"softmax term (must fail)")
+        if dx_ok(bad):
+            raise AssertionError("the dx check passes a wrong softmax")
+    return max(e_nll, e_lse), e["max_abs"]
+
+
+def ce_records(n, d, v) -> list[dict]:
+    """Check kernels 8-9 at the main path's shape (route B: N = 4 x 1023
+    rows, d 4096, V 32011) and two ragged ones (rows and vocab off the
+    tiles), then time each at the main path's shape beside its plain
+    version and the library's int8 -> bf16 cast of the head, bf16
+    ``torch.matmul``, the scale and ``F.cross_entropy(reduction="none")``
+    (kernel 9: that forward's autograd backward alone)."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops import fused_ce as fc
+    err_f = err_b = 0.0
+    for name, shape, seed in (("main path shape", (n, d, v), 0),
+                              ("ragged rows and vocab", (333, 192, 1000), 1),
+                              ("one row block", (50, 64, 203), 2)):
+        ef, eb = check_ce(name, *ce_case(*shape, seed), fault=seed == 0)
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
+    x, w, scale, t, cot = ce_case(n, d, v, 3)
+    nll, lse = fc.fused_ce_fwd(x, w, scale, t)
+    ms = {"fwd": time_ms(lambda: fc.fused_ce_fwd(x, w, scale, t), iters=5),
+          "bwd": time_ms(lambda: fc.fused_ce_bwd(x, w, scale, t, lse, cot),
+                         iters=5)}
+    plain = {"fwd": time_ms(lambda: fc.fused_ce_fwd_plain(x, w, scale, t),
+                            iters=3, warmup=1),
+             "bwd": time_ms(lambda: fc.fused_ce_bwd_plain(x, w, scale, t,
+                                                          lse, cot),
+                            iters=3, warmup=1)}
+    xg = x.clone().requires_grad_(True)
+
+    def lib():
+        logits = torch.matmul(xg, w.to(torch.bfloat16)).float() * scale
+        return F.cross_entropy(logits, t.long(), reduction="none")
+
+    lib_out = lib()
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, xg, cot, retain_graph=True)
+
+    library = {"fwd": time_ms(lib, iters=5), "bwd": time_ms(lib_bwd, iters=5)}
+    del lib_out, xg
+    flops = 2.0 * n * d * v
+    io = nbytes(x, w, scale, t)
+    records = []
+    for which, line, kernel, ops, out_bytes, err in (
+            ("fwd", 41, 8, flops, 2 * n * 4, err_f),
+            ("bwd", 77, 9, 2 * flops, nbytes(x) + 2 * n * 4, err_b)):
+        bms, by = bound_ms(io + out_bytes, ops, BF16_FLOPS)
+        log(f"  fused CE {which} (kernel {kernel}) timing at (N {n}, d {d}, "
+            f"V {v}): kernel {ms[which]:.4f} ms, plain {plain[which]:.4f} "
+            f"ms, library {library[which]:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        records.append({
+            "name": f"fused_ce_{which}", "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/fused_ce.cu",
+            "replaces": f"moka_tpu/ops/fused_ce.py:{line}",
+            "launches": None, "max_abs_err": err,
+            "tolerance": (f"nll, lse {CE_LSE_TOL}" if which == "fwd" else
+                          "dx max|err| <= %g max|plain|, rel L2 <= %g, "
+                          "<= %g of the softmax term's norm"
+                          % (*CE_DX_TOL, CE_SOFTMAX_TOL)),
+            "ms": ms[which], "plain_ms": plain[which], "bound_ms": bms,
+            "bound_by": by, "library_ms": library[which],
+            "library": "torch.matmul(x, bf16(w_i8)) * scale, "
+                       "F.cross_entropy(reduction='none')" + (
+                           "" if which == "fwd" else
+                           ", its autograd backward alone"),
+            "shape": f"N {n} d {d} V {v}, int8 head, 25% ignored targets"})
+    return records
+
+
 # ------------------------------------------------------------------ phase 4
 
 def build_model(cfg, spec, seed=0):
@@ -892,33 +1108,37 @@ def train_batch(cfg, b, L, seed=0) -> dict:
                  question_mask=q).items()}
 
 
-def train_loss(cfg, spec, use_flash, policy=None):
+def train_loss(cfg, spec, use_flash, policy=None, **quant):
     """The fine-tune loss as bench.py::run builds it (remat under
-    ``policy``, full by default; chunked lm_head + CE of 128 positions)."""
+    ``policy``, full by default; chunked lm_head + CE of 128 positions);
+    ``quant``: the quantized recipe's options (``QUANT_RECIPE``)."""
     from moka_tpu_torch.train.objectives import make_llama_moka_loss
     return make_llama_moka_loss(cfg, spec, remat=True, use_flash=use_flash,
                                 fused_loss=True, ce_chunk=128,
-                                remat_policy=policy)
+                                remat_policy=policy, **quant)
 
 
 def loss_and_grads(cfg, spec, frozen, trainable, batch, use_flash, key,
-                   policy=None):
-    """(loss, {projection: its adapter gradients of every layer, flat})."""
+                   policy=None, **quant):
+    """(loss, {projection: its adapter gradients of every layer, flat},
+    {projection: those of the last layer, flat})."""
     import torch
     from moka_tpu_torch.train.optim import tree_leaves
     leaves = tree_leaves(trainable)
     for p in leaves:
         p.requires_grad_(True)
-    loss, _ = train_loss(cfg, spec, use_flash, policy)(trainable, frozen,
-                                                       batch, key)
+    loss, _ = train_loss(cfg, spec, use_flash, policy, **quant)(
+        trainable, frozen, batch, key)
     grads = torch.autograd.grad(loss, leaves)
     for p in leaves:
         p.requires_grad_(False)
-    flat = {}
+    flat, last = {}, {}
     for (name, _), g in zip(sorted((n, ab) for n in PROJS for ab in "ab"),
                             grads):
         flat.setdefault(name, []).append(g.flatten())
-    return float(loss.detach()), {n: torch.cat(v) for n, v in flat.items()}
+        last.setdefault(name, []).append(g[-1].flatten())
+    return (float(loss.detach()), {n: torch.cat(v) for n, v in flat.items()},
+            {n: torch.cat(v) for n, v in last.items()})
 
 
 def first_layers(tree, n):
@@ -952,16 +1172,29 @@ def check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
 
 
 @contextlib.contextmanager
-def plain_dropout():
+def plain_versions():
     """Within: ``moka_delta``'s fused dropout runs its plain versions
-    (``dropout_a_proj_plain``, same Philox words) instead of kernels 6-7."""
+    (``dropout_a_proj_plain``, same Philox words) instead of kernels 6-7,
+    and ``pallas_ce`` its plain CE (``fused_ce_loss_plain``) instead of
+    kernels 8-9."""
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
-    kernel = fd.dropout_a_proj
+    kernels = fd.dropout_a_proj, llama.fused_ce_loss
     fd.dropout_a_proj = fd.dropout_a_proj_plain
+    llama.fused_ce_loss = fc.fused_ce_loss_plain
     try:
         yield
     finally:
-        fd.dropout_a_proj = kernel
+        fd.dropout_a_proj, llama.fused_ce_loss = kernels
+
+
+def float32(tree):
+    """A parameter tree with its floating leaves in fp32 (a quantized
+    base keeps its integer codes)."""
+    if isinstance(tree, dict):
+        return {k: float32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
 
 
 def rel(a, b) -> float:
@@ -969,23 +1202,23 @@ def rel(a, b) -> float:
 
 
 def _check_train_grads(cfg, spec, frozen, trainable, batch, policy=None,
-                       key_seed=11) -> dict:
-    """The kernel path (flash kernels and, with fused dropout, kernels 6-7)
-    against the plain path (eager attention, plain dropout, the same masks)
-    and an fp32 run, under remat ``policy``."""
+                       key_seed=11, **quant) -> dict:
+    """The kernel path (flash kernels and, with fused dropout, kernels 6-7,
+    with ``pallas_ce`` kernels 8-9) against the plain path (eager
+    attention, plain dropout and CE, the same masks) and an fp32 run (the
+    same base values in fp32, quantized codes kept), under remat
+    ``policy``."""
     import torch
     from moka_tpu_torch.core.rng import DropoutKey
     key = DropoutKey(key_seed)
     kern = loss_and_grads(cfg, spec, frozen, trainable, batch, True, key,
-                          policy)
-    frozen32 = {k: ({n: t.float() for n, t in v.items()}
-                    if isinstance(v, dict) else v.float())
-                for k, v in frozen.items()}
-    with plain_dropout():
+                          policy, **quant)
+    frozen32 = float32(frozen)
+    with plain_versions():
         plain = loss_and_grads(cfg, spec, frozen, trainable, batch, False,
-                               key, policy)
+                               key, policy, **quant)
         exact = loss_and_grads(cfg, spec, frozen32, trainable, batch, False,
-                               key, policy)
+                               key, policy, **quant)
     del frozen32
     torch.cuda.empty_cache()
 
@@ -1016,23 +1249,23 @@ def _check_train_grads(cfg, spec, frozen, trainable, batch, policy=None,
 
 
 def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
-                busy=False) -> dict:
+                busy=False, n_warm=2, n_timed=5, **quant) -> dict:
     """A training path: ``make_train_step`` with
     ``make_optimizer(TrainConfig(), total_steps=1000)`` and remat under
-    ``policy``.  Two warm-up steps (the first has learning rate 0; the
-    adapters must have moved after the second), then five timed steps with
-    the launch counts zeroed just before and read just after; with
-    ``busy``, then one step under ``profile_port.trace`` for the device's
-    busy time."""
+    ``policy`` (``quant``: the quantized recipe's options).  ``n_warm``
+    warm-up steps (the first has learning rate 0; the adapters must have
+    moved after the second), then ``n_timed`` timed steps with the launch
+    counts zeroed just before and read just after; with ``busy``, then one
+    step under ``profile_port.trace`` for the device's busy time.  The
+    trainable tree is updated in place: pass a copy to keep it."""
     import torch
     from moka_tpu_torch.core.config import TrainConfig
     from moka_tpu_torch.core.rng import DropoutKey
     from moka_tpu_torch.train.optim import make_optimizer, tree_leaves
     from moka_tpu_torch.train.step import init_train_state, make_train_step
-    n_warm, n_timed = 2, 5
     tx = make_optimizer(TrainConfig(), total_steps=1000)
     state = init_train_state(trainable, tx, DropoutKey(0))
-    step = make_train_step(train_loss(cfg, spec, True, policy), tx)
+    step = make_train_step(train_loss(cfg, spec, True, policy, **quant), tx)
     start = [p.clone() for p in tree_leaves(state.params)]
 
     def moved():
@@ -1046,7 +1279,7 @@ def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
         norms.append(float(m["grad_norm"]))
         if i == 0 and moved():
             raise AssertionError("step 1 moved the adapters at LR 0")
-    if not moved():
+    if not moved() and n_warm > 1:
         raise AssertionError("the adapters did not change after step 2")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1176,6 +1409,146 @@ def check_fused_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
     return out
 
 
+QUANT_RECIPE = dict(a8_dots="full", save_q8=True)  # with remat "proj_lse"
+
+
+def quant_train_config():
+    """The shipping text recipe ``llama2_7b_int4a8_qh_sq8_plse``
+    (``bench.py:621-629``, run by ``bench.py:717-728``): phase 6's model
+    and spec with bf16 dots (LoRA dropout unfused); the loss adds
+    ``QUANT_RECIPE`` under ``proj_lse``."""
+    cfg, spec = train_config()
+    return cfg, spec.with_bf16_dots()
+
+
+def build_quant_trainer(cfg, spec, seed=3):
+    """The int4 base and int8 lm_head built on the card by
+    ``init_llama_params_quantized`` (one projection family at a time),
+    fp32 adapters with B seeded non-zero."""
+    import torch
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.quant import init_llama_params_quantized
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frozen = init_llama_params_quantized(g, cfg, bits=4, head_bits=8,
+                                         device="cuda")
+    adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+    for p in adapters["layers"].values():
+        p["b"].normal_(0.0, 0.02, generator=g)
+    return frozen, {"adapters": adapters}
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def check_quant_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
+    """At SHALLOW layers, route B (flash and kernels 8-9 on the quantized
+    recipe): first against the plain path (eager attention, the plain CE,
+    the same quantized base and a8 products) and an fp32 run under the
+    rule of phase 6 (``_check_train_grads``); then against the same step
+    with only kernels 8-9 swapped for the plain CE, flash on both sides:
+    the loss within CE_LSE_TOL; each projection's gradients within
+    CE_GRAD_NOISE of the spread of two kernel runs (flash's dq atomics,
+    amplified by the int8 roundings of the cotangents); and the last
+    layer's down adapter, whose cotangent is the CE's dx through the final
+    norm with no int8 rounding between, within CE_LAST_DOWN_TOL, which
+    kernel 9 under ``wrong_softmax`` must exceed."""
+    import dataclasses
+    from moka_tpu_torch.core.rng import DropoutKey
+    n = SHALLOW
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    frozen = first_layers(frozen, n)
+    trainable = {"adapters": first_layers(trainable["adapters"], n)}
+    log(f"  {n} layers, route B (pallas_ce), proj_lse, a8_dots full, "
+        f"save_q8:")
+    out = _check_train_grads(cfg, spec, frozen, trainable, batch,
+                             policy="proj_lse", key_seed=13, pallas_ce=True,
+                             **QUANT_RECIPE)
+
+    def run():
+        return loss_and_grads(cfg, spec, frozen, trainable, batch, True,
+                              DropoutKey(13), "proj_lse", pallas_ce=True,
+                              **QUANT_RECIPE)
+
+    kern, again = run(), run()
+    with plain_versions():
+        plain = run()
+    with wrong_softmax():
+        wrong = run()
+    ratio, floor = CE_GRAD_NOISE
+    ok = abs(kern[0] - plain[0]) <= CE_LSE_TOL
+    iso = out["ce_kernels_vs_plain_ce"] = {}
+    for p in PROJS:
+        d, noise = rel(kern[1][p], plain[1][p]), rel(again[1][p], kern[1][p])
+        good = d <= ratio * noise + floor
+        ok &= good
+        iso[p] = {"rel_l2": d, "kernels_vs_kernels": noise,
+                  "wrong_softmax": rel(wrong[1][p], plain[1][p])}
+        log(f"  grad {p}: CE kernels vs plain CE rel L2 {d:.3e}; kernels vs "
+            f"kernels {noise:.3e}; wrong_softmax vs plain CE "
+            f"{iso[p]['wrong_softmax']:.3e}{'' if good else '  <-- FAIL'}")
+    last = {k: rel(r[2]["down"], base[2]["down"]) for k, r, base in (
+        ("rel_l2", kern, plain), ("kernels_vs_kernels", again, kern),
+        ("wrong_softmax", wrong, plain))}
+    iso["last_down"] = last
+    ok &= last["rel_l2"] <= CE_LAST_DOWN_TOL
+    log(f"  last layer's down adapter: CE kernels vs plain CE rel L2 "
+        f"{last['rel_l2']:.3e}, kernels vs kernels "
+        f"{last['kernels_vs_kernels']:.3e}, wrong_softmax vs plain CE "
+        f"{last['wrong_softmax']:.3e} (tol {CE_LAST_DOWN_TOL}; the last "
+        f"must fail)")
+    log(f"  loss: CE kernels {kern[0]:.6f}, plain CE {plain[0]:.6f} (tol "
+        f"{CE_LSE_TOL}); gradients tol {ratio} x kernels vs kernels + "
+        f"{floor}")
+    if not ok:
+        raise AssertionError("route B: kernels 8-9 move the step's loss or "
+                             "gradients beyond their tolerance")
+    if last["wrong_softmax"] <= CE_LAST_DOWN_TOL:
+        raise AssertionError("route B's gradient check passes a wrong "
+                             "softmax in kernel 9")
+    return out
+
+
+def quant_steps(cfg, spec, frozen, trainable, batch, fused_peak) -> dict:
+    """Route B (``pallas_ce``: kernels 8-9) for 2 + 5 steps with a traced
+    step, then route A (the chunked CE on the a8 head) for 1 + 3, each
+    from the same adapters and key: launches a step asserted, losses must
+    fall, and the two routes' first losses (same forward, other head
+    product) agree within HEAD_ROUTES_TOL."""
+    out = {}
+    for route, kw, steps in (("B", dict(pallas_ce=True), (2, 5)),
+                             ("A", {}, (1, 3))):
+        log(f"  route {route}:")
+        run = train_steps(cfg, spec, frozen, clone_tree(trainable), batch,
+                          policy="proj_lse", busy=route == "B",
+                          n_warm=steps[0], n_timed=steps[1], **kw,
+                          **QUANT_RECIPE)
+        ce = 1 if route == "B" else 0
+        want = _launches(flash_fwd=cfg.n_layers,
+                         flash_bwd_fused=cfg.n_layers, fused_ce_fwd=ce,
+                         fused_ce_bwd=ce)
+        if run["launches_per_step"] != want:
+            raise AssertionError(f"quantized route {route} launches "
+                                 f"{run['launches_per_step']}, want {want}")
+        if not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"route {route}: the loss did not fall: "
+                                 f"{run['losses']}")
+        out[route] = run
+    a, b = out["A"]["losses"][0], out["B"]["losses"][0]
+    gap = abs(a - b) / abs(b)
+    log(f"  first-step loss: route A {a:.6f}, route B {b:.6f}, relative "
+        f"gap {gap:.2e} (tol {HEAD_ROUTES_TOL}); route B peak "
+        f"{out['B']['peak_memory_bytes'] / 2**30:.2f} GiB against the bf16 "
+        f"base's proj_lse step (phase 8) {fused_peak / 2**30:.2f} GiB")
+    if not gap <= HEAD_ROUTES_TOL:
+        raise AssertionError("routes A and B disagree beyond the head's "
+                             "rounding")
+    out["first_loss_gap"] = gap
+    return out
+
+
 def long_context_step(frozen, trainable) -> dict:
     """One step at b 1, L 4096 with dynamic-NTK RoPE, full depth: the
     backward runs the dq + dkv pair (the padded length exceeds 1024)."""
@@ -1254,7 +1627,8 @@ def main() -> int:
     records = [flash_record(batch, prompt_len, prompt_len + new_tokens),
                moka_record(batch, prompt_len, cfg.dim, cfg.intermediate),
                *flash_bwd_records(),
-               *dropout_records(4 * 1024, cfg.dim, cfg.intermediate)]
+               *dropout_records(4 * 1024, cfg.dim, cfg.intermediate),
+               *ce_records(4 * 1023, cfg.dim, 32011)]
     torch.cuda.empty_cache()
 
     log(f"[4] LLaMA-2-7B + MokA AVT r4 at full width, {cfg.n_layers} layers")
@@ -1306,19 +1680,43 @@ def main() -> int:
         raise AssertionError(f"the loss did not move: {fused['losses']}")
     log("  policy ladder (one step each, fused dropout):")
     ladder = policy_ladder(fcfg, fspec, frozen, trainable, batch)
+    del frozen, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qcfg, qspec = quant_train_config()
+    log(f"[9] quantized training step (llama2_7b_int4a8_qh_sq8_plse): int4 "
+        f"base, int8 head, a8_dots full, save_q8, proj_lse, bf16 dots, "
+        f"{qcfg.n_layers} layers, b 4 L 1024")
+    from moka_tpu_torch.ops.quant import quantized_bytes
+    t0 = time.perf_counter()
+    qfrozen, qtrain = build_quant_trainer(qcfg, qspec)
+    torch.cuda.synchronize()
+    log(f"  built on the card in {time.perf_counter() - t0:.1f} s: frozen "
+        f"tree {quantized_bytes(qfrozen) / 2**30:.2f} GiB")
+    quant_check = check_quant_train_grads(qcfg, qspec, qfrozen, qtrain,
+                                          batch)
+    quant = quant_steps(qcfg, qspec, qfrozen, qtrain, batch,
+                        fused["peak_memory_bytes"])
 
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "training step": train["launches_per_step"],
              "long-context training step": long_step["launches"],
              "fused-dropout training step (proj_lse)":
-                 fused["launches_per_step"]}
+                 fused["launches_per_step"],
+             "quantized step, route B (pallas_ce)":
+                 quant["B"]["launches_per_step"],
+             "quantized step, route A (a8 head)":
+                 quant["A"]["launches_per_step"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
            "flash_bwd_dq": "long-context training step",
            "flash_bwd_dkv": "long-context training step",
            "dropout_a_fwd": "fused-dropout training step (proj_lse)",
-           "dropout_a_bwd": "fused-dropout training step (proj_lse)"}
+           "dropout_a_bwd": "fused-dropout training step (proj_lse)",
+           "fused_ce_fwd": "quantized step, route B (pallas_ce)",
+           "fused_ce_bwd": "quantized step, route B (pallas_ce)"}
     for rec in records:
         rec["launches"] = int(paths[own[rec["name"]]][rec["name"]])
         rec["launches_path"] = own[rec["name"]]
@@ -1327,7 +1725,8 @@ def main() -> int:
     log(json.dumps({"main_path": timings, "serving": served,
                     "train_check": train_check, "train": train,
                     "long_context": long_step, "fused_check": fused_check,
-                    "fused_train": fused, "policy_ladder": ladder}))
+                    "fused_train": fused, "policy_ladder": ladder,
+                    "quant_check": quant_check, "quant_train": quant}))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

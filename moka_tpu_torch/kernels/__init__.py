@@ -27,6 +27,7 @@ SOURCES = {
     "flash_bwd": "flash_bwd.cu",
     "moka_delta_fwd": "moka_delta_fwd.cu",
     "fused_dropout": "fused_dropout.cu",
+    "fused_ce": "fused_ce.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -6,19 +6,23 @@ Parameters keep the JAX layout: layer-stacked dicts (a leading
 converts with ``convert.params_from_numpy`` and no renaming.  The layer
 ``scan``/``fori_loop`` becomes a Python loop that indexes the stacked
 tensors.  Every one of the seven projections goes through ``_apply_proj``
-(frozen matmul + MokA delta, with LoRA dropout in training).
+(frozen matmul + MokA delta, with LoRA dropout in training).  A frozen
+projection may be a quantized ``{"w_i8"|"w_i4", "scale"}`` dict
+(``ops/quant.py``): weight-only, or with ``a8_dots`` the W4A8/W8A8 product;
+the lm_head likewise, and ``chunked_cross_entropy(pallas_ce=True)`` runs
+an int8 head through the fused lm_head + CE kernels (``ops/fused_ce.py``).
 
 Training: ``remat`` wraps each layer in ``torch.utils.checkpoint``
 (non-reentrant), which keeps the layer input and, under a named
 ``remat_policy``, the tensors JAX's policy keeps by tag name
 (``_RematSaves``); the dropout key is split per layer and folded per
 projection as in JAX, and ``core.rng.DropoutKey`` draws its bits from the
-key alone, so the recompute regenerates the same masks.
+key alone, so the recompute regenerates the same masks.  ``save_q8``
+rounds the named projection outputs to per-token int8 (or fp8) codes in
+the forward, and the checkpoint keeps the codes.
 
-Not ported yet (each raises ``NotImplementedError``): quantized bases and
-int8 KV caches, ``a8_dots``/``save_q8``, the fused CE kernel
-(``pallas_ce``), ``host_stream``, ``context_parallel`` and ``paged_decode``
-(ROADMAP.md).
+Not ported yet (each raises ``NotImplementedError``): int8 KV caches,
+``host_stream``, ``context_parallel`` and ``paged_decode`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,9 +38,13 @@ from moka_tpu_torch.core.config import LlamaConfig
 from moka_tpu_torch.core.device import resolve_device
 from moka_tpu_torch.ops.attention import causal_bias, mha
 from moka_tpu_torch.ops.flash_attention import flash_mha
+from moka_tpu_torch.ops.fused_ce import fused_ce_loss
 from moka_tpu_torch.ops.moka import (MokaSpec, decode_scale, lora_delta,
                                      lora_dropout, moka_delta)
 from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
+from moka_tpu_torch.ops.quant import (codes_value, dequantize,
+                                      fp8_roundtrip, is_quantized, qmatmul,
+                                      qmatmul_a8, qmatmul_dx, q8_roundtrip)
 from moka_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 PROJ_DIMS = {  # name -> (d_in_attr, d_out_attr)
@@ -125,19 +133,50 @@ class MaskBundle:
 
 
 class _FrozenMatmul(torch.autograd.Function):
-    """``x @ w`` for a frozen ``w``, kept on ``ctx`` rather than saved:
-    the product then leaves nothing for a checkpoint recompute to
-    reproduce, so a recompute may skip it (a kept product, or the down
-    projection, whose output no backward of its layer reads)."""
+    """``x @ w`` for a frozen ``w`` (a tensor or a quantized dict, weight
+    only), kept on ``ctx`` rather than saved: the product then leaves
+    nothing for a checkpoint recompute to reproduce, so a recompute may
+    skip it (a kept product, or the down projection, whose output no
+    backward of its layer reads), and a quantized weight is never held
+    dequantized."""
 
     @staticmethod
     def forward(ctx, x, w):
-        ctx.w = w
-        return torch.matmul(x, w)
+        ctx.w, ctx.dtype = w, x.dtype
+        return qmatmul(x, w)
 
     @staticmethod
     def backward(ctx, g):
+        if is_quantized(ctx.w):
+            return qmatmul_dx(g, ctx.w, ctx.dtype), None
         return torch.matmul(g, ctx.w.t()), None
+
+
+def _product(x: torch.Tensor, w, a8: bool | str = False) -> torch.Tensor:
+    """The frozen product: plain, weight-only quantized, or with ``a8`` on
+    a quantized weight and a 3-D x (as JAX) the W4A8/W8A8 product ("full":
+    int8 dX products too).  Only the plain product saves its weight."""
+    if not is_quantized(w):
+        return torch.matmul(x, w)
+    if a8 and x.dim() == 3:
+        return qmatmul_a8(x, w, bwd_a8=(a8 == "full"))
+    return _FrozenMatmul.apply(x, w)
+
+
+class _Kept(torch.autograd.Function):
+    """In a checkpoint recompute, the stand-in for a rounded projection
+    output whose codes the forward kept: the kept value, attached to x and
+    the delta as the output it replaces was, so that what follows saves
+    the same tensors.  The recompute's graph only collects those tensors
+    and is never differentiated."""
+
+    @staticmethod
+    def forward(ctx, value, x, delta):
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("a checkpoint recompute is never differentiated")
 
 
 # The JAX remat policies (``moka_tpu/models/llama.py::_remat_policy``) as the
@@ -177,8 +216,8 @@ def _remat_policy(name: str | None) -> frozenset:
     return frozenset(REMAT_POLICIES[name])
 
 
-# The projections each named policy keeps: ``save_q8=True`` would quantize
-# exactly these (``save_q8`` itself is not ported yet).
+# The projections each named policy keeps: ``save_q8=True`` quantizes
+# exactly these.
 _POLICY_SAVED_PROJS = {
     "qkv": ("q", "k", "v"),
     "qkvod": ("q", "k", "v", "o", "down"),
@@ -218,31 +257,44 @@ class _RematSaves:
     of computing them: a kept projection skips its frozen product, kept
     flash residuals skip the flash forward, a kept attention output replaces
     the recomputed one.  Skipping is safe because neither skipped producer
-    saves anything for the checkpoint to match (``_FrozenMatmul`` keeps
-    its weight on ctx; the flash function still saves the same tensors,
-    the kept ones).  JAX's tag on a projection marks its output with the
-    delta added; the port keeps the frozen product itself, the same bytes,
-    and the delta reruns in both (its backward needs its inner values).
-    Like JAX, which keeps only the tagged values a backward reads, it
-    never keeps ``proj_down``: the recompute stops before the down product
-    (``_apply_proj``), so that tensor would only hold memory."""
+    saves anything for the checkpoint to match (``_FrozenMatmul`` and the
+    a8 product keep their weight on ctx; the flash function still saves
+    the same tensors, the kept ones).  JAX's tag on a projection marks its
+    output with the delta added; the port keeps the frozen product itself,
+    the same bytes, and the delta reruns in both (its backward needs its
+    inner values).  A projection rounded by ``save_q8`` keeps its codes
+    instead (int8 codes and fp32 per-token scales, or fp8 values: JAX tags
+    those), and its recompute returns their value after rerunning the
+    delta.  Like JAX, which keeps only the tagged values a backward reads,
+    it never keeps ``proj_down``: the recompute stops before the down
+    product (``_apply_proj``), so that tensor would only hold memory."""
 
     def __init__(self, names: frozenset):
         self.names = names - {"proj_down"}
         self.kept: dict[str, torch.Tensor] = {}
         self.replay = False
 
-    def product(self, name: str, x: torch.Tensor,
-                w: torch.Tensor) -> torch.Tensor:
-        if w.requires_grad:  # a trained weight: saves x for dW, reruns
+    def product(self, name: str, x: torch.Tensor, w, a8: bool | str = False,
+                keep: bool = True) -> torch.Tensor:
+        """The frozen product, kept (unless ``keep`` is False: its rounded
+        output's codes are kept instead) or, in the recompute, read."""
+        if torch.is_tensor(w) and w.requires_grad:  # trained: saves x, reruns
             return torch.matmul(x, w)
         tag = f"proj_{name}"
-        if self.replay and tag in self.kept:
+        if self.replay and keep and tag in self.kept:
             return self.kept[tag].detach()
-        y = _FrozenMatmul.apply(x, w)
-        if tag in self.names:
+        y = _FrozenMatmul.apply(x, w) if torch.is_tensor(w) else \
+            _product(x, w, a8)
+        if keep and tag in self.names:
             self.kept[tag] = y.detach()
         return y
+
+    def keeper(self, tag: str):
+        """Where a rounded projection's codes go: a function that keeps
+        them under ``tag``, or None when the policy keeps nothing there."""
+        if tag not in self.names or self.replay:
+            return None
+        return lambda codes: self.kept.__setitem__(tag, codes)
 
     def flash_residuals(self) -> dict | None:
         """The dict ``flash_mha`` fills in the forward and reads in the
@@ -261,25 +313,36 @@ class _RematSaves:
 def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
                 spec: MokaSpec | None, masks: MaskBundle | None,
                 dropout_rng=None, fused: bool = False,
+                a8: bool | str = False, save_q8: tuple = ("int8", ()),
                 saves: _RematSaves | None = None) -> torch.Tensor:
-    """Frozen projection ``x @ base_w`` plus the adapter delta: the text
-    adapter alone when masks are None (decode steps), else the MokA delta
-    (the fused kernel when ``fused``).  With a layer's dropout key and a
-    rate > 0, LoRA dropout on the adapter input under the key folded with
-    this projection's index (or its group's, with shared masks).  The delta
+    """Frozen projection ``x @ base_w`` (``_product``; ``a8``: the W4A8
+    product on a quantized base) plus the adapter delta: the text adapter
+    alone when masks are None (decode steps), else the MokA delta (the
+    fused kernel when ``fused``).  With a layer's dropout key and a rate >
+    0, LoRA dropout on the adapter input under the key folded with this
+    projection's index (or its group's, with shared masks).  ``save_q8``
+    (mode, names) rounds a named projection's output (as JAX, not on the
+    decode path) through ``q8_roundtrip`` or ``fp8_roundtrip``.  The delta
     runs before the frozen product, so that a checkpoint recompute, which
     stops after the last tensor the backward needs, stops before the down
     projection's product (``saves``: the layer's ``_RematSaves``)."""
-    if isinstance(base_w, dict):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "a quantized base", "frozen-base quantization"))
     delta = None
     if adapters is not None and name in adapters:
         delta = _adapter_delta(name, x, adapters[name], spec, masks,
                                dropout_rng, fused)
-    y = torch.matmul(x, base_w) if saves is None else \
-        saves.product(name, x, base_w)
-    return y if delta is None else y + delta
+    mode, names = save_q8
+    if name not in names or (delta is not None and masks is None):
+        y = _product(x, base_w, a8) if saves is None else \
+            saves.product(name, x, base_w, a8)
+        return y if delta is None else y + delta
+    tag = f"proj_{name}"
+    if saves is not None and saves.replay and tag in saves.kept:
+        return _Kept.apply(codes_value(saves.kept[tag], x.dtype), x, delta)
+    y = _product(x, base_w, a8) if saves is None else \
+        saves.product(name, x, base_w, a8, keep=False)
+    out = y if delta is None else y + delta
+    roundtrip = fp8_roundtrip if mode == "fp8" else q8_roundtrip
+    return roundtrip(out, None if saves is None else saves.keeper(tag))
 
 
 def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused):
@@ -344,7 +407,8 @@ def kv_cache_shape(cache: dict) -> tuple:
 
 
 def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
-                   use_fused_moka: bool, h: torch.Tensor, layer: dict,
+                   use_fused_moka: bool, a8_dots: bool | str, save_q8: tuple,
+                   h: torch.Tensor, layer: dict,
                    adapters: dict | None, masks: MaskBundle | None,
                    bias: torch.Tensor | None, attn_mask: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, cache: dict | None,
@@ -358,7 +422,8 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
 
     def proj(name, x):
         return _apply_proj(name, x, layer[name], adapters, spec, masks,
-                           dropout_rng, fused=use_fused_moka, saves=saves)
+                           dropout_rng, fused=use_fused_moka, a8=a8_dots,
+                           save_q8=save_q8, saves=saves)
 
     x = rmsnorm(h, layer["attn_norm"], cfg.rms_eps)
     q = apply_rope(proj("q", x).reshape(b, L, H, hd), cos, sin)
@@ -427,14 +492,18 @@ def forward(base: dict, cfg: LlamaConfig, *,
       policy keeps its residuals (the ``*_lse`` policies).
     dropout_rng: a ``core.rng.DropoutKey``; LoRA dropout on the adapter
       inputs when ``spec.dropout_rate`` > 0.
+    a8_dots: on a quantized base, the projections' W4A8/W8A8 product
+      (``quant.qmatmul_a8``; "full" also quantizes the dX cotangent).
+    save_q8: round the projection outputs the remat policy keeps (True),
+      or those named (a tuple), to per-token int8 codes (or fp8 with
+      "fp8" / a leading "fp8"), straight-through; the checkpoint keeps the
+      codes (``_resolve_save_q8``).
     Returns (fp32 logits, or the final-normed hidden state when
     ``logits=False``; the new cache or None).
     """
     kept = _remat_policy(remat_policy) if remat else frozenset()
     for flag, value, item in (
             ("paged_decode", paged_decode, "decode"),
-            ("a8_dots", a8_dots, "frozen-base quantization"),
-            ("save_q8", save_q8, "frozen-base quantization"),
             ("context_parallel", context_parallel is not None, "parallelism"),
             ("host_stream", host_stream is not None, "parallelism")):
         if value:
@@ -470,14 +539,18 @@ def forward(base: dict, cfg: LlamaConfig, *,
     layer_rngs = dropout_rng.split(cfg.n_layers) \
         if dropout_rng is not None else [None] * cfg.n_layers
     recompute = remat and torch.is_grad_enabled()
+    q8 = _resolve_save_q8(save_q8, remat_policy)
     for i in range(cfg.n_layers):
-        layer = {name: t[i] for name, t in base["layers"].items()}
+        layer = {name: ({k: v[i] for k, v in t.items()}
+                        if isinstance(t, dict) else t[i])
+                 for name, t in base["layers"].items()}
         ad = None
         if adapters is not None:
             ad = {name: {"a": p["a"][i], "b": p["b"][i]}
                   for name, p in adapters["layers"].items()}
-        args = (cfg, spec, use_flash, use_fused_moka, h, layer, ad, masks,
-                bias, attn_mask, cos, sin, cache, i, layer_rngs[i])
+        args = (cfg, spec, use_flash, use_fused_moka, a8_dots, q8, h, layer,
+                ad, masks, bias, attn_mask, cos, sin, cache, i,
+                layer_rngs[i])
         if recompute:  # keeps h and the policy's tags; reruns the rest
             saves = _RematSaves(kept)
             h = checkpoint(_decoder_layer, *args, saves, use_reentrant=False)
@@ -496,10 +569,15 @@ def forward(base: dict, cfg: LlamaConfig, *,
 def head_logits(h: torch.Tensor, lm_head, a8: bool | str = False
                 ) -> torch.Tensor:
     """fp32 logits = h @ lm_head (products of the stored values, fp32
-    accumulation and output)."""
-    if isinstance(lm_head, dict) or a8:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "a quantized lm_head", "frozen-base quantization"))
+    accumulation and output).  A quantized head dequantizes to h's dtype
+    first, or with ``a8`` runs the W8A8/W4A8 product straight to fp32
+    (``qmatmul_a8``; "full" also quantizes the cotangent); ``a8`` leaves a
+    plain head as it is, as in JAX."""
+    if is_quantized(lm_head):
+        if a8:
+            return qmatmul_a8(h, lm_head, bwd_a8=(a8 == "full"),
+                              out_dtype=torch.float32)
+        lm_head = dequantize(lm_head, dtype=h.dtype)
     return torch.matmul(h.float(), lm_head.float())
 
 
@@ -524,8 +602,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_nll(h: torch.Tensor, lm_head, targets: torch.Tensor,
-               ignore_index: int) -> torch.Tensor:
-    return _masked_nll_sum(head_logits(h, lm_head), targets, ignore_index)
+               ignore_index: int, a8: bool | str) -> torch.Tensor:
+    return _masked_nll_sum(head_logits(h, lm_head, a8), targets,
+                           ignore_index)
 
 
 def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
@@ -542,16 +621,16 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
     the flattened (b*L, d) hidden state at a time, the shift done in the
     labels (each row's last target is ignored).  The last chunk may be
     shorter; the JAX package pads it with ignored targets, which add 0.
-    ``pallas_ce`` (the fused CE kernel on an int8 lm_head) and ``a8`` are
-    not ported yet."""
-    if pallas_ce:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "pallas_ce (the fused lm_head + CE kernel, TPU kernels 8-9)",
-            "frozen-base quantization"))
-    if a8 or isinstance(lm_head, dict):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "a quantized lm_head", "frozen-base quantization"))
+    A quantized head and ``a8`` go to ``head_logits``.  ``pallas_ce``
+    (an int8 head only, either layout) runs every row at once through
+    ``fused_ce_loss``: kernels 8-9 on the card, no logits in memory."""
     b, L, d = h.shape
+    if pallas_ce:
+        if not (is_quantized(lm_head) and "w_i8" in lm_head):
+            raise ValueError("pallas_ce requires an int8-quantized lm_head")
+        return fused_ce_loss(h[:, :-1].reshape(b * (L - 1), d), lm_head,
+                             labels[:, 1:].reshape(b * (L - 1)),
+                             ignore_index=ignore_index)
     if rows_layout:
         ignored = torch.full((b, 1), ignore_index, dtype=labels.dtype,
                              device=labels.device)
@@ -567,10 +646,10 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
     loss_sum = h.new_zeros((), dtype=torch.float32)
     for hc, tc in pieces:
         if recompute:
-            part = checkpoint(_chunk_nll, hc, lm_head, tc, ignore_index,
+            part = checkpoint(_chunk_nll, hc, lm_head, tc, ignore_index, a8,
                               use_reentrant=False)
         else:
-            part = _chunk_nll(hc, lm_head, tc, ignore_index)
+            part = _chunk_nll(hc, lm_head, tc, ignore_index, a8)
         loss_sum = loss_sum + part
     count = torch.clamp((targets != ignore_index).sum(), min=1)
     return loss_sum / count

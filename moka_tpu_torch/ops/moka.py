@@ -177,7 +177,8 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
     dropout_rng: a key (``core.rng.DropoutKey``); with a rate > 0, LoRA
       dropout on the A input (training), fused into the A product with
       ``spec.fused_dropout``.
-    Returns the (b, L, d_out) delta in x's dtype."""
+    Returns the (b, L, d_out) delta in x's dtype (bf16 with
+    ``spec.bf16_dots``, as JAX)."""
     m, _, r = lora_a.shape
     if m != spec.num_modalities or r != spec.rank:
         raise ValueError(f"adapter shape {tuple(lora_a.shape)} does not "
@@ -223,7 +224,8 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
         token_scale = sum(masks[i] * ps
                           for i, ps in enumerate(spec.post_scales))
         delta = delta * token_scale[..., None]
-    return delta.to(x.dtype)
+    # bf16 dots: JAX casts x itself to bf16, so its delta comes out bf16
+    return delta.to(torch.bfloat16 if spec.bf16_dots else x.dtype)
 
 
 def lora_dropout(x: torch.Tensor, rng, rate: float) -> torch.Tensor:

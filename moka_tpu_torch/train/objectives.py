@@ -31,19 +31,17 @@ def make_llama_moka_loss(cfg: LlamaConfig, spec: MokaSpec,
     fused_loss: the chunked lm_head + CE (``ce_chunk`` positions, or rows
     with ``ce_rows``); remat: recompute each layer in the backward, keeping
     what ``remat_policy`` keeps (``llama.REMAT_POLICIES``); use_fused_moka:
-    the fused MokA kernel, dropout applied outside it.  ``context_parallel``,
-    ``host_stream``, ``a8_dots``, ``save_q8`` and ``pallas_ce`` are not
-    ported yet and raise."""
+    the fused MokA kernel, dropout applied outside it.  On a quantized
+    base: ``a8_dots`` the W4A8/W8A8 products (base and head), ``save_q8``
+    the int8/fp8 save set, ``pallas_ce`` the fused lm_head + CE kernels on
+    an int8 head (``llama.forward``, ``llama.chunked_cross_entropy``).
+    ``context_parallel`` and ``host_stream`` are not ported yet and
+    raise."""
     for flag, value, item in (
             ("context_parallel", context_parallel is not None,
              "module item 10, parallelism"),
             ("host_stream", host_stream is not None,
-             "module item 10, parallelism"),
-            ("a8_dots", a8_dots, "module item 5, frozen-base quantization"),
-            ("save_q8", save_q8, "module item 5, frozen-base quantization"),
-            ("pallas_ce", pallas_ce,
-             "module item 5 with TPU kernels 8-9, frozen-base "
-             "quantization")):
+             "module item 10, parallelism")):
         if value:
             raise NotImplementedError(_NOT_PORTED.format(flag, item))
 
@@ -61,11 +59,13 @@ def make_llama_moka_loss(cfg: LlamaConfig, spec: MokaSpec,
             remat_policy=remat_policy,
             dropout_rng=rng if spec.dropout_rate > 0 else None,
             logits=not fused_loss, use_flash=use_flash,
-            use_fused_moka=use_fused_moka)
+            use_fused_moka=use_fused_moka, a8_dots=a8_dots,
+            save_q8=save_q8)
         if fused_loss:
             loss = llama.chunked_cross_entropy(out, frozen["lm_head"],
                                                batch["labels"],
-                                               chunk=ce_chunk,
+                                               chunk=ce_chunk, a8=a8_dots,
+                                               pallas_ce=pallas_ce,
                                                rows_layout=ce_rows)
         else:
             loss = llama.cross_entropy_loss(out, batch["labels"])

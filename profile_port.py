@@ -3,8 +3,9 @@
 chip_smoke's serving main path, ``greedy_generate`` of LLaMA-2-7B + MokA
 AVT r=4 (bf16 base, random weights from a seed, B non-zero), and around
 one step of each of its training paths (``make_train_step`` at b 4,
-L 1024: full remat, and fused dropout under ``proj_lse``), at chip_smoke's
-shapes.
+L 1024: full remat, fused dropout under ``proj_lse``, and the quantized
+recipe's route B: int4 base, int8 head through the fused CE kernels,
+``a8_dots="full"``, ``save_q8``, ``proj_lse``), at chip_smoke's shapes.
 
     python3 profile_port.py        # from the root of a checkout, one card
 
@@ -80,6 +81,8 @@ GROUPS = (  # device entries by name, first match wins
     ("fused dropout kernels (port)", ("dropout_a_fwd_kernel",
                                       "dropout_a_bwd_kernel",
                                       "sum_tiles_kernel")),
+    ("fused CE kernels (port)", ("fused_ce_",)),
+    ("int8 GEMMs (cuBLASLt, torch._int_mm)", ("imma", "i8i8", "s8", "int8")),
     ("bf16 GEMMs (cuBLAS)", ("nvjet",)),
     ("fp32 GEMMs and GEMVs (cuBLAS, CUTLASS SIMT)", ("gemm_f32", "sgemm",
                                                      "gemv", "splitK")),
@@ -185,31 +188,38 @@ def main() -> int:
     del base, adapters, inputs
     gc.collect()
     torch.cuda.empty_cache()
-    out["train_step"] = train_window()
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["train_step_fused_proj_lse"] = train_window(fused=True)
+    for key, path in (("train_step", "full"),
+                      ("train_step_fused_proj_lse", "fused"),
+                      ("train_step_quant_route_b", "quant")):
+        out[key] = train_window(path)
+        gc.collect()
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0
 
 
-def train_window(fused: bool = False) -> dict:
-    """One ``make_train_step`` step of chip_smoke's training path (phase 6,
-    full remat; with ``fused``, phase 8: fused dropout under ``proj_lse``)
-    after two warm-up steps: untraced first, then traced."""
-    import torch
-    from chip_smoke import (build_trainer, fused_train_config, train_batch,
-                            train_config, train_loss)
+def train_window(path: str = "full") -> dict:
+    """One ``make_train_step`` step of a chip_smoke training path after two
+    warm-up steps, untraced first, then traced: "full" (phase 6, full
+    remat), "fused" (phase 8: fused dropout under ``proj_lse``) or "quant"
+    (phase 9, route B: the quantized recipe with ``pallas_ce``)."""
+    from chip_smoke import (QUANT_RECIPE, build_quant_trainer,
+                            build_trainer, fused_train_config,
+                            quant_train_config, train_batch, train_config,
+                            train_loss)
     from moka_tpu_torch.core.config import TrainConfig
     from moka_tpu_torch.core.rng import DropoutKey
     from moka_tpu_torch.train.optim import make_optimizer
     from moka_tpu_torch.train.step import init_train_state, make_train_step
-    cfg, spec = fused_train_config() if fused else train_config()
-    policy = "proj_lse" if fused else None
-    frozen, trainable = build_trainer(cfg, spec)
+    quant = dict(QUANT_RECIPE, pallas_ce=True) if path == "quant" else {}
+    cfg, spec = {"full": train_config, "fused": fused_train_config,
+                 "quant": quant_train_config}[path]()
+    policy = None if path == "full" else "proj_lse"
+    frozen, trainable = (build_quant_trainer if quant else build_trainer)(
+        cfg, spec)
     batch = train_batch(cfg, TRAIN_BATCH, TRAIN_LEN)
     tx = make_optimizer(TrainConfig(), total_steps=1000)
-    step = make_train_step(train_loss(cfg, spec, True, policy), tx)
+    step = make_train_step(train_loss(cfg, spec, True, policy, **quant), tx)
     state = init_train_state(trainable, tx, DropoutKey(0))
 
     def one():
@@ -220,7 +230,8 @@ def train_window(fused: bool = False) -> dict:
     one()
     wall = wall_ms(one)  # a warm-up step, then the untraced one
     traced, ops, host = trace(one)
-    what = "fused dropout, proj_lse" if fused else "full remat"
+    what = {"full": "full remat", "fused": "fused dropout, proj_lse",
+            "quant": "int4 base, a8 full, save_q8, proj_lse, fused CE"}[path]
     return summary(f"training step b {TRAIN_BATCH} L {TRAIN_LEN} "
                    f"(make_train_step, {what})", wall, traced, ops,
                    host=host)

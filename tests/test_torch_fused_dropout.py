@@ -221,8 +221,11 @@ def test_moka_delta_fused_dropout_matches_jax(bf16_dots):
     got = tm.moka_delta(xt, at, bt, torch.from_numpy(mod), torch.from_numpy(q),
                         ts, dropout_rng=JaxKey(key))
     (got * torch.from_numpy(w)).sum().backward()
-    for t, j in zip((got.detach(), xt.grad, at.grad, bt.grad), (want, *jg)):
-        j = np.asarray(j)
+    if bf16_dots:  # JAX casts x itself to bf16: the delta comes out bf16
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    for t, j in zip((got.detach().float(), xt.grad, at.grad, bt.grad),
+                    (want, *jg)):
+        j = np.asarray(j.astype(jnp.float32))
         # bf16 dots: operands and cotangents rounded to bf16 at other
         # points on the two sides; two bf16 ulps of the largest value
         tol = dict(rtol=0, atol=2 ** -6 * np.abs(j).max()) if bf16_dots \

@@ -209,6 +209,30 @@ def test_greedy_generate_matches_jax(model):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_greedy_generate_quantized_base_matches_jax(model, bits):
+    """Serving a weight-only int8 or int4 base with an int8 lm_head, as
+    ``moka_tpu/cli/infer.py`` imports one: the same tokens."""
+    from moka_tpu.ops.quant import quantize_llama_base
+    (jb, ja), (_, ta) = model
+    jq = quantize_llama_base(jb, bits=bits, head_bits=8)
+    emb, pm, mod, q = _batch(seed=5)
+    want = np.asarray(jdecode.greedy_generate(
+        jq, ja, cfg=JCFG, spec=JSPEC, inputs_embeds=jnp.asarray(emb),
+        prompt_mask=jnp.asarray(pm),
+        masks=jllama.MaskBundle(jnp.asarray(mod), jnp.asarray(q)),
+        max_new_tokens=8, eos_id=-1, use_flash=False, paged_decode=False))
+    tq = params_from_numpy(_np(jq), "cpu")
+    assert tq["layers"]["q"]["w_i4" if bits == 4 else "w_i8"].dtype == \
+        (torch.uint8 if bits == 4 else torch.int8)
+    got = tdecode.greedy_generate(
+        tq, ta, cfg=CFG, spec=SPEC, inputs_embeds=torch.from_numpy(emb),
+        prompt_mask=torch.from_numpy(pm),
+        masks=params_from_numpy(jllama.MaskBundle(mod, q), "cpu"),
+        max_new_tokens=8, eos_id=-1, use_flash=True, use_fused_moka=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_greedy_generate_eos_padding_matches_jax(model):
     """Rows stop at eos (pad_id afterwards): take eos = a token the JAX run
     emits mid-sequence."""
@@ -290,8 +314,7 @@ def test_params_from_numpy_keeps_layout_and_bf16():
 def test_unported_forward_options_raise(model):
     _, (tb, ta) = model
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    for kw in (dict(paged_decode=True), dict(a8_dots=True),
-               dict(save_q8=True), dict(context_parallel=object()),
+    for kw in (dict(paged_decode=True), dict(context_parallel=object()),
                dict(host_stream={})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,

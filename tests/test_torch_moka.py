@@ -255,9 +255,11 @@ def test_moka_delta_with_dropout_matches_jax(flavour, bf16_dots):
     xt, at, bt = (t.requires_grad_(True) for t in _t(x, a, bm))
     got = tm.moka_delta(xt, at, bt, *_t(mod, q), ts, dropout_rng=JaxKey(key))
     (got * torch.from_numpy(w)).sum().backward()
-    for g_t, g_j in zip((got.detach(), xt.grad, at.grad, bt.grad),
+    if bf16_dots:  # JAX casts x itself to bf16: the delta comes out bf16
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    for g_t, g_j in zip((got.detach().float(), xt.grad, at.grad, bt.grad),
                         (want, *jg)):
-        g_j = np.asarray(g_j)
+        g_j = np.asarray(g_j.astype(jnp.float32))
         # bf16 dots: the two sides round operands and cotangents to bf16
         # in other orders; allow two bf16 ulps (2^-7) of the largest value
         tol = dict(rtol=0, atol=2 ** -7 * np.abs(g_j).max()) if bf16_dots \

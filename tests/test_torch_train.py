@@ -316,12 +316,19 @@ def test_remat_gives_the_same_gradients(world, use_flash, fused):
 
 
 def test_loss_unported_options_raise():
-    for kw in (dict(context_parallel=object()), dict(host_stream={}),
-               dict(a8_dots=True), dict(save_q8=True), dict(pallas_ce=True)):
+    for kw in (dict(context_parallel=object()), dict(host_stream={})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_llama_moka_loss(CFG, SPEC, **kw)
+    make_llama_moka_loss(CFG, SPEC, a8_dots="full", save_q8=True,
+                         pallas_ce=True)
+    # pallas_ce needs an int8 head, as in JAX (a bf16 or int4 head raises)
+    from moka_tpu_torch.ops.quant import quantize_int4
     h = torch.zeros((1, 4, 8))
-    with pytest.raises(NotImplementedError, match="kernels 8-9"):
-        tllama.chunked_cross_entropy(h, torch.zeros((8, 5)),
-                                     torch.zeros((1, 4), dtype=torch.int64),
+    labels = torch.zeros((1, 4), dtype=torch.int64)
+    for head in (torch.zeros((8, 5)), quantize_int4(torch.ones((8, 5)))):
+        with pytest.raises(ValueError, match="int8-quantized lm_head"):
+            tllama.chunked_cross_entropy(h, head, labels, pallas_ce=True)
+    with pytest.raises(ValueError, match="int8-quantized lm_head"):
+        jllama.chunked_cross_entropy(jnp.zeros((1, 4, 8)), jnp.zeros((8, 5)),
+                                     jnp.zeros((1, 4), jnp.int32),
                                      pallas_ce=True)
