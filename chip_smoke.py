@@ -18,6 +18,10 @@ Phases, in order; any failed build, launch or check exits non-zero:
      the card could take (the bound); the fused dropout kernels (6-7) in
      Philox and forced-words modes, masks held exactly; the fused CE
      kernels (8-9) on an int8 head at route B's shape and two ragged ones;
+     the block-diagonal product (kernel 10) at the BOFT merge's three
+     shapes (library: ``torch.bmm``); the rank flash kernels (1-4 at
+     head_dim 4, fp32) at the training step's (b 4, L 1024) and a ragged
+     shape, each with a sample that sees no key;
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -52,7 +56,21 @@ Phases, in order; any failed build, launch or check exits non-zero:
      1 fused CE forward and 1 backward launch a step) with a traced step,
      route A (the chunked CE on the a8 head) for 1 + 3 (flash only), their
      first losses within the head's rounding;
- 10. one JSON line with every kernel's numbers, then the card's line.
+ 10. (run after phase 5, on its base) the BOFT merge: ``BoftSpec(8, 2)``
+     adapters (Q ~ N(0, 0.1^2)) merged into all 224 projection weights by
+     ``boft_weight(use_pallas=True)`` (448 launches of kernel 10,
+     asserted) and by the plain einsum: layer 0's weights within one bf16
+     ulp, every weight's column norms kept, then phase 4's prefill on the
+     merged base against the plain path and fp32 on the plain-merged one;
+ 11. (run after phase 8, on phase 6's trees) the flash rank attention step:
+     phase 6's step with ``with_flash_rank_attn()``: at 2 layers the rank
+     kernels' gradients against the plain versions and fp32, and against
+     the plain rank attention (the same math); at full depth 2 warm-up and
+     3 timed steps (64 flash forward, 32 fused backward, 896 rank forward,
+     448 rank dq and 448 rank dk/dv launches a step: full remat reruns
+     every rank forward) with a traced step, and one ``proj_lse`` step
+     (448 rank forwards: the policy keeps their residuals);
+ 12. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -173,6 +191,7 @@ def nbytes(*ts) -> int:
 
 def _wrappers() -> dict:
     """Every kernel wrapper by kernel name."""
+    from moka_tpu_torch.ops import fbd
     from moka_tpu_torch.ops import flash_attention as fa
     from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
@@ -183,7 +202,11 @@ def _wrappers() -> dict:
             "moka_delta_fwd": moka_delta_fused,
             "dropout_a_fwd": fd.dropout_a_fwd,
             "dropout_a_bwd": fd.dropout_a_bwd,
-            "fused_ce_fwd": fc.fused_ce_fwd, "fused_ce_bwd": fc.fused_ce_bwd}
+            "fused_ce_fwd": fc.fused_ce_fwd, "fused_ce_bwd": fc.fused_ce_bwd,
+            "block_diag": fbd.block_diag_matmul,
+            "flash_rank_fwd": fa.flash_rank_fwd,
+            "flash_rank_bwd_dq": fa.flash_rank_bwd_dq,
+            "flash_rank_bwd_dkv": fa.flash_rank_bwd_dkv}
 
 
 def _counts() -> dict:
@@ -858,6 +881,222 @@ def ce_records(n, d, v) -> list[dict]:
     return records
 
 
+# kernel 10: the BOFT merge's three shapes (z 1, N, b 8, m) and the
+# projections of one layer at each (q, k, v, o; gate, up; down)
+BD_SHAPES = (((1, 512, 8, 4096), 4), ((1, 512, 8, 11008), 2),
+             ((1, 1376, 8, 4096), 1))
+BOFT_FACTORS = 2  # launches of kernel 10 per projection (one per factor)
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def block_diag_records() -> list[dict]:
+    """Kernel 10 against the plain einsum on bf16 W and orthogonal fp32
+    blocks (Cayley of N(0, 0.1^2)) at the merge's three shapes, and on
+    fp32 x and b 16: every element within one bf16 ulp of max|plain| (fp32
+    x: 1e-5 of it), as fp32 sums of 8 exact products run in another order;
+    each shape timed (kernel, plain, ``torch.bmm`` with the cast, bound).
+    The record sums one layer's merge, two factors of seven projections."""
+    import torch
+    from moka_tpu_torch.ops import fbd
+    g = torch.Generator(device="cuda").manual_seed(21)
+    err, ms, plain_ms, lib_ms, bms, by_shape = 0.0, 0.0, 0.0, 0.0, 0.0, {}
+    n_bytes = n_ops = 0.0
+    cases = [(s, n, torch.bfloat16) for s, n in BD_SHAPES] + \
+        [((2, 24, 16, 384), 0, torch.float32)]
+    for (z, N, b, m), per_layer, dtype in cases:
+        blocks = fbd.cayley(torch.randn((z, N, b, b), generator=g,
+                                        device="cuda") * 0.1)
+        x = (torch.randn((z, N * b, m), generator=g, device="cuda")
+             * 0.02).to(dtype)
+        y = fbd.block_diag_matmul(blocks, x)
+        torch.cuda.synchronize()
+        ref = fbd.block_diag_matmul_plain(blocks, x).float()
+        top = float(ref.abs().max())
+        d = float((y.float() - ref).abs().max())
+        tol = bf16_ulp(top) if dtype == torch.bfloat16 else 1e-5 * top
+        log(f"  block_diag {(z, N, b, m)} {str(dtype)[6:]}: max|err| "
+            f"{d:.3e}, max|plain| {top:.3e} (tol {tol:.3e}: "
+            f"{'one bf16 ulp' if dtype == torch.bfloat16 else '1e-5'} of "
+            f"max|plain|)")
+        if not d <= tol:
+            raise AssertionError(f"kernel 10 disagrees with its plain "
+                                 f"version at {(z, N, b, m)}")
+        if not per_layer:
+            continue
+        err = max(err, d)
+        t = time_ms(lambda: fbd.block_diag_matmul(blocks, x))
+        tp = time_ms(lambda: fbd.block_diag_matmul_plain(blocks, x))
+        bb, xx = blocks.view(z * N, b, b), x.view(z * N, b, m)
+        tl = time_ms(lambda: torch.bmm(bb, xx.float()).to(x.dtype))
+        nb, no = nbytes(blocks) + 2 * nbytes(x), 2.0 * b * x.numel()
+        one, by = bound_ms(nb, no, FP32_FLOPS)
+        log(f"  block_diag timing {(z, N, b, m)} bf16: kernel {t:.4f} ms, "
+            f"plain {tp:.4f} ms, bmm {tl:.4f} ms, bound {one:.4f} ms ({by})")
+        k = per_layer * BOFT_FACTORS
+        ms, plain_ms, lib_ms, bms = ms + k * t, plain_ms + k * tp, \
+            lib_ms + k * tl, bms + k * one
+        n_bytes, n_ops = n_bytes + k * nb, n_ops + k * no
+        by_shape[f"{z}x{N}x{b}x{m}"] = {"ms": t, "plain_ms": tp,
+                                        "library_ms": tl, "bound_ms": one}
+    _, by = bound_ms(n_bytes, n_ops, FP32_FLOPS)
+    return [{"name": "block_diag", "route": "cuda",
+             "source": "moka_tpu_torch/kernels/csrc/block_diag.cu",
+             "replaces": "moka_tpu/ops/fbd.py:37",
+             "launches": None, "max_abs_err": err,
+             "tolerance": "one bf16 ulp of max|plain|", "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": lib_ms,
+             "library": "torch.bmm(blocks, x.view(N, b, m).float()) cast "
+                        "to bf16",
+             "by_shape": by_shape,
+             "shape": "one layer's BOFT merge (b 8, 2 factors): 8 launches "
+                      "at N 512 m 4096, 4 at N 512 m 11008, 2 at N 1376 "
+                      "m 4096, bf16 W"}]
+
+
+RANK_TOL = 1e-5  # rank flash out and lse: max|err| as a fraction of
+                 # max|plain|, fp32 sums in another order (online softmax)
+RANK_BWD_TOL = 1e-4  # dq, dk, dv: the same, over one more reduction
+RANK_MATH_TOL = 1e-4  # the step in fp32 with the rank kernels against the
+                   # plain rank attention, per projection, relative L2 (and
+                   # the loss): only the rank attention's fp32 sums run in
+                   # another order (online softmax, base 2)
+SFU_OPS = 4.18e12  # exp2 a second: 16 a clock on each of 132 SMs at
+                   # 1.98 GHz (the SFU rate of compute capability 9.0)
+
+
+def rank_case(b, L, hd=4, dead=False, seed=0):
+    """Rank-space attention inputs as MokA's training batch makes them:
+    q, k, v (b, L, 1, hd) fp32 of O(1), the question span 2:L//8 as the
+    key mask; with ``dead``, the last sample has no question and random
+    keys (the kernels must still give the plain mean of V)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout = (torch.randn((b, L, 1, hd), generator=g, device="cuda")
+                     for _ in range(4))
+    mask = torch.zeros((b, L), dtype=torch.int32, device="cuda")
+    mask[:, 2: max(3, L // 8)] = 1
+    if dead:
+        mask[-1] = 0
+    return q, k, v, mask, dout
+
+
+def check_rank(name, q, k, v, mask, dout) -> dict:
+    """The three rank kernels against the plain versions on one case: out
+    and lse within RANK_TOL, dq/dk/dv within RANK_BWD_TOL of max|plain|
+    (a dead row's lse, ~-6.9e29, to 1e-6 of itself)."""
+    import torch
+    from moka_tpu_torch.ops import flash_attention as fa
+    out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
+    delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = fa.flash_rank_bwd_dq(q, k, v, mask, dout, lse, delta, 0, False)
+    dk, dv = fa.flash_rank_bwd_dkv(q, k, v, mask, dout, lse, delta, 0, False)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mask, 0, False)
+    grads = fa.flash_bwd_plain(q, k, v, mask, dout, lse, delta, 0, False)
+    live = mask.any(dim=1)
+    errs = {"out": float((out - ref).abs().max() / ref.abs().max()),
+            "lse": float((lse[live] - ref_lse[live]).abs().max()
+                         / ref_lse[live].abs().max())}
+    for n, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        errs[n] = float((got - want).abs().max() / want.abs().max())
+    dead_ok = bool(torch.allclose(lse[~live], ref_lse[~live], rtol=1e-6,
+                                  atol=0))
+    ok = dead_ok and all(errs[n] <= RANK_TOL for n in ("out", "lse")) and \
+        all(errs[n] <= RANK_BWD_TOL for n in ("dq", "dk", "dv"))
+    log(f"  rank flash {name}: q {tuple(q.shape)}, dead samples "
+        f"{int((~live).sum())}: max|err| / max|plain| " +
+        ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) +
+        f"; dead lse ok {dead_ok} (tol {RANK_TOL} fwd, {RANK_BWD_TOL} bwd)")
+    if not ok:
+        raise AssertionError(f"rank flash kernels disagree with their "
+                             f"plain versions ({name})")
+    return {n: e * float(t.abs().max()) for (n, e), t in
+            zip(errs.items(), (ref, ref_lse[live], *grads))}
+
+
+def rank_flash_records(b, L) -> list[dict]:
+    """The rank route's three kernels (TPU kernels 1-4 at head_dim 4,
+    fp32) checked at the training step's shape (b 4, L 1024) with a
+    no-question sample and at a ragged one, then timed at (b, L) with
+    every sample's question span: kernel, plain version,
+    ``scaled_dot_product_attention`` (fp32, boolean key mask; the backward
+    rows forward + backward less forward), bound."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops import flash_attention as fa
+    errs = [check_rank("training shape", *rank_case(4, 1024, dead=True)),
+            check_rank("ragged L", *rank_case(3, 333, dead=True, seed=1))]
+    q, k, v, mask, dout = rank_case(b, L, seed=2)
+    out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
+    delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
+    args = (q, k, v, mask, dout, lse, delta, 0, False)
+    hd = q.shape[-1]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+    bool_mask = (mask > 0)[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bool_mask)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
+
+    lib_fwd = time_ms(sdpa, iters=50)
+    lib_bwd = time_ms(sdpa_fwd_bwd, iters=50) - lib_fwd
+    seen = int(mask.sum())  # key rows some query sees
+    pairs = float(L * seen)  # (query, key) pairs the softmax needs
+    row = 4 * hd  # bytes of one fp32 row
+    rows = b * L * 4  # bytes of one (b, 1, L) fp32 vector
+    kv_in = seen * 2 * row + nbytes(mask)
+    records = []
+    for which, fn, plain, flops, n_bytes, tpu_line, lib in (
+            ("fwd", lambda: fa.flash_rank_fwd(q, k, v, mask, 0, False),
+             lambda: fa.flash_fwd_plain(q, k, v, mask, 0, False), 4 * hd,
+             2 * nbytes(q) + kv_in + rows, 56, lib_fwd),
+            ("bwd_dq", lambda: fa.flash_rank_bwd_dq(*args),
+             lambda: fa.flash_bwd_dq_plain(*args), 6 * hd,
+             3 * nbytes(q) + kv_in + 2 * rows, 136, lib_bwd),
+            ("bwd_dkv", lambda: fa.flash_rank_bwd_dkv(*args),
+             lambda: fa.flash_bwd_dkv_plain(*args), 8 * hd,
+             2 * nbytes(q) + kv_in + 2 * rows + 2 * nbytes(k), 180,
+             lib_bwd)):
+        ms = time_ms(fn, iters=50)
+        plain_ms = time_ms(plain, iters=10)
+        bms, by = bound_ms(n_bytes, flops * pairs, FP32_FLOPS,
+                           (pairs, SFU_OPS))
+        log(f"  rank flash {which} timing at (b {b}, L {L}, hd {hd}, "
+            f"{seen // b} question keys a sample): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {'backward ' if which != 'fwd' else ''}"
+            f"{lib:.4f} ms, bound {bms:.5f} ms ({by})")
+        err = max(e[n] for e in errs for n in
+                  (("out", "lse") if which == "fwd" else
+                   ("dq",) if which == "bwd_dq" else ("dk", "dv")))
+        records.append({
+            "name": f"flash_rank_{which}", "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/flash_rank.cu",
+            "replaces": f"moka_tpu/ops/flash_attention.py:{tpu_line}" +
+                        (" (and :230, the fused backward)"
+                         if which != "fwd" else ""),
+            "launches": None, "max_abs_err": err,
+            "tolerance": f"{RANK_TOL if which == 'fwd' else RANK_BWD_TOL} "
+                         f"of max|plain|",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib,
+            "library": "scaled_dot_product_attention fp32, boolean key mask"
+                       + ("" if which == "fwd" else
+                          ": forward + backward less forward (all three "
+                          "gradients)"),
+            "shape": f"b {b} L {L} S {L} H 1 hd {hd} fp32, question keys "
+                     f"2:{L // 8}, one call"})
+    return records
+
+
 # ------------------------------------------------------------------ phase 4
 
 def build_model(cfg, spec, seed=0):
@@ -895,12 +1134,14 @@ def generate(cfg, spec, base, adapters, inputs, new_tokens):
                            max_new_tokens=new_tokens, eos_id=-1, **inputs)
 
 
-def check_logits(cfg, spec, base, adapters, inputs, new_tokens) -> None:
+def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
+                 plain_base=None) -> None:
     """Logits of the whole batch's prefill, run by ``decode.prefill`` as
     ``greedy_generate`` runs it (same cache size and cache mask): with both
     kernels, on the plain bf16 path, and on the plain path in fp32 on the
-    same (bf16-valued) weights.  Fails unless the kernel path is within
-    LOGIT_RATIO times the plain bf16 path's distance from fp32."""
+    same (bf16-valued) weights, or on ``plain_base``'s where it is given
+    (weights the plain versions made).  Fails unless the kernel path is
+    within LOGIT_RATIO times the plain bf16 path's distance from fp32."""
     import torch
     from moka_tpu_torch.eval.decode import prefill
     from moka_tpu_torch.models import llama
@@ -919,10 +1160,11 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens) -> None:
         flash_fwd.launches = moka_delta_fused.launches = 0
         got = logits(base, True, torch.bfloat16)
         counts = (flash_fwd.launches, moka_delta_fused.launches)
-        plain = logits(base, False, torch.bfloat16)
+        ref = base if plain_base is None else plain_base
+        plain = logits(ref, False, torch.bfloat16)
         base32 = {k: ({n: t.float() for n, t in v.items()}
                       if isinstance(v, dict) else v.float())
-                  for k, v in base.items()}
+                  for k, v in ref.items()}
         exact = logits(base32, False, torch.float32)
         del base32
     log(f"  kernel prefill: flash launches {counts[0]}, fused MokA "
@@ -1175,18 +1417,25 @@ def check_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
 def plain_versions():
     """Within: ``moka_delta``'s fused dropout runs its plain versions
     (``dropout_a_proj_plain``, same Philox words) instead of kernels 6-7,
-    and ``pallas_ce`` its plain CE (``fused_ce_loss_plain``) instead of
-    kernels 8-9."""
+    ``pallas_ce`` its plain CE (``fused_ce_loss_plain``) instead of
+    kernels 8-9, and the flash rank attention the plain flash forward and
+    backward instead of the rank kernels."""
     from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops import flash_attention as fa
     from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
-    kernels = fd.dropout_a_proj, llama.fused_ce_loss
+    kernels = (fd.dropout_a_proj, llama.fused_ce_loss, fa.flash_rank_fwd,
+               fa.flash_rank_bwd_dq, fa.flash_rank_bwd_dkv)
     fd.dropout_a_proj = fd.dropout_a_proj_plain
     llama.fused_ce_loss = fc.fused_ce_loss_plain
+    fa.flash_rank_fwd = fa.flash_fwd_plain
+    fa.flash_rank_bwd_dq = fa.flash_bwd_dq_plain
+    fa.flash_rank_bwd_dkv = fa.flash_bwd_dkv_plain
     try:
         yield
     finally:
-        fd.dropout_a_proj, llama.fused_ce_loss = kernels
+        (fd.dropout_a_proj, llama.fused_ce_loss, fa.flash_rank_fwd,
+         fa.flash_rank_bwd_dq, fa.flash_rank_bwd_dkv) = kernels
 
 
 def float32(tree):
@@ -1581,6 +1830,193 @@ def long_context_step(frozen, trainable) -> dict:
     return {"step_ms": wall * 1e3, "loss": loss, "launches": counts}
 
 
+# ----------------------------------------------------------------- phase 10
+
+BOFT_BLOCK = 8  # the smallest block JAX's kernel path takes
+NORM_TOL = 2.0 ** -8  # column norms of a merged weight against the base's,
+                      # relative: R is orthogonal, so only the bf16 rounding
+                      # of each merged element (2^-8 relative at most) moves
+                      # them
+
+
+def boft_adapters(cfg, seed=5) -> dict:
+    """One ``BoftSpec(8, 2)`` adapter per projection and layer, stacked
+    (n_layers, 2, d_in / 8, 8, 8) fp32, Q ~ N(0, 0.1^2) so that R != I."""
+    import torch
+    from moka_tpu_torch.models.llama import _proj_shapes
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randn((cfg.n_layers, BOFT_FACTORS, d_in // BOFT_BLOCK,
+                               BOFT_BLOCK, BOFT_BLOCK), generator=g,
+                              device="cuda") * 0.1
+            for name, (d_in, _) in _proj_shapes(cfg).items()}
+
+
+def boft_merge(cfg, base, boft, use_pallas) -> dict:
+    """The base with every projection replaced by its BOFT-adapted weight
+    (``boft_weight``, a layer at a time into a new stacked tensor); the
+    other leaves are the base's own tensors."""
+    import torch
+    from moka_tpu_torch.adapters.peft import BoftSpec, boft_weight
+    spec = BoftSpec(block_size=BOFT_BLOCK, n_factors=BOFT_FACTORS)
+    layers = dict(base["layers"])
+    with torch.no_grad():
+        for name, q in boft.items():
+            out = torch.empty_like(base["layers"][name])
+            for i in range(cfg.n_layers):
+                out[i] = boft_weight(base["layers"][name][i], {"q": q[i]},
+                                     spec, use_pallas=use_pallas)
+            layers[name] = out
+    return dict(base, layers=layers)
+
+
+def boft_merge_and_serve(cfg, spec, base, adapters, inputs,
+                         new_tokens) -> dict:
+    """Phase 10: merge a BOFT adapter into all 224 projections through
+    kernel 10 (launch counts zeroed before, read after: 448), and through
+    the plain einsum; layer 0's seven weights within one bf16 ulp of
+    max|plain|; every merged weight's column norms within NORM_TOL of the
+    base's; then phase 4's prefill on the kernel-merged base against the
+    plain path and fp32 on the plain-merged one (``check_logits``).  Drops
+    ``base``'s layer tensors from the caller's dict to make room."""
+    import torch
+    from moka_tpu_torch.models.llama import PROJ_DIMS
+    boft = boft_adapters(cfg)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    merged = boft_merge(cfg, base, boft, use_pallas=True)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    t0 = time.perf_counter()
+    plain = boft_merge(cfg, base, boft, use_pallas=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_proj = len(PROJ_DIMS) * cfg.n_layers
+    log(f"  merged {n_proj} projections: kernel path {merge_ms:.1f} ms, "
+        f"plain path {plain_ms:.1f} ms; launches {counts}")
+    if counts != _launches(block_diag=BOFT_FACTORS * n_proj):
+        raise AssertionError(f"BOFT merge launches {counts}")
+    worst = {}
+    for name in PROJ_DIMS:
+        got, want = merged["layers"][name][0].float(), \
+            plain["layers"][name][0].float()
+        d, top = float((got - want).abs().max()), float(want.abs().max())
+        worst[name] = d / bf16_ulp(top)
+        if not d <= bf16_ulp(top):
+            raise AssertionError(f"layer 0 {name}: merged weight {d:.3e} "
+                                 f"from the plain merge (one ulp "
+                                 f"{bf16_ulp(top):.3e})")
+    norm_err, moved = 0.0, float("inf")
+    for name in PROJ_DIMS:
+        for i in range(cfg.n_layers):
+            w = base["layers"][name][i].float()
+            m = merged["layers"][name][i].float()
+            n0 = w.norm(dim=0)
+            norm_err = max(norm_err, float(((m.norm(dim=0) - n0).abs()
+                                            / n0).max()))
+            moved = min(moved, float((m - w).abs().max() / w.abs().max()))
+    log(f"  layer 0 max|kernel - plain| in bf16 ulps of max|plain|: "
+        f"{ {k: round(v, 3) for k, v in worst.items()} }; column norms: max "
+        f"relative change {norm_err:.3e} (tol {NORM_TOL:.3e}); smallest "
+        f"max|W' - W| / max|W| {moved:.3e} (R != I)")
+    if not (norm_err <= NORM_TOL and moved > 1e-2):
+        raise AssertionError("BOFT merge: column norms moved, or the "
+                             "weights did not")
+    base["layers"] = {}  # the merged trees hold what is still needed
+    del boft
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_logits(cfg, spec, merged, adapters, inputs, new_tokens,
+                 plain_base=plain)
+    return {"merge_ms": merge_ms, "plain_merge_ms": plain_ms,
+            "launches": counts, "layer0_ulps": worst,
+            "column_norm_rel_err": norm_err, "min_rel_change": moved}
+
+
+# ----------------------------------------------------------------- phase 11
+
+def rank_train_config():
+    """Phase 6's model and spec with ``with_flash_rank_attn()``
+    (``bench.py``'s ``flash_rank_attn``): the question window no longer
+    applies."""
+    cfg, spec = train_config()
+    return cfg, spec.with_flash_rank_attn()
+
+
+def check_rank_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
+    """At SHALLOW layers: the rank kernels' loss and adapter gradients
+    against the same step with the rank kernels swapped for the plain
+    versions (and eager attention, ``plain_versions``) and fp32, by phase
+    6's ratio rule; then, with the base in fp32 and eager decoder
+    attention, against the spec without ``flash_rank_attn`` (the plain
+    rank attention, the same math) by RANK_MATH_TOL: in bf16 any rounding
+    flip moves these gradients by ~1e-2, which would hide a fault."""
+    import dataclasses
+    from moka_tpu_torch.core.rng import DropoutKey
+    n = SHALLOW
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    frozen = first_layers(frozen, n)
+    trainable = {"adapters": first_layers(trainable["adapters"], n)}
+    log(f"  {n} layers, full remat:")
+    out = _check_train_grads(cfg, spec, frozen, trainable, batch,
+                             key_seed=13)
+    key = DropoutKey(13)
+    frozen32 = float32(frozen)
+    _zero_counts()
+    rank = loss_and_grads(cfg, spec, frozen32, trainable, batch, False, key)
+    counts = _counts()
+    plain = loss_and_grads(cfg, dataclasses.replace(spec,
+                                                    flash_rank_attn=False),
+                           frozen32, trainable, batch, False, key)
+    del frozen32
+    calls = 2 * len(PROJS) * n
+    if counts != _launches(flash_rank_fwd=2 * calls, flash_rank_bwd_dq=calls,
+                           flash_rank_bwd_dkv=calls):
+        raise AssertionError(f"fp32 rank step launches {counts}")
+    out["fp32_rank_vs_plain_attention"] = {}
+    d_loss = abs(rank[0] - plain[0]) / abs(plain[0])
+    ok = d_loss <= RANK_MATH_TOL
+    for p in PROJS:
+        d = rel(rank[1][p], plain[1][p])
+        out["fp32_rank_vs_plain_attention"][p] = d
+        ok &= d <= RANK_MATH_TOL
+        log(f"  fp32 grad {p}: rank kernels vs plain rank attention rel L2 "
+            f"{d:.3e}")
+    log(f"  fp32 loss: rank kernels {rank[0]:.7f}, plain rank attention "
+        f"{plain[0]:.7f}, relative {d_loss:.2e} (tol {RANK_MATH_TOL})")
+    if not ok:
+        raise AssertionError("flash rank attention gradients differ from the "
+                             "plain rank attention in fp32")
+    return out
+
+
+def rank_steps(cfg, spec, frozen, trainable, batch) -> dict:
+    """Phase 11 at full depth: 2 warm-up and 3 timed steps under full remat
+    (asserting 64 flash forward and 32 fused backward launches, 14 rank
+    calls a layer forward, all rerun by the recompute, and their dq and
+    dk/dv a step) with a traced step; then one ``proj_lse`` step, whose
+    recompute reruns none of them."""
+    n = cfg.n_layers
+    calls = 2 * len(PROJS) * n  # 2 attending modalities, 7 projections
+    run = train_steps(cfg, spec, frozen, clone_tree(trainable), batch,
+                      busy=True, n_warm=2, n_timed=3)
+    want = _launches(flash_fwd=2 * n, flash_bwd_fused=n,
+                     flash_rank_fwd=2 * calls, flash_rank_bwd_dq=calls,
+                     flash_rank_bwd_dkv=calls)
+    if run["launches_per_step"] != want:
+        raise AssertionError(f"flash rank step launches "
+                             f"{run['launches_per_step']}, want {want}")
+    lse = policy_ladder(cfg, spec, frozen, clone_tree(trainable), batch,
+                        policies=("proj_lse",))["proj_lse"]
+    want = {"flash_fwd": n, "flash_bwd_fused": n, "flash_rank_fwd": calls,
+            "flash_rank_bwd_dq": calls, "flash_rank_bwd_dkv": calls}
+    if lse["launches"] != want:
+        raise AssertionError(f"flash rank proj_lse launches "
+                             f"{lse['launches']}, want {want}")
+    return {"full": run, "proj_lse": lse}
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1628,7 +2064,8 @@ def main() -> int:
                moka_record(batch, prompt_len, cfg.dim, cfg.intermediate),
                *flash_bwd_records(),
                *dropout_records(4 * 1024, cfg.dim, cfg.intermediate),
-               *ce_records(4 * 1023, cfg.dim, 32011)]
+               *ce_records(4 * 1023, cfg.dim, 32011),
+               *block_diag_records(), *rank_flash_records(4, 1024)]
     torch.cuda.empty_cache()
 
     log(f"[4] LLaMA-2-7B + MokA AVT r4 at full width, {cfg.n_layers} layers")
@@ -1642,6 +2079,10 @@ def main() -> int:
     if min(served["launches"][k] for k in ("flash_fwd", "moka_delta_fwd")) \
             <= 0:
         raise AssertionError("serving did not launch the kernels")
+
+    log(f"[10] BOFT merge and serve: BoftSpec(8, 2) on all "
+        f"{7 * cfg.n_layers} projections of phase 4's base, then its prefill")
+    boft = boft_merge_and_serve(cfg, spec, base, adapters, inputs, new_tokens)
     del base, adapters, inputs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1680,6 +2121,21 @@ def main() -> int:
         raise AssertionError(f"the loss did not move: {fused['losses']}")
     log("  policy ladder (one step each, fused dropout):")
     ladder = policy_ladder(fcfg, fspec, frozen, trainable, batch)
+
+    rcfg, rspec = rank_train_config()
+    log(f"[11] flash rank attention step: phase 6's model and batch with "
+        f"flash_rank_attn (the rank kernels, head_dim 4 fp32), full remat, "
+        f"b 4 L 1024")
+    rank_check = check_rank_train_grads(rcfg, rspec, frozen, trainable,
+                                        batch)
+    rank = rank_steps(rcfg, rspec, frozen, trainable, batch)
+    log(f"  against phase 6's step in this call: {rank['full']['step_ms']:.1f}"
+        f" vs {train['step_ms']:.1f} ms, peak "
+        f"{rank['full']['peak_memory_bytes'] / 2**30:.2f} vs "
+        f"{train['peak_memory_bytes'] / 2**30:.2f} GiB; busy share "
+        f"{rank['full']['busy_share']:.3f}; proj_lse step "
+        f"{rank['proj_lse']['step_ms']:.1f} ms, peak "
+        f"{rank['proj_lse']['peak_memory_bytes'] / 2**30:.2f} GiB")
     del frozen, trainable
     gc.collect()
     torch.cuda.empty_cache()
@@ -1707,7 +2163,9 @@ def main() -> int:
              "quantized step, route B (pallas_ce)":
                  quant["B"]["launches_per_step"],
              "quantized step, route A (a8 head)":
-                 quant["A"]["launches_per_step"]}
+                 quant["A"]["launches_per_step"],
+             "BOFT merge": boft["launches"],
+             "flash rank attention step": rank["full"]["launches_per_step"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -1716,7 +2174,11 @@ def main() -> int:
            "dropout_a_fwd": "fused-dropout training step (proj_lse)",
            "dropout_a_bwd": "fused-dropout training step (proj_lse)",
            "fused_ce_fwd": "quantized step, route B (pallas_ce)",
-           "fused_ce_bwd": "quantized step, route B (pallas_ce)"}
+           "fused_ce_bwd": "quantized step, route B (pallas_ce)",
+           "block_diag": "BOFT merge",
+           "flash_rank_fwd": "flash rank attention step",
+           "flash_rank_bwd_dq": "flash rank attention step",
+           "flash_rank_bwd_dkv": "flash rank attention step"}
     for rec in records:
         rec["launches"] = int(paths[own[rec["name"]]][rec["name"]])
         rec["launches_path"] = own[rec["name"]]
@@ -1726,7 +2188,9 @@ def main() -> int:
                     "train_check": train_check, "train": train,
                     "long_context": long_step, "fused_check": fused_check,
                     "fused_train": fused, "policy_ladder": ladder,
-                    "quant_check": quant_check, "quant_train": quant}))
+                    "quant_check": quant_check, "quant_train": quant,
+                    "boft": boft, "rank_check": rank_check,
+                    "rank_train": rank}))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

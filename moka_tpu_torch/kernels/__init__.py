@@ -28,6 +28,8 @@ SOURCES = {
     "moka_delta_fwd": "moka_delta_fwd.cu",
     "fused_dropout": "fused_dropout.cu",
     "fused_ce": "fused_ce.cu",
+    "block_diag": "block_diag.cu",
+    "flash_rank": "flash_rank.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -296,16 +296,27 @@ class _RematSaves:
             return None
         return lambda codes: self.kept.__setitem__(tag, codes)
 
-    def flash_residuals(self) -> dict | None:
+    def flash_residuals(self, call: str | None = None) -> dict | None:
         """The dict ``flash_mha`` fills in the forward and reads in the
-        recompute, when the policy keeps the flash residuals."""
-        return self.kept if "flash_out" in self.names else None
+        recompute, when the policy keeps the flash residuals: the decoder
+        attention's (``call`` None) or the rank attention's of projection
+        ``call`` (a dict that ``moka_delta`` keys by modality).  JAX tags
+        the residuals inside ``flash_mha``'s forward rule, so its policies
+        keep those of every flash call in the layer."""
+        if "flash_out" not in self.names:
+            return None
+        if call is None:
+            return self.kept
+        return self.kept.setdefault(f"flash_{call}", {})
 
     def keep(self, tag: str, t: torch.Tensor) -> torch.Tensor:
         if tag not in self.names:
             return t
         if self.replay:
-            return self.kept[tag].detach()
+            # needing grad as the tensor it stands in for did, so that what
+            # follows saves the same tensors (an unfused MokA delta saves
+            # its input only when that needs grad)
+            return self.kept[tag].detach().requires_grad_(t.requires_grad)
         self.kept[tag] = t.detach()
         return t
 
@@ -328,8 +339,11 @@ def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
     projection's product (``saves``: the layer's ``_RematSaves``)."""
     delta = None
     if adapters is not None and name in adapters:
+        residuals = None
+        if saves is not None and spec.flash_rank_attn:
+            residuals = saves.flash_residuals(name)
         delta = _adapter_delta(name, x, adapters[name], spec, masks,
-                               dropout_rng, fused)
+                               dropout_rng, fused, residuals)
     mode, names = save_q8
     if name not in names or (delta is not None and masks is None):
         y = _product(x, base_w, a8) if saves is None else \
@@ -345,7 +359,8 @@ def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
     return roundtrip(out, None if saves is None else saves.keeper(tag))
 
 
-def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused):
+def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused,
+                   flash_residuals=None):
     a, b = adapter["a"], adapter["b"]
     if masks is None:
         return lora_delta(x, a[0], b, decode_scale(spec))
@@ -361,7 +376,7 @@ def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused):
         return moka_delta_fused(x_d, a, b, masks.modality, masks.question,
                                 spec)
     return moka_delta(x, a, b, masks.modality, masks.question, spec,
-                      dropout_rng=rng)
+                      dropout_rng=rng, flash_residuals=flash_residuals)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -489,7 +504,10 @@ def forward(base: dict, cfg: LlamaConfig, *,
       and up the policy does not keep (the down product's output is read by
       no backward of the layer, so the recompute stops before it, as XLA
       drops it) and, with ``use_flash``, the flash forward unless the
-      policy keeps its residuals (the ``*_lse`` policies).
+      policy keeps its residuals (the ``*_lse`` policies); likewise, with
+      ``spec.flash_rank_attn``, the 14 rank attention forwards of AVT
+      (each kept in its own slot, as JAX's policies keep every flash
+      call's).
     dropout_rng: a ``core.rng.DropoutKey``; LoRA dropout on the adapter
       inputs when ``spec.dropout_rate`` > 0.
     a8_dots: on a quantized base, the projections' W4A8/W8A8 product

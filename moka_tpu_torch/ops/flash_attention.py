@@ -14,11 +14,23 @@ the same arithmetic in plain torch.  ``flash_mha`` is the differentiable
 entry point (a ``torch.autograd.Function``) and dispatches the backward
 as the JAX custom VJP does (``use_fused_bwd``).
 
+The rank route: fp32 tensors with one head (H = KH = 1) and head_dim <=
+16, MokA's rank-space cross-attention (``ops.moka``, ``flash_rank_attn``),
+run on their own kernels (``kernels/csrc/flash_rank.cu``: a forward, a dq
+and a dk/dv kernel, fp32 SIMT, built for head_dim 4, 8 and 16) through the
+wrappers ``flash_rank_fwd``, ``flash_rank_bwd_dq`` and
+``flash_rank_bwd_dkv``, with the same contract and the same plain
+versions.  Its backward is always the dq + dk/dv pair.  bf16 at head_dim
+128 keeps the kernels above; anything else on the card raises.
+
 Numerics follow the JAX kernels: q is pre-scaled by ``scale * log2(e)``
 rounded in q's dtype, the softmax runs in fp32 base 2 (``exp2``), and lse
-is in natural-log units.  Rows whose keys are all masked have an
-unspecified forward output (the kernel and the plain version differ
-there) and zero gradients; callers read valid rows only.
+is in natural-log units.  Rows whose keys are all masked have zero
+gradients and, on the bf16 route, an unspecified forward output (the
+kernel and the plain version differ there; callers read valid rows only).
+The rank kernels visit every key, so there such a row's output is the
+mean of V over all S keys, as the plain version's: zero for MokA's
+no-question samples, whose keys are all zero.
 """
 
 from __future__ import annotations
@@ -154,6 +166,15 @@ def _library(name: str):
         if name == "flash_fwd":
             lib.moka_flash_fwd.argtypes = [p] * 6 + dims + [f, p]
             lib.moka_flash_fwd.restype = i
+        elif name == "flash_rank":
+            rank_dims = [i] * 6  # B, L, S, hd, q_offset, causal
+            lib.moka_flash_rank_fwd.argtypes = [p] * 6 + rank_dims + [f, p]
+            lib.moka_flash_rank_bwd_dq.argtypes = [p] * 8 + rank_dims + \
+                [f, f, p]
+            lib.moka_flash_rank_bwd_dkv.argtypes = [p] * 9 + rank_dims + \
+                [f, p]
+            for fn in ("fwd", "bwd_dq", "bwd_dkv"):
+                getattr(lib, f"moka_flash_rank_{fn}").restype = i
         else:
             for fn, n_out in (("moka_flash_bwd_fused", 3),
                               ("moka_flash_bwd_dq", 1),
@@ -272,6 +293,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version for CPU tensors.  q (b, L, H, hd), k/v (b, S, K, hd),
     attn_mask (b, S) validity, q_offset = position of query 0 on the key
     axis (an int).  Not differentiable by itself: ``flash_mha`` is."""
+    if is_rank_route(q, k):
+        return flash_rank_fwd(q, k, v, attn_mask, q_offset, causal)
     if on_card(q, "flash attention"):
         return _launch_fwd(q, k, v, attn_mask, q_offset, causal)
     return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
@@ -320,16 +343,124 @@ def flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
     return _group_sum(dk, kv_heads), _group_sum(dv, kv_heads)
 
 
+# ------------------------------------------------------------ rank route
+
+RANK_HEAD_DIMS = (4, 8, 16)  # the head dims flash_rank.cu is built for
+
+
+def is_rank_route(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """MokA's rank-space attention: fp32, one head (H = KH = 1),
+    head_dim <= 16."""
+    return q.dtype == torch.float32 and q.shape[2] == 1 and \
+        k.shape[2] == 1 and q.shape[-1] <= 16
+
+
+def _rank_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
+    """Check what the rank kernels take (fp32, one head, head_dim 4, 8 or
+    16, one device) and return the tensors contiguous."""
+    b, L, H, hd = q.shape
+    S = k.shape[1]
+    named = [("q", q), ("k", k), ("v", v)]
+    if dout is not None:
+        named.append(("dout", dout))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"rank flash kernel takes fp32 tensors, {name} "
+                            f"is {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if hd not in RANK_HEAD_DIMS or H != 1 or k.shape != (b, S, 1, hd) or \
+            v.shape != k.shape:
+        raise ValueError(f"rank flash kernel takes one head of head_dim "
+                         f"{RANK_HEAD_DIMS}: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if tuple(attn_mask.shape) != (b, S):
+        raise ValueError(f"attn_mask {tuple(attn_mask.shape)} != {(b, S)}")
+    if dout is not None and dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    out = [t.contiguous() for _, t in named]
+    out.insert(3, attn_mask.to(device=q.device, dtype=torch.int32)
+               .contiguous())
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (b, 1, L) or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device}, want "
+                             f"{(b, 1, L)} on {q.device}")
+        out.append(t.to(torch.float32).contiguous())
+    return out
+
+
+def _rank_call(fn: str, q, k, tensors, outs, q_offset, causal, *scales):
+    """One rank kernel; the q scale goes as a ``c_float``, rounded to fp32
+    as ``_prescaled`` folds it for fp32 q."""
+    from moka_tpu_torch import kernels
+    b, L, _, hd = q.shape
+    status = getattr(_library("flash_rank"), f"moka_flash_rank_{fn}")(
+        *(t.data_ptr() for t in (*tensors, *outs)), b, L, k.shape[1], hd,
+        int(q_offset), int(bool(causal)), LOG2E / math.sqrt(hd), *scales,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(status, f"flash_rank_{fn}")
+
+
+def flash_rank_fwd(q, k, v, attn_mask, q_offset: int = 0,
+                   causal: bool = True):
+    """``flash_fwd`` on the rank route: (out (b, L, 1, hd) fp32, lse
+    (b, 1, L) fp32) from the rank forward kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not on_card(q, "flash attention"):
+        return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
+    ins = _rank_inputs(q, k, v, attn_mask)
+    out = torch.empty_like(ins[0])
+    lse = torch.empty((q.shape[0], 1, q.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    _rank_call("fwd", q, k, ins, (out, lse), q_offset, causal)
+    flash_rank_fwd.launches += 1
+    return out, lse
+
+
+def flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,
+                      q_offset: int = 0, causal: bool = True):
+    """dq (b, L, 1, hd) fp32 on the rank route, given the lse and delta."""
+    if not on_card(q, "flash attention"):
+        return flash_bwd_dq_plain(q, k, v, attn_mask, dout, lse, delta,
+                                  q_offset, causal)
+    ins = _rank_inputs(q, k, v, attn_mask, dout, lse, delta)
+    dq = torch.empty_like(ins[0])
+    _rank_call("bwd_dq", q, k, ins, (dq,), q_offset, causal,
+               1.0 / math.sqrt(q.shape[-1]))
+    flash_rank_bwd_dq.launches += 1
+    return dq
+
+
+def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
+                       q_offset: int = 0, causal: bool = True):
+    """(dk, dv) (b, S, 1, hd) fp32 on the rank route, given the lse and
+    delta."""
+    if not on_card(q, "flash attention"):
+        return flash_bwd_dkv_plain(q, k, v, attn_mask, dout, lse, delta,
+                                   q_offset, causal)
+    ins = _rank_inputs(q, k, v, attn_mask, dout, lse, delta)
+    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[1])
+    _rank_call("bwd_dkv", q, k, ins, (dk, dv), q_offset, causal)
+    flash_rank_bwd_dkv.launches += 1
+    return dk, dv
+
+
 # kernel launches (CUDA tensors only)
 flash_fwd.launches = 0
 flash_bwd_fused.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_rank_fwd.launches = 0
+flash_rank_bwd_dq.launches = 0
+flash_rank_bwd_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward saves (q, k, v, mask, out, lse); backward forms delta in
-    fp32 and runs the fused kernel or the dq + dkv pair."""
+    fp32 and runs the fused kernel or the dq + dkv pair (the rank route:
+    always its dq + dk/dv pair)."""
 
     @staticmethod
     def forward(ctx, q, k, v, attn_mask, q_offset, causal, residuals):
@@ -352,7 +483,12 @@ class _FlashAttention(torch.autograd.Function):
         args = (ctx.q_offset, ctx.causal)
         dout = dout.to(q.dtype)
         delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
-        if use_fused_bwd(q.shape[1], k.shape[1]):
+        if is_rank_route(q, k):
+            dq = flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,
+                                   *args)
+            dk, dv = flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse,
+                                        delta, *args)
+        elif use_fused_bwd(q.shape[1], k.shape[1]):
             dq, dk, dv = flash_bwd_fused(q, k, v, attn_mask, dout, lse,
                                          delta, *args)
         else:

@@ -21,8 +21,10 @@ attention for the image stream, per-modality post-B scales).
 LoRA dropout (``lora_dropout``) follows the JAX rule bit for bit given the
 same 16-bit random values; the key type is ``core.rng.DropoutKey``.  With
 ``fused_dropout`` the dropout is fused into the A projection
-(``ops.fused_dropout``, TPU kernels 6-7 as CUDA).  Not ported yet (raises
-``NotImplementedError``): the flash rank attention.
+(``ops.fused_dropout``, TPU kernels 6-7 as CUDA).  With ``flash_rank_attn``
+the rank-space attention runs through ``flash_mha`` at one head of
+head_dim r in fp32 (``ops.flash_attention``'s rank route, TPU kernels 1-4
+as ``kernels/csrc/flash_rank.cu``), without the question window, as JAX.
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ import torch
 
 from moka_tpu_torch.core.device import resolve_device
 from moka_tpu_torch.ops import fused_dropout
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, {})"
+from moka_tpu_torch.ops.flash_attention import flash_mha
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +53,8 @@ class MokaSpec:
     post_scales: per-modality scalars on B's output rows (VT), or None.
     dropout_rate: LoRA dropout on the A input (training only).
     bf16_dots: round the adapter matmul inputs to bf16 (fp32 accumulate).
-    flash_rank_attn: the rank attention on the flash kernel (not ported
-      yet: raises).
+    flash_rank_attn: the rank attention through ``flash_mha`` (the rank
+      kernels on the card); the question window does not apply.
     fused_dropout: LoRA dropout fused into the A projection
       (``ops.fused_dropout``).
     dropout_shared_masks: one dropout key per input group of projections
@@ -142,6 +143,25 @@ def rank_space_cross_attention(q: torch.Tensor, keys: torch.Tensor,
     return torch.einsum("blk,bkr->blr", probs.to(keys.dtype), keys)
 
 
+def flash_rank_space_cross_attention(q: torch.Tensor, keys: torch.Tensor,
+                                     question_mask: torch.Tensor, dk: float,
+                                     residuals: dict | None = None
+                                     ) -> torch.Tensor:
+    """``rank_space_cross_attention`` through ``flash_mha``: one head of
+    head_dim r, causal off, the question mask as the key mask and the
+    default scale 1/sqrt(head_dim) = 1/sqrt(dk).  A sample with no question
+    token has all-zero keys, so its rows come out zero and send nothing
+    back, as the plain function's guard makes them.  ``keys`` is both k
+    and v: autograd sums the two gradients into it.  ``residuals``:
+    ``flash_mha``'s, for a remat policy that keeps them."""
+    if q.shape[-1] != dk:
+        raise ValueError(f"rank {q.shape[-1]} != dk {dk}")
+    kv = keys[:, :, None]
+    out = flash_mha(q[:, :, None], kv, kv, question_mask, causal=False,
+                    residuals=residuals)
+    return out[:, :, 0]
+
+
 def question_window(keys: torch.Tensor, question_mask: torch.Tensor,
                     kq: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather a static (b, kq) window starting at the first question token
@@ -169,7 +189,8 @@ def _dot_operand(t: torch.Tensor, spec: MokaSpec) -> torch.Tensor:
 
 def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
                modality_masks: torch.Tensor, question_mask: torch.Tensor,
-               spec: MokaSpec, *, dropout_rng=None) -> torch.Tensor:
+               spec: MokaSpec, *, dropout_rng=None,
+               flash_residuals: dict | None = None) -> torch.Tensor:
     """The MokA low-rank delta for one linear layer.
 
     x: (b, L, d_in); lora_a: (M, d_in, r); lora_b: (r, d_out);
@@ -177,16 +198,15 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
     dropout_rng: a key (``core.rng.DropoutKey``); with a rate > 0, LoRA
       dropout on the A input (training), fused into the A product with
       ``spec.fused_dropout``.
+    flash_residuals: with ``spec.flash_rank_attn``, where each modality's
+      rank attention keeps its flash residuals (one dict a modality, under
+      its index) for a remat policy that keeps them (``models.llama``).
     Returns the (b, L, d_out) delta in x's dtype (bf16 with
     ``spec.bf16_dots``, as JAX)."""
     m, _, r = lora_a.shape
     if m != spec.num_modalities or r != spec.rank:
         raise ValueError(f"adapter shape {tuple(lora_a.shape)} does not "
                          f"match {spec}")
-    if spec.flash_rank_attn:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "flash rank attention: TPU kernels 1-4 at head_dim r in fp32, "
-            "after frozen-base quantization"))
     drop = dropout_rng is not None and spec.dropout_rate > 0.0
     if drop and spec.fused_dropout:
         # dropout fused into the A product: with bf16_dots x and A reach
@@ -210,12 +230,21 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
 
     keys = a_all[0] * qmask[..., None]  # (b, L, r)
     q_mask = qmask
-    if spec.max_question_tokens is not None:
+    if spec.flash_rank_attn:
+        q_mask = question_mask.to(torch.int32)  # the key mask, once
+    elif spec.max_question_tokens is not None:
         keys, q_mask = question_window(keys, qmask, spec.max_question_tokens)
 
     buffer = a_all.sum(dim=0)
     for i in spec.attn_modalities:
-        attn = rank_space_cross_attention(a_all[i], keys, q_mask, dk=spec.rank)
+        if spec.flash_rank_attn:
+            attn = flash_rank_space_cross_attention(
+                a_all[i], keys, q_mask, dk=spec.rank,
+                residuals=None if flash_residuals is None else
+                flash_residuals.setdefault(i, {}))
+        else:
+            attn = rank_space_cross_attention(a_all[i], keys, q_mask,
+                                              dk=spec.rank)
         buffer = buffer + masks[i][..., None] * (spec.attn_weight * attn)
 
     delta = torch.einsum("blr,rd->bld", _dot_operand(buffer, spec),

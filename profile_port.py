@@ -5,7 +5,8 @@ AVT r=4 (bf16 base, random weights from a seed, B non-zero), and around
 one step of each of its training paths (``make_train_step`` at b 4,
 L 1024: full remat, fused dropout under ``proj_lse``, and the quantized
 recipe's route B: int4 base, int8 head through the fused CE kernels,
-``a8_dots="full"``, ``save_q8``, ``proj_lse``), at chip_smoke's shapes.
+``a8_dots="full"``, ``save_q8``, ``proj_lse``, and full remat with the
+flash rank attention), at chip_smoke's shapes.
 
     python3 profile_port.py        # from the root of a checkout, one card
 
@@ -76,6 +77,7 @@ def trace(fn) -> tuple[float, dict, dict]:
 
 GROUPS = (  # device entries by name, first match wins
     ("flash kernels (port)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("flash rank kernels (port)", ("flash_rank_",)),
     ("fused MokA kernels (port)", ("moka_delta_kernel",
                                    "question_keys_kernel")),
     ("fused dropout kernels (port)", ("dropout_a_fwd_kernel",
@@ -190,7 +192,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for key, path in (("train_step", "full"),
                       ("train_step_fused_proj_lse", "fused"),
-                      ("train_step_quant_route_b", "quant")):
+                      ("train_step_quant_route_b", "quant"),
+                      ("train_step_flash_rank", "rank")):
         out[key] = train_window(path)
         gc.collect()
         torch.cuda.empty_cache()
@@ -201,20 +204,22 @@ def main() -> int:
 def train_window(path: str = "full") -> dict:
     """One ``make_train_step`` step of a chip_smoke training path after two
     warm-up steps, untraced first, then traced: "full" (phase 6, full
-    remat), "fused" (phase 8: fused dropout under ``proj_lse``) or "quant"
-    (phase 9, route B: the quantized recipe with ``pallas_ce``)."""
+    remat), "fused" (phase 8: fused dropout under ``proj_lse``), "quant"
+    (phase 9, route B: the quantized recipe with ``pallas_ce``) or "rank"
+    (phase 11: phase 6's step with the flash rank attention)."""
     from chip_smoke import (QUANT_RECIPE, build_quant_trainer,
                             build_trainer, fused_train_config,
-                            quant_train_config, train_batch, train_config,
-                            train_loss)
+                            quant_train_config, rank_train_config,
+                            train_batch, train_config, train_loss)
     from moka_tpu_torch.core.config import TrainConfig
     from moka_tpu_torch.core.rng import DropoutKey
     from moka_tpu_torch.train.optim import make_optimizer
     from moka_tpu_torch.train.step import init_train_state, make_train_step
     quant = dict(QUANT_RECIPE, pallas_ce=True) if path == "quant" else {}
     cfg, spec = {"full": train_config, "fused": fused_train_config,
-                 "quant": quant_train_config}[path]()
-    policy = None if path == "full" else "proj_lse"
+                 "quant": quant_train_config,
+                 "rank": rank_train_config}[path]()
+    policy = None if path in ("full", "rank") else "proj_lse"
     frozen, trainable = (build_quant_trainer if quant else build_trainer)(
         cfg, spec)
     batch = train_batch(cfg, TRAIN_BATCH, TRAIN_LEN)
@@ -231,7 +236,8 @@ def train_window(path: str = "full") -> dict:
     wall = wall_ms(one)  # a warm-up step, then the untraced one
     traced, ops, host = trace(one)
     what = {"full": "full remat", "fused": "fused dropout, proj_lse",
-            "quant": "int4 base, a8 full, save_q8, proj_lse, fused CE"}[path]
+            "quant": "int4 base, a8 full, save_q8, proj_lse, fused CE",
+            "rank": "full remat, flash rank attention"}[path]
     return summary(f"training step b {TRAIN_BATCH} L {TRAIN_LEN} "
                    f"(make_train_step, {what})", wall, traced, ops,
                    host=host)

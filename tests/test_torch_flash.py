@@ -232,13 +232,15 @@ def test_flash_mha_grads_match_jax(L, S, q_offset, H, KH, bwd_block):
 def test_flash_mha_backward_calls_the_dispatched_kernels(monkeypatch, L,
                                                          want):
     """The autograd backward takes ``flash_bwd_fused`` up to the boundary
-    and ``flash_bwd_dq`` + ``flash_bwd_dkv`` past it."""
+    and ``flash_bwd_dq`` + ``flash_bwd_dkv`` past it (two heads: one fp32
+    head of head_dim <= 16 is the rank route, which always takes its own
+    pair, ``tests/test_torch_rank_flash.py``)."""
     calls = []
     for name in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         fn = getattr(tflash, name)
         monkeypatch.setattr(tflash, name, lambda *a, _fn=fn, _n=name: (
             calls.append(_n), _fn(*a))[1])
-    q, k, v, mask = map(torch.from_numpy, _data(b=1, L=L, S=L, H=1, KH=1,
+    q, k, v, mask = map(torch.from_numpy, _data(b=1, L=L, S=L, H=2, KH=2,
                                                 hd=4, pads=(0,), seed=7))
     q.requires_grad_(True)
     flash_mha(q, k, v, mask).sum().backward()

@@ -154,9 +154,12 @@ def test_init_moka_params_and_unported_paths():
     fused = tm.moka_delta(*_t(x, a, bm, mod, q), ts.with_fused_dropout(),
                           dropout_rng=DropoutKey(0))  # ported: runs
     assert fused.shape == (1, 6, 8) and torch.isfinite(fused).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.moka_delta(*_t(x, a, bm, mod, q),
-                      tm.MokaSpec.avt(dropout_rate=0.0).with_flash_rank_attn())
+    flash = tm.moka_delta(*_t(x, a, bm, mod, q),
+                          tm.MokaSpec.avt(dropout_rate=0.0)
+                          .with_flash_rank_attn())  # ported: runs
+    plain = tm.moka_delta(*_t(x, a, bm, mod, q),
+                          tm.MokaSpec.avt(dropout_rate=0.0))
+    np.testing.assert_allclose(flash.numpy(), plain.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("flavour,L", [("avt", 24), ("vt", 24), ("avt", 21)])

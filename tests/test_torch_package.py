@@ -216,3 +216,66 @@ def test_fused_ce_kernels_match_plain_on_card(card):
     assert (dx.float() - rdx.float()).abs().max() <= \
         2e-2 * rdx.float().abs().max()
     assert (dx[::5] == 0).all()
+
+
+@pytest.mark.cuda
+def test_block_diag_kernel_matches_plain_on_card(card):
+    """Kernel 10 against the plain einsum at bf16 and fp32 x, the gate's
+    smallest block and a wider one: each element within one bf16 ulp
+    (bf16) or 1e-5 of max|plain| (fp32); forward only."""
+    from moka_tpu_torch.ops import fbd
+    g = torch.Generator(device=card).manual_seed(4)
+    for (z, n, b, m), dtype in (((1, 64, 8, 384), torch.bfloat16),
+                                ((2, 3, 16, 256), torch.float32)):
+        blocks = torch.randn((z, n, b, b), generator=g, device=card) * 0.3
+        x = torch.randn((z, n * b, m), generator=g, device=card).to(dtype)
+        before = fbd.block_diag_matmul.launches
+        y = fbd.block_diag_matmul(blocks, x)
+        assert fbd.block_diag_matmul.launches == before + 1
+        ref = fbd.block_diag_matmul_plain(blocks, x).float()
+        err = (y.float() - ref).abs()
+        if dtype == torch.bfloat16:
+            assert (err <= 2 ** -7 * ref.abs()).all()
+        else:
+            assert err.max() <= 1e-5 * ref.abs().max()
+    blocks.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="use_pallas=False"):
+        fbd.block_diag_matmul(blocks, x).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [4, 8, 16])
+def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
+    """The rank route's three kernels against the plain versions, fp32,
+    one head, a ragged length and a sample that sees no key (random keys:
+    the kernels visit every key, so its rows equal the plain mean), also
+    causal with a query offset: out and lse to 1e-5, dq/dk/dv to 1e-4 of
+    max|plain| (fp32 sums in another order)."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=card).manual_seed(hd)
+    b, L = 3, 133
+    q, k, v, dout = (torch.randn((b, L, 1, hd), generator=g, device=card)
+                     for _ in range(4))
+    mask = torch.zeros((b, L), dtype=torch.int32, device=card)
+    mask[0, 5:40] = 1
+    mask[1, 100:133] = 1
+    args = (3, True) if causal else (0, False)  # (q_offset, causal)
+    launches = (fa.flash_rank_fwd.launches, fa.flash_rank_bwd_dq.launches,
+                fa.flash_rank_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, mask, *args)
+    delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = fa.flash_rank_bwd_dq(q, k, v, mask, dout, lse, delta, *args)
+    dk, dv = fa.flash_rank_bwd_dkv(q, k, v, mask, dout, lse, delta, *args)
+    assert (fa.flash_rank_fwd.launches, fa.flash_rank_bwd_dq.launches,
+            fa.flash_rank_bwd_dkv.launches) == tuple(n + 1 for n in launches)
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mask, *args)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    live = ref_lse > -1e29  # a dead row's lse is about -6.9e29
+    assert (lse[live] - ref_lse[live]).abs().max() <= 1e-5 * \
+        ref_lse[live].abs().max()
+    assert torch.allclose(lse[~live], ref_lse[~live], rtol=1e-6, atol=0)
+    for got, want in zip((dq, dk, dv), fa.flash_bwd_plain(
+            q, k, v, mask, dout, lse, delta, *args)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert not dq[2].any()
