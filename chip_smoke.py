@@ -21,7 +21,10 @@ Phases, in order; any failed build, launch or check exits non-zero:
      the block-diagonal product (kernel 10) at the BOFT merge's three
      shapes (library: ``torch.bmm``); the rank flash kernels (1-4 at
      head_dim 4, fp32) at the training step's (b 4, L 1024) and a ragged
-     shape, each with a sample that sees no key;
+     shape, each with a sample that sees no key; kernel 1 at the CLIP
+     tower's shape (b*t 40 and 80 frames, 257 tokens, 16 heads, head_dim
+     64, non-causal, every key valid) and a ragged one with padded keys
+     (library: ``scaled_dot_product_attention`` without a mask);
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -70,7 +73,26 @@ Phases, in order; any failed build, launch or check exits non-zero:
      448 rank dq and 448 rank dk/dv launches a step: full remat reruns
      every rank forward) with a traced step, and one ``proj_lse`` step
      (448 rank forwards: the policy keeps their residuals);
- 12. one JSON line with every kernel's numbers, then the card's line.
+ 12. (run after phase 9, on its int4 base, int8 head and adapters) the
+     multimodal generate of ``bench_decode.py::main_mm`` on the stack
+     ``avt_7b_int4a8f_qh_qenc_ta8f``: CLIP ViT-L/14 and BEATs built on the
+     card and quantized to int8 (W8A8 dots; CLIP's attention through
+     kernel 1 at head_dim 64), both Q-Former projectors and the splice, b
+     8, 10 frames and 10 audio segments of 192 fbank frames a prompt:
+     CLIP's last selected features through the kernel against the eager
+     tower (TOWER_TOL, which the kernel run causal must fail), the prefill
+     logits under phase 4's rule, then each stage timed and
+     ``unified.generate`` for 1 and 32 new tokens (the latter the main
+     path: 23 CLIP + 32 LLaMA flash forward and 224 fused MokA launches);
+ 13. the multimodal fine-tune step (``bench.py::run_multimodal`` on the
+     same stack: qkvod_lse, a8_dots "full", the chunked CE on the a8
+     head, b 4 x L 1024, the trainable tree {adapters, vl_projector,
+     al_projector}): at 2 decoder layers with the full towers the loss and
+     every adapter's and projector's gradients through the kernels against
+     the plain path and fp32 (phase 6's rule), then 2 warm-up and 5 timed
+     steps with a traced one (55 flash forward, 23 of them CLIP's, and 32
+     fused backward launches a step);
+ 14. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -210,49 +232,60 @@ def _wrappers() -> dict:
 
 
 def _counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches by kernel name, and ``flash_fwd_hd64``: those of the flash
+    forward at head_dim 64 (the CLIP tower), which ``flash_fwd`` counts
+    too."""
+    from moka_tpu_torch.ops.flash_attention import flash_fwd
+    out = {name: fn.launches for name, fn in _wrappers().items()}
+    out["flash_fwd_hd64"] = flash_fwd.launches_by_head_dim.get(64, 0)
+    return out
 
 
 def _zero_counts() -> None:
+    from moka_tpu_torch.ops.flash_attention import flash_fwd
     for fn in _wrappers().values():
         fn.launches = 0
+    flash_fwd.launches_by_head_dim.clear()
 
 
 def _launches(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` kernels, every other 0."""
-    return {name: nonzero.get(name, 0) for name in _wrappers()}
+    return {name: nonzero.get(name, 0)
+            for name in (*_wrappers(), "flash_fwd_hd64")}
 
 
 # ------------------------------------------------------------------ phase 3
 
-def _visible(mask, L, S, q_offset):
-    """(b, L, S) bool: causal + padding visibility."""
+def _visible(mask, L, S, q_offset, causal=True):
+    """(b, L, S) bool: padding visibility, and causal with ``causal``."""
     import torch
+    ok = (mask[:, None, :] > 0).expand(-1, L, -1)
+    if not causal:
+        return ok
     qpos = torch.arange(L, device=mask.device)[:, None] + q_offset
-    causal = qpos >= torch.arange(S, device=mask.device)[None, :]
-    return causal[None] & (mask[:, None, :] > 0)
+    return (qpos >= torch.arange(S, device=mask.device)[None, :])[None] & ok
 
 
-def flash_case(b, H, KH, L, S, pads=None, seed=0):
+def flash_case(b, H, KH, L, S, pads=None, seed=0, hd=128):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, L, H, 128), generator=g, device="cuda").bfloat16()
-    k = torch.randn((b, S, KH, 128), generator=g, device="cuda").bfloat16()
-    v = torch.randn((b, S, KH, 128), generator=g, device="cuda").bfloat16()
+    q = torch.randn((b, L, H, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((b, S, KH, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((b, S, KH, hd), generator=g, device="cuda").bfloat16()
     mask = torch.ones((b, S), dtype=torch.int32, device="cuda")
     for i, p in enumerate(pads or ()):
         mask[i, :p] = 0
     return q, k, v, mask
 
 
-def check_flash(name, q, k, v, mask, q_offset=0) -> float:
+def check_flash(name, q, k, v, mask, q_offset=0, causal=True) -> float:
     from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     import torch
-    out, lse = flash_fwd(q, k, v, mask, q_offset)
+    out, lse = flash_fwd(q, k, v, mask, q_offset, causal)
     torch.cuda.synchronize()
-    ref, ref_lse = flash_fwd_plain(q, k, v, mask, q_offset)
+    ref, ref_lse = flash_fwd_plain(q, k, v, mask, q_offset, causal)
     L, S = q.shape[1], k.shape[1]
-    rows = _visible(mask, L, S, q_offset).any(dim=-1)  # (b, L) valid rows
+    rows = _visible(mask, L, S, q_offset, causal).any(dim=-1)  # valid rows
     atol, rtol = FLASH_OUT_TOL
     diff = (out.float() - ref.float()).abs() * rows[:, :, None, None]
     excess = float((diff - rtol * ref.float().abs()).max())
@@ -260,7 +293,8 @@ def check_flash(name, q, k, v, mask, q_offset=0) -> float:
     d_lse = float(((lse - ref_lse).abs().amax(dim=1) * rows).max())
     ok = excess <= atol and d_lse <= FLASH_LSE_TOL
     log(f"  flash {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
-        f"q_offset {q_offset}: max|out err| {d_out:.3e}, max(|err| - "
+        f"q_offset {q_offset} causal {causal}: max|out err| {d_out:.3e}, "
+        f"max(|err| - "
         f"{rtol:.4g}|plain|) {excess:.3e} (tol {atol}), max|lse err| "
         f"{d_lse:.3e} (tol {FLASH_LSE_TOL}), valid rows "
         f"{int(rows.sum())}/{rows.numel()}")
@@ -317,6 +351,49 @@ def flash_record(b, L, S) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms,
             "shape": f"b {b} H 32 L {L} S {S} hd 128, one layer"}
+
+
+CLIP_FRAMES = (40, 80)  # b*t frames of the step (b 4) and of generate (b 8)
+
+
+def clip_flash_record() -> dict:
+    """Kernel 1 at the CLIP tower's shape: (b*t, 257, 16, 64), non-causal,
+    every key valid, at both paths' frame counts, and a ragged case with
+    padded keys; timed at both (the record's times at 80 frames, the
+    serving path's)."""
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+    err = check_flash("CLIP ragged, padded keys", *flash_case(
+        4, 16, 16, 257, 200, seed=6, hd=64, pads=(0, 3, 64, 199)),
+        causal=False)
+    timed = {}
+    for frames in CLIP_FRAMES:
+        q, k, v, mask = flash_case(frames, 16, 16, 257, 257, seed=5, hd=64)
+        err = max(err, check_flash(f"CLIP, {frames} frames", q, k, v, mask,
+                                   causal=False))
+        ms = time_ms(lambda: flash_fwd(q, k, v, mask, causal=False))
+        plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, mask,
+                                                   causal=False))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        b, L, H, hd = q.shape
+        pairs = float(b * H * L * L)
+        bms, by = bound_ms(4 * nbytes(q) + nbytes(mask) + b * H * L * 4,
+                           4.0 * hd * pairs, BF16_FLOPS)
+        timed[frames] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bms, "bound_by": by}
+        log(f"  flash timing at the CLIP shape (b {b}, H 16, L 257, hd 64, "
+            f"non-causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        del q, k, v, mask, qt, kt, vt
+    return {"name": "flash_fwd_hd64", "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/flash_fwd.cu",
+            "replaces": "moka_tpu/ops/flash_attention.py:56",
+            "launches": None, "max_abs_err": err,
+            "tolerance": "|err| <= %g + %g |plain|" % FLASH_OUT_TOL,
+            **timed[CLIP_FRAMES[-1]], "by_frames": timed,
+            "shape": f"b {CLIP_FRAMES[-1]} H 16 L 257 S 257 hd 64, "
+                     f"non-causal, one CLIP layer"}
 
 
 def bwd_case(b, H, KH, L, S, pads=None, q_offset=0, seed=0):
@@ -464,6 +541,60 @@ def moka_inputs(b, L, d_in, d_out, flavour, dtype, seed):
     bm = torch.randn((4, d_out), generator=g, device="cuda") * 0.02
     mod, qm = avt_masks(b, L, M)
     return x, a, bm, mod, qm, spec
+
+
+def mm_prefill_checks(records, new_tokens=32) -> None:
+    """Kernels 1 and 5 at the exact prefill shape of phase 12's batch
+    (``mm_batch(mm_config(), 8)``: its length, its own left pads, its
+    modality and question masks), on random q/k/v, x, A and B, against
+    their plain versions under phase 3's limits; the records' max_abs_err
+    take the larger error."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
+                                                moka_delta_fused_plain)
+    ucfg = mm_config()
+    cfg, spec = ucfg.llama, ucfg.spec
+    batch = mm_batch(ucfg, 8)
+    pmask = batch["attn_mask"]
+    b, L = pmask.shape
+    pads = [int(p) for p in (pmask == 0).sum(dim=1)]
+    log(f"  phase 12's prefill batch: b {b} L {L}, left pads {pads}")
+    q, k, v, _ = flash_case(b, cfg.n_heads, cfg.n_kv_heads, L,
+                            L + new_tokens, seed=7)
+    mask = F.pad(pmask, (0, new_tokens))
+    err = check_flash("multimodal prefill", q, k, v, mask)
+    del q, k, v
+    rec = {r["name"]: r for r in records}
+    rec["flash_fwd"]["max_abs_err"] = max(rec["flash_fwd"]["max_abs_err"],
+                                          err)
+    mod, qm = batch["modality_masks"], batch["question_mask"]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for d_in, d_out in sorted({(cfg.dim, cfg.dim),
+                               (cfg.dim, cfg.intermediate),
+                               (cfg.intermediate, cfg.dim)}):
+        x = torch.randn((b, L, d_in), generator=g,
+                        device="cuda").bfloat16()
+        bound = 1.0 / math.sqrt(d_in)
+        a = torch.rand((3, d_in, spec.rank), generator=g,
+                       device="cuda") * 2 * bound - bound
+        bm = torch.randn((spec.rank, d_out), generator=g,
+                         device="cuda") * 0.02
+        got = moka_delta_fused(x, a, bm, mod, qm, spec)
+        torch.cuda.synchronize()
+        ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
+        scale = float(ref.float().abs().max())
+        d = float((got.float() - ref.float()).abs().max())
+        tol = MOKA_TOL["bfloat16"]
+        log(f"  moka multimodal prefill bf16 {d_in}->{d_out}: max|err| "
+            f"{d:.3e}, max|plain| {scale:.3e}, rel {d / scale:.3e} (tol "
+            f"{tol})")
+        if not d <= tol * scale:
+            raise AssertionError("fused MokA kernel disagrees with its plain "
+                                 "version at phase 12's prefill masks")
+        rec["moka_delta_fwd"]["max_abs_err"] = max(
+            rec["moka_delta_fwd"]["max_abs_err"], d)
+    del batch
 
 
 def avt_masks(b, L, M, n_valid=None):
@@ -1141,7 +1272,9 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
     kernels, on the plain bf16 path, and on the plain path in fp32 on the
     same (bf16-valued) weights, or on ``plain_base``'s where it is given
     (weights the plain versions made).  Fails unless the kernel path is
-    within LOGIT_RATIO times the plain bf16 path's distance from fp32."""
+    within LOGIT_RATIO times the plain bf16 path's distance from fp32, on
+    the prompts' valid positions (a left-padded position sees no key: its
+    attention output is unspecified, and no caller reads it)."""
     import torch
     from moka_tpu_torch.eval.decode import prefill
     from moka_tpu_torch.models import llama
@@ -1162,15 +1295,15 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
         counts = (flash_fwd.launches, moka_delta_fused.launches)
         ref = base if plain_base is None else plain_base
         plain = logits(ref, False, torch.bfloat16)
-        base32 = {k: ({n: t.float() for n, t in v.items()}
-                      if isinstance(v, dict) else v.float())
-                  for k, v in ref.items()}
+        base32 = float32(ref)  # a quantized base keeps its codes
         exact = logits(base32, False, torch.float32)
         del base32
     log(f"  kernel prefill: flash launches {counts[0]}, fused MokA "
         f"launches {counts[1]}")
     if counts != (cfg.n_layers, 7 * cfg.n_layers):
         raise AssertionError(f"prefill launches {counts}")
+    valid = inputs["prompt_mask"] > 0
+    got, plain, exact = got[valid], plain[valid], exact[valid]
     std = float(exact.std())
 
     def rel_err(x):
@@ -1191,41 +1324,41 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
                              "from fp32 than the plain bf16 path")
 
 
-def main_path(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
-    """Times ``greedy_generate`` for one token (the prefill and the head on
-    its last row, no decode step; median of three) and for ``new_tokens``
-    (the main path: launch counts zeroed just before, read just after).
-    Decode = the difference; its cache is new_tokens - 1 positions longer."""
+def main_path(gen, batch: int, new_tokens: int, vocab: int, want: dict,
+              what: str) -> dict:
+    """Times ``gen(1)`` (the prefill and the head on its last row, no
+    decode step; median of three) and ``gen(new_tokens)`` (the main path:
+    launch counts zeroed just before, read just after, and required to
+    equal ``want``).  Decode = the difference; its cache is new_tokens - 1
+    positions longer."""
     import torch
 
     def timed(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = generate(cfg, spec, base, adapters, inputs, n)
+        toks = gen(n)
         torch.cuda.synchronize()
         return toks, time.perf_counter() - t0
 
     with torch.inference_mode():
-        generate(cfg, spec, base, adapters, inputs, new_tokens)  # warm-up
+        gen(new_tokens)  # warm-up
         prefill_s = sorted(timed(1)[1] for _ in range(3))[1]
         _zero_counts()
         toks, total_s = timed(new_tokens)
         launches = _counts()
-    batch = inputs["inputs_embeds"].shape[0]
     if tuple(toks.shape) != (batch, new_tokens) or \
-            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            int(toks.min()) < 0 or int(toks.max()) >= vocab:
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
     tps = batch * (new_tokens - 1) / (total_s - prefill_s)
-    log(f"  greedy_generate b {batch} prompt "
-        f"{inputs['inputs_embeds'].shape[1]} new {new_tokens}: total "
-        f"{total_s * 1e3:.1f} ms, prefill (1 new token) {prefill_s * 1e3:.1f}"
-        f" ms, decode {tps:.1f} tok/s ({new_tokens - 1} decode steps), "
-        f"launches {launches}")
-    if launches != _launches(flash_fwd=cfg.n_layers,
-                             moka_delta_fwd=7 * cfg.n_layers):
-        raise AssertionError(f"main path launches {launches}")
+    log(f"  {what} new {new_tokens}: total {total_s * 1e3:.1f} ms, "
+        f"1 new token {prefill_s * 1e3:.1f} ms, decode "
+        f"{(total_s - prefill_s) * 1e3:.1f} ms, {tps:.1f} tok/s "
+        f"({new_tokens - 1} decode steps), launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
     return {"launches": launches, "prefill_ms": prefill_s * 1e3,
-            "decode_tok_s": tps, "total_ms": total_s * 1e3}
+            "decode_ms": (total_s - prefill_s) * 1e3, "decode_tok_s": tps,
+            "total_ms": total_s * 1e3}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1443,6 +1576,8 @@ def float32(tree):
     base keeps its integer codes)."""
     if isinstance(tree, dict):
         return {k: float32(v) for k, v in tree.items()}
+    if tree is None:  # BEATs' absent patch bias
+        return None
     return tree.float() if tree.is_floating_point() else tree
 
 
@@ -1498,10 +1633,12 @@ def _check_train_grads(cfg, spec, frozen, trainable, batch, policy=None,
 
 
 def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
-                busy=False, n_warm=2, n_timed=5, **quant) -> dict:
+                busy=False, n_warm=2, n_timed=5, loss_fn=None,
+                **quant) -> dict:
     """A training path: ``make_train_step`` with
     ``make_optimizer(TrainConfig(), total_steps=1000)`` and remat under
-    ``policy`` (``quant``: the quantized recipe's options).  ``n_warm``
+    ``policy`` (``quant``: the quantized recipe's options), or over
+    ``loss_fn`` where it is given.  ``n_warm``
     warm-up steps (the first has learning rate 0; the adapters must have
     moved after the second), then ``n_timed`` timed steps with the launch
     counts zeroed just before and read just after; with ``busy``, then one
@@ -1514,7 +1651,8 @@ def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
     from moka_tpu_torch.train.step import init_train_state, make_train_step
     tx = make_optimizer(TrainConfig(), total_steps=1000)
     state = init_train_state(trainable, tx, DropoutKey(0))
-    step = make_train_step(train_loss(cfg, spec, True, policy, **quant), tx)
+    step = make_train_step(loss_fn or train_loss(cfg, spec, True, policy,
+                                                 **quant), tx)
     start = [p.clone() for p in tree_leaves(state.params)]
 
     def moved():
@@ -1543,7 +1681,7 @@ def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / n_timed for k, v in counts.items()}
-    b, L = batch["tokens"].shape
+    b, L = batch["labels"].shape
     step_ms = float(np.median(times)) * 1e3
     log(f"  train steps b {b} L {L}: losses {[round(x, 5) for x in losses]}"
         f", grad_norm {[round(x, 5) for x in norms]}")
@@ -1554,6 +1692,7 @@ def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError("non-finite loss or grad norm")
     out = {"step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
+           "step_ms_min": min(times) * 1e3,
            "tokens_per_s": b * L / (step_ms / 1e3), "losses": losses,
            "grad_norms": norms, "peak_memory_bytes": peak,
            "launches_per_step": per_step}
@@ -2019,12 +2158,372 @@ def rank_steps(cfg, spec, frozen, trainable, batch) -> dict:
 
 # ------------------------------------------------------------------- main
 
+# ------------------------------------------------------------- phases 12-13
+
+MM_FRAMES, MM_SEGMENTS, MM_AUDIO_FRAMES = 10, 10, 192  # a sample's groups
+TOWER_TOL = 8e-2  # CLIP's last selected features through kernel 1 against
+                  # the eager tower on the card, relative L2: both run the
+                  # same int8 W8A8 products in bf16 and differ where
+                  # attention rounds, which flips per-token int8 codes of
+                  # later layers (2.9e-2 on an H100); the kernel run
+                  # causal reads 0.21 there and must exceed it
+
+
+def mm_config():
+    """``avt_7b_int4a8f_qh_qenc_ta8f`` (``bench.py:407-412``): the AVT
+    stack over LLaMA-2-7B (vocab 32011) with phase 9's spec (MokA AVT r=4,
+    dropout 0.05, 256-key question window, bf16 dots), both towers int8
+    with W8A8 dots, CLIP's attention through the flash kernel."""
+    import dataclasses
+    from moka_tpu_torch.models.unified import UnifiedConfig
+    cfg, spec = quant_train_config()
+    ucfg = UnifiedConfig.avt(cfg, spec)
+    return dataclasses.replace(
+        ucfg, clip=dataclasses.replace(ucfg.clip, a8_dots=True,
+                                       use_flash=True),
+        beats=dataclasses.replace(ucfg.beats, a8_dots=True))
+
+
+def build_mm_stack(ucfg, llama_frozen, adapters, seed=7):
+    """Phase 9's int4 base (int8 head) and adapters, with CLIP and BEATs
+    built on the card in bf16 from ``seed`` and quantized by
+    ``quantize_encoder(bits=8)``, and fp32 projectors."""
+    import torch
+    from moka_tpu_torch.models.beats import init_beats_params
+    from moka_tpu_torch.models.clip_vit import init_clip_params
+    from moka_tpu_torch.models.projectors import init_projector_params
+    from moka_tpu_torch.ops.quant import quantize_encoder
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.bfloat16)
+    frozen = {"llama": llama_frozen,
+              "clip": quantize_encoder(init_clip_params(g, ucfg.clip, **kw)),
+              "beats": quantize_encoder(init_beats_params(g, ucfg.beats,
+                                                          **kw))}
+    trainable = {"adapters": adapters,
+                 "vl_projector": init_projector_params(
+                     g, ucfg.vl_projector, device="cuda"),
+                 "al_projector": init_projector_params(
+                     g, ucfg.al_projector, device="cuda")}
+    return frozen, trainable
+
+
+def mm_batch(ucfg, b, L=None) -> dict:
+    """With ``L``, ``bench.py::run_multimodal``'s samples (prefix, <video>,
+    <audio>, a 16-token question, an answer filling the sample to about L,
+    :239-254), padded to L; without, ``bench_decode.py::_mm_eval_batch``'s
+    prompts (a 24-token question, no answer, :114-148), padded to the
+    longest.  MM_FRAMES frames of 3x224x224 and MM_SEGMENTS fbank segments
+    of MM_AUDIO_FRAMES x 128 a sample, on the card."""
+    import torch
+    from moka_tpu_torch.data import assembler as asm
+    nv = MM_FRAMES * ucfg.vl_projector.num_query_tokens
+    na = MM_SEGMENTS * ucfg.al_projector.num_query_tokens
+    base = ucfg.llama.vocab_size - len(asm.SPECIAL_TOKENS)
+    t2i = {t: base + i for i, t in enumerate(asm.SPECIAL_TOKENS)}
+    rng = np.random.default_rng(0)
+    samples = []
+    for i in range(b):
+        if L is not None:
+            prefix = rng.integers(4, base, 16 + i).tolist()
+            q_toks = rng.integers(4, base, 16).tolist()
+            n_ans = max(1, L - (len(prefix) + 3 + nv + 3 + na + 2 +
+                                len(q_toks)) - 8 - i)
+            answer = rng.integers(4, base, n_ans).tolist()
+        else:
+            prefix = rng.integers(4, base, 16 + i % 8).tolist()
+            q_toks = rng.integers(4, base, 24).tolist()
+            answer = []
+        ids = (prefix
+               + [t2i["<video_start>"], t2i["<video>"], t2i["<video_end>"]]
+               + [t2i["<audio_start>"], t2i["<audio>"], t2i["<audio_end>"]]
+               + [t2i["<question_start>"]] + q_toks
+               + [t2i["<question_end>"]] + answer)
+        labels = [-100] * (len(ids) - len(answer)) + answer
+        samples.append(asm.assemble_sample(
+            np.asarray(ids), np.asarray(labels), t2i, pad_id=0,
+            n_video_tokens=nv, n_audio_tokens=na))
+    batch = asm.pad_batch(samples, pad_id=0, pad_to=L)
+    img = ucfg.clip.image_size
+    batch["video"] = rng.standard_normal(
+        (b, MM_FRAMES, 3, img, img)).astype(np.float32)
+    batch["audio"] = rng.standard_normal(
+        (b, MM_SEGMENTS, MM_AUDIO_FRAMES, 128)).astype(np.float32)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def causal_clip_kernel():
+    """Within: every flash forward launch runs its kernel with causal=1 (a
+    deliberate fault of the CLIP tower's attention)."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    launch = fa._launch_fwd
+
+    def wrong(q, k, v, attn_mask, q_offset, causal):
+        return launch(q, k, v, attn_mask, q_offset, True)
+
+    fa._launch_fwd = wrong
+    try:
+        yield
+    finally:
+        fa._launch_fwd = launch
+
+
+def check_clip_tower(ucfg, clip, video) -> dict:
+    """CLIP's last selected features of every frame through kernel 1
+    against the eager tower (the same int8 W8A8 products), relative L2
+    within TOWER_TOL; the same with the kernel run causal must exceed it.
+    Launches: one a layer that runs (the tower stops after the last
+    selected layer)."""
+    import dataclasses
+    import torch
+    from moka_tpu_torch.models.clip_vit import clip_hidden_states
+    frames = video.reshape(-1, *video.shape[2:]).to(torch.bfloat16)
+    sel = ucfg.select_layers
+    with torch.inference_mode():
+        _zero_counts()
+        flash = clip_hidden_states(clip, ucfg.clip, frames, sel)[-1].float()
+        launches = _counts()["flash_fwd_hd64"]
+        eager = clip_hidden_states(clip, dataclasses.replace(
+            ucfg.clip, use_flash=False), frames, sel)[-1].float()
+        with causal_clip_kernel():
+            wrong = clip_hidden_states(clip, ucfg.clip, frames,
+                                       sel)[-1].float()
+    err, fault = rel(flash, eager), rel(wrong, eager)
+    finite = bool(torch.isfinite(flash).all())
+    log(f"  CLIP tower {tuple(flash.shape)}: kernel vs eager rel L2 "
+        f"{err:.3e}; kernel run causal vs eager {fault:.3e} (tol "
+        f"{TOWER_TOL}; the causal run must exceed it); kernel-1 launches "
+        f"{launches} ({max(sel)} layers run); finite {finite}")
+    if launches != max(sel) or not finite or not err <= TOWER_TOL < fault:
+        raise AssertionError("CLIP tower: the flash kernel's features "
+                             "disagree with the eager tower's, or the check "
+                             "passes a causal kernel")
+    return {"rel_l2": err, "causal_fault_rel_l2": fault,
+            "launches": launches}
+
+
+def tower_times(ucfg, frozen, trainable, batch) -> dict:
+    """ms of each stage of ``build_inputs_embeds`` on ``batch`` (the
+    mean of three runs after one warm-up): the CLIP pass, the BEATs pass,
+    both projectors, the splice."""
+    import torch
+    from moka_tpu_torch.data.assembler import splice_features
+    from moka_tpu_torch.models import unified
+    from moka_tpu_torch.models.beats import encode_audio_segments
+    from moka_tpu_torch.models.clip_vit import encode_video
+    from moka_tpu_torch.models.projectors import project_audio, \
+        project_visual
+    clip, beats = frozen["clip"], frozen["beats"]
+    video = batch["video"].to(torch.bfloat16)
+    audio = batch["audio"].to(torch.bfloat16)
+    with torch.inference_mode():
+        fv = encode_video(clip, ucfg.clip, video,
+                          ucfg.select_layers)[-1].float()
+        fa = encode_audio_segments(beats, ucfg.beats, audio).float()
+        tv = project_visual(trainable["vl_projector"], ucfg.vl_projector, fv)
+        ta = project_audio(trainable["al_projector"], ucfg.al_projector, fa)
+        embeds = frozen["llama"]["embed"][batch["ids"].long()]
+        few = dict(iters=3, warmup=1)
+        out = {
+            "clip_ms": time_ms(lambda: encode_video(
+                clip, ucfg.clip, video, ucfg.select_layers), **few),
+            "beats_ms": time_ms(lambda: encode_audio_segments(
+                beats, ucfg.beats, audio), **few),
+            "projectors_ms": time_ms(lambda: (
+                project_visual(trainable["vl_projector"], ucfg.vl_projector,
+                               fv),
+                project_audio(trainable["al_projector"], ucfg.al_projector,
+                              fa)), **few),
+            "splice_ms": time_ms(lambda: splice_features(
+                embeds, tv, batch["video_pos"], ta, batch["audio_pos"]),
+                **few),
+            "build_inputs_embeds_ms": time_ms(
+                lambda: unified.build_inputs_embeds(trainable, frozen, ucfg,
+                                                    batch), **few)}
+    log("  " + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in out.items()) +
+        f" (b {video.shape[0]}, {video.shape[1]} frames, "
+        f"{audio.shape[1]} segments)")
+    return out
+
+
+def mm_generate(ucfg, frozen, trainable, batch_size=8,
+                new_tokens=32) -> dict:
+    """Phase 12: ``unified.generate`` on ``bench_decode.py::main_mm``'s
+    batch (b 8, greedy, no end token).  Checks the CLIP tower (kernel 1 at
+    head_dim 64) and the multimodal prefill logits (phase 4's rule: the
+    kernel path within LOGIT_RATIO of the plain path's distance from
+    fp32); times the stages, prefill (1 new token) and ``new_tokens`` (the
+    main path: launch counts zeroed just before, read just after)."""
+    import torch
+    from moka_tpu_torch.models import llama, unified
+    batch = mm_batch(ucfg, batch_size)
+    tower = check_clip_tower(ucfg, frozen["clip"], batch["video"])
+    with torch.inference_mode():
+        embeds = unified.build_inputs_embeds(trainable, frozen, ucfg, batch)
+    inputs = {"inputs_embeds": embeds, "prompt_mask": batch["attn_mask"],
+              "masks": llama.MaskBundle(batch["modality_masks"],
+                                        batch["question_mask"])}
+    log(f"  prompts b {batch_size} L {embeds.shape[1]} "
+        f"({int(batch['video_pos'].shape[1] + batch['audio_pos'].shape[1])}"
+        f" multimodal tokens a prompt):")
+    check_logits(ucfg.llama, ucfg.spec, frozen["llama"],
+                 trainable["adapters"], inputs, new_tokens)
+    del embeds, inputs
+    stages = tower_times(ucfg, frozen, trainable, batch)
+
+    def gen(n):
+        return unified.generate(trainable, frozen, ucfg, batch,
+                                max_new_tokens=n, eos_id=-1)
+
+    n_clip = max(ucfg.select_layers)
+    out = main_path(gen, batch_size, new_tokens, ucfg.llama.vocab_size,
+                    _launches(flash_fwd=ucfg.llama.n_layers + n_clip,
+                              flash_fwd_hd64=n_clip,
+                              moka_delta_fwd=7 * ucfg.llama.n_layers),
+                    f"unified.generate b {batch_size}")
+    out.update(tower_check=tower, **stages,
+               prefill_after_towers_ms=out["prefill_ms"] -
+               stages["build_inputs_embeds_ms"],
+               encoder_inclusive_tok_s=batch_size * new_tokens /
+               (out["total_ms"] / 1e3))
+    log(f"  encoder-inclusive {out['encoder_inclusive_tok_s']:.1f} new "
+        f"tokens/s; prefill after the towers, projectors and splice "
+        f"{out['prefill_after_towers_ms']:.1f} ms")
+    return out
+
+
+MM_LOSS_FLOOR = 2e-3  # nats: the 2-layer multimodal loss's bf16 noise; the
+                      # plain bf16 path reads 1.76e-3 from fp32 on an H100
+                      # and the kernel path 3.19e-3, which also carries the
+                      # tower's int8 code flips (TOWER_TOL)
+MM_LOSS = dict(remat=True, fused_loss=True, remat_policy="qkvod_lse",
+               a8_dots="full")  # bench.py:407-412 with use_flash
+
+
+def mm_loss(ucfg, kernels: bool):
+    """The multimodal step's loss: through the flash kernels (the decoder
+    and the CLIP tower), or on the plain path (eager attention in both)."""
+    import dataclasses
+    from moka_tpu_torch.models.unified import unified_loss
+    if not kernels:
+        ucfg = dataclasses.replace(ucfg, clip=dataclasses.replace(
+            ucfg.clip, use_flash=False))
+    return unified_loss(ucfg, use_flash=kernels, **MM_LOSS)
+
+
+def _paths(tree, prefix=()):
+    """Key paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                        prefix + (k,))]
+    return [prefix]
+
+
+def mm_loss_and_grads(ucfg, frozen, trainable, batch, kernels, key):
+    """(loss, {group: its gradients, flat}): a group per adapter projection
+    and per projector (the Q-Formers' text branch, which no question
+    reaches, in zeros)."""
+    import torch
+    from moka_tpu_torch.train.optim import tree_leaves
+    leaves = tree_leaves(trainable)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = mm_loss(ucfg, kernels)(trainable, frozen, batch, key)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    flat = {}
+    for path, g in zip(_paths(trainable), grads):
+        group = path[2] if path[0] == "adapters" else path[0]
+        flat.setdefault(group, []).append(g.flatten())
+    return float(loss.detach()), {k: torch.cat(v) for k, v in flat.items()}
+
+
+def check_mm_grads(ucfg, frozen, trainable, batch) -> dict:
+    """At SHALLOW decoder layers with the full towers: the loss and the
+    gradients of every adapter projection and both projectors through the
+    kernels, against the plain path (eager attention in the decoder and
+    the CLIP tower) and an fp32 run (the same values in fp32, integer codes
+    kept), same dropout key, under phase 6's rule; the loss's floor is
+    MM_LOSS_FLOOR nats."""
+    import dataclasses
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    n = SHALLOW
+    ucfg = dataclasses.replace(ucfg, llama=dataclasses.replace(
+        ucfg.llama, n_layers=n))
+    frozen = dict(frozen, llama=first_layers(frozen["llama"], n))
+    trainable = dict(trainable,
+                     adapters=first_layers(trainable["adapters"], n))
+    key = DropoutKey(14)
+    kern = mm_loss_and_grads(ucfg, frozen, trainable, batch, True, key)
+    plain = mm_loss_and_grads(ucfg, frozen, trainable, batch, False, key)
+    frozen32 = float32(frozen)
+    exact = mm_loss_and_grads(ucfg, frozen32, trainable, batch, False, key)
+    del frozen32
+    torch.cuda.empty_cache()
+    out = {"loss": {"kernels": kern[0], "plain": plain[0], "fp32": exact[0]},
+           "grad_rel_l2": {}}
+    dk, dp = abs(kern[0] - exact[0]), abs(plain[0] - exact[0])
+    ok = all(math.isfinite(x) for x in out["loss"].values()) and \
+        dk <= TRAIN_RATIO * dp + MM_LOSS_FLOOR
+    log(f"  {n} decoder layers, full towers: loss kernels {kern[0]:.6f}, "
+        f"plain {plain[0]:.6f}, fp32 {exact[0]:.6f} (|kernels - fp32| "
+        f"{dk:.3e} vs plain {dp:.3e}, ratio {dk / dp:.2f}; tol "
+        f"{TRAIN_RATIO} x plain + {MM_LOSS_FLOOR} nats)")
+    for name in kern[1]:
+        ek = rel(kern[1][name], exact[1][name])
+        ep = rel(plain[1][name], exact[1][name])
+        good = bool(torch.isfinite(kern[1][name]).all()) and \
+            ek <= TRAIN_RATIO * ep + TRAIN_FLOOR
+        ok &= good
+        out["grad_rel_l2"][name] = {
+            "kernels_vs_fp32": ek, "plain_vs_fp32": ep,
+            "kernels_vs_plain": rel(kern[1][name], plain[1][name])}
+        log(f"  grad {name}: rel L2 vs fp32 kernels {ek:.3e}, plain "
+            f"{ep:.3e}; norm {float(exact[1][name].norm()):.3e}"
+            f"{'' if good else '  <-- FAIL'}")
+    log(f"  (tol: kernels <= {TRAIN_RATIO} x plain + {TRAIN_FLOOR})")
+    if not ok:
+        raise AssertionError("multimodal step: the kernel path is further "
+                             "from fp32 than the plain bf16 path allows")
+    return out
+
+
+def mm_steps(ucfg, frozen, trainable) -> dict:
+    """Phase 13: ``bench.py::run_multimodal``'s step on the stack (b 4 x
+    L 1024, MM_LOSS, ``make_optimizer(TrainConfig(), 1000)``, the
+    trainable tree {adapters, vl_projector, al_projector}): the SHALLOW
+    gradient check, then at full depth 2 warm-up and 5 timed steps with a
+    traced one; launches a step asserted; the towers' forward ms at b 4."""
+    import torch
+    batch = mm_batch(ucfg, 4, L=1024)
+    check = check_mm_grads(ucfg, frozen, trainable, batch)
+    stages = tower_times(ucfg, frozen, trainable, batch)
+    run = train_steps(ucfg.llama, ucfg.spec, frozen, clone_tree(trainable),
+                      batch, busy=True, loss_fn=mm_loss(ucfg, True))
+    n_clip, n = max(ucfg.select_layers), ucfg.llama.n_layers
+    want = _launches(flash_fwd=n + n_clip, flash_fwd_hd64=n_clip,
+                     flash_bwd_fused=n)
+    log(f"  step min {run['step_ms_min']:.1f} ms, median "
+        f"{run['step_ms']:.1f} ms")
+    if run["launches_per_step"] != want:
+        raise AssertionError(f"multimodal step launches "
+                             f"{run['launches_per_step']}, want {want}")
+    if not run["losses"][-1] < run["losses"][0]:
+        raise AssertionError(f"the loss did not fall: {run['losses']}")
+    torch.cuda.empty_cache()
+    return {"check": check, "stages_b4": stages, **run}
+
+
 def main() -> int:
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2065,14 +2564,20 @@ def main() -> int:
                *flash_bwd_records(),
                *dropout_records(4 * 1024, cfg.dim, cfg.intermediate),
                *ce_records(4 * 1023, cfg.dim, 32011),
-               *block_diag_records(), *rank_flash_records(4, 1024)]
+               *block_diag_records(), *rank_flash_records(4, 1024),
+               clip_flash_record()]
+    mm_prefill_checks(records, new_tokens)
     torch.cuda.empty_cache()
 
     log(f"[4] LLaMA-2-7B + MokA AVT r4 at full width, {cfg.n_layers} layers")
     base, adapters = build_model(cfg, spec)
     inputs = main_path_inputs(cfg, base, batch, prompt_len)
     check_logits(cfg, spec, base, adapters, inputs, new_tokens)
-    timings = main_path(cfg, spec, base, adapters, inputs, new_tokens)
+    timings = main_path(
+        lambda n: generate(cfg, spec, base, adapters, inputs, n), batch,
+        new_tokens, cfg.vocab_size,
+        _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers),
+        f"greedy_generate b {batch} prompt {prompt_len}")
 
     log("[5] HTTP serving over the continuous-batching engine")
     served = serve_requests(cfg, spec, base, adapters, new_tokens=new_tokens)
@@ -2154,6 +2659,23 @@ def main() -> int:
                                           batch)
     quant = quant_steps(qcfg, qspec, qfrozen, qtrain, batch,
                         fused["peak_memory_bytes"])
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ucfg = mm_config()
+    log(f"[12] multimodal generate (bench_decode.py::main_mm): CLIP "
+        f"ViT-L/14 and BEATs (int8, W8A8 dots, CLIP through kernel 1 at "
+        f"head_dim 64), both Q-Former projectors and the splice, on phase "
+        f"9's int4 base (int8 head) and adapters, b 8, {MM_FRAMES} frames, "
+        f"{MM_SEGMENTS} audio segments of {MM_AUDIO_FRAMES} frames, 32 new "
+        f"tokens")
+    mfrozen, mtrain = build_mm_stack(ucfg, qfrozen, qtrain["adapters"])
+    mm_gen = mm_generate(ucfg, mfrozen, mtrain)
+    log(f"[13] multimodal fine-tune step (bench.py::run_multimodal, "
+        f"avt_7b_int4a8f_qh_qenc_ta8f): qkvod_lse, a8_dots full, chunked "
+        f"CE on the a8 head, b 4 L 1024, {ucfg.llama.n_layers} layers")
+    mm_train = mm_steps(ucfg, mfrozen, mtrain)
 
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "training step": train["launches_per_step"],
@@ -2165,7 +2687,9 @@ def main() -> int:
              "quantized step, route A (a8 head)":
                  quant["A"]["launches_per_step"],
              "BOFT merge": boft["launches"],
-             "flash rank attention step": rank["full"]["launches_per_step"]}
+             "flash rank attention step": rank["full"]["launches_per_step"],
+             "multimodal generate (unified.generate)": mm_gen["launches"],
+             "multimodal step": mm_train["launches_per_step"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -2178,7 +2702,8 @@ def main() -> int:
            "block_diag": "BOFT merge",
            "flash_rank_fwd": "flash rank attention step",
            "flash_rank_bwd_dq": "flash rank attention step",
-           "flash_rank_bwd_dkv": "flash rank attention step"}
+           "flash_rank_bwd_dkv": "flash rank attention step",
+           "flash_fwd_hd64": "multimodal generate (unified.generate)"}
     for rec in records:
         rec["launches"] = int(paths[own[rec["name"]]][rec["name"]])
         rec["launches_path"] = own[rec["name"]]
@@ -2190,7 +2715,9 @@ def main() -> int:
                     "fused_train": fused, "policy_ladder": ladder,
                     "quant_check": quant_check, "quant_train": quant,
                     "boft": boft, "rank_check": rank_check,
-                    "rank_train": rank}))
+                    "rank_train": rank, "mm_generate": mm_gen,
+                    "mm_train": mm_train}))
+    log(f"[14] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

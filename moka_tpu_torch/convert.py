@@ -30,9 +30,12 @@ def _tensor(arr, device, dtype) -> torch.Tensor:
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """Convert a tree of numpy arrays (dicts, lists, tuples, mask bundles)
     to tensors on ``device``; floating leaves are cast to ``dtype`` when it
-    is given, integer leaves keep their type.  Python scalars pass
-    through."""
+    is given, integer leaves and the leaves of a quantized weight (its
+    codes and fp32 scales) keep their type.  Python scalars and None (a
+    tower's absent ``patch_bias``) pass through."""
     if isinstance(tree, dict):
+        if "w_i8" in tree or "w_i4" in tree:  # codes and fp32 scales kept
+            dtype = None
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)

@@ -33,6 +33,14 @@
 // 989 TFLOP/s bf16.  So the bound is the bytes.  This first cut uses
 // mma.sync without TMA/wgmma or double buffering; its measured time is in
 // PERF.md.
+//
+// Head dim 64 (the CLIP tower: b*t frames of 257 tokens, 16 heads,
+// non-causal, every key valid) is the same kernel instantiated at HD = 64:
+// its padded row of 72 elements (36 words) puts the 32 lanes of a fragment
+// read on 32 distinct banks, as 136 does at 128; the last 64-key tile holds
+// one valid key (257 = 4 * 64 + 1) and the `k < S` test masks the rest.
+// Bound at (80, 257, 16, 64): q/k/v/out about 42 MB each, ~0.05 ms at
+// 3.35 TB/s; 21.6 GFLOP, ~0.022 ms at 989 TFLOP/s: the bytes again.
 
 #include "flash_common.cuh"
 
@@ -234,9 +242,9 @@ __global__ void __launch_bounds__(NTHREADS)
 
 }  // namespace
 
-// q/out (B, L, H, hd) bf16, k/v (B, S, KH, hd) bf16 with hd == 128 (LLaMA-2),
-// mask (B, S) int32, lse (B, H, L) fp32; all contiguous.  Returns
-// cudaGetLastError().
+// q/out (B, L, H, hd) bf16, k/v (B, S, KH, hd) bf16 with hd 128 (LLaMA-2) or
+// 64 (the CLIP ViT-L/14 tower), mask (B, S) int32, lse (B, H, L) fp32; all
+// contiguous.  Returns cudaGetLastError().
 extern "C" int moka_flash_fwd(const void* q, const void* k, const void* v,
                               const void* mask, void* out, void* lse, int B,
                               int H, int KH, int L, int S, int hd,
@@ -252,8 +260,14 @@ extern "C" int moka_flash_fwd(const void* q, const void* k, const void* v,
   const auto* mp = static_cast<const int*>(mask);
   auto* op = static_cast<uint16_t*>(out);
   auto* lp = static_cast<float*>(lse);
-  if (hd != 128) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
-      qp, kp, vp, mp, op, lp, H, KH, L, S, q_offset, causal, qscale);
+  if (hd == 128) {
+    flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, vp, mp, op, lp, H, KH, L, S, q_offset, causal, qscale);
+  } else if (hd == 64) {
+    flash_fwd_kernel<64><<<grid, NTHREADS, 0, st>>>(
+        qp, kp, vp, mp, op, lp, H, KH, L, S, q_offset, causal, qscale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,8 @@ and a dk/dv kernel, fp32 SIMT, built for head_dim 4, 8 and 16) through the
 wrappers ``flash_rank_fwd``, ``flash_rank_bwd_dq`` and
 ``flash_rank_bwd_dkv``, with the same contract and the same plain
 versions.  Its backward is always the dq + dk/dv pair.  bf16 at head_dim
-128 keeps the kernels above; anything else on the card raises.
+128 keeps the kernels above, and the forward also takes head_dim 64 (the
+frozen CLIP tower, non-causal); anything else on the card raises.
 
 Numerics follow the JAX kernels: q is pre-scaled by ``scale * log2(e)``
 rounded in q's dtype, the softmax runs in fp32 base 2 (``exp2``), and lse
@@ -186,9 +187,15 @@ def _library(name: str):
     return lib
 
 
-def _kernel_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
-    """Check what the kernels take (bf16, head_dim 128, contiguous,
-    16-byte aligned, one device) and return the tensors as they pass."""
+FWD_HEAD_DIMS = (64, 128)  # flash_fwd.cu: CLIP ViT-L/14 and LLaMA-2
+BWD_HEAD_DIMS = (128,)     # flash_bwd.cu: LLaMA-2 (the towers are frozen)
+
+
+def _kernel_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None,
+                   head_dims=BWD_HEAD_DIMS):
+    """Check what the kernels take (bf16, a head_dim of ``head_dims``,
+    contiguous, 16-byte aligned, one device) and return the tensors as they
+    pass."""
     b, L, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     named = [("q", q), ("k", k), ("v", v)]
@@ -200,8 +207,9 @@ def _kernel_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
                             f"{t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if hd != 128:
-        raise ValueError(f"flash kernel supports head_dim 128, not {hd}")
+    if hd not in head_dims:
+        raise ValueError(f"flash kernel supports head_dim {head_dims}, not "
+                         f"{hd}")
     if H % K or k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -247,7 +255,8 @@ def _group_sum(t: torch.Tensor, kv_heads: int) -> torch.Tensor:
 
 def _launch_fwd(q, k, v, attn_mask, q_offset: int, causal: bool):
     from moka_tpu_torch import kernels
-    q, k, v, mask = _kernel_inputs(q, k, v, attn_mask)
+    q, k, v, mask = _kernel_inputs(q, k, v, attn_mask,
+                                   head_dims=FWD_HEAD_DIMS)
     b, L, H, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
@@ -257,6 +266,8 @@ def _launch_fwd(q, k, v, attn_mask, q_offset: int, causal: bool):
         _scales(hd)[0], torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(status, "flash_fwd")
     flash_fwd.launches += 1
+    by_hd = flash_fwd.launches_by_head_dim
+    by_hd[hd] = by_hd.get(hd, 0) + 1
     return out, lse
 
 
@@ -447,8 +458,9 @@ def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
     return dk, dv
 
 
-# kernel launches (CUDA tensors only)
+# kernel launches (CUDA tensors only); the forward's also by head_dim
 flash_fwd.launches = 0
+flash_fwd.launches_by_head_dim = {}
 flash_bwd_fused.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0

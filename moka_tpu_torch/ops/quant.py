@@ -9,10 +9,10 @@ holds rows [0, h), the high nibble rows [h, 2h)).
 
 Products:
 - ``qmatmul`` (weight-only): int8 dequantizes to x's dtype first; int4
-  multiplies by the small integers and scales the accumulator.  For a bf16
-  x the port's int4 accumulator is rounded to bf16 before the scale, where
-  JAX keeps it fp32 (one more bf16 rounding, <= 2^-8 relative; fp32 x is
-  exact).
+  multiplies by the small integers with an fp32 result (a bf16 product
+  with fp32 output on the card, ``torch.mm(..., out_dtype=torch.float32)``;
+  the same products in fp32 on the CPU, where they are exact), scales it in
+  fp32 and rounds to x's dtype once, as JAX.
 - ``qmatmul_a8``: per-token int8 activations times the integer weight,
   int8 x int8 -> int32 through ``torch._int_mm`` (cuBLASLt on the card), as
   XLA's int8 einsum.  int4 unpacks both nibble halves into one int8 matrix:
@@ -93,12 +93,23 @@ def _out_scale(w: dict, ndim: int) -> torch.Tensor:
     return w["scale"].reshape((1,) * (ndim - 1) + (-1,))
 
 
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) @ w (k, n) with an fp32 result and no rounding to x's
+    dtype between: on the card a half-precision product with fp32 output
+    (cuBLAS, fp32 accumulation), on the CPU the same products in fp32."""
+    if x.dtype == torch.float32 or x.device.type != "cuda":
+        return torch.matmul(x.float(), w.float())
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
+                   out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for a plain, int8 or int4-packed weight, in x's dtype."""
     if not is_quantized(w):
         return torch.matmul(x, w)
     if "w_i4" in w:
-        acc = torch.matmul(x, int_weight(w).to(x.dtype)).float()
+        acc = _matmul_f32(x, int_weight(w))
         return (acc * _out_scale(w, acc.dim())).to(x.dtype)
     return torch.matmul(x, dequantize(w, dtype=x.dtype))
 
@@ -308,6 +319,29 @@ def quantize_llama_base(base: dict, bits: int = 8,
         hq = {8: quantize_int8, 4: quantize_int4}[head_bits]
         out["lm_head"] = hq(base["lm_head"], axis=-2)
     return out
+
+
+def quantize_encoder(params: dict, bits: int = 8, min_dim: int = 64) -> dict:
+    """Weight-only quantization of a frozen tower tree (CLIP ViT, BEATs):
+    every ``{"w": (..., d_in, d_out), "b"}`` leaf dict whose two matrix
+    dims are both >= ``min_dim`` gets its weight replaced by a quantized
+    dict (per output channel; a layer-stacked weight gets one scale per
+    layer and channel).  Small heads (BEATs' (hd, 8) gate), norms,
+    embeddings and convolution kernels stay as they are."""
+    quant = {8: quantize_int8, 4: quantize_int4}[bits]
+
+    def walk(node):
+        if not isinstance(node, dict) or is_quantized(node):
+            return node
+        w = node.get("w")
+        if (torch.is_tensor(w) and w.dim() >= 2
+                and min(w.shape[-2:]) >= min_dim
+                and (bits == 8 or w.shape[-2] % 2 == 0)):
+            return {**{k: walk(v) for k, v in node.items() if k != "w"},
+                    "w": quant(w, axis=-2)}
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
 
 
 def quantized_bytes(tree) -> int:

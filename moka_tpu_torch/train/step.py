@@ -49,7 +49,11 @@ def make_train_step(loss_fn: Callable, tx: AdamW,
             p.requires_grad_(True)
         try:
             loss, metrics = loss_fn(state.params, frozen, batch, sub)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf with no path to the loss (a Q-Former's text branch
+            # without question text, the adapters in stage 1) gets zeros,
+            # as JAX's grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)

@@ -5,10 +5,12 @@ AVT r=4 (bf16 base, random weights from a seed, B non-zero), and around
 one step of each of its training paths (``make_train_step`` at b 4,
 L 1024: full remat, fused dropout under ``proj_lse``, and the quantized
 recipe's route B: int4 base, int8 head through the fused CE kernels,
-``a8_dots="full"``, ``save_q8``, ``proj_lse``, and full remat with the
-flash rank attention), at chip_smoke's shapes.
+``a8_dots="full"``, ``save_q8``, ``proj_lse``, full remat with the
+flash rank attention, and the multimodal step of phase 13 with the
+encoders' pass of phase 12's batch), at chip_smoke's shapes.
 
-    python3 profile_port.py        # from the root of a checkout, one card
+    python3 profile_port.py              # every window, one card
+    python3 profile_port.py mm quant     # only the windows named
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -139,92 +141,147 @@ def summary(name, wall, traced, ops, per=1, host=None) -> dict:
     return out
 
 
-def main() -> int:
+WINDOWS = ("serving", "full", "fused", "quant", "rank", "mm")
+TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
+              "quant": "train_step_quant_route_b",
+              "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
+
+
+def main(argv=None) -> int:
     import torch
+    names = list(argv or sys.argv[1:]) or list(WINDOWS)
+    if set(names) - set(WINDOWS):
+        print(f"profile_port: windows are {WINDOWS}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import build_model, generate, main_path_inputs
     from moka_tpu_torch import kernels
-    from moka_tpu_torch.core.config import LlamaConfig
-    from moka_tpu_torch.ops.moka import MokaSpec
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kernels.build()
+    out = {"card": smi}
+    if "serving" in names:
+        out.update(serving_windows())
+    for path in names:
+        if path != "serving":
+            out.update(train_window(path))
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def serving_windows() -> dict:
+    """``greedy_generate`` for one and NEW_TOKENS new tokens, and the
+    decode steps as their difference."""
+    from chip_smoke import build_model, generate, main_path_inputs
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.ops.moka import MokaSpec
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)
     base, adapters = build_model(cfg, spec)
     inputs = main_path_inputs(cfg, base, BATCH, PROMPT)
+    return generate_windows(
+        lambda n: generate(cfg, spec, base, adapters, inputs, n),
+        f"greedy_generate b {BATCH} L {PROMPT}")
 
-    def one():
-        return generate(cfg, spec, base, adapters, inputs, 1)
 
-    def all_tokens():
-        return generate(cfg, spec, base, adapters, inputs, NEW_TOKENS)
-
+def generate_windows(gen, what: str, prefix: str = "") -> dict:
+    """``gen(1)`` (the prefill and the head on its last row) and
+    ``gen(NEW_TOKENS)``, untraced and traced, and the decode steps as
+    their difference, per device operation."""
+    import torch
     with torch.inference_mode():
         # untraced walls first: after a profiler session launches cost
         # more on the host, which would inflate a later untraced wall
-        w1, wn = wall_ms(one), wall_ms(all_tokens)
-        (t1, ops1, _), (tn, opsn, _) = trace(one), trace(all_tokens)
+        w1, wn = wall_ms(lambda: gen(1)), wall_ms(lambda: gen(NEW_TOKENS))
+        (t1, ops1, _), (tn, opsn, _) = (trace(lambda: gen(1)),
+                                        trace(lambda: gen(NEW_TOKENS)))
     steps = NEW_TOKENS - 1
     decode_ops = {}
     for key, (count, us) in opsn.items():
         c1, us1 = ops1.get(key, (0, 0.0))
         if count > c1:
             decode_ops[key] = (count - c1, us - us1)
-    out = {"card": smi,
-           "prefill": summary(f"prefill (greedy_generate, 1 new token) b "
-                              f"{BATCH} L {PROMPT}", w1, t1, ops1),
-           "main_path": summary(f"greedy_generate b {BATCH} L {PROMPT}, "
-                                f"{NEW_TOKENS} new tokens", wn, tn, opsn),
-           "decode_step": summary(f"decode, a step ({steps} steps: the "
-                                  f"second window less the first)",
-                                  wn - w1, tn - t1, decode_ops, per=steps)}
-    del base, adapters, inputs
-    gc.collect()
-    torch.cuda.empty_cache()
-    for key, path in (("train_step", "full"),
-                      ("train_step_fused_proj_lse", "fused"),
-                      ("train_step_quant_route_b", "quant"),
-                      ("train_step_flash_rank", "rank")):
-        out[key] = train_window(path)
-        gc.collect()
-        torch.cuda.empty_cache()
-    print(json.dumps(out), flush=True)
-    return 0
+    return {prefix + "prefill": summary(f"{what}, 1 new token", w1, t1,
+                                        ops1),
+            prefix + "main_path": summary(f"{what}, {NEW_TOKENS} new tokens",
+                                          wn, tn, opsn),
+            prefix + "decode_step": summary(
+                f"decode, a step ({steps} steps: the second window less the "
+                f"first)", wn - w1, tn - t1, decode_ops, per=steps)}
+
+
+def mm_stack():
+    """chip_smoke's phases 12-13 stack: the int4 base (int8 head),
+    adapters, int8 towers and projectors, and its config."""
+    from chip_smoke import (build_mm_stack, build_quant_trainer, mm_config,
+                            quant_train_config)
+    ucfg = mm_config()
+    frozen, trainable = build_quant_trainer(*quant_train_config())
+    return ucfg, *build_mm_stack(ucfg, frozen, trainable["adapters"])
 
 
 def train_window(path: str = "full") -> dict:
     """One ``make_train_step`` step of a chip_smoke training path after two
     warm-up steps, untraced first, then traced: "full" (phase 6, full
     remat), "fused" (phase 8: fused dropout under ``proj_lse``), "quant"
-    (phase 9, route B: the quantized recipe with ``pallas_ce``) or "rank"
-    (phase 11: phase 6's step with the flash rank attention)."""
+    (phase 9, route B: the quantized recipe with ``pallas_ce``), "rank"
+    (phase 11: phase 6's step with the flash rank attention) or "mm"
+    (phase 13, the multimodal step; first phase 12's ``unified.generate``
+    windows and the encoders' pass, ``build_inputs_embeds``, alone)."""
+    import torch
     from chip_smoke import (QUANT_RECIPE, build_quant_trainer,
-                            build_trainer, fused_train_config,
-                            quant_train_config, rank_train_config,
+                            build_trainer, fused_train_config, mm_batch,
+                            mm_loss, quant_train_config, rank_train_config,
                             train_batch, train_config, train_loss)
     from moka_tpu_torch.core.config import TrainConfig
     from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.models import unified
     from moka_tpu_torch.train.optim import make_optimizer
     from moka_tpu_torch.train.step import init_train_state, make_train_step
-    quant = dict(QUANT_RECIPE, pallas_ce=True) if path == "quant" else {}
-    cfg, spec = {"full": train_config, "fused": fused_train_config,
-                 "quant": quant_train_config,
-                 "rank": rank_train_config}[path]()
-    policy = None if path in ("full", "rank") else "proj_lse"
-    frozen, trainable = (build_quant_trainer if quant else build_trainer)(
-        cfg, spec)
-    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_LEN)
+    out = {}
     tx = make_optimizer(TrainConfig(), total_steps=1000)
-    step = make_train_step(train_loss(cfg, spec, True, policy, **quant), tx)
+    if path == "mm":
+        ucfg, frozen, trainable = mm_stack()
+        prompts = mm_batch(ucfg, BATCH)
+
+        def encode():
+            return unified.build_inputs_embeds(trainable, frozen, ucfg,
+                                               prompts)
+
+        with torch.inference_mode():
+            wall = wall_ms(encode)
+            traced, ops, host = trace(encode)
+        out["multimodal_encode"] = summary(
+            f"build_inputs_embeds b {BATCH} (CLIP, BEATs, projectors, "
+            f"splice: phase 12's prompts)", wall, traced, ops, host=host)
+        out.update(generate_windows(
+            lambda n: unified.generate(trainable, frozen, ucfg, prompts,
+                                       max_new_tokens=n, eos_id=-1),
+            f"unified.generate b {BATCH} (phase 12)", "multimodal_"))
+        del prompts
+        batch = mm_batch(ucfg, TRAIN_BATCH, TRAIN_LEN)
+        step = make_train_step(mm_loss(ucfg, True), tx)
+    else:
+        quant = dict(QUANT_RECIPE, pallas_ce=True) if path == "quant" \
+            else {}
+        cfg, spec = {"full": train_config, "fused": fused_train_config,
+                     "quant": quant_train_config,
+                     "rank": rank_train_config}[path]()
+        policy = None if path in ("full", "rank") else "proj_lse"
+        frozen, trainable = (build_quant_trainer if quant else
+                             build_trainer)(cfg, spec)
+        batch = train_batch(cfg, TRAIN_BATCH, TRAIN_LEN)
+        step = make_train_step(train_loss(cfg, spec, True, policy, **quant),
+                               tx)
     state = init_train_state(trainable, tx, DropoutKey(0))
 
     def one():
@@ -237,10 +294,13 @@ def train_window(path: str = "full") -> dict:
     traced, ops, host = trace(one)
     what = {"full": "full remat", "fused": "fused dropout, proj_lse",
             "quant": "int4 base, a8 full, save_q8, proj_lse, fused CE",
-            "rank": "full remat, flash rank attention"}[path]
-    return summary(f"training step b {TRAIN_BATCH} L {TRAIN_LEN} "
-                   f"(make_train_step, {what})", wall, traced, ops,
-                   host=host)
+            "rank": "full remat, flash rank attention",
+            "mm": "multimodal: int8 towers, projectors, int4 base, a8 "
+                  "full, qkvod_lse"}[path]
+    out[TRAIN_KEYS[path]] = summary(
+        f"training step b {TRAIN_BATCH} L {TRAIN_LEN} (make_train_step, "
+        f"{what})", wall, traced, ops, host=host)
+    return out
 
 
 if __name__ == "__main__":

@@ -107,6 +107,24 @@ def test_flash_kernel_matches_plain_on_card(card):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_head_dim_64_non_causal_on_card(card):
+    """The CLIP tower's shape: head_dim 64, non-causal, 257 keys (the last
+    64-key tile holds one), every key valid."""
+    from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn((3, 257, 16, 64), generator=g, device=card)
+               .bfloat16() for _ in range(3))
+    mask = torch.ones((3, 257), dtype=torch.int32, device=card)
+    before = flash_fwd.launches
+    out, lse = flash_fwd(q, k, v, mask, causal=False)
+    ref, ref_lse = flash_fwd_plain(q, k, v, mask, causal=False)
+    assert flash_fwd.launches == before + 1
+    assert (out.float() - ref.float()).abs().max() <= \
+        4e-3 + 2 ** -7 * ref.float().abs().max()
+    assert (lse - ref_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("which", ["fused", "dq", "dkv"])
 def test_flash_bwd_kernels_match_plain_on_card(card, which):
     """Each backward kernel against ``flash_bwd_plain`` with GQA 8:2, a
