@@ -6,7 +6,10 @@
 Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
-     sm_90a, one process per source, in parallel);
+     sm_90a, one process per source, in parallel), print ptxas's
+     resource lines and the SASS counts of the key-major backward
+     (``cuobjdump -sass``: no HGMMA or UTMALDG in either kernel, or no
+     bulk reduction in the fused one, fails the phase);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -15,8 +18,13 @@ Phases, in order; any failed build, launch or check exits non-zero:
      bf16 cast, ``torch.matmul``, the scale and ``F.cross_entropy`` for the
      fused CE pair, kernel 9 against that forward's backward alone) and
      the least time
-     the card could take (the bound); the fused dropout kernels (6-7) in
-     Philox and forced-words modes, masks held exactly; the fused CE
+     the card could take (the bound); the key-major backward kernels
+     (fused and dk/dv, ``flash_bwd_kv.cu``) also at S % 128 != 0,
+     non-causal with padded keys, and on a ring attention key shard at a negative q_offset with the global rows'
+     lse and delta (part of the shard visible; all of it masked, where dk
+     and dv must be exactly zero), and the fused one launched with its
+     causal flag flipped must fail the check; the fused dropout kernels
+     (6-7) in Philox and forced-words modes, masks held exactly; the fused CE
      kernels (8-9) on an int8 head at route B's shape and two ragged ones;
      the block-diagonal product (kernel 10) at the BOFT merge's three
      shapes (library: ``torch.bmm``); the rank flash kernels (1-4 at
@@ -124,9 +132,10 @@ FLASH_LSE_TOL = 1e-3  # fp32 lse, only the summation order differs
 BWD_TOL = (2e-2, 1e-2)  # flash backward: max|err| as a fraction of
                       # max|plain|, and relative L2 error.  Both sides round p
                       # and ds to bf16 (2^-8 relative) at the same points but
-                      # sum in other orders (the fused kernel's dq by atomics
-                      # in a varying order), and dq is rounded to bf16 at the
-                      # end; a wrong mask, scale or skipped tile is O(1)
+                      # sum in other orders (the fused kernel's dq by TMA
+                      # reductions in a varying order), and dq is rounded to
+                      # bf16 at the end; a wrong mask, scale or skipped tile
+                      # is O(1)
 MOKA_TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # of max|plain|: one bf16
                       # rounding of the output (2^-8) / fp32 summation order
 TRAIN_RATIO = 1.5  # training step: the kernel path's loss and per-projection
@@ -137,7 +146,8 @@ TRAIN_FLOOR = 1e-3  # adapter gradients may be up to 1.5x (+ 1e-3) as far
 SHALLOW = 2  # layers of the second training-gradient check
 REMAT_NOISE = (3.0, 1e-3)  # proj_lse vs full remat gradients, relative L2:
                  # at most 3x the spread of two full-remat runs (the fused
-                 # flash backward adds dq by atomics in a varying order) +
+                 # flash backward adds dq over key tiles in a varying
+                 # order: 1.3-2.6e-3 with the TMA reductions, PR 7) +
                  # 1e-3; both runs see the same masks and forward values
 DROP_TOL = 1e-4  # fused dropout out and fp32 dA: max|err| as a fraction of
                  # max|plain|: fp32 sums over d (out) or N (dA) terms in
@@ -169,7 +179,9 @@ CE_GRAD_NOISE = (4.0, 1e-3)  # route B with kernels 8-9 against the same
                    # step with the plain CE, per projection over all layers:
                    # the int8 roundings of the cotangents turn one-ulp
                    # differences of dx into 0.5-2.7e-2 rel L2, 1.5-2.8x the
-                   # spread of two kernel runs (flash's dq atomics)
+                   # spread of two kernel runs (flash's dq summed in a
+                   # varying order; the TMA-reduced dq reads 1.2-1.6e-2 for
+                   # q/k/v/o, 2.2-4.1e-3 for gate/up/down, PR 7)
 CE_LAST_DOWN_TOL = 3e-3  # the same for the last layer's down adapter, whose
                    # cotangent reaches it with no int8 rounding: sound
                    # 1.2-1.5e-3, p doubled on a quarter of the rows 7.1-7.6e-3
@@ -252,6 +264,50 @@ def _launches(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` kernels, every other 0."""
     return {name: nonzero.get(name, 0)
             for name in (*_wrappers(), "flash_fwd_hd64")}
+
+
+# ------------------------------------------------------------------ phase 2
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKRED", "UTMAREDG", "HMMA")
+
+
+def sass_counts(name: str) -> dict:
+    """Instruction counts by kernel function in library ``name``'s SASS
+    (``cuobjdump -sass``): wgmma (HGMMA), TMA loads (UTMALDG), bulk and
+    tensor reductions (UBLKRED, UTMAREDG) and mma.sync (HMMA)."""
+    import re
+    from moka_tpu_torch import kernels
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(kernels._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+                counts[fn][op] += 1
+    return counts
+
+
+def check_kv_sass() -> dict:
+    """The key-major backward library uses wgmma and TMA in both kernels and
+    a bulk reduction in the fused one (``flash_bwd_kv_kernel<true>``,
+    mangled ``...ILb1E...``); raises otherwise."""
+    counts = sass_counts("flash_bwd_kv")
+    for fn, c in counts.items():
+        log(f"    flash_bwd_kv SASS {fn}: " +
+            ", ".join(f"{op} {n}" for op, n in c.items()))
+    kv = {fn: c for fn, c in counts.items() if "flash_bwd_kv_kernel" in fn}
+    fused = [c for fn, c in kv.items() if "ILb1E" in fn]
+    if len(kv) != 2 or len(fused) != 1 or \
+            any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in kv.values()) \
+            or fused[0]["UBLKRED"] + fused[0]["UTMAREDG"] == 0:
+        raise AssertionError(f"flash_bwd_kv SASS lacks wgmma, TMA or the "
+                             f"bulk reduction: {counts}")
+    return counts
 
 
 # ------------------------------------------------------------------ phase 3
@@ -396,20 +452,57 @@ def clip_flash_record() -> dict:
                      f"non-causal, one CLIP layer"}
 
 
-def bwd_case(b, H, KH, L, S, pads=None, q_offset=0, seed=0):
+def bwd_case(b, H, KH, L, S, pads=None, q_offset=0, seed=0, causal=True):
     """Inputs of the backward kernels: the forward kernel's own out and lse
     on random bf16 q, k, v, a random dO and delta = rowsum(dO * out)."""
     import torch
     from moka_tpu_torch.ops.flash_attention import flash_fwd
     q, k, v, mask = flash_case(b, H, KH, L, S, pads, seed)
-    out, lse = flash_fwd(q, k, v, mask, q_offset)
+    out, lse = flash_fwd(q, k, v, mask, q_offset, causal)
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
     delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
     return (q, k, v, mask, dout, lse, delta.contiguous()), q_offset
 
 
-def check_flash_bwd(name, which, args, q_offset) -> float:
+def shard_case(b, H, KH, L, S, q_offset, seed=0):
+    """Inputs of the backward kernels on one key shard of ring attention:
+    the queries sit at global positions [S + q_offset, ...), the keys of a
+    preceding shard of S at [0, S) and this shard's at [S, 2 S), so lse
+    and delta are the global rows' (the forward kernel over both shards)
+    and every query row sees a key; this shard's ``q_offset`` is the one
+    given (negative: part or all of the shard lies above the diagonal, so
+    the mask and not the lse must zero p there)."""
+    import torch
+    from moka_tpu_torch.ops.flash_attention import flash_fwd
+    q, k, v, mask = flash_case(b, H, KH, L, 2 * S, seed=seed)
+    out, lse = flash_fwd(q, k, v, mask, S + q_offset)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    k, v, mask = (t[:, S:].contiguous() for t in (k, v, mask))
+    return (q, k, v, mask, dout, lse, delta.contiguous()), q_offset
+
+
+@contextlib.contextmanager
+def flipped_causal_bwd():
+    """Within: every flash backward launch runs its kernel with the causal
+    flag flipped (a deliberate fault)."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    launch = fa._launch_bwd
+
+    def wrong(which, q, k, v, attn_mask, dout, lse, delta, q_offset, causal):
+        return launch(which, q, k, v, attn_mask, dout, lse, delta, q_offset,
+                      not causal)
+
+    fa._launch_bwd = wrong
+    try:
+        yield
+    finally:
+        fa._launch_bwd = launch
+
+
+def check_flash_bwd(name, which, args, q_offset, causal=True) -> float:
     """One backward kernel against ``flash_bwd_plain`` on the same inputs:
     every output within BWD_TOL, and exact zeros on the rows of queries
     that see no key and of keys that no query sees."""
@@ -417,15 +510,15 @@ def check_flash_bwd(name, which, args, q_offset) -> float:
     from moka_tpu_torch.ops import flash_attention as fa
     fn = {"fused": fa.flash_bwd_fused, "dq": fa.flash_bwd_dq,
           "dkv": fa.flash_bwd_dkv}[which]
-    got = fn(*args, q_offset)
+    got = fn(*args, q_offset, causal)
     got = (got,) if which == "dq" else got
     torch.cuda.synchronize()
-    ref = fa.flash_bwd_plain(*args, q_offset)
+    ref = fa.flash_bwd_plain(*args, q_offset, causal)
     ref = {"fused": ref, "dq": ref[:1], "dkv": ref[1:]}[which]
     names = {"fused": ("dq", "dk", "dv"), "dq": ("dq",),
              "dkv": ("dk", "dv")}[which]
     q, mask = args[0], args[3]
-    vis = _visible(mask, q.shape[1], mask.shape[1], q_offset)
+    vis = _visible(mask, q.shape[1], mask.shape[1], q_offset, causal)
     dead = {"dq": ~vis.any(dim=-1), "dk": ~vis.any(dim=1),
             "dv": ~vis.any(dim=1)}  # (b, L) / (b, S)
     frac, l2_tol = BWD_TOL
@@ -434,9 +527,12 @@ def check_flash_bwd(name, which, args, q_offset) -> float:
         x, y = x.float(), y.float()
         d = float((x - y).abs().max())
         scale = float(y.abs().max())
-        rel_l2 = float((x - y).norm() / y.norm())
+        ref_norm = float(y.norm())  # 0 on a shard no query sees: then
+        rel_l2 = (float((x - y).norm() / ref_norm) if ref_norm else  # exact
+                  (0.0 if bool((x == 0).all()) else math.inf))
         zeros = bool((x[dead[n]] == 0).all())
-        msgs.append(f"{n} max|err| {d:.3e} ({d / scale:.2e} of max|plain|),"
+        part = d / scale if scale else (0.0 if d == 0 else math.inf)
+        msgs.append(f"{n} max|err| {d:.3e} ({part:.2e} of max|plain|),"
                     f" rel L2 {rel_l2:.2e}, dead rows zero {zeros}")
         if not (d <= frac * scale and rel_l2 <= l2_tol and zeros):
             raise AssertionError(f"flash backward {which} disagrees with its "
@@ -463,6 +559,15 @@ def flash_bwd_records() -> list[dict]:
               {"seed": 2, "pads": (0, 17, 64, 100)}),
              ("q_offset", "fused", (2, 32, 32, 128, 1024),
               {"seed": 3, "q_offset": 896})]
+    for which in ("fused", "dkv"):  # the key-major kernels' edges
+        cases += [("S % 128 != 0", which, (2, 32, 32, 1000, 1000),
+                   {"seed": 5}),
+                  ("key shard, q_offset -200", which,
+                   (2, 32, 32, 512, 512), {"seed": 6, "q_offset": -200}),
+                  ("masked shard, q_offset -512", which,
+                   (2, 32, 32, 512, 512), {"seed": 7, "q_offset": -512}),
+                  ("non-causal, left pad", which, (2, 32, 8, 333, 333),
+                   {"seed": 8, "pads": (0, 100), "causal": False})]
     for which in ("dq", "dkv"):
         cases += [("main path shape", which, (1, 32, 32, 4096, 4096), {}),
                   ("GQA 32:8", which, (2, 32, 8, 512, 512), {"seed": 1}),
@@ -471,9 +576,25 @@ def flash_bwd_records() -> list[dict]:
                   ("q_offset", which, (2, 32, 32, 1100, 2048),
                    {"seed": 3, "q_offset": 948})]
     for name, which, shape, kw in cases:
-        args, qo = bwd_case(*shape, **kw)
-        errs[which] = max(errs[which], check_flash_bwd(name, which, args, qo))
+        if kw.get("q_offset", 0) < 0:
+            args, qo = shard_case(*shape, kw["q_offset"], kw["seed"])
+        else:
+            args, qo = bwd_case(*shape, **kw)
+        errs[which] = max(errs[which], check_flash_bwd(
+            name, which, args, qo, kw.get("causal", True)))
         del args
+    # fault injection: the fused kernel launched with causal flipped
+    args, qo = bwd_case(2, 32, 8, 512, 512, seed=1)
+    try:
+        with flipped_causal_bwd():
+            check_flash_bwd("causal flipped (a deliberate fault)", "fused",
+                            args, qo)
+    except AssertionError as e:
+        log(f"  the fault fails the check, as it must: {e}")
+    else:
+        raise AssertionError("the fused backward with causal flipped passed "
+                             "the check")
+    del args
     records = []
     for which, shape, products, tpu_line in (
             ("fused", (4, 32, 32, 1024, 1024), 5, 230),
@@ -512,14 +633,26 @@ def flash_bwd_records() -> list[dict]:
             f"{k.shape[1]}, hd {hd}): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
+        passes = {}  # the wrapper's passes around the key-major kernels
+        if which != "dq":
+            passes["prescale_q"] = time_ms(lambda: fa._prescaled(q))
+        if which == "fused":
+            ws = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+            passes["zero_dq"] = time_ms(lambda: torch.zeros_like(ws))
+            passes["cast_dq"] = time_ms(lambda: ws.to(q.dtype))
+            del ws
+        if passes:
+            log(f"    of which the wrapper's passes: " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in passes.items()))
         records.append({
             "name": f"flash_bwd_{which}", "route": "cuda",
-            "source": "moka_tpu_torch/kernels/csrc/flash_bwd.cu",
+            "source": "moka_tpu_torch/kernels/csrc/" +
+                      ("flash_bwd.cu" if which == "dq" else "flash_bwd_kv.cu"),
             "replaces": f"moka_tpu/ops/flash_attention.py:{tpu_line}",
             "launches": None, "max_abs_err": errs[which],
             "tolerance": "max|err| <= %g max|plain|, rel L2 <= %g" % BWD_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "wrapper_passes_ms": passes,
             "library": "scaled_dot_product_attention(is_causal) forward + "
                        "backward less forward (all three gradients)",
             "shape": f"b {b} H {H} L {L} S {k.shape[1]} hd {hd}, one layer"})
@@ -1765,7 +1898,8 @@ def check_fused_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
     kernels 6-7) against the plain path (eager attention and plain dropout
     on the same Philox masks) and an fp32 run; then ``proj_lse`` against
     full remat with the same key, which may differ only by the fused flash
-    backward's dq atomics (measured as the spread of two full-remat runs)."""
+    backward's varying dq summation order (measured as the spread of two
+    full-remat runs)."""
     import dataclasses
     from moka_tpu_torch.core.rng import DropoutKey
     n = SHALLOW
@@ -1787,13 +1921,13 @@ def check_fused_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
         out["proj_lse_vs_full"][p] = {"rel_l2": d, "full_vs_full": noise}
         ok &= d <= REMAT_NOISE[0] * noise + REMAT_NOISE[1]
         log(f"  grad {p}: proj_lse vs full remat rel L2 {d:.3e}; full vs "
-            f"full (dq atomics) {noise:.3e}")
+            f"full (dq order) {noise:.3e}")
     log(f"  loss proj_lse {lse[0]:.6f}, full {full[0]:.6f}, {again[0]:.6f} "
         f"(tol: proj_lse vs full <= {REMAT_NOISE[0]} x full vs full + "
         f"{REMAT_NOISE[1]})")
     if not ok:
         raise AssertionError("proj_lse gradients differ from full remat "
-                             "beyond the flash backward's atomics noise")
+                             "beyond the flash backward's dq-order noise")
     return out
 
 
@@ -1838,7 +1972,7 @@ def check_quant_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
     rule of phase 6 (``_check_train_grads``); then against the same step
     with only kernels 8-9 swapped for the plain CE, flash on both sides:
     the loss within CE_LSE_TOL; each projection's gradients within
-    CE_GRAD_NOISE of the spread of two kernel runs (flash's dq atomics,
+    CE_GRAD_NOISE of the spread of two kernel runs (flash's dq order,
     amplified by the int8 roundings of the cotangents); and the last
     layer's down adapter, whose cotangent is the CE's dx through the final
     norm with no int8 rounding between, within CE_LAST_DOWN_TOL, which
@@ -2552,8 +2686,10 @@ def main() -> int:
         text = (kernels.BUILD_DIR / f"{name}.log")
         if text.exists():
             for line in text.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or \
+                        "setmaxnreg" in line:
                     log(f"    {name}: {line.strip()}")
+    check_kv_sass()
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)

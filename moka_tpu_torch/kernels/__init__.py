@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moka_tpu_torch"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
+    "flash_bwd_kv": "flash_bwd_kv.cu",
     "moka_delta_fwd": "moka_delta_fwd.cu",
     "fused_dropout": "fused_dropout.cu",
     "fused_ce": "fused_ce.cu",

@@ -1,7 +1,8 @@
-// Helpers shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu):
-// bf16 <-> fp32 bit conversions, bf16 packing, the m16n8k16 tensor-core
-// product and the two ways of reading a pair of bf16 values out of a
-// row-major tile in shared memory.
+// Helpers shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_bwd_kv.cu): the masking and base-2 constants, bf16 <-> fp32 bit
+// conversions, bf16 packing, and for the mma.sync kernels the m16n8k16
+// tensor-core product and the two ways of reading a pair of bf16 values out
+// of a row-major tile in shared memory.
 
 #pragma once
 

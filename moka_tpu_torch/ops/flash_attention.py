@@ -8,8 +8,9 @@ log-sum-exp.  The three backward functions take the forward's lse and
 (dq, dk, dv in one kernel, for short sequences), ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` (the blocked pair; ring attention calls them per key
 shard with the global lse and delta).  On a CUDA tensor each launches its
-hand-written kernel (``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``) or
-raises; on a CPU tensor it runs ``flash_fwd_plain`` / ``flash_bwd_plain``,
+hand-written kernel (``kernels/csrc/flash_fwd.cu``; ``flash_bwd_kv.cu``
+for the fused and dk/dv backward, wgmma and TMA; ``flash_bwd.cu`` for dq)
+or raises; on a CPU tensor it runs ``flash_fwd_plain`` / ``flash_bwd_plain``,
 the same arithmetic in plain torch.  ``flash_mha`` is the differentiable
 entry point (a ``torch.autograd.Function``) and dispatches the backward
 as the JAX custom VJP does (``use_fused_bwd``).
@@ -176,10 +177,11 @@ def _library(name: str):
                 [f, p]
             for fn in ("fwd", "bwd_dq", "bwd_dkv"):
                 getattr(lib, f"moka_flash_rank_{fn}").restype = i
-        else:
-            for fn, n_out in (("moka_flash_bwd_fused", 3),
-                              ("moka_flash_bwd_dq", 1),
-                              ("moka_flash_bwd_dkv", 2)):
+        else:  # flash_bwd: dq; flash_bwd_kv: fused and dkv
+            outs = {"flash_bwd": (("moka_flash_bwd_dq", 1),),
+                    "flash_bwd_kv": (("moka_flash_bwd_fused", 3),
+                                     ("moka_flash_bwd_dkv", 2))}[name]
+            for fn, n_out in outs:
                 getattr(lib, fn).argtypes = [p] * (7 + n_out) + dims + \
                     [f, f, p]
                 getattr(lib, fn).restype = i
@@ -188,7 +190,8 @@ def _library(name: str):
 
 
 FWD_HEAD_DIMS = (64, 128)  # flash_fwd.cu: CLIP ViT-L/14 and LLaMA-2
-BWD_HEAD_DIMS = (128,)     # flash_bwd.cu: LLaMA-2 (the towers are frozen)
+BWD_HEAD_DIMS = (128,)     # flash_bwd{,_kv}.cu: LLaMA-2 (the towers are
+                           # frozen)
 
 
 def _kernel_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None,
@@ -274,7 +277,10 @@ def _launch_fwd(q, k, v, attn_mask, q_offset: int, causal: bool):
 def _launch_bwd(which: str, q, k, v, attn_mask, dout, lse, delta,
                 q_offset: int, causal: bool):
     """One backward kernel; returns its outputs as the kernel leaves them:
-    dq fp32 (fused) or bf16 (dq), dk/dv fp32 per head (b, S, H, hd)."""
+    dq fp32 (fused) or bf16 (dq), dk/dv fp32 per head (b, S, H, hd).  The
+    key-major kernels (fused, dkv: ``flash_bwd_kv.cu``) load q by TMA,
+    which cannot scale in flight, so they take ``_prescaled(q)``; the dq
+    kernel scales q as it loads it."""
     from moka_tpu_torch import kernels
     q, k, v, mask, dout, lse, delta = _kernel_inputs(q, k, v, attn_mask,
                                                      dout, lse, delta)
@@ -282,14 +288,17 @@ def _launch_bwd(which: str, q, k, v, attn_mask, dout, lse, delta,
     S = k.shape[1]
     f32 = dict(dtype=torch.float32, device=q.device)
     outs = []
-    if which == "fused":  # dq accumulates across key tiles by atomics
+    if which == "fused":  # dq: 64-row tiles added by TMA reductions
         outs.append(torch.zeros((b, L, H, hd), **f32))
     elif which == "dq":
         outs.append(torch.empty_like(q))
     if which in ("fused", "dkv"):
         outs += [torch.empty((b, S, H, hd), **f32) for _ in range(2)]
+        q, lib = _prescaled(q), "flash_bwd_kv"
+    else:
+        lib = "flash_bwd"
     qscale, scale = _scales(hd)
-    status = getattr(_library("flash_bwd"), f"moka_flash_bwd_{which}")(
+    status = getattr(_library(lib), f"moka_flash_bwd_{which}")(
         *(t.data_ptr() for t in (q, k, v, mask, dout, lse, delta, *outs)),
         *_dims(q, k, q_offset, causal), qscale, scale,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -162,21 +162,42 @@ def _bhld(t):
     dict(L=12, S=12, H=4, KH=4, pads=(0, 5)),    # MHA, L not a tile multiple
     dict(L=8, S=24, q_offset=16, pads=(2, 0)),   # queries into a cache
     dict(pads=(9, 0)),                           # 9 fully-masked query rows
+    # ring attention key shards at a negative q_offset
+    dict(L=8, S=16, q_offset=-4, pads=(2, 0)),   # part of the shard visible
+    dict(L=8, S=16, q_offset=-16, pads=(2, 0)),  # the whole shard masked
+    # the same two with the global rows' lse and delta (a forward over a
+    # preceding shard and this one), so every row's lse is finite and the
+    # mask, not the lse, must zero p on the masked keys
+    dict(L=8, S=16, q_offset=-4, pads=(2, 0), global_rows=True),
+    dict(L=8, S=16, q_offset=-16, pads=(2, 0), global_rows=True),
 ])
 def test_flash_bwd_plain_matches_jax_kernels(which, case):
     """``flash_bwd_plain`` against the JAX kernel it stands for, fed the
     same q, k, v, dO and the JAX forward's lse and delta; queries that see
-    no key get exactly zero dq."""
+    no key get exactly zero dq, and keys that no query sees exactly zero dk
+    and dv."""
     case = dict(case)
     q_offset = case.pop("q_offset", 0)
+    global_rows = case.pop("global_rows", False)
     q, k, v, mask = _data(**case)
     hd, L, S = q.shape[-1], q.shape[1], k.shape[1]
     dout = np.random.default_rng(9).standard_normal(q.shape).astype(
         np.float32)
     jq, jk, jv, jdo = (jnp.asarray(_bhld(t)) for t in (q, k, v, dout))
     scale = 1.0 / math.sqrt(hd)
-    out, lse = _flash_fwd_res(jq, jk, jv, jnp.asarray(mask), q_offset, True,
-                              scale, 4, 4, True)
+    if global_rows:  # keys of a preceding shard at [0, S), this one at S
+        rng = np.random.default_rng(10)
+        kp, vp = (rng.standard_normal(k.shape).astype(np.float32)
+                  for _ in range(2))
+        fk, fv = (jnp.asarray(_bhld(np.concatenate(t, axis=1)))
+                  for t in ((kp, k), (vp, v)))
+        fmask = np.concatenate([np.ones_like(mask), mask], axis=1)
+        out, lse = _flash_fwd_res(jq, fk, fv, jnp.asarray(fmask),
+                                  S + q_offset, True, scale, 4, 4, True)
+        assert np.all(np.asarray(lse) > -1e29)  # every row sees a key
+    else:
+        out, lse = _flash_fwd_res(jq, jk, jv, jnp.asarray(mask), q_offset,
+                                  True, scale, 4, 4, True)
     delta = jnp.sum(jdo * out, axis=-1)
     args = (jq, jk, jv, jnp.asarray(mask), jdo, lse, delta, q_offset, True,
             scale)
@@ -196,6 +217,10 @@ def test_flash_bwd_plain_matches_jax_kernels(which, case):
     dead = ~_valid_rows(mask, L, q_offset)
     if which != "dkv":
         assert np.all(got[0].numpy()[dead] == 0)
+    qpos = np.arange(L)[:, None] + q_offset
+    seen = ((mask[:, None, :] > 0) & (qpos >= np.arange(S))[None]).any(1)
+    for g in got[-2:] if which != "dq" else ():
+        assert np.all(g.numpy()[~seen] == 0)  # (b, S): keys no query sees
 
 
 @pytest.mark.parametrize("L,S,q_offset,H,KH,bwd_block", [

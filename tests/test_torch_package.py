@@ -125,23 +125,34 @@ def test_flash_kernel_head_dim_64_non_causal_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shard", [False, True], ids=["cache", "key_shard"])
 @pytest.mark.parametrize("which", ["fused", "dq", "dkv"])
-def test_flash_bwd_kernels_match_plain_on_card(card, which):
+def test_flash_bwd_kernels_match_plain_on_card(card, which, shard):
     """Each backward kernel against ``flash_bwd_plain`` with GQA 8:2, a
     left-padded row, ragged lengths and a query offset; max|err| within 2%
     of max|plain| (bf16 roundings of p and ds summed in another order) and
-    exact zeros on the dq rows of queries that see no key."""
+    exact zeros on the dq rows of queries that see no key.  ``key_shard``:
+    the keys are ring attention's second shard of 100 at q_offset -40 (the
+    queries at positions 60..136 of both shards), with the global rows' lse
+    and delta from a forward over both, so the mask and not the lse zeroes
+    p where a key lies above the diagonal (every key of the shard for
+    queries 0..39)."""
     from moka_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=card).manual_seed(1)
     q, dout = (torch.randn((2, 77, 8, 128), generator=g, device=card)
                .bfloat16() for _ in range(2))
-    k, v = (torch.randn((2, 100, 2, 128), generator=g, device=card)
+    S = 200 if shard else 100
+    k, v = (torch.randn((2, S, 2, 128), generator=g, device=card)
             .bfloat16() for _ in range(2))
-    mask = torch.ones((2, 100), dtype=torch.int32, device=card)
+    mask = torch.ones((2, S), dtype=torch.int32, device=card)
     mask[1, :40] = 0  # with q_offset 23, queries 0..16 of row 1 see no key
-    out, lse = fa.flash_fwd(q, k, v, mask, q_offset=23)
+    q_offset = 60 if shard else 23
+    out, lse = fa.flash_fwd(q, k, v, mask, q_offset=q_offset)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, mask, dout, lse, delta, 23)
+    if shard:
+        k, v, mask = (t[:, 100:].contiguous() for t in (k, v, mask))
+        q_offset -= 100
+    args = (q, k, v, mask, dout, lse, delta, q_offset)
     fn = getattr(fa, f"flash_bwd_{which}")
     before = fn.launches
     got = fn(*args)
@@ -153,8 +164,10 @@ def test_flash_bwd_kernels_match_plain_on_card(card, which):
         assert x.shape == y.shape and x.dtype == y.dtype
         assert (x.float() - y.float()).abs().max() <= \
             2e-2 * y.float().abs().max()
-    if which != "dkv":
+    if which != "dkv" and not shard:
         assert (got[0][1, :17] == 0).all()
+    if which != "dq" and shard:  # keys 77 - 40 = 37.. of the shard: unseen
+        assert all((t[:, 37:] == 0).all() for t in got[-2:])
 
 
 @pytest.mark.cuda
