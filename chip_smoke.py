@@ -7,9 +7,10 @@ Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel), print ptxas's
-     resource lines and the SASS counts of the key-major backward
-     (``cuobjdump -sass``: no HGMMA or UTMALDG in either kernel, or no
-     bulk reduction in the fused one, fails the phase);
+     resource lines and the SASS counts of the flash kernels
+     (``cuobjdump -sass``: a forward instance, the dq kernel or a
+     key-major backward kernel without HGMMA or UTMALDG or with HMMA, or
+     the fused backward without its bulk reduction, fails the phase);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -18,12 +19,18 @@ Phases, in order; any failed build, launch or check exits non-zero:
      bf16 cast, ``torch.matmul``, the scale and ``F.cross_entropy`` for the
      fused CE pair, kernel 9 against that forward's backward alone) and
      the least time
-     the card could take (the bound); the key-major backward kernels
-     (fused and dk/dv, ``flash_bwd_kv.cu``) also at S % 128 != 0,
-     non-causal with padded keys, and on a ring attention key shard at a negative q_offset with the global rows'
-     lse and delta (part of the shard visible; all of it masked, where dk
-     and dv must be exactly zero), and the fused one launched with its
-     causal flag flipped must fail the check; the fused dropout kernels
+     the card could take (the bound); kernel 1 at head_dim 128 also at
+     S % 128 != 0, non-causal with padded keys, on ring attention key
+     shards at q_offset -200 and -512 and at q_offset -100 (query tile 0
+     sees no key), every row that sees no key reading out 0 and lse <=
+     -1e29, and launched with causal flipped it must fail the check (its
+     yardstick: the faster of SDPA with the boolean mask and with
+     is_causal); the three backward kernels also at S % 128 != 0,
+     non-causal with padded keys, and on a ring attention key shard at a
+     negative q_offset with the global rows' lse and delta (part of the
+     shard visible; all of it masked, where dq, dk and dv must be exactly
+     zero), and the fused and dq kernels launched with causal flipped
+     must fail the check; the fused dropout kernels
      (6-7) in Philox and forced-words modes, masks held exactly; the fused CE
      kernels (8-9) on an int8 head at route B's shape and two ragged ones;
      the block-diagonal product (kernel 10) at the BOFT merge's three
@@ -268,13 +275,17 @@ def _launches(**nonzero) -> dict:
 
 # ------------------------------------------------------------------ phase 2
 
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKRED", "UTMAREDG", "HMMA")
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKRED", "UTMAREDG", "HMMA")
+FLASH_SASS = {"flash_fwd": ("flash_fwd_kernel", 2),  # library: function
+              "flash_bwd": ("flash_bwd_dq_kernel", 1),  # stem, instances
+              "flash_bwd_kv": ("flash_bwd_kv_kernel", 2)}
 
 
 def sass_counts(name: str) -> dict:
     """Instruction counts by kernel function in library ``name``'s SASS
-    (``cuobjdump -sass``): wgmma (HGMMA), TMA loads (UTMALDG), bulk and
-    tensor reductions (UBLKRED, UTMAREDG) and mma.sync (HMMA)."""
+    (``cuobjdump -sass``): wgmma (HGMMA), TMA loads and stores (UTMALDG,
+    UTMASTG), bulk and tensor reductions (UBLKRED, UTMAREDG) and mma.sync
+    (HMMA)."""
     import re
     from moka_tpu_torch import kernels
     tool = Path(kernels._nvcc()).with_name("cuobjdump")
@@ -292,22 +303,30 @@ def sass_counts(name: str) -> dict:
     return counts
 
 
-def check_kv_sass() -> dict:
-    """The key-major backward library uses wgmma and TMA in both kernels and
-    a bulk reduction in the fused one (``flash_bwd_kv_kernel<true>``,
-    mangled ``...ILb1E...``); raises otherwise."""
-    counts = sass_counts("flash_bwd_kv")
-    for fn, c in counts.items():
-        log(f"    flash_bwd_kv SASS {fn}: " +
-            ", ".join(f"{op} {n}" for op, n in c.items()))
-    kv = {fn: c for fn, c in counts.items() if "flash_bwd_kv_kernel" in fn}
-    fused = [c for fn, c in kv.items() if "ILb1E" in fn]
-    if len(kv) != 2 or len(fused) != 1 or \
-            any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in kv.values()) \
-            or fused[0]["UBLKRED"] + fused[0]["UTMAREDG"] == 0:
-        raise AssertionError(f"flash_bwd_kv SASS lacks wgmma, TMA or the "
-                             f"bulk reduction: {counts}")
-    return counts
+def check_flash_sass() -> dict:
+    """Every flash kernel runs on wgmma and TMA: each instance of the
+    forward (``flash_fwd_kernel<64>``, ``<128>``), the dq kernel and both
+    key-major backward kernels show HGMMA and UTMALDG and no HMMA
+    (mma.sync), and the fused one (``flash_bwd_kv_kernel<true>``, mangled
+    ``...ILb1E...``) a bulk reduction; raises otherwise."""
+    out = {}
+    for lib, (stem, n) in FLASH_SASS.items():
+        counts = sass_counts(lib)
+        for fn, c in counts.items():
+            log(f"    {lib} SASS {fn}: " +
+                ", ".join(f"{op} {k}" for op, k in c.items()))
+        ks = {fn: c for fn, c in counts.items() if stem in fn}
+        fused = [c for fn, c in ks.items() if "ILb1E" in fn]
+        if len(ks) != n or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 or
+                               c["HMMA"] for c in ks.values()) or \
+                (lib == "flash_bwd_kv" and (
+                    len(fused) != 1 or
+                    fused[0]["UBLKRED"] + fused[0]["UTMAREDG"] == 0)):
+            raise AssertionError(f"{lib} SASS: a kernel lacks wgmma or TMA, "
+                                 f"keeps mma.sync, or the fused backward "
+                                 f"lacks its bulk reduction: {counts}")
+        out[lib] = counts
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -334,7 +353,18 @@ def flash_case(b, H, KH, L, S, pads=None, seed=0, hd=128):
     return q, k, v, mask
 
 
+SAME_FUNCTION_TOL = 5e-2  # a library call against the plain version: it
+                  # scales the scores in fp32, not q in bf16, so its P moves
+                  # by ~2^-8 of a score; a misplaced diagonal moves the first
+                  # rows (a few keys each) by O(1)
+DEAD_LSE = -1e29  # the lse of a row that sees no key: -1e30 ln 2 from the
+                  # kernel, (-1e30 + log2 S) ln 2 from the plain version
+
+
 def check_flash(name, q, k, v, mask, q_offset=0, causal=True) -> float:
+    """Kernel 1 against ``flash_fwd_plain`` on the rows that see a key
+    (FLASH_OUT_TOL, FLASH_LSE_TOL); a row that sees no key must read out
+    exactly 0 and lse <= DEAD_LSE (the plain version averages V there)."""
     from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     import torch
     out, lse = flash_fwd(q, k, v, mask, q_offset, causal)
@@ -347,45 +377,121 @@ def check_flash(name, q, k, v, mask, q_offset=0, causal=True) -> float:
     excess = float((diff - rtol * ref.float().abs()).max())
     d_out = float(diff.max())
     d_lse = float(((lse - ref_lse).abs().amax(dim=1) * rows).max())
-    ok = excess <= atol and d_lse <= FLASH_LSE_TOL
+    dead = ~rows
+    dead_ok = bool((out[dead] == 0).all()) and \
+        bool((lse.transpose(1, 2)[dead] <= DEAD_LSE).all())
+    ok = excess <= atol and d_lse <= FLASH_LSE_TOL and dead_ok
     log(f"  flash {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
         f"q_offset {q_offset} causal {causal}: max|out err| {d_out:.3e}, "
         f"max(|err| - "
         f"{rtol:.4g}|plain|) {excess:.3e} (tol {atol}), max|lse err| "
         f"{d_lse:.3e} (tol {FLASH_LSE_TOL}), valid rows "
-        f"{int(rows.sum())}/{rows.numel()}")
+        f"{int(rows.sum())}/{rows.numel()}, rows that see no key out 0 and "
+        f"lse <= {DEAD_LSE:g}: {dead_ok}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees with its plain version "
                              f"({name})")
     return d_out
 
 
+@contextlib.contextmanager
+def flipped_causal_fwd():
+    """Within: every flash forward launch runs its kernel with the causal
+    flag flipped (a deliberate fault)."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    launch = fa._launch_fwd
+
+    def wrong(q, k, v, attn_mask, q_offset, causal):
+        return launch(q, k, v, attn_mask, q_offset, not causal)
+
+    fa._launch_fwd = wrong
+    try:
+        yield
+    finally:
+        fa._launch_fwd = launch
+
+
+def must_fail(what, check) -> None:
+    """Run ``check`` (a deliberate fault): it must raise AssertionError."""
+    try:
+        check()
+    except AssertionError as e:
+        log(f"  the fault fails the check, as it must: {e}")
+    else:
+        raise AssertionError(f"{what} passed the check")
+
+
 def flash_record(b, L, S) -> dict:
-    """Check kernel A at the checked shapes and time it at the main path's
-    prefill shape (b, L, S)."""
+    """Check kernel 1 at head_dim 128 at the checked shapes (ragged S,
+    padding, GQA, positive and negative query offsets: ring attention's key
+    shards, and a query tile that sees no key) and time it at the main
+    path's prefill shape (b, L, S).  The library yardstick is the faster of
+    two ``scaled_dot_product_attention`` calls that compute the same
+    function there: with the boolean mask, and ``is_causal`` without one
+    on the first L keys (every key is valid and q_offset is 0, so query i
+    sees keys <= i < L; its output is checked against the plain
+    version)."""
     import torch
     import torch.nn.functional as F
     from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     err = 0.0
-    err = max(err, check_flash("slice shape", *flash_case(8, 32, 32, 896,
-                                                          1024)))
-    err = max(err, check_flash("GQA 32:8", *flash_case(2, 32, 8, 512, 512,
-                                                       seed=1)))
-    err = max(err, check_flash("q_offset", *flash_case(2, 32, 32, 128, 1024,
-                                                       seed=2),
-                               q_offset=896))
-    err = max(err, check_flash(
-        "left pad + ragged L", *flash_case(4, 32, 32, 333, 333, seed=3,
-                                           pads=(0, 17, 64, 100))))
+    for name, shape, kw in (
+            ("slice shape", (8, 32, 32, 896, 1024), {}),
+            ("GQA 32:8", (2, 32, 8, 512, 512), {"seed": 1}),
+            ("q_offset", (2, 32, 32, 128, 1024), {"seed": 2,
+                                                  "q_offset": 896}),
+            ("left pad + ragged L", (4, 32, 32, 333, 333),
+             {"seed": 3, "pads": (0, 17, 64, 100)}),
+            ("S % 128 != 0", (2, 32, 32, 1000, 1000), {"seed": 8}),
+            ("non-causal, left pad", (2, 32, 8, 333, 333),
+             {"seed": 9, "pads": (0, 100), "causal": False}),
+            ("key shard, q_offset -200", (2, 32, 32, 512, 512),
+             {"seed": 10, "q_offset": -200}),
+            ("masked shard, q_offset -512", (2, 32, 32, 512, 512),
+             {"seed": 11, "q_offset": -512}),
+            ("query tile 0 sees no key, q_offset -100",
+             (2, 32, 32, 256, 256), {"seed": 12, "q_offset": -100})):
+        kw = dict(kw)
+        qo, causal = kw.pop("q_offset", 0), kw.pop("causal", True)
+        err = max(err, check_flash(name, *flash_case(*shape, **kw), qo,
+                                   causal))
+    # fault injection: the kernel launched with causal flipped
+    case = flash_case(2, 32, 8, 512, 512, seed=1)
+    with flipped_causal_fwd():
+        must_fail("the flash forward with causal flipped",
+                  lambda: check_flash("causal flipped (a deliberate fault)",
+                                      *case))
+    del case
     q, k, v, mask = flash_case(b, 32, 32, L, S, seed=4)
     err = max(err, check_flash("main path shape", q, k, v, mask))
     ms = time_ms(lambda: flash_fwd(q, k, v, mask))
     plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, mask))
+    # the wrapper's host time a call: launches enqueued back to back (the
+    # queue stays short of full), host clock, no synchronise inside
+    torch.cuda.synchronize()
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        flash_fwd(q, k, v, mask)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
     vis = _visible(mask, L, S, 0)
     bool_mask = vis[:, None]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    lib_mask_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bool_mask))
+    # is_causal takes the keys some query sees (the first L: q_offset is
+    # 0), so that L == S leaves no doubt where its diagonal lies
+    ks, vs = kt[:, :, :L], vt[:, :, :L]
+    ref = flash_fwd_plain(q, k, v, mask)[0]
+    causal_out = F.scaled_dot_product_attention(qt, ks, vs, is_causal=True)
+    d_causal = float((causal_out.transpose(1, 2).float() - ref.float()).abs()
+                     .max())
+    same = d_causal <= SAME_FUNCTION_TOL
+    lib_causal_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, ks, vs, is_causal=True))
+    del ref, causal_out
+    lib_ms = min(lib_mask_ms, lib_causal_ms) if same else lib_mask_ms
     H, KH, hd = q.shape[2], k.shape[2], q.shape[3]
     pairs = float(vis.sum()) * H
     # bytes: q read and out written whole, the lse written, and only the
@@ -397,15 +503,22 @@ def flash_record(b, L, S) -> dict:
     bms, by = bound_ms(2 * nbytes(q) + kv_bytes + lse_bytes,
                        4.0 * hd * pairs, BF16_FLOPS)
     log(f"  flash timing at (b {b}, H 32, L {L}, S {S}, hd 128): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+        f"{ms:.4f} ms (host {host_us:.1f} us a call), plain {plain_ms:.4f} "
+        f"ms, sdpa with the boolean mask {lib_mask_ms:.4f} ms, sdpa "
+        f"is_causal {lib_causal_ms:.4f} ms (max|out - plain| {d_causal:.3e},"
+        f" same function: {same}), bound "
+        f"{bms:.4f} ms ({by})")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "moka_tpu_torch/kernels/csrc/flash_fwd.cu",
             "replaces": "moka_tpu/ops/flash_attention.py:56",
             "launches": None, "max_abs_err": err,
             "tolerance": "|err| <= %g + %g |plain|" % FLASH_OUT_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "library_mask_ms": lib_mask_ms,
+            "library_is_causal_ms": lib_causal_ms,
+            "is_causal_same_function": same, "host_us": host_us,
+            "library": "the faster of scaled_dot_product_attention with the "
+                       "boolean mask and with is_causal",
             "shape": f"b {b} H 32 L {L} S {S} hd 128, one layer"}
 
 
@@ -546,9 +659,11 @@ def check_flash_bwd(name, which, args, q_offset, causal=True) -> float:
 
 def flash_bwd_records() -> list[dict]:
     """Check the three backward kernels (main-path shapes, GQA, left
-    padding with ragged L, a query offset) and time each at its main-path
-    shape: fused at (b 4, H 32, L 1024), dq and dkv at (b 1, H 32,
-    L 4096), the training steps' shapes."""
+    padding with ragged L, a query offset, S % 128 != 0, ring key shards
+    at negative offsets, non-causal with padding; the fused and dq kernels
+    with causal flipped must fail) and time each at its main-path shape:
+    fused at (b 4, H 32, L 1024), dq and dkv at (b 1, H 32, L 4096), the
+    training steps' shapes."""
     import torch
     import torch.nn.functional as F
     from moka_tpu_torch.ops import flash_attention as fa
@@ -559,7 +674,7 @@ def flash_bwd_records() -> list[dict]:
               {"seed": 2, "pads": (0, 17, 64, 100)}),
              ("q_offset", "fused", (2, 32, 32, 128, 1024),
               {"seed": 3, "q_offset": 896})]
-    for which in ("fused", "dkv"):  # the key-major kernels' edges
+    for which in ("fused", "dkv", "dq"):  # ragged S, shards, padding
         cases += [("S % 128 != 0", which, (2, 32, 32, 1000, 1000),
                    {"seed": 5}),
                   ("key shard, q_offset -200", which,
@@ -583,17 +698,15 @@ def flash_bwd_records() -> list[dict]:
         errs[which] = max(errs[which], check_flash_bwd(
             name, which, args, qo, kw.get("causal", True)))
         del args
-    # fault injection: the fused kernel launched with causal flipped
+    # fault injection: the fused and the dq kernel launched with causal
+    # flipped
     args, qo = bwd_case(2, 32, 8, 512, 512, seed=1)
-    try:
+    for which in ("fused", "dq"):
         with flipped_causal_bwd():
-            check_flash_bwd("causal flipped (a deliberate fault)", "fused",
-                            args, qo)
-    except AssertionError as e:
-        log(f"  the fault fails the check, as it must: {e}")
-    else:
-        raise AssertionError("the fused backward with causal flipped passed "
-                             "the check")
+            must_fail(f"the {which} backward with causal flipped",
+                      lambda: check_flash_bwd(
+                          "causal flipped (a deliberate fault)", which, args,
+                          qo))
     del args
     records = []
     for which, shape, products, tpu_line in (
@@ -2689,7 +2802,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line or \
                         "setmaxnreg" in line:
                     log(f"    {name}: {line.strip()}")
-    check_kv_sass()
+    check_flash_sass()
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)

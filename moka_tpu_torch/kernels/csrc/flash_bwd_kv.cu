@@ -8,7 +8,7 @@
 //   dkv    replaces _bwd_dkv_kernel (:180, launched by _flash_bwd_dkv :473):
 //          dk and dv alone, given the global-row lse and delta (ring
 //          attention calls it per key shard).
-// The dq kernel (_bwd_dq_kernel) stays in flash_bwd.cu.
+// The dq kernel (_bwd_dq_kernel) is flash_bwd.cu: its query-major twin.
 //
 // Numerics, as the TPU kernels and flash_bwd_plain:
 //   * q comes pre-scaled by scale*log2(e) (the wrapper's _prescaled: the
@@ -44,7 +44,7 @@
 //     product is a 64-row wgmma.  K and V (2 x 32 KB) arrive by TMA once;
 //     the CTA walks 64-row query tiles from the first that sees a key of
 //     the tile (causal: max(0, k0 - q_offset) / 64).  CTAs start in head
-//     groups, heaviest key tiles first (tile_of);
+//     groups, heaviest key tiles first (head_group_tile, flash_common.cuh);
 //   * the query side is a ring of 3 stages (Q and dO tiles, 16 KB each,
 //     128-byte swizzle, plus the tile's lse and delta) with a full/empty
 //     mbarrier pair per stage, so later tiles load while one computes;
@@ -113,7 +113,7 @@ struct Args {
   float* dk;      // fp32 (B, S, H, hd)
   float* dv;
   int H, KH, L, S, q_offset, causal;
-  int group;  // heads a group of CTAs (see tile_of)
+  int group;  // heads a group of CTAs (head_group_tile)
   float scale;
 };
 
@@ -149,22 +149,6 @@ __device__ __forceinline__ void softmax_grad(const float (&st)[32],
   }
 }
 
-// The (batch*head, key tile) of this CTA.  CTAs start in the order of the
-// linear block index; they go in groups of a.group heads (about one wave of
-// the card: every key tile of those heads), key tile by key tile within a
-// group.  So the CTAs that read one head's Q and dO run together (once from
-// memory, then from L2), and under a causal mask the heaviest tiles (the
-// first keys, which every later query sees) start first.
-__device__ __forceinline__ void tile_of(const Args& a, int& bh, int& kt) {
-  const int n_kt = (a.S + BK - 1) / BK;
-  const int per_group = a.group * n_kt;
-  const int g = blockIdx.x / per_group, r = blockIdx.x % per_group;
-  const int heads = min(a.group, static_cast<int>(gridDim.x) / n_kt -
-                                     g * a.group);  // the last group: fewer
-  kt = r / heads;
-  bh = g * a.group + r % heads;
-}
-
 template <bool WITH_DQ>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -186,8 +170,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   const int tid = threadIdx.x;
   const int H = a.H, L = a.L, S = a.S, q_offset = a.q_offset;
+  // heads in groups, the first key tiles (which every later query sees:
+  // the heaviest under a causal mask) first
+  const int n_kt = (S + BK - 1) / BK;
   int bh, kt;
-  tile_of(a, bh, kt);
+  head_group_tile(blockIdx.x, gridDim.x / n_kt, n_kt, a.group, bh, kt);
   const int b = bh / H, h = bh % H;
   const int kh = h / (H / a.KH);
   const int k0 = kt * BK;
@@ -482,14 +469,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_kt = (a.S + BK - 1) / BK;
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
   Args g = a;
-  g.group = max(1, sms / n_kt);
+  g.group = max(1, sm_count() / n_kt);
   const dim3 grid(n_kt * B * a.H);
   kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dq, g);

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tensor loads and reduce-adds (shared to global) with their host-side
-// tensor maps, bulk-group waits, async-proxy fences, named barriers,
+// tensor loads (with L2 cache hints), stores and reduce-adds (shared to
+// global) with their host-side tensor maps, bulk-group waits, async-proxy
+// fences, named barriers,
 // register reallocation (setmaxnreg) and wgmma with shared-memory
-// descriptors over 128-byte-swizzled tiles.  Used by flash_bwd_kv.cu.
+// descriptors over 128-byte-swizzled tiles.  Used by the flash kernels
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_kv.cu).
 //
 // Tile convention: a tile is rows of 128 bytes (64 bf16), stored as TMA
 // writes it with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r
@@ -80,6 +82,36 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// L2 eviction priorities for the bulk copies' cache hints: evict_first for
+// data read or written once (streamed past the cache), evict_last for data
+// that other CTAs read again soon
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// tma_load_4d with an L2 cache hint (a policy from l2_evict_*)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar), "l"(policy)
+      : "memory");
+}
+
 // the 4-D box of `map` at coordinates (c0 innermost .. c3) += the tile at
 // shared address src (laid out as a TMA load of that box would leave it),
 // one asynchronous bulk operation; elements outside the tensor are skipped
@@ -90,6 +122,21 @@ __device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
       "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the tile at shared address src (laid out as a TMA load of the box would
+// leave it) -> the 4-D box of `map` at coordinates (c0 innermost .. c3), one
+// asynchronous bulk operation with an L2 cache hint (a policy from
+// l2_evict_*); elements outside the tensor are skipped
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4, %5}], [%1], %6;\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "l"(policy)
       : "memory");
 }
 
@@ -188,6 +235,24 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D (m64n16, fp32) = A B, plus D where scale_d != 0; A bf16 in registers
+// (the four .b32 of the m64k16 fragment), B bf16 in shared memory; TB 1
+// where B is MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n16_rs(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
 // D (m64n64, fp32) = A B, plus D where scale_d != 0; A bf16 in registers
 // (the four .b32 of the m64k16 fragment), B bf16 in shared memory; TB 1
 // where B is MN-major
@@ -236,6 +301,17 @@ inline EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(p);
   }();
   return fn;
+}
+
+// streaming multiprocessors of the current device (132 on an H100 SXM)
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
 }
 
 // A tensor map over a contiguous array of `rank` dims (dims[0] innermost)

@@ -8,10 +8,11 @@ log-sum-exp.  The three backward functions take the forward's lse and
 (dq, dk, dv in one kernel, for short sequences), ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` (the blocked pair; ring attention calls them per key
 shard with the global lse and delta).  On a CUDA tensor each launches its
-hand-written kernel (``kernels/csrc/flash_fwd.cu``; ``flash_bwd_kv.cu``
-for the fused and dk/dv backward, wgmma and TMA; ``flash_bwd.cu`` for dq)
-or raises; on a CPU tensor it runs ``flash_fwd_plain`` / ``flash_bwd_plain``,
-the same arithmetic in plain torch.  ``flash_mha`` is the differentiable
+hand-written kernel (wgmma and TMA: ``kernels/csrc/flash_fwd.cu`` and
+the dq kernel ``flash_bwd.cu``, query-major; ``flash_bwd_kv.cu`` for the
+fused and dk/dv backward, key-major) or raises; on a CPU tensor it runs
+``flash_fwd_plain`` / ``flash_bwd_plain``, the same arithmetic in plain
+torch.  ``flash_mha`` is the differentiable
 entry point (a ``torch.autograd.Function``) and dispatches the backward
 as the JAX custom VJP does (``use_fused_bwd``).
 
@@ -29,7 +30,8 @@ Numerics follow the JAX kernels: q is pre-scaled by ``scale * log2(e)``
 rounded in q's dtype, the softmax runs in fp32 base 2 (``exp2``), and lse
 is in natural-log units.  Rows whose keys are all masked have zero
 gradients and, on the bf16 route, an unspecified forward output (the
-kernel and the plain version differ there; callers read valid rows only).
+kernel writes 0 and lse -1e30 ln 2, the plain version the mean of V;
+callers read valid rows only).
 The rank kernels visit every key, so there such a row's output is the
 mean of V over all S keys, as the plain version's: zero for MokA's
 no-question samples, whose keys are all zero.
@@ -38,6 +40,7 @@ no-question samples, whose keys are all zero.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -241,6 +244,7 @@ def _dims(q, k, q_offset, causal):
             int(bool(causal)))
 
 
+@functools.lru_cache(maxsize=None)
 def _scales(hd: int) -> tuple[float, float]:
     """(bf16-rounded scale * log2 e, as the kernels pre-scale q; scale)."""
     return (float(torch.tensor(LOG2E / math.sqrt(hd), dtype=torch.bfloat16)),
@@ -277,10 +281,12 @@ def _launch_fwd(q, k, v, attn_mask, q_offset: int, causal: bool):
 def _launch_bwd(which: str, q, k, v, attn_mask, dout, lse, delta,
                 q_offset: int, causal: bool):
     """One backward kernel; returns its outputs as the kernel leaves them:
-    dq fp32 (fused) or bf16 (dq), dk/dv fp32 per head (b, S, H, hd).  The
-    key-major kernels (fused, dkv: ``flash_bwd_kv.cu``) load q by TMA,
-    which cannot scale in flight, so they take ``_prescaled(q)``; the dq
-    kernel scales q as it loads it."""
+    dq fp32 (fused) or bf16 (dq), dk/dv fp32 per head (b, S, H, hd).  All
+    three load q by TMA, which cannot scale in flight: the key-major
+    kernels (fused, dkv: ``flash_bwd_kv.cu``), which load each query tile
+    once per key tile, take ``_prescaled(q)``; the query-major dq kernel
+    (``flash_bwd.cu``), which loads each query tile once, takes q as it is
+    and scales it in shared memory, as the forward does."""
     from moka_tpu_torch import kernels
     q, k, v, mask, dout, lse, delta = _kernel_inputs(q, k, v, attn_mask,
                                                      dout, lse, delta)

@@ -11,6 +11,17 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
 
     python3 profile_port.py              # every window, one card
     python3 profile_port.py mm quant     # only the windows named
+    python3 profile_port.py flash --root DIR   # another checkout's kernels
+
+``flash`` (not among the default windows) times the query-major flash
+kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
+serving prefill and at the CLIP tower's 80 and 40 frames, kernel 3 at the
+long-context step's: device ms a call (CUDA events) and the wrapper's host
+µs a call (launches enqueued back to back).  ``--root DIR`` imports
+``moka_tpu_torch`` from the checkout at DIR (built into DIR/build), so two
+versions compare on one card in one call.  ``flash_ablation`` times kernel
+1 with parts taken out (FLASH_ABLATIONS: edited copies of its source built
+under build/), at the prefill and CLIP shapes: where its time goes.
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -142,6 +153,170 @@ def summary(name, wall, traced, ops, per=1, host=None) -> dict:
 
 
 WINDOWS = ("serving", "full", "fused", "quant", "rank", "mm")
+FLASH_CASES = {  # name: (b, L, S, H, hd, causal), chip_smoke's shapes
+    "flash_fwd": (8, 896, 928, 32, 128, True),
+    "flash_fwd_hd64 80 frames": (80, 257, 257, 16, 64, False),
+    "flash_fwd_hd64 40 frames": (40, 257, 257, 16, 64, False),
+    "flash_bwd_dq": (1, 4096, 4096, 32, 128, True)}
+
+
+_IDLE = ("        } else if (kv_w - k0 <= NARROW) {",
+         "        } else if (true) {\n        } else if (kv_w - k0 <= NARROW) {")
+FLASH_ABLATIONS = {  # name: edits (old text, new text) of flash_fwd.cu with
+    "kernel": [],    # hopper.cuh inlined; the edited kernels' outputs are
+    "no softmax exp2 (P = S)": [  # wrong, only their times are read
+        ("const float p0 = exp2_approx(sc[i] - mx[u]);",
+         "const float p0 = sc[i];"),
+        ("const float p1 = exp2_approx(sc[i + 1] - mx[u]);",
+         "const float p1 = sc[i + 1];")],
+    "no P V": [("  for (int kk = 0; kk < N / 16; ++kk)",
+                "  for (int kk = 0; kk < 0; ++kk)")],
+    "no S": [("  for (int kk = 0; kk < HD / 16; ++kk) {",
+              "  for (int kk = 0; kk < 0; ++kk) {")],
+    "consumers idle (the loads alone)": [_IDLE],
+    "consumers idle, K without V": [
+        _IDLE, ("mbar_arrive_expect_tx(full, 2 * C::KV_TILE);",
+                "mbar_arrive_expect_tx(full, C::KV_TILE);"),
+        ("              tma_load_4d(base + C::OFF_V + s * C::KV_TILE + half "
+         "* 2 * BOX,\n                          &tm_v, full, 64 * half, kh, "
+         "k0, b, l2_evict_last());", "")],
+    "consumers idle, 1 K/V stage": [
+        _IDLE, ("static constexpr int STAGES = 2;",
+                "static constexpr int STAGES = 1;")],
+    "consumers idle, half the CTAs": [
+        _IDLE, ("const int ctas = sm_count() * C::MIN_CTAS;",
+                "const int ctas = sm_count() * C::MIN_CTAS / 2;")],
+    "consumers idle, no L2 hints": [
+        _IDLE, ("L2::evict_first.b64", "L2::evict_normal.b64"),
+        ("L2::evict_last.b64", "L2::evict_normal.b64")]}
+
+
+def ablation_source(edits, csrc: Path) -> str:
+    """flash_fwd.cu with hopper.cuh inlined and ``edits`` applied; raises
+    if an edit's old text is not in the source."""
+    src = (csrc / "flash_fwd.cu").read_text().replace(
+        '#include "hopper.cuh"', (csrc / "hopper.cuh").read_text())
+    for old, new in edits:
+        if old not in src:
+            raise ValueError(f"ablation edit no longer applies: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def flash_ablation_window(iters: int = 20) -> dict:
+    """Kernel 1 with parts taken out (FLASH_ABLATIONS), each built by nvcc
+    (all at once) and launched through the wrapper in place of the
+    library, timed like ``flash_window`` at its prefill and CLIP (80
+    frames) shapes, twice in turn."""
+    import ctypes
+    import torch
+    from moka_tpu_torch import kernels
+    from moka_tpu_torch.ops import flash_attention as fa
+    out_dir = kernels.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, edits) in enumerate(FLASH_ABLATIONS.items()):
+        src = out_dir / f"v{i}.cu"
+        src.write_text(ablation_source(edits, kernels.CSRC))
+        procs[name] = (subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+             "-o", str(src.with_suffix(".so")), str(src)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT),
+            src.with_suffix(".so"))
+    libs = {}
+    for name, (proc, so) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for ablation {name!r}")
+        lib = ctypes.CDLL(str(so))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.moka_flash_fwd.argtypes = [p] * 6 + [i] * 8 + [f, p]
+        lib.moka_flash_fwd.restype = i
+        libs[name] = lib
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for name in ("flash_fwd", "flash_fwd_hd64 80 frames"):
+        b, L, S, H, hd, causal = FLASH_CASES[name]
+        q, k, v = (torch.randn((b, n, H, hd), generator=g,
+                               device="cuda").bfloat16() for n in (L, S, S))
+        cases[name] = (q, k, v, torch.ones((b, S), dtype=torch.int32,
+                                           device="cuda"), causal)
+    kept = fa._libs.get("flash_fwd")
+    out = {name: {} for name in FLASH_ABLATIONS}
+    try:
+        for _ in range(2):
+            for name, lib in libs.items():
+                fa._libs["flash_fwd"] = lib
+                for case, (q, k, v, mask, causal) in cases.items():
+                    def call():
+                        fa.flash_fwd(q, k, v, mask, 0, causal)
+                    for _ in range(3):
+                        call()
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(iters):
+                        call()
+                    end.record()
+                    end.synchronize()
+                    out[name].setdefault(case, []).append(
+                        start.elapsed_time(end) / iters)
+    finally:
+        if kept is None:
+            fa._libs.pop("flash_fwd", None)
+        else:
+            fa._libs["flash_fwd"] = kept
+    for name, times in out.items():
+        print(f"  {name}: " + ", ".join(
+            f"{case} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+            for case, ts in times.items()), flush=True)
+    return {"flash_ablation": out}
+
+
+def flash_window(iters: int = 20, host_calls: int = 50) -> dict:
+    """Device ms a call (CUDA events over ``iters`` calls after 3 warm-up
+    calls) and host µs a call (``host_calls`` calls enqueued back to back,
+    host clock, before one synchronise) of each FLASH_CASES kernel through
+    its wrapper, every key valid, q_offset 0."""
+    import torch
+    from moka_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"package": fa.__file__}
+    for name, (b, L, S, H, hd, causal) in FLASH_CASES.items():
+        q, k, v, dout = (torch.randn((b, n, H, hd), generator=g,
+                                     device="cuda").bfloat16()
+                         for n in (L, S, S, L))
+        mask = torch.ones((b, S), dtype=torch.int32, device="cuda")
+        if name == "flash_bwd_dq":
+            o, lse = fa.flash_fwd(q, k, v, mask, 0, causal)
+            delta = (dout.float() * o.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+
+            def call():
+                fa.flash_bwd_dq(q, k, v, mask, dout, lse, delta, 0, causal)
+        else:
+            def call():
+                fa.flash_fwd(q, k, v, mask, 0, causal)
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            call()
+        end.record()
+        end.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(host_calls):
+            call()
+        host_us = (time.perf_counter() - t0) / host_calls * 1e6
+        torch.cuda.synchronize()
+        out[name] = {"ms": start.elapsed_time(end) / iters,
+                     "host_us": host_us}
+        print(f"  {name}: {out[name]['ms']:.4f} ms a call, host "
+              f"{host_us:.1f} us a call", flush=True)
+    return {"flash": out}
 TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
               "quant": "train_step_quant_route_b",
               "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
@@ -150,13 +325,20 @@ TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
 def main(argv=None) -> int:
     import torch
     names = list(argv or sys.argv[1:]) or list(WINDOWS)
-    if set(names) - set(WINDOWS):
-        print(f"profile_port: windows are {WINDOWS}", file=sys.stderr)
+    root = ROOT
+    if "--root" in names:
+        i = names.index("--root")
+        root = Path(names[i + 1]).resolve()
+        del names[i:i + 2]
+    if set(names) - {*WINDOWS, "flash", "flash_ablation"}:
+        print(f"profile_port: windows are {WINDOWS}, flash and "
+              f"flash_ablation", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from moka_tpu_torch import kernels
@@ -167,10 +349,14 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     kernels.build()
     out = {"card": smi}
+    if "flash" in names:
+        out.update(flash_window())
+    if "flash_ablation" in names:
+        out.update(flash_ablation_window())
     if "serving" in names:
         out.update(serving_windows())
     for path in names:
-        if path != "serving":
+        if path not in ("serving", "flash", "flash_ablation"):
             out.update(train_window(path))
             gc.collect()
             torch.cuda.empty_cache()

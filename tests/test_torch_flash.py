@@ -64,17 +64,32 @@ def _cmp_rows(got, want, rows, **kw):
     dict(H=4, KH=4, pads=(0, 5)),                   # MHA
     dict(L=8, S=24, q_offset=16, pads=(2, 0)),      # prefill into a cache
     dict(causal=False, pads=(0, 7)),                # non-causal
+    dict(q_offset=-4, pads=(0, 0)),                 # ring key shard, part
+                                                    # of it visible
+    dict(q_offset=-16, pads=(0, 0)),                # a shard wholly masked
+    dict(L=16, S=21, hd=64, causal=False, pads=(0, 5)),  # CLIP's head_dim,
+                                                    # ragged S
 ])
 def test_flash_plain_matches_jax_kernel(case):
+    """Valid rows: out and lse within TOL.  A row that sees no key (a ring
+    shard above the diagonal) has an unspecified out, but on both sides an
+    lse of at most -1e29 (JAX's -1e30 ln 2 where its block runs no key
+    tile; the plain version's (-1e30 + log2 S) ln 2), so the backward's
+    ``lse <= NEG_INF / 2`` test zeroes its gradients."""
     case = dict(case)
     q_offset = case.pop("q_offset", 0)
     causal = case.pop("causal", True)
     q, k, v, mask = _data(**case)
     hd = q.shape[-1]
+    # a ragged S is padded to JAX's key block, the pad masked, as its
+    # wrapper (flash_mha) does; the port's plain version takes it as it is
+    pad = -k.shape[1] % 8
+    kj, vj = (np.pad(t, ((0, 0), (0, pad), (0, 0), (0, 0))) for t in (k, v))
     out_j, lse_j = _flash_fwd_res(
-        jnp.asarray(q).transpose(0, 2, 1, 3), jnp.asarray(k).transpose(0, 2, 1, 3),
-        jnp.asarray(v).transpose(0, 2, 1, 3), jnp.asarray(mask), q_offset,
-        causal, 1.0 / math.sqrt(hd), 8, 8, True)
+        jnp.asarray(q).transpose(0, 2, 1, 3), jnp.asarray(kj).transpose(0, 2, 1, 3),
+        jnp.asarray(vj).transpose(0, 2, 1, 3),
+        jnp.asarray(np.pad(mask, ((0, 0), (0, pad)))), q_offset, causal,
+        1.0 / math.sqrt(hd), 8, 8, True)
     out_t, lse_t = flash_fwd_plain(*map(torch.from_numpy, (q, k, v, mask)),
                                    q_offset=q_offset, causal=causal)
     rows = _valid_rows(mask, q.shape[1], q_offset, causal)
@@ -83,6 +98,11 @@ def test_flash_plain_matches_jax_kernel(case):
     lse_rows = np.asarray(lse_j) * rows[:, None, :]
     np.testing.assert_allclose(lse_t.numpy() * rows[:, None, :], lse_rows,
                                **TOL)
+    dead = np.broadcast_to(~rows[:, None, :], lse_t.shape)
+    assert (np.asarray(lse_j)[dead] <= -1e29).all()
+    assert (lse_t.numpy()[dead] <= -1e29).all()
+    if q_offset == -16:  # every row: the check above is not vacuous
+        assert dead.all()
 
 
 @pytest.mark.parametrize("L,S,q_offset", [(13, 13, 0), (5, 21, 16)])

@@ -81,6 +81,22 @@ def test_kernel_loader_builds_nothing_at_import(tmp_path):
             if kernels._target(n, csrc) != keys[n]} == {"flash_bwd"}
 
 
+def test_flash_ablation_edits_apply():
+    """profile_port.py's kernel-1 ablations edit the source by text: each
+    edit must still find its text in flash_fwd.cu (or hopper.cuh), so the
+    timed variants are the kernel with exactly that part taken out."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import profile_port
+    base = profile_port.ablation_source([], kernels.CSRC)
+    for name, edits in profile_port.FLASH_ABLATIONS.items():
+        src = profile_port.ablation_source(edits, kernels.CSRC)
+        assert (src == base) == (not edits), name
+    with pytest.raises(ValueError, match="no longer applies"):
+        profile_port.ablation_source([("no such text", "")], kernels.CSRC)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -107,9 +123,28 @@ def test_flash_kernel_matches_plain_on_card(card):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_negative_offset_on_card(card):
+    """A ring key shard above part of the diagonal: at q_offset -100 rows
+    0..99 see no key (query tile 0, rows 0..63, runs no key tile) and must
+    read out 0 and lse <= -1e29; the other rows match the plain version."""
+    from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn((2, 200, 8, 128), generator=g, device=card).bfloat16()
+    k = torch.randn((2, 256, 2, 128), generator=g, device=card).bfloat16()
+    v = torch.randn((2, 256, 2, 128), generator=g, device=card).bfloat16()
+    mask = torch.ones((2, 256), dtype=torch.int32, device=card)
+    out, lse = flash_fwd(q, k, v, mask, q_offset=-100)
+    ref, ref_lse = flash_fwd_plain(q, k, v, mask, q_offset=-100)
+    assert (out[:, :100] == 0).all() and (lse[:, :, :100] <= -1e29).all()
+    d = (out[:, 100:].float() - ref[:, 100:].float()).abs()
+    assert (d <= 4e-3 + 2 ** -7 * ref[:, 100:].float().abs()).all()
+    assert (lse[:, :, 100:] - ref_lse[:, :, 100:]).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
 def test_flash_kernel_head_dim_64_non_causal_on_card(card):
     """The CLIP tower's shape: head_dim 64, non-causal, 257 keys (the last
-    64-key tile holds one), every key valid."""
+    key tile holds one and runs narrow), every key valid."""
     from moka_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     g = torch.Generator(device=card).manual_seed(2)
     q, k, v = (torch.randn((3, 257, 16, 64), generator=g, device=card)
