@@ -7,10 +7,12 @@ Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel), print ptxas's
-     resource lines and the SASS counts of the flash kernels
-     (``cuobjdump -sass``: a forward instance, the dq kernel or a
-     key-major backward kernel without HGMMA or UTMALDG or with HMMA, or
-     the fused backward without its bulk reduction, fails the phase);
+     resource lines and the SASS counts of the flash kernels and the
+     fused CE backward (``cuobjdump -sass``: a forward instance, the dq
+     kernel or a key-major backward kernel without HGMMA or UTMALDG or
+     with HMMA, the fused backward without its bulk reduction, or kernel
+     9 without HGMMA, UTMALDG or a bulk reduction or with HMMA, fails the
+     phase; kernel 8 keeps mma.sync);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -32,7 +34,8 @@ Phases, in order; any failed build, launch or check exits non-zero:
      zero), and the fused and dq kernels launched with causal flipped
      must fail the check; the fused dropout kernels
      (6-7) in Philox and forced-words modes, masks held exactly; the fused CE
-     kernels (8-9) on an int8 head at route B's shape and two ragged ones;
+     kernels (8-9) on an int8 head at route B's shape and three ragged
+     ones (kernel 9 also timed without the wrapper's zero fill and cast);
      the block-diagonal product (kernel 10) at the BOFT merge's three
      shapes (library: ``torch.bmm``); the rank flash kernels (1-4 at
      head_dim 4, fp32) at the training step's (b 4, L 1024) and a ragged
@@ -175,9 +178,9 @@ CE_LSE_TOL = 1e-3  # fused CE nll and lse (nats, ~10.4 at V 32011): fp32 sums
 CE_DX_TOL = (2e-2, 1e-3)  # fused CE dx, both versions fed the plain lse:
                    # max|err| as a fraction of max|plain| and relative L2.
                    # Both round p to bf16 at the same point; the fp32 sums
-                   # (logits over d, dx over V by atomics) run in other
-                   # orders, which can move a rounding of p or of dx by one
-                   # bf16 ulp: 1.2e-4 rel L2 at the main shape
+                   # (logits over d, dx over V by TMA reductions) run in
+                   # other orders, which can move a rounding of p or of dx
+                   # by one bf16 ulp: 1.2e-4 rel L2 at the main shape
 CE_SOFTMAX_TOL = 2e-2  # dx's L2 error over the norm of its softmax term
                    # (dx less the exact one-hot term, 2.4% of dx's norm at
                    # the main shape): sound 5.1-5.4e-3, p doubled on a
@@ -301,6 +304,30 @@ def sass_counts(name: str) -> dict:
             for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
                 counts[fn][op] += 1
     return counts
+
+
+CE_SASS = ("fused_ce_bwd", "fused_ce_bwd_kernel")  # kernel 9: library,
+                                                   # function stem
+
+
+def check_ce_sass() -> dict:
+    """Kernel 9 runs on wgmma and TMA: its one function shows HGMMA,
+    UTMALDG and a bulk reduction (UBLKRED or UTMAREDG, dx) and no HMMA;
+    kernel 8 (``fused_ce``) keeps mma.sync and is only printed.  Raises
+    otherwise."""
+    out = {}
+    for lib in ("fused_ce", CE_SASS[0]):
+        out[lib] = sass_counts(lib)
+        for fn, c in out[lib].items():
+            log(f"    {lib} SASS {fn}: " +
+                ", ".join(f"{op} {k}" for op, k in c.items()))
+    ks = [c for fn, c in out[CE_SASS[0]].items() if CE_SASS[1] in fn]
+    if len(ks) != 1 or ks[0]["HGMMA"] == 0 or ks[0]["UTMALDG"] == 0 or \
+            ks[0]["HMMA"] or ks[0]["UBLKRED"] + ks[0]["UTMAREDG"] == 0:
+        raise AssertionError(f"fused CE backward SASS: lacks wgmma, TMA or "
+                             f"its bulk reduction, or keeps mma.sync: "
+                             f"{out[CE_SASS[0]]}")
+    return out
 
 
 def check_flash_sass() -> dict:
@@ -1191,18 +1218,22 @@ def check_ce(name, x, w, scale, t, cot, fault=False) -> tuple[float, float]:
 
 def ce_records(n, d, v) -> list[dict]:
     """Check kernels 8-9 at the main path's shape (route B: N = 4 x 1023
-    rows, d 4096, V 32011) and two ragged ones (rows and vocab off the
-    tiles), then time each at the main path's shape beside its plain
-    version and the library's int8 -> bf16 cast of the head, bf16
-    ``torch.matmul``, the scale and ``F.cross_entropy(reduction="none")``
-    (kernel 9: that forward's autograd backward alone)."""
+    rows, d 4096, V 32011) and three ragged ones (rows and vocab off the
+    tiles: kernel 9's 128 rows and 512 vocab columns a CTA, 256 a stage),
+    then time each at the main path's shape beside its plain version and
+    the library's int8 -> bf16 cast of the head, bf16 ``torch.matmul``,
+    the scale and ``F.cross_entropy(reduction="none")`` (kernel 9: that
+    forward's autograd backward alone); kernel 9 also alone, without the
+    wrapper's zero fill of the fp32 workspace and its cast to bf16."""
     import torch
     import torch.nn.functional as F
     from moka_tpu_torch.ops import fused_ce as fc
     err_f = err_b = 0.0
     for name, shape, seed in (("main path shape", (n, d, v), 0),
                               ("ragged rows and vocab", (333, 192, 1000), 1),
-                              ("one row block", (50, 64, 203), 2)):
+                              ("one row block", (50, 64, 203), 2),
+                              ("ragged across kernel 9's tiles",
+                               (1000, 4096, 5000), 4)):
         ef, eb = check_ce(name, *ce_case(*shape, seed), fault=seed == 0)
         err_f, err_b = max(err_f, ef), max(err_b, eb)
     x, w, scale, t, cot = ce_case(n, d, v, 3)
@@ -1210,6 +1241,16 @@ def ce_records(n, d, v) -> list[dict]:
     ms = {"fwd": time_ms(lambda: fc.fused_ce_fwd(x, w, scale, t), iters=5),
           "bwd": time_ms(lambda: fc.fused_ce_bwd(x, w, scale, t, lse, cot),
                          iters=5)}
+    inputs = fc._kernel_inputs(x, w, scale, t)
+    ws = torch.zeros((n, d), dtype=torch.float32, device="cuda")
+    passes = {"kernel_alone": time_ms(lambda: fc._bwd_into(
+                  ws, *inputs[:4], lse, cot, inputs[4]), iters=5),
+              "zero_dx": time_ms(lambda: torch.zeros_like(ws)),
+              "cast_dx": time_ms(lambda: ws.to(x.dtype))}
+    del ws, inputs
+    log(f"  fused CE bwd (kernel 9): the kernel alone "
+        f"{passes['kernel_alone']:.4f} ms; the wrapper's passes: zero fill "
+        f"{passes['zero_dx']:.4f} ms, cast {passes['cast_dx']:.4f} ms")
     plain = {"fwd": time_ms(lambda: fc.fused_ce_fwd_plain(x, w, scale, t),
                             iters=3, warmup=1),
              "bwd": time_ms(lambda: fc.fused_ce_bwd_plain(x, w, scale, t,
@@ -1241,7 +1282,8 @@ def ce_records(n, d, v) -> list[dict]:
             f"({by})")
         records.append({
             "name": f"fused_ce_{which}", "route": "cuda",
-            "source": "moka_tpu_torch/kernels/csrc/fused_ce.cu",
+            "source": "moka_tpu_torch/kernels/csrc/" + (
+                "fused_ce.cu" if which == "fwd" else "fused_ce_bwd.cu"),
             "replaces": f"moka_tpu/ops/fused_ce.py:{line}",
             "launches": None, "max_abs_err": err,
             "tolerance": (f"nll, lse {CE_LSE_TOL}" if which == "fwd" else
@@ -1250,6 +1292,7 @@ def ce_records(n, d, v) -> list[dict]:
                           % (*CE_DX_TOL, CE_SOFTMAX_TOL)),
             "ms": ms[which], "plain_ms": plain[which], "bound_ms": bms,
             "bound_by": by, "library_ms": library[which],
+            **({"wrapper_passes_ms": passes} if which == "bwd" else {}),
             "library": "torch.matmul(x, bf16(w_i8)) * scale, "
                        "F.cross_entropy(reduction='none')" + (
                            "" if which == "fwd" else
@@ -2800,9 +2843,10 @@ def main() -> int:
         if text.exists():
             for line in text.read_text().splitlines():
                 if "registers" in line or "spill" in line or \
-                        "setmaxnreg" in line:
+                        "setmaxnreg" in line or "C75" in line:
                     log(f"    {name}: {line.strip()}")
     check_flash_sass()
+    check_ce_sass()
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)

@@ -29,6 +29,7 @@ SOURCES = {
     "moka_delta_fwd": "moka_delta_fwd.cu",
     "fused_dropout": "fused_dropout.cu",
     "fused_ce": "fused_ce.cu",
+    "fused_ce_bwd": "fused_ce_bwd.cu",
     "block_diag": "block_diag.cu",
     "flash_rank": "flash_rank.cu",
 }

@@ -5,9 +5,10 @@ memory.
 ``fused_ce_loss(h, lm_head, targets)`` is the mean CE over the valid
 targets of ``logits = (bf16(h) @ bf16(w_i8)) * scale``.  On a CUDA tensor
 ``fused_ce_fwd`` and ``fused_ce_bwd`` launch the kernels of
-``kernels/csrc/fused_ce.cu`` (TPU kernels 8 and 9) or raise; on a CPU
-tensor they run ``fused_ce_fwd_plain`` / ``fused_ce_bwd_plain``, the same
-arithmetic in plain torch.  Both check what they are given the same way.
+``kernels/csrc/fused_ce.cu`` (TPU kernel 8) and ``fused_ce_bwd.cu`` (TPU
+kernel 9) or raise; on a CPU tensor they run ``fused_ce_fwd_plain`` /
+``fused_ce_bwd_plain``, the same arithmetic in plain torch.  Both check
+what they are given the same way.
 
 Numerics, as the JAX kernels: h is cast to bf16 first; products of bf16 h
 and the int8 codes (exact in fp32) summed in fp32, then scaled per column;
@@ -36,7 +37,8 @@ from moka_tpu_torch.core.device import on_card
 from moka_tpu_torch.ops.quant import operand_cache
 
 NEG_INF = -1e30
-VOCAB_TILE = 512   # vocab columns a CTA covers (fused_ce.cu: SUB * BV)
+VOCAB_TILE = 512   # vocab columns a CTA covers (fused_ce.cu: CHUNK;
+                   # fused_ce_bwd.cu: SPAN)
 K_TILE = 64        # the kernels' contraction step: d % 64 == 0
 
 
@@ -98,21 +100,24 @@ def _check(x, w_q, w_scale, targets, *rows):
 
 # ----------------------------------------------------------- CUDA kernels
 
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}  # by library: fused_ce, fused_ce_bwd
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(name: str):
+    """Library ``fused_ce`` (kernel 8, ``moka_fused_ce_fwd``) or
+    ``fused_ce_bwd`` (kernel 9, ``moka_fused_ce_bwd``), built and bound on
+    first use."""
+    lib = _libs.get(name)
+    if lib is None:
         from moka_tpu_torch import kernels
-        lib = kernels.library("fused_ce")
+        lib = kernels.library(name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.moka_fused_ce_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.moka_fused_ce_fwd.restype = i
-        lib.moka_fused_ce_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.moka_fused_ce_bwd.restype = i
-        _lib = lib
-    return _lib
+        fn = lib.moka_fused_ce_fwd if name == "fused_ce" else \
+            lib.moka_fused_ce_bwd
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+        _libs[name] = lib
+    return lib
 
 
 def padded_head(w_q, w_scale):
@@ -138,7 +143,7 @@ def _kernel_inputs(x, w_q, w_scale, targets):
         raise ValueError("fused CE kernels need at least one row")
     w, s = padded_head(w_q, w_scale)
     x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernels load 16 bytes at a time
+    if x.data_ptr() % 16:  # 16-byte loads (8), a tensor map (9)
         x = x.clone()
     return x, w, s, targets.to(torch.int32).contiguous(), w_q.shape[1]
 
@@ -150,7 +155,7 @@ def _launch_fwd(x, w_q, w_scale, targets):
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((3, w.shape[1] // VOCAB_TILE, n), **f32)
     nll, lse = torch.empty((n,), **f32), torch.empty((n,), **f32)
-    status = _library().moka_fused_ce_fwd(
+    status = _library("fused_ce").moka_fused_ce_fwd(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
         part.data_ptr(), nll.data_ptr(), lse.data_ptr(), n, d, w.shape[1],
         v, torch.cuda.current_stream(x.device).cuda_stream)
@@ -159,17 +164,22 @@ def _launch_fwd(x, w_q, w_scale, targets):
     return nll, lse
 
 
-def _launch_bwd(x, w_q, w_scale, targets, lse, g):
+def _bwd_into(work, x, w, s, t, lse, g, v):
+    """Kernel 9 alone: adds dx to the fp32 workspace ``work`` (N, d), on
+    inputs as ``_kernel_inputs`` returns them."""
     from moka_tpu_torch import kernels
-    x, w, s, t, v = _kernel_inputs(x, w_q, w_scale, targets)
     n, d = x.shape
-    lse, g = lse.contiguous(), g.contiguous()
-    work = torch.zeros((n, d), dtype=torch.float32, device=x.device)
-    status = _library().moka_fused_ce_bwd(
+    status = _library("fused_ce_bwd").moka_fused_ce_bwd(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
         lse.data_ptr(), g.data_ptr(), work.data_ptr(), n, d, w.shape[1], v,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(status, "fused_ce_bwd")
+
+
+def _launch_bwd(x, w_q, w_scale, targets, lse, g):
+    x, w, s, t, v = _kernel_inputs(x, w_q, w_scale, targets)
+    work = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    _bwd_into(work, x, w, s, t, lse.contiguous(), g.contiguous(), v)
     fused_ce_bwd.launches += 1
     return work.to(x.dtype)
 

@@ -12,6 +12,7 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py              # every window, one card
     python3 profile_port.py mm quant     # only the windows named
     python3 profile_port.py flash --root DIR   # another checkout's kernels
+    python3 profile_port.py fused_ce fused_ce_ablation
 
 ``flash`` (not among the default windows) times the query-major flash
 kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
@@ -22,6 +23,11 @@ long-context step's: device ms a call (CUDA events) and the wrapper's host
 versions compare on one card in one call.  ``flash_ablation`` times kernel
 1 with parts taken out (FLASH_ABLATIONS: edited copies of its source built
 under build/), at the prefill and CLIP shapes: where its time goes.
+``fused_ce`` times the fused CE kernels 8 and 9 through their wrappers at
+route B's shape (N 4092, d 4096, V 32011, int8 head) the same way (with
+``--root``, another checkout's); ``fused_ce_ablation`` times kernel 9
+with parts taken out and in other tile orders (CE_ABLATIONS, edited copies
+of fused_ce_bwd.cu).
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -39,6 +45,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -191,16 +198,71 @@ FLASH_ABLATIONS = {  # name: edits (old text, new text) of flash_fwd.cu with
         ("L2::evict_last.b64", "L2::evict_normal.b64")]}
 
 
-def ablation_source(edits, csrc: Path) -> str:
-    """flash_fwd.cu with hopper.cuh inlined and ``edits`` applied; raises
-    if an edit's old text is not in the source."""
-    src = (csrc / "flash_fwd.cu").read_text().replace(
+def ablation_source(edits, csrc: Path, source: str = "flash_fwd.cu") -> str:
+    """``source`` (flash_fwd.cu) with hopper.cuh inlined and ``edits``
+    applied; raises if an edit's old text is not in the source."""
+    src = (csrc / source).read_text().replace(
         '#include "hopper.cuh"', (csrc / "hopper.cuh").read_text())
     for old, new in edits:
         if old not in src:
             raise ValueError(f"ablation edit no longer applies: {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def build_variants(source: str, ablations: dict, entry: str,
+                   argtypes: list) -> dict:
+    """Each variant of ``source`` (``ablation_source`` of its edits) built
+    by nvcc, all at once, under build/moka_tpu_torch/ablation/; {name:
+    library with ``entry`` bound to ``argtypes``}.  The compiler's lines
+    go to a .log beside each library."""
+    import ctypes
+    from moka_tpu_torch import kernels
+    out_dir = kernels.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in ablations.items():
+        text = ablation_source(edits, kernels.CSRC, source)
+        # named by content: dlopen keeps the first library loaded from a path
+        key = hashlib.sha256(text.encode()).hexdigest()[:16]
+        src = out_dir / f"{Path(source).stem}_{key}.cu"
+        src.write_text(text)
+        with open(src.with_suffix(".log"), "w") as log:
+            procs[name] = (subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                 str(kernels.CSRC), "-o", str(src.with_suffix(".so")),
+                 str(src)], stdout=log, stderr=subprocess.STDOUT),
+                src.with_suffix(".so"))
+    libs = {}
+    for name, (proc, so) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for ablation {name!r}: " +
+                               so.with_suffix(".log").read_text()[-3000:])
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "C75" in line:
+                print(f"    {name}: {line.strip()[:160]}", flush=True)
+        lib = ctypes.CDLL(str(so))
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def event_ms(call, iters: int) -> float:
+    """Device ms a call: CUDA events over ``iters`` calls after 3 warm-up
+    calls."""
+    import torch
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def flash_ablation_window(iters: int = 20) -> dict:
@@ -210,28 +272,10 @@ def flash_ablation_window(iters: int = 20) -> dict:
     frames) shapes, twice in turn."""
     import ctypes
     import torch
-    from moka_tpu_torch import kernels
     from moka_tpu_torch.ops import flash_attention as fa
-    out_dir = kernels.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(FLASH_ABLATIONS.items()):
-        src = out_dir / f"v{i}.cu"
-        src.write_text(ablation_source(edits, kernels.CSRC))
-        procs[name] = (subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
-             "-o", str(src.with_suffix(".so")), str(src)],
-            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT),
-            src.with_suffix(".so"))
-    libs = {}
-    for name, (proc, so) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for ablation {name!r}")
-        lib = ctypes.CDLL(str(so))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.moka_flash_fwd.argtypes = [p] * 6 + [i] * 8 + [f, p]
-        lib.moka_flash_fwd.restype = i
-        libs[name] = lib
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = build_variants("flash_fwd.cu", FLASH_ABLATIONS, "moka_flash_fwd",
+                          [p] * 6 + [i] * 8 + [f, p])
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = {}
     for name in ("flash_fwd", "flash_fwd_hd64 80 frames"):
@@ -247,20 +291,9 @@ def flash_ablation_window(iters: int = 20) -> dict:
             for name, lib in libs.items():
                 fa._libs["flash_fwd"] = lib
                 for case, (q, k, v, mask, causal) in cases.items():
-                    def call():
-                        fa.flash_fwd(q, k, v, mask, 0, causal)
-                    for _ in range(3):
-                        call()
-                    torch.cuda.synchronize()
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for _ in range(iters):
-                        call()
-                    end.record()
-                    end.synchronize()
-                    out[name].setdefault(case, []).append(
-                        start.elapsed_time(end) / iters)
+                    out[name].setdefault(case, []).append(event_ms(
+                        lambda: fa.flash_fwd(q, k, v, mask, 0, causal),
+                        iters))
     finally:
         if kept is None:
             fa._libs.pop("flash_fwd", None)
@@ -297,26 +330,185 @@ def flash_window(iters: int = 20, host_calls: int = 50) -> dict:
         else:
             def call():
                 fa.flash_fwd(q, k, v, mask, 0, causal)
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            call()
-        end.record()
-        end.synchronize()
+        ms = event_ms(call, iters)
         t0 = time.perf_counter()
         for _ in range(host_calls):
             call()
         host_us = (time.perf_counter() - t0) / host_calls * 1e6
         torch.cuda.synchronize()
-        out[name] = {"ms": start.elapsed_time(end) / iters,
-                     "host_us": host_us}
+        out[name] = {"ms": ms, "host_us": host_us}
         print(f"  {name}: {out[name]['ms']:.4f} ms a call, host "
               f"{host_us:.1f} us a call", flush=True)
     return {"flash": out}
+
+
+CE_SHAPE = (4 * 1023, 4096, 32011)  # route B's rows, d, vocab (chip_smoke)
+_NO_DX = ("      for (int kk = 0; kk < TV / 16; ++kk)\n"
+          "        wgmma_m64n64_rs<0>(",
+          "      for (int kk = 0; kk < 0; ++kk)\n"
+          "        wgmma_m64n64_rs<0>(")
+_NO_LOGITS = ("      for (int kk = 0; kk < BK / 16; ++kk)\n"
+              "        logits_step<",
+              "      for (int kk = 0; kk < 0; ++kk)\n"
+              "        logits_step<")
+_NO_CONVERSION = ("      convert_stage(sm + OFF_W8",
+                  "      if (false) convert_stage(sm + OFF_W8")
+_SERIAL = [  # release each stage once its products are done (a ring of one)
+    ("""      wgmma_commit();
+      if (ks > 0) {  // the previous stage's products are done
+        wgmma_wait<1>();
+        mbar_arrive(empty_x + 8 * ((ix - 1) % X_STAGES));
+        mbar_arrive(empty_w16 + 8 * ((iw - 1) % W16_STAGES));
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < TV / LOGITS_N; ++nb) fence_operand(acc[nb]);
+    mbar_arrive(empty_x + 8 * ((ix - 1) % X_STAGES));
+    mbar_arrive(empty_w16 + 8 * ((iw - 1) % W16_STAGES));
+""", """      wgmma_commit();
+      wgmma_wait<0>();
+      mbar_arrive(empty_x + 8 * (ix % X_STAGES));
+      mbar_arrive(empty_w16 + 8 * (iw % W16_STAGES));
+    }
+#pragma unroll
+    for (int nb = 0; nb < TV / LOGITS_N; ++nb) fence_operand(acc[nb]);
+"""),
+    ("""      wgmma_commit();
+      if (q > 0) {
+        wgmma_wait<1>();
+        mbar_arrive(empty_w16 + 8 * ((iw - 1) % W16_STAGES));
+      }
+    }
+    wgmma_wait<0>();
+    mbar_arrive(empty_w16 + 8 * ((iw - 1) % W16_STAGES));
+""", """      wgmma_commit();
+      wgmma_wait<0>();
+      mbar_arrive(empty_w16 + 8 * (iw % W16_STAGES));
+    }
+""")]
+CE_ABLATIONS = {  # name: edits of fused_ce_bwd.cu (hopper.cuh inlined); the
+    "kernel": [],  # edited kernels' dx is wrong, only their times are read
+    "no dx products": [_NO_DX],
+    "no logits products": [_NO_LOGITS],
+    "no products (loads, conversion, reductions)": [_NO_DX, _NO_LOGITS],
+    "no reductions": [
+        ("  if (c.wtid == 0) {\n    const uint32_t src",
+         "  if (false) {\n    const uint32_t src")],
+    "no async-proxy fence in the converters": [
+        ("      fence_proxy_async_smem();\n      mbar_arrive(full_w16",
+         "      mbar_arrive(full_w16")],
+    "no conversion (converters only signal)": [_NO_CONVERSION],
+    "loads and reductions alone": [_NO_DX, _NO_LOGITS, _NO_CONVERSION],
+    "converters one unit at a time": [
+        ("CONVERT_UNROLL = 2;", "CONVERT_UNROLL = 1;")],
+    "converters four units at a time": [
+        ("CONVERT_UNROLL = 2;", "CONVERT_UNROLL = 4;")],
+    "logits as m64n64": [
+        ("constexpr int LOGITS_N = 128;", "constexpr int LOGITS_N = 64;")],
+    "logits as m64n256": [
+        ("constexpr int LOGITS_N = 128;", "constexpr int LOGITS_N = 256;")],
+    "bf16 ring 2 stages (int8 5; x loads two stages ahead)": [
+        ("constexpr int W8_STAGES = 3;", "constexpr int W8_STAGES = 5;"),
+        ("constexpr int W16_STAGES = 3;", "constexpr int W16_STAGES = 2;")],
+    "int8 ring 2 stages (x 5; x loads two stages ahead)": [
+        ("constexpr int X_STAGES = 4;", "constexpr int X_STAGES = 5;"),
+        ("constexpr int W8_STAGES = 3;", "constexpr int W8_STAGES = 2;")],
+    "L2 evict_last on x and the head": [
+        ("  tma_load_4d(dst, tm, full + 8 * s, v0, d0, 0, 0);\n"
+         "  tma_load_4d(dst + BOX, tm, full + 8 * s, v0 + 128, d0, 0, 0);",
+         "  tma_load_4d(dst, tm, full + 8 * s, v0, d0, 0, 0, l2_evict_last());\n"
+         "  tma_load_4d(dst + BOX, tm, full + 8 * s, v0 + 128, d0, 0, 0,\n"
+         "              l2_evict_last());"),
+        ("  tma_load_4d(base + OFF_X + s * X_BYTES, tm, full + 8 * s, d0, row0, "
+         "0, 0);",
+         "  tma_load_4d(base + OFF_X + s * X_BYTES, tm, full + 8 * s, d0, row0, "
+         "0, 0,\n              l2_evict_last());")],
+    "shallowest rings (int8 2, bf16 1; each stage released before the "
+    "next is awaited)": [
+        ("constexpr int W8_STAGES = 3;", "constexpr int W8_STAGES = 2;"),
+        ("constexpr int W16_STAGES = 3;", "constexpr int W16_STAGES = 1;"),
+        *_SERIAL],
+    "order: row blocks fastest over all rows": [
+        ("constexpr int ROW_GROUP = 8;", "constexpr int ROW_GROUP = 0;")],
+    "order: groups of 4 row blocks": [
+        ("constexpr int ROW_GROUP = 8;", "constexpr int ROW_GROUP = 4;")],
+    "order: groups of 16 row blocks": [
+        ("constexpr int ROW_GROUP = 8;", "constexpr int ROW_GROUP = 16;")]}
+
+
+def ce_inputs(seed: int = 0):
+    """Route B's fused CE inputs on the card (chip_smoke's ``ce_case``),
+    with the forward's lse."""
+    from chip_smoke import ce_case
+    from moka_tpu_torch.ops import fused_ce as fc
+    x, w, scale, t, cot = ce_case(*CE_SHAPE, seed)
+    return x, w, scale, t, cot, fc.fused_ce_fwd(x, w, scale, t)[1]
+
+
+def fused_ce_window(iters: int = 10, host_calls: int = 20) -> dict:
+    """Device ms a call and host µs a call (as ``flash_window``) of kernels
+    8 and 9 through their wrappers at route B's shape."""
+    import torch
+    from moka_tpu_torch.ops import fused_ce as fc
+    x, w, scale, t, cot, lse = ce_inputs()
+    out = {"package": fc.__file__}
+    for name, call in (
+            ("fused_ce_fwd", lambda: fc.fused_ce_fwd(x, w, scale, t)),
+            ("fused_ce_bwd",
+             lambda: fc.fused_ce_bwd(x, w, scale, t, lse, cot))):
+        ms = event_ms(call, iters)
+        t0 = time.perf_counter()
+        for _ in range(host_calls):
+            call()
+        host_us = (time.perf_counter() - t0) / host_calls * 1e6
+        torch.cuda.synchronize()
+        out[name] = {"ms": ms, "host_us": host_us}
+        print(f"  {name}: {ms:.4f} ms a call, host {host_us:.1f} us a call",
+              flush=True)
+    return {"fused_ce": out}
+
+
+def fused_ce_ablation_window(iters: int = 10) -> dict:
+    """Kernel 9 with parts taken out and in other tile orders
+    (CE_ABLATIONS), each built by nvcc (all at once) and launched through
+    the wrapper in place of the library at route B's shape, twice in
+    turn; the unedited copy is also held against the plain version (dx
+    within chip_smoke's CE_DX_TOL)."""
+    import ctypes
+    import torch
+    from chip_smoke import CE_DX_TOL
+    from moka_tpu_torch.ops import fused_ce as fc
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs = build_variants("fused_ce_bwd.cu", CE_ABLATIONS,
+                          "moka_fused_ce_bwd", [p] * 7 + [i] * 4 + [p])
+    x, w, scale, t, cot, lse = ce_inputs()
+    kept = fc._library("fused_ce_bwd")
+    out = {name: [] for name in CE_ABLATIONS}
+    try:
+        fc._libs["fused_ce_bwd"] = libs["kernel"]
+        dx = fc.fused_ce_bwd(x, w, scale, t, lse, cot).float()
+        ref = fc.fused_ce_bwd_plain(x, w, scale, t, lse, cot).float()
+        err = float((dx - ref).norm() / ref.norm())
+        print(f"  the unedited copy: dx rel L2 {err:.3e} (tol "
+              f"{CE_DX_TOL[1]})", flush=True)
+        if err > CE_DX_TOL[1]:
+            raise AssertionError("the ablation's unedited kernel 9 is wrong")
+        del dx, ref
+        for _ in range(2):
+            for name, lib in libs.items():
+                fc._libs["fused_ce_bwd"] = lib
+                out[name].append(event_ms(
+                    lambda: fc.fused_ce_bwd(x, w, scale, t, lse, cot),
+                    iters))
+    finally:
+        fc._libs["fused_ce_bwd"] = kept
+    for name, ts in out.items():
+        print(f"  {name}: {' / '.join(f'{v:.4f}' for v in ts)} ms",
+              flush=True)
+    return {"fused_ce_ablation": out, "fused_ce_rel_l2": err}
+
+
 TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
               "quant": "train_step_quant_route_b",
               "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
@@ -330,9 +522,13 @@ def main(argv=None) -> int:
         i = names.index("--root")
         root = Path(names[i + 1]).resolve()
         del names[i:i + 2]
-    if set(names) - {*WINDOWS, "flash", "flash_ablation"}:
-        print(f"profile_port: windows are {WINDOWS}, flash and "
-              f"flash_ablation", file=sys.stderr)
+    kernel_windows = {"flash": flash_window,
+                      "flash_ablation": flash_ablation_window,
+                      "fused_ce": fused_ce_window,
+                      "fused_ce_ablation": fused_ce_ablation_window}
+    if set(names) - {*WINDOWS, *kernel_windows}:
+        print(f"profile_port: windows are {WINDOWS} and "
+              f"{tuple(kernel_windows)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
@@ -349,14 +545,13 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     kernels.build()
     out = {"card": smi}
-    if "flash" in names:
-        out.update(flash_window())
-    if "flash_ablation" in names:
-        out.update(flash_ablation_window())
+    for name, window in kernel_windows.items():
+        if name in names:
+            out.update(window())
     if "serving" in names:
         out.update(serving_windows())
     for path in names:
-        if path not in ("serving", "flash", "flash_ablation"):
+        if path in WINDOWS and path != "serving":
             out.update(train_window(path))
             gc.collect()
             torch.cuda.empty_cache()

@@ -57,8 +57,10 @@ def _close_dx(got, want):
                                **DX)
 
 
-@pytest.mark.parametrize("rows,vocab", [(50, 203), (64, 256)])
+@pytest.mark.parametrize("rows,vocab", [(50, 203), (64, 256), (150, 600)])
 def test_fused_ce_matches_jax_interpret(rows, vocab):
+    """(150, 600) cuts across kernel 9's CUDA tiles (128 rows, 512 and 256
+    vocab columns) as well as JAX's."""
     (want, jg), (got, tg) = _both(*_case(rows, vocab))
     np.testing.assert_allclose(got, want, rtol=1e-5)
     _close_dx(tg, jg)
@@ -134,6 +136,20 @@ def test_padded_head_is_built_once():
     assert wp.shape == (64, 512) and sp.shape == (512,)
     assert torch.equal(wp[:, :203], hq["w_i8"]) and (wp[:, 203:] == 0).all()
     assert tce.padded_head(hq["w_i8"], hq["scale"])[0] is wp
+
+
+def test_padded_head_spans_both_kernels_tiles():
+    """A vocab past one span pads to the next multiple of VOCAB_TILE (the
+    512 columns both kernels 8 and 9 take a CTA), with zero codes and zero
+    scales, so kernel 9's p is 0 on the padding."""
+    _, w, _ = _case(4, 600)
+    hq = tq.quantize_int8(torch.from_numpy(w))
+    wp, sp = tce.padded_head(hq["w_i8"], hq["scale"])
+    assert wp.shape == (64, 1024) and sp.shape == (1024,)
+    assert 1024 % tce.VOCAB_TILE == 0
+    assert torch.equal(wp[:, :600], hq["w_i8"])
+    assert (wp[:, 600:] == 0).all() and (sp[600:] == 0).all()
+    assert torch.equal(sp[:600], hq["scale"].reshape(-1))
 
 
 def _head_case(bits, seed=5):

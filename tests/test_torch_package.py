@@ -97,6 +97,96 @@ def test_flash_ablation_edits_apply():
         profile_port.ablation_source([("no such text", "")], kernels.CSRC)
 
 
+def test_fused_ce_ablation_edits_apply():
+    """profile_port.py's kernel-9 ablations and tile orders edit
+    fused_ce_bwd.cu by text: each edit must still find its text there (or
+    in hopper.cuh), so each timed variant is the kernel with exactly that
+    part taken out."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import profile_port
+    src = "fused_ce_bwd.cu"
+    base = profile_port.ablation_source([], kernels.CSRC, src)
+    assert "wgmma_m64n128_ss" in base and "tma_reduce_add_4d" in base
+    variants = set()
+    for name, edits in profile_port.CE_ABLATIONS.items():
+        edited = profile_port.ablation_source(edits, kernels.CSRC, src)
+        assert (edited == base) == (not edits), name
+        variants.add(edited)
+    assert len(variants) == len(profile_port.CE_ABLATIONS)
+    with pytest.raises(ValueError, match="no longer applies"):
+        profile_port.ablation_source([("no such text", "")], kernels.CSRC,
+                                     src)
+
+
+@pytest.mark.parametrize("name", sorted(__import__(
+    "moka_tpu_torch.kernels", fromlist=["SOURCES"]).SOURCES))
+def test_each_source_keys_only_its_library(tmp_path, name):
+    """An edited source rebuilds its own library and no other (the fused
+    CE pair lives in two sources since kernel 9's redesign)."""
+    import shutil
+    from moka_tpu_torch import kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    keys = {n: kernels._target(n, csrc) for n in kernels.SOURCES}
+    src = csrc / kernels.SOURCES[name]
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert {n for n in kernels.SOURCES
+            if kernels._target(n, csrc) != keys[n]} == {name}
+
+
+def test_fused_ce_wrappers_bind_their_libraries(monkeypatch):
+    """Kernel 8 binds ``moka_fused_ce_fwd`` of library ``fused_ce`` and
+    kernel 9 ``moka_fused_ce_bwd`` of ``fused_ce_bwd``, each with twelve
+    arguments (seven pointers, four ints, the stream), on first use."""
+    import ctypes
+    import types
+    from moka_tpu_torch import kernels
+    from moka_tpu_torch.ops import fused_ce as fc
+    asked = []
+
+    def library(name):
+        asked.append(name)
+        return types.SimpleNamespace(
+            moka_fused_ce_fwd=types.SimpleNamespace(),
+            moka_fused_ce_bwd=types.SimpleNamespace())
+
+    monkeypatch.setattr(kernels, "library", library)
+    monkeypatch.setattr(fc, "_libs", {})
+    fwd = fc._library("fused_ce").moka_fused_ce_fwd
+    bwd = fc._library("fused_ce_bwd").moka_fused_ce_bwd
+    assert fc._library("fused_ce_bwd").moka_fused_ce_bwd is bwd
+    assert asked == ["fused_ce", "fused_ce_bwd"]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (fwd, bwd):
+        assert fn.argtypes == [p] * 7 + [i] * 4 + [p] and fn.restype is i
+    assert kernels.SOURCES["fused_ce_bwd"] == "fused_ce_bwd.cu"
+
+
+def test_fused_ce_backward_source_contract():
+    """Kernel 9's source: wgmma and TMA reductions, no atomics on dx, the
+    head read as int8 codes (a UINT8 tensor map, no bf16 copy), and the
+    vocab span kernel 8 pads to (CHUNK, VOCAB_TILE)."""
+    import re
+    from moka_tpu_torch import kernels
+    from moka_tpu_torch.ops import fused_ce as fc
+    bwd = (kernels.CSRC / "fused_ce_bwd.cu").read_text()
+    fwd = (kernels.CSRC / "fused_ce.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", bwd)
+    assert "atomicAdd" not in code and "tma_reduce_add_4d" in code
+    assert "wgmma_m64n128_ss" in code and "wgmma_m64n64_rs" in code
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in code
+    assert "fused_ce_bwd_kernel" not in fwd and "mma_bf16" in fwd
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const(bwd, "SPAN") == fc.VOCAB_TILE
+    assert const(fwd, "BV") * const(fwd, "SUB") == fc.VOCAB_TILE
+    assert const(bwd, "BK") == fc.K_TILE
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -282,6 +372,31 @@ def test_fused_ce_kernels_match_plain_on_card(card):
     assert (dx.float() - rdx.float()).abs().max() <= \
         2e-2 * rdx.float().abs().max()
     assert (dx[::5] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_backward_across_its_tiles_on_card(card):
+    """Kernel 9 where rows and vocab cut across its tiles (300 rows: two
+    128-row blocks and a ragged third; V 1100: two 512-column spans and a
+    ragged third, whose second 256-column stage is all padding), targets
+    in every span: dx within 2% of max|plain| and exactly zero on the
+    zero-cotangent rows."""
+    from moka_tpu_torch.ops import fused_ce as fc
+    from moka_tpu_torch.ops.quant import quantize_int8
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((300, 256), generator=g, device=card).bfloat16()
+    head = quantize_int8(torch.randn((256, 1100), generator=g, device=card)
+                         * 0.05)
+    w, s = head["w_i8"], head["scale"].reshape(-1)
+    t = torch.randint(0, 1100, (300,), generator=g, device=card)
+    t[::3] = -100
+    cot = torch.rand((300,), generator=g, device=card) * (t >= 0)
+    lse = fc.fused_ce_fwd_plain(x, w, s, t)[1]
+    dx = fc.fused_ce_bwd(x, w, s, t, lse, cot)
+    ref = fc.fused_ce_bwd_plain(x, w, s, t, lse, cot)
+    assert (dx.float() - ref.float()).abs().max() <= \
+        2e-2 * ref.float().abs().max()
+    assert (dx[::3] == 0).all()
 
 
 @pytest.mark.cuda
