@@ -6,13 +6,16 @@
 Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
-     sm_90a, one process per source, in parallel), print ptxas's
-     resource lines and the SASS counts of the flash kernels and the
-     fused CE backward (``cuobjdump -sass``: a forward instance, the dq
-     kernel or a key-major backward kernel without HGMMA or UTMALDG or
-     with HMMA, the fused backward without its bulk reduction, or kernel
-     9 without HGMMA, UTMALDG or a bulk reduction or with HMMA, fails the
-     phase; kernel 8 keeps mma.sync);
+     sm_90a, one process per source, in parallel) and, beside them, the
+     deliberate faults RANK_MUTANTS and BD_MUTANTS (edited copies of the
+     rank forward's and kernel 10's sources), print ptxas's resource
+     lines and the SASS counts of the flash kernels, the fused CE pair,
+     the rank kernels and kernel 10 (``cuobjdump -sass``: a forward
+     instance, the dq kernel or a key-major backward kernel without HGMMA
+     or UTMALDG or with HMMA, the fused backward without its bulk
+     reduction, kernel 9 without HGMMA, UTMALDG or a bulk reduction or
+     with HMMA, or an instance of kernel 10 without UTMALDG fails the
+     phase; kernel 8 keeps mma.sync, the rank kernels are fp32 SIMT);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -37,9 +40,19 @@ Phases, in order; any failed build, launch or check exits non-zero:
      kernels (8-9) on an int8 head at route B's shape and three ragged
      ones (kernel 9 also timed without the wrapper's zero fill and cast);
      the block-diagonal product (kernel 10) at the BOFT merge's three
-     shapes (library: ``torch.bmm``); the rank flash kernels (1-4 at
-     head_dim 4, fp32) at the training step's (b 4, L 1024) and a ragged
-     shape, each with a sample that sees no key; kernel 1 at the CLIP
+     shapes, at b 16, 24 and 32 and with fp32 x, and launched as a mutant
+     that reads each block transposed, which must fail (timed cold, x
+     rotated past the L2 cache, and warm; library: ``torch.bmm``); the
+     rank flash kernels (1-4 at head_dim 4, fp32) at the training step's
+     (b 4, L 1024) with a sample that sees no key, on the forward's key
+     layouts (a span in the last 256-key tile, one across a 256-key
+     boundary, two spans, none; also at head_dim 16), causal at a
+     q_offset that leaves rows before the first visible key, and at a
+     ragged L, the backward on the forward kernel's lse; the forward
+     launched as each mutant (it walks only the first visible 256-key
+     tile; it gives 0 to a row that sees no key) must fail (timed: the
+     wrapper back to back, the kernel alone in a CUDA graph, the host's
+     µs a call); kernel 1 at the CLIP
      tower's shape (b*t 40 and 80 frames, 257 tokens, 16 heads, head_dim
      64, non-causal, every key valid) and a ragged one with padded keys
      (library: ``scaled_dot_product_attention`` without a mask);
@@ -80,7 +93,8 @@ Phases, in order; any failed build, launch or check exits non-zero:
  10. (run after phase 5, on its base) the BOFT merge: ``BoftSpec(8, 2)``
      adapters (Q ~ N(0, 0.1^2)) merged into all 224 projection weights by
      ``boft_weight(use_pallas=True)`` (448 launches of kernel 10,
-     asserted) and by the plain einsum: layer 0's weights within one bf16
+     asserted; then once more traced) and by the plain einsum: layer 0's
+     weights within one bf16
      ulp, every weight's column norms kept, then phase 4's prefill on the
      merged base against the plain path and fp32 on the plain-merged one;
  11. (run after phase 8, on phase 6's trees) the flash rank attention step:
@@ -328,6 +342,67 @@ def check_ce_sass() -> dict:
                              f"its bulk reduction, or keeps mma.sync: "
                              f"{out[CE_SASS[0]]}")
     return out
+
+
+BD_SASS = ("block_diag", "block_diag_kernel", 4)  # kernel 10: library,
+                                                 # function stem, instances
+
+
+def check_bd_rank_sass() -> dict:
+    """Kernel 10 loads x by TMA: each of its four instances (bf16 and fp32
+    x, b 8 and any b) shows UTMALDG; the rank flash kernels (fp32 SIMT)
+    are only printed.  Raises otherwise."""
+    out = {}
+    for lib in ("flash_rank", BD_SASS[0]):
+        out[lib] = sass_counts(lib)
+        for fn, c in out[lib].items():
+            log(f"    {lib} SASS {fn}: " +
+                ", ".join(f"{op} {k}" for op, k in c.items()))
+    ks = [c for fn, c in out[BD_SASS[0]].items() if BD_SASS[1] in fn]
+    if len(ks) != BD_SASS[2] or any(c["UTMALDG"] == 0 for c in ks):
+        raise AssertionError(f"block_diag SASS: an instance lacks its TMA "
+                             f"loads: {out[BD_SASS[0]]}")
+    return out
+
+
+# Deliberate faults, each an edited copy of a kernel's source built beside
+# the kernels in phase 2 (profile_port.start_variants) and swapped in for
+# its library in phase 3, where each must fail the check it is run under.
+RANK_MUTANTS = {  # flash_rank.cu's forward
+    "walks only the first visible 256-key tile": [
+        ("  const int end = causal ? min(hi, row + q_offset) : hi;",
+         "  const int end = min(causal ? min(hi, row + q_offset) : hi,\n"
+         "                      lo / 256 * 256 + 255);")],
+    "gives 0 to a row that sees no key": [
+        ("o[d] = vsum[d] / static_cast<float>(S);", "o[d] = 0.f;")]}
+BD_MUTANTS = {  # block_diag.cu
+    "reads the block transposed": [
+        ("w[i8][j] = __ldg(bp + i8 * 8 + j);",
+         "w[i8][j] = __ldg(bp + j * 8 + i8);")]}
+MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu", RANK_MUTANTS),
+                  "block_diag": ("block_diag.cu", BD_MUTANTS)}
+MUTANTS: dict = {}  # library name: {fault: loaded library}, after phase 2
+
+
+@contextlib.contextmanager
+def swapped_library(name, lib):
+    """Within: the wrappers of library ``name`` launch ``lib``, an edited
+    copy of its source."""
+    from moka_tpu_torch.ops import fbd
+    from moka_tpu_torch.ops import flash_attention as fa
+    if name == "block_diag":
+        kept = fbd._library()
+        fbd._lib = fbd.bind(lib)
+    else:
+        kept = fa._library(name)
+        fa._libs[name] = fa.bind(name, lib)
+    try:
+        yield
+    finally:
+        if name == "block_diag":
+            fbd._lib = kept
+        else:
+            fa._libs[name] = kept
 
 
 def check_flash_sass() -> dict:
@@ -1313,55 +1388,104 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def block_diag_records() -> list[dict]:
-    """Kernel 10 against the plain einsum on bf16 W and orthogonal fp32
-    blocks (Cayley of N(0, 0.1^2)) at the merge's three shapes, and on
-    fp32 x and b 16: every element within one bf16 ulp of max|plain| (fp32
-    x: 1e-5 of it), as fp32 sums of 8 exact products run in another order;
-    each shape timed (kernel, plain, ``torch.bmm`` with the cast, bound).
-    The record sums one layer's merge, two factors of seven projections."""
+BD_EXTRA = (((1, 256, 16, 2048), "bfloat16"),
+            ((1, 64, 32, 1024), "bfloat16"), ((1, 40, 24, 640), "bfloat16"),
+            ((2, 24, 16, 384), "float32"), ((1, 512, 8, 4096), "float32"))
+# kernel 10 beyond the merge: b 16, 32 and 24 (48-row tiles), fp32 x at b 16
+# and at the merge's b 8
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def check_block_diag(blocks, x) -> tuple[float, float]:
+    """Kernel 10 against the plain einsum: (max|err|, tol), every element
+    within one bf16 ulp of max|plain| (fp32 x: 1e-5 of it), as fp32 sums
+    of b exact products run in another order; raises otherwise."""
     import torch
     from moka_tpu_torch.ops import fbd
+    y = fbd.block_diag_matmul(blocks, x)
+    torch.cuda.synchronize()
+    ref = fbd.block_diag_matmul_plain(blocks, x).float()
+    top = float(ref.abs().max())
+    d = float((y.float() - ref).abs().max())
+    bf16 = x.dtype == torch.bfloat16
+    tol = bf16_ulp(top) if bf16 else 1e-5 * top
+    log(f"  block_diag {tuple(blocks.shape[:3])} x {tuple(x.shape)} "
+        f"{str(x.dtype)[6:]}: max|err| {d:.3e}, max|plain| {top:.3e} (tol "
+        f"{tol:.3e}: {'one bf16 ulp' if bf16 else '1e-5'} of max|plain|)")
+    if not d <= tol:
+        raise AssertionError(f"kernel 10 disagrees with its plain version "
+                             f"at x {tuple(x.shape)}")
+    return d, tol
+
+
+def block_diag_records() -> list[dict]:
+    """Kernel 10 against the plain einsum on bf16 W and orthogonal fp32
+    blocks (Cayley of N(0, 0.1^2)) at the merge's three shapes and at
+    BD_EXTRA (b 16, 24, 32; fp32 x), within ``check_block_diag``'s limits;
+    launched as the mutant that reads each block transposed it must fail.
+    Each merge shape timed: cold (a CUDA graph of launches over x buffers
+    that together exceed 3x the L2 cache: the bound's case, each input
+    read from HBM), warm (a graph on one x, and the wrapper back to back
+    on one x), the wrapper's host µs a call, the plain version, ``torch.bmm``
+    with the casts (cold and warm) and the bytes bound.  The record sums
+    one layer's merge, two factors of seven projections, cold."""
+    import torch
+    from moka_tpu_torch.ops import fbd
+    from profile_port import graph_ms, host_us
     g = torch.Generator(device="cuda").manual_seed(21)
-    err, ms, plain_ms, lib_ms, bms, by_shape = 0.0, 0.0, 0.0, 0.0, 0.0, {}
-    n_bytes = n_ops = 0.0
-    cases = [(s, n, torch.bfloat16) for s, n in BD_SHAPES] + \
-        [((2, 24, 16, 384), 0, torch.float32)]
-    for (z, N, b, m), per_layer, dtype in cases:
+
+    def case(z, N, b, m, dtype):
         blocks = fbd.cayley(torch.randn((z, N, b, b), generator=g,
                                         device="cuda") * 0.1)
         x = (torch.randn((z, N * b, m), generator=g, device="cuda")
              * 0.02).to(dtype)
-        y = fbd.block_diag_matmul(blocks, x)
-        torch.cuda.synchronize()
-        ref = fbd.block_diag_matmul_plain(blocks, x).float()
-        top = float(ref.abs().max())
-        d = float((y.float() - ref).abs().max())
-        tol = bf16_ulp(top) if dtype == torch.bfloat16 else 1e-5 * top
-        log(f"  block_diag {(z, N, b, m)} {str(dtype)[6:]}: max|err| "
-            f"{d:.3e}, max|plain| {top:.3e} (tol {tol:.3e}: "
-            f"{'one bf16 ulp' if dtype == torch.bfloat16 else '1e-5'} of "
-            f"max|plain|)")
-        if not d <= tol:
-            raise AssertionError(f"kernel 10 disagrees with its plain "
-                                 f"version at {(z, N, b, m)}")
-        if not per_layer:
-            continue
+        return blocks, x
+
+    err, ms, plain_ms, lib_ms, bms, by_shape = 0.0, 0.0, 0.0, 0.0, 0.0, {}
+    n_bytes = n_ops = 0.0
+    for shape, dtype in BD_EXTRA:
+        check_block_diag(*case(*shape, getattr(torch, dtype)))
+    for what, lib in MUTANTS["block_diag"].items():
+        blocks, x = case(*BD_SHAPES[0][0], torch.bfloat16)
+        with swapped_library("block_diag", lib):
+            must_fail(f"kernel 10 mutant ({what})",
+                      lambda: check_block_diag(blocks, x))
+    for (z, N, b, m), per_layer in BD_SHAPES:
+        blocks, x = case(z, N, b, m, torch.bfloat16)
+        d, _ = check_block_diag(blocks, x)
         err = max(err, d)
-        t = time_ms(lambda: fbd.block_diag_matmul(blocks, x))
+        xs = [x] + [x.clone() for _ in range(
+            max(2, math.ceil(3 * L2_BYTES / nbytes(x))) - 1)]
+        cold = graph_ms([lambda x=x: fbd.block_diag_matmul(blocks, x)
+                         for x in xs], n=4 * len(xs))
+        warm_graph = graph_ms(lambda: fbd.block_diag_matmul(blocks, x), n=20)
+        warm = time_ms(lambda: fbd.block_diag_matmul(blocks, x))
+        host = host_us(lambda: fbd.block_diag_matmul(blocks, x), n=20)
         tp = time_ms(lambda: fbd.block_diag_matmul_plain(blocks, x))
-        bb, xx = blocks.view(z * N, b, b), x.view(z * N, b, m)
-        tl = time_ms(lambda: torch.bmm(bb, xx.float()).to(x.dtype))
+        bb = blocks.view(z * N, b, b)
+        lib_cold = graph_ms([lambda x=x: torch.bmm(
+            bb, x.view(z * N, b, m).float()).to(x.dtype) for x in xs],
+            n=4 * len(xs))
+        lib_warm = time_ms(lambda: torch.bmm(
+            bb, x.view(z * N, b, m).float()).to(x.dtype))
+        del xs
+        torch.cuda.empty_cache()
         nb, no = nbytes(blocks) + 2 * nbytes(x), 2.0 * b * x.numel()
         one, by = bound_ms(nb, no, FP32_FLOPS)
-        log(f"  block_diag timing {(z, N, b, m)} bf16: kernel {t:.4f} ms, "
-            f"plain {tp:.4f} ms, bmm {tl:.4f} ms, bound {one:.4f} ms ({by})")
+        log(f"  block_diag timing {(z, N, b, m)} bf16: kernel cold "
+            f"{cold:.4f} ms ({nb / cold / 1e9:.3f} TB/s), warm graph "
+            f"{warm_graph:.4f} ms, warm loop {warm:.4f} ms, host "
+            f"{host:.1f} us a call; plain {tp:.4f} ms; bmm cold "
+            f"{lib_cold:.4f} ms, warm {lib_warm:.4f} ms; bound {one:.4f} ms "
+            f"({by})")
         k = per_layer * BOFT_FACTORS
-        ms, plain_ms, lib_ms, bms = ms + k * t, plain_ms + k * tp, \
-            lib_ms + k * tl, bms + k * one
+        ms, plain_ms, lib_ms, bms = ms + k * cold, plain_ms + k * tp, \
+            lib_ms + k * lib_cold, bms + k * one
         n_bytes, n_ops = n_bytes + k * nb, n_ops + k * no
-        by_shape[f"{z}x{N}x{b}x{m}"] = {"ms": t, "plain_ms": tp,
-                                        "library_ms": tl, "bound_ms": one}
+        by_shape[f"{z}x{N}x{b}x{m}"] = {
+            "ms": cold, "warm_graph_ms": warm_graph, "warm_ms": warm,
+            "host_us": host, "plain_ms": tp, "library_ms": lib_cold,
+            "library_warm_ms": lib_warm, "bound_ms": one}
     _, by = bound_ms(n_bytes, n_ops, FP32_FLOPS)
     return [{"name": "block_diag", "route": "cuda",
              "source": "moka_tpu_torch/kernels/csrc/block_diag.cu",
@@ -1375,7 +1499,7 @@ def block_diag_records() -> list[dict]:
              "by_shape": by_shape,
              "shape": "one layer's BOFT merge (b 8, 2 factors): 8 launches "
                       "at N 512 m 4096, 4 at N 512 m 11008, 2 at N 1376 "
-                      "m 4096, bf16 W"}]
+                      "m 4096, bf16 W; ms, library_ms cold (x from HBM)"}]
 
 
 RANK_TOL = 1e-5  # rank flash out and lse: max|err| as a fraction of
@@ -1389,68 +1513,118 @@ SFU_OPS = 4.18e12  # exp2 a second: 16 a clock on each of 132 SMs at
                    # 1.98 GHz (the SFU rate of compute capability 9.0)
 
 
-def rank_case(b, L, hd=4, dead=False, seed=0):
+def rank_case(b, L, hd=4, dead=False, seed=0, spans=None):
     """Rank-space attention inputs as MokA's training batch makes them:
     q, k, v (b, L, 1, hd) fp32 of O(1), the question span 2:L//8 as the
-    key mask; with ``dead``, the last sample has no question and random
-    keys (the kernels must still give the plain mean of V)."""
+    key mask (or, with ``spans``, sample i's mask is 1 on each (start,
+    stop) of ``spans[i]``, none where that is empty); with ``dead``, the
+    last sample has no question and random keys (the kernels must still
+    give the plain mean of V)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, dout = (torch.randn((b, L, 1, hd), generator=g, device="cuda")
                      for _ in range(4))
     mask = torch.zeros((b, L), dtype=torch.int32, device="cuda")
-    mask[:, 2: max(3, L // 8)] = 1
+    if spans is None:
+        mask[:, 2: max(3, L // 8)] = 1
+    else:
+        for i, row in enumerate(spans):
+            for start, stop in row:
+                mask[i, start:stop] = 1
     if dead:
         mask[-1] = 0
     return q, k, v, mask, dout
 
 
-def check_rank(name, q, k, v, mask, dout) -> dict:
-    """The three rank kernels against the plain versions on one case: out
-    and lse within RANK_TOL, dq/dk/dv within RANK_BWD_TOL of max|plain|
-    (a dead row's lse, ~-6.9e29, to 1e-6 of itself)."""
+# the forward's key layouts, a sample each at L 1024: the span in the last
+# 256-key tile, across a 256-key boundary, two disjoint spans, none
+RANK_LAYOUTS = (((1000, 1020),), ((240, 300),), ((10, 40), (700, 760)), ())
+# causal at q_offset 100: sample 0's rows 0-199 and sample 1's rows 0-399
+# come before the first visible key; the others see part of the spans
+RANK_CAUSAL = (((300, 420),), ((500, 520), (900, 950)))
+RANK_CAUSAL_OFFSET = 100
+
+
+def rank_check_cases() -> list[tuple]:
+    """(name, inputs, q_offset, causal) of every case phase 3 holds the
+    rank kernels to."""
+    return [
+        ("training shape", rank_case(4, 1024, dead=True), 0, False),
+        ("key layouts", rank_case(4, 1024, seed=3, spans=RANK_LAYOUTS), 0,
+         False),
+        ("key layouts hd 16", rank_case(4, 1024, hd=16, seed=4,
+                                        spans=RANK_LAYOUTS), 0, False),
+        ("causal, rows before the first visible key",
+         rank_case(2, 1024, seed=5, spans=RANK_CAUSAL), RANK_CAUSAL_OFFSET,
+         True),
+        ("ragged L", rank_case(3, 333, dead=True, seed=1), 0, False)]
+
+
+def check_rank(name, q, k, v, mask, dout, q_offset=0, causal=False) -> dict:
+    """The three rank kernels against the plain versions on one case, the
+    backward on the forward kernel's lse: out and lse within RANK_TOL,
+    dq/dk/dv within RANK_BWD_TOL of max|plain| (a row that sees no key:
+    out the mean of V, lse ~-6.9e29 to 1e-6 of itself)."""
     import torch
     from moka_tpu_torch.ops import flash_attention as fa
-    out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
+    out, lse = fa.flash_rank_fwd(q, k, v, mask, q_offset, causal)
     delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
-    dq = fa.flash_rank_bwd_dq(q, k, v, mask, dout, lse, delta, 0, False)
-    dk, dv = fa.flash_rank_bwd_dkv(q, k, v, mask, dout, lse, delta, 0, False)
+    dq = fa.flash_rank_bwd_dq(q, k, v, mask, dout, lse, delta, q_offset,
+                              causal)
+    dk, dv = fa.flash_rank_bwd_dkv(q, k, v, mask, dout, lse, delta, q_offset,
+                                   causal)
     torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mask, 0, False)
-    grads = fa.flash_bwd_plain(q, k, v, mask, dout, lse, delta, 0, False)
-    live = mask.any(dim=1)
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mask, q_offset, causal)
+    grads = fa.flash_bwd_plain(q, k, v, mask, dout, lse, delta, q_offset,
+                               causal)
+    L, S = q.shape[1], k.shape[1]
+    live = _visible(mask, L, S, q_offset, causal).any(dim=-1)  # (b, L)
+    got2, want2 = lse[:, 0], ref_lse[:, 0]
     errs = {"out": float((out - ref).abs().max() / ref.abs().max()),
-            "lse": float((lse[live] - ref_lse[live]).abs().max()
-                         / ref_lse[live].abs().max())}
+            "lse": float((got2[live] - want2[live]).abs().max()
+                         / want2[live].abs().max())}
     for n, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         errs[n] = float((got - want).abs().max() / want.abs().max())
-    dead_ok = bool(torch.allclose(lse[~live], ref_lse[~live], rtol=1e-6,
+    dead_ok = bool(torch.allclose(got2[~live], want2[~live], rtol=1e-6,
                                   atol=0))
     ok = dead_ok and all(errs[n] <= RANK_TOL for n in ("out", "lse")) and \
         all(errs[n] <= RANK_BWD_TOL for n in ("dq", "dk", "dv"))
-    log(f"  rank flash {name}: q {tuple(q.shape)}, dead samples "
-        f"{int((~live).sum())}: max|err| / max|plain| " +
+    log(f"  rank flash {name}: q {tuple(q.shape)}, q_offset {q_offset}, "
+        f"causal {causal}, rows that see no key {int((~live).sum())}: "
+        f"max|err| / max|plain| " +
         ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) +
-        f"; dead lse ok {dead_ok} (tol {RANK_TOL} fwd, {RANK_BWD_TOL} bwd)")
+        f"; their lse ok {dead_ok} (tol {RANK_TOL} fwd, {RANK_BWD_TOL} bwd)")
     if not ok:
         raise AssertionError(f"rank flash kernels disagree with their "
                              f"plain versions ({name})")
     return {n: e * float(t.abs().max()) for (n, e), t in
-            zip(errs.items(), (ref, ref_lse[live], *grads))}
+            zip(errs.items(), (ref, want2[live], *grads))}
 
 
 def rank_flash_records(b, L) -> list[dict]:
     """The rank route's three kernels (TPU kernels 1-4 at head_dim 4,
-    fp32) checked at the training step's shape (b 4, L 1024) with a
-    no-question sample and at a ragged one, then timed at (b, L) with
-    every sample's question span: kernel, plain version,
-    ``scaled_dot_product_attention`` (fp32, boolean key mask; the backward
-    rows forward + backward less forward), bound."""
+    fp32) checked on ``rank_check_cases`` (the forward's key layouts,
+    causal rows before the first visible key, a ragged L, no-question
+    samples); the forward launched as each RANK_MUTANTS fault must fail
+    there.  Then each kernel timed at (b, L) with every sample's question
+    span: the wrapper back to back (``ms``), the kernel alone (a CUDA
+    graph of launches, ``device_ms``), the wrapper's host µs a call, the
+    plain version, ``scaled_dot_product_attention`` (fp32, boolean key
+    mask; the backward rows forward + backward less forward) and the
+    bound."""
     import torch
     import torch.nn.functional as F
     from moka_tpu_torch.ops import flash_attention as fa
-    errs = [check_rank("training shape", *rank_case(4, 1024, dead=True)),
-            check_rank("ragged L", *rank_case(3, 333, dead=True, seed=1))]
+    from profile_port import graph_ms, host_us
+    cases = rank_check_cases()
+    errs = [check_rank(name, *ins, q_offset, causal)
+            for name, ins, q_offset, causal in cases]
+    for what, lib in MUTANTS["flash_rank"].items():
+        with swapped_library("flash_rank", lib):
+            must_fail(f"rank forward mutant ({what})",
+                      lambda: [check_rank(name, *ins, q_offset, causal)
+                               for name, ins, q_offset, causal in cases])
+    del cases
     q, k, v, mask, dout = rank_case(b, L, seed=2)
     out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
     delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
@@ -1487,13 +1661,17 @@ def rank_flash_records(b, L) -> list[dict]:
              2 * nbytes(q) + kv_in + 2 * rows + 2 * nbytes(k), 180,
              lib_bwd)):
         ms = time_ms(fn, iters=50)
+        device = graph_ms(fn)
+        host = host_us(fn)
         plain_ms = time_ms(plain, iters=10)
         bms, by = bound_ms(n_bytes, flops * pairs, FP32_FLOPS,
                            (pairs, SFU_OPS))
         log(f"  rank flash {which} timing at (b {b}, L {L}, hd {hd}, "
-            f"{seen // b} question keys a sample): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {'backward ' if which != 'fwd' else ''}"
-            f"{lib:.4f} ms, bound {bms:.5f} ms ({by})")
+            f"{seen // b} question keys a sample): wrapper back to back "
+            f"{ms:.4f} ms, kernel alone (graph) {device:.4f} ms, host "
+            f"{host:.1f} us a call; plain {plain_ms:.4f} ms, sdpa "
+            f"{'backward ' if which != 'fwd' else ''}{lib:.4f} ms, bound "
+            f"{bms:.5f} ms ({by})")
         err = max(e[n] for e in errs for n in
                   (("out", "lse") if which == "fwd" else
                    ("dq",) if which == "bwd_dq" else ("dk", "dv")))
@@ -1506,14 +1684,16 @@ def rank_flash_records(b, L) -> list[dict]:
             "launches": None, "max_abs_err": err,
             "tolerance": f"{RANK_TOL if which == 'fwd' else RANK_BWD_TOL} "
                          f"of max|plain|",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "ms": ms, "device_ms": device, "host_us": host,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib,
             "library": "scaled_dot_product_attention fp32, boolean key mask"
                        + ("" if which == "fwd" else
                           ": forward + backward less forward (all three "
                           "gradients)"),
             "shape": f"b {b} L {L} S {L} H 1 hd {hd} fp32, question keys "
-                     f"2:{L // 8}, one call"})
+                     f"2:{L // 8}, one call; ms the wrapper back to back, "
+                     f"device_ms a CUDA graph of launches"})
     return records
 
 
@@ -2301,8 +2481,9 @@ def boft_merge(cfg, base, boft, use_pallas) -> dict:
 def boft_merge_and_serve(cfg, spec, base, adapters, inputs,
                          new_tokens) -> dict:
     """Phase 10: merge a BOFT adapter into all 224 projections through
-    kernel 10 (launch counts zeroed before, read after: 448), and through
-    the plain einsum; layer 0's seven weights within one bf16 ulp of
+    kernel 10 (launch counts zeroed before, read after: 448), once more
+    under ``profile_port.trace`` (kernel 10's device time, the busy
+    share), and through the plain einsum; layer 0's seven weights within one bf16 ulp of
     max|plain|; every merged weight's column norms within NORM_TOL of the
     base's; then phase 4's prefill on the kernel-merged base against the
     plain path and fp32 on the plain-merged one (``check_logits``).  Drops
@@ -2317,6 +2498,15 @@ def boft_merge_and_serve(cfg, spec, base, adapters, inputs,
     torch.cuda.synchronize()
     merge_ms = (time.perf_counter() - t0) * 1e3
     counts = _counts()
+    import profile_port
+    traced, ops, _ = profile_port.trace(
+        lambda: boft_merge(cfg, base, boft, use_pallas=True))
+    by_group = profile_port.groups(ops)
+    kernel_ms = by_group["block-diagonal kernel (port)"]
+    busy_ms = sum(us for _, us in ops.values()) / 1e3
+    log(f"  a traced kernel merge: {traced:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, kernel 10 {kernel_ms:.3f} ms, by group "
+        f"{ {g: round(v, 1) for g, v in by_group.items() if v} }")
     t0 = time.perf_counter()
     plain = boft_merge(cfg, base, boft, use_pallas=False)
     torch.cuda.synchronize()
@@ -2359,7 +2549,8 @@ def boft_merge_and_serve(cfg, spec, base, adapters, inputs,
     check_logits(cfg, spec, merged, adapters, inputs, new_tokens,
                  plain_base=plain)
     return {"merge_ms": merge_ms, "plain_merge_ms": plain_ms,
-            "launches": counts, "layer0_ulps": worst,
+            "traced_merge_ms": traced, "traced_busy_ms": busy_ms,
+            "traced_kernel_ms": kernel_ms, "launches": counts, "layer0_ulps": worst,
             "column_norm_rel_err": norm_err, "min_rel_change": moved}
 
 
@@ -2835,9 +3026,16 @@ def main() -> int:
         f"{torch.cuda.device_count()} card(s); nvidia-smi name, power.limit:")
     log(smi)
 
+    import profile_port
     t0 = time.perf_counter()
+    mutants = {name: profile_port.start_variants(src, edits)
+               for name, (src, edits) in MUTANT_SOURCES.items()}
     built = kernels.build()
-    log(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    for name, procs in mutants.items():
+        MUTANTS[name] = profile_port.finish_variants(procs)
+    log(f"[2] built {sorted(built)} and the mutants "
+        f"{ {n: sorted(v) for n, v in MUTANTS.items()} } in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in kernels.SOURCES:
         text = (kernels.BUILD_DIR / f"{name}.log")
         if text.exists():
@@ -2847,6 +3045,7 @@ def main() -> int:
                     log(f"    {name}: {line.strip()}")
     check_flash_sass()
     check_ce_sass()
+    check_bd_rank_sass()
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)

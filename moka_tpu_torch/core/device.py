@@ -24,3 +24,11 @@ def on_card(t: torch.Tensor, what: str) -> bool:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no {what} for device {t.device}")
     return t.device.type == "cuda"
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as a raw pointer: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a ``Stream`` object (a wrapper's launch needs only the
+    pointer)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -12,34 +12,58 @@
 //     q_offset + i >= k; masked scores take the finite -1e30;
 //   * lse is (B, 1, L) fp32 in natural-log units; the backward reads it and
 //     delta = rowsum(dO * O), and p = exp2(s - lse * log2 e), zero on rows
-//     whose lse marks them fully masked; dq carries 1/sqrt(r), dk the ln 2
-//     that undoes the log2 e folded into q.
-// Every key is visited for every query (no tile is skipped), so a fully
-// masked row's output is the mean of V over all S keys, exactly as the plain
-// version's (flash_fwd_plain): the rank-space use relies on it, since a
-// sample with no question token has all-zero keys and must output zero.
+//     whose lse marks them fully masked (lse * log2 e <= -5e29); dq carries
+//     1/sqrt(r), dk the ln 2 that undoes the log2 e folded into q.
+// A row that sees no key gives the mean of V over all S keys and lse
+// (-1e30 + log2 S) ln 2, as the plain version (flash_fwd_plain) and JAX's
+// kernel, which visits every key block, give: every score is -1e30, so
+// every key weighs 1.  MokA's rank-space use relies on it, since a sample
+// with no question token has all-zero keys and must output zero.
 //
 // Bound: at r 4 there is nothing for tensor cores to do.  Per (query, key)
-// pair the forward does 2 * 2 * r flops (q.k and p*v) and one exp2; at
-// b 4 x L 1024 all 4.2e6 pairs are 67 MFLOP (1.0 us at 67 TFLOP/s fp32) and
-// 4.2e6 exp2 (1.0 us at 16 a clock on each of 132 SMs), while the bytes
-// (q, k, v, out, lse: 0.3 MB) take 0.1 us.  The softmax needs only the
-// pairs of visible keys (MokA's 126 question keys a sample: 0.12 us), so
-// the bound is far below a launch (~3-5 us); this kernel computes every
-// pair, masked ones included.
+// pair the forward does 2 * 2 * r flops (q.k and p*v) and one exp2.  The
+// softmax needs only the pairs of visible keys: at b 4 x L 1024 with MokA's
+// 126 question keys a sample, 5.2e5 pairs, 0.12 us of exp2 at 4.18e12 a
+// second, while the bytes (q, out, lse and the visible k, v: 0.1 MB) take
+// 0.03 us.  Either is far below a launch (~2-4 us), so the forward is bound
+// by latency: its design keeps the chain of dependent memory round trips
+// short and the card full of warps.
 //
-// Design: fp32 SIMT.  A CTA of 128 threads serves 16 rows (queries in the
-// forward and dq, keys in dk/dv), SPLIT = 8 threads a row, each taking every
-// 8th key (or query) of a 256-entry tile staged in shared memory, so the 8
-// threads of a row read 8 neighbouring entries and the 4 rows of a warp read
-// the same ones.  Within a tile a thread takes the max of its scores first
-// and then accumulates exp2 (one exp2 per pair, one rescale per tile); the 8
-// partial (max, sum, accumulator) triples, or the 8 partial gradients, meet
-// by warp shuffles.  No atomics: the gradients are the same from run to run.
-// The backward is a dq kernel (a loop over keys) and a dk/dv kernel (a loop
-// over queries) whatever L and S are: the fused kernel that the bf16 route
-// takes at L, S <= 1024 computes the same function, and at r 4 the second
-// pass over the (L, S) pairs costs as little as the first.
+// Forward design (flash_rank_fwd_kernel): fp32 SIMT, a CTA of 8 warps
+// serves 8 query rows of one sample, a warp a row.
+//   * The visible span.  The CTA reads its sample's (S,) int32 mask once
+//     (coalesced, 4 KB at S 1024; each warp's q row is already on its way,
+//     so the two trips overlap) and finds the first and last visible key
+//     by warp reductions and one __syncthreads.  A row walks only the keys
+//     from the first visible one to the last it may see (the last visible
+//     key, or its causal limit): keys inside keep their mask test, so a
+//     mask with holes stays exact, and a masked key outside adds exactly 0
+//     to a row whose running max is finite (its weight exp2(-1e30 - m)).
+//   * A row that sees no key (no visible key in the sample, or a causal
+//     limit before the first one) takes the mean of V over all S keys;
+//     the CTA sums V only when its first row is such a row.
+//   * One pass a key: the 32 lanes of the row's warp take every 32nd key
+//     of the span, each keeping an online (max, sum, accumulator) with one
+//     exp2 a key (a second only when the max moves), loading the key's k
+//     and v rows with 16-byte loads straight from global memory (L1 and L2
+//     serve the 8 warps of the CTA and the CTAs of the sample; nothing is
+//     staged in shared memory), 16 / r keys at a time; the 32 partial
+//     triples meet by warp shuffles.
+//   * Enough warps: at b 4 x L 1024 the grid is 128 x 4 CTAs of 8 warps,
+//     4,096 warps, 31 for each of the 132 SMs, so the loads of the mask,
+//     of q and of the span's keys overlap across warps.
+//
+// Backward design (dq, dk/dv, unchanged since their port): a CTA of 128
+// threads serves 16 rows (queries in dq, keys in dk/dv), SPLIT = 8 threads
+// a row, each taking every 8th key (or query) of a 256-entry tile staged in
+// shared memory, so the 8 threads of a row read 8 neighbouring entries and
+// the 4 rows of a warp read the same ones; the 8 partial gradients meet by
+// warp shuffles.  Every tile is visited.  No atomics: the gradients are the
+// same from run to run.  The backward is a dq kernel (a loop over keys) and
+// a dk/dv kernel (a loop over queries) whatever L and S are: the fused
+// kernel that the bf16 route takes at L, S <= 1024 computes the same
+// function, and at r 4 the second pass over the (L, S) pairs costs as
+// little as the first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,13 +86,6 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = SPLIT / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
   for (int off = SPLIT / 2; off > 0; off >>= 1)
@@ -86,67 +103,176 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int b,
     dst[i] = i < count ? p[i] * scale : 0.f;
 }
 
+constexpr int FWD_WARPS = 8;  // forward: a CTA of 8 warps, a warp a row
+constexpr int FWD_NT = 32 * FWD_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
+// a row of HD floats (16-byte aligned) by 16-byte loads
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void load_row(const float* p, float (&r)[HD]) {
+#pragma unroll
+  for (int d = 0; d < HD; d += 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p + d));
+    r[d] = a.x;
+    r[d + 1] = a.y;
+    r[d + 2] = a.z;
+    r[d + 3] = a.w;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(FWD_NT)
     flash_rank_fwd_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
                           const int* __restrict__ mask, float* __restrict__ out,
                           float* __restrict__ lse, int L, int S, int q_offset,
                           int causal, float qscale) {
-  __shared__ __align__(16) float ks[TILE * HD];
-  __shared__ __align__(16) float vs[TILE * HD];
-  __shared__ int ms[TILE];
+  constexpr int U = 16 / HD;  // keys a lane loads before it computes
+  __shared__ int span_lo[FWD_WARPS], span_hi[FWD_WARPS];
+  __shared__ float vsum_part[FWD_WARPS][HD];
   const int b = blockIdx.y;
-  const int row = blockIdx.x * ROWS + threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const bool live = row < L;
-  float qs[HD], acc[HD];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * FWD_WARPS;
+  const int* mrow = mask + static_cast<long>(b) * S;
+  const int row = row0 + warp;
+  const long r = static_cast<long>(b) * L + row;
+  // the row's q, loaded before the mask scan so that the two trips to
+  // memory overlap
+  float qs[HD];
+  if (row < L) {
+    load_row<HD>(q + r * HD, qs);
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) qs[d] = 0.f;
+  }
+
+  // the sample's visible span [lo, hi]: first and last key with mask > 0
+  int lo = S, hi = -1;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < S; j += FWD_NT) {
+    if (__ldg(mrow + j) > 0) {
+      lo = min(lo, j);
+      hi = j;
+    }
+  }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  if (lane == 0) {
+    span_lo[warp] = lo;
+    span_hi[warp] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < FWD_WARPS; ++w) {
+    lo = min(lo, span_lo[w]);
+    hi = max(hi, span_hi[w]);
+  }
+
+  // the sum of V over all S keys, for the rows that see no key; the CTA's
+  // first row has the earliest causal limit, so it is such a row if any is
+  float vsum[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) vsum[d] = 0.f;
+  if (hi < 0 || (causal && row0 + q_offset < lo)) {
+    for (int j = threadIdx.x; j < S; j += FWD_NT) {
+      float vr[HD];
+      load_row<HD>(v + (static_cast<long>(b) * S + j) * HD, vr);
+#pragma unroll
+      for (int d = 0; d < HD; ++d) vsum[d] += vr[d];
+    }
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      vsum[d] = warp_sum(vsum[d]);
+      if (lane == 0) vsum_part[warp][d] = vsum[d];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      vsum[d] = 0.f;
+#pragma unroll
+      for (int w = 0; w < FWD_WARPS; ++w) vsum[d] += vsum_part[w][d];
+    }
+  }
+
+  if (row >= L) return;
+  float* o = out + r * HD;
+  const int end = causal ? min(hi, row + q_offset) : hi;  // last key it may see
+  if (end < lo) {  // the row sees no key: every score is -1e30
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < HD; ++d) o[d] = vsum[d] / static_cast<float>(S);
+      lse[r] = (NEG_INF + log2f(static_cast<float>(S))) * LN2;
+    }
+    return;
+  }
+  float acc[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) {
-    qs[d] = live ? q[(static_cast<long>(b) * L + row) * HD + d] * qscale : 0.f;
+    qs[d] *= qscale;
     acc[d] = 0.f;
   }
-  const int qpos = row + q_offset;
   float m = NEG_INF, l = 0.f;
-  for (int k0 = 0; k0 < S; k0 += TILE) {
-    __syncthreads();  // the previous tile is consumed
-    stage<HD>(ks, k, b, S, k0, 1.f);
-    stage<HD>(vs, v, b, S, k0, 1.f);
-    for (int i = threadIdx.x; i < TILE; i += NT)
-      ms[i] = k0 + i < S ? mask[static_cast<long>(b) * S + k0 + i] : 0;
-    __syncthreads();
-    const int n = min(TILE, S - k0);
-    float mt = m;
-    for (int j = part; j < n; j += SPLIT) {
-      const bool ok = ms[j] > 0 && (!causal || qpos >= k0 + j);
-      mt = fmaxf(mt, ok ? dot<HD>(qs, ks + j * HD) : NEG_INF);
-    }
-    const float alpha = exp2f(m - mt);
-    m = mt;
-    l *= alpha;
+  for (int j0 = lo + lane; j0 <= end; j0 += 32 * U) {
+    float kr[U][HD], vr[U][HD];
+    int mk[U];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-    for (int j = part; j < n; j += SPLIT) {
-      const bool ok = ms[j] > 0 && (!causal || qpos >= k0 + j);
-      const float p = exp2f((ok ? dot<HD>(qs, ks + j * HD) : NEG_INF) - m);
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + 32 * u;
+      mk[u] = 0;
+      if (j <= end) {
+        const long kk = static_cast<long>(b) * S + j;
+        load_row<HD>(k + kk * HD, kr[u]);
+        load_row<HD>(v + kk * HD, vr[u]);
+        mk[u] = __ldg(mrow + j) > 0 ? 1 : -1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (mk[u] == 0) continue;  // past the end of the span
+      const float s = mk[u] > 0 ? dot<HD>(qs, kr[u]) : NEG_INF;
+      if (s > m) {  // the running max moves: rescale what was summed
+        const float alpha = exp2f(m - s);
+        l *= alpha;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+        m = s;
+      }
+      const float p = exp2f(s - m);
       l += p;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vs[j * HD + d], acc[d]);
+      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vr[u][d], acc[d]);
     }
   }
-  // merge the SPLIT partial softmaxes of the row
-  const float mm = group_max(m);
+  // merge the 32 lanes' partial softmaxes; lane 0 took the first visible
+  // key, so the row's max is finite and a lane that saw only masked keys
+  // weighs exp2(-1e30 - mm) = 0
+  const float mm = warp_max(m);
   const float sc = exp2f(m - mm);
-  l = group_sum(l * sc);
+  l = warp_sum(l * sc);
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = group_sum(acc[d] * sc);
-  if (live && part == 0) {
+  for (int d = 0; d < HD; ++d) acc[d] = warp_sum(acc[d] * sc);
+  if (lane == 0) {
     const float safe = l == 0.f ? 1.f : l;
-    float* o = out + (static_cast<long>(b) * L + row) * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = acc[d] / safe;
-    lse[static_cast<long>(b) * L + row] = (mm + log2f(safe)) * LN2;
+    for (int d = 0; d < HD; d += 4)
+      *reinterpret_cast<float4*>(o + d) =
+          make_float4(acc[d] / safe, acc[d + 1] / safe, acc[d + 2] / safe,
+                      acc[d + 3] / safe);
+    lse[r] = (mm + log2f(safe)) * LN2;
   }
 }
 
@@ -285,7 +411,7 @@ template <int HD>
 void fwd(dim3 grid, cudaStream_t st, const void* q, const void* k,
          const void* v, const void* mask, void* out, void* lse, int L, int S,
          int q_offset, int causal, float qscale) {
-  flash_rank_fwd_kernel<HD><<<grid, NT, 0, st>>>(
+  flash_rank_fwd_kernel<HD><<<grid, FWD_NT, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(mask),
       static_cast<float*>(out), static_cast<float*>(lse), L, S, q_offset,
@@ -321,13 +447,14 @@ void dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
 }  // namespace
 
 // q/out (B, L, 1, hd), k/v (B, S, 1, hd) fp32 with hd 4, 8 or 16, mask (B, S)
-// int32, lse (B, 1, L) fp32; all contiguous.  Returns cudaGetLastError().
+// int32, lse (B, 1, L) fp32; all contiguous, q, k, v and out 16-byte
+// aligned.  Returns cudaGetLastError().
 extern "C" int moka_flash_rank_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
                                    int B, int L, int S, int hd, int q_offset,
                                    int causal, float qscale, void* stream) {
   if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((L + ROWS - 1) / ROWS, B);
+  const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = hd == 4 ? fwd<4> : hd == 8 ? fwd<8> : fwd<16>;
   f(grid, st, q, k, v, mask, out, lse, L, S, q_offset, causal, qscale);

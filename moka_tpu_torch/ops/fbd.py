@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from moka_tpu_torch.core.device import on_card
+from moka_tpu_torch.core.device import on_card, raw_stream
 
 
 def fast_block_diag(blocks: torch.Tensor) -> torch.Tensor:
@@ -51,26 +51,33 @@ def block_diag_matmul_plain(blocks: torch.Tensor,
     return y.to(x.dtype).reshape(z, n * b, m)
 
 
+MAX_BLOCK = 144  # the largest b whose blocks and two x stages fit a CTA's
+                 # shared memory (kernels/csrc/block_diag.cu)
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set ``moka_block_diag``'s argument and result types on ``lib`` (the
+    built library, or an edited copy of its source built elsewhere) and
+    return it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.moka_block_diag.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.moka_block_diag.restype = i
+    return lib
 
 
 def _library():
     global _lib
     if _lib is None:
         from moka_tpu_torch import kernels
-        lib = kernels.library("block_diag")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.moka_block_diag.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.moka_block_diag.restype = i
-        _lib = lib
+        _lib = bind(kernels.library("block_diag"))
     return _lib
 
 
 def _launch(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Kernel 10 on the card: checks what it takes (fp32 blocks, bf16 or
-    fp32 x, JAX's gate, one device, 16-byte aligned) and raises
-    otherwise."""
-    from moka_tpu_torch import kernels
+    fp32 x, JAX's gate, b <= MAX_BLOCK, one device, 16-byte aligned) and
+    raises otherwise."""
     z, n, b, b2 = blocks.shape
     if b != b2 or x.dim() != 3 or tuple(x.shape[:2]) != (z, n * b):
         raise ValueError(f"blocks {tuple(blocks.shape)} do not tile x "
@@ -82,9 +89,9 @@ def _launch(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"block_diag kernel takes bf16 or fp32 x, not "
                         f"{x.dtype}")
-    if not kernel_takes(b, m, x.dtype):
-        raise ValueError(f"block_diag kernel needs b % 8 == 0 and m % 128 "
-                         f"== 0, not b {b} m {m}")
+    if not kernel_takes(b, m, x.dtype) or b > MAX_BLOCK:
+        raise ValueError(f"block_diag kernel needs b % 8 == 0, b <= "
+                         f"{MAX_BLOCK} and m % 128 == 0, not b {b} m {m}")
     if blocks.device != x.device:
         raise ValueError(f"blocks on {blocks.device}, x on {x.device}")
     blocks, x = blocks.contiguous(), x.contiguous()
@@ -93,9 +100,10 @@ def _launch(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     status = _library().moka_block_diag(
         blocks.data_ptr(), x.data_ptr(), y.data_ptr(), z, n, b, m,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(status, "block_diag")
+        int(x.dtype == torch.bfloat16), raw_stream(x.device))
+    if status:
+        from moka_tpu_torch import kernels
+        kernels.check(status, "block_diag")
     block_diag_matmul.launches += 1
     return y
 

@@ -32,9 +32,10 @@ is in natural-log units.  Rows whose keys are all masked have zero
 gradients and, on the bf16 route, an unspecified forward output (the
 kernel writes 0 and lse -1e30 ln 2, the plain version the mean of V;
 callers read valid rows only).
-The rank kernels visit every key, so there such a row's output is the
-mean of V over all S keys, as the plain version's: zero for MokA's
-no-question samples, whose keys are all zero.
+On the rank route such a row's output is the mean of V over all S keys,
+as the plain version's (the forward kernel walks only the visible span
+of keys and takes that branch for a row that sees none): zero for
+MokA's no-question samples, whose keys are all zero.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import math
 
 import torch
 
-from moka_tpu_torch.core.device import on_card
+from moka_tpu_torch.core.device import on_card, raw_stream
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -161,34 +162,38 @@ def use_fused_bwd(L: int, S: int) -> bool:
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+def bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of library ``name``'s entry
+    points on ``lib`` (the built library, or an edited copy of its source
+    built elsewhere) and return it."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i] * 8  # B, H, KH, L, S, hd, q_offset, causal
+    if name == "flash_fwd":
+        lib.moka_flash_fwd.argtypes = [p] * 6 + dims + [f, p]
+        lib.moka_flash_fwd.restype = i
+    elif name == "flash_rank":
+        rank_dims = [i] * 6  # B, L, S, hd, q_offset, causal
+        lib.moka_flash_rank_fwd.argtypes = [p] * 6 + rank_dims + [f, p]
+        lib.moka_flash_rank_bwd_dq.argtypes = [p] * 8 + rank_dims + \
+            [f, f, p]
+        lib.moka_flash_rank_bwd_dkv.argtypes = [p] * 9 + rank_dims + [f, p]
+        for fn in ("fwd", "bwd_dq", "bwd_dkv"):
+            getattr(lib, f"moka_flash_rank_{fn}").restype = i
+    else:  # flash_bwd: dq; flash_bwd_kv: fused and dkv
+        outs = {"flash_bwd": (("moka_flash_bwd_dq", 1),),
+                "flash_bwd_kv": (("moka_flash_bwd_fused", 3),
+                                 ("moka_flash_bwd_dkv", 2))}[name]
+        for fn, n_out in outs:
+            getattr(lib, fn).argtypes = [p] * (7 + n_out) + dims + [f, f, p]
+            getattr(lib, fn).restype = i
+    return lib
+
+
 def _library(name: str):
     lib = _libs.get(name)
     if lib is None:
         from moka_tpu_torch import kernels
-        lib = kernels.library(name)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [i] * 8  # B, H, KH, L, S, hd, q_offset, causal
-        if name == "flash_fwd":
-            lib.moka_flash_fwd.argtypes = [p] * 6 + dims + [f, p]
-            lib.moka_flash_fwd.restype = i
-        elif name == "flash_rank":
-            rank_dims = [i] * 6  # B, L, S, hd, q_offset, causal
-            lib.moka_flash_rank_fwd.argtypes = [p] * 6 + rank_dims + [f, p]
-            lib.moka_flash_rank_bwd_dq.argtypes = [p] * 8 + rank_dims + \
-                [f, f, p]
-            lib.moka_flash_rank_bwd_dkv.argtypes = [p] * 9 + rank_dims + \
-                [f, p]
-            for fn in ("fwd", "bwd_dq", "bwd_dkv"):
-                getattr(lib, f"moka_flash_rank_{fn}").restype = i
-        else:  # flash_bwd: dq; flash_bwd_kv: fused and dkv
-            outs = {"flash_bwd": (("moka_flash_bwd_dq", 1),),
-                    "flash_bwd_kv": (("moka_flash_bwd_fused", 3),
-                                     ("moka_flash_bwd_dkv", 2))}[name]
-            for fn, n_out in outs:
-                getattr(lib, fn).argtypes = [p] * (7 + n_out) + dims + \
-                    [f, f, p]
-                getattr(lib, fn).restype = i
-        _libs[name] = lib
+        lib = _libs[name] = bind(name, kernels.library(name))
     return lib
 
 
@@ -381,52 +386,66 @@ def is_rank_route(q: torch.Tensor, k: torch.Tensor) -> bool:
         k.shape[2] == 1 and q.shape[-1] <= 16
 
 
+_RANK_QSCALE = {hd: LOG2E / math.sqrt(hd) for hd in RANK_HEAD_DIMS}
+
+
 def _rank_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
-    """Check what the rank kernels take (fp32, one head, head_dim 4, 8 or
-    16, one device) and return the tensors contiguous."""
+    """Check what the rank kernels take (fp32, one head of head_dim 4, 8 or
+    16, one device, 16-byte aligned) and return the tensors contiguous, the
+    mask as int32.  The checks run on every call, a wrapper runs three
+    times a rank attention and 1,792 times a training step, so they are
+    written out: a tensor that already passes is neither copied nor cast,
+    and the loops that name the offending tensor run only on failure."""
     b, L, H, hd = q.shape
     S = k.shape[1]
-    named = [("q", q), ("k", k), ("v", v)]
-    if dout is not None:
-        named.append(("dout", dout))
-    for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"rank flash kernel takes fp32 tensors, {name} "
-                            f"is {t.dtype}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if hd not in RANK_HEAD_DIMS or H != 1 or k.shape != (b, S, 1, hd) or \
+    dev = q.device
+    f32 = torch.float32
+    ts = (q, k, v) if dout is None else (q, k, v, dout)
+    if q.dtype != f32 or k.dtype != f32 or v.dtype != f32 or \
+            (dout is not None and dout.dtype != f32):
+        name, t = next((n, t) for n, t in zip("q k v dout".split(), ts)
+                       if t.dtype != f32)
+        raise TypeError(f"rank flash kernel takes fp32 tensors, {name} is "
+                        f"{t.dtype}")
+    if k.device != dev or v.device != dev or \
+            (dout is not None and dout.device != dev):
+        name, t = next((n, t) for n, t in zip("q k v dout".split(), ts)
+                       if t.device != dev)
+        raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if hd not in _RANK_QSCALE or H != 1 or k.shape != (b, S, 1, hd) or \
             v.shape != k.shape:
         raise ValueError(f"rank flash kernel takes one head of head_dim "
                          f"{RANK_HEAD_DIMS}: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if tuple(attn_mask.shape) != (b, S):
+    if attn_mask.shape != (b, S):
         raise ValueError(f"attn_mask {tuple(attn_mask.shape)} != {(b, S)}")
     if dout is not None and dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
-    out = [t.contiguous() for _, t in named]
-    out.insert(3, attn_mask.to(device=q.device, dtype=torch.int32)
-               .contiguous())
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if attn_mask.dtype != torch.int32 or attn_mask.device != dev or \
+            not attn_mask.is_contiguous():
+        attn_mask = attn_mask.to(device=dev, dtype=torch.int32).contiguous()
+    out = [q, k, v, attn_mask]
+    if dout is not None:
+        out.append(dout.contiguous())
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr() |
+            (0 if dout is None else out[4].data_ptr())) % 16:
+        raise ValueError("rank flash kernel needs 16-byte aligned q, k, v, "
+                         "dout")
     for name, t in (("lse", lse), ("delta", delta)):
         if t is None:
             continue
-        if tuple(t.shape) != (b, 1, L) or t.device != q.device:
+        if t.shape != (b, 1, L) or t.device != dev:
             raise ValueError(f"{name} {tuple(t.shape)} on {t.device}, want "
-                             f"{(b, 1, L)} on {q.device}")
+                             f"{(b, 1, L)} on {dev}")
         out.append(t.to(torch.float32).contiguous())
     return out
 
 
-def _rank_call(fn: str, q, k, tensors, outs, q_offset, causal, *scales):
-    """One rank kernel; the q scale goes as a ``c_float``, rounded to fp32
-    as ``_prescaled`` folds it for fp32 q."""
-    from moka_tpu_torch import kernels
-    b, L, _, hd = q.shape
-    status = getattr(_library("flash_rank"), f"moka_flash_rank_{fn}")(
-        *(t.data_ptr() for t in (*tensors, *outs)), b, L, k.shape[1], hd,
-        int(q_offset), int(bool(causal)), LOG2E / math.sqrt(hd), *scales,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(status, f"flash_rank_{fn}")
+def _rank_check(status: int, fn: str) -> None:
+    if status:
+        from moka_tpu_torch import kernels
+        kernels.check(status, f"flash_rank_{fn}")
 
 
 def flash_rank_fwd(q, k, v, attn_mask, q_offset: int = 0,
@@ -436,11 +455,16 @@ def flash_rank_fwd(q, k, v, attn_mask, q_offset: int = 0,
     plain version for CPU tensors."""
     if not on_card(q, "flash attention"):
         return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
-    ins = _rank_inputs(q, k, v, attn_mask)
-    out = torch.empty_like(ins[0])
-    lse = torch.empty((q.shape[0], 1, q.shape[1]), dtype=torch.float32,
-                      device=q.device)
-    _rank_call("fwd", q, k, ins, (out, lse), q_offset, causal)
+    q, k, v, mask = _rank_inputs(q, k, v, attn_mask)
+    b, L, _, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, 1, L), dtype=torch.float32, device=q.device)
+    # the q scale goes as a c_float, rounded to fp32 as ``_prescaled``
+    # folds it for fp32 q
+    _rank_check(_library("flash_rank").moka_flash_rank_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, L, k.shape[1], hd, int(q_offset),
+        int(bool(causal)), _RANK_QSCALE[hd], raw_stream(q.device)), "fwd")
     flash_rank_fwd.launches += 1
     return out, lse
 
@@ -451,10 +475,16 @@ def flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,
     if not on_card(q, "flash attention"):
         return flash_bwd_dq_plain(q, k, v, attn_mask, dout, lse, delta,
                                   q_offset, causal)
-    ins = _rank_inputs(q, k, v, attn_mask, dout, lse, delta)
-    dq = torch.empty_like(ins[0])
-    _rank_call("bwd_dq", q, k, ins, (dq,), q_offset, causal,
-               1.0 / math.sqrt(q.shape[-1]))
+    q, k, v, mask, dout, lse, delta = _rank_inputs(q, k, v, attn_mask, dout,
+                                                   lse, delta)
+    b, L, _, hd = q.shape
+    dq = torch.empty_like(q)
+    _rank_check(_library("flash_rank").moka_flash_rank_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
+        L, k.shape[1], hd, int(q_offset), int(bool(causal)),
+        _RANK_QSCALE[hd], 1.0 / math.sqrt(hd), raw_stream(q.device)),
+        "bwd_dq")
     flash_rank_bwd_dq.launches += 1
     return dq
 
@@ -466,9 +496,16 @@ def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
     if not on_card(q, "flash attention"):
         return flash_bwd_dkv_plain(q, k, v, attn_mask, dout, lse, delta,
                                    q_offset, causal)
-    ins = _rank_inputs(q, k, v, attn_mask, dout, lse, delta)
-    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[1])
-    _rank_call("bwd_dkv", q, k, ins, (dk, dv), q_offset, causal)
+    q, k, v, mask, dout, lse, delta = _rank_inputs(q, k, v, attn_mask, dout,
+                                                   lse, delta)
+    b, L, _, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(k)
+    _rank_check(_library("flash_rank").moka_flash_rank_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, L, k.shape[1], hd, int(q_offset),
+        int(bool(causal)), _RANK_QSCALE[hd], raw_stream(q.device)),
+        "bwd_dkv")
     flash_rank_bwd_dkv.launches += 1
     return dk, dv
 

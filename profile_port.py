@@ -13,6 +13,8 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py mm quant     # only the windows named
     python3 profile_port.py flash --root DIR   # another checkout's kernels
     python3 profile_port.py fused_ce fused_ce_ablation
+    python3 profile_port.py rank_kernels block_diag [--root DIR]
+    python3 profile_port.py rank_ablation block_diag_ablation
 
 ``flash`` (not among the default windows) times the query-major flash
 kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
@@ -27,7 +29,20 @@ under build/), at the prefill and CLIP shapes: where its time goes.
 route B's shape (N 4092, d 4096, V 32011, int8 head) the same way (with
 ``--root``, another checkout's); ``fused_ce_ablation`` times kernel 9
 with parts taken out and in other tile orders (CE_ABLATIONS, edited copies
-of fused_ce_bwd.cu).
+of fused_ce_bwd.cu).  ``rank_kernels`` times the three rank flash
+kernels through their wrappers at chip_smoke's rank shape (b 4, L 1024,
+head_dim 4, 126 question keys a sample): the kernel alone (``graph_ms``:
+a CUDA graph of 100 launches, no host work between them), the host's µs a
+call (``host_us``: the least of five batches) and the wrapper back to
+back.  ``block_diag`` times kernel 10 at the BOFT merge's three shapes:
+cold (a graph rotating over x buffers that together hold 3x the L2
+cache), warm, back to back, the host's µs a call and a cold ``x.clone()``
+(the same bytes moved by PyTorch's copy), then traces one BOFT merge at
+phase 10's shapes (``BoftSpec(8, 2)`` on 224 random bf16 weights at
+LLaMA-2-7B's widths).  Both take ``--root``.  ``rank_ablation`` and
+``block_diag_ablation`` time the rank forward and kernel 10 with parts
+taken out (RANK_ABLATIONS, BD_ABLATIONS: edited copies of flash_rank.cu
+and block_diag.cu), twice in turn.
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -104,6 +119,7 @@ GROUPS = (  # device entries by name, first match wins
                                       "dropout_a_bwd_kernel",
                                       "sum_tiles_kernel")),
     ("fused CE kernels (port)", ("fused_ce_",)),
+    ("block-diagonal kernel (port)", ("block_diag_kernel",)),
     ("int8 GEMMs (cuBLASLt, torch._int_mm)", ("imma", "i8i8", "s8", "int8")),
     ("bf16 GEMMs (cuBLAS)", ("nvjet",)),
     ("fp32 GEMMs and GEMVs (cuBLAS, CUTLASS SIMT)", ("gemm_f32", "sgemm",
@@ -210,18 +226,16 @@ def ablation_source(edits, csrc: Path, source: str = "flash_fwd.cu") -> str:
     return src
 
 
-def build_variants(source: str, ablations: dict, entry: str,
-                   argtypes: list) -> dict:
-    """Each variant of ``source`` (``ablation_source`` of its edits) built
-    by nvcc, all at once, under build/moka_tpu_torch/ablation/; {name:
-    library with ``entry`` bound to ``argtypes``}.  The compiler's lines
-    go to a .log beside each library."""
-    import ctypes
+def start_variants(source: str, variants: dict) -> dict:
+    """Start nvcc on each variant of ``source`` (``ablation_source`` of its
+    edits), all at once, under build/moka_tpu_torch/ablation/; {name:
+    (process, library path)} for ``finish_variants``.  The compiler's
+    lines go to a .log beside each library."""
     from moka_tpu_torch import kernels
     out_dir = kernels.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in ablations.items():
+    for name, edits in variants.items():
         text = ablation_source(edits, kernels.CSRC, source)
         # named by content: dlopen keeps the first library loaded from a path
         key = hashlib.sha256(text.encode()).hexdigest()[:16]
@@ -233,19 +247,38 @@ def build_variants(source: str, ablations: dict, entry: str,
                  str(kernels.CSRC), "-o", str(src.with_suffix(".so")),
                  str(src)], stdout=log, stderr=subprocess.STDOUT),
                 src.with_suffix(".so"))
+    return procs
+
+
+def finish_variants(procs: dict, entry: str | None = None,
+                    argtypes: list | None = None) -> dict:
+    """Wait for ``start_variants``'s builds; {name: loaded library}, with
+    ``entry`` bound to ``argtypes`` where it is given.  Prints each
+    variant's register and spill lines; raises if a build failed."""
+    import ctypes
     libs = {}
     for name, (proc, so) in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for ablation {name!r}: " +
+            raise RuntimeError(f"nvcc failed for variant {name!r}: " +
                                so.with_suffix(".log").read_text()[-3000:])
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"    {name}: {line.strip()[:160]}", flush=True)
         lib = ctypes.CDLL(str(so))
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = ctypes.c_int
+        if entry is not None:
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build_variants(source: str, ablations: dict, entry: str,
+                   argtypes: list) -> dict:
+    """Each variant of ``source`` (``ablation_source`` of its edits) built
+    by nvcc, all at once, under build/moka_tpu_torch/ablation/; {name:
+    library with ``entry`` bound to ``argtypes``}."""
+    return finish_variants(start_variants(source, ablations), entry,
+                           argtypes)
 
 
 def event_ms(call, iters: int) -> float:
@@ -263,6 +296,54 @@ def event_ms(call, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(calls, n: int = 100, reps: int = 3) -> float:
+    """Device ms a call with no host work between launches: a CUDA graph
+    of ``n`` calls (``calls``: one function, or several taken in turn, as
+    inputs rotated past the L2 cache) replayed ``reps`` times under CUDA
+    events, after one warm-up replay."""
+    import torch
+    calls = calls if isinstance(calls, (list, tuple)) else [calls]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            calls[i % len(calls)]()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, n: int = 200, reps: int = 5) -> float:
+    """The host's µs a call of ``fn``: the least, over ``reps`` batches,
+    of ``n`` calls enqueued back to back (the queue stays short of full)
+    on the host clock, with a synchronise after each batch.  The least
+    batch is the wrapper's own cost: the host is shared, and a slower
+    batch measures its neighbours."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
 
 
 def flash_ablation_window(iters: int = 20) -> dict:
@@ -509,6 +590,279 @@ def fused_ce_ablation_window(iters: int = 10) -> dict:
     return {"fused_ce_ablation": out, "fused_ce_rel_l2": err}
 
 
+RANK_SHAPE = (4, 1024, 4)  # chip_smoke's rank timing: b, L, head_dim;
+                           # question keys 2:L // 8 (126 a sample)
+
+
+def rank_inputs():
+    """chip_smoke's rank timing inputs (``rank_case``, seed 2) with the
+    forward's lse and delta: the argument tuples of the three rank
+    wrappers."""
+    from chip_smoke import rank_case
+    from moka_tpu_torch.ops import flash_attention as fa
+    b, L, hd = RANK_SHAPE
+    q, k, v, mask, dout = rank_case(b, L, hd=hd, seed=2)
+    out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
+    delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
+    return (q, k, v, mask, 0, False), \
+        (q, k, v, mask, dout, lse, delta, 0, False)
+
+
+def rank_kernels_window(host_calls: int = 200) -> dict:
+    """The three rank kernels through their wrappers at RANK_SHAPE: the
+    kernel alone (a CUDA graph of 100 launches, ``graph_ms``), the host's
+    µs a call and the wrapper back to back (CUDA events over 50 calls,
+    what chip_smoke's table held before)."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    fwd_args, bwd_args = rank_inputs()
+    out = {"package": fa.__file__}
+    for name, call in (
+            ("flash_rank_fwd", lambda: fa.flash_rank_fwd(*fwd_args)),
+            ("flash_rank_bwd_dq", lambda: fa.flash_rank_bwd_dq(*bwd_args)),
+            ("flash_rank_bwd_dkv",
+             lambda: fa.flash_rank_bwd_dkv(*bwd_args))):
+        out[name] = {"device_ms": graph_ms(call),
+                     "host_us": host_us(call, host_calls),
+                     "back_to_back_ms": event_ms(call, 50)}
+        print(f"  {name}: kernel alone {out[name]['device_ms']:.4f} ms, "
+              f"host {out[name]['host_us']:.1f} us a call, back to back "
+              f"{out[name]['back_to_back_ms']:.4f} ms", flush=True)
+    return {"rank_kernels": out}
+
+
+RANK_ABLATIONS = {  # name: edits of flash_rank.cu; the edited forwards'
+    "kernel": [],   # outputs are wrong, only their times are read
+    "launch alone (returns at once)": [
+        ("  const int* mrow = mask + static_cast<long>(b) * S;\n",
+         "  const int* mrow = mask + static_cast<long>(b) * S;\n"
+         "  if (L > 0) return;\n")],
+    "q not loaded ahead of the mask scan": [
+        ("  if (row < L) {\n    load_row<HD>(q + r * HD, qs);",
+         "  if (false) {\n    load_row<HD>(q + r * HD, qs);"),
+        ("  float acc[HD];\n", "  float acc[HD];\n"
+         "  load_row<HD>(q + r * HD, qs);\n")],
+    "no key walk (the mask scan, q, the merge, the stores)": [
+        ("for (int j0 = lo + lane; j0 <= end; j0 += 32 * U) {",
+         "for (int j0 = lo + lane; j0 <= end - S; j0 += 32 * U) {")],
+    "every key walked (the span is the whole sample)": [
+        ("  // the sum of V over all S keys, for the rows that see no key;",
+         "  lo = 0;\n  hi = S - 1;\n"
+         "  // the sum of V over all S keys, for the rows that see no key;")],
+    "one key a lane at a time": [
+        ("constexpr int U = 16 / HD;", "constexpr int U = 1;")],
+    "4 warps a CTA": [("constexpr int FWD_WARPS = 8;",
+                       "constexpr int FWD_WARPS = 4;")],
+    "16 warps a CTA": [("constexpr int FWD_WARPS = 8;",
+                        "constexpr int FWD_WARPS = 16;")]}
+
+
+def swap_timed(install, kept, variants: dict, timers: dict,
+               turns: int = 2) -> dict:
+    """Each variant library installed by ``install`` in turn (``turns``
+    times over) and timed by each of ``timers`` ({name: () -> number});
+    ``kept`` installed again after.  {variant: {timer: [a number a
+    turn]}}."""
+    out = {name: {t: [] for t in timers} for name in variants}
+    try:
+        for _ in range(turns):
+            for name, lib in variants.items():
+                install(lib)
+                for t, timer in timers.items():
+                    out[name][t].append(timer())
+    finally:
+        install(kept)
+    for name, times in out.items():
+        print(f"  {name}: " + "; ".join(
+            f"{t} {' / '.join(f'{v:.4f}' for v in vs)}"
+            for t, vs in times.items()), flush=True)
+    return out
+
+
+def rank_ablation_window() -> dict:
+    """The rank forward with parts taken out (RANK_ABLATIONS: edited
+    copies of flash_rank.cu, built all at once) at RANK_SHAPE through the
+    wrapper, twice in turn: the kernel alone (``graph_ms``) and back to
+    back; the unedited copy is first held against the plain version."""
+    from chip_smoke import RANK_TOL
+    from moka_tpu_torch.ops import flash_attention as fa
+    libs = {name: fa.bind("flash_rank", lib) for name, lib in
+            finish_variants(start_variants("flash_rank.cu",
+                                           RANK_ABLATIONS)).items()}
+    fwd_args, _ = rank_inputs()
+    kept = fa._library("flash_rank")
+
+    def install(lib):
+        fa._libs["flash_rank"] = lib
+
+    try:
+        install(libs["kernel"])
+        got, _ = fa.flash_rank_fwd(*fwd_args)
+    finally:
+        install(kept)
+    ref, _ = fa.flash_fwd_plain(*fwd_args)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    print(f"  the unedited copy: out max|err| / max|plain| {err:.2e} (tol "
+          f"{RANK_TOL})", flush=True)
+    if err > RANK_TOL:
+        raise AssertionError("the ablation's unedited rank forward is wrong")
+
+    def call():
+        fa.flash_rank_fwd(*fwd_args)
+
+    out = swap_timed(install, kept, libs,
+                     {"graph_ms": lambda: graph_ms(call),
+                      "back_to_back_ms": lambda: event_ms(call, 50)})
+    return {"rank_ablation": out, "rank_rel_err": err}
+
+
+BD_SHAPES = ((512, 8, 4096), (512, 8, 11008), (1376, 8, 4096))  # (N, b, m)
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def bd_inputs(N, b, m, seed: int = 0):
+    """Orthogonal fp32 blocks (Cayley of N(0, 0.1^2)) and bf16 x buffers
+    that together hold at least 3x the L2 cache (at least 2), for cold
+    launches."""
+    import math
+    import torch
+    from moka_tpu_torch.ops import fbd
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    blocks = fbd.cayley(torch.randn((1, N, b, b), generator=g,
+                                    device="cuda") * 0.1)
+    one = N * b * m * 2
+    xs = [(torch.randn((1, N * b, m), generator=g, device="cuda") * 0.02)
+          .bfloat16() for _ in range(max(2, math.ceil(3 * L2_BYTES / one)))]
+    return blocks, xs
+
+
+def bd_timers(blocks, xs) -> dict:
+    """Kernel 10's timers on one shape: cold (a CUDA graph rotating over
+    ``xs``), warm (a graph on one x), the wrapper back to back on one x
+    (the warm loop chip_smoke's table held before), the host's µs a call,
+    and a plain copy of x, cold (``x.clone()``: the same bytes moved, what
+    the card's memory gives a streaming kernel)."""
+    from moka_tpu_torch.ops import fbd
+    cold = [lambda x=x: fbd.block_diag_matmul(blocks, x) for x in xs]
+    return {"cold_ms": lambda: graph_ms(cold, n=4 * len(xs)),
+            "warm_ms": lambda: graph_ms(cold[0], n=20),
+            "back_to_back_ms": lambda: event_ms(cold[0], 20),
+            "host_us": lambda: host_us(cold[0], 20),
+            "copy_cold_ms": lambda: graph_ms([x.clone for x in xs],
+                                             n=4 * len(xs))}
+
+
+def block_diag_window() -> dict:
+    """Kernel 10 through its wrapper at the BOFT merge's three shapes
+    (``bd_timers``), then one BOFT merge at phase 10's shapes
+    (``BoftSpec(8, 2)`` on 224 random bf16 weights at LLaMA-2-7B's widths
+    through kernel 10): its wall time untraced, and traced with the
+    device time by group."""
+    import torch
+    from chip_smoke import boft_adapters, boft_merge
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.models.llama import _proj_shapes
+    from moka_tpu_torch.ops import fbd
+    out = {"package": fbd.__file__}
+    for N, b, m in BD_SHAPES:
+        blocks, xs = bd_inputs(N, b, m)
+        res = {name: t() for name, t in bd_timers(blocks, xs).items()}
+        out[f"{N}x{b}x{m}"] = res
+        print(f"  block_diag (1, {N}, {b}, {m}) bf16: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res.items()), flush=True)
+        del xs
+        torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama2_7b()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    base = {"layers": {name: (torch.randn((cfg.n_layers, d_in, d_out),
+                                          generator=g, device="cuda")
+                              * 0.02).bfloat16()
+                       for name, (d_in, d_out) in _proj_shapes(cfg).items()}}
+    boft = boft_adapters(cfg)
+
+    def merge():
+        boft_merge(cfg, base, boft, use_pallas=True)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        wall = wall_ms(merge)
+        traced, ops, host = trace(merge)
+    out["merge"] = summary("BOFT merge (BoftSpec(8, 2), 224 weights, "
+                           "kernel 10)", wall, traced, ops, host=host)
+    return {"block_diag": out}
+
+
+_LOADS_ALONE = (
+    "    const uint8_t* xs = sm + s * stage_bytes;",
+    "    if (t >= 0) {  // ablation: release the stage unread\n"
+    "      __syncwarp();\n"
+    "      if (lane == 0) mbar_arrive(bars + 8 * (MAX_STAGES + s));\n"
+    "      continue;\n    }\n"
+    "    const uint8_t* xs = sm + s * stage_bytes;")
+BD_ABLATIONS = {  # name: edits of block_diag.cu (hopper.cuh inlined); the
+    "kernel": [],  # edited kernels' y is wrong, only their times are read
+    "loads alone (each stage released unread, no stores)": [_LOADS_ALONE],
+    "stores alone (the producer signals, loads nothing)": [
+        ("        mbar_arrive_expect_tx(bars + 8 * s, boxes * sh.tr * "
+         "BOX_BYTES);\n        for (int q = 0; q < boxes; ++q)",
+         "        mbar_arrive(bars + 8 * s);\n"
+         "        for (int q = 0; q < 0; ++q)")],
+    "ring of 2 stages": [("constexpr int MAX_STAGES = 4;",
+                          "constexpr int MAX_STAGES = 2;")],
+    "ring of 6 stages": [("constexpr int MAX_STAGES = 4;",
+                          "constexpr int MAX_STAGES = 6;")],
+    "one CTA an SM": [("const long ctas = static_cast<long>(sm_count()) * "
+                       "per_sm;",
+                       "const long ctas = static_cast<long>(sm_count());")],
+    "no L2 hint on x (evict_normal)": [("L2::evict_first.b64",
+                                         "L2::evict_normal.b64")],
+    "streaming stores (st.global.cs)": [
+        ("*reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);",
+         "__stcs(reinterpret_cast<uint4*>(p), "
+         "make_uint4(w[0], w[1], w[2], w[3]));")]}
+
+
+def block_diag_ablation_window() -> dict:
+    """Kernel 10 with parts taken out (BD_ABLATIONS: edited copies of
+    block_diag.cu, built all at once) at the merge's first two shapes
+    through the wrapper, twice in turn, cold and warm; the unedited copy
+    is first held against the plain version (chip_smoke's limit)."""
+    import torch
+    from chip_smoke import bf16_ulp
+    from moka_tpu_torch.ops import fbd
+    libs = {name: fbd.bind(lib) for name, lib in
+            finish_variants(start_variants("block_diag.cu",
+                                           BD_ABLATIONS)).items()}
+    kept = fbd._library()
+
+    def install(lib):
+        fbd._lib = lib
+
+    out = {}
+    for N, b, m in BD_SHAPES[:2]:
+        blocks, xs = bd_inputs(N, b, m)
+        try:
+            install(libs["kernel"])
+            y = fbd.block_diag_matmul(blocks, xs[0]).float()
+        finally:
+            install(kept)
+        ref = fbd.block_diag_matmul_plain(blocks, xs[0]).float()
+        top = float(ref.abs().max())
+        err = float((y - ref).abs().max())
+        print(f"  (1, {N}, {b}, {m}): the unedited copy's max|err| "
+              f"{err:.3e} (one bf16 ulp of max|plain|: "
+              f"{bf16_ulp(top):.3e})", flush=True)
+        if err > bf16_ulp(top):
+            raise AssertionError("the ablation's unedited kernel 10 is wrong")
+        del y, ref
+        timers = bd_timers(blocks, xs)
+        out[f"{N}x{b}x{m}"] = swap_timed(
+            install, kept, libs,
+            {t: timers[t] for t in ("cold_ms", "warm_ms")})
+        del xs
+        torch.cuda.empty_cache()
+    return {"block_diag_ablation": out}
+
+
 TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
               "quant": "train_step_quant_route_b",
               "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
@@ -525,7 +879,11 @@ def main(argv=None) -> int:
     kernel_windows = {"flash": flash_window,
                       "flash_ablation": flash_ablation_window,
                       "fused_ce": fused_ce_window,
-                      "fused_ce_ablation": fused_ce_ablation_window}
+                      "fused_ce_ablation": fused_ce_ablation_window,
+                      "rank_kernels": rank_kernels_window,
+                      "rank_ablation": rank_ablation_window,
+                      "block_diag": block_diag_window,
+                      "block_diag_ablation": block_diag_ablation_window}
     if set(names) - {*WINDOWS, *kernel_windows}:
         print(f"profile_port: windows are {WINDOWS} and "
               f"{tuple(kernel_windows)}", file=sys.stderr)

@@ -78,7 +78,8 @@ def test_cayley_matches_jax_and_is_orthogonal():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("z,n,b,m", [(1, 4, 8, 128), (2, 3, 16, 256),
                                      (2, 5, 4, 128), (1, 3, 8, 96),
-                                     (1, 2, 4, 12)])
+                                     (1, 2, 4, 12), (1, 2, 32, 256),
+                                     (1, 2, 8, 11008)])
 def test_block_diag_matmul_matches_jax_kernel(z, n, b, m, dtype):
     """The plain version against JAX's ``block_diag_matmul(use_pallas=
     True)``: its interpret-mode kernel where the gate takes the shape
@@ -174,3 +175,28 @@ def test_boft_init_is_the_identity():
                                w.numpy(), atol=1e-6)
     with pytest.raises(ValueError):
         tpeft.init_boft(10, spec, device="cpu")
+
+
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_take():
+    """Kernel 10's wrapper checks before any launch: blocks that do not
+    tile x, fp64 blocks or x, b % 8 != 0, m % 128 != 0, b above
+    MAX_BLOCK (what a CTA's shared memory holds) and a misaligned x each
+    raise (here on CPU tensors, which the checks reach first)."""
+    def call(z, n, b, m, bdt=torch.float32, xdt=torch.bfloat16, x=None):
+        blocks = torch.zeros((z, n, b, b), dtype=bdt)
+        x = torch.zeros((z, n * b, m), dtype=xdt) if x is None else x
+        fbd._launch(blocks, x)
+
+    with pytest.raises(ValueError, match="do not tile"):
+        call(1, 2, 8, 128, x=torch.zeros((1, 24, 128)))
+    with pytest.raises(TypeError, match="fp32 blocks"):
+        call(1, 2, 8, 128, bdt=torch.float64)
+    with pytest.raises(TypeError, match="bf16 or fp32 x"):
+        call(1, 2, 8, 128, xdt=torch.float64)
+    for b, m in ((12, 128), (8, 96), (fbd.MAX_BLOCK + 8, 128)):
+        with pytest.raises(ValueError, match="b % 8 == 0"):
+            call(1, 1, b, m)
+    flat = torch.zeros(16 * 128 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(1, 2, 8, 128, x=flat[1:].view(1, 16, 128))
+    assert fbd.block_diag_matmul.launches == 0

@@ -120,6 +120,52 @@ def test_fused_ce_ablation_edits_apply():
                                      src)
 
 
+@pytest.mark.parametrize("edits", ["RANK_ABLATIONS", "BD_ABLATIONS",
+                                   "RANK_MUTANTS", "BD_MUTANTS"])
+def test_rank_and_block_diag_edits_apply(edits):
+    """The rank forward's and kernel 10's edited copies (profile_port.py's
+    ablations, chip_smoke.py's mutants, which phase 3 requires to fail)
+    edit their source by text: each old text must occur exactly once in
+    flash_rank.cu or block_diag.cu (hopper.cuh inlined), so each copy is
+    the kernel with exactly that part changed, and no two are alike."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    import profile_port
+    table = getattr(profile_port if "ABLATIONS" in edits else chip_smoke,
+                    edits)
+    src = "flash_rank.cu" if edits.startswith("RANK") else "block_diag.cu"
+    base = profile_port.ablation_source([], kernels.CSRC, src)
+    variants = {base}
+    for name, changes in table.items():
+        for old, _ in changes:
+            assert base.count(old) == 1, (name, old)
+        edited = profile_port.ablation_source(changes, kernels.CSRC, src)
+        assert (edited == base) == (not changes), name
+        variants.add(edited)
+    assert len(variants) == len(table) + (0 if "kernel" in table else 1)
+
+
+def test_rank_and_block_diag_source_contract():
+    """The rank forward walks keys straight from global memory (no shared
+    staging, 16-byte loads, one __syncthreads for the span and one for
+    V's sum); kernel 10 streams x by TMA through hopper.cuh's swizzled
+    tensor map and mbarriers, with no atomics."""
+    import re
+    from moka_tpu_torch import kernels
+    rank = (kernels.CSRC / "flash_rank.cu").read_text()
+    fwd = rank[rank.index("flash_rank_fwd_kernel(const float*"):
+               rank.index("flash_rank_dq_kernel(const float*")]
+    fwd = re.sub(r"//[^\n]*", "", fwd)
+    assert "stage<" not in fwd and fwd.count("__syncthreads()") == 2
+    assert "__reduce_min_sync" in fwd and "load_row<HD>" in fwd
+    bd = re.sub(r"//[^\n]*", "", (kernels.CSRC / "block_diag.cu")
+                .read_text())
+    assert "tma_load_4d" in bd and "swizzled_map" in bd
+    assert "mbar_wait" in bd and "atomic" not in bd
+
+
 @pytest.mark.parametrize("name", sorted(__import__(
     "moka_tpu_torch.kernels", fromlist=["SOURCES"]).SOURCES))
 def test_each_source_keys_only_its_library(tmp_path, name):

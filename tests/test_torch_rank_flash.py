@@ -147,6 +147,113 @@ def test_rank_flash_matches_jax_kernels(L, hd, bwd_blocks):
             fa.flash_rank_bwd_dkv.launches) == (0, 0, 0)
 
 
+L_LAYOUT = 64  # four of JAX's 16-key forward blocks
+KEY_LAYOUTS = {  # name: (key spans, q_offset, causal)
+    "span in the last key block": (((50, 62),), 0, False),
+    "span across a block boundary": (((12, 21),), 0, False),
+    "two spans": (((3, 7), (40, 50)), 0, False),
+    "causal, rows before the first visible key": (((30, 40), (50, 56)), 8,
+                                                  True)}
+
+
+@pytest.mark.parametrize("bwd_blocks", [64, 16])
+@pytest.mark.parametrize("layout", list(KEY_LAYOUTS))
+def test_rank_route_key_layouts_match_jax(layout, bwd_blocks):
+    """The rank route (``flash_mha``: fp32, one head of head_dim 4)
+    against JAX's ``flash_mha`` in interpret mode (16-row forward blocks;
+    the fused backward at 64, the dq + dkv pair at 16) on the key layouts
+    the card's forward walks by their visible span: out and lse on the
+    rows that see a key, dq/dk/dv on every row (zero where a row sees no
+    key).  The second sample's first key is masked, a hole in its span.
+    A row that sees no key reads the mean of V over all S keys, the
+    port's contract (JAX's causal kernel averages only the key blocks it
+    visits, so those rows are not compared with it)."""
+    spans, q_offset, causal = KEY_LAYOUTS[layout]
+    rng = np.random.default_rng(11)
+    b, L, hd = 2, L_LAYOUT, 4
+    q, k, v, dout = (rng.standard_normal((b, L, 1, hd)).astype(np.float32)
+                     for _ in range(4))
+    mask = np.zeros((b, L), np.float32)
+    for start, stop in spans:
+        mask[:, start:stop] = 1
+    mask[1, spans[0][0]] = 0
+    keys = np.arange(L)
+    seen = (mask[:, None, :] > 0) & (
+        keys[:, None] + q_offset >= keys[None, :] if causal else
+        np.ones((L, L), bool))
+    rows = seen.any(axis=-1)  # (b, L): the rows that see a key
+    assert rows.any() and (rows.all() != causal)
+
+    def jf(q_, k_, v_):
+        return jfa.flash_mha(q_, k_, v_, jnp.asarray(mask), q_offset,
+                             causal=causal, block_q=16, block_k=16,
+                             bwd_block_q=bwd_blocks, bwd_block_k=bwd_blocks,
+                             interpret=True)
+
+    def fwd_bwd(*args):
+        out, vjp = jax.vjp(jf, *args)
+        return out, vjp(jnp.asarray(dout))
+
+    want, jgrads = jax.jit(fwd_bwd)(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    got = fa.flash_mha(tq, tk, tv, torch.tensor(mask), q_offset,
+                       causal=causal)
+    np.testing.assert_allclose(got.detach().numpy()[rows],
+                               np.asarray(want)[rows], **TOL)
+    mean_v = np.broadcast_to(v.mean(axis=1, keepdims=True), v.shape)
+    np.testing.assert_allclose(got.detach().numpy()[~rows], mean_v[~rows],
+                               **TOL)
+    tgrads = torch.autograd.grad(got, (tq, tk, tv), torch.tensor(dout))
+    for n, g, w in zip("qkv", tgrads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=n,
+                                   **GRAD)
+    assert not tgrads[0].numpy()[~rows].any()
+    _, lse = fa.flash_fwd(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          torch.tensor(mask), q_offset, causal)
+    _, jlse = jfa._flash_fwd_res(
+        *(jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v)),
+        jnp.asarray(mask), q_offset, causal, 1.0 / np.sqrt(hd), 16, 16, True)
+    np.testing.assert_allclose(lse.numpy()[:, 0][rows],
+                               np.asarray(jlse)[:, 0][rows], **TOL)
+    assert (lse.numpy()[:, 0][~rows] <= -1e29).all()
+
+
+def test_rank_inputs_pass_ready_tensors_through_and_check_the_rest():
+    """The rank wrappers' input check (``_rank_inputs``, run before each of
+    the three kernels): an fp32 q, k, v and an int32 contiguous mask on
+    q's device come back as the same tensors, uncopied and uncast; a float
+    or strided mask is cast once; a wrong dtype, head count, head_dim,
+    mask shape, lse shape or a misaligned tensor raises."""
+    rng = np.random.default_rng(12)
+    q, k, v, dout = (torch.tensor(rng.standard_normal((2, 24, 1, 4)),
+                                  dtype=torch.float32) for _ in range(4))
+    mask = torch.ones((2, 24), dtype=torch.int32)
+    ins = fa._rank_inputs(q, k, v, mask)
+    assert all(a is b for a, b in zip(ins, (q, k, v, mask)))
+    lse = torch.zeros((2, 1, 24))
+    ins = fa._rank_inputs(q, k, v, mask, dout, lse, lse)
+    assert len(ins) == 7 and ins[4] is dout and ins[5] is lse
+    for other in (mask.float(), torch.ones((24, 2), dtype=torch.int32).t()):
+        m = fa._rank_inputs(q, k, v, other)[3]
+        assert m.dtype == torch.int32 and m.is_contiguous()
+        assert torch.equal(m, mask)
+    with pytest.raises(TypeError, match="v is torch.float64"):
+        fa._rank_inputs(q, k, v.double(), mask)
+    with pytest.raises(ValueError, match="one head of head_dim"):
+        fa._rank_inputs(q[..., :3], k[..., :3], v[..., :3], mask)
+    with pytest.raises(ValueError, match="one head of head_dim"):
+        fa._rank_inputs(q.expand(2, 24, 2, 4), k, v, mask)
+    with pytest.raises(ValueError, match="attn_mask"):
+        fa._rank_inputs(q, k, v, mask[:, :-1])
+    with pytest.raises(ValueError, match="dout"):
+        fa._rank_inputs(q, k, v, mask, dout[:, :-1], lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa._rank_inputs(q, k, v, mask, dout, lse[..., :-1], lse)
+    flat = torch.zeros(2 * 24 * 4 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._rank_inputs(flat[1:].view(2, 24, 1, 4), k, v, mask)
+
+
 def test_fully_masked_rows_equal_the_plain_mean_and_send_nothing_back():
     """The rank route's contract on a row that sees no key: the mean of V
     over all S keys (what the kernels, visiting every key tile, also
