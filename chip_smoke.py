@@ -7,15 +7,17 @@ Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel) and, beside them, the
-     deliberate faults RANK_MUTANTS and BD_MUTANTS (edited copies of the
-     rank forward's and kernel 10's sources), print ptxas's resource
-     lines and the SASS counts of the flash kernels, the fused CE pair,
-     the rank kernels and kernel 10 (``cuobjdump -sass``: a forward
-     instance, the dq kernel or a key-major backward kernel without HGMMA
-     or UTMALDG or with HMMA, the fused backward without its bulk
-     reduction, kernel 9 without HGMMA, UTMALDG or a bulk reduction or
-     with HMMA, or an instance of kernel 10 without UTMALDG fails the
-     phase; kernel 8 keeps mma.sync, the rank kernels are fp32 SIMT);
+     deliberate faults RANK_MUTANTS, BD_MUTANTS and MOKA_MUTANTS (edited
+     copies of the rank forward's, kernel 10's and kernel 5's sources),
+     print ptxas's resource lines and the SASS counts of the flash
+     kernels, the fused CE pair, the rank kernels, kernel 10 and kernel 5
+     (``cuobjdump -sass``: a forward instance, the dq kernel or a
+     key-major backward kernel without HGMMA or UTMALDG or with HMMA, the
+     fused backward without its bulk reduction, kernel 9 without HGMMA,
+     UTMALDG or a bulk reduction or with HMMA, an instance of kernel 10
+     without UTMALDG, or an instance of kernel 5's bf16 kernel without
+     HGMMA, UTMALDG or UTMASTG fails the phase; kernel 8 keeps mma.sync,
+     the rank kernels are fp32 SIMT);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -30,7 +32,14 @@ Phases, in order; any failed build, launch or check exits non-zero:
      sees no key), every row that sees no key reading out 0 and lse <=
      -1e29, and launched with causal flipped it must fail the check (its
      yardstick: the faster of SDPA with the boolean mask and with
-     is_causal); the three backward kernels also at S % 128 != 0,
+     is_causal); the fused MokA delta (kernel 5) at ranks 4, 8 and 16,
+     AVT and VT, bf16 and fp32 x, on the serving masks, a question mask
+     with gaps and a row with no question token, more question keys than
+     one shared-memory stage, and phase 12's prefill masks, timed at each
+     rank (the kernel alone in a CUDA graph, and back to back), and
+     launched as each MOKA_MUTANTS fault (the attention term dropped,
+     only the first key chunk walked) it must fail; the three backward
+     kernels also at S % 128 != 0,
      non-causal with padded keys, and on a ring attention key shard at a
      negative q_offset with the global rows' lse and delta (part of the
      shard visible; all of it masked, where dq, dk and dv must be exactly
@@ -40,7 +49,8 @@ Phases, in order; any failed build, launch or check exits non-zero:
      kernels (8-9) on an int8 head at route B's shape and three ragged
      ones (kernel 9 also timed without the wrapper's zero fill and cast);
      the block-diagonal product (kernel 10) at the BOFT merge's three
-     shapes, at b 16, 24 and 32 and with fp32 x, and launched as a mutant
+     shapes, at b 16, 24 and 32 and with fp32 x, 100 launches at b 8
+     with fp32 x all alike, and launched as a mutant
      that reads each block transposed, which must fail (timed cold, x
      rotated past the L2 cache, and warm; library: ``torch.bmm``); the
      rank flash kernels (1-4 at head_dim 4, fp32) at the training step's
@@ -61,7 +71,11 @@ Phases, in order; any failed build, launch or check exits non-zero:
      ``greedy_generate``'s prefill of the whole batch through the kernels
      against the plain path, then ``greedy_generate`` timed for 1 and 32
      new tokens (the latter is the main path: launch counts are zeroed
-     before it and read after);
+     before it and read after); then a rank-8 adapter tree on the same
+     base (what ``moka_tpu/cli/infer.py --lora-r 8`` serves): the prefill
+     logits under the same rule, ``greedy_generate`` and one ``DecodeEngine``
+     request with their defaults, each through kernel 5 (224 launches a
+     prefill);
   5. ``serve_continuous`` over a ``DecodeEngine``: three concurrent
      /generate requests of different prompt buckets and one
      /generate_stream request, each answered with its full token count;
@@ -132,6 +146,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -365,6 +380,28 @@ def check_bd_rank_sass() -> dict:
     return out
 
 
+MOKA_SASS = ("moka_delta_fwd", "moka_delta_kernelILi", 12)  # kernel 5:
+# library, the bf16 kernel's mangled stem, instances (R 4/8/16 x M 1-4)
+
+
+def check_moka_sass() -> dict:
+    """Kernel 5's bf16 path runs its products on wgmma and moves x and the
+    delta by TMA: each of its twelve instances shows HGMMA, UTMALDG and
+    UTMASTG and no HMMA; the key pass and the fp32 path (SIMT) are only
+    printed.  Raises otherwise."""
+    out = sass_counts(MOKA_SASS[0])
+    for fn, c in out.items():
+        log(f"    {MOKA_SASS[0]} SASS {fn}: " +
+            ", ".join(f"{op} {k}" for op, k in c.items()))
+    ks = [c for fn, c in out.items() if MOKA_SASS[1] in fn]
+    if len(ks) != MOKA_SASS[2] or any(
+            c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["UTMASTG"] == 0 or
+            c["HMMA"] for c in ks):
+        raise AssertionError(f"moka_delta_fwd SASS: an instance of the bf16 "
+                             f"kernel lacks wgmma or TMA: {out}")
+    return out
+
+
 # Deliberate faults, each an edited copy of a kernel's source built beside
 # the kernels in phase 2 (profile_port.start_variants) and swapped in for
 # its library in phase 3, where each must fail the check it is run under.
@@ -379,8 +416,16 @@ BD_MUTANTS = {  # block_diag.cu
     "reads the block transposed": [
         ("w[i8][j] = __ldg(bp + i8 * 8 + j);",
          "w[i8][j] = __ldg(bp + j * 8 + i8);")]}
+MOKA_MUTANTS = {  # moka_delta_fwd.cu's bf16 kernel (the main path's)
+    "drops the attention term": [
+        ("          if (w != 0.f) v += w * (a.attn_weight * "
+         "att[(jm * TOK + t) * R + r]);", "          (void)w;")],
+    "walks only the first key chunk": [
+        ("      for (int c0 = 0; c0 < n_q; c0 += C::KCAP) {",
+         "      for (int c0 = 0; c0 < min(n_q, C::KCAP); c0 += C::KCAP) {")]}
 MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu", RANK_MUTANTS),
-                  "block_diag": ("block_diag.cu", BD_MUTANTS)}
+                  "block_diag": ("block_diag.cu", BD_MUTANTS),
+                  "moka_delta_fwd": ("moka_delta_fwd.cu", MOKA_MUTANTS)}
 MUTANTS: dict = {}  # library name: {fault: loaded library}, after phase 2
 
 
@@ -390,9 +435,13 @@ def swapped_library(name, lib):
     copy of its source."""
     from moka_tpu_torch.ops import fbd
     from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops import moka_pallas as mp
     if name == "block_diag":
         kept = fbd._library()
         fbd._lib = fbd.bind(lib)
+    elif name == "moka_delta_fwd":
+        kept = mp._library()
+        mp._lib = mp.bind(lib)
     else:
         kept = fa._library(name)
         fa._libs[name] = fa.bind(name, lib)
@@ -401,6 +450,8 @@ def swapped_library(name, lib):
     finally:
         if name == "block_diag":
             fbd._lib = kept
+        elif name == "moka_delta_fwd":
+            mp._lib = kept
         else:
             fa._libs[name] = kept
 
@@ -875,32 +926,64 @@ def flash_bwd_records() -> list[dict]:
     return records
 
 
-def moka_inputs(b, L, d_in, d_out, flavour, dtype, seed):
+MOKA_RANKS = (4, 8, 16)  # the ranks kernel 5 is built for
+
+
+def moka_inputs(b, L, d_in, d_out, flavour, dtype, seed, rank=4,
+                qspans=None, no_question_row=False):
+    """Random x (N(0, 1) in ``dtype``), Kaiming-uniform fp32 A and B ~ N(0,
+    0.02^2) at ``rank`` with ``avt_masks``'s layout; ``qspans``: the
+    question spans instead of [2, 130); ``no_question_row``: the last row
+    has no question token."""
     import torch
     from moka_tpu_torch.ops.moka import MokaSpec
     g = torch.Generator(device="cuda").manual_seed(seed)
-    spec = (MokaSpec.avt(rank=4, dropout_rate=0.0) if flavour == "avt"
-            else MokaSpec.vt(rank=4, dropout_rate=0.0))
+    spec = (MokaSpec.avt(rank=rank, dropout_rate=0.0) if flavour == "avt"
+            else MokaSpec.vt(rank=rank, dropout_rate=0.0))
     M = spec.num_modalities
     x = torch.randn((b, L, d_in), generator=g, device="cuda").to(dtype)
     bound = 1.0 / math.sqrt(d_in)
-    a = torch.rand((M, d_in, 4), generator=g, device="cuda") * 2 * bound \
+    a = torch.rand((M, d_in, rank), generator=g, device="cuda") * 2 * bound \
         - bound
-    bm = torch.randn((4, d_out), generator=g, device="cuda") * 0.02
+    bm = torch.randn((rank, d_out), generator=g, device="cuda") * 0.02
     mod, qm = avt_masks(b, L, M)
+    if qspans is not None:
+        qm.zero_()
+        for lo, hi in qspans:
+            qm[:, lo:hi] = 1
+    if no_question_row:
+        qm[-1] = 0
     return x, a, bm, mod, qm, spec
+
+
+def check_moka(what, x, a, bm, mod, qm, spec) -> float:
+    """Kernel 5 against its plain version under MOKA_TOL (of max|plain|,
+    in x's type); max|err|.  Raises AssertionError past the limit."""
+    import torch
+    from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
+                                                moka_delta_fused_plain)
+    got = moka_delta_fused(x, a, bm, mod, qm, spec)
+    torch.cuda.synchronize()
+    ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
+    scale = float(ref.float().abs().max())
+    d = float((got.float() - ref.float()).abs().max())
+    tol = MOKA_TOL[str(x.dtype).split(".")[1]]
+    log(f"  moka {what}: max|err| {d:.3e}, max|plain| {scale:.3e}, rel "
+        f"{d / scale:.3e} (tol {tol})")
+    if not d <= tol * scale:
+        raise AssertionError(f"fused MokA kernel disagrees with its plain "
+                             f"version: {what}")
+    return d
 
 
 def mm_prefill_checks(records, new_tokens=32) -> None:
     """Kernels 1 and 5 at the exact prefill shape of phase 12's batch
     (``mm_batch(mm_config(), 8)``: its length, its own left pads, its
     modality and question masks), on random q/k/v, x, A and B, against
-    their plain versions under phase 3's limits; the records' max_abs_err
-    take the larger error."""
+    their plain versions under phase 3's limits, kernel 5 at every rank
+    it takes; the records' max_abs_err take the larger error."""
     import torch
     import torch.nn.functional as F
-    from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
-                                                moka_delta_fused_plain)
     ucfg = mm_config()
     cfg, spec = ucfg.llama, ucfg.spec
     batch = mm_batch(ucfg, 8)
@@ -918,30 +1001,22 @@ def mm_prefill_checks(records, new_tokens=32) -> None:
                                           err)
     mod, qm = batch["modality_masks"], batch["question_mask"]
     g = torch.Generator(device="cuda").manual_seed(21)
-    for d_in, d_out in sorted({(cfg.dim, cfg.dim),
-                               (cfg.dim, cfg.intermediate),
-                               (cfg.intermediate, cfg.dim)}):
-        x = torch.randn((b, L, d_in), generator=g,
-                        device="cuda").bfloat16()
-        bound = 1.0 / math.sqrt(d_in)
-        a = torch.rand((3, d_in, spec.rank), generator=g,
-                       device="cuda") * 2 * bound - bound
-        bm = torch.randn((spec.rank, d_out), generator=g,
-                         device="cuda") * 0.02
-        got = moka_delta_fused(x, a, bm, mod, qm, spec)
-        torch.cuda.synchronize()
-        ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
-        scale = float(ref.float().abs().max())
-        d = float((got.float() - ref.float()).abs().max())
-        tol = MOKA_TOL["bfloat16"]
-        log(f"  moka multimodal prefill bf16 {d_in}->{d_out}: max|err| "
-            f"{d:.3e}, max|plain| {scale:.3e}, rel {d / scale:.3e} (tol "
-            f"{tol})")
-        if not d <= tol * scale:
-            raise AssertionError("fused MokA kernel disagrees with its plain "
-                                 "version at phase 12's prefill masks")
-        rec["moka_delta_fwd"]["max_abs_err"] = max(
-            rec["moka_delta_fwd"]["max_abs_err"], d)
+    for rank in MOKA_RANKS:
+        rspec = dataclasses.replace(spec, rank=rank)
+        for d_in, d_out in sorted({(cfg.dim, cfg.dim),
+                                   (cfg.dim, cfg.intermediate),
+                                   (cfg.intermediate, cfg.dim)}):
+            x = torch.randn((b, L, d_in), generator=g,
+                            device="cuda").bfloat16()
+            bound = 1.0 / math.sqrt(d_in)
+            a = torch.rand((3, d_in, rank), generator=g,
+                           device="cuda") * 2 * bound - bound
+            bm = torch.randn((rank, d_out), generator=g,
+                             device="cuda") * 0.02
+            d = check_moka(f"multimodal prefill r{rank} bf16 "
+                           f"{d_in}->{d_out}", x, a, bm, mod, qm, rspec)
+            rec["moka_delta_fwd"]["max_abs_err"] = max(
+                rec["moka_delta_fwd"]["max_abs_err"], d)
     del batch
 
 
@@ -962,60 +1037,117 @@ def avt_masks(b, L, M, n_valid=None):
     return mod, qm
 
 
+MOKA_SPLIT_Q = ((2, 40), (70, 71), (100, 164))  # a question mask with gaps
+MOKA_KCAP = {4: 1024, 8: 512, 16: 256}  # keys kernel 5 stages at once
+
+
 def moka_record(b, L, dim, inter) -> dict:
+    """Kernel 5 against its plain version (``check_moka``) at the serving
+    prefill (b, L) for each distinct projection shape at ranks 4, 8 and
+    16, AVT and VT, bf16 and fp32 x; then at each rank with a question
+    mask that is not contiguous and a row with no question token, and with
+    more question keys than one shared-memory stage holds (MOKA_KCAP);
+    launched as each MOKA_MUTANTS fault it must fail.  Timed at each rank
+    over the seven projections of a layer (AVT, bf16): the kernel alone
+    (a CUDA graph of launches; x, 59-158 MB, overflows the L2) and the
+    wrapper back to back; at rank 4 also the plain version."""
     import torch
     from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
                                                 moka_delta_fused_plain)
+    from profile_port import graph_ms
     shapes = {"q": (dim, dim), "k": (dim, dim), "v": (dim, dim),
               "o": (dim, dim), "gate": (dim, inter), "up": (dim, inter),
               "down": (inter, dim)}
     err = 0.0
     for i, (d_in, d_out) in enumerate(sorted(set(shapes.values()))):
-        for flavour in ("avt", "vt"):
-            for dtype in (torch.bfloat16, torch.float32):
-                x, a, bm, mod, qm, spec = moka_inputs(b, L, d_in, d_out,
-                                                      flavour, dtype, 10 + i)
-                got = moka_delta_fused(x, a, bm, mod, qm, spec)
-                torch.cuda.synchronize()
-                ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
-                scale = float(ref.float().abs().max())
-                d = float((got.float() - ref.float()).abs().max())
-                tol = MOKA_TOL[str(dtype).split(".")[1]]
-                log(f"  moka {flavour} {str(dtype)[6:]} {d_in}->{d_out}: "
-                    f"max|err| {d:.3e}, max|plain| {scale:.3e}, "
-                    f"rel {d / scale:.3e} (tol {tol})")
-                if not d <= tol * scale:
-                    raise AssertionError("fused MokA kernel disagrees with "
-                                         "its plain version")
-                if dtype == torch.bfloat16 and flavour == "avt":
-                    err = max(err, d)
-    ms = plain_ms = bms = ops_total = bytes_total = 0.0
-    for name, (d_in, d_out) in shapes.items():
-        x, a, bm, mod, qm, spec = moka_inputs(b, L, d_in, d_out, "avt",
-                                              torch.bfloat16, 20)
-        t = time_ms(lambda: moka_delta_fused(x, a, bm, mod, qm, spec))
-        tp = time_ms(lambda: moka_delta_fused_plain(x, a, bm, mod, qm, spec))
-        n_b = nbytes(x, a, bm, mod, qm) + b * L * d_out * x.element_size()
-        nq = float(qm.sum(dim=-1).max())
-        n_ops = (2.0 * b * L * d_in * 3 * 4 + 2.0 * b * L * 4 * d_out
-                 + 2 * 4.0 * b * L * nq * 4)
-        one, by = bound_ms(n_b, n_ops, FP32_FLOPS)
-        log(f"  moka timing {name} {d_in}->{d_out} (b {b}, L {L}, bf16, "
-            f"AVT): kernel {t:.4f} ms, plain {tp:.4f} ms, bound {one:.4f} ms "
-            f"({by})")
-        ms, plain_ms, bms = ms + t, plain_ms + tp, bms + one
-        ops_total += n_ops
-        bytes_total += n_b
-    _, by = bound_ms(bytes_total, ops_total, FP32_FLOPS)
+        for rank in MOKA_RANKS:
+            for flavour in ("avt", "vt"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    args = moka_inputs(b, L, d_in, d_out, flavour, dtype,
+                                       10 + i, rank)
+                    d = check_moka(f"{flavour} r{rank} {str(dtype)[6:]} "
+                                   f"{d_in}->{d_out}", *args)
+                    if dtype == torch.bfloat16:
+                        err = max(err, d)
+    for rank in MOKA_RANKS:
+        for flavour, dtype in (("avt", torch.bfloat16),
+                               ("avt", torch.float32),
+                               ("vt", torch.bfloat16)):
+            d = check_moka(
+                f"{flavour} r{rank} {str(dtype)[6:]} question spans "
+                f"{MOKA_SPLIT_Q}, last row none",
+                *moka_inputs(4, L, dim, dim, flavour, dtype, 30 + rank,
+                             rank, MOKA_SPLIT_Q, no_question_row=True))
+            if dtype == torch.bfloat16:
+                err = max(err, d)
+        n_q = MOKA_KCAP[rank] + 44
+        for dtype in (torch.bfloat16, torch.float32):
+            d = check_moka(
+                f"avt r{rank} {str(dtype)[6:]} {n_q} question keys",
+                *moka_inputs(2, 2 * n_q + 64, dim, dim, "avt", dtype,
+                             40 + rank, rank, ((1, 1 + n_q),)))
+            if dtype == torch.bfloat16:
+                err = max(err, d)
+    for what, lib in MUTANTS["moka_delta_fwd"].items():
+        with swapped_library("moka_delta_fwd", lib):
+            must_fail(f"kernel 5 mutant ({what})", lambda: check_moka(
+                f"mutant ({what}) r16 bf16 {MOKA_KCAP[16] + 44} question "
+                f"keys", *moka_inputs(2, 2 * MOKA_KCAP[16] + 152, dim, dim,
+                                      "avt", torch.bfloat16, 56, 16,
+                                      ((1, MOKA_KCAP[16] + 45),))))
+    by_rank = {}
+    plain_ms = 0.0
+    for rank in MOKA_RANKS:
+        t = {"ms": 0.0, "back_to_back_ms": 0.0, "bound_ms": 0.0}
+        n_bytes = n_ops = 0.0
+        for name, (d_in, d_out) in shapes.items():
+            x, a, bm, mod, qm, spec = moka_inputs(
+                b, L, d_in, d_out, "avt", torch.bfloat16, 20, rank)
+
+            def call():
+                moka_delta_fused(x, a, bm, mod, qm, spec)
+
+            one = {"ms": graph_ms(call, n=20),
+                   "back_to_back_ms": time_ms(call)}
+            if rank == 4:
+                plain_ms += time_ms(lambda: moka_delta_fused_plain(
+                    x, a, bm, mod, qm, spec))
+            nb = nbytes(x, a, bm, mod, qm) + b * L * d_out * x.element_size()
+            nq = float(qm.sum(dim=-1).max())
+            # the products as the kernel issues them on the tensor cores
+            # (A and B split into bf16 halves: 2*M*r columns down, 3r deep
+            # up), the attention in fp32: 2 attention streams x n_q keys
+            tc = 2.0 * b * L * (d_in * 2 * 3 * rank + d_out * 3 * rank)
+            fp = 2.0 * b * L * nq * 2 * 2 * rank
+            one["bound_ms"], _ = bound_ms(nb, tc, BF16_FLOPS,
+                                          (fp, FP32_FLOPS))
+            log(f"  moka timing r{rank} {name} {d_in}->{d_out} (b {b}, L "
+                f"{L}, bf16, AVT): kernel alone {one['ms']:.4f} ms, back to "
+                f"back {one['back_to_back_ms']:.4f} ms, bound "
+                f"{one['bound_ms']:.4f} ms")
+            for k in t:
+                t[k] += one[k]
+            n_bytes += nb
+            n_ops = max(n_ops, tc / BF16_FLOPS + fp / FP32_FLOPS)
+            del x
+        t["bound_by"] = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops \
+            else "operations"
+        by_rank[rank] = t
+        log(f"  moka r{rank}, a layer: kernel alone {t['ms']:.4f} ms, back "
+            f"to back {t['back_to_back_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return {"name": "moka_delta_fwd", "route": "cuda",
             "source": "moka_tpu_torch/kernels/csrc/moka_delta_fwd.cu",
             "replaces": "moka_tpu/ops/moka_pallas.py:35",
             "launches": None, "max_abs_err": err,
-            "tolerance": MOKA_TOL["bfloat16"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "tolerance": MOKA_TOL["bfloat16"], "ms": by_rank[4]["ms"],
+            "back_to_back_ms": by_rank[4]["back_to_back_ms"],
+            "plain_ms": plain_ms, "bound_ms": by_rank[4]["bound_ms"],
+            "bound_by": by_rank[4]["bound_by"], "library_ms": None,
+            "by_rank": by_rank,
             "shape": f"b {b} L {L} bf16 AVT r4, one layer: the seven "
-                     f"projections summed"}
+                     f"projections summed, the kernel alone in a CUDA "
+                     f"graph (by_rank: r4, r8, r16)"}
 
 
 DROP_RATE = 0.05   # the training path's LoRA dropout
@@ -1418,11 +1550,37 @@ def check_block_diag(blocks, x) -> tuple[float, float]:
     return d, tol
 
 
+BD_REPEAT = (1, 512, 8, 4096)  # kernel 10's fp32 path at b 8, where a race
+BD_REPEATS = 100               # between a warp's reads of a stage and the
+                               # next TMA write into it showed in about one
+                               # launch in twenty before the stage release
+                               # fenced the async proxy
+
+
+def repeat_block_diag(blocks, x) -> None:
+    """Kernel 10 launched BD_REPEATS times on the same input: every result
+    must equal the first (the kernel is deterministic) and the plain
+    version (``check_block_diag``'s limit).  Raises otherwise."""
+    import torch
+    from moka_tpu_torch.ops import fbd
+    check_block_diag(blocks, x)
+    first = fbd.block_diag_matmul(blocks, x)
+    bad = sum(not torch.equal(fbd.block_diag_matmul(blocks, x), first)
+              for _ in range(BD_REPEATS))
+    log(f"  block_diag {tuple(blocks.shape)} x {tuple(x.shape)} "
+        f"{str(x.dtype)[6:]}: {BD_REPEATS} more launches, {bad} differ from "
+        f"the first")
+    if bad:
+        raise AssertionError(f"kernel 10 is not deterministic: {bad} of "
+                             f"{BD_REPEATS} launches differ")
+
+
 def block_diag_records() -> list[dict]:
     """Kernel 10 against the plain einsum on bf16 W and orthogonal fp32
     blocks (Cayley of N(0, 0.1^2)) at the merge's three shapes and at
-    BD_EXTRA (b 16, 24, 32; fp32 x), within ``check_block_diag``'s limits;
-    launched as the mutant that reads each block transposed it must fail.
+    BD_EXTRA (b 16, 24, 32; fp32 x), within ``check_block_diag``'s limits,
+    and BD_REPEATS launches at BD_REPEAT all alike; launched as the mutant
+    that reads each block transposed it must fail.
     Each merge shape timed: cold (a CUDA graph of launches over x buffers
     that together exceed 3x the L2 cache: the bound's case, each input
     read from HBM), warm (a graph on one x, and the wrapper back to back
@@ -1445,6 +1603,7 @@ def block_diag_records() -> list[dict]:
     n_bytes = n_ops = 0.0
     for shape, dtype in BD_EXTRA:
         check_block_diag(*case(*shape, getattr(torch, dtype)))
+    repeat_block_diag(*case(*BD_REPEAT, torch.float32))
     for what, lib in MUTANTS["block_diag"].items():
         blocks, x = case(*BD_SHAPES[0][0], torch.bfloat16)
         with swapped_library("block_diag", lib):
@@ -1828,6 +1987,63 @@ def main_path(gen, batch: int, new_tokens: int, vocab: int, want: dict,
     return {"launches": launches, "prefill_ms": prefill_s * 1e3,
             "decode_ms": (total_s - prefill_s) * 1e3, "decode_tok_s": tps,
             "total_ms": total_s * 1e3}
+
+
+OTHER_RANK = 8  # what moka_tpu/cli/infer.py --lora-r 8 serves on the TPU
+
+
+def serve_other_rank(cfg, base, inputs, new_tokens,
+                     rank=OTHER_RANK) -> dict:
+    """A rank-``rank`` MokA AVT adapter tree (B seeded non-zero) on phase
+    4's base: the prefill logits under phase 4's rule through both
+    kernels (``check_logits``), then ``greedy_generate`` and one
+    ``DecodeEngine`` request (the first prompt), each with its defaults,
+    which must take kernel 5 (224 launches a prefill) and return every
+    token."""
+    import torch
+    from moka_tpu_torch.eval.engine import DecodeEngine
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.moka import MokaSpec
+    spec = MokaSpec.avt(rank=rank, dropout_rate=0.0)
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+    for p in adapters["layers"].values():
+        p["b"].normal_(0.0, 0.02, generator=g)
+    check_logits(cfg, spec, base, adapters, inputs, new_tokens)
+    want = _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers)
+    b = inputs["inputs_embeds"].shape[0]
+    with torch.inference_mode():
+        _zero_counts()
+        toks = generate(cfg, spec, base, adapters, inputs, new_tokens)
+        torch.cuda.synchronize()
+        gen_launches = _counts()
+    if gen_launches != want or tuple(toks.shape) != (b, new_tokens):
+        raise AssertionError(f"rank {rank} greedy_generate: launches "
+                             f"{gen_launches}, tokens {tuple(toks.shape)}")
+    L = inputs["prompt_mask"].shape[1]
+    engine = DecodeEngine(base, adapters, cfg=cfg, spec=spec, n_slots=1,
+                          cache_capacity=L + new_tokens, eos_id=-1,
+                          cache_dtype=base["embed"].dtype)
+    masks = inputs["masks"]
+    _zero_counts()
+    done = engine.submit(
+        inputs["inputs_embeds"][:1],
+        inputs["prompt_mask"][:1].float().cpu().numpy(),
+        masks=llama.MaskBundle(masks.modality[:, :1], masks.question[:1]),
+        max_new_tokens=new_tokens)
+    with torch.inference_mode():
+        engine.run_until_drained()
+    out = done.get(timeout=600)
+    eng_launches = _counts()
+    log(f"  rank {rank}: greedy_generate b {b} launches "
+        f"{ {k: v for k, v in gen_launches.items() if v} }; DecodeEngine "
+        f"(fused delta {engine.use_fused_moka}) {len(out)} tokens, launches "
+        f"{ {k: v for k, v in eng_launches.items() if v} }")
+    if eng_launches != want or len(out) != new_tokens:
+        raise AssertionError(f"rank {rank} DecodeEngine: launches "
+                             f"{eng_launches}, {len(out)} tokens")
+    return {"rank": rank, "generate_launches": gen_launches,
+            "engine_launches": eng_launches, "engine_tokens": len(out)}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -3046,6 +3262,7 @@ def main() -> int:
     check_flash_sass()
     check_ce_sass()
     check_bd_rank_sass()
+    check_moka_sass()
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)
@@ -3070,6 +3287,9 @@ def main() -> int:
         new_tokens, cfg.vocab_size,
         _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers),
         f"greedy_generate b {batch} prompt {prompt_len}")
+    log(f"  a rank-{OTHER_RANK} adapter tree on the same base, "
+        f"with the decode paths' defaults")
+    other_rank = serve_other_rank(cfg, base, inputs, new_tokens)
 
     log("[5] HTTP serving over the continuous-batching engine")
     served = serve_requests(cfg, spec, base, adapters, new_tokens=new_tokens)
@@ -3170,6 +3390,8 @@ def main() -> int:
     mm_train = mm_steps(ucfg, mfrozen, mtrain)
 
     paths = {"serving main path (greedy_generate)": timings["launches"],
+             "rank-8 serving (greedy_generate)":
+                 other_rank["generate_launches"],
              "training step": train["launches_per_step"],
              "long-context training step": long_step["launches"],
              "fused-dropout training step (proj_lse)":
@@ -3201,7 +3423,8 @@ def main() -> int:
         rec["launches_path"] = own[rec["name"]]
         rec["launches_by_path"] = {p: c.get(rec["name"], 0) for p, c in
                                    paths.items()}
-    log(json.dumps({"main_path": timings, "serving": served,
+    log(json.dumps({"main_path": timings, "rank8_serving": other_rank,
+                    "serving": served,
                     "train_check": train_check, "train": train,
                     "long_context": long_step, "fused_check": fused_check,
                     "fused_train": fused, "policy_ladder": ladder,

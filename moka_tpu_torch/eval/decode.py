@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from moka_tpu_torch.core.config import LlamaConfig
 from moka_tpu_torch.models import llama
 from moka_tpu_torch.ops.moka import MokaSpec
+from moka_tpu_torch.ops.moka_pallas import fused_moka_supported
 
 
 def positions_from_mask(attn_mask: torch.Tensor) -> torch.Tensor:
@@ -32,6 +33,21 @@ def paged_decode_auto(cfg: LlamaConfig, capacity: int,
 
 def _on_card(t: torch.Tensor, flag: bool | None) -> bool:
     return t.device.type == "cuda" if flag is None else flag
+
+
+def fused_moka_route(device: torch.device, flag: bool | None,
+                     cfg: LlamaConfig, spec: MokaSpec | None) -> bool:
+    """``use_fused_moka``'s route, chosen before any launch: a flag the
+    caller set stands (True with a spec the kernel does not take raises at
+    the first prefill); None takes the fused kernel on the card for a spec
+    and projection widths it takes (``moka_pallas.fused_moka_supported``),
+    and the unfused ``moka_delta`` for any other, as the JAX decode always
+    runs it."""
+    if flag is not None:
+        return flag
+    return device.type == "cuda" and all(
+        fused_moka_supported(spec, d_in, d_out)
+        for d_in, d_out in llama._proj_shapes(cfg).values())
 
 
 def prefill(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask, masks,
@@ -111,8 +127,9 @@ def greedy_generate(base: dict, adapters: dict | None, *,
     inputs_embeds (b, L, d); prompt_mask (b, L) 0/1; masks: modality masks
     over the prompt or None.  ``use_flash`` / ``use_fused_moka``: the prefill
     through the flash and fused-MokA kernels; None means on for CUDA tensors
-    (the JAX package leaves the fused delta off by default because its TPU
-    kernel rounds A to bf16; the CUDA kernel is fp32).  Returns
+    (the fused delta only for a spec the kernel takes: ``fused_moka_route``;
+    the JAX package leaves it off by default because its TPU kernel rounds
+    A to bf16; the CUDA kernel keeps A fp32).  Returns
     (b, max_new_tokens) int32, pad_id after eos."""
     if paged_decode is None:
         paged_decode = paged_decode_auto(
@@ -122,7 +139,8 @@ def greedy_generate(base: dict, adapters: dict | None, *,
         prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
         eos_id=eos_id, pad_id=pad_id,
         use_flash=_on_card(inputs_embeds, use_flash),
-        use_fused_moka=_on_card(inputs_embeds, use_fused_moka),
+        use_fused_moka=fused_moka_route(inputs_embeds.device, use_fused_moka,
+                                        cfg, spec),
         paged_decode=paged_decode, kv_quant=kv_quant)
 
 
@@ -158,7 +176,8 @@ def sample_generate(base: dict, adapters: dict | None, *,
         prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
         eos_id=eos_id, pad_id=pad_id,
         use_flash=_on_card(inputs_embeds, use_flash),
-        use_fused_moka=_on_card(inputs_embeds, use_fused_moka),
+        use_fused_moka=fused_moka_route(inputs_embeds.device, use_fused_moka,
+                                        cfg, spec),
         paged_decode=paged_decode, kv_quant=kv_quant, generator=generator,
         temperature=row(temperature, torch.float32),
         top_k=row(top_k, torch.int64), top_p=row(top_p, torch.float32))

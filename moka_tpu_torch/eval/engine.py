@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from moka_tpu_torch.core.config import LlamaConfig
-from moka_tpu_torch.eval.decode import paged_decode_auto
+from moka_tpu_torch.eval.decode import (fused_moka_route,
+                                        paged_decode_auto)
 from moka_tpu_torch.eval.sampling import sample_tokens
 from moka_tpu_torch.models import llama
 from moka_tpu_torch.ops.moka import MokaSpec
@@ -165,7 +166,8 @@ class DecodeEngine:
     n_slots: concurrent decode lanes; cache_capacity: KV cells per lane;
     eos_id / pad_id: termination token / padding of returned sequences;
     use_flash / use_fused_moka: the prefill through the kernels (None = on
-    for a base on the card).  The engine runs on the device of
+    for a base on the card; the fused delta only for a spec the kernel
+    takes, ``decode.fused_moka_route``).  The engine runs on the device of
     ``base["embed"]``."""
 
     def __init__(self, base, adapters, *, cfg: LlamaConfig,
@@ -185,8 +187,7 @@ class DecodeEngine:
         self.device = dev
         on_card = dev.type == "cuda"
         self.use_flash = on_card if use_flash is None else use_flash
-        self.use_fused_moka = on_card if use_fused_moka is None \
-            else use_fused_moka
+        self.use_fused_moka = fused_moka_route(dev, use_fused_moka, cfg, spec)
         if paged_decode is None:
             paged_decode = paged_decode_auto(cfg, cache_capacity,
                                              kv_quant=kv_quant)

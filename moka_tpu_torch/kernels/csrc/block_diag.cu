@@ -220,6 +220,11 @@ __global__ void __launch_bounds__(NT, 2)
           for (int e = 0; e < VEC; ++e)
             acc[i8][e] = fmaf(w[i8][j], xv[e], acc[i8][e]);
       }
+      // the warp's reads of the stage are performed before the producer's
+      // next TMA (async-proxy) write into it: without the proxy fence the
+      // fp32 path at b 8 read a box already overwritten in about one
+      // launch in twenty
+      fence_proxy_async_smem();
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (MAX_STAGES + s));
       const int row = band * sh.tr + warp * 8;
@@ -255,6 +260,7 @@ __global__ void __launch_bounds__(NT, 2)
             store16(yz + static_cast<long>(row + i8) * sh.m + c, acc[i8]);
         }
       }
+      fence_proxy_async_smem();  // as above
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (MAX_STAGES + s));
     }

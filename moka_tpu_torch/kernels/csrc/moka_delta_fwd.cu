@@ -1,184 +1,675 @@
-// Fused MokA adapter delta, forward, for Hopper (sm_90a).
+// Fused MokA adapter delta, forward, for Hopper (sm_90a), at ranks 4, 8 and
+// 16 with up to four modalities.
 //
-// Replaces the TPU kernel moka_tpu/ops/moka_pallas.py::_kernel (launched by
-// _fused_fwd).  For a tile of tokens of one batch row it computes
+// Replaces the TPU kernel moka_tpu/ops/moka_pallas.py::_kernel (:35,
+// launched by _fused_fwd :112).  For a tile of tokens of one batch row it
+// computes
 //   a_i   = (x @ A_i) * mask_i * pre_scale                 for every modality i
 //   buf   = sum_i a_i + sum_{i in attn} mask_i * attn_weight *
 //           softmax(a_i keys^T / sqrt(r), masked to the question) @ keys
 //   delta = (buf @ B) * sum_i mask_i * post_i    (post scaling optional)
 // with one read of x and one write of delta: the (M, b, L, r) rank tensor
 // and the rank-space scores never reach device memory.  The question keys
-//   keys  = (x @ A_0) * mask_0 * qmask * pre_scale          (b, L, r) fp32
-// come from a first, small kernel (question_keys_kernel) that reads x only
-// on question tokens and writes zero keys elsewhere; the JAX code computes
-// them as a plain product over every token.  A row with no question token
-// gets zero attention (the has_q guard).
+//   keys  = (x @ A_0) * mask_0 * qmask * pre_scale           (fp32)
+// at the positions where qmask > 0 come from a first, small kernel, the key
+// pass (question_keys_kernel), which reads x only at those positions and
+// writes each batch row's keys contiguously with their count n_q; the JAX
+// code computes them as a plain product over every token.  A row with no
+// question token gets zero attention (the has_q guard: n_q == 0).
 //
-// All arithmetic is fp32 from x in its storage type (bf16 or fp32); unlike
-// the TPU kernel, A is not rounded to bf16.
-//
-// What bounds it: bytes.  r = 4, so per token it reads d_in values of x and
-// writes d_out values with ~2*M*r flops per input and 2*r per output; at the
-// serving shapes (b 8, L 896, d 4096/11008) x and delta are 59-158 MB and
-// the fp32 work is well under the time the bytes take.  What the design
-// does about it:
-//   * A (M, d_in, r) fp32 is up to 528 KB for the down projection, more
-//     than shared memory, so it is streamed through shared memory in
-//     256-wide chunks of d_in (from L2, where all of it fits) and reused by
-//     the 32 tokens of the tile; the shared copy is padded so the 8 threads
-//     of a token read distinct banks;
-//   * each token's d_in reduction is split over 8 threads; per staged chunk
-//     of A (256 of d_in) each thread has four 16-byte x loads in flight and
-//     loads the next chunk's x while it computes; the 8 partial sums
-//     combine with warp shuffles;
-//   * the rank-space attention splits each (token, modality) pair over 4
-//     threads with an online softmax, merged by shuffles; keys and the
-//     question mask are staged in shared memory 256 positions at a time
-//     and only question positions are scored;
-//   * B (r, d_out) is read per output column pair from L2 and each thread
-//     writes two adjacent outputs for every token of the tile.
-// Not done yet: TMA/cp.async staging, more CTAs in flight per SM.
+// What bounds it: bytes.  At the serving shapes (b 8, L 896, d 4096 and
+// 11008, bf16) x and delta are 59-158 MB a launch, 0.335 ms a layer of seven
+// projections at 3.35 TB/s; the products are 2*(2*M*r) flops a byte of x
+// on the tensor cores and the rank-space attention is n_q keys a token, far
+// under that.  The bf16 path (moka_delta_kernel) streams the bytes:
+//   * persistent CTAs (one an SM) each walk a contiguous run of work items
+//     (batch row, 64-token tile); a producer warp loads x by TMA in boxes
+//     of 64 tokens x 64 d_in (128-byte swizzle, evict_first) into a ring
+//     of up to 8 mbarrier stages, each stage also carrying A's matching 64
+//     rows, and runs on into the next item's x while the consumers do this
+//     item's attention and stores;
+//   * the down product runs on the tensor cores: one consumer warpgroup
+//     issues wgmma m64nNk16 (bf16 in, fp32 accumulate) with N = 2*M*r
+//     columns, every modality's r columns side by side.  A stays fp32 in
+//     effect: the key pass splits it into bf16 halves hi = bf16(A) and
+//     lo = bf16(A - hi), interleaved column by column, and the two
+//     accumulators of a column pair are summed (|A - hi - lo| <= 2^-16 |A|;
+//     x is bf16 and exact).  The TPU kernel rounds A to bf16 instead;
+//   * the attention stages the row's n_q keys in shared memory once per
+//     row (in chunks of KCAP keys where n_q is larger) and walks only them:
+//     two threads a token, each every other key, an online softmax in exp2
+//     for each attention stream the token belongs to, merged by a shuffle;
+//   * the up product buf @ B also runs on the tensor cores, because at
+//     rank 16 its fp32 FMAs (64 tokens x d_out x 16 an item) would take as
+//     long as the item's bytes: wgmma m64n64k16 with buf as the register
+//     operand, split as [hi(buf), hi(buf), lo(buf)] against the rows
+//     [hi(B); lo(B); hi(B)] that the key pass writes (K = 3r padded to 16),
+//     which keeps the product within 2^-16 of fp32; B streams through a
+//     ring of 3-8 stages (36 KB) in chunks of 128 outputs by TMA.  Each
+//     warp scales its 16 rows of a chunk, rounds them to bf16 into its own
+//     128-byte-swizzled staging tile (4 a warp) and stores them by TMA
+//     (rows past L are clipped), with no barrier across the warpgroup, so
+//     the writes overlap the next chunks' products and the next item's
+//     loads;
+//   * the key pass is short: one prefix sum numbers a row's question
+//     tokens, and units of 16 of them x 2048 of d_in (A read once a unit,
+//     a thread's loads of a pass all in flight) spread over one wave of
+//     CTAs; each unit writes partial keys, which the main kernel sums as
+//     it stages them.
+// The fp32 path (moka_delta_kernel_f32, not on any main path) keeps exact
+// fp32 FMAs on the ordinary cores: 32 tokens a CTA, A streamed through
+// shared memory, the same compacted keys.
+// chip_smoke.py prints ptxas's lines and the SASS counts; measured times
+// are in PERF.md.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace moka_hopper;
+
+constexpr int MAXM = 4;              // modalities
+constexpr int SMEM_LIMIT = 232448;   // a CTA's shared memory on sm_90
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Args {
+  const void* x;        // (nb, L, d_in) bf16 or fp32
+  const float* masks;   // (M, nb, L)
+  const float* qmask;   // (nb, L)
+  const float* A;       // (M, d_in, R)
+  const float* Bm;      // (R, d_out)
+  void* out;            // (nb, L, d_out) in x's type
+  float* keys;          // (nb, ds, L, R): a row's n_q keys first, as ds
+                        // partial sums over KEY_DCH-wide chunks of d_in
+  int* nq;              // (nb,)
+  __nv_bfloat16* at;    // (2*M*R, d_in): A's bf16 halves (bf16 path)
+  __nv_bfloat16* bs;    // (KPAD, d_out): [hi(B); lo(B); hi(B); 0] (bf16 path)
+  int nb, L, d_in, d_out, M;
+  int ds;               // the keys' partial sums: ceil(d_in / KEY_DCH)
+  float pre_scale, attn_weight;
+  int attn_bits, has_post;
+  float post[MAXM];
+};
+
+__device__ __forceinline__ float bf16_hi(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 2^x by the SFU (ex2.approx, denormal results flushed to zero); -inf
+// gives +0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------- key pass
+
+constexpr int KP_NT = 256;   // threads of a key-pass CTA
+constexpr int KP_CTAS = 32;  // key-pass CTAs a batch row, at most
+constexpr int KP_RUN = 8;    // question-mask positions a thread counts at once
+constexpr int KP_G = 16;     // question tokens a group
+constexpr int KEY_DCH = 2048;  // d_in a key-pass unit sums over
+
+// the 16 bytes of x at p (8 bf16 or 4 fp32), kept packed
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// element e of a packed 16-byte x slice, as fp32
+__device__ __forceinline__ float element(const uint4& v, int e, __nv_bfloat16) {
+  const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+  return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+}
+
+__device__ __forceinline__ float element(const uint4& v, int e, float) {
+  return __uint_as_float(e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w);
+}
+
+// one step of a reduce-scatter over the first C values: lanes O apart
+// each keep one half of them (the upper lane the upper half), summed with
+// the partner's
+template <int C, int O>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[64], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    const float send = up ? v[i] : v[i + C / 2];
+    const float keep = up ? v[i + C / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// the sums of 64 values over the lanes of a warp that share lane % Q (Q =
+// 1, 2 or 4), scattered: the lane with (lane / Q) = l ends with the sums of
+// v[2 Q l .. 2 Q l + 2 Q) in v[0 .. 2 Q)
+template <int Q>
+__device__ __forceinline__ void warp_reduce_scatter64(float (&v)[64],
+                                                      int lane) {
+  reduce_scatter_step<64, 16>(v, lane);
+  reduce_scatter_step<32, 8>(v, lane);
+  reduce_scatter_step<16, 4>(v, lane);
+  if constexpr (Q < 4) reduce_scatter_step<8, 2>(v, lane);
+  if constexpr (Q < 2) reduce_scatter_step<4, 1>(v, lane);
+}
+
+// A's and B's bf16 halves for the bf16 path's two products, spread over
+// every CTA of the key pass (a grid-stride loop, two elements a step)
+template <int R>
+__device__ void split_operands(const Args& a, int kpad) {
+  const long nt = static_cast<long>(gridDim.x) * gridDim.y * KP_NT;
+  const long first = (static_cast<long>(blockIdx.y) * gridDim.x +
+                      blockIdx.x) * KP_NT + threadIdx.x;
+  const int hd = a.d_in / 2, ho = a.d_out / 2;
+  const long at_pairs = 2L * a.M * R * hd;
+  for (long i = first; i < at_pairs; i += nt) {
+    const int n = static_cast<int>(i / hd), d = static_cast<int>(i % hd) * 2;
+    const int q = n / 2, m = q / R, r = q % R;
+    const float* src = a.A + (static_cast<long>(m) * a.d_in + d) * R + r;
+    float v0 = src[0], v1 = src[R];
+    if (n & 1) {  // lo: what bf16 left of A
+      v0 -= bf16_hi(v0);
+      v1 -= bf16_hi(v1);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(a.at + static_cast<long>(n) * a.d_in +
+                                       d) = __floats2bfloat162_rn(v0, v1);
+  }
+  const long bs_pairs = static_cast<long>(kpad) * ho;
+  for (long i = first; i < bs_pairs; i += nt) {
+    const int k = static_cast<int>(i / ho), o = static_cast<int>(i % ho) * 2;
+    float v0 = 0.f, v1 = 0.f;
+    if (k < 3 * R) {
+      const float* src = a.Bm + static_cast<long>(k % R) * a.d_out + o;
+      v0 = src[0];
+      v1 = src[1];
+      if (k >= R && k < 2 * R) {  // lo(B)
+        v0 -= bf16_hi(v0);
+        v1 -= bf16_hi(v1);
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(a.bs + static_cast<long>(k) * a.d_out +
+                                       o) = __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// Grid (CTAs a row, nb).  Each CTA numbers its row's question positions
+// j = 0..n_q-1 (each thread counts KP_RUN adjacent positions of the mask,
+// one block-wide prefix sum per KP_NT * KP_RUN positions), then takes the
+// work units (group of KP_G question tokens, KEY_DCH-wide chunk of d_in)
+// whose index is its own modulo the CTAs a row: no CTA a token, and the
+// units spread evenly whatever the span's layout.  A thread owns 16 bytes
+// of x a pass (8 bf16 or 4 fp32 of d_in) and four of the r ranks (Q = r / 4
+// threads share a slice), so A is read once a unit and a thread keeps
+// 16 tokens x 4 fp32 sums; the sums are reduced over the warp by a
+// reduce-scatter and over the CTA in shared memory, and a unit writes its
+// chunk's partial keys: the main kernel sums the ds chunks as it stages
+// them.
+template <typename T, int R>
+__global__ void __launch_bounds__(KP_NT)
+    question_keys_kernel(const Args a, int kpad) {
+  constexpr int Q = R / 4;                 // threads a slice (rank quarters)
+  constexpr int VEC = 16 / sizeof(T);      // x elements a slice
+  constexpr int DP = KP_NT / Q * VEC;      // d_in a pass
+  constexpr int WARPS = KP_NT / 32;
+  static_assert(KEY_DCH % DP == 0, "a unit is whole passes");
+  extern __shared__ int pos_list[];
+  __shared__ int wsum[WARPS];
+  __shared__ float red[WARPS][Q][64];
+  if (a.at != nullptr) split_operands<R>(a, kpad);
+  const int k = blockIdx.x, ctas = gridDim.x, bi = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q = tid % Q, sl = tid / Q;  // rank quarter, d slice
+  const float* qrow = a.qmask + static_cast<long>(bi) * a.L;
+  int n_q = 0;
+  for (int p0 = 0; p0 < a.L; p0 += KP_NT * KP_RUN) {
+    const int pb = p0 + tid * KP_RUN;
+    unsigned bits = 0;
+#pragma unroll
+    for (int e = 0; e < KP_RUN; ++e)
+      if (pb + e < a.L && qrow[pb + e] > 0.f) bits |= 1u << e;
+    const int cnt = __popc(bits);
+    int inc = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += v;
+    }
+    if (lane == 31) wsum[warp] = inc;
+    __syncthreads();
+    int j = n_q + inc - cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      j += w < warp ? wsum[w] : 0;
+      total += wsum[w];
+    }
+#pragma unroll
+    for (int e = 0; e < KP_RUN; ++e) {
+      if ((bits >> e) & 1) pos_list[j++] = pb + e;  // the row's positions
+    }
+    n_q += total;
+    __syncthreads();
+  }
+  if (k == 0 && tid == 0) a.nq[bi] = n_q;
+  const T* xb = static_cast<const T*>(a.x) + static_cast<long>(bi) * a.L * a.d_in;
+  const int units = (n_q + KP_G - 1) / KP_G * a.ds;
+  for (int un = k; un < units; un += ctas) {
+    const int j0 = un / a.ds * KP_G, c = un % a.ds;
+    int xo[KP_G];  // the tokens' x rows, as offsets in the row (-1: none)
+#pragma unroll
+    for (int u = 0; u < KP_G; ++u)
+      xo[u] = j0 + u < n_q ? pos_list[j0 + u] * a.d_in : -1;
+    float acc[64];  // token u, rank 4 q + rr at 4 u + rr
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int d = c * KEY_DCH + sl * VEC; d < min(a.d_in, (c + 1) * KEY_DCH);
+         d += DP) {
+      uint4 xv[KP_G];
+#pragma unroll
+      for (int u = 0; u < KP_G; ++u)
+        xv[u] = xo[u] >= 0 ? load16(xb + xo[u] + d) : make_uint4(0u, 0u, 0u, 0u);
+      float4 ar[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        ar[e] = __ldg(reinterpret_cast<const float4*>(
+            a.A + static_cast<long>(d + e) * R + 4 * q));
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int u = 0; u < KP_G; ++u) {
+          const float xe = element(xv[u], e, T());
+          acc[4 * u] = fmaf(xe, ar[e].x, acc[4 * u]);
+          acc[4 * u + 1] = fmaf(xe, ar[e].y, acc[4 * u + 1]);
+          acc[4 * u + 2] = fmaf(xe, ar[e].z, acc[4 * u + 2]);
+          acc[4 * u + 3] = fmaf(xe, ar[e].w, acc[4 * u + 3]);
+        }
+    }
+    warp_reduce_scatter64<Q>(acc, lane);
+#pragma unroll
+    for (int i = 0; i < 2 * Q; ++i) red[warp][q][2 * Q * (lane / Q) + i] = acc[i];
+    __syncthreads();
+    if (tid < KP_G * R && j0 + tid / R < n_q) {
+      const int u = tid / R, r = tid % R;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += red[w][r / 4][4 * u + r % 4];
+      const long row = static_cast<long>(bi) * a.L + pos_list[j0 + u];
+      const float wgt = a.masks[row] * a.qmask[row];  // masks[0]: the text stream
+      a.keys[((static_cast<long>(bi) * a.ds + c) * a.L + j0 + u) * R + r] =
+          s * wgt * a.pre_scale;
+    }
+    __syncthreads();
+  }
+}
+
+// -------------------------------------------------- main kernel, bf16 x
+
+constexpr int TOK = 64;                // tokens an item (one wgmma M)
+constexpr int CONSUMERS = 128;         // one consumer warpgroup
+constexpr int NT = CONSUMERS + 32;     // and one producer warp
+constexpr int BOX = 64 * 128;          // a 64-row box of 128-byte rows
+constexpr int MAX_STAGES = 8;
+constexpr int B_RING = 36 * 1024;      // the up product's B ring, at most
+constexpr int OUT_BUFS = 4;            // output staging tiles a warp
+constexpr int WROWS = 16;              // a consumer warp's rows of a tile
+constexpr int WBOX = WROWS * 128;      // its 64 outputs of them, one box
+constexpr int CHUNK = 128;             // outputs an up-product chunk
+
+template <int R, int M>
+struct Cfg {
+  static constexpr int MR = M * R;
+  static constexpr int N = 2 * MR;                    // down-product columns
+  static constexpr int KPAD = 16 * ((3 * R + 15) / 16);  // up-product depth
+  static constexpr int STAGE = BOX + N * 128;         // x box + A's 64 rows
+  static constexpr int B_BYTES = 2 * KPAD * 128;      // two boxes of 64 outputs
+  static constexpr int B_STAGES =                     // 8 at r 4, 4 at 8, 3 at 16
+      B_RING / B_BYTES < 8 ? B_RING / B_BYTES : 8;
+  static constexpr int OUT_BYTES = 2 * WBOX;          // a warp's 16 x 128 outputs
+  static constexpr int KCAP = 4096 / R;               // keys staged at once
+  // shared memory after the ring: B ring, staging, then fp32 arrays
+  static constexpr int OFF_B = 0;
+  static constexpr int OFF_OUT = OFF_B + B_STAGES * B_BYTES;
+  static constexpr int OFF_ABUF =                                  // [TOK][MR]
+      OFF_OUT + CONSUMERS / 32 * OUT_BUFS * OUT_BYTES;
+  static constexpr int OFF_ATT = OFF_ABUF + TOK * MR * 4;   // [M][TOK][R]
+  static constexpr int OFF_BUF = OFF_ATT + M * TOK * R * 4;     // [TOK][R]
+  static constexpr int OFF_MK = OFF_BUF + TOK * R * 4;      // [MAXM][TOK]
+  static constexpr int OFF_TS = OFF_MK + MAXM * TOK * 4;    // [TOK]
+  static constexpr int OFF_KEYS = OFF_TS + TOK * 4;         // [KCAP][R]
+  static constexpr int OFF_BARS = OFF_KEYS + KCAP * R * 4;
+  static constexpr int TAIL = OFF_BARS + 8 * (2 * MAX_STAGES + 2 * B_STAGES);
+  static_assert(B_STAGES >= 2, "the B ring needs two stages");
+};
+
+struct Shape {
+  int stages;   // x ring depth
+  int tiles;    // token tiles a row
+  int items;    // nb * tiles
+  int kb;       // 64-wide blocks of d_in
+  int chunks;   // CHUNK-wide blocks of d_out
+};
+
+template <int R, int M>
+__global__ void __launch_bounds__(NT, 1)
+    moka_delta_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_at,
+                      const __grid_constant__ CUtensorMap tm_b,
+                      const __grid_constant__ CUtensorMap tm_out,
+                      const Args a, const Shape sh) {
+  using C = Cfg<R, M>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_addr(sm);
+  uint8_t* tail = sm + sh.stages * C::STAGE;
+  const uint32_t tbase = smem_addr(tail);
+  float* abuf = reinterpret_cast<float*>(tail + C::OFF_ABUF);
+  float* att = reinterpret_cast<float*>(tail + C::OFF_ATT);
+  float* buf = reinterpret_cast<float*>(tail + C::OFF_BUF);
+  float* mk = reinterpret_cast<float*>(tail + C::OFF_MK);
+  float* ts = reinterpret_cast<float*>(tail + C::OFF_TS);
+  float* ks = reinterpret_cast<float*>(tail + C::OFF_KEYS);
+  const uint32_t full = tbase + C::OFF_BARS, empty = full + 8 * MAX_STAGES;
+  const uint32_t bfull = empty + 8 * MAX_STAGES, bempty = bfull + 8 * C::B_STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < MAX_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS / 32);
+    }
+    for (int s = 0; s < C::B_STAGES; ++s) {
+      mbar_init(bfull + 8 * s, 1);
+      mbar_init(bempty + 8 * s, CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int i0 = static_cast<int>(static_cast<long>(blockIdx.x) * sh.items / gridDim.x);
+  const int i1 = static_cast<int>(static_cast<long>(blockIdx.x + 1) * sh.items / gridDim.x);
+
+  if (warp == CONSUMERS / 32) {  // the producer
+    if (lane == 0) {
+      const uint64_t first = l2_evict_first(), last = l2_evict_last();
+      int it = 0, jt = 0;
+      for (int item = i0; item < i1; ++item) {
+        const int bi = item / sh.tiles, t0 = (item % sh.tiles) * TOK;
+        for (int kb = 0; kb < sh.kb; ++kb, ++it) {
+          const int s = it % sh.stages;
+          if (it >= sh.stages)
+            mbar_wait(empty + 8 * s, ((it / sh.stages) - 1) & 1);
+          mbar_arrive_expect_tx(full + 8 * s, C::STAGE);
+          tma_load_4d(ring + s * C::STAGE, &tm_x, full + 8 * s, 64 * kb, t0,
+                      bi, 0, first);
+          tma_load_4d(ring + s * C::STAGE + BOX, &tm_at, full + 8 * s,
+                      64 * kb, 0, 0, 0, last);
+        }
+        for (int ch = 0; ch < sh.chunks; ++ch, ++jt) {
+          const int s = jt % C::B_STAGES;
+          if (jt >= C::B_STAGES)
+            mbar_wait(bempty + 8 * s, ((jt / C::B_STAGES) - 1) & 1);
+          // a box wholly past d_out is not loaded (its products are
+          // clipped by the store)
+          const int boxes = CHUNK * ch + 64 < a.d_out ? 2 : 1;
+          mbar_arrive_expect_tx(bfull + 8 * s, boxes * C::KPAD * 128);
+          for (int q = 0; q < boxes; ++q)
+            tma_load_4d(tbase + C::OFF_B + s * C::B_BYTES + q * C::KPAD * 128,
+                        &tm_b, bfull + 8 * s, CHUNK * ch + 64 * q, 0, 0, 0,
+                        last);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread tid holds rows r0 and r0 + 8 of every
+  // wgmma fragment, columns 2 * qd (+1) of each group of 8
+  const int r0 = 16 * warp + lane / 4, qd = lane % 4;
+  const float qk_scale = LOG2E / sqrtf(static_cast<float>(R));
+  int amods[MAXM], na = 0;
+  for (int m = 0; m < M; ++m)
+    if ((a.attn_bits >> m) & 1) amods[na++] = m;
+  int it = 0, jt = 0, key_row = -1;
+  for (int item = i0; item < i1; ++item) {
+    const int bi = item / sh.tiles, t0 = (item % sh.tiles) * TOK;
+    named_bar_sync(1, CONSUMERS);  // the last item's arrays are read
+    for (int i = tid; i < M * TOK; i += CONSUMERS) {
+      const int m = i / TOK, t = i % TOK;
+      mk[m * TOK + t] = t0 + t < a.L
+          ? a.masks[(static_cast<long>(m) * a.nb + bi) * a.L + t0 + t] : 0.f;
+    }
+
+    // ---- a_i = x @ A_i on the tensor cores, hi and lo columns side by side
+    float acc[C::N / 2];
+#pragma unroll
+    for (int i = 0; i < C::N / 2; ++i) acc[i] = 0.f;
+    fence_operand(acc);
+    for (int kb = 0; kb < sh.kb; ++kb, ++it) {
+      const int s = it % sh.stages;
+      mbar_wait(full + 8 * s, (it / sh.stages) & 1);
+      const uint32_t xs = ring + s * C::STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64nN_ss<C::N>(acc, desc_sw128(xs + 32 * kk),
+                             desc_sw128(xs + BOX + 32 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the last stage's products are done
+      if (kb > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((it - 1) % sh.stages));
+    }
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % sh.stages));
+    named_bar_sync(1, CONSUMERS);  // mk written
+#pragma unroll
+    for (int j = 0; j < C::N / 8; ++j) {
+      const int q = 4 * j + qd, m = q / R;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = r0 + 8 * u;
+        abuf[t * C::MR + q] =
+            (acc[4 * j + 2 * u] + acc[4 * j + 2 * u + 1]) * mk[m * TOK + t] *
+            a.pre_scale;
+      }
+    }
+    if (tid < TOK) {
+      float p = 1.f;
+      if (a.has_post) {
+        p = 0.f;
+        for (int m = 0; m < M; ++m) p += mk[m * TOK + tid] * a.post[m];
+      }
+      ts[tid] = p;
+    }
+    named_bar_sync(1, CONSUMERS);  // abuf written
+
+    // ---- rank-space attention over the row's n_q question keys: two
+    // threads a token, each walking every other key with an online softmax
+    // in exp2 for each attention stream the token belongs to (mostly one),
+    // merged by a shuffle
+    const int n_q = na > 0 ? a.nq[bi] : 0;
+    const float* krow = a.keys + static_cast<long>(bi) * a.ds * a.L * R;
+    const int at = tid >> 1, half = tid & 1;
+    for (int jm = 0; jm < na; ++jm) {
+      const bool live = mk[amods[jm] * TOK + at] != 0.f;
+      float qv[R], oa[R], om = -INFINITY, ol = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        qv[r] = live ? abuf[at * C::MR + amods[jm] * R + r] * qk_scale : 0.f;
+        oa[r] = 0.f;
+      }
+      for (int c0 = 0; c0 < n_q; c0 += C::KCAP) {
+        const int cn = min(C::KCAP, n_q - c0);
+        if (key_row != bi || n_q > C::KCAP) {
+          named_bar_sync(1, CONSUMERS);  // the staged keys are read
+          // the keys are the sums of the key pass's ds partial sums
+          for (int i = tid; i < cn * R / 4; i += CONSUMERS) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int c = 0; c < a.ds; ++c) {
+              const float4 p = reinterpret_cast<const float4*>(
+                  krow + (static_cast<long>(c) * a.L + c0) * R)[i];
+              v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+            }
+            reinterpret_cast<float4*>(ks)[i] = v;
+          }
+          named_bar_sync(1, CONSUMERS);
+          key_row = n_q > C::KCAP ? -1 : bi;
+        }
+        if (live) {
+          for (int kq = half; kq < cn; kq += 2) {
+            float kv[R];
+#pragma unroll
+            for (int r4 = 0; r4 < R / 4; ++r4) {
+              const float4 v = reinterpret_cast<const float4*>(ks + kq * R)[r4];
+              kv[4 * r4] = v.x; kv[4 * r4 + 1] = v.y; kv[4 * r4 + 2] = v.z; kv[4 * r4 + 3] = v.w;
+            }
+            float sc = 0.f;
+#pragma unroll
+            for (int r = 0; r < R; ++r) sc = fmaf(qv[r], kv[r], sc);
+            const float mn = fmaxf(om, sc);
+            const float corr = exp2_approx(om - mn), pe = exp2_approx(sc - mn);
+            ol = fmaf(ol, corr, pe);
+#pragma unroll
+            for (int r = 0; r < R; ++r) oa[r] = fmaf(pe, kv[r], oa[r] * corr);
+            om = mn;
+          }
+        }
+      }
+      // merge the two halves (adjacent lanes)
+      const float om2 = __shfl_xor_sync(0xffffffffu, om, 1);
+      const float ol2 = __shfl_xor_sync(0xffffffffu, ol, 1);
+      const float mx = fmaxf(om, om2);
+      const float s1 = om == -INFINITY ? 0.f : exp2_approx(om - mx);
+      const float s2 = om2 == -INFINITY ? 0.f : exp2_approx(om2 - mx);
+      const float l = ol * s1 + ol2 * s2;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float o = oa[r] * s1 + __shfl_xor_sync(0xffffffffu, oa[r], 1) * s2;
+        if (half == 0) att[(jm * TOK + at) * R + r] = live && l > 0.f ? o / l : 0.f;
+      }
+    }
+    named_bar_sync(1, CONSUMERS);  // att written
+
+    // ---- the rank-space buffer
+    for (int i = tid; i < TOK * R; i += CONSUMERS) {
+      const int t = i / R, r = i % R;
+      float v = 0.f;
+      int jm = 0;
+      for (int m = 0; m < M; ++m) {
+        v += abuf[t * C::MR + m * R + r];
+        if ((a.attn_bits >> m) & 1) {
+          const float w = mk[m * TOK + t];
+          if (w != 0.f) v += w * (a.attn_weight * att[(jm * TOK + t) * R + r]);
+          ++jm;
+        }
+      }
+      buf[t * R + r] = v;
+    }
+    named_bar_sync(1, CONSUMERS);  // buf written
+
+    // ---- delta = buf @ B: A fragments [hi(buf), hi(buf), lo(buf)] (K-major
+    // columns 2qd, 2qd + 1, +8, +9 of each 16), rows r0 and r0 + 8
+    uint32_t af[C::KPAD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < C::KPAD / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = r0 + 8 * (e & 1);
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kc = 16 * kk + 2 * qd + 8 * (e >> 1) + h;
+          const float b = kc < 3 * R ? buf[t * R + kc % R] : 0.f;
+          v[h] = kc < 2 * R ? b : b - bf16_hi(b);
+        }
+        af[kk][e] = pack_bf16(v[0], v[1]);
+      }
+    const float tsr[2] = {ts[r0], ts[r0 + 8]};
+    float dacc[2][32];  // each chunk's first products overwrite it
+    for (int ch = 0; ch < sh.chunks; ++ch, ++jt) {
+      const int s = jt % C::B_STAGES;
+      mbar_wait(bfull + 8 * s, (jt / C::B_STAGES) & 1);
+      const uint32_t bb = tbase + C::OFF_B + s * C::B_BYTES;
+      fence_operand(dacc[0]);
+      fence_operand(dacc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::KPAD / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          wgmma_m64n64_rs<1>(dacc[n], af[kk],
+                             desc_sw128(bb + n * C::KPAD * 128 + kk * 2048),
+                             kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dacc[0]);
+      fence_operand(dacc[1]);
+      if (lane == 0) mbar_arrive(bempty + 8 * s);
+      // each warp stages its 16 rows of the chunk as bf16 in the
+      // 128-byte-swizzled layout its two output boxes read (row t's
+      // 16-byte chunk j at j ^ (t % 8)) and stores them by TMA itself: no
+      // barrier across the warpgroup, OUT_BUFS chunks in flight a warp
+      uint8_t* stage = tail + C::OFF_OUT +
+                       (warp * OUT_BUFS + jt % OUT_BUFS) * C::OUT_BYTES;
+      if (lane == 0) bulk_wait_read<OUT_BUFS - 1>();  // this tile's last store
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int t = lane / 4 + 8 * u;  // the row within the warp's 16
+            *reinterpret_cast<uint32_t*>(stage + n * WBOX + t * 128 +
+                                         ((j ^ (t & 7)) << 4) + 4 * qd) =
+                pack_bf16(dacc[n][4 * j + 2 * u] * tsr[u],
+                          dacc[n][4 * j + 2 * u + 1] * tsr[u]);
+          }
+      fence_proxy_async_smem();
+      __syncwarp();
+      if (lane == 0) {
+        const uint64_t first = l2_evict_first();
+        const uint32_t src = smem_addr(stage);
+        const int row = t0 + WROWS * warp;
+        tma_store_4d(&tm_out, src, CHUNK * ch, row, bi, 0, first);
+        if (CHUNK * ch + 64 < a.d_out)
+          tma_store_4d(&tm_out, src + WBOX, CHUNK * ch + 64, row, bi, 0, first);
+        bulk_commit();
+      }
+    }
+  }
+  if (lane == 0) bulk_wait_read<0>();  // the staging tiles are read: exit
+}
+
+// ---------------------------------------------------- main kernel, fp32 x
+
+namespace f32 {
 
 constexpr int NT = 256;         // threads per CTA
 constexpr int TOK = 32;         // tokens per CTA
 constexpr int J = NT / TOK;     // threads per token in the d_in reduction
-constexpr int VEC = 8;          // x elements per thread per chunk
+constexpr int VEC = 8;          // x elements per thread per slice
 constexpr int DC = J * VEC;     // d_in covered by one slice of every thread
-constexpr int UNROLL = 4;       // slices per thread per staged chunk
-constexpr int DCE = UNROLL * DC;  // d_in per staged chunk of A
-constexpr int KC = 256;         // key positions staged per step
-constexpr int MAXM = 4;         // modalities
-constexpr int SPLIT = 4;        // threads per (token, modality) attention pair
 
-// one thread's 8-element slice of an x row, as loaded (16 or 32 bytes)
-template <typename T>
-struct Slice;
-template <>
-struct Slice<__nv_bfloat16> {
-  uint4 v;
-};
-template <>
-struct Slice<float> {
-  float4 a, b;
-};
-
-__device__ __forceinline__ void load_slice(const __nv_bfloat16* p,
-                                           Slice<__nv_bfloat16>& s) {
-  s.v = *reinterpret_cast<const uint4*>(p);
-}
-
-__device__ __forceinline__ void load_slice(const float* p, Slice<float>& s) {
-  s.a = reinterpret_cast<const float4*>(p)[0];
-  s.b = reinterpret_cast<const float4*>(p)[1];
-}
-
-__device__ __forceinline__ void zero_slice(Slice<__nv_bfloat16>& s) {
-  s.v = make_uint4(0u, 0u, 0u, 0u);
-}
-
-__device__ __forceinline__ void zero_slice(Slice<float>& s) {
-  s.a = s.b = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ void unpack(const Slice<__nv_bfloat16>& s,
-                                       float (&v)[VEC]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&s.v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void unpack(const Slice<float>& s, float (&v)[VEC]) {
-  v[0] = s.a.x; v[1] = s.a.y; v[2] = s.a.z; v[3] = s.a.w;
-  v[4] = s.b.x; v[5] = s.b.y; v[6] = s.b.z; v[7] = s.b.w;
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// One CTA per token.  A token outside the question (mask_0 * qmask == 0)
-// skips its x row and writes zero keys; a question token's CTA splits d_in
-// into 8-element slices, NT threads apart (2-6 per thread at d_in 4096 to
-// 11008, so many loads are in flight), and combines by shuffles and
-// shared memory.
-template <typename T>
+// 32 tokens of one batch row a CTA: each token's d_in reduction split over
+// 8 adjacent lanes, A streamed through shared memory in chunks of
+// UNROLL * DC rows of d_in (padded so the 8 lanes read distinct banks),
+// then the attention over the row's compacted keys (KC at a time, 4 lanes
+// a (token, modality) pair) and B read per output column pair from L2
+template <int R>
 __global__ void __launch_bounds__(NT)
-    question_keys_kernel(const T* __restrict__ x,
-                         const float* __restrict__ masks,
-                         const float* __restrict__ qmask,
-                         const float* __restrict__ A, float* __restrict__ keys,
-                         int L, int d_in, float pre_scale) {
-  constexpr int R = 4;  // one float4 of A per input element
-  __shared__ float part[NT / 32][R];
-  const int tid = threadIdx.x, lane = tid % 32;
-  const long row = static_cast<long>(blockIdx.y) * L + blockIdx.x;
-  const float w = masks[row] * qmask[row];  // masks[0] is the text stream
-  if (w == 0.f) {
-    if (tid < R) keys[row * R + tid] = 0.f;
-    return;
-  }
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  const T* xrow = x + row * d_in;
-  for (int d = tid * VEC; d < d_in; d += NT * VEC) {
-    Slice<T> s;
-    load_slice(xrow + d, s);
-    float v[VEC];
-    unpack(s, v);
-    const float4* ap = reinterpret_cast<const float4*>(A + static_cast<long>(d) * R);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float4 a = ap[e];
-      acc[0] += v[e] * a.x;
-      acc[1] += v[e] * a.y;
-      acc[2] += v[e] * a.z;
-      acc[3] += v[e] * a.w;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) part[tid / 32][r] = acc[r];
-  }
-  __syncthreads();
-  if (tid < R) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < NT / 32; ++i) s += part[i][tid];
-    keys[row * R + tid] = s * w * pre_scale;
-  }
-}
-
-template <typename T, int R>
-__global__ void __launch_bounds__(NT)
-    moka_delta_kernel(const T* __restrict__ x, const float* __restrict__ masks,
-                      const float* __restrict__ qmask,
-                      const float* __restrict__ keys,
-                      const float* __restrict__ A, const float* __restrict__ Bm,
-                      T* __restrict__ out, int nb, int L, int d_in, int d_out,
-                      int M, float pre_scale, float attn_weight, int attn_bits,
-                      float p0, float p1, float p2, float p3, int has_post) {
-  constexpr int AS = VEC * R + 4;  // padded floats per (modality, thread) slice
+    moka_delta_kernel_f32(const Args a) {
+  constexpr int UNROLL = 16 / R;        // slices per thread per chunk
+  constexpr int DCE = UNROLL * DC;      // d_in per staged chunk of A
+  constexpr int AS = VEC * R + 4;       // padded floats a (modality, lane)
+  constexpr int KC = 512 / R;           // keys staged at once
+  constexpr int SPLIT = 4;              // lanes a (token, modality) pair
   __shared__ __align__(16) float as[MAXM * UNROLL * J * AS];
   __shared__ float mk[MAXM][TOK];
   __shared__ float abuf[TOK][MAXM][R];
@@ -186,60 +677,50 @@ __global__ void __launch_bounds__(NT)
   __shared__ float buf[TOK][R];
   __shared__ float tscale[TOK];
   __shared__ float kbuf[KC][R];
-  __shared__ float qm[KC];
 
-  const int bi = blockIdx.y;
-  const int t0 = blockIdx.x * TOK;
-  const int tid = threadIdx.x;
-  const int tt = tid / J, jj = tid % J;
-  const int l = t0 + tt;
+  const float* x = static_cast<const float*>(a.x);
+  const int bi = blockIdx.y, t0 = blockIdx.x * TOK, tid = threadIdx.x;
+  const int tt = tid / J, jj = tid % J, l = t0 + tt, L = a.L, M = a.M;
   const bool live = l < L;
-  const float post[MAXM] = {p0, p1, p2, p3};
 
   for (int i = tid; i < M * TOK; i += NT) {
     const int m = i / TOK, t = i % TOK;
-    mk[m][t] = t0 + t < L ? masks[(static_cast<long>(m) * nb + bi) * L + t0 + t] : 0.f;
+    mk[m][t] = t0 + t < L ? a.masks[(static_cast<long>(m) * a.nb + bi) * L + t0 + t] : 0.f;
   }
 
-  // ---- a_i = x @ A_i over d_in, streamed in DC-wide chunks
   float acc[MAXM][R];
 #pragma unroll
   for (int m = 0; m < MAXM; ++m)
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[m][r] = 0.f;
-  const T* xrow = x + (static_cast<long>(bi) * L + (live ? l : 0)) * d_in;
-  // x slices of the current chunk; the next chunk's are loaded while this
-  // one computes
-  Slice<T> xs[UNROLL];
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const int dx = u * DC + jj * VEC;
-    if (live && dx < d_in) load_slice(xrow + dx, xs[u]); else zero_slice(xs[u]);
-  }
+  const float* xrow = x + (static_cast<long>(bi) * L + (live ? l : 0)) * a.d_in;
   constexpr int F4 = DCE * R / 4;  // float4s of A per modality and chunk
-  for (int d0 = 0; d0 < d_in; d0 += DCE) {
+  for (int d0 = 0; d0 < a.d_in; d0 += DCE) {
     __syncthreads();  // previous chunk consumed
     for (int f = tid; f < M * F4; f += NT) {
       const int m = f / F4, rem = f % F4;
-      const int d = rem * 4 / R, r0 = (rem * 4) % R;
+      const int d = rem * 4 / R, rr = (rem * 4) % R;
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (d0 + d < d_in)
+      if (d0 + d < a.d_in)
         val = *reinterpret_cast<const float4*>(
-            A + (static_cast<long>(m) * d_in + d0 + d) * R + r0);
+            a.A + (static_cast<long>(m) * a.d_in + d0 + d) * R + rr);
       const int u = d / DC, jg = (d % DC) / VEC, e = d % VEC;
-      *reinterpret_cast<float4*>(&as[((m * UNROLL + u) * J + jg) * AS + e * R + r0]) = val;
+      *reinterpret_cast<float4*>(&as[((m * UNROLL + u) * J + jg) * AS + e * R + rr]) = val;
     }
     __syncthreads();
-    float xv[UNROLL][VEC];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) unpack(xs[u], xv[u]);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int dx = d0 + DCE + u * DC + jj * VEC;
-      if (live && dx < d_in) load_slice(xrow + dx, xs[u]); else zero_slice(xs[u]);
-    }
+      const int dx = d0 + u * DC + jj * VEC;
+      float xv[VEC];
+      if (live && dx < a.d_in) {
+        const float4 p = reinterpret_cast<const float4*>(xrow + dx)[0];
+        const float4 q = reinterpret_cast<const float4*>(xrow + dx)[1];
+        xv[0] = p.x; xv[1] = p.y; xv[2] = p.z; xv[3] = p.w;
+        xv[4] = q.x; xv[5] = q.y; xv[6] = q.z; xv[7] = q.w;
+      } else {
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
+        for (int e = 0; e < VEC; ++e) xv[e] = 0.f;
+      }
 #pragma unroll
       for (int m = 0; m < MAXM; ++m) {
         if (m < M) {
@@ -247,11 +728,12 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
           for (int e = 0; e < VEC; ++e)
 #pragma unroll
-            for (int r = 0; r < R; ++r) acc[m][r] += xv[u][e] * ap[e * R + r];
+            for (int r = 0; r < R; ++r) acc[m][r] += xv[e] * ap[e * R + r];
         }
       }
+    }
   }
-  // the J threads of a token are adjacent lanes: combine their partial sums
+  // the J lanes of a token are adjacent: combine their partial sums
 #pragma unroll
   for (int m = 0; m < MAXM; ++m)
 #pragma unroll
@@ -264,16 +746,18 @@ __global__ void __launch_bounds__(NT)
     for (int m = 0; m < MAXM; ++m)
       if (m < M)
 #pragma unroll
-        for (int r = 0; r < R; ++r) abuf[tt][m][r] = acc[m][r] * mk[m][tt] * pre_scale;
+        for (int r = 0; r < R; ++r) abuf[tt][m][r] = acc[m][r] * mk[m][tt] * a.pre_scale;
   }
   __syncthreads();
 
-  // ---- rank-space attention of the attn modalities against the question
+  // ---- rank-space attention over the row's compacted question keys
   int amods[MAXM];
   int na = 0;
   for (int m = 0; m < M; ++m)
-    if ((attn_bits >> m) & 1) amods[na++] = m;
+    if ((a.attn_bits >> m) & 1) amods[na++] = m;
   const float inv_sqrt_r = 1.0f / sqrtf(static_cast<float>(R));
+  const int n_q = a.nq[bi];
+  const float* krow = a.keys + static_cast<long>(bi) * a.ds * L * R;
   const int npairs = TOK * na;
   for (int pb = 0; pb < npairs; pb += NT / SPLIT) {
     const int pair = pb + tid / SPLIT, sub = tid % SPLIT;
@@ -287,31 +771,29 @@ __global__ void __launch_bounds__(NT)
       ra[r] = 0.f;
     }
     float rm = -INFINITY, rl = 0.f;
-    for (int k0 = 0; k0 < L; k0 += KC) {
+    for (int k0 = 0; k0 < n_q; k0 += KC) {
+      const int kend = min(KC, n_q - k0);
       __syncthreads();
-      for (int i = tid; i < KC * R; i += NT) {
-        const int kk = i / R, r = i % R;
-        kbuf[kk][r] = k0 + kk < L ? keys[(static_cast<long>(bi) * L + k0 + kk) * R + r] : 0.f;
+      for (int i = tid; i < kend * R; i += NT) {  // the ds partial sums
+        float v = 0.f;
+        for (int c = 0; c < a.ds; ++c)
+          v += krow[(static_cast<long>(c) * L + k0) * R + i];
+        kbuf[i / R][i % R] = v;
       }
-      for (int i = tid; i < KC; i += NT)
-        qm[i] = k0 + i < L ? qmask[static_cast<long>(bi) * L + k0 + i] : 0.f;
       __syncthreads();
       if (worker) {
-        const int kend = min(KC, L - k0);
         for (int kk = sub; kk < kend; kk += SPLIT) {
-          if (qm[kk] > 0.f) {
-            float s = 0.f;
+          float s = 0.f;
 #pragma unroll
-            for (int r = 0; r < R; ++r) s += qv[r] * kbuf[kk][r];
-            s *= inv_sqrt_r;
-            const float mn = fmaxf(rm, s);
-            const float corr = expf(rm - mn);
-            const float p = expf(s - mn);
-            rl = rl * corr + p;
+          for (int r = 0; r < R; ++r) s += qv[r] * kbuf[kk][r];
+          s *= inv_sqrt_r;
+          const float mn = fmaxf(rm, s);
+          const float corr = expf(rm - mn);
+          const float p = expf(s - mn);
+          rl = rl * corr + p;
 #pragma unroll
-            for (int r = 0; r < R; ++r) ra[r] = ra[r] * corr + p * kbuf[kk][r];
-            rm = mn;
-          }
+          for (int r = 0; r < R; ++r) ra[r] = ra[r] * corr + p * kbuf[kk][r];
+          rm = mn;
         }
       }
     }
@@ -339,35 +821,37 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
 
   // ---- rank-space buffer and per-token post scale
-  if (jj < R) {
+  for (int i = tid; i < TOK * R; i += NT) {
+    const int t = i / R, r = i % R;
     float bv = 0.f;
     int ai = 0;
     for (int m = 0; m < M; ++m) {
-      bv += abuf[tt][m][jj];
-      if ((attn_bits >> m) & 1) {
-        bv += mk[m][tt] * (attn_weight * att[tt][ai][jj]);
+      bv += abuf[t][m][r];
+      if ((a.attn_bits >> m) & 1) {
+        bv += mk[m][t] * (a.attn_weight * att[t][ai][r]);
         ++ai;
       }
     }
-    buf[tt][jj] = bv;
+    buf[t][r] = bv;
   }
-  if (jj == 0) {
+  if (tid < TOK) {
     float ps = 1.f;
-    if (has_post) {
+    if (a.has_post) {
       ps = 0.f;
-      for (int m = 0; m < M; ++m) ps += mk[m][tt] * post[m];
+      for (int m = 0; m < M; ++m) ps += mk[m][tid] * a.post[m];
     }
-    tscale[tt] = ps;
+    tscale[tid] = ps;
   }
   __syncthreads();
 
   // ---- delta = buf @ B, two adjacent output columns per thread
+  float* out = static_cast<float*>(a.out);
   const int ntok = min(TOK, L - t0);
-  for (int o = 2 * tid; o < d_out; o += 2 * NT) {
+  for (int o = 2 * tid; o < a.d_out; o += 2 * NT) {
     float b0[R], b1[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float2 bb = *reinterpret_cast<const float2*>(Bm + static_cast<long>(r) * d_out + o);
+      const float2 bb = *reinterpret_cast<const float2*>(a.Bm + static_cast<long>(r) * a.d_out + o);
       b0[r] = bb.x;
       b1[r] = bb.y;
     }
@@ -378,58 +862,183 @@ __global__ void __launch_bounds__(NT)
         s0 += buf[t][r] * b0[r];
         s1 += buf[t][r] * b1[r];
       }
-      if (has_post) {
-        s0 *= tscale[t];
-        s1 *= tscale[t];
-      }
-      store2(out + (static_cast<long>(bi) * L + t0 + t) * d_out + o, s0, s1);
+      *reinterpret_cast<float2*>(out + (static_cast<long>(bi) * L + t0 + t) * a.d_out + o) =
+          make_float2(s0 * tscale[t], s1 * tscale[t]);
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* masks, const void* qmask, void* keys,
-           const void* A, const void* Bm, void* out, int nb, int L, int d_in,
-           int d_out, int M, int R, float pre_scale, float attn_weight,
-           int attn_bits, float p0, float p1, float p2, float p3, int has_post,
-           cudaStream_t st) {
-  if (R != 4) return static_cast<int>(cudaErrorInvalidValue);
-  question_keys_kernel<T><<<dim3(L, nb), NT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(masks),
-      static_cast<const float*>(qmask), static_cast<const float*>(A),
-      static_cast<float*>(keys), L, d_in, pre_scale);
-  const dim3 grid((L + TOK - 1) / TOK, nb);
-  moka_delta_kernel<T, 4><<<grid, NT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(masks),
-      static_cast<const float*>(qmask), static_cast<const float*>(keys),
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<T*>(out), nb, L, d_in, d_out, M, pre_scale, attn_weight,
-      attn_bits, p0, p1, p2, p3, has_post);
+}  // namespace f32
+
+template <typename T, int R>
+int launch_keys(const Args& a, int kpad, cudaStream_t st) {
+  // int row offsets; the row's question positions in shared memory, beside
+  // the static 8 KB of the reduction
+  constexpr int LIST_LIMIT = SMEM_LIMIT - 16384;
+  const long list = 4L * a.L;
+  if (static_cast<long>(a.L) * a.d_in >= (1L << 31) || list > LIST_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // CTAs an SM, asked once (a launch inside a CUDA graph capture makes no
+  // other CUDA call): the grid is one wave, at most KP_CTAS a row
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        question_keys_kernel<T, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, LIST_LIMIT);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, question_keys_kernel<T, R>, KP_NT, 0);
+    if (occ != cudaSuccess) return static_cast<int>(occ);
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const int units = (a.L + KP_G - 1) / KP_G * a.ds;  // at most
+  int ctas = sm_count() * per_sm / a.nb;
+  ctas = ctas < KP_CTAS ? ctas : KP_CTAS;
+  ctas = ctas < units ? ctas : units;
+  ctas = ctas > 0 ? ctas : 1;
+  question_keys_kernel<T, R><<<dim3(ctas, a.nb), KP_NT, list, st>>>(a, kpad);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int R, int M>
+int launch_bf16(const Args& a, cudaStream_t st) {
+  using C = Cfg<R, M>;
+  const int err = launch_keys<__nv_bfloat16, R>(a, C::KPAD, st);
+  if (err != 0) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      moka_delta_kernel<R, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_LIMIT);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  Shape sh;
+  sh.stages = (SMEM_LIMIT - 1024 - C::TAIL) / C::STAGE;
+  sh.stages = sh.stages < MAX_STAGES ? sh.stages : MAX_STAGES;
+  if (sh.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 1024 + sh.stages * C::STAGE + C::TAIL;
+  sh.tiles = (a.L + TOK - 1) / TOK;
+  const long items = static_cast<long>(a.nb) * sh.tiles;
+  if (items >= (1L << 31) / 2) return static_cast<int>(cudaErrorInvalidValue);
+  sh.items = static_cast<int>(items);
+  sh.kb = (a.d_in + 63) / 64;
+  sh.chunks = (a.d_out + CHUNK - 1) / CHUNK;
+  // x and delta over (d, L, nb), in boxes of 64 columns x 64 tokens (x)
+  // and x 16 tokens (delta, a warp's rows; a ragged L is zero-filled by the
+  // loads and clipped by the stores); A's halves over (d_in, N) and B's
+  // over (d_out, KPAD), one box each a stage
+  CUtensorMap tm_x, tm_at, tm_b, tm_out;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t x_dims[4] = {uint64_t(a.d_in), uint64_t(a.L), uint64_t(a.nb), 1};
+  const uint64_t o_dims[4] = {uint64_t(a.d_out), uint64_t(a.L), uint64_t(a.nb), 1};
+  const uint64_t at_dims[4] = {uint64_t(a.d_in), uint64_t(C::N), 1, 1};
+  const uint64_t b_dims[4] = {uint64_t(a.d_out), uint64_t(C::KPAD), 1, 1};
+  const uint32_t tok_box[4] = {64, TOK, 1, 1};
+  const uint32_t out_box[4] = {64, WROWS, 1, 1};
+  const uint32_t at_box[4] = {64, uint32_t(C::N), 1, 1};
+  const uint32_t b_box[4] = {64, uint32_t(C::KPAD), 1, 1};
+  if (!swizzled_map(&tm_x, bf16, 2, 4, a.x, x_dims, tok_box) ||
+      !swizzled_map(&tm_out, bf16, 2, 4, a.out, o_dims, out_box) ||
+      !swizzled_map(&tm_at, bf16, 2, 4, a.at, at_dims, at_box) ||
+      !swizzled_map(&tm_b, bf16, 2, 4, a.bs, b_dims, b_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = sh.items < sm_count() ? sh.items : sm_count();
+  moka_delta_kernel<R, M><<<grid, NT, smem, st>>>(tm_x, tm_at, tm_b, tm_out,
+                                                   a, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_f32(const Args& a, cudaStream_t st) {
+  const int err = launch_keys<float, R>(a, 0, st);
+  if (err != 0) return err;
+  const dim3 grid((a.L + f32::TOK - 1) / f32::TOK, a.nb);
+  f32::moka_delta_kernel_f32<R><<<grid, f32::NT, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch(const Args& a, int x_bf16, cudaStream_t st) {
+  if (!x_bf16) return launch_f32<R>(a, st);
+  switch (a.M) {
+    case 1: return launch_bf16<R, 1>(a, st);
+    case 2: return launch_bf16<R, 2>(a, st);
+    case 3: return launch_bf16<R, 3>(a, st);
+    default: return launch_bf16<R, 4>(a, st);
+  }
+}
+
+long align256(long n) { return (n + 255) / 256 * 256; }
+
+// the workspace's parts: keys (nb, ds, L, R) fp32, n_q (nb) int32 and, for bf16
+// x, A's halves (2*M*R, d_in) and B's rows (KPAD, d_out) bf16
+long workspace(int nb, int L, int d_in, int d_out, int M, int R, int x_bf16,
+               long* off) {
+  off[0] = 0;
+  off[1] = off[0] + align256(4L * nb * ((d_in + KEY_DCH - 1) / KEY_DCH) * L * R);
+  off[2] = off[1] + align256(4L * nb);
+  if (!x_bf16) return off[2];
+  off[3] = off[2] + align256(2L * 2 * M * R * d_in);
+  return off[3] + align256(2L * 16 * ((3 * R + 15) / 16) * d_out);
+}
+
+bool takes(int nb, int L, int d_in, int d_out, int M, int R) {
+  return nb > 0 && L > 0 && M > 0 && M <= MAXM && d_in % 8 == 0 &&
+         d_out % 8 == 0 && (R == 4 || R == 8 || R == 16);
 }
 
 }  // namespace
 
-// x (nb, L, d_in) bf16 (x_bf16 = 1) or fp32; masks (M, nb, L), qmask (nb, L),
-// A (M, d_in, R), B (R, d_out) fp32; keys (nb, L, R) fp32 scratch that the
-// first kernel writes; out (nb, L, d_out) in x's type; all contiguous,
-// R == 4, d_in % 8 == 0, d_out % 2 == 0, M <= 4.  Returns cudaGetLastError().
+// Bytes of scratch moka_delta_fwd needs (0 for a shape it does not take).
+extern "C" long moka_delta_workspace(int nb, int L, int d_in, int d_out,
+                                     int M, int R, int x_bf16) {
+  long off[4];
+  return takes(nb, L, d_in, d_out, M, R)
+             ? workspace(nb, L, d_in, d_out, M, R, x_bf16, off) : 0;
+}
+
+// x (nb, L, d_in) bf16 (x_bf16 = 1) or fp32; masks (M, nb, L), qmask (nb,
+// L), A (M, d_in, R), B (R, d_out) fp32; out (nb, L, d_out) in x's type;
+// work: moka_delta_workspace's bytes; all contiguous and 16-byte aligned
+// (work 256-byte), R in {4, 8, 16}, M <= 4, d_in % 8 == 0, d_out % 8 == 0.
+// Launches the key pass, then the main kernel.  Returns cudaGetLastError()
+// (or the error of setting up a launch).
 extern "C" int moka_delta_fwd(const void* x, int x_bf16, const void* masks,
-                              const void* qmask, void* keys,
-                              const void* A, const void* Bm, void* out, int nb,
-                              int L, int d_in, int d_out, int M, int R,
-                              float pre_scale, float attn_weight, int attn_bits,
-                              float p0, float p1, float p2, float p3,
-                              int has_post, void* stream) {
-  if (nb <= 0 || L <= 0 || M <= 0 || M > MAXM || d_in % VEC != 0 ||
-      d_out % 2 != 0)
+                              const void* qmask, const void* A, const void* Bm,
+                              void* out, void* work, int nb, int L, int d_in,
+                              int d_out, int M, int R, float pre_scale,
+                              float attn_weight, int attn_bits, float p0,
+                              float p1, float p2, float p3, int has_post,
+                              void* stream) {
+  if (!takes(nb, L, d_in, d_out, M, R))
     return static_cast<int>(cudaErrorInvalidValue);
+  long off[4];
+  workspace(nb, L, d_in, d_out, M, R, x_bf16, off);
+  uint8_t* w = static_cast<uint8_t*>(work);
+  Args a;
+  a.x = x;
+  a.masks = static_cast<const float*>(masks);
+  a.qmask = static_cast<const float*>(qmask);
+  a.A = static_cast<const float*>(A);
+  a.Bm = static_cast<const float*>(Bm);
+  a.out = out;
+  a.keys = reinterpret_cast<float*>(w + off[0]);
+  a.nq = reinterpret_cast<int*>(w + off[1]);
+  a.at = x_bf16 ? reinterpret_cast<__nv_bfloat16*>(w + off[2]) : nullptr;
+  a.bs = x_bf16 ? reinterpret_cast<__nv_bfloat16*>(w + off[3]) : nullptr;
+  a.nb = nb;
+  a.L = L;
+  a.d_in = d_in;
+  a.d_out = d_out;
+  a.M = M;
+  a.ds = (d_in + KEY_DCH - 1) / KEY_DCH;
+  a.pre_scale = pre_scale;
+  a.attn_weight = attn_weight;
+  a.attn_bits = attn_bits;
+  a.has_post = has_post;
+  a.post[0] = p0;
+  a.post[1] = p1;
+  a.post[2] = p2;
+  a.post[3] = p3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return launch<__nv_bfloat16>(x, masks, qmask, keys, A, Bm, out, nb, L,
-                                 d_in, d_out, M, R, pre_scale, attn_weight,
-                                 attn_bits, p0, p1, p2, p3, has_post, st);
-  return launch<float>(x, masks, qmask, keys, A, Bm, out, nb, L, d_in, d_out,
-                       M, R, pre_scale, attn_weight, attn_bits, p0, p1, p2, p3,
-                       has_post, st);
+  if (R == 4) return launch<4>(a, x_bf16, st);
+  if (R == 8) return launch<8>(a, x_bf16, st);
+  return launch<16>(a, x_bf16, st);
 }

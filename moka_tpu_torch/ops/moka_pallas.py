@@ -8,9 +8,13 @@ tensor ``moka_delta_fused`` launches ``kernels/csrc/moka_delta_fwd.cu`` (or
 raises); on a CPU tensor it runs ``moka_delta_fused_plain``, the kernel's
 arithmetic in plain torch.  The JAX code computes the question keys as a
 plain fp32 product over every token; the CUDA source computes them in a
-first, small kernel that reads x only on question tokens.
+first, small kernel (the key pass) that reads x only on question tokens
+and writes each row's keys contiguously, which the main kernel walks.
 
-The kernel works in fp32 from x's storage type; it does not round A to
+The kernel takes ranks 4, 8 and 16 with at most four modalities
+(``fused_moka_supported``); the wrapper raises on any other spec, on any
+device.  It keeps A in fp32 in effect (bf16 x: A split into two bf16
+halves on the tensor cores; fp32 x: fp32 FMAs); it does not round A to
 bf16 as the TPU kernel does.  Gradients: the backward is autograd through
 the plain ``moka_delta``, exact and without a backward kernel, as the JAX
 custom VJP does.
@@ -27,6 +31,20 @@ from moka_tpu_torch.ops.moka import MokaSpec, moka_delta
 
 NEG_INF = -1e30
 _MAX_MODALITIES = 4
+KERNEL_RANKS = (4, 8, 16)  # the ranks moka_delta_fwd.cu is built for
+
+
+def fused_moka_supported(spec: MokaSpec | None, d_in: int | None = None,
+                         d_out: int | None = None) -> bool:
+    """Whether the fused kernel takes ``spec`` (rank 4, 8 or 16, one to four
+    modalities) and, where they are given, these widths (d_in and d_out
+    multiples of 8, the TMA rows' 16-byte strides).  The default route of
+    the decode paths asks this before any launch; the wrapper raises on a
+    spec it refuses."""
+    if spec is None or spec.rank not in KERNEL_RANKS or \
+            not 1 <= spec.num_modalities <= _MAX_MODALITIES:
+        return False
+    return d_in is None or (d_in % 8 == 0 and d_out % 8 == 0)
 
 
 def _question_keys(x, lora_a, modality_masks, question_mask,
@@ -67,16 +85,23 @@ def moka_delta_fused_plain(x, lora_a, lora_b, modality_masks, question_mask,
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (moka_delta_fwd.cu built, or an edited copy of it) with its
+    entry points' argument types set."""
+    p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+    lib.moka_delta_fwd.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i,
+                                   f, f, i, f, f, f, f, i, p]
+    lib.moka_delta_fwd.restype = i
+    lib.moka_delta_workspace.argtypes = [i, i, i, i, i, i, i]
+    lib.moka_delta_workspace.restype = n
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from moka_tpu_torch import kernels
-        lib = kernels.library("moka_delta_fwd")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.moka_delta_fwd.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
-                                       i, f, f, i, f, f, f, f, i, p]
-        lib.moka_delta_fwd.restype = i
-        _lib = lib
+        _lib = bind(kernels.library("moka_delta_fwd"))
     return _lib
 
 
@@ -89,11 +114,11 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused MokA kernel takes bf16 or fp32 x, not "
                         f"{x.dtype}")
-    if m != spec.num_modalities or r != spec.rank or m > _MAX_MODALITIES:
+    if m != spec.num_modalities or r != spec.rank:
         raise ValueError(f"adapter shape {tuple(lora_a.shape)} vs {spec}")
-    if r != 4 or d_in % 8 or d_out % 2:
-        raise ValueError(f"fused MokA kernel needs rank 4, d_in % 8 == 0 "
-                         f"and even d_out (got r={r}, {d_in}->{d_out})")
+    if not fused_moka_supported(spec, d_in, d_out):
+        raise ValueError(f"fused MokA kernel needs d_in and d_out multiples "
+                         f"of 8 (got {d_in}->{d_out})")
     if tuple(lora_b.shape) != (r, d_out) or lora_a.shape[1] != d_in:
         raise ValueError(f"bad adapter shapes {tuple(lora_a.shape)}, "
                          f"{tuple(lora_b.shape)} for d_in {d_in}")
@@ -103,22 +128,27 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
     x = x.contiguous()
-    keys = torch.empty((b, L, r), **f32)  # written by the kernel's key pass
     masks = modality_masks.to(**f32).contiguous()
     qmask = question_mask.to(**f32).contiguous()
     a = lora_a.to(**f32).contiguous()
     b_mat = lora_b.to(**f32).contiguous()
     if any(t.data_ptr() % 16 for t in (x, a, b_mat)):
         raise ValueError("fused MokA kernel needs 16-byte aligned x, A, B")
+    lib = _library()
+    bf16 = int(x.dtype == torch.bfloat16)
+    # the key pass's keys and counts and, for bf16 x, A's and B's bf16
+    # halves: written by the kernels before they are read
+    work = torch.empty(lib.moka_delta_workspace(b, L, d_in, d_out, m, r,
+                                                bf16),
+                       dtype=torch.uint8, device=dev)
     out = torch.empty((b, L, d_out), dtype=x.dtype, device=dev)
     post = list(spec.post_scales or ()) + [0.0] * _MAX_MODALITIES
     attn_bits = sum(1 << i for i in spec.attn_modalities)
-    status = _library().moka_delta_fwd(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), masks.data_ptr(),
-        qmask.data_ptr(), keys.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-        out.data_ptr(), b, L, d_in, d_out, m, r, float(spec.pre_scale),
-        float(spec.attn_weight), attn_bits, *map(float, post[:4]),
-        int(spec.post_scales is not None),
+    status = lib.moka_delta_fwd(
+        x.data_ptr(), bf16, masks.data_ptr(), qmask.data_ptr(), a.data_ptr(),
+        b_mat.data_ptr(), out.data_ptr(), work.data_ptr(), b, L, d_in, d_out,
+        m, r, float(spec.pre_scale), float(spec.attn_weight), attn_bits,
+        *map(float, post[:4]), int(spec.post_scales is not None),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(status, "moka_delta_fwd")
     moka_delta_fused.launches += 1
@@ -126,6 +156,10 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
 
 
 def _forward(x, lora_a, lora_b, modality_masks, question_mask, spec):
+    if not fused_moka_supported(spec):
+        raise ValueError(f"the fused MokA kernel takes ranks {KERNEL_RANKS} "
+                         f"and 1-{_MAX_MODALITIES} modalities, not rank "
+                         f"{spec.rank} with {spec.num_modalities}")
     if x.device.type == "cuda":
         return _launch(x, lora_a, lora_b, modality_masks, question_mask, spec)
     if x.device.type == "cpu":

@@ -15,6 +15,8 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py fused_ce fused_ce_ablation
     python3 profile_port.py rank_kernels block_diag [--root DIR]
     python3 profile_port.py rank_ablation block_diag_ablation
+    python3 profile_port.py moka_delta [--root DIR]
+    python3 profile_port.py moka_ablation
 
 ``flash`` (not among the default windows) times the query-major flash
 kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
@@ -42,7 +44,13 @@ phase 10's shapes (``BoftSpec(8, 2)`` on 224 random bf16 weights at
 LLaMA-2-7B's widths).  Both take ``--root``.  ``rank_ablation`` and
 ``block_diag_ablation`` time the rank forward and kernel 10 with parts
 taken out (RANK_ABLATIONS, BD_ABLATIONS: edited copies of flash_rank.cu
-and block_diag.cu), twice in turn.
+and block_diag.cu), twice in turn.  ``moka_delta`` times the fused MokA
+delta (kernel 5) at the serving prefill (b 8, L 896, bf16, AVT) for each
+projection shape of LLaMA-2-7B at ranks 4, 8 and 16: the kernel alone in
+a CUDA graph, the host's µs a call and the wrapper back to back (with
+``--root``, another checkout's; rank 4 alone where that kernel takes no
+other).  ``moka_ablation`` times kernel 5 with parts taken out
+(MOKA_ABLATIONS: edited copies of moka_delta_fwd.cu), twice in turn.
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -863,6 +871,152 @@ def block_diag_ablation_window() -> dict:
     return {"block_diag_ablation": out}
 
 
+MOKA_SHAPE = (8, 896)  # chip_smoke's serving prefill: b, L
+MOKA_PROJS = {"q, k, v, o": ((4096, 4096), 4), "gate, up": ((4096, 11008), 2),
+              "down": ((11008, 4096), 1)}  # LLaMA-2-7B: (d_in, d_out), count
+MOKA_RANKS = (4, 8, 16)
+
+
+def moka_case(d_in, d_out, rank, seed: int = 0):
+    """chip_smoke's serving-prefill inputs for one projection: bf16 x ~
+    N(0, 1), Kaiming-uniform fp32 A, B ~ N(0, 0.02^2), MokA AVT at
+    ``rank``, ``avt_masks``'s layout (text / video / audio = 1/2, 1/4, 1/4
+    of the prompt, question span [2, 130)); the arguments of
+    ``moka_delta_fused``.  Built here, not imported from chip_smoke, so
+    that ``--root`` can time another checkout's wrapper."""
+    import math
+    import torch
+    from moka_tpu_torch.ops.moka import MokaSpec
+    b, L = MOKA_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    spec = MokaSpec.avt(rank=rank, dropout_rate=0.0)
+    x = torch.randn((b, L, d_in), generator=g, device="cuda").bfloat16()
+    bound = 1.0 / math.sqrt(d_in)
+    a = torch.rand((3, d_in, rank), generator=g, device="cuda") * 2 * bound \
+        - bound
+    bm = torch.randn((rank, d_out), generator=g, device="cuda") * 0.02
+    mod = torch.zeros((3, b, L), device="cuda")
+    mod[0, :, :L // 2], mod[1, :, L // 2:3 * L // 4] = 1, 1
+    mod[2, :, 3 * L // 4:] = 1
+    qm = torch.zeros((b, L), device="cuda")
+    qm[:, 2:130] = 1
+    return x, a, bm, mod, qm, spec
+
+
+def moka_delta_window(host_calls: int = 50) -> dict:
+    """Kernel 5 through its wrapper at the serving prefill (MOKA_SHAPE,
+    bf16, AVT) for each projection shape of LLaMA-2-7B at ranks 4, 8 and
+    16 (rank 4 alone for a checkout whose kernel takes no other, as
+    ``--root`` of the parent): the kernel alone (``graph_ms``, a CUDA
+    graph of 20 launches; x, 59-158 MB, overflows the 50 MB L2, so it is
+    read from HBM), the host's µs a call and the wrapper back to back; a
+    layer sums the seven projections."""
+    from moka_tpu_torch.ops import moka_pallas as mp
+    ranks = MOKA_RANKS if hasattr(mp, "fused_moka_supported") else (4,)
+    out = {"package": mp.__file__}
+    for rank in ranks:
+        layer = {"graph_ms": 0.0, "back_to_back_ms": 0.0}
+        for name, ((d_in, d_out), count) in MOKA_PROJS.items():
+            args = moka_case(d_in, d_out, rank)
+
+            def call():
+                mp.moka_delta_fused(*args)
+
+            res = {"graph_ms": graph_ms(call, n=20),
+                   "host_us": host_us(call, host_calls),
+                   "back_to_back_ms": event_ms(call, 20)}
+            out[f"r{rank} {d_in}->{d_out}"] = res
+            for k in layer:
+                layer[k] += count * res[k]
+            print(f"  r{rank} {name} {d_in}->{d_out}: kernel alone "
+                  f"{res['graph_ms']:.4f} ms, host {res['host_us']:.1f} us a "
+                  f"call, back to back {res['back_to_back_ms']:.4f} ms",
+                  flush=True)
+            del args
+        out[f"r{rank} layer"] = layer
+        print(f"  r{rank} a layer: kernel alone {layer['graph_ms']:.4f} ms, "
+              f"back to back {layer['back_to_back_ms']:.4f} ms", flush=True)
+    return {"moka_delta": out}
+
+
+_MOKA_NO_DOWN = ("      for (int kk = 0; kk < 4; ++kk)\n"
+                 "        wgmma_m64nN_ss<C::N>(",
+                 "      for (int kk = 0; kk < 0; ++kk)\n"
+                 "        wgmma_m64nN_ss<C::N>(")
+MOKA_ABLATIONS = {  # name: edits of moka_delta_fwd.cu (hopper.cuh inlined);
+    "kernel": [],   # the edited kernels' delta is wrong, only times count
+    "loads alone (x stages released unread; no B, attention or stores)": [
+        _MOKA_NO_DOWN,
+        ("        for (int ch = 0; ch < sh.chunks; ++ch, ++jt) {\n"
+         "          const int s = jt % C::B_STAGES;",
+         "        for (int ch = 0; ch < 0; ++ch, ++jt) {\n"
+         "          const int s = jt % C::B_STAGES;"),
+        ("    named_bar_sync(1, CONSUMERS);  // abuf written\n",
+         "    named_bar_sync(1, CONSUMERS);  // abuf written\n"
+         "    if (sh.kb > 0) continue;  // ablation: the loads alone\n")],
+    "no down product (x and A still loaded)": [_MOKA_NO_DOWN],
+    "no attention (keys staged, not walked)": [
+        ("          for (int kq = half; kq < cn; kq += 2) {",
+         "          for (int kq = half; kq < 0; kq += 2) {")],
+    "no up product (the stores alone)": [
+        ("      for (int kk = 0; kk < C::KPAD / 16; ++kk)\n#pragma unroll\n"
+         "        for (int n = 0; n < 2; ++n)",
+         "      for (int kk = 0; kk < 0; ++kk)\n#pragma unroll\n"
+         "        for (int n = 0; n < 2; ++n)")],
+    "no stores (chunks computed and staged)": [
+        ("        tma_store_4d(&tm_out, src, CHUNK * ch, row, bi, 0, first);\n"
+         "        if (CHUNK * ch + 64 < a.d_out)\n"
+         "          tma_store_4d(&tm_out, src + WBOX, CHUNK * ch + 64, row, "
+         "bi, 0, first);\n", "")],
+    "the key pass alone (no main kernel)": [
+        ("  moka_delta_kernel<R, M><<<grid, NT, smem, st>>>(tm_x, tm_at, "
+         "tm_b, tm_out,\n                                                   "
+         "a, sh);\n", "")],
+    "ring of 4 stages": [("constexpr int MAX_STAGES = 8;",
+                          "constexpr int MAX_STAGES = 4;")]}
+MOKA_ABLATION_CASES = ((4, 4096, 4096), (4, 4096, 11008), (16, 4096, 11008),
+                       (16, 11008, 4096))
+
+
+def moka_ablation_window() -> dict:
+    """Kernel 5 with parts taken out (MOKA_ABLATIONS: edited copies of
+    moka_delta_fwd.cu, built all at once) through the wrapper at
+    MOKA_ABLATION_CASES (rank, d_in, d_out; MOKA_SHAPE, bf16, AVT), the
+    kernel alone (``graph_ms``) twice in turn; the unedited copy is first
+    held against the plain version (chip_smoke's MOKA_TOL)."""
+    from chip_smoke import MOKA_TOL
+    from moka_tpu_torch.ops import moka_pallas as mp
+    libs = {name: mp.bind(lib) for name, lib in
+            finish_variants(start_variants("moka_delta_fwd.cu",
+                                           MOKA_ABLATIONS)).items()}
+    kept = mp._library()
+
+    def install(lib):
+        mp._lib = lib
+
+    cases = {f"r{r} {i}->{o}": moka_case(i, o, r)
+             for r, i, o in MOKA_ABLATION_CASES}
+    errs = {}
+    for name, args in cases.items():
+        try:
+            install(libs["kernel"])
+            got = mp.moka_delta_fused(*args).float()
+        finally:
+            install(kept)
+        ref = mp.moka_delta_fused_plain(*args).float()
+        errs[name] = float((got - ref).abs().max() / ref.abs().max())
+        print(f"  the unedited copy, {name}: max|err| / max|plain| "
+              f"{errs[name]:.2e} (tol {MOKA_TOL['bfloat16']})", flush=True)
+        if errs[name] > MOKA_TOL["bfloat16"]:
+            raise AssertionError("the ablation's unedited kernel 5 is wrong")
+        del got, ref
+    timers = {name: (lambda args=args: graph_ms(
+        lambda: mp.moka_delta_fused(*args), n=20)) for name, args in
+        cases.items()}
+    out = swap_timed(install, kept, libs, timers)
+    return {"moka_ablation": out, "moka_rel_err": errs}
+
+
 TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
               "quant": "train_step_quant_route_b",
               "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
@@ -883,7 +1037,9 @@ def main(argv=None) -> int:
                       "rank_kernels": rank_kernels_window,
                       "rank_ablation": rank_ablation_window,
                       "block_diag": block_diag_window,
-                      "block_diag_ablation": block_diag_ablation_window}
+                      "block_diag_ablation": block_diag_ablation_window,
+                      "moka_delta": moka_delta_window,
+                      "moka_ablation": moka_ablation_window}
     if set(names) - {*WINDOWS, *kernel_windows}:
         print(f"profile_port: windows are {WINDOWS} and "
               f"{tuple(kernel_windows)}", file=sys.stderr)

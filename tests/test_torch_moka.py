@@ -26,12 +26,13 @@ from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _specs(flavour, window=None):
+def _specs(flavour, window=None, rank=4):
     if flavour == "avt":
-        args = dict(rank=4, lora_alpha=16.0, blc_weight=0.7, dropout_rate=0.0)
+        args = dict(rank=rank, lora_alpha=16.0, blc_weight=0.7,
+                    dropout_rate=0.0)
         js, ts = jm.MokaSpec.avt(**args), tm.MokaSpec.avt(**args)
     else:
-        args = dict(rank=4, attn_weight=0.05, dropout_rate=0.0)
+        args = dict(rank=rank, attn_weight=0.05, dropout_rate=0.0)
         js, ts = jm.MokaSpec.vt(**args), tm.MokaSpec.vt(**args)
     if window is not None:
         js, ts = js.with_question_window(window), ts.with_question_window(
@@ -39,13 +40,16 @@ def _specs(flavour, window=None):
     return js, ts
 
 
-def _inputs(seed, b, L, d_in, d_out, M, no_question_row=True):
+def _inputs(seed, b, L, d_in, d_out, M, no_question_row=True, rank=4,
+            split_question=False):
     """Disjoint modality masks, a contiguous question span inside the text
-    part, and (optionally) a last row with no question token."""
+    part (``split_question``: a second question token past a gap, and
+    one outside the text stream), and (optionally) a last row with no
+    question token."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, L, d_in)).astype(np.float32)
-    a = (rng.standard_normal((M, d_in, 4)) * 0.2).astype(np.float32)
-    bm = (rng.standard_normal((4, d_out)) * 0.2).astype(np.float32)
+    a = (rng.standard_normal((M, d_in, rank)) * 0.2).astype(np.float32)
+    bm = (rng.standard_normal((rank, d_out)) * 0.2).astype(np.float32)
     mod = np.zeros((M, b, L), np.float32)
     q = np.zeros((b, L), np.float32)
     for i in range(b):
@@ -56,6 +60,9 @@ def _inputs(seed, b, L, d_in, d_out, M, no_question_row=True):
         text_end = bounds[1]
         s = int(rng.integers(0, max(1, text_end - 1)))
         q[i, s:min(text_end, s + 3)] = 1
+        if split_question:
+            q[i, min(text_end - 1, s + 5)] = 1
+            q[i, L - 1] = 1  # a question position the text mask leaves out
     if no_question_row:
         q[-1] = 0
     return x, a, bm, mod, q
@@ -162,18 +169,63 @@ def test_init_moka_params_and_unported_paths():
     np.testing.assert_allclose(flash.numpy(), plain.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("flavour,L", [("avt", 24), ("vt", 24), ("avt", 21)])
-def test_fused_plain_matches_jax_interpret_kernel(flavour, L):
+@pytest.mark.parametrize("rank", [4, 8, 16])
+@pytest.mark.parametrize("flavour,L,split", [("avt", 24, False),
+                                             ("vt", 24, False),
+                                             ("avt", 21, False),
+                                             ("avt", 24, True),
+                                             ("vt", 21, True)])
+def test_fused_plain_matches_jax_interpret_kernel(flavour, L, split, rank):
     """The fused delta's plain version against the Pallas kernel in
-    interpret mode (block 8; L=21 leaves a ragged last block)."""
-    js, ts = _specs(flavour)
-    x, a, bm, mod, q = _inputs(7, 2, L, 16, 12, js.num_modalities)
+    interpret mode (block 8; L=21 leaves a ragged last block) at each
+    rank the CUDA kernel takes; ``split``: a question mask that is not
+    contiguous, with a question position outside the text stream."""
+    js, ts = _specs(flavour, rank=rank)
+    x, a, bm, mod, q = _inputs(7, 2, L, 16, 12, js.num_modalities,
+                               rank=rank, split_question=split)
     want = j_fused(*map(jnp.asarray, (x, a, bm, mod, q)), js, 8, True)
     got = moka_delta_fused(*_t(x, a, bm, mod, q), ts)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     plain = moka_delta_fused_plain(*_t(x, a, bm, mod, q), ts)
     np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=0, atol=0)
     assert moka_delta_fused.launches == 0  # CPU tensors never launch
+
+
+def test_fused_route_follows_the_kernel_ranks():
+    """The kernel takes ranks 4, 8 and 16 with one to four modalities and
+    widths that are multiples of 8; the decode paths' default route takes
+    it only for such a spec on the card and the unfused delta otherwise
+    (as JAX's decode), and a forced fused delta at a rank it does not take
+    raises, on the CPU as on the card."""
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.eval.decode import fused_moka_route
+    from moka_tpu_torch.ops.moka_pallas import fused_moka_supported
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = LlamaConfig.llama2_7b()
+    for r in (4, 8, 16):
+        for spec in (tm.MokaSpec.avt(rank=r), tm.MokaSpec.vt(rank=r)):
+            assert fused_moka_supported(spec)
+            assert fused_moka_supported(spec, 4096, 11008)
+            assert fused_moka_route(cuda, None, cfg, spec)
+            assert not fused_moka_route(cpu, None, cfg, spec)
+    for r in (2, 32):
+        spec = tm.MokaSpec.avt(rank=r)
+        assert not fused_moka_supported(spec)
+        assert not fused_moka_route(cuda, None, cfg, spec)
+        assert fused_moka_route(cuda, True, cfg, spec)  # the caller's choice
+    five = dataclasses.replace(tm.MokaSpec.avt(rank=8), num_modalities=5)
+    assert not fused_moka_supported(five) and not fused_moka_supported(None)
+    assert not fused_moka_supported(tm.MokaSpec.avt(rank=8), 4096, 4100)
+    assert not fused_moka_route(cuda, None, LlamaConfig.tiny(),
+                                tm.MokaSpec.avt(rank=32))
+    js, ts = _specs("avt", rank=32)
+    x, a, bm, mod, q = _inputs(9, 2, 12, 16, 8, 3, rank=32)
+    with pytest.raises(ValueError, match="ranks"):
+        moka_delta_fused(*_t(x, a, bm, mod, q), ts)
+    np.testing.assert_allclose(  # the unfused delta takes any rank
+        tm.moka_delta(*_t(x, a, bm, mod, q), ts).numpy(),
+        np.asarray(jm.moka_delta(*map(jnp.asarray, (x, a, bm, mod, q)), js)),
+        **TOL)
 
 
 def test_fused_grads_match_jax():

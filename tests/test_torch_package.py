@@ -147,11 +147,67 @@ def test_rank_and_block_diag_edits_apply(edits):
     assert len(variants) == len(table) + (0 if "kernel" in table else 1)
 
 
+@pytest.mark.parametrize("edits", ["MOKA_ABLATIONS", "MOKA_MUTANTS"])
+def test_moka_edits_apply(edits):
+    """Kernel 5's edited copies (profile_port.py's ablations: the loads
+    alone, no attention, no up product, the key pass alone, ...;
+    chip_smoke.py's mutants, which phase 3 requires to fail) edit
+    moka_delta_fwd.cu by text: each old text occurs exactly once
+    (hopper.cuh inlined) and no two copies are alike."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    import profile_port
+    table = getattr(profile_port if "ABLATIONS" in edits else chip_smoke,
+                    edits)
+    src = "moka_delta_fwd.cu"
+    base = profile_port.ablation_source([], kernels.CSRC, src)
+    variants = {base}
+    for name, changes in table.items():
+        for old, _ in changes:
+            assert base.count(old) == 1, (name, old)
+        edited = profile_port.ablation_source(changes, kernels.CSRC, src)
+        assert (edited == base) == (not changes), name
+        variants.add(edited)
+    assert len(variants) == len(table) + (0 if "kernel" in table else 1)
+    assert chip_smoke.MUTANT_SOURCES["moka_delta_fwd"] == (
+        src, chip_smoke.MOKA_MUTANTS)
+
+
+def test_moka_delta_source_contract():
+    """Kernel 5's bf16 path: the down product on wgmma (m64nN, N = 2 M r,
+    A's bf16 halves), x by TMA into an mbarrier ring and the delta out by
+    TMA stores; the attention walks the row's n_q compacted keys (no
+    question mask read in the main kernel); the key pass runs a fixed
+    number of CTAs a row (at most KP_CTAS), not one a token; instances for
+    ranks 4, 8 and 16, as ``fused_moka_supported`` says."""
+    import re
+    from moka_tpu_torch import kernels
+    from moka_tpu_torch.ops import moka_pallas as mp
+    src = re.sub(r"//[^\n]*", "", (kernels.CSRC / "moka_delta_fwd.cu")
+                 .read_text())
+    main = src[src.index("moka_delta_kernel(const __grid_constant__"):
+               src.index("namespace f32")]
+    assert "wgmma_m64nN_ss<C::N>" in main and "wgmma_m64n64_rs<1>" in main
+    assert "tma_load_4d(ring" in main and "tma_store_4d(&tm_out" in main
+    assert "mbar_wait(full" in main and "a.qmask" not in main
+    assert "kq < cn" in main and "a.nq[bi]" in main
+    assert re.search(r"question_keys_kernel<T, R><<<dim3\(ctas, a\.nb\)",
+                     src)
+    assert int(re.search(r"constexpr int KP_CTAS = (\d+);", src)[1]) <= 32
+    assert "dim3(a.L" not in src and "dim3(L" not in src
+    for r in mp.KERNEL_RANKS:
+        assert f"launch<{r}>(a, x_bf16, st)" in src
+    assert mp.KERNEL_RANKS == (4, 8, 16)
+
+
 def test_rank_and_block_diag_source_contract():
     """The rank forward walks keys straight from global memory (no shared
     staging, 16-byte loads, one __syncthreads for the span and one for
     V's sum); kernel 10 streams x by TMA through hopper.cuh's swizzled
-    tensor map and mbarriers, with no atomics."""
+    tensor map and mbarriers, with no atomics, and releases a stage only
+    after a proxy fence."""
     import re
     from moka_tpu_torch import kernels
     rank = (kernels.CSRC / "flash_rank.cu").read_text()
@@ -164,6 +220,11 @@ def test_rank_and_block_diag_source_contract():
                 .read_text())
     assert "tma_load_4d" in bd and "swizzled_map" in bd
     assert "mbar_wait" in bd and "atomic" not in bd
+    # each stage release follows a proxy fence: the warp's generic reads
+    # of the stage are performed before the next TMA write into it
+    releases = re.findall(r"(fence_proxy_async_smem\(\);\s*__syncwarp\(\);\s*"
+                          r"if \(lane == 0\) mbar_arrive)|(mbar_arrive\()", bd)
+    assert len(releases) == 2 and all(fenced for fenced, _ in releases)
 
 
 @pytest.mark.parametrize("name", sorted(__import__(
@@ -342,22 +403,70 @@ def test_flash_bwd_kernels_match_plain_on_card(card, which, shard):
 
 
 @pytest.mark.cuda
-def test_moka_kernel_matches_plain_on_card(card):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flavour", ["avt", "vt"])
+@pytest.mark.parametrize("rank", [4, 8, 16])
+def test_moka_kernel_matches_plain_on_card(card, rank, flavour, dtype):
+    """Kernel 5 against its plain version at each rank it takes, AVT and
+    VT, fp32 x (1e-4 of max|plain|) and bf16 x (1e-2: one bf16 ulp), a
+    ragged L, a question mask with a gap and a row with no question."""
     from moka_tpu_torch.ops.moka import MokaSpec
     from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
                                                 moka_delta_fused_plain)
     g = torch.Generator(device=card).manual_seed(0)
-    spec = MokaSpec.avt(rank=4, dropout_rate=0.0)
-    x = torch.randn((2, 70, 256), generator=g, device=card)
-    a = torch.rand((3, 256, 4), generator=g, device=card) / math.sqrt(256)
-    bm = torch.randn((4, 96), generator=g, device=card) * 0.1
-    mod = torch.zeros((3, 2, 70), device=card)
-    mod[0, :, :30], mod[1, :, 30:50], mod[2, :, 50:] = 1, 1, 1
+    make = MokaSpec.avt if flavour == "avt" else MokaSpec.vt
+    spec = make(rank=rank, dropout_rate=0.0)
+    M = spec.num_modalities
+    x = torch.randn((2, 70, 256), generator=g, device=card).to(
+        getattr(torch, dtype))
+    a = torch.rand((M, 256, rank), generator=g, device=card) / \
+        math.sqrt(256)
+    bm = torch.randn((rank, 96), generator=g, device=card) * 0.1
+    mod = torch.zeros((M, 2, 70), device=card)
+    mod[0, :, :30], mod[1, :, 30:50], mod[M - 1, :, 50:] = 1, 1, 1
     qm = torch.zeros((2, 70), device=card)
-    qm[0, 3:9] = 1  # row 1 has no question
+    qm[0, 3:9], qm[0, 20] = 1, 1  # row 1 has no question
     got = moka_delta_fused(x, a, bm, mod, qm, spec)
     ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
-    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    assert (got.float() - ref.float()).abs().max() <= \
+        tol * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_moka_route_on_card(card):
+    """A rank-8 adapter tree serves on the card through
+    ``greedy_generate``'s defaults, which take kernel 5; at rank 32 the
+    defaults take the unfused delta (no launch), and a forced fused delta
+    raises."""
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.eval.decode import greedy_generate
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
+    cfg = LlamaConfig.tiny()
+    g = torch.Generator(device=card).manual_seed(0)
+    base = llama.init_llama_params(g, cfg, device=card)
+    b, L = 2, 40
+    embeds = torch.randn((b, L, cfg.dim), generator=g,
+                         device=card).bfloat16()
+    mod = torch.zeros((3, b, L), device=card)
+    mod[0, :, :20], mod[1, :, 20:30], mod[2, :, 30:] = 1, 1, 1
+    qm = torch.zeros((b, L), device=card)
+    qm[:, 2:10] = 1
+    kw = dict(cfg=cfg, inputs_embeds=embeds,
+              prompt_mask=torch.ones((b, L), device=card),
+              masks=llama.MaskBundle(mod, qm), max_new_tokens=3, eos_id=-1,
+              use_flash=False)  # tiny head_dim 16: no flash kernel
+    for rank, fused in ((8, True), (32, False)):
+        spec = MokaSpec.avt(rank=rank, dropout_rate=0.0)
+        adapters = llama.init_moka_adapters(g, cfg, spec, device=card)
+        moka_delta_fused.launches = 0
+        toks = greedy_generate(base, adapters, spec=spec, **kw)
+        assert toks.shape == (b, 3)
+        assert (moka_delta_fused.launches > 0) == fused
+    with pytest.raises(ValueError, match="ranks"):
+        greedy_generate(base, adapters, spec=spec, use_fused_moka=True, **kw)
 
 
 @pytest.mark.cuda
