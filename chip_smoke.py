@@ -7,17 +7,19 @@ Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel) and, beside them, the
-     deliberate faults RANK_MUTANTS, BD_MUTANTS and MOKA_MUTANTS (edited
-     copies of the rank forward's, kernel 10's and kernel 5's sources),
-     print ptxas's resource lines and the SASS counts of the flash
-     kernels, the fused CE pair, the rank kernels, kernel 10 and kernel 5
-     (``cuobjdump -sass``: a forward instance, the dq kernel or a
-     key-major backward kernel without HGMMA or UTMALDG or with HMMA, the
-     fused backward without its bulk reduction, kernel 9 without HGMMA,
-     UTMALDG or a bulk reduction or with HMMA, an instance of kernel 10
-     without UTMALDG, or an instance of kernel 5's bf16 kernel without
-     HGMMA, UTMALDG or UTMASTG fails the phase; kernel 8 keeps mma.sync,
-     the rank kernels are fp32 SIMT);
+     deliberate faults RANK_MUTANTS, BD_MUTANTS, MOKA_MUTANTS and
+     DROP_MUTANTS (edited copies of the rank forward's, kernel 10's,
+     kernel 5's and kernels 6-7's sources), print ptxas's resource lines
+     and the SASS counts of the flash kernels, the fused CE pair, the rank
+     kernels, kernel 10, kernel 5 and kernels 6-7 (``cuobjdump -sass``: a
+     forward instance, the dq kernel or a key-major backward kernel
+     without HGMMA or UTMALDG or with HMMA, the fused backward without its
+     bulk reduction, kernel 9 without HGMMA, UTMALDG or a bulk reduction
+     or with HMMA, an instance of kernel 10 without UTMALDG, an instance
+     of kernel 5's bf16 kernel without HGMMA, UTMALDG or UTMASTG, or an
+     instance of kernel 6's or 7's bf16-x kernel without HGMMA or UTMALDG
+     (7 also UTMASTG) or with HMMA fails the phase; kernel 8 keeps
+     mma.sync, the rank kernels and kernels 6-7's fp32-x path are SIMT);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -45,7 +47,14 @@ Phases, in order; any failed build, launch or check exits non-zero:
      shard visible; all of it masked, where dq, dk and dv must be exactly
      zero), and the fused and dq kernels launched with causal flipped
      must fail the check; the fused dropout kernels
-     (6-7) in Philox and forced-words modes, masks held exactly; the fused CE
+     (6-7) at every M*r they take (4-64: ranks 4, 8, 16 x 1-4 modalities)
+     at the training path's (4096, 4096) and (4096, 11008) with fp32 and
+     bf16 A, in Philox and forced-words modes, and at a ragged (333, 200)
+     with fp32 and bf16 x, masks held exactly and repeats bit-identical,
+     launched as each DROP_MUTANTS fault (the backward's words at the
+     neighbouring counter, dA over half the rows, the forward without its
+     mask) they must fail, timed over a layer's seven projections at AVT
+     ranks 4, 8 and 16; the fused CE
      kernels (8-9) on an int8 head at route B's shape and three ragged
      ones (kernel 9 also timed without the wrapper's zero fill and cast);
      the block-diagonal product (kernel 10) at the BOFT merge's three
@@ -91,7 +100,9 @@ Phases, in order; any failed build, launch or check exits non-zero:
   8. the fused-dropout step (phase 6's model and batch with bf16 dots,
      fused dropout and remat policy ``proj_lse``): at 2 layers the kernel
      path's gradients against the plain path (same Philox masks) and fp32,
-     and proj_lse against full remat; then 2 warm-up and 5 timed steps
+     proj_lse against full remat, and the same gradient check on an AVT
+     rank-8 tree (M*r 24) and a VT tree (M*r 8); then 2 warm-up and 5
+     timed steps
      (32 flash forward, 32 fused backward, 448 dropout forward and 224
      dropout backward launches a step), one traced step for the device's
      busy share (``profile_port.trace``), and one step under each of full,
@@ -196,9 +207,12 @@ DROP_DX_MISMATCH = 1e-2  # dx: share of bf16 elements that may differ from
                  # its 12 terms in another order, which can move a rounding
 LANE_INSTR = 33.5e12  # lane instructions a second: 132 SMs x 128 lanes x
                  # 1.98 GHz, the issue limit behind the 67 TFLOP/s fp32 peak
-PHILOX_INSTR = 98  # integer instructions of one Philox4x32-10 call (four
-                 # words): 10 rounds of 2 multiplies high and low and 4 xors,
-                 # 9 key bumps of 2 adds
+IMUL_RATE = 16.7e12  # 32-bit integer multiplies a second: 64 a clock on each
+                 # of 132 SMs at 1.98 GHz (CUDA guide, compute capability
+                 # 9.0: half the FMA rate)
+PHILOX: dict = {}  # one Philox4x32-10 call (four words) as fused_dropout.cu
+                 # compiles it: SASS instructions and 32-bit multiplies
+                 # (profile_port.philox_sass, phase 2)
 LOGIT_RATIO = 1.5  # prefill logits: the kernel path's distance from an fp32
                    # run may exceed the plain bf16 path's by half: both only
                    # round differently (+1e-3 / 1e-2 of the logit std)
@@ -402,6 +416,34 @@ def check_moka_sass() -> dict:
     return out
 
 
+DROP_SASS = ("fused_dropout", {"dropout_fwd_kernel": (4, False),
+                                 "dropout_bwd_kernel": (4, True)})
+# kernels 6-7: library, {bf16-x kernel's stem: (instances (A bf16, fp32 x
+# the generator, forced words), TMA stores required)}
+
+
+def check_dropout_sass() -> dict:
+    """Kernels 6-7's bf16-x path runs its products on wgmma (the backward
+    its dA; dx is an fp32 FMA chain) and moves x by TMA: each instance of
+    the forward and of the backward (A bf16 and fp32, the generator and
+    forced words) shows HGMMA and
+    UTMALDG and no HMMA, the backward's also UTMASTG (dx); the fp32-x
+    kernels (SIMT) are only printed.  Raises otherwise."""
+    lib, stems = DROP_SASS
+    out = sass_counts(lib)
+    for fn, c in out.items():
+        log(f"    {lib} SASS {fn}: " +
+            ", ".join(f"{op} {k}" for op, k in c.items()))
+    for stem, (n, stores) in stems.items():
+        ks = [c for fn, c in out.items() if stem in fn]
+        if len(ks) != n or any(
+                c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] or
+                (stores and c["UTMASTG"] == 0) for c in ks):
+            raise AssertionError(f"{lib} SASS: an instance of {stem} lacks "
+                                 f"wgmma or TMA, or keeps mma.sync: {out}")
+    return out
+
+
 # Deliberate faults, each an edited copy of a kernel's source built beside
 # the kernels in phase 2 (profile_port.start_variants) and swapped in for
 # its library in phase 3, where each must fail the check it is run under.
@@ -423,9 +465,22 @@ MOKA_MUTANTS = {  # moka_delta_fwd.cu's bf16 kernel (the main path's)
     "walks only the first key chunk": [
         ("      for (int c0 = 0; c0 < n_q; c0 += C::KCAP) {",
          "      for (int c0 = 0; c0 < min(n_q, C::KCAP); c0 += C::KCAP) {")]}
+DROP_MUTANTS = {  # fused_dropout.cu's bf16-x kernels (the path's)
+    "the backward masks with the neighbouring counter (col // 4 + 1)": [
+        ("        words8<FORCED>(bits, n0 + r, c0 + 8 * q, sh.n_rows, sh.d, "
+         "sh.key, w);",
+         "        words8<FORCED>(bits, n0 + r, c0 + 8 * q + 4, sh.n_rows, sh.d, "
+         "sh.key, w);")],
+    "dA sums only the first half of the rows": [
+        ("            from_float((dacc[k] + other[k * 128 + t]) * "
+         "sh.inv_keep,", "            from_float(dacc[k] * sh.inv_keep,")],
+    "the forward ignores the keep mask": [
+        ("      keep_masks(w, sh.thresh, fk);",
+         "      fk[0] = fk[1] = fk[2] = fk[3] = 0xffffffffu;")]}
 MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu", RANK_MUTANTS),
                   "block_diag": ("block_diag.cu", BD_MUTANTS),
-                  "moka_delta_fwd": ("moka_delta_fwd.cu", MOKA_MUTANTS)}
+                  "moka_delta_fwd": ("moka_delta_fwd.cu", MOKA_MUTANTS),
+                  "fused_dropout": ("fused_dropout.cu", DROP_MUTANTS)}
 MUTANTS: dict = {}  # library name: {fault: loaded library}, after phase 2
 
 
@@ -435,23 +490,20 @@ def swapped_library(name, lib):
     copy of its source."""
     from moka_tpu_torch.ops import fbd
     from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops import fused_dropout as fd
     from moka_tpu_torch.ops import moka_pallas as mp
-    if name == "block_diag":
-        kept = fbd._library()
-        fbd._lib = fbd.bind(lib)
-    elif name == "moka_delta_fwd":
-        kept = mp._library()
-        mp._lib = mp.bind(lib)
+    own = {"block_diag": fbd, "moka_delta_fwd": mp, "fused_dropout": fd}
+    if name in own:
+        kept = own[name]._library()
+        own[name]._lib = own[name].bind(lib)
     else:
         kept = fa._library(name)
         fa._libs[name] = fa.bind(name, lib)
     try:
         yield
     finally:
-        if name == "block_diag":
-            fbd._lib = kept
-        elif name == "moka_delta_fwd":
-            mp._lib = kept
+        if name in own:
+            own[name]._lib = kept
         else:
             fa._libs[name] = kept
 
@@ -1151,21 +1203,22 @@ def moka_record(b, L, dim, inter) -> dict:
 
 
 DROP_RATE = 0.05   # the training path's LoRA dropout
-DROP_MR = 12       # M * r of MokA AVT at rank 4
+DROP_MRS = (4, 8, 12, 16, 24, 32, 48, 64)  # M * r of ranks 4, 8, 16 x 1-4
+                   # modalities: what kernels 6-7 take
+DROP_TIMED = {4: 12, 8: 24, 16: 48}  # rank: M * r of AVT, timed a layer
 
 
-def dropout_case(n, d, x_dtype, a_dtype, forced, seed):
-    """Inputs of the fused-dropout kernels: random x (n, d), A (d, 12)
-    kaiming-uniform, a cotangent g (n, 12) fp32, a key, and (forced mode)
+def dropout_case(n, d, x_dtype, a_dtype, forced, seed, mr=12):
+    """Inputs of the fused-dropout kernels: random x (n, d), A (d, mr)
+    kaiming-uniform, a cotangent g (n, mr) fp32, a key, and (forced mode)
     random 32-bit words."""
     import torch
     from moka_tpu_torch.core.rng import DropoutKey
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((n, d), generator=g, device="cuda").to(x_dtype)
     bound = 1.0 / math.sqrt(d)
-    a = (torch.rand((d, DROP_MR), generator=g, device="cuda") * 2 - 1) \
-        * bound
-    gout = torch.randn((n, DROP_MR), generator=g, device="cuda")
+    a = (torch.rand((d, mr), generator=g, device="cuda") * 2 - 1) * bound
+    gout = torch.randn((n, mr), generator=g, device="cuda")
     bits = torch.randint(0, 1 << 32, (n, d), generator=g, device="cuda",
                          dtype=torch.int64) if forced else None
     return x, a.to(a_dtype), gout, DropoutKey(1000 + seed), bits
@@ -1220,7 +1273,8 @@ def check_dropout(name, x, a, gout, key, bits) -> float:
           and ulp <= 0 and mism <= DROP_DX_MISMATCH and da_ok
           and abs(share - (1 - DROP_RATE)) <= 5 * sigma)
     log(f"  dropout {name}: x {tuple(x.shape)} {str(x.dtype)[6:]}, A "
-        f"{str(a.dtype)[6:]}, {'forced bits' if bits is not None else 'Philox'}"
+        f"{tuple(a.shape)} {str(a.dtype)[6:]}, "
+        f"{'forced bits' if bits is not None else 'Philox'}"
         f": out rel err {e_out:.2e}, vs own-mask forward {e_own:.2e} (tol "
         f"{DROP_TOL}); dx beyond one ulp {ulp:.2e}, not bit-identical "
         f"{mism:.2e} (tol {DROP_DX_MISMATCH}); dA err {e_da:.2e}; zeros = "
@@ -1232,70 +1286,107 @@ def check_dropout(name, x, a, gout, key, bits) -> float:
     return float((out - ref).abs().max())
 
 
+def dropout_check_cases(n, dim, inter) -> list[tuple]:
+    """(rows, d, x dtype, A dtype, forced, M*r): every M*r of DROP_MRS at
+    the training path's (N, dim) and (N, inter) with bf16 x, fp32 and bf16
+    A, Philox and forced words, and at a ragged (333, 200) with fp32 x
+    (fp32 A, Philox) and bf16 x (bf16 A, forced; the TMA boxes' ragged
+    edges)."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    return [case for mr in DROP_MRS for case in (
+        *[(n, d, bf, adt, forced, mr) for d in (dim, inter)
+          for adt in (f32, bf) for forced in (False, True)],
+        (333, 200, f32, f32, False, mr), (333, 200, bf, bf, True, mr))]
+
+
 def dropout_records(n, dim, inter) -> list[dict]:
-    """Check kernels 6-7 at the training path's shapes (N = b·L 4096, d
-    4096 and 11008, x bf16, A fp32 and bf16, Philox and forced words) and a
-    ragged case, then time them over one layer's seven projections (x and A
-    bf16, Philox: the path's dtypes) beside the plain versions and the
-    library's ``F.dropout(x) @ A`` (forward, and its autograd backward
-    alone on one recorded forward)."""
+    """Check kernels 6-7 at every M*r they take (``dropout_check_cases``);
+    launched as each DROP_MUTANTS fault they must fail; then time them over
+    one layer's seven projections (x and A bf16, Philox: the path's dtypes)
+    at ranks 4, 8 and 16 of AVT (DROP_TIMED), at rank 4 beside the plain
+    versions and the library's ``F.dropout(x) @ A`` (forward, and its
+    autograd backward alone on one recorded forward).  The bound counts
+    the products as the kernels issue them on the tensor cores (M*r padded
+    to wgmma's 64 rows forward, and to 16 for dx; g split into two bf16
+    halves) and the generator: its SASS instructions a call at LANE_INSTR
+    and its 32-bit multiplies at IMUL_RATE (PHILOX, counted in phase 2)."""
     import torch
     import torch.nn.functional as F
     from moka_tpu_torch.ops import fused_dropout as fd
     err = 0.0
-    cases = [(n, d, torch.bfloat16, adt, forced)
-             for d in (dim, inter) for adt in (torch.float32, torch.bfloat16)
-             for forced in (False, True)]
-    cases.append((333, 200, torch.float32, torch.float32, False))
-    for i, (rows, d, xdt, adt, forced) in enumerate(cases):
-        args = dropout_case(rows, d, xdt, adt, forced, seed=i)
+    for i, (rows, d, xdt, adt, forced, mr) in enumerate(
+            dropout_check_cases(n, dim, inter)):
+        args = dropout_case(rows, d, xdt, adt, forced, seed=i, mr=mr)
         err = max(err, check_dropout(f"case {i}", *args))
         del args
+    for what, lib in MUTANTS["fused_dropout"].items():
+        with swapped_library("fused_dropout", lib):
+            must_fail(f"kernels 6-7 mutant ({what})", lambda: check_dropout(
+                f"mutant ({what})", *dropout_case(n, dim, torch.bfloat16,
+                                                  torch.bfloat16, False,
+                                                  seed=90)))
     dims = [dim] * 6 + [inter]  # q, k, v, o, gate, up read dim; down inter
-    tot = {k: 0.0 for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
-                            "fwd_lib", "bwd_lib", "fwd_bytes", "bwd_bytes",
-                            "fwd_flops", "bwd_flops", "philox")}
-    for d in dims:
-        x, a, gout, key, _ = dropout_case(n, d, torch.bfloat16,
-                                          torch.bfloat16, False, seed=50)
-        tot["fwd"] += time_ms(lambda: fd.dropout_a_fwd(x, a, key, DROP_RATE))
-        tot["bwd"] += time_ms(lambda: fd.dropout_a_bwd(x, a, gout, key,
-                                                       DROP_RATE))
-        tot["fwd_plain"] += time_ms(lambda: fd.dropout_a_fwd_plain(
-            x, a, key, DROP_RATE), iters=3, warmup=1)
-        tot["bwd_plain"] += time_ms(lambda: fd.dropout_a_bwd_plain(
-            x, a, gout, key, DROP_RATE), iters=3, warmup=1)
-        xg, ag = x.clone().requires_grad_(True), a.clone().requires_grad_(True)
-        gb = gout.to(torch.bfloat16)
+    by_rank = {}
+    for rank, mr in DROP_TIMED.items():
+        tot = {k: 0.0 for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
+                                "fwd_lib", "bwd_lib", "fwd_bytes",
+                                "bwd_bytes", "fwd_flops", "bwd_flops",
+                                "philox", "philox_mul")}
+        for d in dims:
+            x, a, gout, key, _ = dropout_case(n, d, torch.bfloat16,
+                                              torch.bfloat16, False, seed=50,
+                                              mr=mr)
+            tot["fwd"] += time_ms(lambda: fd.dropout_a_fwd(x, a, key,
+                                                           DROP_RATE))
+            tot["bwd"] += time_ms(lambda: fd.dropout_a_bwd(x, a, gout, key,
+                                                           DROP_RATE))
+            elems = n * d
+            tot["fwd_bytes"] += nbytes(x, a) + n * mr * 4
+            tot["bwd_bytes"] += 2 * nbytes(x) + nbytes(a, gout) + nbytes(a)
+            kpad = 16 * -(-mr // 16)
+            tot["fwd_flops"] += 2 * elems * 64
+            tot["bwd_flops"] += 2 * elems * (2 * 64 + 2 * kpad)
+            tot["philox"] += elems / 4 * PHILOX["instructions"]
+            tot["philox_mul"] += elems / 4 * PHILOX["multiplies"]
+            if rank == 4:
+                tot["fwd_plain"] += time_ms(lambda: fd.dropout_a_fwd_plain(
+                    x, a, key, DROP_RATE), iters=3, warmup=1)
+                tot["bwd_plain"] += time_ms(lambda: fd.dropout_a_bwd_plain(
+                    x, a, gout, key, DROP_RATE), iters=3, warmup=1)
+                xg = x.clone().requires_grad_(True)
+                ag = a.clone().requires_grad_(True)
+                gb = gout.to(torch.bfloat16)
 
-        def lib():
-            return F.dropout(xg, DROP_RATE) @ ag
+                def lib():
+                    return F.dropout(xg, DROP_RATE) @ ag
 
-        lib_out = lib()
+                lib_out = lib()
 
-        def lib_bwd():  # the backward alone, on one recorded forward
-            torch.autograd.grad(lib_out, (xg, ag), gb, retain_graph=True)
+                def lib_bwd():  # the backward alone, on one recorded forward
+                    torch.autograd.grad(lib_out, (xg, ag), gb,
+                                        retain_graph=True)
 
-        tot["fwd_lib"] += time_ms(lib, iters=30, warmup=3)
-        tot["bwd_lib"] += time_ms(lib_bwd, iters=30, warmup=3)
-        elems = n * d
-        tot["fwd_bytes"] += nbytes(x, a) + n * DROP_MR * 4
-        tot["bwd_bytes"] += 2 * nbytes(x) + nbytes(a, gout) + d * DROP_MR * 4
-        # the rank-M·r products of bf16 x and A (tensor cores), apart from
-        # the generator's integer work (the ordinary cores), each its time
-        tot["fwd_flops"] += 2 * elems * DROP_MR
-        tot["bwd_flops"] += 2 * elems * 2 * DROP_MR
-        tot["philox"] += elems / 4 * PHILOX_INSTR
-        del x, a, gout, xg, ag, gb, lib_out
+                tot["fwd_lib"] += time_ms(lib, iters=30, warmup=3)
+                tot["bwd_lib"] += time_ms(lib_bwd, iters=30, warmup=3)
+                del xg, ag, gb, lib_out
+            del x, a, gout
+        for which in ("fwd", "bwd"):
+            tot[f"{which}_bound"], tot[f"{which}_bound_by"] = bound_ms(
+                tot[f"{which}_bytes"], tot[f"{which}_flops"], BF16_FLOPS,
+                (tot["philox"], LANE_INSTR), (tot["philox_mul"], IMUL_RATE))
+            log(f"  dropout {which} timing r{rank} (M*r {mr}), one layer's "
+                f"seven projections (N {n}, d {dim} x6 + {inter}, bf16 x and "
+                f"A): kernel {tot[which]:.4f} ms, bound "
+                f"{tot[which + '_bound']:.4f} ms "
+                f"({tot[which + '_bound_by']})" + (
+                    f", plain {tot[which + '_plain']:.4f} ms, F.dropout + "
+                    f"matmul {tot[which + '_lib']:.4f} ms" if rank == 4
+                    else ""))
+        by_rank[rank] = tot
     records = []
     for which, line, kernel in (("fwd", 55, 6), ("bwd", 70, 7)):
-        bms, by = bound_ms(tot[f"{which}_bytes"], tot[f"{which}_flops"],
-                           BF16_FLOPS, (tot["philox"], LANE_INSTR))
-        log(f"  dropout {which} (kernel {kernel}) timing, one layer's seven "
-            f"projections (N {n}, d {dim} x6 + {inter}, bf16 x and A): "
-            f"kernel {tot[which]:.4f} ms, plain {tot[which + '_plain']:.4f} "
-            f"ms, F.dropout + matmul {tot[which + '_lib']:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+        tot = by_rank[4]
         records.append({
             "name": f"dropout_a_{which}", "route": "cuda",
             "source": "moka_tpu_torch/kernels/csrc/fused_dropout.cu",
@@ -1304,12 +1395,17 @@ def dropout_records(n, dim, inter) -> list[dict]:
             "tolerance": f"out, dA {DROP_TOL} of max|plain|; dx one bf16 "
                          f"ulp; masks exact",
             "ms": tot[which], "plain_ms": tot[which + "_plain"],
-            "bound_ms": bms, "bound_by": by,
+            "bound_ms": tot[which + "_bound"],
+            "bound_by": tot[which + "_bound_by"],
             "library_ms": tot[which + "_lib"],
             "library": "F.dropout(x) @ A_flat in bf16" + (
                 "" if which == "fwd" else ", its autograd backward alone"),
+            "by_rank": {r: {"mr": DROP_TIMED[r], "ms": t[which],
+                            "bound_ms": t[which + "_bound"]}
+                        for r, t in by_rank.items()},
             "shape": f"N {n}, d {dim} (6 projections) and {inter} (down), "
-                     f"x and A bf16, Philox: one layer, seven launches"})
+                     f"x and A bf16, Philox, AVT r4 (M*r 12): one layer, "
+                     f"seven launches (by_rank: r4, r8, r16)"})
     return records
 
 
@@ -2483,6 +2579,48 @@ def check_fused_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
     return out
 
 
+def fused_other_specs():
+    """Adapter trees the fused-dropout path takes beside AVT rank 4: AVT at
+    rank 8 (M*r 24) and VT (two modalities, M*r 8), with phase 8's options
+    (dropout 0.05, the 256-key question window, bf16 dots)."""
+    from moka_tpu_torch.ops.moka import MokaSpec
+    return {name: spec.with_question_window(256).with_bf16_dots()
+            .with_fused_dropout() for name, spec in (
+                ("AVT r8", MokaSpec.avt(rank=8, dropout_rate=0.05)),
+                ("VT r4", MokaSpec.vt(rank=4, dropout_rate=0.05)))}
+
+
+def check_fused_other_specs(cfg, frozen, batch) -> dict:
+    """Phase 8's SHALLOW-layer gradient check (kernels 6-7 and flash
+    against the plain path and fp32, ``_check_train_grads``) on each of
+    ``fused_other_specs``' trees (random adapters, B non-zero); VT's two
+    modality masks are the batch's text and its video and audio spans
+    together."""
+    import dataclasses
+    import torch
+    from moka_tpu_torch.models import llama
+    n = SHALLOW
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    frozen = first_layers(frozen, n)
+    out = {}
+    for i, (name, spec) in enumerate(fused_other_specs().items()):
+        g = torch.Generator(device="cuda").manual_seed(20 + i)
+        adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+        for p in adapters["layers"].values():
+            p["b"].normal_(0.0, 0.02, generator=g)
+        b = dict(batch)
+        mod = batch["modality_masks"]
+        if spec.num_modalities == 2:
+            b["modality_masks"] = torch.stack([mod[0], mod[1] + mod[2]])
+        log(f"  {n} layers, proj_lse, {name} (M*r "
+            f"{spec.num_modalities * spec.rank}):")
+        out[name] = _check_train_grads(cfg, spec, frozen,
+                                       {"adapters": adapters}, b,
+                                       policy="proj_lse", key_seed=13 + i)
+        del adapters
+    return out
+
+
 QUANT_RECIPE = dict(a8_dots="full", save_q8=True)  # with remat "proj_lse"
 
 
@@ -3263,6 +3401,8 @@ def main() -> int:
     check_ce_sass()
     check_bd_rank_sass()
     check_moka_sass()
+    check_dropout_sass()
+    PHILOX.update(profile_port.philox_sass()["per_call"])
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)
@@ -3326,6 +3466,7 @@ def main() -> int:
         f"dropout (kernels 6-7), remat policy proj_lse, b 4 L 1024")
     fused_check = check_fused_train_grads(fcfg, fspec, frozen, trainable,
                                           batch)
+    fused_check["other_specs"] = check_fused_other_specs(fcfg, frozen, batch)
     fused = train_steps(fcfg, fspec, frozen, trainable, batch,
                         policy="proj_lse", busy=True)
     n_proj = 7 * fcfg.n_layers

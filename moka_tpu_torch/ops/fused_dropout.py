@@ -10,7 +10,11 @@ and writes dx and dA.  On a CUDA tensor ``dropout_a_fwd`` and
 ``dropout_a_bwd`` launch the kernels of ``kernels/csrc/fused_dropout.cu``
 (TPU kernels 6 and 7) or raise; on a CPU tensor they run
 ``dropout_a_fwd_plain`` / ``dropout_a_bwd_plain``, the same arithmetic in
-plain torch.
+plain torch.  The kernels take every M*r that ranks 4, 8 and 16 give with
+one to four modalities and d a multiple of 8 (``fused_dropout_supported``);
+the plain versions take any shape.  ``with_fused_dropout()`` is an explicit
+opt-in: on the card an M*r the kernels do not take raises, and nothing
+falls back to the unfused dropout, which draws other masks.
 
 The bits: 32-bit words compared with ``threshold(rate)``, as the JAX kernel
 compares them.  Element (n, c) of the (N, d) input takes word c % 4 of
@@ -35,9 +39,18 @@ import ctypes
 
 import torch
 
-from moka_tpu_torch.core.device import on_card
+from moka_tpu_torch.core.device import on_card, raw_stream
 
-KERNEL_MR = 12  # the one M * r the kernels are built for (AVT at rank 4)
+# the M * r the kernels take: ranks 4, 8 and 16 times one to four modalities
+KERNEL_MRS = tuple(sorted({m * r for m in range(1, 5) for r in (4, 8, 16)}))
+
+
+def fused_dropout_supported(mr: int, d: int) -> bool:
+    """Whether kernels 6-7 take an adapter of M*r ``mr`` on rows of width
+    ``d``: M*r in ``KERNEL_MRS`` (ranks 4, 8, 16 with 1-4 modalities) and d
+    a multiple of 8 (the TMA rows' 16-byte strides).  The wrappers raise on
+    anything else on the card."""
+    return mr in KERNEL_MRS and d > 0 and d % 8 == 0
 
 
 def threshold(rate: float) -> int:
@@ -78,27 +91,28 @@ def dropout_a_bwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor,
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (fused_dropout.cu built, or an edited copy of it) with its
+    entry points' argument types set."""
+    p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                  ctypes.c_float)
+    lib.moka_dropout_a_fwd.argtypes = [p, i, p, i, p, p, p, i, i, i, u, f, u,
+                                       u, p]
+    lib.moka_dropout_a_fwd.restype = i
+    lib.moka_dropout_fwd_workspace.argtypes = [i, i, i]
+    lib.moka_dropout_fwd_workspace.restype = ctypes.c_long
+    lib.moka_dropout_a_bwd.argtypes = [p, i, p, i, p, p, p, p, i, i, i, u, f,
+                                       u, u, p]
+    lib.moka_dropout_a_bwd.restype = i
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from moka_tpu_torch import kernels
-        lib = kernels.library("fused_dropout")
-        p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
-                      ctypes.c_float)
-        lib.moka_dropout_a_fwd.argtypes = [p, i, p, i, p, p, i, i, i, u, f,
-                                           u, u, p]
-        lib.moka_dropout_a_fwd.restype = i
-        lib.moka_dropout_a_bwd.argtypes = [p, i, p, i, p, p, p, p, p, i, i,
-                                           i, u, f, u, u, p]
-        lib.moka_dropout_a_bwd.restype = i
-        _lib = lib
+        _lib = bind(kernels.library("fused_dropout"))
     return _lib
-
-
-def bwd_row_tiles(n: int) -> int:
-    """Row tiles of the backward kernel (128 rows each): its dA workspace
-    holds one (d, M*r) fp32 partial per tile."""
-    return -(-n // 128)
 
 
 def _kernel_inputs(x2d, a_flat, key, bits):
@@ -113,9 +127,10 @@ def _kernel_inputs(x2d, a_flat, key, bits):
     if a_flat.shape[0] != d or a_flat.device != x2d.device:
         raise ValueError(f"A {tuple(a_flat.shape)} on {a_flat.device} for x "
                          f"{tuple(x2d.shape)} on {x2d.device}")
-    if d % 4 or mr != KERNEL_MR:
-        raise ValueError(f"fused dropout kernels need d % 4 == 0 and M*r "
-                         f"{KERNEL_MR}, got d {d}, M*r {mr}")
+    if not fused_dropout_supported(mr, d):
+        raise ValueError(f"fused dropout kernels take M*r in {KERNEL_MRS} "
+                         f"(ranks 4, 8, 16 x 1-4 modalities) and d % 8 == 0, "
+                         f"got M*r {mr}, d {d}")
     x2d, a_flat = x2d.contiguous(), a_flat.contiguous()
     if bits is not None:
         if tuple(bits.shape) != (n, d):
@@ -138,14 +153,18 @@ def _launch_fwd(x2d, a_flat, key, rate, bits):
     x2d, a_flat, bits, k0, k1 = _kernel_inputs(x2d, a_flat, key, bits)
     n, d = x2d.shape
     mr = a_flat.shape[1]
+    lib = _library()
+    x_bf16, a_bf16 = (int(t.dtype == torch.bfloat16) for t in (x2d, a_flat))
     out = torch.empty((n, mr), dtype=torch.float32, device=x2d.device)
+    # bf16 x: A's transposed bf16 parts, written by the kernel's first pass
+    work = torch.empty(lib.moka_dropout_fwd_workspace(d, mr, a_bf16)
+                       if x_bf16 else 0, dtype=torch.uint8, device=x2d.device)
     x_scale = float(torch.tensor(1.0 / (1.0 - rate), dtype=x2d.dtype))
-    status = _library().moka_dropout_a_fwd(
-        x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), a_flat.data_ptr(),
-        int(a_flat.dtype == torch.bfloat16),
-        None if bits is None else bits.data_ptr(), out.data_ptr(), n, d, mr,
-        threshold(rate), x_scale, k0, k1,
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+    status = lib.moka_dropout_a_fwd(
+        x2d.data_ptr(), x_bf16, a_flat.data_ptr(), a_bf16,
+        None if bits is None else bits.data_ptr(), out.data_ptr(),
+        work.data_ptr(), n, d, mr, threshold(rate), x_scale, k0, k1,
+        raw_stream(x2d.device))
     kernels.check(status, "dropout_a_fwd")
     dropout_a_fwd.launches += 1
     return out
@@ -159,20 +178,19 @@ def _launch_bwd(x2d, a_flat, g, key, rate, bits):
     if tuple(g.shape) != (n, mr):
         raise ValueError(f"g {tuple(g.shape)} != {(n, mr)}")
     g = g.to(device=x2d.device, dtype=torch.float32).contiguous()
-    f32 = dict(dtype=torch.float32, device=x2d.device)
+    if g.data_ptr() % 16:
+        raise ValueError("fused dropout kernels need 16-byte aligned inputs")
     dx = torch.empty_like(x2d)
-    work = torch.empty((bwd_row_tiles(n), d, mr), **f32)
-    da = torch.empty((d, mr), **f32)
+    da = torch.empty_like(a_flat)  # in A's dtype, written by the kernel
     status = _library().moka_dropout_a_bwd(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), a_flat.data_ptr(),
         int(a_flat.dtype == torch.bfloat16),
         None if bits is None else bits.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), work.data_ptr(), da.data_ptr(), n, d, mr,
-        threshold(rate), 1.0 / (1.0 - rate), k0, k1,
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+        dx.data_ptr(), da.data_ptr(), n, d, mr, threshold(rate),
+        1.0 / (1.0 - rate), k0, k1, raw_stream(x2d.device))
     kernels.check(status, "dropout_a_bwd")
     dropout_a_bwd.launches += 1
-    return dx, da.to(a_flat.dtype)
+    return dx, da
 
 
 def dropout_a_fwd(x2d: torch.Tensor, a_flat: torch.Tensor, key, rate: float,

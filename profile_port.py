@@ -17,6 +17,8 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py rank_ablation block_diag_ablation
     python3 profile_port.py moka_delta [--root DIR]
     python3 profile_port.py moka_ablation
+    python3 profile_port.py fused_dropout [--root DIR]
+    python3 profile_port.py fused_dropout_ablation
 
 ``flash`` (not among the default windows) times the query-major flash
 kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
@@ -51,6 +53,14 @@ a CUDA graph, the host's µs a call and the wrapper back to back (with
 ``--root``, another checkout's; rank 4 alone where that kernel takes no
 other).  ``moka_ablation`` times kernel 5 with parts taken out
 (MOKA_ABLATIONS: edited copies of moka_delta_fwd.cu), twice in turn.
+``fused_dropout`` times kernels 6 and 7 at the fused step's shape (N
+4096, bf16 x and A, Philox) for each projection width of LLaMA-2-7B at
+AVT ranks 4, 8 and 16 the same way (with ``--root``, another checkout's;
+rank 4 alone where its kernels take no other M*r);
+``fused_dropout_ablation`` times them with parts taken out
+(DROP_ABLATIONS: edited copies of fused_dropout.cu), twice in turn, and
+counts a Philox call's SASS instructions and multiplies
+(``philox_sass``).
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -123,9 +133,8 @@ GROUPS = (  # device entries by name, first match wins
     ("flash rank kernels (port)", ("flash_rank_",)),
     ("fused MokA kernels (port)", ("moka_delta_kernel",
                                    "question_keys_kernel")),
-    ("fused dropout kernels (port)", ("dropout_a_fwd_kernel",
-                                      "dropout_a_bwd_kernel",
-                                      "sum_tiles_kernel")),
+    ("fused dropout kernels (port)", ("dropout_fwd_", "dropout_bwd_",
+                                      "transpose_a_kernel")),
     ("fused CE kernels (port)", ("fused_ce_",)),
     ("block-diagonal kernel (port)", ("block_diag_kernel",)),
     ("int8 GEMMs (cuBLASLt, torch._int_mm)", ("imma", "i8i8", "s8", "int8")),
@@ -672,8 +681,9 @@ def swap_timed(install, kept, variants: dict, timers: dict,
     turn]}}."""
     out = {name: {t: [] for t in timers} for name in variants}
     try:
-        for _ in range(turns):
+        for turn in range(turns):
             for name, lib in variants.items():
+                print(f"  timing {name} (turn {turn + 1})", flush=True)
                 install(lib)
                 for t, timer in timers.items():
                     out[name][t].append(timer())
@@ -1017,6 +1027,227 @@ def moka_ablation_window() -> dict:
     return {"moka_ablation": out, "moka_rel_err": errs}
 
 
+DROP_N = 4096  # chip_smoke's training rows (b 4 x L 1024)
+DROP_PROJS = {"q, k, v, o, gate, up": (4096, 6), "down": (11008, 1)}  # d,
+                                                     # count (LLaMA-2-7B)
+DROP_MRS = {4: 12, 8: 24, 16: 48}  # AVT rank: M * r
+
+
+def dropout_case(d, mr, seed: int = 0):
+    """chip_smoke's fused-dropout timing inputs for one projection: bf16 x
+    (N, d) ~ N(0, 1), Kaiming-uniform bf16 A (d, M*r), an fp32 cotangent
+    (N, M*r) and a key (Philox).  Built here, not imported from
+    chip_smoke, so that ``--root`` can time another checkout's wrapper."""
+    import math
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((DROP_N, d), generator=g, device="cuda").bfloat16()
+    a = ((torch.rand((d, mr), generator=g, device="cuda") * 2 - 1) /
+         math.sqrt(d)).bfloat16()
+    gout = torch.randn((DROP_N, mr), generator=g, device="cuda")
+    return x, a, gout, DropoutKey(1000 + seed)
+
+
+def fused_dropout_window(host_calls: int = 50) -> dict:
+    """Kernels 6 and 7 through their wrappers at the fused step's shape (N
+    4096, x and A bf16, Philox, rate 0.05) for each projection width of
+    LLaMA-2-7B at AVT ranks 4, 8 and 16 (rank 4 alone for a checkout whose
+    kernels take only M*r 12, as ``--root`` of the parent): the kernel
+    alone (``graph_ms``, a CUDA graph of 20 launches; x is 33-90 MB), the
+    host's µs a call and the wrapper back to back; a layer sums the seven
+    projections."""
+    from moka_tpu_torch.ops import fused_dropout as fd
+    ranks = DROP_MRS if hasattr(fd, "fused_dropout_supported") else {4: 12}
+    out = {"package": fd.__file__}
+    for rank, mr in ranks.items():
+        layer = {f"{k}_{t}": 0.0 for k in ("fwd", "bwd")
+                 for t in ("graph_ms", "back_to_back_ms")}
+        for name, (d, count) in DROP_PROJS.items():
+            x, a, gout, key = dropout_case(d, mr)
+            calls = {"fwd": lambda: fd.dropout_a_fwd(x, a, key, 0.05),
+                     "bwd": lambda: fd.dropout_a_bwd(x, a, gout, key, 0.05)}
+            for which, call in calls.items():
+                res = {"graph_ms": graph_ms(call, n=20),
+                       "host_us": host_us(call, host_calls),
+                       "back_to_back_ms": event_ms(call, 20)}
+                out[f"r{rank} {which} d {d}"] = res
+                for k in ("graph_ms", "back_to_back_ms"):
+                    layer[f"{which}_{k}"] += count * res[k]
+                print(f"  r{rank} (M*r {mr}) {which} {name} d {d}: kernel "
+                      f"alone {res['graph_ms']:.4f} ms, host "
+                      f"{res['host_us']:.1f} us a call, back to back "
+                      f"{res['back_to_back_ms']:.4f} ms", flush=True)
+            del x, a, gout
+        out[f"r{rank} layer"] = layer
+        print(f"  r{rank} a layer: forward alone {layer['fwd_graph_ms']:.4f} "
+              f"ms (back to back {layer['fwd_back_to_back_ms']:.4f}), "
+              f"backward alone {layer['bwd_graph_ms']:.4f} ms (back to back "
+              f"{layer['bwd_back_to_back_ms']:.4f})", flush=True)
+    return {"fused_dropout": out}
+
+
+_DROP_NO_PHILOX = (
+    "    const uint32_t g = static_cast<uint32_t>(c) >> 2;\n"
+    "    philox(static_cast<uint32_t>(n), g, rk, w);\n"
+    "    philox(static_cast<uint32_t>(n), g + 1u, rk, w + 4);\n",
+    "    for (int e = 0; e < 8; ++e) w[e] = 0u;  // ablation: every word "
+    "kept\n")
+DROP_ABLATIONS = {  # name: edits of fused_dropout.cu (hopper.cuh inlined);
+    "kernel": [],   # the edited kernels' results are wrong, only times count
+    "no generator (a constant mask: every word kept)": [_DROP_NO_PHILOX],
+    "forward: loads alone (stages released unread)": [
+        ("    mbar_wait(full + 8 * s, (it / sh.stages) & 1);\n",
+         "    mbar_wait(full + 8 * s, (it / sh.stages) & 1);\n"
+         "    if (lane == 0) mbar_arrive(empty + 8 * s);  // ablation\n"
+         "    continue;\n")],
+    "forward: no products": [
+        ("      for (int kk = 0; kk < 4; ++kk)\n"
+         "        wgmma_m64nN_ss<FWD_ROWS>(",
+         "      for (int kk = 0; kk < 0; ++kk)\n"
+         "        wgmma_m64nN_ss<FWD_ROWS>(")],
+    "forward: the transpose pass alone (no main kernel)": [
+        ("  dropout_fwd_kernel<TA, FORCED><<<(n + FWD_ROWS - 1) / FWD_ROWS, "
+         "FWD_NT,\n                                   smem, st>>>(\n"
+         "      tm_x, tm_at, static_cast<const uint32_t*>(bits),\n"
+         "      static_cast<float*>(out), sh);\n", "")],
+    "forward: 2 consumer warpgroups": [
+        ("constexpr int FWD_WG = 3;", "constexpr int FWD_WG = 2;")],
+    "backward: a ring of at most 6 stages": [
+        ("constexpr int BWD_MAX_STAGES = 4;", "constexpr int BWD_MAX_STAGES = 6;")],
+    "backward: loads alone (x and g; no words, products or stores)": [
+        ("      mbar_wait(full + 8 * s, (i / sh.stages) & 1);\n",
+         "      mbar_wait(full + 8 * s, (i / sh.stages) & 1);\n"
+         "      if (lane == 0) mbar_arrive(empty + 8 * s);\n"
+         "      continue;  // ablation: the loads alone\n")],
+    "backward: no dA products": [
+        ("      for (int h = 0; h < 3; ++h)\n#pragma unroll\n"
+         "        for (int kk = 0; kk < 4; ++kk)\n"
+         "          wgmma_m64n64_ss<1, 1>(",
+         "      for (int h = 0; h < 0; ++h)\n#pragma unroll\n"
+         "        for (int kk = 0; kk < 4; ++kk)\n"
+         "          wgmma_m64n64_ss<1, 1>(")],
+    "backward: no dx chain (dx = 0 * m)": [
+        ("      for (int j = 0; j < sh.mr; j += 4) {",
+         "      for (int j = 0; j < 0; j += 4) {")],
+    "backward: no dx stores": [
+        ("        tma_store_4d(&tm_dx, smem_addr(dxs), c0, n0, 0, 0, "
+         "l2_evict_first());\n", "")]}
+
+
+def fused_dropout_ablation_window() -> dict:
+    """Kernels 6-7 with parts taken out (DROP_ABLATIONS: edited copies of
+    fused_dropout.cu, built all at once) through the wrappers at N 4096,
+    M*r 12, bf16 x and A, Philox, d 4096 and 11008: the forward and the
+    backward alone (``graph_ms``), twice in turn; the unedited copy is
+    first held against the plain versions (chip_smoke's DROP_TOL and one
+    bf16 ulp for dx); then the generator's SASS (``philox_sass``)."""
+    from chip_smoke import DROP_TOL
+    from moka_tpu_torch.ops import fused_dropout as fd
+    libs = {name: fd.bind(lib) for name, lib in
+            finish_variants(start_variants("fused_dropout.cu",
+                                           DROP_ABLATIONS)).items()}
+    kept = fd._library()
+
+    def install(lib):
+        fd._lib = lib
+
+    cases = {f"d {d}": dropout_case(d, 12) for d in (4096, 11008)}
+    errs = {}
+    for name, (x, a, gout, key) in cases.items():
+        try:
+            install(libs["kernel"])
+            got = fd.dropout_a_fwd(x, a, key, 0.05)
+            dx, _ = fd.dropout_a_bwd(x, a, gout, key, 0.05)
+        finally:
+            install(kept)
+        ref = fd.dropout_a_fwd_plain(x, a, key, 0.05)
+        rdx, _ = fd.dropout_a_bwd_plain(x, a, gout, key, 0.05)
+        errs[name] = float((got - ref).abs().max() / ref.abs().max())
+        ulp = float(((dx.float() - rdx.float()).abs()
+                     - 2 ** -7 * rdx.float().abs()).max())
+        print(f"  the unedited copy, {name}: out max|err| / max|plain| "
+              f"{errs[name]:.2e} (tol {DROP_TOL}), dx beyond one ulp "
+              f"{ulp:.2e}", flush=True)
+        if errs[name] > DROP_TOL or ulp > 0:
+            raise AssertionError("the ablation's unedited kernels are wrong")
+        del got, dx, ref, rdx
+    timers = {}
+    for name, (x, a, gout, key) in cases.items():
+        timers[f"fwd {name}"] = (lambda x=x, a=a, key=key: graph_ms(
+            lambda: fd.dropout_a_fwd(x, a, key, 0.05), n=20))
+        timers[f"bwd {name}"] = (lambda x=x, a=a, gout=gout, key=key:
+                                 graph_ms(lambda: fd.dropout_a_bwd(
+                                     x, a, gout, key, 0.05), n=20))
+    out = swap_timed(install, kept, libs, timers)
+    return {"fused_dropout_ablation": out, "dropout_rel_err": errs,
+            "philox_sass": philox_sass()}
+
+
+PHILOX_CHAIN = 16  # chained Philox calls in the probe's second kernel
+
+
+def philox_sass() -> dict:
+    """The SASS cost of one Philox4x32-10 call as fused_dropout.cu writes
+    it: its ``philox`` function compiled into two probe kernels, one
+    without a call and one with PHILOX_CHAIN chained calls; the
+    difference over the chain is the instructions a call, and among them
+    the 32-bit integer multiplies (IMAD*, IMUL*; a .WIDE one gives the
+    high and low words: counted as two)."""
+    import re
+    from moka_tpu_torch import kernels
+    src = (kernels.CSRC / "fused_dropout.cu").read_text()
+    fn = src[src.index("struct RoundKeys {"):
+             src.index("// the words of columns")]
+    probe = ("#include <stdint.h>\n" + fn + """
+extern "C" __global__ void philox_probe_0(
+    uint32_t* out, const __grid_constant__ RoundKeys rk) {
+  uint32_t w[4] = {threadIdx.x, blockIdx.x, rk.k0[0], rk.k1[0]};
+  out[blockIdx.x * blockDim.x + threadIdx.x] = w[0] ^ w[1] ^ w[2] ^ w[3];
+}
+extern "C" __global__ void philox_probe_chain(
+    uint32_t* out, const __grid_constant__ RoundKeys rk) {
+  uint32_t w[4] = {threadIdx.x, blockIdx.x, rk.k0[0], rk.k1[0]};
+#pragma unroll
+  for (int i = 0; i < %d; ++i) philox(w[0] ^ w[2], w[1] ^ w[3], rk, w);
+  out[blockIdx.x * blockDim.x + threadIdx.x] = w[0] ^ w[1] ^ w[2] ^ w[3];
+}
+""" % PHILOX_CHAIN)
+    out_dir = kernels.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "philox_probe.cu"
+    cu.write_text(probe)
+    cubin = cu.with_suffix(".cubin")
+    subprocess.run([kernels._nvcc(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-O3", "-cubin", "-o",
+                    str(cubin), str(cu)], check=True)
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn_name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn_name = m.group(1)
+            counts[fn_name] = {"instructions": 0, "multiplies": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if fn_name and m and m.group(1) not in ("NOP", "BRA", "EXIT"):
+            op = m.group(1)
+            counts[fn_name]["instructions"] += 1
+            if op.startswith(("IMAD", "IMUL")) and not op.startswith(
+                    ("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")):
+                counts[fn_name]["multiplies"] += 2 if ".WIDE" in op else 1
+    base = counts["philox_probe_0"]
+    chain = counts["philox_probe_chain"]
+    per_call = {k: (chain[k] - base[k]) / PHILOX_CHAIN for k in base}
+    print(f"  Philox4x32-10 a call (SASS, {PHILOX_CHAIN} chained calls less "
+          f"none): {per_call['instructions']:.2f} instructions, "
+          f"{per_call['multiplies']:.2f} 32-bit multiplies", flush=True)
+    return {"per_call": per_call, "counts": counts}
+
+
 TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
               "quant": "train_step_quant_route_b",
               "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
@@ -1039,7 +1270,10 @@ def main(argv=None) -> int:
                       "block_diag": block_diag_window,
                       "block_diag_ablation": block_diag_ablation_window,
                       "moka_delta": moka_delta_window,
-                      "moka_ablation": moka_ablation_window}
+                      "moka_ablation": moka_ablation_window,
+                      "fused_dropout": fused_dropout_window,
+                      "fused_dropout_ablation":
+                          fused_dropout_ablation_window}
     if set(names) - {*WINDOWS, *kernel_windows}:
         print(f"profile_port: windows are {WINDOWS} and "
               f"{tuple(kernel_windows)}", file=sys.stderr)

@@ -94,10 +94,13 @@ def test_keep_share_within_five_sigma():
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("a_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.05, 0.5])
-def test_dropout_a_proj_matches_jax(x_dtype, a_dtype, rate):
+@pytest.mark.parametrize("M,r", [(3, 4), (2, 4), (3, 8), (3, 16), (4, 16)])
+def test_dropout_a_proj_matches_jax(x_dtype, a_dtype, rate, M, r):
     """Forward and both gradients against the JAX kernels (interpret mode,
-    forced bits, blocks of 16 rows: 74 rows leave a ragged block)."""
-    b, L, d, M, r = 2, 37, 128, 3, 4
+    forced bits, blocks of 16 rows: 74 rows leave a ragged block) for AVT
+    at rank 4 (M*r 12), VT (8), AVT at ranks 8 and 16 (24, 48) and four
+    modalities at rank 16 (64, the widest the kernels take)."""
+    b, L, d = 2, 37, 128
     rng = np.random.default_rng(0)
     x = rng.standard_normal((b, L, d)).astype(np.float32)
     a = (rng.standard_normal((M, d, r)) * 0.1).astype(np.float32)
@@ -162,15 +165,23 @@ def test_dropout_a_proj_draws_the_keys_words():
 
 
 def test_kernel_wrappers_check_their_inputs():
-    """What the CUDA wrappers refuse (checked before any launch)."""
+    """What the CUDA wrappers refuse (checked before any launch): other
+    dtypes, rows not a multiple of 8 wide, an M*r the kernels do not take
+    (20, 72), a mismatched A or bits; every M*r they take passes, and the
+    backward takes no workspace (one (N, d) dx and one (d, M*r) dA)."""
     x = torch.zeros((8, 64))
     a = torch.zeros((64, 12))
     key = DropoutKey(0)
-    for bad in ((x.half(), a), (x, a.half()), (x[:, :62], a[:62]),
-                (x, torch.zeros((64, 24))), (x, torch.zeros((64, 8))),
+    for bad in ((x.half(), a), (x, a.half()), (x[:, :60], a[:60]),
+                (x, torch.zeros((64, 20))), (x, torch.zeros((64, 72))),
                 (x, torch.zeros((60, 12)))):
         with pytest.raises((TypeError, ValueError)):
             fd._kernel_inputs(*bad, key, None)
+    with pytest.raises(ValueError, match="M\\*r in"):
+        fd._kernel_inputs(x, torch.zeros((64, 20)), key, None)
+    for mr in fd.KERNEL_MRS:
+        assert fd._kernel_inputs(x, torch.zeros((64, mr)), key, None)[1] \
+            .shape == (64, mr)
     with pytest.raises(ValueError, match="bits"):
         fd._kernel_inputs(x, a, key, torch.zeros((8, 60), dtype=torch.int64))
     _, _, bits, k0, k1 = fd._kernel_inputs(
@@ -178,7 +189,25 @@ def test_kernel_wrappers_check_their_inputs():
     assert bits.dtype == torch.int32 and int(bits[0, 1]) == -1
     assert (k0, k1) == (0, 0)
     assert fd._kernel_inputs(x, a, key, None)[3:] == key.philox_key
-    assert fd.bwd_row_tiles(4096) == 32 and fd.bwd_row_tiles(129) == 2
+    assert not hasattr(fd, "bwd_row_tiles")
+    assert "work" not in fd._launch_bwd.__code__.co_varnames
+
+
+def test_fused_dropout_supported():
+    """The one predicate of what kernels 6-7 take: M*r of ranks 4, 8 and 16
+    with one to four modalities ({4, 8, 12, 16, 24, 32, 48, 64}, every one
+    taken) and d a multiple of 8; M*r 20 (rank 5 x 4), 72 and a misaligned
+    d are refused."""
+    want = {m * r for m in range(1, 5) for r in (4, 8, 16)}
+    assert set(fd.KERNEL_MRS) == want == {4, 8, 12, 16, 24, 32, 48, 64}
+    for mr in range(1, 80):
+        assert fd.fused_dropout_supported(mr, 4096) == (mr in want)
+    assert fd.fused_dropout_supported(12, 11008)
+    assert fd.fused_dropout_supported(64, 200)
+    for d in (4092, 4100, 12, 0):
+        assert not fd.fused_dropout_supported(12, d)
+    assert not fd.fused_dropout_supported(20, 4096)
+    assert not fd.fused_dropout_supported(72, 4096)
 
 
 def _moka_inputs(seed, b=2, L=12, d=16, d_out=8, M=3):
@@ -187,24 +216,32 @@ def _moka_inputs(seed, b=2, L=12, d=16, d_out=8, M=3):
     a = (rng.standard_normal((M, d, 4)) * 0.2).astype(np.float32)
     bm = (rng.standard_normal((4, d_out)) * 0.2).astype(np.float32)
     mod = np.zeros((M, b, L), np.float32)
-    mod[0, :, :6], mod[1, :, 6:9], mod[2, :, 9:] = 1, 1, 1
+    mod[0, :, :6], mod[1, :, 6:9], mod[M - 1, :, 9:] = 1, 1, 1
     q = np.zeros((b, L), np.float32)
     q[0, 1:4] = 1  # row 1 has no question
     return x, a, bm, mod, q
 
 
+@pytest.mark.parametrize("flavour", ["avt", "vt"])
 @pytest.mark.parametrize("bf16_dots", [False, True])
-def test_moka_delta_fused_dropout_matches_jax(bf16_dots):
-    """``moka_delta`` with ``with_fused_dropout()``: the delta and its
-    gradients in x, A and B against JAX's (which draws
-    ``jax.random.bits(key, (b*L, d), uint32)`` on the CPU; the port's key
-    hands it the same words)."""
-    args = dict(rank=4, lora_alpha=16.0, blc_weight=0.7, dropout_rate=0.1)
-    js = jm.MokaSpec.avt(**args).with_question_window(4).with_fused_dropout()
-    ts = tm.MokaSpec.avt(**args).with_question_window(4).with_fused_dropout()
+def test_moka_delta_fused_dropout_matches_jax(bf16_dots, flavour):
+    """``moka_delta`` with ``with_fused_dropout()``, AVT (M*r 12) and VT
+    (two modalities, M*r 8): the delta and its gradients in x, A and B
+    against JAX's (which draws ``jax.random.bits(key, (b*L, d), uint32)``
+    on the CPU; the port's key hands it the same words)."""
+    if flavour == "avt":
+        args = dict(rank=4, lora_alpha=16.0, blc_weight=0.7,
+                    dropout_rate=0.1)
+        js, ts = jm.MokaSpec.avt(**args), tm.MokaSpec.avt(**args)
+    else:
+        args = dict(rank=4, lora_alpha=16.0, attn_weight=0.3,
+                    dropout_rate=0.1)
+        js, ts = jm.MokaSpec.vt(**args), tm.MokaSpec.vt(**args)
+    js = js.with_question_window(4).with_fused_dropout()
+    ts = ts.with_question_window(4).with_fused_dropout()
     if bf16_dots:
         js, ts = js.with_bf16_dots(), ts.with_bf16_dots()
-    x, a, bm, mod, q = _moka_inputs(3)
+    x, a, bm, mod, q = _moka_inputs(3, M=js.num_modalities)
     w = np.random.default_rng(4).standard_normal((2, 12, 8)).astype(
         np.float32)
     key = jax.random.key(5)

@@ -175,6 +175,70 @@ def test_moka_edits_apply(edits):
         src, chip_smoke.MOKA_MUTANTS)
 
 
+@pytest.mark.parametrize("edits", ["DROP_ABLATIONS", "DROP_MUTANTS"])
+def test_fused_dropout_edits_apply(edits):
+    """Kernels 6-7's edited copies (profile_port.py's ablations: the loads
+    alone, no stores, no generator; chip_smoke.py's mutants, which phase 3
+    requires to fail) edit fused_dropout.cu by text: each old text occurs
+    exactly once (hopper.cuh inlined) and no two copies are alike."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    import profile_port
+    table = getattr(profile_port if "ABLATIONS" in edits else chip_smoke,
+                    edits)
+    src = "fused_dropout.cu"
+    base = profile_port.ablation_source([], kernels.CSRC, src)
+    variants = {base}
+    for name, changes in table.items():
+        for old, _ in changes:
+            assert base.count(old) == 1, (name, old)
+        edited = profile_port.ablation_source(changes, kernels.CSRC, src)
+        assert (edited == base) == (not changes), name
+        variants.add(edited)
+    assert len(variants) == len(table) + (0 if "kernel" in table else 1)
+    assert chip_smoke.MUTANT_SOURCES["fused_dropout"] == (
+        src, chip_smoke.DROP_MUTANTS)
+
+
+def test_fused_dropout_source_contract():
+    """Kernels 6-7's bf16-x path: the forward and the backward stream x by
+    TMA into an mbarrier ring; the forward's product runs on wgmma
+    (m64n32, M*r on the 64-row side, A^T's parts by TMA from a transpose
+    pass, not transposed in every CTA), the backward's dA^T on wgmma
+    (m64n64, both warpgroups, no branch around the products) and its dx
+    as an fp32 FMA chain over M*r in the plain product's order, stored by
+    TMA; the backward's CTA pairs add dA through distributed shared memory
+    (a cluster of two), with no atomics, no workspace and no second
+    kernel (the forward's only scratch is A^T's parts); M*r is a runtime
+    width up to 64, the widest the wrapper takes."""
+    import re
+    from moka_tpu_torch import kernels
+    from moka_tpu_torch.ops import fused_dropout as fd
+    src = re.sub(r"//[^\n]*", "", (kernels.CSRC / "fused_dropout.cu")
+                 .read_text())
+    fwd = src[src.index("dropout_fwd_kernel(const __grid_constant__"):
+              src.index("constexpr int BWD_COLS")]
+    bwd = src[src.index("dropout_bwd_kernel(const __grid_constant__"):
+              src.index("constexpr int F32_FWD_WARPS")]
+    assert "&tm_x, full" in fwd and "&tm_at, full" in fwd
+    assert "wgmma_m64nN_ss<FWD_ROWS>" in fwd and "mbar_wait(full" in fwd
+    assert "transpose_a_kernel<TA><<<" in src and "transpose_a<" not in fwd
+    assert "tma_load_4d(st, &tm_x" in bwd and "&tm_g, full" in bwd
+    assert "wgmma_m64n64_ss<1, 1>" in bwd and "if (wg == 0) {" not in \
+        bwd[:bwd.index("wgmma_commit()")]
+    assert "acc[u][e] = fmaf(gj[u][jj], av[e], acc[u][e]);" in bwd
+    assert "tma_store_4d(&tm_dx" in bwd and "map_shared_rank" in bwd
+    assert "__cluster_dims__(1, 2, 1)" in src
+    entry = src[src.index('"C" int moka_dropout_a_bwd('):]
+    assert "atomic" not in src and "work" not in bwd + entry
+    assert "sum_tiles" not in src and src.count("<<<") == 7
+    takes = src[src.index("bool takes("):src.index("uint32_t bf16_pair(")]
+    assert sorted(map(int, re.findall(r"mr == (\d+)", takes))) == \
+        list(fd.KERNEL_MRS)
+
+
 def test_moka_delta_source_contract():
     """Kernel 5's bf16 path: the down product on wgmma (m64nN, N = 2 M r,
     A's bf16 halves), x by TMA into an mbarrier ring and the delta out by
@@ -499,6 +563,42 @@ def test_fused_dropout_kernels_match_plain_on_card(card, forced):
     assert (da - rda).abs().max() <= 1e-5 * rda.abs().max()
     assert ((dx.float() - rdx.float()).abs()
             <= 2 ** -7 * rdx.float().abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mr", [4, 8, 12, 16, 24, 32, 48, 64])
+def test_fused_dropout_kernels_at_each_width_on_card(card, mr):
+    """Kernels 6 and 7 against their plain versions at every M*r they take,
+    bf16 x with fp32 and bf16 A and fp32 x (a ragged N and d): the mask
+    exact, out and fp32 dA to fp32 summation order (1e-4 of the largest),
+    dx and a bf16 dA to one bf16 ulp; two calls bit-identical."""
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops import fused_dropout as fd
+    g = torch.Generator(device=card).manual_seed(mr)
+    n, d = 333, 200
+    key = DropoutKey(mr)
+    for xdt, adt in ((torch.bfloat16, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.float32)):
+        x = torch.randn((n, d), generator=g, device=card).to(xdt)
+        a = (torch.randn((d, mr), generator=g, device=card) * 0.05).to(adt)
+        gout = torch.randn((n, mr), generator=g, device=card)
+        out = fd.dropout_a_fwd(x, a, key, 0.05)
+        dx, da = fd.dropout_a_bwd(x, a, gout, key, 0.05)
+        again = fd.dropout_a_bwd(x, a, gout, key, 0.05)
+        assert torch.equal(dx, again[0]) and torch.equal(da, again[1])
+        ref = fd.dropout_a_fwd_plain(x, a, key, 0.05)
+        rdx, rda = fd.dropout_a_bwd_plain(x, a, gout, key, 0.05)
+        assert torch.equal(dx != 0, key.bits32((n, d), card) <
+                           fd.threshold(0.05))
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+        assert ((dx.float() - rdx.float()).abs()
+                <= 2 ** -7 * rdx.float().abs()).all()
+        if adt == torch.float32:
+            assert (da - rda).abs().max() <= 1e-4 * rda.abs().max()
+        else:
+            assert ((da.float() - rda.float()).abs()
+                    <= 2 ** -7 * rda.float().abs() + 1e-6).all()
 
 
 @pytest.mark.cuda
