@@ -7,9 +7,10 @@ Phases, in order; any failed build, launch or check exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel) and, beside them, the
-     deliberate faults RANK_MUTANTS, BD_MUTANTS, MOKA_MUTANTS and
-     DROP_MUTANTS (edited copies of the rank forward's, kernel 10's,
-     kernel 5's and kernels 6-7's sources), print ptxas's resource lines
+     deliberate faults RANK_MUTANTS, RANK_BWD_MUTANTS, BD_MUTANTS,
+     MOKA_MUTANTS and DROP_MUTANTS (edited copies of the rank kernels',
+     kernel 10's, kernel 5's and kernels 6-7's sources), print ptxas's
+     resource lines
      and the SASS counts of the flash kernels, the fused CE pair, the rank
      kernels, kernel 10, kernel 5 and kernels 6-7 (``cuobjdump -sass``: a
      forward instance, the dq kernel or a key-major backward kernel
@@ -18,8 +19,10 @@ Phases, in order; any failed build, launch or check exits non-zero:
      or with HMMA, an instance of kernel 10 without UTMALDG, an instance
      of kernel 5's bf16 kernel without HGMMA, UTMALDG or UTMASTG, or an
      instance of kernel 6's or 7's bf16-x kernel without HGMMA or UTMALDG
-     (7 also UTMASTG) or with HMMA fails the phase; kernel 8 keeps
-     mma.sync, the rank kernels and kernels 6-7's fp32-x path are SIMT);
+     (7 also UTMASTG) or with HMMA, or an instance of the rank dq or
+     dk/dv kernel with an atomic (ATOM, RED) fails the phase; kernel 8
+     keeps mma.sync, the rank kernels and kernels 6-7's fp32-x path are
+     SIMT);
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's time, the library call's time (never called
      by the port: ``scaled_dot_product_attention``, forward, or forward +
@@ -67,9 +70,15 @@ Phases, in order; any failed build, launch or check exits non-zero:
      layouts (a span in the last 256-key tile, one across a 256-key
      boundary, two spans, none; also at head_dim 16), causal at a
      q_offset that leaves rows before the first visible key, and at a
-     ragged L, the backward on the forward kernel's lse; the forward
-     launched as each mutant (it walks only the first visible 256-key
-     tile; it gives 0 to a row that sees no key) must fail (timed: the
+     ragged L, the backward on the forward kernel's lse, dq exactly 0 on
+     the rows that see no key, dk and dv on the keys no query sees, and
+     a second backward launch bit-identical; the forward launched as each
+     mutant (it walks only the first visible 256-key tile; it gives 0 to
+     a row that sees no key) and the backward as each (dq walks only the
+     first 32 keys of the span; dk/dv sums only the first query chunk,
+     zeroes a visible key, walks one key block a CTA, adds only the first
+     warp's queries) must fail
+     (timed: the
      wrapper back to back, the kernel alone in a CUDA graph, the host's
      µs a call); kernel 1 at the CLIP
      tower's shape (b*t 40 and 80 frames, 257 tokens, 16 heads, head_dim
@@ -327,11 +336,15 @@ FLASH_SASS = {"flash_fwd": ("flash_fwd_kernel", 2),  # library: function
               "flash_bwd_kv": ("flash_bwd_kv_kernel", 2)}
 
 
+ATOMICS = r"\b(?:ATOM[A-Z]*|RED(?!UX)[A-Z]*)\b"  # ATOM, ATOMG, ATOMS, RED,
+# ...: atomics and reductions to memory (REDUX, a warp's reduction, is not)
+
+
 def sass_counts(name: str) -> dict:
     """Instruction counts by kernel function in library ``name``'s SASS
     (``cuobjdump -sass``): wgmma (HGMMA), TMA loads and stores (UTMALDG,
-    UTMASTG), bulk and tensor reductions (UBLKRED, UTMAREDG) and mma.sync
-    (HMMA)."""
+    UTMASTG), bulk and tensor reductions (UBLKRED, UTMAREDG), mma.sync
+    (HMMA) and atomics (ATOM: ``ATOMICS``)."""
     import re
     from moka_tpu_torch import kernels
     tool = Path(kernels._nvcc()).with_name("cuobjdump")
@@ -342,10 +355,11 @@ def sass_counts(name: str) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            counts[fn] = dict.fromkeys((*SASS_OPS, "ATOM"), 0)
         elif fn is not None:
             for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
                 counts[fn][op] += 1
+            counts[fn]["ATOM"] += len(re.findall(ATOMICS, line))
     return counts
 
 
@@ -377,10 +391,15 @@ BD_SASS = ("block_diag", "block_diag_kernel", 4)  # kernel 10: library,
                                                  # function stem, instances
 
 
+RANK_BWD_SASS = (("flash_rank_dq_kernel", "flash_rank_dkv_kernel"), 3)
+# the rank backward (fp32 SIMT): function stems, instances each (hd 4, 8, 16)
+
+
 def check_bd_rank_sass() -> dict:
     """Kernel 10 loads x by TMA: each of its four instances (bf16 and fp32
-    x, b 8 and any b) shows UTMALDG; the rank flash kernels (fp32 SIMT)
-    are only printed.  Raises otherwise."""
+    x, b 8 and any b) shows UTMALDG; the rank backward sums in a fixed
+    order: each instance of its dq and dk/dv kernels shows no atomic (ATOM,
+    RED), so repeats are bit-identical.  Raises otherwise."""
     out = {}
     for lib in ("flash_rank", BD_SASS[0]):
         out[lib] = sass_counts(lib)
@@ -391,6 +410,13 @@ def check_bd_rank_sass() -> dict:
     if len(ks) != BD_SASS[2] or any(c["UTMALDG"] == 0 for c in ks):
         raise AssertionError(f"block_diag SASS: an instance lacks its TMA "
                              f"loads: {out[BD_SASS[0]]}")
+    stems, n = RANK_BWD_SASS
+    for stem in stems:
+        ks = [c for fn, c in out["flash_rank"].items() if stem in fn]
+        if len(ks) != n or any(c["ATOM"] for c in ks):
+            raise AssertionError(f"flash_rank SASS: {stem} has {len(ks)} "
+                                 f"instances, want {n}, or an atomic: "
+                                 f"{out['flash_rank']}")
     return out
 
 
@@ -454,6 +480,22 @@ RANK_MUTANTS = {  # flash_rank.cu's forward
          "                      lo / 256 * 256 + 255);")],
     "gives 0 to a row that sees no key": [
         ("o[d] = vsum[d] / static_cast<float>(S);", "o[d] = 0.f;")]}
+RANK_BWD_MUTANTS = {  # flash_rank.cu's dq (R2) and dk/dv (R3)
+    "dq walks only the first 32 keys of the span": [
+        ("  const int stop = causal ? min(last, row + q_offset) : last;",
+         "  const int stop = min(causal ? min(last, row + q_offset) : last,\n"
+         "                       first + 31);")],
+    "dk/dv sums only the first query chunk": [
+        ("for (int i0 = q_from / CHUNK * CHUNK; i0 < L; i0 += CHUNK) {",
+         "for (int i0 = q_from / CHUNK * CHUNK;\n"
+         "         i0 < min(L, q_from / CHUNK * CHUNK + CHUNK); i0 += CHUNK) {")],
+    "dk/dv gives a block's first visible key zeros, as if no query saw it": [
+        ("        if (j <= reach)\n", "        if (j <= reach && u > 0)\n")],
+    "dk/dv walks only each work CTA's first key block": [
+        ("       key0 += work * BWD_KEYS) {", "       key0 += S) {")],
+    "dk/dv adds only the first warp's queries": [
+        ("for (int w = 0; w < WARPS; ++w) sum += part[w][kt][e];",
+         "for (int w = 0; w < 1; ++w) sum += part[w][kt][e];")]}
 BD_MUTANTS = {  # block_diag.cu
     "reads the block transposed": [
         ("w[i8][j] = __ldg(bp + i8 * 8 + j);",
@@ -477,7 +519,8 @@ DROP_MUTANTS = {  # fused_dropout.cu's bf16-x kernels (the path's)
     "the forward ignores the keep mask": [
         ("      keep_masks(w, sh.thresh, fk);",
          "      fk[0] = fk[1] = fk[2] = fk[3] = 0xffffffffu;")]}
-MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu", RANK_MUTANTS),
+MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu",
+                                  {**RANK_MUTANTS, **RANK_BWD_MUTANTS}),
                   "block_diag": ("block_diag.cu", BD_MUTANTS),
                   "moka_delta_fwd": ("moka_delta_fwd.cu", MOKA_MUTANTS),
                   "fused_dropout": ("fused_dropout.cu", DROP_MUTANTS)}
@@ -1819,16 +1862,26 @@ def check_rank(name, q, k, v, mask, dout, q_offset=0, causal=False) -> dict:
     """The three rank kernels against the plain versions on one case, the
     backward on the forward kernel's lse: out and lse within RANK_TOL,
     dq/dk/dv within RANK_BWD_TOL of max|plain| (a row that sees no key:
-    out the mean of V, lse ~-6.9e29 to 1e-6 of itself)."""
+    out the mean of V, lse ~-6.9e29 to 1e-6 of itself).  The backward's
+    early exits keep the contract exactly: dq is 0 on every row that sees
+    no key, dk and dv 0 on every key no query sees; and it sums in a fixed
+    order: a second launch of each backward kernel is bit-identical."""
     import torch
     from moka_tpu_torch.ops import flash_attention as fa
     out, lse = fa.flash_rank_fwd(q, k, v, mask, q_offset, causal)
     delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
-    dq = fa.flash_rank_bwd_dq(q, k, v, mask, dout, lse, delta, q_offset,
-                              causal)
-    dk, dv = fa.flash_rank_bwd_dkv(q, k, v, mask, dout, lse, delta, q_offset,
-                                   causal)
+
+    def backward():
+        dq = fa.flash_rank_bwd_dq(q, k, v, mask, dout, lse, delta, q_offset,
+                                  causal)
+        return (dq, *fa.flash_rank_bwd_dkv(q, k, v, mask, dout, lse, delta,
+                                           q_offset, causal))
+
+    dq, dk, dv = backward()
+    again = backward()
     torch.cuda.synchronize()
+    repeat_ok = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    del again
     ref, ref_lse = fa.flash_fwd_plain(q, k, v, mask, q_offset, causal)
     grads = fa.flash_bwd_plain(q, k, v, mask, dout, lse, delta, q_offset,
                                causal)
@@ -1842,13 +1895,19 @@ def check_rank(name, q, k, v, mask, dout, q_offset=0, causal=False) -> dict:
         errs[n] = float((got - want).abs().max() / want.abs().max())
     dead_ok = bool(torch.allclose(got2[~live], want2[~live], rtol=1e-6,
                                   atol=0))
-    ok = dead_ok and all(errs[n] <= RANK_TOL for n in ("out", "lse")) and \
+    seen = _visible(mask, L, S, q_offset, causal).any(dim=1)  # (b, S)
+    zeros_ok = not dq[~live].any() and not dk[~seen].any() and \
+        not dv[~seen].any()
+    ok = dead_ok and zeros_ok and repeat_ok and \
+        all(errs[n] <= RANK_TOL for n in ("out", "lse")) and \
         all(errs[n] <= RANK_BWD_TOL for n in ("dq", "dk", "dv"))
     log(f"  rank flash {name}: q {tuple(q.shape)}, q_offset {q_offset}, "
-        f"causal {causal}, rows that see no key {int((~live).sum())}: "
-        f"max|err| / max|plain| " +
+        f"causal {causal}, rows that see no key {int((~live).sum())}, keys "
+        f"no query sees {int((~seen).sum())}: max|err| / max|plain| " +
         ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) +
-        f"; their lse ok {dead_ok} (tol {RANK_TOL} fwd, {RANK_BWD_TOL} bwd)")
+        f"; their lse ok {dead_ok}, their gradients exactly 0 {zeros_ok}, "
+        f"the backward bit-identical on repeat {repeat_ok} (tol {RANK_TOL} "
+        f"fwd, {RANK_BWD_TOL} bwd)")
     if not ok:
         raise AssertionError(f"rank flash kernels disagree with their "
                              f"plain versions ({name})")
@@ -1860,8 +1919,8 @@ def rank_flash_records(b, L) -> list[dict]:
     """The rank route's three kernels (TPU kernels 1-4 at head_dim 4,
     fp32) checked on ``rank_check_cases`` (the forward's key layouts,
     causal rows before the first visible key, a ragged L, no-question
-    samples); the forward launched as each RANK_MUTANTS fault must fail
-    there.  Then each kernel timed at (b, L) with every sample's question
+    samples); the forward launched as each RANK_MUTANTS fault and the
+    backward as each RANK_BWD_MUTANTS fault must fail there.  Then each kernel timed at (b, L) with every sample's question
     span: the wrapper back to back (``ms``), the kernel alone (a CUDA
     graph of launches, ``device_ms``), the wrapper's host µs a call, the
     plain version, ``scaled_dot_product_attention`` (fp32, boolean key
@@ -1876,7 +1935,7 @@ def rank_flash_records(b, L) -> list[dict]:
             for name, ins, q_offset, causal in cases]
     for what, lib in MUTANTS["flash_rank"].items():
         with swapped_library("flash_rank", lib):
-            must_fail(f"rank forward mutant ({what})",
+            must_fail(f"rank mutant ({what})",
                       lambda: [check_rank(name, *ins, q_offset, causal)
                                for name, ins, q_offset, causal in cases])
     del cases

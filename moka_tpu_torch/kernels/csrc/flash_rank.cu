@@ -53,17 +53,56 @@
 //     4,096 warps, 31 for each of the 132 SMs, so the loads of the mask,
 //     of q and of the span's keys overlap across warps.
 //
-// Backward design (dq, dk/dv, unchanged since their port): a CTA of 128
-// threads serves 16 rows (queries in dq, keys in dk/dv), SPLIT = 8 threads
-// a row, each taking every 8th key (or query) of a 256-entry tile staged in
-// shared memory, so the 8 threads of a row read 8 neighbouring entries and
-// the 4 rows of a warp read the same ones; the 8 partial gradients meet by
-// warp shuffles.  Every tile is visited.  No atomics: the gradients are the
-// same from run to run.  The backward is a dq kernel (a loop over keys) and
-// a dk/dv kernel (a loop over queries) whatever L and S are: the fused
-// kernel that the bf16 route takes at L, S <= 1024 computes the same
-// function, and at r 4 the second pass over the (L, S) pairs costs as
-// little as the first.
+// Backward (dq: R2, dk/dv: R3).  They replace
+// moka_tpu/ops/flash_attention.py::_bwd_dq_kernel (:136) and
+// _bwd_dkv_kernel (:180), and at L, S <= 1024 also _bwd_fused_kernel
+// (:230), which computes the same function: the rank route's backward is
+// always this pair, and at r 4 a second pass over the visible pairs costs
+// as little as the first.  Per visible (query, key) pair dq does 6 r flops
+// and an exp2, dk/dv 8 r and an exp2: at the training shape above 5.2e5
+// pairs, 0.12 us of exp2, and about 0.1 MB of bytes, so both are bound by
+// latency, as the forward is, and the design keeps the work to the pairs
+// the softmax needs (a masked key adds exactly 0: its weight is
+// exp2(-1e30 - lse)) and the chain of memory round trips short.
+//   * dq (flash_rank_dq_kernel) takes the forward's shape: a CTA of 8
+//     warps serves 8 query rows of one sample, a warp a row.  The row's q,
+//     dO, lse and delta are loaded before the CTA's one coalesced scan of
+//     the mask for the sample's visible span (warp reductions, one
+//     __syncthreads); the row walks the keys from the first visible one to
+//     the last it may see, the 32 lanes taking every 32nd key with 16 / r
+//     keys' k and v rows in flight by 16-byte loads from global memory
+//     (L1 and L2 serve the CTA's warps; nothing is staged), keys inside
+//     the span keeping their mask test.  The partial dq rows meet by warp
+//     shuffles and lane 0 stores the row.  A row that sees no key (its lse
+//     marks it fully masked, no visible key, or a causal limit before the
+//     first one) stores dq = 0 at once, as JAX's kernel and the plain
+//     version give.
+//   * dk/dv (flash_rank_dkv_kernel): a visible key sums over all L
+//     queries, so its parallelism comes from splitting the queries, and a
+//     key no query sees must only store zeros.  A sample's CTAs are of two
+//     kinds.  Zero CTAs, a thread a key, store dk = dv = 0 for every key
+//     with mask 0 and do nothing else.  Work CTAs, S / 32 of them (enough
+//     for a span of S / 8 keys, MokA's L / 8 question span, one block
+//     each; a wider span loops), find the span as dq does and take its
+//     blocks of 4 keys, every work-th block each; a visible key past the
+//     causal reach of the last query stores zeros, and a work CTA with no
+//     block returns.  A work CTA stages the sample's (q * qscale, dO,
+//     lse * log2 e, delta), 40 bytes a query at r 4, into shared memory
+//     once, in chunks of 4096 / r queries (41 KB; a fully masked row's lse
+//     staged as +inf, so its p is 0).  Lane l of warp w takes key l % 4 of
+//     the block and the queries congruent to 8 w + l / 4 modulo 64, 16 / r
+//     queries in flight: one shared-memory load serves 4 lanes (8 distinct
+//     queries a warp instruction, no bank conflict at r 4) and a lane
+//     walks 16 queries at L 1024.  The 8 query phases of a key in a warp
+//     meet by shuffles, then the 8 warps' partial sums are added in warp
+//     order in shared memory.  The sample is the grid's fastest index, so
+//     the work CTAs come first in dispatch order and spread over the SMs:
+//     at the training shape 128 work CTAs (504 keys) and 16 zero CTAs.
+//     Each work CTA reads all L queries, so more keys a block would cut the
+//     bytes staged from L2 but halve the CTAs that work, and fewer would
+//     double those bytes (profile_port.py rank_bwd_ablation times both).
+// Neither kernel uses atomics or a workspace: the summation order is fixed
+// by lane, warp and key or query index, so repeats are bit-identical.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,10 +112,6 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int NT = 128;
-constexpr int SPLIT = 8;
-constexpr int ROWS = NT / SPLIT;
-constexpr int TILE = 256;
 
 template <int HD>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
@@ -84,23 +119,6 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 #pragma unroll
   for (int d = 0; d < HD; ++d) s = fmaf(a[d], b[d], s);
   return s;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = SPLIT / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// stage entries [e0, e0 + TILE) of a (B, n, 1, HD) tensor of batch b
-template <int HD>
-__device__ __forceinline__ void stage(float* dst, const float* src, int b,
-                                      int n, int e0, float scale) {
-  const float* p = src + (static_cast<long>(b) * n + e0) * HD;
-  const int count = min(TILE, n - e0) * HD;
-  for (int i = threadIdx.x; i < TILE * HD; i += NT)
-    dst[i] = i < count ? p[i] * scale : 0.f;
 }
 
 constexpr int FWD_WARPS = 8;  // forward: a CTA of 8 warps, a warp a row
@@ -131,6 +149,36 @@ __device__ __forceinline__ void load_row(const float* p, float (&r)[HD]) {
     r[d + 2] = a.z;
     r[d + 3] = a.w;
   }
+}
+
+// The backward's visible span of a sample: the first and last key whose
+// (S,) mask entry is > 0 (S and -1 if none), by one coalesced scan of the
+// mask by the CTA's NT threads, warp reductions and one __syncthreads.
+template <int NT>
+__device__ __forceinline__ int2 visible_span(const int* mrow_of, int S) {
+  __shared__ int lo_of[NT / 32], hi_of[NT / 32];
+  const int warp = threadIdx.x / 32;
+  int lo = S, hi = -1;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < S; j += NT) {
+    if (__ldg(mrow_of + j) > 0) {
+      lo = min(lo, j);
+      hi = j;
+    }
+  }
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  if (threadIdx.x % 32 == 0) {
+    lo_of[warp] = lo;
+    hi_of[warp] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    lo = min(lo, lo_of[w]);
+    hi = max(hi, hi_of[w]);
+  }
+  return make_int2(lo, hi);
 }
 
 template <int HD>
@@ -277,7 +325,7 @@ __global__ void __launch_bounds__(FWD_NT)
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(FWD_NT)
     flash_rank_dq_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -287,53 +335,78 @@ __global__ void __launch_bounds__(NT)
                          const float* __restrict__ delta, float* __restrict__ dq,
                          int L, int S, int q_offset, int causal, float qscale,
                          float scale) {
-  __shared__ __align__(16) float ks[TILE * HD];
-  __shared__ __align__(16) float vs[TILE * HD];
-  __shared__ int ms[TILE];
+  constexpr int KIF = 16 / HD;  // keys in flight a lane
   const int b = blockIdx.y;
-  const int row = blockIdx.x * ROWS + threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const bool live = row < L;
-  const long r = static_cast<long>(b) * L + row;
-  float qs[HD], dov[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qs[d] = live ? q[r * HD + d] * qscale : 0.f;
-    dov[d] = live ? dout[r * HD + d] : 0.f;
-    acc[d] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * FWD_WARPS + warp;
+  const long qr = static_cast<long>(b) * L + row;
+  const int* keys_on = mask + static_cast<long>(b) * S;
+  // the row's q, dO, lse and delta, on their way before the mask scan
+  float qs[HD], dov[HD];
+  float lse2 = NEG_INF, dlt = 0.f;
+  if (row < L) {
+    load_row<HD>(q + qr * HD, qs);
+    load_row<HD>(dout + qr * HD, dov);
+    lse2 = __ldg(lse + qr) * LOG2E;
+    dlt = __ldg(delta + qr);
   }
-  const float lse2 = live ? lse[r] * LOG2E : NEG_INF;
-  const float dlt = live ? delta[r] : 0.f;
-  const bool rows_live = lse2 > NEG_INF * 0.5f;  // not a fully masked row
-  const int qpos = row + q_offset;
-  for (int k0 = 0; k0 < S; k0 += TILE) {
-    __syncthreads();
-    stage<HD>(ks, k, b, S, k0, 1.f);
-    stage<HD>(vs, v, b, S, k0, 1.f);
-    for (int i = threadIdx.x; i < TILE; i += NT)
-      ms[i] = k0 + i < S ? mask[static_cast<long>(b) * S + k0 + i] : 0;
-    __syncthreads();
-    if (!rows_live) continue;
-    const int n = min(TILE, S - k0);
-    for (int j = part; j < n; j += SPLIT) {
-      const bool ok = ms[j] > 0 && (!causal || qpos >= k0 + j);
-      const float s = ok ? dot<HD>(qs, ks + j * HD) : NEG_INF;
-      const float p = exp2f(s - lse2);
-      const float ds = p * (dot<HD>(dov, vs + j * HD) - dlt);
+
+  // the sample's visible span [first, last]
+  const int2 span = visible_span<FWD_NT>(keys_on, S);
+  const int first = span.x, last = span.y;
+
+  if (row >= L) return;
+  const int stop = causal ? min(last, row + q_offset) : last;
+  float g[HD];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, ks[j * HD + d], acc[d]);
+  for (int d = 0; d < HD; ++d) g[d] = 0.f;
+  // a row that sees no key (fully masked lse, or stop < first) keeps dq = 0
+  if (lse2 > NEG_INF * 0.5f && stop >= first) {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) qs[d] *= qscale;
+    for (int j0 = first + lane; j0 <= stop; j0 += 32 * KIF) {
+      float kr[KIF][HD], vr[KIF][HD];
+      bool on[KIF];
+#pragma unroll
+      for (int u = 0; u < KIF; ++u) {
+        const int j = j0 + 32 * u;
+        on[u] = false;
+        if (j <= stop) {
+          const long kk = static_cast<long>(b) * S + j;
+          load_row<HD>(k + kk * HD, kr[u]);
+          load_row<HD>(v + kk * HD, vr[u]);
+          on[u] = __ldg(keys_on + j) > 0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < KIF; ++u) {
+        if (!on[u]) continue;  // past the span's end, or masked inside it
+        const float p = exp2f(dot<HD>(qs, kr[u]) - lse2);
+        const float ds = p * (dot<HD>(dov, vr[u]) - dlt);
+#pragma unroll
+        for (int d = 0; d < HD; ++d) g[d] = fmaf(ds, kr[u][d], g[d]);
+      }
     }
+#pragma unroll
+    for (int d = 0; d < HD; ++d) g[d] = warp_sum(g[d]);
   }
+  if (lane == 0) {
+    float* out = dq + qr * HD;
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = group_sum(acc[d]);
-  if (live && part == 0) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) dq[r * HD + d] = acc[d] * scale;
+    for (int d = 0; d < HD; d += 4)
+      *reinterpret_cast<float4*>(out + d) =
+          make_float4(g[d] * scale, g[d + 1] * scale, g[d + 2] * scale,
+                      g[d + 3] * scale);
   }
 }
 
+constexpr int BWD_KEYS = 4;  // dk/dv: keys a work CTA takes at a time
+constexpr int BWD_NT = 256;  // 8 warps
+constexpr int PHASES = BWD_NT / BWD_KEYS;  // query phases a key
+constexpr int SPAN_SHARE = 8;  // work CTAs for a span of S / 8 keys
+
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(BWD_NT)
     flash_rank_dkv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -342,63 +415,185 @@ __global__ void __launch_bounds__(NT)
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int L,
-                          int S, int q_offset, int causal, float qscale) {
-  __shared__ __align__(16) float qss[TILE * HD];
-  __shared__ __align__(16) float dos[TILE * HD];
-  __shared__ float lse2s[TILE];
-  __shared__ float dls[TILE];
-  const int b = blockIdx.y;
-  const int key = blockIdx.x * ROWS + threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const bool live = key < S;
-  const long r = static_cast<long>(b) * S + key;
-  float kv[HD], vv[HD], dka[HD], dva[HD];
+                          int S, int q_offset, int causal, float qscale,
+                          int work) {
+  constexpr int CHUNK = 4096 / HD;  // queries staged at a time
+  constexpr int QIF = 16 / HD;      // queries in flight a lane
+  constexpr int WARPS = BWD_NT / 32;
+  __shared__ __align__(16) float q_sm[CHUNK * HD];
+  __shared__ __align__(16) float do_sm[CHUNK * HD];
+  __shared__ float2 row_sm[CHUNK];  // (lse * log2 e, delta) a query
+  __shared__ float part[WARPS][BWD_KEYS][2 * HD];
+  const int b = blockIdx.x;
+  const long k_base = static_cast<long>(b) * S;
+  const int* m = mask + k_base;
+  const int y = blockIdx.y;
+  if (y >= work) {
+    // a zero CTA, a thread a key: a key with mask 0 gets dk = dv = 0 and
+    // nothing else (the keys with mask > 0 are the work CTAs')
+    const int j = (y - work) * BWD_NT + threadIdx.x;
+    if (j < S && __ldg(m + j) <= 0) {
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    kv[d] = live ? k[r * HD + d] : 0.f;
-    vv[d] = live ? v[r * HD + d] : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
-  }
-  const bool key_on = live && mask[live ? r : 0] > 0;
-  for (int i0 = 0; i0 < L; i0 += TILE) {
-    __syncthreads();
-    stage<HD>(qss, q, b, L, i0, qscale);
-    stage<HD>(dos, dout, b, L, i0, 1.f);
-    for (int i = threadIdx.x; i < TILE; i += NT) {
-      const bool in = i0 + i < L;
-      const long qr = static_cast<long>(b) * L + i0 + i;
-      lse2s[i] = in ? lse[qr] * LOG2E : NEG_INF;
-      dls[i] = in ? delta[qr] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(TILE, L - i0);
-    for (int i = part; i < n; i += SPLIT) {
-      const float lse2 = lse2s[i];
-      if (!(lse2 > NEG_INF * 0.5f)) continue;  // fully masked row: p = 0
-      const bool ok = key_on && (!causal || i0 + i + q_offset >= key);
-      const float s = ok ? dot<HD>(qss + i * HD, kv) : NEG_INF;
-      const float p = exp2f(s - lse2);
-      const float* dor = dos + i * HD;
-      const float ds = p * (dot<HD>(dor, vv) - dls[i]);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dva[d] = fmaf(p, dor[d], dva[d]);
-        dka[d] = fmaf(ds, qss[i * HD + d], dka[d]);
+      for (int d = 0; d < HD; d += 4) {
+        *reinterpret_cast<float4*>(dk + (k_base + j) * HD + d) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + (k_base + j) * HD + d) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
+    return;
   }
+
+  // a work CTA: the sample's visible span [lo, hi]
+  const int2 span = visible_span<BWD_NT>(m, S);
+  const int lo = span.x, hi = span.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the last key some query may see
+  const int reach = causal ? min(hi, L - 1 + q_offset) : hi;
+  const int t = lane % BWD_KEYS;
+  const int phase = warp * (32 / BWD_KEYS) + lane / BWD_KEYS;
+  const long q_base = static_cast<long>(b) * L;
+  int staged = -1;  // the first query of the chunk in shared memory
+  // the span's blocks of BWD_KEYS keys, every work-th one from this CTA's
+  for (int key0 = lo + y * BWD_KEYS; key0 <= hi;
+       key0 += work * BWD_KEYS) {
+    unsigned live = 0, unreached = 0;  // keys to walk; visible, past reach
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    dka[d] = group_sum(dka[d]);
-    dva[d] = group_sum(dva[d]);
-  }
-  if (live && part == 0) {
+    for (int u = 0; u < BWD_KEYS; ++u) {
+      const int j = key0 + u;
+      if (j <= hi && __ldg(m + j) > 0) {
+        if (j <= reach)
+          live |= 1u << u;
+        else
+          unreached |= 1u << u;
+      }
+    }
+    // a visible key no query may reach (causal): exact zeros
+    if (threadIdx.x < BWD_KEYS * HD / 4) {
+      const int u = threadIdx.x / (HD / 4);
+      if (unreached >> u & 1u) {
+        const long o = (k_base + key0 + u) * HD + threadIdx.x % (HD / 4) * 4;
+        *reinterpret_cast<float4*>(dk + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    if (live == 0u) continue;
+
+    const int key = key0 + t;
+    const bool mine = live >> t & 1u;
+    float kr[HD], vr[HD], dka[HD], dva[HD];
+    if (mine) {
+      load_row<HD>(k + (k_base + key) * HD, kr);
+      load_row<HD>(v + (k_base + key) * HD, vr);
+    }
+#pragma unroll
+    for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
+    // causal: no query before the first live key's reach sees a key here
+    const int q_from =
+        causal ? max(0, key0 + __ffs(static_cast<int>(live)) - 1 - q_offset)
+               : 0;
+    for (int i0 = q_from / CHUNK * CHUNK; i0 < L; i0 += CHUNK) {
+      const int n = min(CHUNK, L - i0);
+      if (i0 != staged) {
+        __syncthreads();  // the previous chunk's readers are done
+        const float4* qsrc =
+            reinterpret_cast<const float4*>(q + (q_base + i0) * HD);
+        const float4* dsrc =
+            reinterpret_cast<const float4*>(dout + (q_base + i0) * HD);
+#pragma unroll 4
+        for (int e = threadIdx.x; e < n * HD / 4; e += BWD_NT) {
+          float4 a = __ldg(qsrc + e);
+          a.x *= qscale;
+          a.y *= qscale;
+          a.z *= qscale;
+          a.w *= qscale;
+          reinterpret_cast<float4*>(q_sm)[e] = a;
+          reinterpret_cast<float4*>(do_sm)[e] = __ldg(dsrc + e);
+        }
+#pragma unroll 4
+        for (int e = threadIdx.x; e < n; e += BWD_NT) {
+          const float l2 = __ldg(lse + q_base + i0 + e) * LOG2E;
+          // a fully masked row: p = exp2(s - inf) = 0
+          row_sm[e] = make_float2(l2 > NEG_INF * 0.5f ? l2 : INFINITY,
+                                  __ldg(delta + q_base + i0 + e));
+        }
+        __syncthreads();
+        staged = i0;
+      }
+      if (!mine) continue;
+      // this lane's first query of the chunk that may see its key
+      int c = phase;
+      if (causal && key - q_offset - i0 > c)
+        c += (key - q_offset - i0 - c + PHASES - 1) / PHASES * PHASES;
+      for (; c < n; c += PHASES * QIF) {
+        float qv[QIF][HD], dov[QIF][HD];
+        float2 rw[QIF];
+#pragma unroll
+        for (int u = 0; u < QIF; ++u) {
+          const int cc = min(c + PHASES * u, n - 1);
+#pragma unroll
+          for (int d = 0; d < HD; d += 4) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(q_sm + cc * HD + d);
+            const float4 o =
+                *reinterpret_cast<const float4*>(do_sm + cc * HD + d);
+            qv[u][d] = a.x;
+            qv[u][d + 1] = a.y;
+            qv[u][d + 2] = a.z;
+            qv[u][d + 3] = a.w;
+            dov[u][d] = o.x;
+            dov[u][d + 1] = o.y;
+            dov[u][d + 2] = o.z;
+            dov[u][d + 3] = o.w;
+          }
+          rw[u] = row_sm[cc];
+        }
+#pragma unroll
+        for (int u = 0; u < QIF; ++u) {
+          if (c + PHASES * u < n) {
+            const float p = exp2f(dot<HD>(qv[u], kr) - rw[u].x);
+            const float ds = p * (dot<HD>(dov[u], vr) - rw[u].y);
+#pragma unroll
+            for (int d = 0; d < HD; ++d) {
+              dva[d] = fmaf(p, dov[u][d], dva[d]);
+              dka[d] = fmaf(ds, qv[u][d], dka[d]);
+            }
+          }
+        }
+      }
+    }
+    // the query phases of a key meet: first within the warp (lanes with
+    // the same l % BWD_KEYS), then the warps' sums in warp order
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
-      dk[r * HD + d] = dka[d] * LN2;
-      dv[r * HD + d] = dva[d];
+#pragma unroll
+      for (int off = BWD_KEYS; off < 32; off <<= 1) {
+        dka[d] += __shfl_xor_sync(FULL, dka[d], off);
+        dva[d] += __shfl_xor_sync(FULL, dva[d], off);
+      }
     }
+    if (lane < BWD_KEYS) {
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        part[warp][lane][d] = dka[d];
+        part[warp][lane][HD + d] = dva[d];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < BWD_KEYS * 2 * HD) {
+      const int kt = threadIdx.x / (2 * HD), e = threadIdx.x % (2 * HD);
+      if (live >> kt & 1u) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) sum += part[w][kt][e];
+        const long o = (k_base + key0 + kt) * HD;
+        if (e < HD)
+          dk[o + e] = sum * LN2;
+        else
+          dv[o + e - HD] = sum;
+      }
+    }
+    __syncthreads();  // part is read before the next block writes it
   }
 }
 
@@ -423,7 +618,7 @@ void dq(dim3 grid, cudaStream_t st, const void* q, const void* k,
         const void* v, const void* mask, const void* dout, const void* lse,
         const void* delta, void* dqp, int L, int S, int q_offset, int causal,
         float qscale, float scale) {
-  flash_rank_dq_kernel<HD><<<grid, NT, 0, st>>>(
+  flash_rank_dq_kernel<HD><<<grid, FWD_NT, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(mask),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -435,13 +630,13 @@ template <int HD>
 void dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
          const void* v, const void* mask, const void* dout, const void* lse,
          const void* delta, void* dkp, void* dvp, int L, int S, int q_offset,
-         int causal, float qscale) {
-  flash_rank_dkv_kernel<HD><<<grid, NT, 0, st>>>(
+         int causal, float qscale, int work) {
+  flash_rank_dkv_kernel<HD><<<grid, BWD_NT, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(mask),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dkp),
-      static_cast<float*>(dvp), L, S, q_offset, causal, qscale);
+      static_cast<float*>(dvp), L, S, q_offset, causal, qscale, work);
 }
 
 }  // namespace
@@ -470,7 +665,7 @@ extern "C" int moka_flash_rank_bwd_dq(const void* q, const void* k,
                                       int causal, float qscale, float scale,
                                       void* stream) {
   if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((L + ROWS - 1) / ROWS, B);
+  const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = hd == 4 ? dq<4> : hd == 8 ? dq<8> : dq<16>;
   f(grid, st, q, k, v, mask, dout, lse, delta, dqp, L, S, q_offset, causal,
@@ -486,11 +681,18 @@ extern "C" int moka_flash_rank_bwd_dkv(const void* q, const void* k,
                                        int B, int L, int S, int hd,
                                        int q_offset, int causal, float qscale,
                                        void* stream) {
-  if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + ROWS - 1) / ROWS, B);
+  // work CTAs (the span's key blocks, every work-th one each) and zero
+  // CTAs (BWD_NT keys each) a sample; the sample is the grid's fastest
+  // index, so the work CTAs come first in dispatch order and spread over
+  // the SMs
+  const int work = (S + SPAN_SHARE * BWD_KEYS - 1) / (SPAN_SHARE * BWD_KEYS);
+  const int blocks = work + (S + BWD_NT - 1) / BWD_NT;
+  if (bad_dims(B, L, S, hd) || blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B, blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = hd == 4 ? dkv<4> : hd == 8 ? dkv<8> : dkv<16>;
   f(grid, st, q, k, v, mask, dout, lse, delta, dkp, dvp, L, S, q_offset,
-    causal, qscale);
+    causal, qscale, work);
   return static_cast<int>(cudaGetLastError());
 }

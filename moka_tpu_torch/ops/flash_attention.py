@@ -35,7 +35,10 @@ callers read valid rows only).
 On the rank route such a row's output is the mean of V over all S keys,
 as the plain version's (the forward kernel walks only the visible span
 of keys and takes that branch for a row that sees none): zero for
-MokA's no-question samples, whose keys are all zero.
+MokA's no-question samples, whose keys are all zero.  The rank backward
+kernels walk only the visible pairs too, and store the plain versions'
+exact zeros without walking: dq on a row that sees no key, dk and dv on a
+key no query sees.
 """
 
 from __future__ import annotations

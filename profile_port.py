@@ -14,7 +14,8 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py flash --root DIR   # another checkout's kernels
     python3 profile_port.py fused_ce fused_ce_ablation
     python3 profile_port.py rank_kernels block_diag [--root DIR]
-    python3 profile_port.py rank_ablation block_diag_ablation
+    python3 profile_port.py rank_ablation rank_bwd_ablation
+    python3 profile_port.py block_diag_ablation
     python3 profile_port.py moka_delta [--root DIR]
     python3 profile_port.py moka_ablation
     python3 profile_port.py fused_dropout [--root DIR]
@@ -38,15 +39,17 @@ kernels through their wrappers at chip_smoke's rank shape (b 4, L 1024,
 head_dim 4, 126 question keys a sample): the kernel alone (``graph_ms``:
 a CUDA graph of 100 launches, no host work between them), the host's µs a
 call (``host_us``: the least of five batches) and the wrapper back to
-back.  ``block_diag`` times kernel 10 at the BOFT merge's three shapes:
+back, then each alone at head_dim 16.  ``block_diag`` times kernel 10 at the BOFT merge's three shapes:
 cold (a graph rotating over x buffers that together hold 3x the L2
 cache), warm, back to back, the host's µs a call and a cold ``x.clone()``
 (the same bytes moved by PyTorch's copy), then traces one BOFT merge at
 phase 10's shapes (``BoftSpec(8, 2)`` on 224 random bf16 weights at
-LLaMA-2-7B's widths).  Both take ``--root``.  ``rank_ablation`` and
-``block_diag_ablation`` time the rank forward and kernel 10 with parts
-taken out (RANK_ABLATIONS, BD_ABLATIONS: edited copies of flash_rank.cu
-and block_diag.cu), twice in turn.  ``moka_delta`` times the fused MokA
+LLaMA-2-7B's widths).  Both take ``--root``.  ``rank_ablation``,
+``rank_bwd_ablation`` and ``block_diag_ablation`` time the rank forward,
+the rank backward pair (dq and dk/dv, each alone and back to back) and
+kernel 10 with parts taken out (RANK_ABLATIONS, RANK_BWD_ABLATIONS,
+BD_ABLATIONS: edited copies of flash_rank.cu and block_diag.cu), twice in
+turn.  ``moka_delta`` times the fused MokA
 delta (kernel 5) at the serving prefill (b 8, L 896, bf16, AVT) for each
 projection shape of LLaMA-2-7B at ranks 4, 8 and 16: the kernel alone in
 a CUDA graph, the host's µs a call and the wrapper back to back (with
@@ -611,13 +614,13 @@ RANK_SHAPE = (4, 1024, 4)  # chip_smoke's rank timing: b, L, head_dim;
                            # question keys 2:L // 8 (126 a sample)
 
 
-def rank_inputs():
-    """chip_smoke's rank timing inputs (``rank_case``, seed 2) with the
-    forward's lse and delta: the argument tuples of the three rank
-    wrappers."""
+def rank_inputs(hd: int = RANK_SHAPE[2]):
+    """chip_smoke's rank timing inputs (``rank_case``, seed 2) at head_dim
+    ``hd`` with the forward's lse and delta: the argument tuples of the
+    three rank wrappers."""
     from chip_smoke import rank_case
     from moka_tpu_torch.ops import flash_attention as fa
-    b, L, hd = RANK_SHAPE
+    b, L, _ = RANK_SHAPE
     q, k, v, mask, dout = rank_case(b, L, hd=hd, seed=2)
     out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
     delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
@@ -625,25 +628,34 @@ def rank_inputs():
         (q, k, v, mask, dout, lse, delta, 0, False)
 
 
+def rank_calls(hd: int = RANK_SHAPE[2]) -> dict:
+    """{wrapper name: a call of it on ``rank_inputs(hd)``}."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    fwd_args, bwd_args = rank_inputs(hd)
+    return {"flash_rank_fwd": lambda: fa.flash_rank_fwd(*fwd_args),
+            "flash_rank_bwd_dq": lambda: fa.flash_rank_bwd_dq(*bwd_args),
+            "flash_rank_bwd_dkv": lambda: fa.flash_rank_bwd_dkv(*bwd_args)}
+
+
 def rank_kernels_window(host_calls: int = 200) -> dict:
     """The three rank kernels through their wrappers at RANK_SHAPE: the
     kernel alone (a CUDA graph of 100 launches, ``graph_ms``), the host's
     µs a call and the wrapper back to back (CUDA events over 50 calls,
-    what chip_smoke's table held before)."""
+    what chip_smoke's table held before); then each alone at head_dim
+    16."""
     from moka_tpu_torch.ops import flash_attention as fa
-    fwd_args, bwd_args = rank_inputs()
     out = {"package": fa.__file__}
-    for name, call in (
-            ("flash_rank_fwd", lambda: fa.flash_rank_fwd(*fwd_args)),
-            ("flash_rank_bwd_dq", lambda: fa.flash_rank_bwd_dq(*bwd_args)),
-            ("flash_rank_bwd_dkv",
-             lambda: fa.flash_rank_bwd_dkv(*bwd_args))):
+    for name, call in rank_calls().items():
         out[name] = {"device_ms": graph_ms(call),
                      "host_us": host_us(call, host_calls),
                      "back_to_back_ms": event_ms(call, 50)}
         print(f"  {name}: kernel alone {out[name]['device_ms']:.4f} ms, "
               f"host {out[name]['host_us']:.1f} us a call, back to back "
               f"{out[name]['back_to_back_ms']:.4f} ms", flush=True)
+    for name, call in rank_calls(16).items():
+        out[name]["device_ms_hd16"] = graph_ms(call)
+        print(f"  {name} at head_dim 16: kernel alone "
+              f"{out[name]['device_ms_hd16']:.4f} ms", flush=True)
     return {"rank_kernels": out}
 
 
@@ -731,6 +743,84 @@ def rank_ablation_window() -> dict:
                      {"graph_ms": lambda: graph_ms(call),
                       "back_to_back_ms": lambda: event_ms(call, 50)})
     return {"rank_ablation": out, "rank_rel_err": err}
+
+
+RANK_BWD_ABLATIONS = {  # name: edits of flash_rank.cu's dq (R2) and dk/dv
+    "kernel": [],        # (R3); the edited kernels' outputs are wrong, only
+    "launch alone (returns at once)": [  # their times are read
+        ("  const int* keys_on = mask + static_cast<long>(b) * S;\n",
+         "  const int* keys_on = mask + static_cast<long>(b) * S;\n"
+         "  if (L > 0) return;\n"),
+        ("  const long k_base = static_cast<long>(b) * S;\n",
+         "  const long k_base = static_cast<long>(b) * S;\n"
+         "  if (L > 0) return;\n")],
+    "no key walk (dq), no query walk (dk/dv)": [
+        ("for (int j0 = first + lane; j0 <= stop; j0 += 32 * KIF) {",
+         "for (int j0 = first + lane; j0 <= stop - S; j0 += 32 * KIF) {"),
+        ("for (; c < n; c += PHASES * QIF) {",
+         "for (; c < n - CHUNK; c += PHASES * QIF) {")],
+    "the whole sample walked (every key of a row, every key's queries)": [
+        ("  const int first = span.x, last = span.y;",
+         "  const int first = 0, last = S - 1;"),
+        ("  const int lo = span.x, hi = span.y;",
+         "  const int lo = 0, hi = S - 1;"),
+        ("      if (j <= hi && __ldg(m + j) > 0) {", "      if (j <= hi) {")],
+    "one key (dq), one query (dk/dv) in flight a lane": [
+        ("  constexpr int KIF = 16 / HD;", "  constexpr int KIF = 1;"),
+        ("  constexpr int QIF = 16 / HD;", "  constexpr int QIF = 1;")],
+    "dk/dv: chunks of 2048 / r queries (21 KB at r 4)": [
+        ("  constexpr int CHUNK = 4096 / HD;", "  constexpr int CHUNK = 2048 / HD;")],
+    "dk/dv: 2 keys a block": [
+        ("constexpr int BWD_KEYS = 4;", "constexpr int BWD_KEYS = 2;")],
+    "dk/dv: 8 keys a block": [
+        ("constexpr int BWD_KEYS = 4;", "constexpr int BWD_KEYS = 8;")],
+    "dk/dv: 16 warps a CTA": [
+        ("constexpr int BWD_NT = 256;", "constexpr int BWD_NT = 512;")],
+    "dk/dv: work CTAs for a span of S / 4 keys": [
+        ("constexpr int SPAN_SHARE = 8;", "constexpr int SPAN_SHARE = 4;")],
+    "dk/dv: work CTAs for a span of S / 16 keys": [
+        ("constexpr int SPAN_SHARE = 8;", "constexpr int SPAN_SHARE = 16;")]}
+
+
+def rank_bwd_ablation_window() -> dict:
+    """The rank backward, dq (R2) and dk/dv (R3), with parts taken out
+    (RANK_BWD_ABLATIONS: edited copies of flash_rank.cu, built all at
+    once) at RANK_SHAPE through the wrappers, twice in turn: each kernel
+    alone (``graph_ms``) and back to back; the unedited copy is first held
+    against the plain versions."""
+    from chip_smoke import RANK_BWD_TOL
+    from moka_tpu_torch.ops import flash_attention as fa
+    libs = {name: fa.bind("flash_rank", lib) for name, lib in
+            finish_variants(start_variants("flash_rank.cu",
+                                           RANK_BWD_ABLATIONS)).items()}
+    _, bwd_args = rank_inputs()
+    kept = fa._library("flash_rank")
+
+    def install(lib):
+        fa._libs["flash_rank"] = lib
+
+    try:
+        install(libs["kernel"])
+        got = (fa.flash_rank_bwd_dq(*bwd_args),
+               *fa.flash_rank_bwd_dkv(*bwd_args))
+    finally:
+        install(kept)
+    ref = fa.flash_bwd_plain(*bwd_args)
+    err = max(float((g - r).abs().max() / r.abs().max())
+              for g, r in zip(got, ref))
+    print(f"  the unedited copy: dq, dk, dv max|err| / max|plain| {err:.2e} "
+          f"(tol {RANK_BWD_TOL})", flush=True)
+    if err > RANK_BWD_TOL:
+        raise AssertionError("the ablation's unedited rank backward is wrong")
+    calls = rank_calls()
+    timers = {}
+    for kernel in ("dq", "dkv"):
+        call = calls[f"flash_rank_bwd_{kernel}"]
+        timers[f"{kernel}_graph_ms"] = lambda call=call: graph_ms(call)
+        timers[f"{kernel}_back_to_back_ms"] = \
+            lambda call=call: event_ms(call, 50)
+    out = swap_timed(install, kept, libs, timers)
+    return {"rank_bwd_ablation": out, "rank_bwd_rel_err": err}
 
 
 BD_SHAPES = ((512, 8, 4096), (512, 8, 11008), (1376, 8, 4096))  # (N, b, m)
@@ -1267,6 +1357,7 @@ def main(argv=None) -> int:
                       "fused_ce_ablation": fused_ce_ablation_window,
                       "rank_kernels": rank_kernels_window,
                       "rank_ablation": rank_ablation_window,
+                      "rank_bwd_ablation": rank_bwd_ablation_window,
                       "block_diag": block_diag_window,
                       "block_diag_ablation": block_diag_ablation_window,
                       "moka_delta": moka_delta_window,

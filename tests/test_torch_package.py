@@ -121,9 +121,10 @@ def test_fused_ce_ablation_edits_apply():
 
 
 @pytest.mark.parametrize("edits", ["RANK_ABLATIONS", "BD_ABLATIONS",
-                                   "RANK_MUTANTS", "BD_MUTANTS"])
+                                   "RANK_MUTANTS", "BD_MUTANTS",
+                                   "RANK_BWD_ABLATIONS", "RANK_BWD_MUTANTS"])
 def test_rank_and_block_diag_edits_apply(edits):
-    """The rank forward's and kernel 10's edited copies (profile_port.py's
+    """The rank kernels' and kernel 10's edited copies (profile_port.py's
     ablations, chip_smoke.py's mutants, which phase 3 requires to fail)
     edit their source by text: each old text must occur exactly once in
     flash_rank.cu or block_diag.cu (hopper.cuh inlined), so each copy is
@@ -289,6 +290,42 @@ def test_rank_and_block_diag_source_contract():
     releases = re.findall(r"(fence_proxy_async_smem\(\);\s*__syncwarp\(\);\s*"
                           r"if \(lane == 0\) mbar_arrive)|(mbar_arrive\()", bd)
     assert len(releases) == 2 and all(fenced for fenced, _ in releases)
+
+
+def _kernel_body(src: str, name: str, end: str) -> str:
+    """Kernel ``name``'s parameters and body in ``src``, up to ``end``."""
+    return src[src.index(f"{name}(const float*"):src.index(end)]
+
+
+def test_rank_backward_source_contract():
+    """The rank backward walks only what the softmax needs: dq (R2) finds
+    the sample's visible span (``visible_span``: one mask scan, warp
+    reductions, one barrier) and walks it a warp a row, k and v straight
+    from global memory; dk/dv (R3) stores the zeros of masked keys in CTAs
+    that return before any scan, finds the span the same way and stages
+    queries only for a block with a key to walk.  Neither stages all S
+    keys (``stage<``), uses an atomic or takes a pointer beyond its inputs
+    and outputs (no workspace)."""
+    import re
+    from moka_tpu_torch import kernels
+    rank = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_rank.cu")
+                  .read_text())
+    span = rank[rank.index("int2 visible_span("):
+                rank.index("flash_rank_fwd_kernel(const float*")]
+    assert "__reduce_min_sync" in span and "__reduce_max_sync" in span
+    assert span.count("__syncthreads()") == 1
+    dq = _kernel_body(rank, "flash_rank_dq_kernel", "constexpr int BWD_KEYS")
+    dkv = _kernel_body(rank, "flash_rank_dkv_kernel", "bool bad_dims(")
+    for body, outs in ((dq, ["dq"]), (dkv, ["dk", "dv"])):
+        assert "visible_span<" in body
+        assert "stage<" not in body and "atomic" not in body
+        params = body[:body.index("{")]
+        assert re.findall(r"\*\s*__restrict__\s+(\w+)", params) == \
+            ["q", "k", "v", "mask", "dout", "lse", "delta", *outs]
+    assert "__syncthreads()" not in dq and "load_row<HD>(k + " in dq
+    assert "j0 = first + lane; j0 <= stop" in dq
+    assert dkv.index("return;") < dkv.index("visible_span<")
+    assert dkv.index("if (live == 0u) continue;") < dkv.index("q_sm)[e]")
 
 
 @pytest.mark.parametrize("name", sorted(__import__(
@@ -684,10 +721,11 @@ def test_block_diag_kernel_matches_plain_on_card(card):
 @pytest.mark.parametrize("hd", [4, 8, 16])
 def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
     """The rank route's three kernels against the plain versions, fp32,
-    one head, a ragged length and a sample that sees no key (random keys:
-    the kernels visit every key, so its rows equal the plain mean), also
-    causal with a query offset: out and lse to 1e-5, dq/dk/dv to 1e-4 of
-    max|plain| (fp32 sums in another order)."""
+    one head, a ragged length, a hole inside a span and a sample that sees
+    no key (random keys: its rows equal the plain mean), also causal with
+    a query offset: out and lse to 1e-5, dq/dk/dv to 1e-4 of max|plain|
+    (fp32 sums in another order), and exactly 0 where no pair is seen: dq
+    on a row that sees no key, dk and dv on a key no query sees."""
     from moka_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=card).manual_seed(hd)
     b, L = 3, 133
@@ -695,6 +733,7 @@ def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
                      for _ in range(4))
     mask = torch.zeros((b, L), dtype=torch.int32, device=card)
     mask[0, 5:40] = 1
+    mask[0, 20] = 0
     mask[1, 100:133] = 1
     args = (3, True) if causal else (0, False)  # (q_offset, causal)
     launches = (fa.flash_rank_fwd.launches, fa.flash_rank_bwd_dq.launches,
@@ -715,3 +754,6 @@ def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
             q, k, v, mask, dout, lse, delta, *args)):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
     assert not dq[2].any()
+    seen = fa._valid(mask, L, L, *args)  # (b, L, S)
+    assert not dq[~seen.any(dim=-1)].any()
+    assert not dk[~seen.any(dim=1)].any() and not dv[~seen.any(dim=1)].any()

@@ -218,6 +218,59 @@ def test_rank_route_key_layouts_match_jax(layout, bwd_blocks):
     assert (lse.numpy()[:, 0][~rows] <= -1e29).all()
 
 
+@pytest.mark.parametrize("hd", [4, 16])
+@pytest.mark.parametrize("layout", list(KEY_LAYOUTS))
+def test_backward_zeros_where_no_pair_is_seen_match_jax(layout, hd):
+    """The zeros the card's backward kernels store without walking (dq on
+    a row that sees no key, dk and dv on a key no query sees) are JAX's:
+    its dq and dk/dv kernels (interpret mode, 16-row blocks) and its fused
+    backward, given its forward's lse and delta, give exactly 0 there, on
+    the layouts of ``test_rank_route_key_layouts_match_jax`` (a hole in
+    the second sample's span); so do the port's plain versions on the same
+    lse and delta, which agree with JAX elsewhere within GRAD."""
+    spans, q_offset, causal = KEY_LAYOUTS[layout]
+    rng = np.random.default_rng(13)
+    b, L = 2, L_LAYOUT
+    q, k, v, dout = (rng.standard_normal((b, L, 1, hd)).astype(np.float32)
+                     for _ in range(4))
+    mask = np.zeros((b, L), np.float32)
+    for start, stop in spans:
+        mask[:, start:stop] = 1
+    mask[1, spans[0][0]] = 0
+    keys = np.arange(L)
+    seen = (mask[:, None, :] > 0) & (
+        keys[:, None] + q_offset >= keys[None, :] if causal else
+        np.ones((L, L), bool))
+    rows, cols = seen.any(axis=-1), seen.any(axis=1)  # (b, L), (b, S)
+    assert (~rows).any() == causal and (~cols).any()
+    scale = 1.0 / np.sqrt(hd)
+    jq, jk, jv, jdo = (jnp.asarray(a).transpose(0, 2, 1, 3)
+                       for a in (q, k, v, dout))
+    jmask = jnp.asarray(mask)
+    out, lse = jfa._flash_fwd_res(jq, jk, jv, jmask, q_offset, causal, scale,
+                                  16, 16, True)
+    delta = jnp.sum(jdo * out, axis=-1)
+    args = (jq, jk, jv, jmask, jdo, lse, delta, q_offset, causal, scale)
+    jdq = jfa._flash_bwd_dq(*args, 16, 16, True)
+    jdk, jdv = jfa._flash_bwd_dkv(*args, 16, 16, True)
+    fused = jfa._flash_bwd_fused(*args, True)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, dout))
+    targs = (tq, tk, tv, torch.tensor(mask), tdo, torch.tensor(np.asarray(lse)),
+             torch.tensor(np.asarray(delta)), q_offset, causal)
+    tdq = fa.flash_bwd_dq_plain(*targs).numpy()
+    tdk, tdv = (g.numpy() for g in fa.flash_bwd_dkv_plain(*targs))
+    for n, j, t, where in (("dq", jdq, tdq, ~rows), ("dk", jdk, tdk, ~cols),
+                           ("dv", jdv, tdv, ~cols)):
+        j = np.asarray(j).transpose(0, 2, 1, 3)
+        assert not j[where].any() and not t[where].any(), n
+        np.testing.assert_allclose(t, j, err_msg=n, **GRAD)
+    for n, j, t, where in zip(("dq", "dk", "dv"), fused, (tdq, tdk, tdv),
+                              (~rows, ~cols, ~cols)):
+        j = np.asarray(j).transpose(0, 2, 1, 3)
+        assert not j[where].any(), f"fused {n}"
+        np.testing.assert_allclose(t, j, err_msg=f"fused {n}", **GRAD)
+
+
 def test_rank_inputs_pass_ready_tensors_through_and_check_the_rest():
     """The rank wrappers' input check (``_rank_inputs``, run before each of
     the three kernels): an fp32 q, k, v and an int32 contiguous mask on
