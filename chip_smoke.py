@@ -363,27 +363,36 @@ def sass_counts(name: str) -> dict:
     return counts
 
 
-CE_SASS = ("fused_ce_bwd", "fused_ce_bwd_kernel")  # kernel 9: library,
-                                                   # function stem
+CE_SASS = {"fused_ce": "fused_ce_fwd_kernel",      # kernels 8 and 9:
+           "fused_ce_bwd": "fused_ce_bwd_kernel"}  # library: function stem
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas
 
 
 def check_ce_sass() -> dict:
-    """Kernel 9 runs on wgmma and TMA: its one function shows HGMMA,
-    UTMALDG and a bulk reduction (UBLKRED or UTMAREDG, dx) and no HMMA;
-    kernel 8 (``fused_ce``) keeps mma.sync and is only printed.  Raises
-    otherwise."""
+    """Kernels 8 and 9 run on wgmma and TMA: each one's kernel function
+    shows HGMMA and UTMALDG and no HMMA, kernel 9's also a bulk reduction
+    (UBLKRED or UTMAREDG, dx); kernel 8's merge launch (SIMT) is only
+    printed.  ptxas must not have serialized kernel 8's wgmmas (its
+    C7510-C7520 warnings).  Raises otherwise."""
+    from moka_tpu_torch import kernels
     out = {}
-    for lib in ("fused_ce", CE_SASS[0]):
+    for lib, stem in CE_SASS.items():
         out[lib] = sass_counts(lib)
         for fn, c in out[lib].items():
             log(f"    {lib} SASS {fn}: " +
                 ", ".join(f"{op} {k}" for op, k in c.items()))
-    ks = [c for fn, c in out[CE_SASS[0]].items() if CE_SASS[1] in fn]
-    if len(ks) != 1 or ks[0]["HGMMA"] == 0 or ks[0]["UTMALDG"] == 0 or \
-            ks[0]["HMMA"] or ks[0]["UBLKRED"] + ks[0]["UTMAREDG"] == 0:
-        raise AssertionError(f"fused CE backward SASS: lacks wgmma, TMA or "
-                             f"its bulk reduction, or keeps mma.sync: "
-                             f"{out[CE_SASS[0]]}")
+        ks = [c for fn, c in out[lib].items() if stem in fn]
+        if len(ks) != 1 or ks[0]["HGMMA"] == 0 or ks[0]["UTMALDG"] == 0 or \
+                ks[0]["HMMA"] or (lib == "fused_ce_bwd" and
+                                  ks[0]["UBLKRED"] + ks[0]["UTMAREDG"] == 0):
+            raise AssertionError(f"{lib} SASS: {stem} lacks wgmma, TMA or "
+                                 f"(kernel 9) its bulk reduction, or keeps "
+                                 f"mma.sync: {out[lib]}")
+    text = kernels.log_path("fused_ce")
+    if not text.exists():
+        raise AssertionError(f"no ptxas report for kernel 8's library: {text}")
+    if WGMMA_SERIALIZED in text.read_text():
+        raise AssertionError(f"ptxas serialized kernel 8's wgmmas: see {text}")
     return out
 
 
@@ -519,11 +528,24 @@ DROP_MUTANTS = {  # fused_dropout.cu's bf16-x kernels (the path's)
     "the forward ignores the keep mask": [
         ("      keep_masks(w, sh.thresh, fk);",
          "      fk[0] = fk[1] = fk[2] = fk[3] = 0xffffffffu;")]}
+CE_FWD_MUTANTS = {  # fused_ce.cu (kernel 8)
+    "compares the target at its position, not its vocab column": [
+        ("          const int want = swap_low_bits(tp) - 2 * t;",
+         "          const int want = tp - 2 * t;")],
+    "leaves the first span's partial out of the merge": [
+        ("  for (int c = 0; c < n_spans; ++c) {\n",
+         "  for (int c = 1; c < n_spans; ++c) {\n")],
+    "widens only the first half of each multicast head tile": [
+        ("  for (int u0 = 0; u0 < UNITS_EACH; u0 += CONVERT_UNROLL) {",
+         "  for (int u0 = 0; u0 < UNITS_EACH / 2; u0 += CONVERT_UNROLL) {")],
+    "drops the phantom-column mask": [
+        ("      if (v_sub + TV > a.v_real)\n", "      if (false)\n")]}
 MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu",
                                   {**RANK_MUTANTS, **RANK_BWD_MUTANTS}),
                   "block_diag": ("block_diag.cu", BD_MUTANTS),
                   "moka_delta_fwd": ("moka_delta_fwd.cu", MOKA_MUTANTS),
-                  "fused_dropout": ("fused_dropout.cu", DROP_MUTANTS)}
+                  "fused_dropout": ("fused_dropout.cu", DROP_MUTANTS),
+                  "fused_ce": ("fused_ce.cu", CE_FWD_MUTANTS)}
 MUTANTS: dict = {}  # library name: {fault: loaded library}, after phase 2
 
 
@@ -533,22 +555,24 @@ def swapped_library(name, lib):
     copy of its source."""
     from moka_tpu_torch.ops import fbd
     from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
     from moka_tpu_torch.ops import moka_pallas as mp
     own = {"block_diag": fbd, "moka_delta_fwd": mp, "fused_dropout": fd}
+    by_name = fc if name.startswith("fused_ce") else fa  # _libs by name
     if name in own:
         kept = own[name]._library()
         own[name]._lib = own[name].bind(lib)
     else:
-        kept = fa._library(name)
-        fa._libs[name] = fa.bind(name, lib)
+        kept = by_name._library(name)
+        by_name._libs[name] = by_name.bind(name, lib)
     try:
         yield
     finally:
         if name in own:
             own[name]._lib = kept
         else:
-            fa._libs[name] = kept
+            by_name._libs[name] = kept
 
 
 def check_flash_sass() -> dict:
@@ -1518,37 +1542,61 @@ def dx_ok(e) -> bool:
             and e["softmax_rel_l2"] <= CE_SOFTMAX_TOL)
 
 
-def check_ce(name, x, w, scale, t, cot, fault=False) -> tuple[float, float]:
-    """Kernels 8 and 9 against ``fused_ce_fwd_plain`` /
-    ``fused_ce_bwd_plain`` on the same inputs: nll and lse within
-    CE_LSE_TOL; dx, both backward versions fed the plain lse, within
-    CE_DX_TOL and CE_SOFTMAX_TOL and exactly zero on rows whose cotangent
-    is 0.  ``fault``: kernel 9 also runs under ``wrong_softmax``, which
-    the dx check must fail."""
+CE_REPEATS = 50  # more launches of kernel 8 on one input, all alike
+
+
+def check_ce_fwd(name, x, w, scale, t, repeats=0) -> tuple[float, float]:
+    """Kernel 8 against ``fused_ce_fwd_plain`` on the same inputs: nll and
+    lse within CE_LSE_TOL, then ``repeats`` more launches whose nll and lse
+    must equal the first bit for bit (the kernel sums in a fixed order; a
+    race between the cluster's CTAs would show here).  Raises
+    AssertionError otherwise; returns (max error, the plain lse)."""
     import torch
     from moka_tpu_torch.ops import fused_ce as fc
     nll, lse = fc.fused_ce_fwd(x, w, scale, t)
     rnll, rlse = fc.fused_ce_fwd_plain(x, w, scale, t)
+    e_nll = float((nll - rnll).abs().max())
+    e_lse = float((lse - rlse).abs().max())
+    differ = sum(not (torch.equal(a, nll) and torch.equal(b, lse))
+                 for a, b in (fc.fused_ce_fwd(x, w, scale, t)
+                              for _ in range(repeats)))
+    log(f"  fused CE fwd {name}: x {tuple(x.shape)}, head "
+        f"{tuple(w.shape)}: max|nll err| {e_nll:.3e}, max|lse err| "
+        f"{e_lse:.3e} (tol {CE_LSE_TOL})" + (
+            f"; {repeats} more launches, {differ} differ from the first"
+            if repeats else ""))
+    if not (e_nll <= CE_LSE_TOL and e_lse <= CE_LSE_TOL) or differ:
+        raise AssertionError(f"kernel 8 disagrees with its plain version "
+                             f"or with itself ({name})")
+    return max(e_nll, e_lse), rlse
+
+
+def check_ce(name, x, w, scale, t, cot, fault=False,
+             repeats=0) -> tuple[float, float]:
+    """Kernels 8 and 9 against ``fused_ce_fwd_plain`` /
+    ``fused_ce_bwd_plain`` on the same inputs: the forward as
+    ``check_ce_fwd`` (``repeats`` more launches alike); dx, both backward
+    versions fed the plain lse, within CE_DX_TOL and CE_SOFTMAX_TOL and
+    exactly zero on rows whose cotangent is 0.  ``fault``: kernel 9 also
+    runs under ``wrong_softmax``, which the dx check must fail."""
+    import torch
+    from moka_tpu_torch.ops import fused_ce as fc
+    e_fwd, rlse = check_ce_fwd(name, x, w, scale, t, repeats)
     dx = fc.fused_ce_bwd(x, w, scale, t, rlse, cot)
     rdx = fc.fused_ce_bwd_plain(x, w, scale, t, rlse, cot)
     soft = rdx.float() - onehot_part(w, scale, t, cot)
-    e_nll = float((nll - rnll).abs().max())
-    e_lse = float((lse - rlse).abs().max())
     e = dx_errors(dx, rdx, soft)
     zeros = bool((dx[cot == 0] == 0).all())
-    ok = (e_nll <= CE_LSE_TOL and e_lse <= CE_LSE_TOL and zeros and dx_ok(e)
-          and bool(torch.isfinite(dx.float()).all()))
-    log(f"  fused CE {name}: x {tuple(x.shape)}, head {tuple(w.shape)}: "
-        f"max|nll err| {e_nll:.3e}, max|lse err| {e_lse:.3e} (tol "
-        f"{CE_LSE_TOL}); dx max|err| {e['max_abs']:.3e} "
+    ok = zeros and dx_ok(e) and bool(torch.isfinite(dx.float()).all())
+    log(f"  fused CE bwd {name}: dx max|err| {e['max_abs']:.3e} "
         f"({e['max_frac']:.2e} of max|plain|), rel L2 {e['rel_l2']:.2e}, "
         f"{e['softmax_rel_l2']:.2e} of the softmax term (softmax term "
         f"{float(soft.norm() / rdx.float().norm()):.2e} of dx; tol "
         f"{CE_DX_TOL[0]}, {CE_DX_TOL[1]}, {CE_SOFTMAX_TOL}); zero-cotangent "
         f"rows zero {zeros}")
     if not ok:
-        raise AssertionError(f"fused CE kernels disagree with their plain "
-                             f"versions ({name})")
+        raise AssertionError(f"kernel 9 disagrees with its plain version "
+                             f"({name})")
     if fault:
         with wrong_softmax():
             bad = dx_errors(fc.fused_ce_bwd(x, w, scale, t, rlse, cot), rdx,
@@ -1559,14 +1607,24 @@ def check_ce(name, x, w, scale, t, cot, fault=False) -> tuple[float, float]:
             f"softmax term (must fail)")
         if dx_ok(bad):
             raise AssertionError("the dx check passes a wrong softmax")
-    return max(e_nll, e_lse), e["max_abs"]
+    return e_fwd, e["max_abs"]
+
+
+CE_CLUSTER_CASE = (300, 64, 1500)  # kernel 8's clusters cut ragged: three
+# 128-row blocks (a cluster holds two; its ablation's 2 x 2 clusters also
+# two of the three 512-column spans), d 64 (two stages, fewer than a ring
+# holds)
 
 
 def ce_records(n, d, v) -> list[dict]:
     """Check kernels 8-9 at the main path's shape (route B: N = 4 x 1023
-    rows, d 4096, V 32011) and three ragged ones (rows and vocab off the
-    tiles: kernel 9's 128 rows and 512 vocab columns a CTA, 256 a stage),
-    then time each at the main path's shape beside its plain version and
+    rows, d 4096, V 32011) and four ragged ones (rows and vocab off the
+    tiles: both kernels' 128 rows and 512 vocab columns a CTA, 256 a stage;
+    kernel 8's clusters, CE_CLUSTER_CASE), kernel 8 launched
+    CE_REPEATS more times at the main shape and the cluster case with
+    every nll and lse bit-identical; launched as each CE_FWD_MUTANTS fault
+    kernel 8 must fail its check at both.  Then time each kernel at the
+    main path's shape beside its plain version and
     the library's int8 -> bf16 cast of the head, bf16 ``torch.matmul``,
     the scale and ``F.cross_entropy(reduction="none")`` (kernel 9: that
     forward's autograd backward alone); kernel 9 also alone, without the
@@ -1575,13 +1633,26 @@ def ce_records(n, d, v) -> list[dict]:
     import torch.nn.functional as F
     from moka_tpu_torch.ops import fused_ce as fc
     err_f = err_b = 0.0
+    repeated = {}
     for name, shape, seed in (("main path shape", (n, d, v), 0),
                               ("ragged rows and vocab", (333, 192, 1000), 1),
                               ("one row block", (50, 64, 203), 2),
                               ("ragged across kernel 9's tiles",
-                               (1000, 4096, 5000), 4)):
-        ef, eb = check_ce(name, *ce_case(*shape, seed), fault=seed == 0)
+                               (1000, 4096, 5000), 4),
+                              ("ragged across kernel 8's clusters",
+                               CE_CLUSTER_CASE, 5)):
+        inputs = ce_case(*shape, seed)
+        repeats = CE_REPEATS if seed in (0, 5) else 0
+        ef, eb = check_ce(name, *inputs, fault=seed == 0, repeats=repeats)
         err_f, err_b = max(err_f, ef), max(err_b, eb)
+        if repeats:
+            repeated[name] = inputs[:4]
+    for what, lib in MUTANTS["fused_ce"].items():
+        with swapped_library("fused_ce", lib):
+            for name, inputs in repeated.items():
+                must_fail(f"kernel 8 mutant ({what}, {name})",
+                          lambda: check_ce_fwd(name, *inputs))
+    del repeated
     x, w, scale, t, cot = ce_case(n, d, v, 3)
     nll, lse = fc.fused_ce_fwd(x, w, scale, t)
     ms = {"fwd": time_ms(lambda: fc.fused_ce_fwd(x, w, scale, t), iters=5),
@@ -1632,7 +1703,8 @@ def ce_records(n, d, v) -> list[dict]:
                 "fused_ce.cu" if which == "fwd" else "fused_ce_bwd.cu"),
             "replaces": f"moka_tpu/ops/fused_ce.py:{line}",
             "launches": None, "max_abs_err": err,
-            "tolerance": (f"nll, lse {CE_LSE_TOL}" if which == "fwd" else
+            "tolerance": (f"nll, lse {CE_LSE_TOL}; {CE_REPEATS} more "
+                          f"launches bit-identical" if which == "fwd" else
                           "dx max|err| <= %g max|plain|, rel L2 <= %g, "
                           "<= %g of the softmax term's norm"
                           % (*CE_DX_TOL, CE_SOFTMAX_TOL)),
@@ -3450,7 +3522,7 @@ def main() -> int:
         f"{ {n: sorted(v) for n, v in MUTANTS.items()} } in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in kernels.SOURCES:
-        text = (kernels.BUILD_DIR / f"{name}.log")
+        text = kernels.log_path(name)
         if text.exists():
             for line in text.read_text().splitlines():
                 if "registers" in line or "spill" in line or \

@@ -58,11 +58,17 @@ def _target(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's report (``nvcc -Xptxas -v``) for the library
+    ``_target(name)``, beside it and keyed alike."""
+    return _target(name).with_suffix(".log")
+
+
 def build(names=None) -> dict[str, float]:
     """Compile the named kernels (default: all) that are not built yet, one
     ``nvcc`` per source, all started together.  Returns seconds per
     compiled source; the compiler's resource report goes to
-    ``build/moka_tpu_torch/<name>.log``.  Raises if any build fails."""
+    ``log_path(name)``.  Raises if any build fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -73,7 +79,7 @@ def build(names=None) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        log = open(BUILD_DIR / f"{name}.log", "w")
+        log = open(log_path(name), "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT), tmp, out,
@@ -88,7 +94,7 @@ def build(names=None) -> dict[str, float]:
             continue
         os.replace(tmp, out)
     if failed:
-        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
+        logs = "\n".join(log_path(n).read_text()[-4000:]
                          for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return seconds

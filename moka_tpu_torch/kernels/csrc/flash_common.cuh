@@ -1,9 +1,8 @@
 // Helpers shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_bwd_kv.cu) and the fused CE kernels (fused_ce.cu): the masking and
-// base-2 constants, bf16 <-> fp32 bit conversions and packing, the SFU's
-// exp2, the order in which CTAs take (head, tile) pairs, and for fused_ce.cu
-// the mma.sync m16n8k16 product and a pair of bf16 values read out of a
-// row-major tile in shared memory.
+// flash_bwd_kv.cu) and the fused CE kernels (fused_ce.cu, fused_ce_bwd.cu):
+// the masking and base-2 constants, bf16 <-> fp32 bit conversions and
+// packing, the SFU's exp2 and the order in which CTAs take (head, tile)
+// pairs.
 
 #pragma once
 
@@ -57,26 +56,6 @@ __device__ __forceinline__ void head_group_tile(int idx, int n_bh,
   const int heads = min(group, n_bh - g * group);  // the last group: fewer
   tile = r / heads;
   bh = g * group + r % heads;
-}
-
-// D += A * B, m16n8k16, A row-major bf16, B col-major bf16, fp32 accumulate.
-// Fragments (lane = 4 g + t): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
-// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
-// b1 = B[2t+8..2t+9][g]; d0 = D[g][2t], d1 = D[g][2t+1], d2 = D[g+8][2t],
-// d3 = D[g+8][2t+1].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// t[r][c], t[r][c+1] of a row-major tile with row length ld (one 32-bit load)
-__device__ __forceinline__ uint32_t pair_in_row(const uint16_t* t, int r, int c,
-                                                int ld) {
-  return *reinterpret_cast<const uint32_t*>(t + r * ld + c);
 }
 
 }  // namespace moka_flash

@@ -62,14 +62,16 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "int8_bf16.cuh"
 
 namespace {
 
 using namespace moka_flash;
 using namespace moka_hopper;
+using namespace moka_int8;
 
 constexpr int BR = 128;         // rows a CTA: two consumer warpgroups of 64
-constexpr int SPAN = 512;       // vocab columns a CTA (fused_ce.cu's CHUNK)
+constexpr int SPAN = 512;       // vocab columns a CTA (fused_ce.cu's too)
 constexpr int TV = 256;         // vocab columns a stage and a logits tile
 constexpr int NSUB = SPAN / TV;
 constexpr int BK = 64;          // d rows a stage
@@ -105,12 +107,6 @@ constexpr int OFF_BAR = OFF_COEF + 2 * SPAN * 4;
 constexpr int N_BARS = 2 * (X_STAGES + W8_STAGES + W16_STAGES);
 constexpr int SMEM_BYTES = OFF_BAR + 8 * N_BARS + 1024;
 
-// widen's masks and biases, read from the kernel's parameters so that each
-// mask-and-or is one LOP3 (SASS takes one immediate an instruction)
-struct Widen {
-  uint32_t low7, sign, plus128, minus128;
-};
-
 struct Args {
   const float* scale;  // (ldw,) fp32
   const int* targets;  // (N,) int32, an ignored one matches no column
@@ -119,38 +115,6 @@ struct Args {
   int n_rows, d, ldw, v_real;
   Widen k;
 };
-
-// the vocab column (within a group of 4) of position q, and back
-__device__ __forceinline__ int swap_low_bits(int q) {
-  return (q & ~3) | ((q & 1) << 1) | ((q >> 1) & 1);
-}
-
-// a + b on bf16 pairs (one HFMA2.BF16: a * 1 + b, exact here)
-__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(d)
-      : "r"(a), "r"(0x3f803f80u), "r"(b));
-  return d;
-}
-
-// (a & m) | c, one LOP3
-__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t m,
-                                           uint32_t c) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(d) : "r"(a), "r"(m), "r"(c));
-  return d;
-}
-
-// four int8 codes (columns 0..3 of a word) -> bf16 pairs (0, 2) and (1, 3):
-// 128 + the low 7 bits, plus -128 - 128 * the sign bit, all exact in bf16
-// (two LOP3s and one HFMA2 a pair, a shift for the second)
-__device__ __forceinline__ void widen(uint32_t a, const Widen& k,
-                                      uint32_t& lo, uint32_t& hi) {
-  lo = bf16x2_add(and_or(a, k.low7, k.plus128), and_or(a, k.sign, k.minus128));
-  const uint32_t s = a >> 8;
-  hi = bf16x2_add(and_or(s, k.low7, k.plus128), and_or(s, k.sign, k.minus128));
-}
 
 // A converter's unit u (0..7) of a head stage: 16 codes of head row r at
 // columns 16 cc .., cc = 2 u + c0 (the thread's half); eight neighbouring

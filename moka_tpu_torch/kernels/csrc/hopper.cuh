@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tensor loads (with L2 cache hints), stores and reduce-adds (shared to
-// global) with their host-side tensor maps, bulk-group waits, async-proxy
-// fences, named barriers,
+// tensor loads (with L2 cache hints, or multicast to a cluster), stores and
+// reduce-adds (shared to global) with their host-side tensor maps,
+// bulk-group waits, async-proxy fences, named barriers, thread-block
+// clusters (ranks, barriers, another CTA's shared memory),
 // register reallocation (setmaxnreg) and wgmma with shared-memory
 // descriptors over 128-byte-swizzled tiles.  Used by the flash kernels
-// (flash_fwd.cu, flash_bwd.cu, flash_bwd_kv.cu), the fused CE backward
-// (fused_ce_bwd.cu) and the fused MokA delta (moka_delta_fwd.cu).
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_kv.cu), the fused CE kernels
+// (fused_ce.cu, fused_ce_bwd.cu) and the fused MokA delta
+// (moka_delta_fwd.cu).
 //
 // Tile convention: a tile is rows of 128 bytes (64 bf16), stored as TMA
 // writes it with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r
@@ -70,6 +72,67 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait with acquire at cluster scope: for a barrier that other CTAs of
+// the cluster arrive on (mbar_arrive_remote) or fill
+// (tma_load_4d_multicast), so their writes are visible after the wait
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ----------------------------------------------------------------- cluster
+
+// this CTA's rank in its cluster (0 .. cluster size - 1)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: the writes before it (barrier
+// inits included) are visible to all of them after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address, in the cluster's shared window, of CTA `rank`'s copy of this
+// CTA's shared address `addr` (the same offset in its shared memory); the
+// window of one CTA is contiguous, so offsets add to the result
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// an arrival on the barrier at cluster shared address `bar` (cluster_map),
+// in any CTA of the cluster, only where `on` is true (a predicate, not a
+// branch: no divergence between the wgmmas of a warpgroup).  Its release is
+// at CTA scope: enough to hand back a ring slot whose reads have completed
+// (wgmma.wait_group), and far cheaper than a release at cluster scope
+// (kernel 8 measured both: PERF.md)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<uint32_t>(on))
+      : "memory");
+}
+
 // ------------------------------------------------------------- TMA, bulk
 
 // a 4-D box of `map` at coordinates (c0 innermost .. c3) into shared memory
@@ -82,6 +145,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(bar)
+      : "memory");
+}
+
+// tma_load_4d into the same shared offset `dst` of every CTA in `mask`
+// (bit r: cluster rank r), each counting the bytes on its own barrier at
+// offset `bar`: one read from L2 feeds them all.  Each receiver expects the
+// bytes on its barrier itself (mbar_arrive_expect_tx); a complete_tx that
+// lands before that expectation only drives the count below zero
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar,
+                                                      uint16_t mask, int c0,
+                                                      int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar), "h"(mask)
       : "memory");
 }
 

@@ -37,7 +37,7 @@ from moka_tpu_torch.core.device import on_card
 from moka_tpu_torch.ops.quant import operand_cache
 
 NEG_INF = -1e30
-VOCAB_TILE = 512   # vocab columns a CTA covers (fused_ce.cu: CHUNK;
+VOCAB_TILE = 512   # vocab columns a CTA covers (fused_ce.cu and
                    # fused_ce_bwd.cu: SPAN)
 K_TILE = 64        # the kernels' contraction step: d % 64 == 0
 
@@ -103,6 +103,17 @@ def _check(x, w_q, w_scale, targets, *rows):
 _libs: dict[str, ctypes.CDLL] = {}  # by library: fused_ce, fused_ce_bwd
 
 
+def bind(name: str, lib):
+    """``lib`` (library ``name``'s build, or an edited copy of its source)
+    with the argument types of its entry point set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.moka_fused_ce_fwd if name == "fused_ce" else \
+        lib.moka_fused_ce_bwd
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    fn.restype = i
+    return lib
+
+
 def _library(name: str):
     """Library ``fused_ce`` (kernel 8, ``moka_fused_ce_fwd``) or
     ``fused_ce_bwd`` (kernel 9, ``moka_fused_ce_bwd``), built and bound on
@@ -110,13 +121,7 @@ def _library(name: str):
     lib = _libs.get(name)
     if lib is None:
         from moka_tpu_torch import kernels
-        lib = kernels.library(name)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.moka_fused_ce_fwd if name == "fused_ce" else \
-            lib.moka_fused_ce_bwd
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        fn.restype = i
-        _libs[name] = lib
+        lib = _libs[name] = bind(name, kernels.library(name))
     return lib
 
 
@@ -143,7 +148,7 @@ def _kernel_inputs(x, w_q, w_scale, targets):
         raise ValueError("fused CE kernels need at least one row")
     w, s = padded_head(w_q, w_scale)
     x = x.contiguous()
-    if x.data_ptr() % 16:  # 16-byte loads (8), a tensor map (9)
+    if x.data_ptr() % 16:  # the kernels' tensor maps
         x = x.clone()
     return x, w, s, targets.to(torch.int32).contiguous(), w_q.shape[1]
 

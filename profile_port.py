@@ -12,7 +12,8 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py              # every window, one card
     python3 profile_port.py mm quant     # only the windows named
     python3 profile_port.py flash --root DIR   # another checkout's kernels
-    python3 profile_port.py fused_ce fused_ce_ablation
+    python3 profile_port.py fused_ce fused_ce_ablation fused_ce_fwd_ablation
+    python3 profile_port.py fused_ce_fwd_clocks
     python3 profile_port.py rank_kernels block_diag [--root DIR]
     python3 profile_port.py rank_ablation rank_bwd_ablation
     python3 profile_port.py block_diag_ablation
@@ -31,10 +32,15 @@ versions compare on one card in one call.  ``flash_ablation`` times kernel
 1 with parts taken out (FLASH_ABLATIONS: edited copies of its source built
 under build/), at the prefill and CLIP shapes: where its time goes.
 ``fused_ce`` times the fused CE kernels 8 and 9 through their wrappers at
-route B's shape (N 4092, d 4096, V 32011, int8 head) the same way (with
-``--root``, another checkout's); ``fused_ce_ablation`` times kernel 9
-with parts taken out and in other tile orders (CE_ABLATIONS, edited copies
-of fused_ce_bwd.cu).  ``rank_kernels`` times the three rank flash
+route B's shape (N 4092, d 4096, V 32011, int8 head) the same way, and
+each one's device launches alone in a trace (kernel 8's kernel and its
+merge; with ``--root``, another checkout's); ``fused_ce_ablation`` and
+``fused_ce_fwd_ablation`` time kernels 9 and 8 with parts taken out and
+in other tile orders (CE_ABLATIONS, CE_FWD_ABLATIONS: edited copies of
+fused_ce_bwd.cu and fused_ce.cu; kernel 8 also in other cluster shapes,
+ring depths and converter widths, in FWD_TURNS turns);
+``fused_ce_fwd_clocks`` counts kernel 8's cycles by role and step
+(CE_FWD_CLOCKS: clock64() counters in an edited copy).  ``rank_kernels`` times the three rank flash
 kernels through their wrappers at chip_smoke's rank shape (b 4, L 1024,
 head_dim 4, 126 question keys a sample): the kernel alone (``graph_ms``:
 a CUDA graph of 100 launches, no host work between them), the host's µs a
@@ -538,6 +544,183 @@ CE_ABLATIONS = {  # name: edits of fused_ce_bwd.cu (hopper.cuh inlined); the
         ("constexpr int ROW_GROUP = 8;", "constexpr int ROW_GROUP = 16;")]}
 
 
+_FWD_NO_PRODUCTS = ("        for (int kk = 0; kk < BK / 16; ++kk)\n"
+                    "          logits_step(",
+                    "        for (int kk = 0; kk < 0; ++kk)\n"
+                    "          logits_step(")
+_FWD_NO_WIDENING = ("      convert_stage(sm + OFF_W8",
+                    "      if (false) convert_stage(sm + OFF_W8")
+_FWD_CLUSTER_1X1 = [
+    ("constexpr int ROW_PAIR = 2;", "constexpr int ROW_PAIR = 1;")]
+_FWD_CLUSTER_2X2 = [
+    ("constexpr int VOCAB_PAIR = 1;", "constexpr int VOCAB_PAIR = 2;")]
+_FWD_NO_SOFTMAX = ("      release(i - 1);\n\n",
+                   "      release(i - 1);\n      continue;\n")
+_FWD_LOADS = [_FWD_NO_PRODUCTS, _FWD_NO_WIDENING]
+CE_FWD_ABLATIONS = {  # name: edits of fused_ce.cu (hopper.cuh inlined); the
+    "kernel": [],      # edited kernels' nll is wrong, only their times are
+    "no products": [_FWD_NO_PRODUCTS],  # read
+    "no widening (the converters only signal)": [_FWD_NO_WIDENING],
+    "no softmax (the tiles' epilogue)": [_FWD_NO_SOFTMAX],
+    "loads alone": _FWD_LOADS,
+    "loads alone, cluster 1x1": [*_FWD_LOADS, *_FWD_CLUSTER_1X1],
+    "loads alone, cluster 2x2": [*_FWD_LOADS, *_FWD_CLUSTER_2X2],
+    "no multicast (cluster 1x1)": _FWD_CLUSTER_1X1,
+    "x multicast along the vocab pair too (cluster 2x2)": _FWD_CLUSTER_2X2,
+    "x multicast alone (cluster 1x2)": [*_FWD_CLUSTER_1X1,
+                                        *_FWD_CLUSTER_2X2],
+    "every slot release at cluster scope": [
+        ("@p mbarrier.arrive.shared::cluster.b64",
+         "@p mbarrier.arrive.release.cluster.shared::cluster.b64")],
+    "x 5, int8 2 stages": [
+        ("constexpr int X_STAGES = 4;", "constexpr int X_STAGES = 5;"),
+        ("constexpr int W8_STAGES = 3;", "constexpr int W8_STAGES = 2;")],
+    "x 3, int8 2, bf16 4 stages": [
+        ("constexpr int X_STAGES = 4;", "constexpr int X_STAGES = 3;"),
+        ("constexpr int W8_STAGES = 3;", "constexpr int W8_STAGES = 2;"),
+        ("constexpr int W16_STAGES = 3;", "constexpr int W16_STAGES = 4;")],
+    "int8 5, bf16 2 stages": [
+        ("constexpr int W8_STAGES = 3;", "constexpr int W8_STAGES = 5;"),
+        ("constexpr int W16_STAGES = 3;", "constexpr int W16_STAGES = 2;")],
+    "two converter warpgroups (consumers at 184 registers)": [
+        ("constexpr int NCONVERT = 128;", "constexpr int NCONVERT = 256;")],
+    "converters one unit at a time": [
+        ("CONVERT_UNROLL = 2;", "CONVERT_UNROLL = 1;")],
+    "converters four units at a time": [
+        ("CONVERT_UNROLL = 2;", "CONVERT_UNROLL = 4;")],
+    "order: row pairs fastest over all rows": [
+        ("constexpr int ROW_GROUP = 8;", "constexpr int ROW_GROUP = 1 << 20;")],
+    "order: groups of 4 row pairs": [
+        ("constexpr int ROW_GROUP = 8;", "constexpr int ROW_GROUP = 4;")]}
+
+
+CE_FWD_CLOCK_KEYS = (  # kernel 8's clock64() counters (CE_FWD_CLOCKS)
+    "load x: waits for a free slot", "load int8: waits for a free slot",
+    "converter: waits for the int8 tile", "converter: waits for a bf16 slot",
+    "converter: widens and signals", "consumer: waits for x",
+    "consumer: waits for the bf16 tile", "consumer: wgmma wait and release",
+    "consumer: a tile's stages", "consumer: a tile's softmax", "tiles",
+    "CTA: launch to exit", "CTAs")
+_CLK = "  { long long c0_ = clock64(); "
+CE_FWD_CLOCKS = [  # edits of fused_ce.cu: thread 0 of each role sums the
+    # cycles (clock64) of each step in registers, added to g_clk at exit
+    ("struct Args {", "__device__ unsigned long long g_clk[16];\n"
+     "#define CLK_ADD(k, v) (clk_[k] += (unsigned long long)(v))\n\n"
+     "struct Args {"),
+    ("                                       int d0, const Tile& t, "
+     "uint16_t mask) {",
+     "                                       int d0, const Tile& t, "
+     "uint16_t mask,\n                                       unsigned long "
+     "long* clk_) {"),
+    ("  mbar_wait_cluster(empty + 8 * s, ((i / X_STAGES) & 1) ^ 1);",
+     _CLK + "mbar_wait_cluster(empty + 8 * s, ((i / X_STAGES) & 1) ^ 1); "
+     "CLK_ADD(0, clock64() - c0_); }"),
+    ("                                        uint16_t mask) {",
+     "                                        uint16_t mask,\n            "
+     "                            unsigned long long* clk_) {"),
+    ("  mbar_wait_cluster(empty + 8 * s, ((i / W8_STAGES) & 1) ^ 1);",
+     _CLK + "mbar_wait_cluster(empty + 8 * s, ((i / W8_STAGES) & 1) ^ 1); "
+     "CLK_ADD(1, clock64() - c0_); }"),
+    ("        load_x(base, &tm_x, full_x, empty_x, i, stage_d0(i), tl, "
+     "x_mask);", "        load_x(base, &tm_x, full_x, empty_x, i, "
+     "stage_d0(i), tl, x_mask, clk_);"),
+    ("                tl, w_mask);", "                tl, w_mask, clk_);"),
+    ("      mbar_wait_cluster(full_w8 + 8 * s8, (i / W8_STAGES) & 1);",
+     "      long long c0_ = clock64();\n      mbar_wait_cluster(full_w8 + 8 "
+     "* s8, (i / W8_STAGES) & 1);\n      long long c1_ = clock64();"),
+    ("      mbar_wait_cluster(empty_w16 + 8 * s16, ((i / W16_STAGES) & 1) ^ "
+     "1);\n      convert_stage(", "      mbar_wait_cluster(empty_w16 + 8 * "
+     "s16, ((i / W16_STAGES) & 1) ^ 1);\n      long long c2_ = clock64();\n"
+     "      convert_stage("),
+    ("        mbar_arrive_remote(e8_partner + 8 * s8, lane == 0);\n",
+     "        mbar_arrive_remote(e8_partner + 8 * s8, lane == 0);\n      if "
+     "(ctid == 0) { CLK_ADD(2, c1_ - c0_); CLK_ADD(3, c2_ - c1_); "
+     "CLK_ADD(4, clock64() - c2_); }\n"),
+    ("        mbar_wait_cluster(full_x + 8 * sx, (i / X_STAGES) & 1);\n"
+     "        mbar_wait_cluster(full_w16 + 8 * sw, (i / W16_STAGES) & 1);",
+     "        long long c0_ = clock64();\n        mbar_wait_cluster(full_x + "
+     "8 * sx, (i / X_STAGES) & 1);\n        long long c1_ = clock64();\n   "
+     "     mbar_wait_cluster(full_w16 + 8 * sw, (i / W16_STAGES) & 1);\n    "
+     "    if (tid == 0) { CLK_ADD(5, c1_ - c0_); CLK_ADD(6, clock64() - "
+     "c1_); }"),
+    ("          wgmma_wait<1>();\n          release(i - 1);",
+     "          long long c3_ = clock64();\n          wgmma_wait<1>();\n   "
+     "       release(i - 1);\n          if (tid == 0) CLK_ADD(7, clock64() "
+     "- c3_);"),
+    ("      for (int ks = 0; ks < nk; ++ks, ++i) {",
+     "      long long ck_ = clock64();\n      for (int ks = 0; ks < nk; "
+     "++ks, ++i) {"),
+    ("      release(i - 1);\n\n", "      release(i - 1);\n      long long "
+     "ce_ = clock64();\n      if (tid == 0) { CLK_ADD(8, ce_ - ck_); "
+     "CLK_ADD(10, 1); }\n\n"),
+    ("        tile_softmax<false>(acc, clj, t, v_sub, a.v_real, m, l);\n",
+     "        tile_softmax<false>(acc, clj, t, v_sub, a.v_real, m, l);\n    "
+     "  if (tid == 0) CLK_ADD(9, clock64() - ce_);\n"),
+    ("  const int tid = threadIdx.x;\n  const uint32_t rank = "
+     "cluster_rank();", "  const int tid = threadIdx.x;\n  const long long "
+     "cta0_ = clock64();\n  unsigned long long clk_[16] = {0};\n  const "
+     "uint32_t rank = cluster_rank();"),
+    ("  // or arrive on its barriers\n  cluster_sync();\n}",
+     "  // or arrive on its barriers\n  cluster_sync();\n  if (tid == 0) { "
+     "CLK_ADD(11, clock64() - cta0_); CLK_ADD(12, 1); }\n  for (int k = 0; "
+     "k < 16; ++k)\n    if (clk_[k]) atomicAdd(&g_clk[k], clk_[k]);\n}"),
+    ("}  // extern \"C\"", "// the counters, then zeroed\nint "
+     "moka_clk_read(unsigned long long* out) {\n  cudaError_t e = "
+     "cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));\n  unsigned long long "
+     "z[16] = {0};\n  cudaMemcpyToSymbol(g_clk, z, sizeof(g_clk));\n  "
+     "return static_cast<int>(e);\n}\n\n}  // extern \"C\"")]
+
+
+def fused_ce_fwd_clocks_window(launches: int = 5) -> dict:
+    """Where kernel 8's cycles go, by role, at route B's shape: a copy of
+    fused_ce.cu with CE_FWD_CLOCKS's counters (thread 0 of each role sums
+    clock64() cycles of each step) launched ``launches`` times after three
+    warm-up launches, held against the plain version; cycles a stage
+    (waits, widening), a 256-column tile (its stages, its softmax) and a
+    CTA (launch to exit), each an average over its CTAs."""
+    import ctypes
+    import torch
+    from chip_smoke import CE_LSE_TOL
+    from moka_tpu_torch.ops import fused_ce as fc
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = build_variants("fused_ce.cu", {"clocks": CE_FWD_CLOCKS},
+                         "moka_fused_ce_fwd", [p] * 7 + [i] * 4 + [p])["clocks"]
+    lib.moka_clk_read.argtypes = [p]
+    lib.moka_clk_read.restype = i
+    x, w, scale, t, _, _ = ce_inputs()
+    kept = fc._library("fused_ce")
+    buf = (ctypes.c_ulonglong * 16)()
+    try:
+        fc._libs["fused_ce"] = lib
+        for _ in range(3):
+            fc.fused_ce_fwd(x, w, scale, t)
+        torch.cuda.synchronize()
+        lib.moka_clk_read(buf)
+        for _ in range(launches):
+            got = fc.fused_ce_fwd(x, w, scale, t)
+        torch.cuda.synchronize()
+        lib.moka_clk_read(buf)
+        ref = fc.fused_ce_fwd_plain(x, w, scale, t)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    finally:
+        fc._libs["fused_ce"] = kept
+    if not err <= CE_LSE_TOL:
+        raise AssertionError("the counted kernel 8 is wrong")
+    v = list(buf)
+    tiles, ctas = v[10], v[12]
+    stages = tiles * (CE_SHAPE[1] // 64)
+    out = {"max_abs_err": err, "ctas": ctas, "tiles": tiles}
+    for k, name in enumerate(CE_FWD_CLOCK_KEYS[:10]):
+        per, unit = (v[k] / tiles, "tile") if k in (8, 9) else \
+            (v[k] / stages, "stage")
+        out[name] = {"cycles": v[k], f"per_{unit}": per}
+        print(f"  {name}: {per:.1f} cycles a {unit}", flush=True)
+    out["cycles_a_cta"] = v[11] / ctas
+    print(f"  a CTA, launch to exit: {v[11] / ctas:.1f} cycles ({ctas} CTAs "
+          f"in {launches} launches); max|err| {err:.3e}", flush=True)
+    return {"fused_ce_fwd_clocks": out}
+
+
 def ce_inputs(seed: int = 0):
     """Route B's fused CE inputs on the card (chip_smoke's ``ce_case``),
     with the forward's lse."""
@@ -547,9 +730,17 @@ def ce_inputs(seed: int = 0):
     return x, w, scale, t, cot, fc.fused_ce_fwd(x, w, scale, t)[1]
 
 
+CE_DEVICE_ENTRIES = ("fused_ce_fwd_kernel", "fused_ce_merge_kernel",
+                     "fused_ce_bwd_kernel")  # kernel 8, its merge, kernel 9
+
+
 def fused_ce_window(iters: int = 10, host_calls: int = 20) -> dict:
     """Device ms a call and host µs a call (as ``flash_window``) of kernels
-    8 and 9 through their wrappers at route B's shape."""
+    8 and 9 through their wrappers at route B's shape, and from a ``trace``
+    of ``iters`` calls each device entry of CE_DEVICE_ENTRIES alone (ms a
+    launch: kernel 8's kernel and its merge launch, kernel 9's kernel),
+    every other device entry of the wrapper (ms a call: its fills and
+    casts) and the sum of all of them a call."""
     import torch
     from moka_tpu_torch.ops import fused_ce as fc
     x, w, scale, t, cot, lse = ce_inputs()
@@ -564,9 +755,20 @@ def fused_ce_window(iters: int = 10, host_calls: int = 20) -> dict:
             call()
         host_us = (time.perf_counter() - t0) / host_calls * 1e6
         torch.cuda.synchronize()
-        out[name] = {"ms": ms, "host_us": host_us}
-        print(f"  {name}: {ms:.4f} ms a call, host {host_us:.1f} us a call",
-              flush=True)
+        _, ops, _ = trace(lambda: [call() for _ in range(iters)])
+        alone = {entry: us / count / 1e3 for key, (count, us) in ops.items()
+                 for entry in CE_DEVICE_ENTRIES if entry in key}
+        rest = {key[:80]: us / iters / 1e3 for key, (_, us) in ops.items()
+                if not any(entry in key for entry in CE_DEVICE_ENTRIES)}
+        busy = sum(us for _, us in ops.values()) / iters / 1e3
+        out[name] = {"ms": ms, "host_us": host_us, "device_ms": alone,
+                     "other_device_ms": rest, "device_sum_ms": busy}
+        print(f"  {name}: {ms:.4f} ms a call, host {host_us:.1f} us a call; "
+              f"device ms a launch: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in alone.items()) +
+              f"; other device ms a call: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in rest.items()) +
+              f"; device sum {busy:.4f} ms a call", flush=True)
     return {"fused_ce": out}
 
 
@@ -608,6 +810,52 @@ def fused_ce_ablation_window(iters: int = 10) -> dict:
         print(f"  {name}: {' / '.join(f'{v:.4f}' for v in ts)} ms",
               flush=True)
     return {"fused_ce_ablation": out, "fused_ce_rel_l2": err}
+
+
+FWD_TURNS = 6  # turns of fused_ce_fwd_ablation, every other one reversed
+
+
+def fused_ce_fwd_ablation_window(iters: int = 30) -> dict:
+    """Kernel 8 with parts taken out, without its clusters' sharing and in
+    other shapes and tile orders (CE_FWD_ABLATIONS), each built by nvcc
+    (all at once) and launched through the wrapper in place of the library
+    at route B's shape, in FWD_TURNS turns, every other turn in reverse
+    order, so a drift of the card's clock within a turn favours no
+    variant (a line as each is timed, so a hang names its variant); the
+    unedited copy is also held against the plain version (nll and lse
+    within chip_smoke's CE_LSE_TOL)."""
+    import ctypes
+    from chip_smoke import CE_LSE_TOL
+    from moka_tpu_torch.ops import fused_ce as fc
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs = build_variants("fused_ce.cu", CE_FWD_ABLATIONS,
+                          "moka_fused_ce_fwd", [p] * 7 + [i] * 4 + [p])
+    x, w, scale, t, _, _ = ce_inputs()
+    kept = fc._library("fused_ce")
+    out = {name: [] for name in CE_FWD_ABLATIONS}
+    try:
+        fc._libs["fused_ce"] = libs["kernel"]
+        got = fc.fused_ce_fwd(x, w, scale, t)
+        ref = fc.fused_ce_fwd_plain(x, w, scale, t)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        print(f"  the unedited copy: max|nll, lse err| {err:.3e} (tol "
+              f"{CE_LSE_TOL})", flush=True)
+        if not err <= CE_LSE_TOL:
+            raise AssertionError("the ablation's unedited kernel 8 is wrong")
+        del got, ref
+        for turn in range(FWD_TURNS):
+            for name in list(libs)[::1 if turn % 2 == 0 else -1]:
+                fc._libs["fused_ce"] = libs[name]
+                out[name].append(event_ms(
+                    lambda: fc.fused_ce_fwd(x, w, scale, t), iters))
+                print(f"    turn {turn} {name}: {out[name][-1]:.4f} ms",
+                      flush=True)
+    finally:
+        fc._libs["fused_ce"] = kept
+    for name, ts in out.items():
+        print(f"  {name}: {' / '.join(f'{v:.4f}' for v in ts)} ms",
+              flush=True)
+    return {"fused_ce_fwd_ablation": out, "fused_ce_fwd_err": err}
 
 
 RANK_SHAPE = (4, 1024, 4)  # chip_smoke's rank timing: b, L, head_dim;
@@ -1355,6 +1603,8 @@ def main(argv=None) -> int:
                       "flash_ablation": flash_ablation_window,
                       "fused_ce": fused_ce_window,
                       "fused_ce_ablation": fused_ce_ablation_window,
+                      "fused_ce_fwd_ablation": fused_ce_fwd_ablation_window,
+                      "fused_ce_fwd_clocks": fused_ce_fwd_clocks_window,
                       "rank_kernels": rank_kernels_window,
                       "rank_ablation": rank_ablation_window,
                       "rank_bwd_ablation": rank_bwd_ablation_window,

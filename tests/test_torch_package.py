@@ -97,24 +97,32 @@ def test_flash_ablation_edits_apply():
         profile_port.ablation_source([("no such text", "")], kernels.CSRC)
 
 
-def test_fused_ce_ablation_edits_apply():
-    """profile_port.py's kernel-9 ablations and tile orders edit
-    fused_ce_bwd.cu by text: each edit must still find its text there (or
-    in hopper.cuh), so each timed variant is the kernel with exactly that
-    part taken out."""
+@pytest.mark.parametrize("table, src, marks", [
+    ("CE_ABLATIONS", "fused_ce_bwd.cu",
+     ("wgmma_m64n128_ss", "tma_reduce_add_4d")),
+    ("CE_FWD_ABLATIONS", "fused_ce.cu",
+     ("wgmma_m64n128_ss", "tma_load_4d_multicast"))])
+def test_fused_ce_ablation_edits_apply(table, src, marks):
+    """profile_port.py's kernel-9 and kernel-8 ablations and tile orders
+    edit fused_ce_bwd.cu and fused_ce.cu by text: each edit must still find
+    its text there (or in hopper.cuh), so each timed variant is the kernel
+    with exactly that part taken out."""
     import sys
     from moka_tpu_torch import kernels
     sys.path.insert(0, str(ROOT))
     import profile_port
-    src = "fused_ce_bwd.cu"
     base = profile_port.ablation_source([], kernels.CSRC, src)
-    assert "wgmma_m64n128_ss" in base and "tma_reduce_add_4d" in base
+    assert all(mark in base for mark in marks)
+    ablations = getattr(profile_port, table)
     variants = set()
-    for name, edits in profile_port.CE_ABLATIONS.items():
+    for name, edits in ablations.items():
         edited = profile_port.ablation_source(edits, kernels.CSRC, src)
         assert (edited == base) == (not edits), name
         variants.add(edited)
-    assert len(variants) == len(profile_port.CE_ABLATIONS)
+    assert len(variants) == len(ablations)
+    if table == "CE_FWD_ABLATIONS":  # and kernel 8's counted copy
+        for old, _ in profile_port.CE_FWD_CLOCKS:
+            assert base.count(old) == 1, old
     with pytest.raises(ValueError, match="no longer applies"):
         profile_port.ablation_source([("no such text", "")], kernels.CSRC,
                                      src)
@@ -122,13 +130,15 @@ def test_fused_ce_ablation_edits_apply():
 
 @pytest.mark.parametrize("edits", ["RANK_ABLATIONS", "BD_ABLATIONS",
                                    "RANK_MUTANTS", "BD_MUTANTS",
-                                   "RANK_BWD_ABLATIONS", "RANK_BWD_MUTANTS"])
+                                   "RANK_BWD_ABLATIONS", "RANK_BWD_MUTANTS",
+                                   "CE_FWD_MUTANTS"])
 def test_rank_and_block_diag_edits_apply(edits):
-    """The rank kernels' and kernel 10's edited copies (profile_port.py's
-    ablations, chip_smoke.py's mutants, which phase 3 requires to fail)
-    edit their source by text: each old text must occur exactly once in
-    flash_rank.cu or block_diag.cu (hopper.cuh inlined), so each copy is
-    the kernel with exactly that part changed, and no two are alike."""
+    """The rank kernels', kernel 10's and kernel 8's edited copies
+    (profile_port.py's ablations, chip_smoke.py's mutants, which phase 3
+    requires to fail) edit their source by text: each old text must occur
+    exactly once in flash_rank.cu, block_diag.cu or fused_ce.cu (hopper.cuh
+    inlined), so each copy is the kernel with exactly that part changed,
+    and no two are alike."""
     import sys
     from moka_tpu_torch import kernels
     sys.path.insert(0, str(ROOT))
@@ -136,7 +146,8 @@ def test_rank_and_block_diag_edits_apply(edits):
     import profile_port
     table = getattr(profile_port if "ABLATIONS" in edits else chip_smoke,
                     edits)
-    src = "flash_rank.cu" if edits.startswith("RANK") else "block_diag.cu"
+    src = {"RANK": "flash_rank.cu", "BD": "block_diag.cu",
+           "CE": "fused_ce.cu"}[edits.split("_")[0]]
     base = profile_port.ablation_source([], kernels.CSRC, src)
     variants = {base}
     for name, changes in table.items():
@@ -146,6 +157,8 @@ def test_rank_and_block_diag_edits_apply(edits):
         assert (edited == base) == (not changes), name
         variants.add(edited)
     assert len(variants) == len(table) + (0 if "kernel" in table else 1)
+    if edits == "CE_FWD_MUTANTS":
+        assert chip_smoke.MUTANT_SOURCES["fused_ce"] == (src, table)
 
 
 @pytest.mark.parametrize("edits", ["MOKA_ABLATIONS", "MOKA_MUTANTS"])
@@ -372,10 +385,15 @@ def test_fused_ce_wrappers_bind_their_libraries(monkeypatch):
     assert kernels.SOURCES["fused_ce_bwd"] == "fused_ce_bwd.cu"
 
 
+def _const(src, name):
+    import re
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+
 def test_fused_ce_backward_source_contract():
     """Kernel 9's source: wgmma and TMA reductions, no atomics on dx, the
     head read as int8 codes (a UINT8 tensor map, no bf16 copy), and the
-    vocab span kernel 8 pads to (CHUNK, VOCAB_TILE)."""
+    vocab span the head is padded to (VOCAB_TILE)."""
     import re
     from moka_tpu_torch import kernels
     from moka_tpu_torch.ops import fused_ce as fc
@@ -385,14 +403,33 @@ def test_fused_ce_backward_source_contract():
     assert "atomicAdd" not in code and "tma_reduce_add_4d" in code
     assert "wgmma_m64n128_ss" in code and "wgmma_m64n64_rs" in code
     assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in code
-    assert "fused_ce_bwd_kernel" not in fwd and "mma_bf16" in fwd
+    assert "fused_ce_bwd_kernel" not in fwd
+    assert _const(bwd, "SPAN") == fc.VOCAB_TILE
+    assert _const(bwd, "BK") == fc.K_TILE
 
-    def const(src, name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    assert const(bwd, "SPAN") == fc.VOCAB_TILE
-    assert const(fwd, "BV") * const(fwd, "SUB") == fc.VOCAB_TILE
-    assert const(bwd, "BK") == fc.K_TILE
+def test_fused_ce_forward_source_contract():
+    """Kernel 8's source (comments stripped): the logits on wgmma
+    (m64n128 over shared-memory operands), each int8 head tile multicast
+    by TMA to the two CTAs of a row pair within a thread-block cluster,
+    the head read as int8 codes (a UINT8 tensor map, no bf16 copy), no
+    mma.sync and no atomics; a CTA's vocab span divides the head's padding
+    (VOCAB_TILE) and its d step is the wrappers' K_TILE."""
+    import re
+    from moka_tpu_torch import kernels
+    from moka_tpu_torch.ops import fused_ce as fc
+    code = re.sub(r"//[^\n]*", "",
+                  (kernels.CSRC / "fused_ce.cu").read_text())
+    assert "wgmma_m64n128_ss" in code
+    load_w8 = code[code.index("void load_w8("):code.index(" load_unit(")]
+    assert "tma_load_4d_multicast" in load_w8
+    assert _const(code, "ROW_PAIR") == 2
+    assert "__cluster_dims__" in code or \
+        "cudaLaunchAttributeClusterDimension" in code
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in code
+    assert "mma_bf16" not in code and "atomicAdd" not in code
+    assert fc.VOCAB_TILE % _const(code, "SPAN") == 0
+    assert _const(code, "BK") == fc.K_TILE
 
 
 @pytest.fixture
@@ -689,6 +726,31 @@ def test_fused_ce_backward_across_its_tiles_on_card(card):
     assert (dx.float() - ref.float()).abs().max() <= \
         2e-2 * ref.float().abs().max()
     assert (dx[::3] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_forward_across_its_tiles_on_card(card):
+    """Kernel 8 where rows and vocab cut across its clusters (300 rows:
+    three 128-row blocks, so a cluster of two along the rows holds a CTA
+    past the rows; V 1500: three 512-column spans) at d 64 (two stages,
+    fewer than a ring holds), targets in every span: nll and lse within
+    1e-3 of the plain version, and 20 more launches bit-identical to the
+    first."""
+    from moka_tpu_torch.ops import fused_ce as fc
+    from moka_tpu_torch.ops.quant import quantize_int8
+    g = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn((300, 64), generator=g, device=card).bfloat16()
+    head = quantize_int8(torch.randn((64, 1500), generator=g, device=card))
+    w, s = head["w_i8"], head["scale"].reshape(-1)
+    t = torch.randint(0, 1500, (300,), generator=g, device=card)
+    t[::7] = -100
+    nll, lse = fc.fused_ce_fwd(x, w, s, t)
+    rnll, rlse = fc.fused_ce_fwd_plain(x, w, s, t)
+    assert (nll - rnll).abs().max() <= 1e-3
+    assert (lse - rlse).abs().max() <= 1e-3
+    for _ in range(20):
+        again = fc.fused_ce_fwd(x, w, s, t)
+        assert torch.equal(again[0], nll) and torch.equal(again[1], lse)
 
 
 @pytest.mark.cuda
