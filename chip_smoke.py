@@ -158,18 +158,39 @@ Phases, in order; any failed build, launch or check exits non-zero:
      the plain path and fp32 (phase 6's rule), then 2 warm-up and 5 timed
      steps with a traced one (55 flash forward, 23 of them CLIP's, and 32
      fused backward launches a step);
- 14. one JSON line with every kernel's numbers, then the card's line.
+ 14. (run after phase 13, on phase 9's int4 base and int8 head and phase
+     12's int8 CLIP tree) LLaVA (VT), ``vt_7b_int4a8f_qh_qenc_sq8plse``
+     with CLIP's attention through kernel 1 at head_dim 64: (a) the VT
+     benchmark eval on 8 MMBench items (a TSV of base64 PNGs from a seed,
+     read with pandas and PIL) and a 32000-piece SentencePiece tokenizer
+     serialized by hand: kernels 1 and 5 at its prefill shape against
+     their plain versions, the prefill logits under phase 4's rule, the
+     CLIP pass, projector, prefill and decode timed, then
+     ``run_inference`` -> ``build_eval_batch`` -> ``llava.generate`` (32
+     new tokens: 32 + 23 flash forward and 224 fused MokA launches) -> the
+     JSONL -> ``score_option_file``; (b) the micro-batch HTTP front with
+     an image request and a text one, both answered 200; (c) the VT step
+     (b 4 x L 1024, proj_lse, a8_dots "full", save_q8, bf16 dots): the
+     2-layer gradient check with the full tower against the plain path and
+     fp32 (phase 13's rule), then 2 warm-up and 5 timed steps (55 flash
+     forward, 23 of them CLIP's, and 32 fused backward launches a step);
+ 15. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import re
+import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -283,6 +304,12 @@ def bound_ms(n_bytes: float, n_ops: float, peak: float,
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def to_card(batch: dict) -> dict:
+    """A batch of numpy arrays as tensors on the card."""
+    import torch
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
 def _wrappers() -> dict:
@@ -3122,8 +3149,6 @@ def rank_steps(cfg, spec, frozen, trainable, batch) -> dict:
     return {"full": run, "proj_lse": lse}
 
 
-# ------------------------------------------------------------------- main
-
 # ------------------------------------------------------------- phases 12-13
 
 MM_FRAMES, MM_SEGMENTS, MM_AUDIO_FRAMES = 10, 10, 192  # a sample's groups
@@ -3385,16 +3410,17 @@ def _paths(tree, prefix=()):
     return [prefix]
 
 
-def mm_loss_and_grads(ucfg, frozen, trainable, batch, kernels, key):
-    """(loss, {group: its gradients, flat}): a group per adapter projection
-    and per projector (the Q-Formers' text branch, which no question
-    reaches, in zeros)."""
+def mm_loss_and_grads(ucfg, frozen, trainable, batch, kernels, key,
+                      loss_for=mm_loss):
+    """(loss, {group: its gradients, flat}) of ``loss_for(ucfg, kernels)``:
+    a group per adapter projection and per projector (the Q-Formers' text
+    branch, which no question reaches, in zeros)."""
     import torch
     from moka_tpu_torch.train.optim import tree_leaves
     leaves = tree_leaves(trainable)
     for p in leaves:
         p.requires_grad_(True)
-    loss, _ = mm_loss(ucfg, kernels)(trainable, frozen, batch, key)
+    loss, _ = loss_for(ucfg, kernels)(trainable, frozen, batch, key)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     for p in leaves:
@@ -3406,13 +3432,15 @@ def mm_loss_and_grads(ucfg, frozen, trainable, batch, kernels, key):
     return float(loss.detach()), {k: torch.cat(v) for k, v in flat.items()}
 
 
-def check_mm_grads(ucfg, frozen, trainable, batch) -> dict:
-    """At SHALLOW decoder layers with the full towers: the loss and the
-    gradients of every adapter projection and both projectors through the
-    kernels, against the plain path (eager attention in the decoder and
-    the CLIP tower) and an fp32 run (the same values in fp32, integer codes
-    kept), same dropout key, under phase 6's rule; the loss's floor is
-    MM_LOSS_FLOOR nats."""
+def check_mm_grads(ucfg, frozen, trainable, batch, loss_for=mm_loss,
+                   what="multimodal step") -> dict:
+    """At SHALLOW decoder layers with the full towers: the loss
+    (``loss_for(ucfg, kernels)``) and the gradients of every adapter
+    projection and every projector through the kernels, against the plain
+    path (eager attention in the decoder and the CLIP tower, the other
+    plain versions: ``plain_versions``) and an fp32 run (the same values in
+    fp32, integer codes kept), same dropout key, under phase 6's rule; the
+    loss's floor is MM_LOSS_FLOOR nats."""
     import dataclasses
     import torch
     from moka_tpu_torch.core.rng import DropoutKey
@@ -3423,10 +3451,14 @@ def check_mm_grads(ucfg, frozen, trainable, batch) -> dict:
     trainable = dict(trainable,
                      adapters=first_layers(trainable["adapters"], n))
     key = DropoutKey(14)
-    kern = mm_loss_and_grads(ucfg, frozen, trainable, batch, True, key)
-    plain = mm_loss_and_grads(ucfg, frozen, trainable, batch, False, key)
+    kern = mm_loss_and_grads(ucfg, frozen, trainable, batch, True, key,
+                             loss_for)
     frozen32 = float32(frozen)
-    exact = mm_loss_and_grads(ucfg, frozen32, trainable, batch, False, key)
+    with plain_versions():
+        plain = mm_loss_and_grads(ucfg, frozen, trainable, batch, False, key,
+                                  loss_for)
+        exact = mm_loss_and_grads(ucfg, frozen32, trainable, batch, False,
+                                  key, loss_for)
     del frozen32
     torch.cuda.empty_cache()
     out = {"loss": {"kernels": kern[0], "plain": plain[0], "fp32": exact[0]},
@@ -3452,8 +3484,8 @@ def check_mm_grads(ucfg, frozen, trainable, batch) -> dict:
             f"{'' if good else '  <-- FAIL'}")
     log(f"  (tol: kernels <= {TRAIN_RATIO} x plain + {TRAIN_FLOOR})")
     if not ok:
-        raise AssertionError("multimodal step: the kernel path is further "
-                             "from fp32 than the plain bf16 path allows")
+        raise AssertionError(f"{what}: the kernel path is further from fp32 "
+                             f"than the plain bf16 path allows")
     return out
 
 
@@ -3482,6 +3514,445 @@ def mm_steps(ucfg, frozen, trainable) -> dict:
     torch.cuda.empty_cache()
     return {"check": check, "stages_b4": stages, **run}
 
+
+# ----------------------------------------------------------------- phase 14
+
+VT_ITEMS, VT_NEW_TOKENS = 8, 32  # MMBench items a generate call; new tokens
+SP_PIECES = 32000  # LLaMA-2's SentencePiece vocabulary; the 11 multimodal
+                   # tokens follow it (vocab 32011, phase 9's base)
+VT_LOSS = dict(remat=True, fused_loss=True, remat_policy="proj_lse",
+               a8_dots="full", save_q8=True)  # bench.py:570-571 with flash
+HOST_DECODERS = ("PIL", "pandas")  # what the VT eval's items need: PIL
+                   # decodes the PNGs (and the HTTP image), pandas reads the
+                   # MMBench TSV
+VT_QUESTIONS = (  # question, options A-D, answer, hint, image (w, h)
+    ("What color dominates the picture?", ("red", "green", "blue", "gray"),
+     "C", "Look at the whole picture.", (640, 480)),
+    ("Which animal appears in the image?", ("cat", "dog", "horse", "bird"),
+     "A", None, (336, 336)),
+    ("How many objects are on the table?", ("one", "two", "three", "four"),
+     "B", "Count only whole objects.", (224, 224)),
+    ("Where was this photo most likely taken?",
+     ("beach", "forest", "kitchen", "street"), "D", None, (500, 300)),
+    ("What is the person in the image doing?",
+     ("running", "reading", "cooking", "sleeping"), "B",
+     "The person is seated.", (300, 500)),
+    ("Which season does the scene show?",
+     ("spring", "summer", "autumn", "winter"), "D", None, (512, 384)),
+    ("What shape is the largest object?",
+     ("circle", "square", "triangle", "star"), "A", None, (128, 96)),
+    ("What time of day is it?", ("morning", "noon", "evening", "night"),
+     "C", "Notice the light.", (250, 250)))
+
+
+def vt_config():
+    """``vt_7b_int4a8f_qh_qenc_sq8plse`` (``bench.py:570-571``, run by
+    ``bench.py::run_vt``, :438-555): ``LlavaConfig.vt_7b``'s spec (MokA VT
+    r4, attention weight 0.05, dropout 0.05) with bf16 dots, over phase
+    9's int4 LLaMA-2-7B (int8 head, vocab 32011) and phase 12's int8 CLIP
+    ViT-L/14 (weight-only: the row quantizes the tower without W8A8 dots;
+    its attention through kernel 1 at head_dim 64), with the visual
+    Q-Former projector; the tower stops at ``select_layer`` 23."""
+    import dataclasses
+    from moka_tpu_torch.models.llava import LlavaConfig
+    cfg, _ = quant_train_config()
+    vcfg = LlavaConfig.vt_7b(vocab_size=cfg.vocab_size)
+    return dataclasses.replace(
+        vcfg, llama=cfg, clip=dataclasses.replace(vcfg.clip, use_flash=True),
+        spec=vcfg.spec.with_bf16_dots())
+
+
+def build_vt_stack(vcfg, llama_frozen, clip, seed=9):
+    """Phase 9's int4 base and phase 12's int8 CLIP tree as the frozen
+    {llama, clip}; the fp32 visual projector and MokA VT adapters (B seeded
+    non-zero) built on the card from ``seed``."""
+    import torch
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.models.projectors import init_projector_params
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    adapters = llama.init_moka_adapters(g, vcfg.llama, vcfg.spec,
+                                        device="cuda")
+    for p in adapters["layers"].values():
+        p["b"].normal_(0.0, 0.02, generator=g)
+    return {"llama": llama_frozen, "clip": clip}, {
+        "projector": init_projector_params(g, vcfg.projector, device="cuda"),
+        "adapters": adapters}
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _ld(field: int, payload: bytes) -> bytes:  # length-delimited field
+    return _varint(field << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _vi(field: int, val: int) -> bytes:  # varint field
+    return _varint(field << 3) + _varint(val)
+
+
+def sp_model_bytes(words) -> bytes:
+    """A SentencePiece ``tokenizer.model`` (a ``ModelProto``: BPE with byte
+    fallback, dummy prefix) of SP_PIECES pieces, serialized by hand as
+    ``tests/test_spm.py`` does: <unk>, <s>, </s>, the 256 byte pieces, ▁
+    and every prefix of ▁``word`` for each of ``words`` (a longer prefix
+    scores higher, so the merges build each word), then filler pieces."""
+    w = "▁"
+    pieces = [("<unk>", 2), ("<s>", 3), ("</s>", 3)] + \
+        [(f"<0x{b:02X}>", 6) for b in range(256)] + [(w, 1)]
+    seen = {p for p, _ in pieces}
+    for word in words:
+        for i in range(1, len(word) + 1):
+            if w + word[:i] not in seen:
+                seen.add(w + word[:i])
+                pieces.append((w + word[:i], 1))
+    pieces += [(f"{w}filler{k}", 1) for k in range(SP_PIECES - len(pieces))]
+    blob = b"".join(_ld(1, _ld(1, p.encode()) + _varint(2 << 3 | 5) +
+                        struct.pack("<f", float(len(p)) if t == 1 else 0.0)
+                        + _vi(3, t)) for p, t in pieces)
+    return blob + _ld(2, _vi(3, 2)) + _ld(3, _vi(3, 1))
+
+
+def _png_b64(rng, size) -> str:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (size[1], size[0], 3), np.uint8)
+                    ).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def vt_eval_data(work: Path):
+    """The VT eval's inputs, written under ``work``: an MMBench TSV of the
+    VT_QUESTIONS (random PNG images from a seed, base64 as MMBench ships
+    them) read by ``MMBenchDataset``, and a SentencePiece model over their
+    words loaded by ``load_tokenizer`` (32000 pieces + the 11 multimodal
+    tokens = the base's vocab)."""
+    from moka_tpu_torch.data.benchmarks import MMBenchDataset
+    from moka_tpu_torch.data.datasets import llama2_chat_prompt
+    from moka_tpu_torch.data.tokenizer import load_tokenizer
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(15)
+    rows = ["index\tquestion\thint\tA\tB\tC\tD\tanswer\timage"]
+    for i, (q, opts, ans, hint, size) in enumerate(VT_QUESTIONS):
+        rows.append("\t".join([str(i), q, hint or "", *opts, ans,
+                               _png_b64(rng, size)]))
+    (work / "mmbench.tsv").write_text("\n".join(rows) + "\n")
+    ds = MMBenchDataset(str(work / "mmbench.tsv"))
+    text = " ".join(llama2_chat_prompt(ds[i]["prompt"])
+                    for i in range(len(ds)))
+    (work / "tokenizer.model").write_bytes(sp_model_bytes(
+        sorted(set(re.findall(r"[A-Za-z]+", text)))))
+    return ds, load_tokenizer(str(work / "tokenizer.model"))
+
+
+def text_batch(items, tokenize) -> dict:
+    """``build_eval_batch``'s layout for prompts without an image (no
+    ``pixel_values``, no image positions)."""
+    from moka_tpu_torch.data import assembler as asm
+    from moka_tpu_torch.data.datasets import llama2_chat_prompt
+    samples = []
+    for it in items:
+        ids = np.asarray(tokenize.encode(llama2_chat_prompt(it["prompt"])))
+        samples.append(asm.assemble_sample(
+            ids, np.full(len(ids), -100), tokenize.token_to_id,
+            tokenize.pad_id))
+    b = asm.pad_batch(samples, tokenize.pad_id)
+    return {"ids": b["ids"], "attn_mask": b["attn_mask"],
+            "text_mask": b["modality_masks"][0],
+            "image_mask": b["modality_masks"][1],
+            "question_mask": b["question_mask"]}
+
+
+def vt_prefill_checks(records, vcfg, batch, new_tokens) -> None:
+    """Kernels 1 and 5 at the exact shape of the VT eval's prefill (its b
+    and L, its own left pads, its text and image masks), on random q/k/v,
+    x, A and B, against their plain versions under phase 3's limits;
+    kernel 5 at every rank it takes, on the batch's question mask (empty:
+    the MMBench prompts mark no question) and on one over the prompt's text
+    after the image; the records' max_abs_err take the larger error."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    cfg, spec = vcfg.llama, vcfg.spec
+    pmask = batch["attn_mask"]
+    b, L = pmask.shape
+    pads = [int(p) for p in (pmask == 0).sum(dim=1)]
+    log(f"  VT prefill batch: b {b} L {L}, left pads {pads}")
+    q, k, v, _ = flash_case(b, cfg.n_heads, cfg.n_kv_heads, L,
+                            L + new_tokens, seed=15)
+    err = check_flash("VT prefill", q, k, v, F.pad(pmask, (0, new_tokens)))
+    del q, k, v
+    rec = {r["name"]: r for r in records}
+    rec["flash_fwd"]["max_abs_err"] = max(rec["flash_fwd"]["max_abs_err"],
+                                          err)
+    mod = torch.stack([batch["text_mask"], batch["image_mask"]]).float()
+    after = torch.arange(L, device="cuda")[None] > batch["image_pos"][:, -1:]
+    questions = {"empty": batch["question_mask"].float(),
+                 "after the image": (batch["text_mask"] * after).float()}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for rank in MOKA_RANKS:
+        rspec = dataclasses.replace(spec, rank=rank)
+        for d_in, d_out in sorted({(cfg.dim, cfg.dim),
+                                   (cfg.dim, cfg.intermediate),
+                                   (cfg.intermediate, cfg.dim)}):
+            x = torch.randn((b, L, d_in), generator=g,
+                            device="cuda").bfloat16()
+            bound = 1.0 / math.sqrt(d_in)
+            a = torch.rand((2, d_in, rank), generator=g,
+                           device="cuda") * 2 * bound - bound
+            bm = torch.randn((rank, d_out), generator=g,
+                             device="cuda") * 0.02
+            for name, qm in questions.items():
+                d = check_moka(f"VT prefill r{rank} bf16 {d_in}->{d_out}, "
+                               f"question {name}", x, a, bm, mod, qm, rspec)
+                rec["moka_delta_fwd"]["max_abs_err"] = max(
+                    rec["moka_delta_fwd"]["max_abs_err"], d)
+
+
+def vt_eval(vcfg, frozen, trainable, records, work: Path) -> tuple:
+    """Phase 14 (a): the VT benchmark eval as ``cli/eval_vt.py`` runs it
+    (the JAX package's; the port has no CLIs yet) on VT_ITEMS MMBench
+    items: ``run_inference(batch_size=8)`` -> ``build_eval_batch`` ->
+    ``llava.generate`` (VT_NEW_TOKENS, greedy) -> the rank's JSONL ->
+    ``merge_rank_files`` and ``score_option_file``.  First kernels 1 and 5
+    at its prefill shape (``vt_prefill_checks``), the prefill logits under
+    phase 4's rule (``check_logits``), the CLIP pass and the projector
+    timed, and ``generate`` for 1 and VT_NEW_TOKENS tokens (``main_path``:
+    32 + 23 flash forward launches, 23 at head_dim 64, and 224 fused MokA
+    a call).  Returns (results, the tokenizer)."""
+    import torch
+    from moka_tpu_torch.data.benchmarks import build_eval_batch
+    from moka_tpu_torch.eval.runner import run_inference
+    from moka_tpu_torch.eval.scorers import options
+    from moka_tpu_torch.models import llava
+    from moka_tpu_torch.models.clip_vit import clip_hidden_states
+    from moka_tpu_torch.models.projectors import project_visual
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds, tok = vt_eval_data(work)
+    log(f"  MMBench TSV of {len(ds)} items and a {tok.vocab_size}-token "
+        f"SentencePiece tokenizer written and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if tok.vocab_size != vcfg.llama.vocab_size:
+        raise AssertionError(f"tokenizer vocab {tok.vocab_size}")
+    nq, n, sel = vcfg.projector.num_query_tokens, vcfg.llama.n_layers, \
+        vcfg.select_layer
+    tokenize = tok.as_tokenize()
+    batch = to_card(build_eval_batch([ds[i] for i in range(len(ds))],
+                                     tokenize, nq))
+    vt_prefill_checks(records, vcfg, batch, VT_NEW_TOKENS)
+    with torch.inference_mode():
+        embeds = llava.build_inputs_embeds(trainable, frozen, vcfg, batch)
+    check_logits(vcfg.llama, vcfg.spec, frozen["llama"],
+                 trainable["adapters"],
+                 {"inputs_embeds": embeds, "prompt_mask": batch["attn_mask"],
+                  "masks": llava._masks(batch)}, VT_NEW_TOKENS)
+    del embeds
+    pixels = batch["pixel_values"].to(torch.bfloat16)
+    with torch.inference_mode():
+        feats = clip_hidden_states(frozen["clip"], vcfg.clip, pixels,
+                                   (sel,))[0].float()
+        few = dict(iters=3, warmup=1)
+        stages = {"clip_ms": time_ms(lambda: clip_hidden_states(
+                      frozen["clip"], vcfg.clip, pixels, (sel,)), **few),
+                  "projector_ms": time_ms(lambda: project_visual(
+                      trainable["projector"], vcfg.projector, feats), **few)}
+    log(f"  CLIP pass {stages['clip_ms']:.2f} ms, projector "
+        f"{stages['projector_ms']:.2f} ms (b {pixels.shape[0]})")
+    want = _launches(flash_fwd=n + sel, flash_fwd_hd64=sel,
+                     moka_delta_fwd=7 * n)
+    timed = main_path(lambda k: llava.generate(
+        trainable, frozen, vcfg, batch, max_new_tokens=k, eos_id=-1),
+        len(ds), VT_NEW_TOKENS, vcfg.llama.vocab_size, want,
+        f"llava.generate b {len(ds)}")
+    timed["encoder_inclusive_tok_s"] = len(ds) * VT_NEW_TOKENS / (
+        timed["total_ms"] / 1e3)
+    log(f"  encoder-inclusive {timed['encoder_inclusive_tok_s']:.1f} new "
+        f"tokens/s")
+
+    def generate_fn(items):
+        eval_batch = to_card(build_eval_batch(items, tokenize, nq))
+        toks = llava.generate(trainable, frozen, vcfg, eval_batch,
+                              max_new_tokens=VT_NEW_TOKENS,
+                              eos_id=tok.eos_id, pad_id=tok.pad_id)
+        return [{**it["meta"], "answer": it["answer"],
+                 "output": [tok.decode([x for x in t if x != tok.pad_id])]}
+                for it, t in zip(items, toks.tolist())]
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    shard = run_inference(ds, generate_fn, str(work / "out"), "mmbench",
+                          batch_size=VT_ITEMS)
+    eval_s = time.perf_counter() - t0
+    launches = _counts()
+    scores = options.score_option_file(
+        options.merge_rank_files(str(work / "out")))
+    rows = [json.loads(x) for x in open(shard)]
+    log(f"  run_inference: {len(rows)} rows in {eval_s:.2f} s, first "
+        f"output {rows[0]['output'][0][:60]!r}; scores {scores}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want or scores["total"] != len(ds) or \
+            len(rows) != len(ds) or not all(
+                isinstance(r["output"][0], str) and r["answer"] in "ABCD"
+                for r in rows):
+        raise AssertionError(f"VT eval: launches {launches}, want {want}, "
+                             f"scores {scores}")
+    return {**timed, **stages, "eval_s": eval_s, "eval_launches": launches,
+            "scores": scores}, tok
+
+
+def vt_serve(vcfg, frozen, trainable, tok) -> dict:
+    """Phase 14 (b): the micro-batch HTTP front (``serve``) over
+    ``llava.generate``: one /generate request with a base64 PNG (decoded by
+    the front's image branch) and one without, posted together; both must
+    answer 200 with generated text, the image through the tower (23
+    kernel-1c launches) and each prompt through one generate call."""
+    import torch
+    from moka_tpu_torch.data.benchmarks import IMAGE_HEADER, build_eval_batch
+    from moka_tpu_torch.eval.server import serve
+    from moka_tpu_torch.models import llava
+    nq, tokenize = vcfg.projector.num_query_tokens, tok.as_tokenize()
+
+    def generate_fn(items):
+        out = [None] * len(items)
+        for with_image in (True, False):
+            idx = [i for i, it in enumerate(items)
+                   if ("image" in it) == with_image]
+            if not idx:
+                continue
+            group = [items[i] for i in idx]
+            batch = build_eval_batch(group, tokenize, nq) if with_image \
+                else text_batch(group, tokenize)
+            toks = llava.generate(trainable, frozen, vcfg, to_card(batch),
+                                  max_new_tokens=VT_NEW_TOKENS, eos_id=-1,
+                                  pad_id=tok.pad_id)
+            for i, t in zip(idx, toks.tolist()):
+                out[i] = tok.decode([x for x in t if x != tok.pad_id])
+        return out
+
+    server = serve(generate_fn, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    image = _png_b64(np.random.default_rng(16), (320, 240))
+    bodies = {"image": {"prompt": IMAGE_HEADER + "What is in the picture?",
+                        "image": image},
+              "text": {"prompt": "Name a color of the sky."}}
+    answers: dict = {}
+
+    def post(name):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(bodies[name]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            answers[name] = (resp.status, json.loads(resp.read())["output"])
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(k,)) for k in bodies]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+        thread.join(timeout=10)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    n, sel = vcfg.llama.n_layers, vcfg.select_layer
+    want = _launches(flash_fwd=2 * n + sel, flash_fwd_hd64=sel,
+                     moka_delta_fwd=2 * 7 * n)
+    log(f"  HTTP front: {len(answers)} requests in {wall:.2f} s: "
+        f"{ {k: (s, o[:40]) for k, (s, o) in answers.items()} }; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if any(t.is_alive() for t in threads) or sorted(answers) != \
+            sorted(bodies) or any(
+                s != 200 or not o or o.startswith("ERROR")
+                for s, o in answers.values()) or launches != want:
+        raise AssertionError(f"VT HTTP front: {answers}, launches "
+                             f"{launches}, want {want}")
+    return {"wall_s": wall, "launches": launches,
+            "status": {k: s for k, (s, _) in answers.items()}}
+
+
+def vt_train_batch(vcfg, b, L) -> dict:
+    """``bench.py::run_vt``'s batch (:474-491): a prefix, 32 image
+    placeholders, a 32-token question and an answer filling each sample to
+    about L, right-padded to L with shared positions, and random pixels;
+    on the card."""
+    from moka_tpu_torch.data.vt_dataset import build_vt_sample, collate_vt
+    nq = vcfg.projector.num_query_tokens
+    ph, pad = vcfg.llama.vocab_size - 1, 0
+    rng = np.random.default_rng(0)
+    samples = []
+    for i in range(b):
+        pre = rng.integers(4, 1000, 16 + i).tolist()
+        q = rng.integers(4, 1000, 32).tolist()
+        ans = rng.integers(4, 1000, L - (len(pre) + nq + len(q)) - 8 -
+                           i).tolist()
+        ids = np.asarray(pre + [ph] * nq + q + ans)
+        labels = np.asarray([-100] * (len(pre) + nq + len(q)) + ans)
+        samples.append(build_vt_sample(ids, labels, ph, pad,
+                                       num_image_tokens=nq))
+    batch = collate_vt(samples, pad_id=pad, pad_to=L)
+    img = vcfg.clip.image_size
+    batch["pixel_values"] = rng.standard_normal(
+        (b, 3, img, img)).astype(np.float32)
+    return to_card(batch)
+
+
+def vt_loss(vcfg, kernels: bool):
+    """The VT step's loss (VT_LOSS): through the flash kernels (the
+    decoder and the CLIP tower), or on the plain path (eager attention in
+    both)."""
+    import dataclasses
+    from moka_tpu_torch.models.llava import llava_loss
+    if not kernels:
+        vcfg = dataclasses.replace(vcfg, clip=dataclasses.replace(
+            vcfg.clip, use_flash=False))
+    return llava_loss(vcfg, use_flash=kernels, **VT_LOSS)
+
+
+def vt_steps(vcfg, frozen, trainable) -> dict:
+    """Phase 14 (c): the VT fine-tune step ``vt_7b_int4a8f_qh_qenc_sq8plse``
+    (b 4 x L 1024, VT_LOSS, ``make_optimizer(TrainConfig(), 1000)``, the
+    trainable tree {adapters, projector}): the SHALLOW gradient check
+    (phase 13's rule), then at full depth 2 warm-up and 5 timed steps;
+    launches a step asserted (32 + 23 flash forward, 23 at head_dim 64,
+    32 fused backward)."""
+    import torch
+    batch = vt_train_batch(vcfg, 4, 1024)
+    check = check_mm_grads(vcfg, frozen, trainable, batch, loss_for=vt_loss,
+                           what="VT step")
+    run = train_steps(vcfg.llama, vcfg.spec, frozen, clone_tree(trainable),
+                      batch, loss_fn=vt_loss(vcfg, True))
+    n, sel = vcfg.llama.n_layers, vcfg.select_layer
+    want = _launches(flash_fwd=n + sel, flash_fwd_hd64=sel,
+                     flash_bwd_fused=n)
+    log(f"  step min {run['step_ms_min']:.1f} ms, median "
+        f"{run['step_ms']:.1f} ms, {run['tokens_per_s']:.1f} tokens/s, peak "
+        f"memory {run['peak_memory_bytes'] / 2**30:.2f} GiB")
+    if run["launches_per_step"] != want:
+        raise AssertionError(f"VT step launches {run['launches_per_step']}, "
+                             f"want {want}")
+    if not run["losses"][-1] < run["losses"][0]:
+        raise AssertionError(f"the loss did not fall: {run['losses']}")
+    torch.cuda.empty_cache()
+    return {"check": check, **run}
+
+
+# ------------------------------------------------------------------- main
 
 def main() -> int:
     try:
@@ -3661,6 +4132,27 @@ def main() -> int:
         f"CE on the a8 head, b 4 L 1024, {ucfg.llama.n_layers} layers")
     mm_train = mm_steps(ucfg, mfrozen, mtrain)
 
+    vcfg = vt_config()
+    log(f"[14] VT (LLaVA, vt_7b_int4a8f_qh_qenc_sq8plse): phase 9's int4 "
+        f"base (int8 head) and phase 12's int8 CLIP ViT-L/14 (through "
+        f"kernel 1 at head_dim 64, {vcfg.select_layer} layers), the visual "
+        f"Q-Former projector and MokA VT r{vcfg.spec.rank} adapters")
+    log(f"  host decoders used: {', '.join(HOST_DECODERS)}; left out: none")
+    vfrozen, vtrain = build_vt_stack(vcfg, qfrozen, mfrozen["clip"])
+    del mfrozen, mtrain, qtrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) VT benchmark eval: {VT_ITEMS} MMBench items, "
+        f"{VT_NEW_TOKENS} new tokens")
+    vt_gen, vt_tok = vt_eval(vcfg, vfrozen, vtrain, records,
+                             ROOT / "build" / "vt_eval")
+    log("  (b) the micro-batch HTTP front: an image request and a text one")
+    vt_http = vt_serve(vcfg, vfrozen, vtrain, vt_tok)
+    log(f"  (c) VT fine-tune step: proj_lse, a8_dots full, save_q8, bf16 "
+        f"dots, chunked CE on the a8 head, b 4 L 1024, "
+        f"{vcfg.llama.n_layers} layers")
+    vt_train = vt_steps(vcfg, vfrozen, vtrain)
+
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "rank-8 serving (greedy_generate)":
                  other_rank["generate_launches"],
@@ -3675,7 +4167,11 @@ def main() -> int:
              "BOFT merge": boft["launches"],
              "flash rank attention step": rank["full"]["launches_per_step"],
              "multimodal generate (unified.generate)": mm_gen["launches"],
-             "multimodal step": mm_train["launches_per_step"]}
+             "multimodal step": mm_train["launches_per_step"],
+             "VT eval (run_inference, llava.generate)":
+                 vt_gen["eval_launches"],
+             "VT HTTP front (serve)": vt_http["launches"],
+             "VT step": vt_train["launches_per_step"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -3703,8 +4199,9 @@ def main() -> int:
                     "quant_check": quant_check, "quant_train": quant,
                     "boft": boft, "rank_check": rank_check,
                     "rank_train": rank, "mm_generate": mm_gen,
-                    "mm_train": mm_train}))
-    log(f"[14] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "mm_train": mm_train, "vt_generate": vt_gen,
+                    "vt_http": vt_http, "vt_train": vt_train}))
+    log(f"[15] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

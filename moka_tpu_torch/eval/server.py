@@ -1,16 +1,21 @@
 """Minimal batched inference server over stdlib HTTP (port of
 ``moka_tpu/eval/server.py``).
 
-POST /generate with {"prompt": ..., optional "temperature", "top_k",
-"top_p", "max_new_tokens"} returns {"output": text}; POST /generate_stream
-(continuous engine only) streams one {"token": id} line per emitted token,
-then {"output": text}.  Two fronts: ``serve`` micro-batches requests into
-one ``generate_fn`` call, ``serve_continuous`` feeds a ``DecodeEngine``.
-Image inputs are not ported yet and answer HTTP 400 (ROADMAP.md).
+POST /generate with {"prompt": ..., optional "image" (base64 of an image
+file), "temperature", "top_k", "top_p", "max_new_tokens"} returns
+{"output": text}; POST /generate_stream (continuous engine only) streams
+one {"token": id} line per emitted token, then {"output": text}.  An image
+is decoded with PIL and preprocessed as the VT benchmarks preprocess theirs
+(``data/benchmarks._img_from_pil``: (3, 224, 224) float32, CLIP-normalized)
+into the item's ``"image"``.  Two fronts: ``serve`` micro-batches requests
+into one ``generate_fn`` call, ``serve_continuous`` feeds a
+``DecodeEngine``.
 """
 
 from __future__ import annotations
 
+import base64
+import io
 import json
 import queue
 import threading
@@ -78,8 +83,10 @@ def make_handler(batcher):
                 if k in req:
                     item[k] = req[k]
             if req.get("image"):
-                raise ValueError("image input is not ported yet "
-                                 "(ROADMAP.md, server image branch)")
+                from PIL import Image
+                from moka_tpu_torch.data.benchmarks import _img_from_pil
+                img = Image.open(io.BytesIO(base64.b64decode(req["image"])))
+                item["image"] = _img_from_pil(img)
             return item
 
         def do_POST(self):

@@ -202,7 +202,8 @@ def _post(port, path, body):
 
 def test_http_generate_stream_and_image_rejected(model):
     """Two concurrent /generate requests and one /generate_stream resolve
-    with the reference tokens; an image input answers 400 (not ported)."""
+    with the reference tokens; an image that does not decode answers
+    400."""
     prompts = _prompts(seed=3, n=3, lo=4, hi=7)
     ref = _reference(model, prompts, 6)
     server, eng = _front(model, 6)

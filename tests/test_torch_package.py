@@ -49,17 +49,39 @@ def test_entry_points_need_cuda_unless_told_cpu():
 
 
 def test_kernel_loader_builds_nothing_at_import(tmp_path):
-    """Importing every port module touches no compiler; the loader names a
-    source per kernel and keys the library by its content and that of the
-    headers under csrc/ (checked on a copy: an edited header changes the
-    key of every kernel, an edited source only its own)."""
+    """Importing every port module touches no compiler: in a fresh process
+    no subprocess starts and neither the CUDA kernels' loader nor the
+    native fbank's (``native/``) holds a library.  The kernel loader names
+    a source per kernel and keys the library by its content and that of
+    the headers under csrc/ (checked on a copy: an edited header changes
+    the key of every kernel, an edited source only its own); the native
+    library goes to the same build directory, keyed by its source and
+    flags."""
     import importlib
     import shutil
-    from moka_tpu_torch import kernels
+    import subprocess
+    import sys
+    from moka_tpu_torch import kernels, native
     for path in (ROOT / "moka_tpu_torch").rglob("*.py"):
         mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
         importlib.import_module(mod.removesuffix(".__init__"))
     assert kernels._libs == {}
+    code = (
+        "import importlib, pathlib, subprocess, sys\n"
+        "started = []\n"
+        "subprocess.Popen.__init__ = lambda self, *a, **k: started.append(a)"
+        "\n"
+        f"root = pathlib.Path({str(ROOT)!r})\n"
+        "for p in sorted((root / 'moka_tpu_torch').rglob('*.py')):\n"
+        "    mod = '.'.join(p.relative_to(root).with_suffix('').parts)\n"
+        "    importlib.import_module(mod.removesuffix('.__init__'))\n"
+        "from moka_tpu_torch import kernels, native\n"
+        "print(started, kernels._libs, native._lib)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["[]", "{}", "None"]
+    assert native.target().parent == kernels.BUILD_DIR
+    assert native.target().name.startswith("libmoka_native-")
     for name, src in kernels.SOURCES.items():
         assert (kernels.CSRC / src).is_file()
         assert kernels._target(name).parent == kernels.BUILD_DIR
@@ -569,6 +591,46 @@ def test_moka_kernel_matches_plain_on_card(card, rank, flavour, dtype):
     tol = 1e-4 if dtype == "float32" else 1e-2
     assert (got.float() - ref.float()).abs().max() <= \
         tol * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_moka_kernel_at_the_vt_prefill_on_card(card, tmp_path):
+    """Kernel 5 at the VT spec (M 2, the rank attention on the image
+    modality) and the exact shape of chip_smoke's VT eval prefill (its
+    8 MMBench prompts: b, L, left pads, text and image masks; LLaMA-2-7B's
+    three projection shapes), on the batch's empty question mask and on
+    one over the text after the image, against its plain version (1e-2 of
+    max|plain|: one bf16 ulp)."""
+    import sys
+    from moka_tpu_torch.data.benchmarks import build_eval_batch
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
+                                                moka_delta_fused_plain)
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    ds, tok = chip_smoke.vt_eval_data(tmp_path)
+    batch = {k: torch.as_tensor(v, device=card) for k, v in
+             build_eval_batch([ds[i] for i in range(len(ds))],
+                              tok.as_tokenize(), 32).items()}
+    b, L = batch["attn_mask"].shape
+    assert b == 8 and (batch["attn_mask"] == 0).any()
+    spec = MokaSpec.vt(rank=4, dropout_rate=0.0).with_bf16_dots()
+    mod = torch.stack([batch["text_mask"], batch["image_mask"]]).float()
+    after = torch.arange(L, device=card)[None] > batch["image_pos"][:, -1:]
+    g = torch.Generator(device=card).manual_seed(0)
+    for d_in, d_out in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        x = torch.randn((b, L, d_in), generator=g, device=card).bfloat16()
+        a = torch.rand((2, d_in, 4), generator=g, device=card) / \
+            math.sqrt(d_in)
+        bm = torch.randn((4, d_out), generator=g, device=card) * 0.02
+        for qm in (batch["question_mask"].float(),
+                   (batch["text_mask"] * after).float()):
+            before = moka_delta_fused.launches
+            got = moka_delta_fused(x, a, bm, mod, qm, spec)
+            assert moka_delta_fused.launches == before + 1
+            ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
+            assert (got.float() - ref.float()).abs().max() <= \
+                1e-2 * ref.float().abs().max()
 
 
 @pytest.mark.cuda
