@@ -174,7 +174,27 @@ Phases, in order; any failed build, launch or check exits non-zero:
      2-layer gradient check with the full tower against the plain path and
      fp32 (phase 13's rule), then 2 warm-up and 5 timed steps (55 flash
      forward, 23 of them CLIP's, and 32 fused backward launches a step);
- 15. one JSON line with every kernel's numbers, then the card's line.
+ 15. (after phase 14, its trees freed) the training life cycle from
+     checkpoint files through the three training CLIs' ``main`` at
+     LLaMA-2-7B's full width and depth (``phase15``): (a) free disk
+     checked, LLaMA-2-7B (vocab 32011, 4 shards), CLIP ViT-L/14 and BEATs
+     written in bf16 from a seed (safetensors where it imports, else
+     ``.bin``) and read back through every importer exactly, the int4
+     codes of ``import_llama_quantized`` against ``quantize_llama_base`` of
+     the source; (b) ``finetune`` on 12 synthetic AVQA samples (cv2 .avi,
+     60 s .wav) with the AVT shipping flags (int4 base, int8 head and
+     towers, a8 dots full, qkvod_lse, b 4, L 1024, a checkpoint a step):
+     3 steps with kernels 1 and 2 a step asserted against the config's
+     counts, then a second invocation with one more epoch that resumes
+     from step 3 and reaches step 6; (c) the step-2 checkpoint restored
+     into a fresh ``TrainState`` and stepped on batch 3: its loss equals
+     the uninterrupted step-3 loss (RESUME_TOL); (d) ``train_vt`` on 12
+     seeded PNGs with the VT shipping flags (save_q8, proj_lse), 3 steps,
+     ``model.safetensors`` read back exactly; (e) ``pretrain --branch
+     visual``, 2 steps, no kernel launched, the stage-1 artifacts read
+     back exactly; each CLI's wall, import seconds, step median, tokens/s
+     and peak memory printed;
+ 16. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -3952,6 +3972,659 @@ def vt_steps(vcfg, frozen, trainable) -> dict:
     return {"check": check, **run}
 
 
+# ----------------------------------------------------------------- phase 15
+
+P15_SEED = 15
+P15_SAMPLES = 12   # AVQA samples and LLaVA-Instruct rows: 3 steps at b 4
+P15_PRETRAIN_IMAGES = 8  # 2 pretraining steps at b 4
+P15_SHARDS = 4     # the LLaMA checkpoint's shards
+P15_MARGIN = 8 * 2**30  # bytes of disk beyond the LLaMA checkpoint at 7B:
+                   # CLIP and BEATs, the trainers' checkpoints (3 kept,
+                   # 1.83 GiB each for finetune's 164 M fp32 parameters
+                   # with AdamW's moments) and the artifacts
+P15_QUESTIONS = (  # AVQA question, answer
+    ("How many instruments are sounding in the video?", "two"),
+    ("Is the violin louder than the piano?", "yes"),
+    ("Which instrument starts playing first?", "guitar"),
+    ("Where is the loudest instrument?", "left"))
+P15_CAPTIONS = ("A red square on a gray wall.", "Two birds over the sea.",
+                "A bowl of fruit on a table.", "A street at night.")
+RESUME_TOL = 0.0   # the restored step-2 state against the uninterrupted
+                   # run's step 3: the step's forward (kernel 1, the eager
+                   # towers, the chunked CE, cuBLAS and _int_mm) sums in a
+                   # fixed order and the state is restored bit for bit
+
+
+def p15_configs(tiny: bool):
+    """The LLaMA, CLIP and BEATs configs of the checkpoint files: what the
+    CLIs build at ``--model-preset 7b`` (LLaMA-2-7B at vocab 32011, CLIP
+    ViT-L/14, the BEATs_iter3+ config), or at ``tiny``."""
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.models.beats import BeatsConfig
+    from moka_tpu_torch.models.clip_vit import ClipVitConfig
+    vocab = SP_PIECES + 11
+    if tiny:
+        return (LlamaConfig.tiny(vocab_size=vocab), ClipVitConfig.tiny(),
+                BeatsConfig.tiny())
+    return (LlamaConfig.llama2_7b(vocab_size=vocab),
+            ClipVitConfig.vit_l_14(), BeatsConfig())
+
+
+def _bf16_values(tree, keep: tuple):
+    """A bf16 tree with the leaves not named in ``keep`` widened to fp32:
+    the dtypes the importers give, and values a bf16 file holds exactly."""
+    import torch
+    return {k: (v if k in keep or v is None else
+                _bf16_values(v, ()) if isinstance(v, dict) else
+                v.to(torch.float32)) for k, v in tree.items()}
+
+
+def p15_sources(lcfg, ccfg, bcfg, device):
+    """The trees the checkpoint files are written from, random from
+    P15_SEED on ``device``: LLaMA in bf16; CLIP and BEATs with the leaves
+    their importers keep in ``dtype`` in bf16 and the others fp32 holding
+    bf16 values."""
+    import torch
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.models.beats import init_beats_params
+    from moka_tpu_torch.models.clip_vit import init_clip_params
+    g = torch.Generator(device=device).manual_seed(P15_SEED)
+    kw = dict(device=device, dtype=torch.bfloat16)
+    base = llama.init_llama_params(g, lcfg, **kw)
+    clip = _bf16_values(init_clip_params(g, ccfg, **kw), ("cls", "patch",
+                                                          "pos"))
+    beats = _bf16_values(init_beats_params(g, bcfg, **kw),
+                         ("patch", "patch_bias", "pos_conv_w", "pos_conv_b",
+                          "rel_bias"))
+    return base, clip, beats
+
+
+def llama_hf_state_dict(base: dict, layers: range) -> dict:
+    """HF LlamaForCausalLM names for ``layers`` of a layer-stacked tree
+    (the inverse of ``import_llama``), CPU tensors in the tree's dtype;
+    the embeddings with the first layer, the norm and head with the
+    last."""
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+             "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+             "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj", "attn_norm": "input_layernorm",
+             "mlp_norm": "post_attention_layernorm"}
+    sd = {}
+    for i in layers:
+        for ours, theirs in names.items():
+            w = base["layers"][ours][i]
+            sd[f"model.layers.{i}.{theirs}.weight"] = \
+                (w.t() if w.dim() == 2 else w).contiguous().cpu()
+    if layers[0] == 0:
+        sd["model.embed_tokens.weight"] = base["embed"].contiguous().cpu()
+    if layers[-1] == len(base["layers"]["q"]) - 1:
+        sd["model.norm.weight"] = base["final_norm"].cpu()
+        sd["lm_head.weight"] = base["lm_head"].t().contiguous().cpu()
+    return sd
+
+
+def beats_hf_state_dict(tree: dict, cfg) -> tuple[dict, dict]:
+    """A BEATs checkpoint ``(model, cfg)`` (the inverse of
+    ``import_beats``): bf16 tensors, the positional convolution split into
+    weight_v (the tree's kernel) and an fp32 weight_g (its norm over all
+    but dim 2), which ``fold_weight_norm`` folds back to the kernel to
+    within an fp32 rounding: exact once cast to bf16."""
+    import torch
+    bf = torch.bfloat16
+
+    def t(x):
+        return x.detach().to(dtype=bf).contiguous().cpu()
+
+    e = tree["patch"].shape[1]
+    p = cfg.input_patch_size
+    v = tree["pos_conv_w"].float().cpu().numpy()
+    sd = {"patch_embedding.weight": t(tree["patch"].t().reshape(e, 1, p, p)),
+          "layer_norm.weight": t(tree["frontend_ln"]["g"]),
+          "layer_norm.bias": t(tree["frontend_ln"]["b"]),
+          "post_extract_proj.weight": t(tree["post_proj"]["w"].t()),
+          "post_extract_proj.bias": t(tree["post_proj"]["b"]),
+          "encoder.pos_conv.0.weight_v": t(tree["pos_conv_w"]),
+          "encoder.pos_conv.0.weight_g": torch.from_numpy(
+              np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True))),
+          "encoder.pos_conv.0.bias": t(tree["pos_conv_b"]),
+          "encoder.layer_norm.weight": t(tree["encoder_ln"]["g"]),
+          "encoder.layer_norm.bias": t(tree["encoder_ln"]["b"]),
+          "encoder.layers.0.self_attn.relative_attention_bias.weight":
+              t(tree["rel_bias"])}
+    if tree["patch_bias"] is not None:
+        sd["patch_embedding.bias"] = t(tree["patch_bias"])
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+             "v": "self_attn.v_proj", "out": "self_attn.out_proj",
+             "ln_attn": "self_attn_layer_norm", "fc1": "fc1", "fc2": "fc2",
+             "ln_final": "final_layer_norm",
+             "grep": "self_attn.grep_linear"}
+    lay = tree["layers"]
+    for i in range(cfg.encoder_layers):
+        q = f"encoder.layers.{i}."
+        for ours, theirs in names.items():
+            leaf = lay[ours]
+            w = leaf["g"][i] if "g" in leaf else leaf["w"][i].t()
+            sd[f"{q}{theirs}.weight"] = t(w)
+            sd[f"{q}{theirs}.bias"] = t(leaf["b"][i])
+        sd[f"{q}self_attn.grep_a"] = t(lay["grep_a"][i].reshape(
+            1, cfg.encoder_heads, 1, 1))
+    flags = {"input_patch_size": p, "embed_dim": cfg.embed_dim,
+             "encoder_embed_dim": cfg.encoder_embed_dim,
+             "encoder_layers": cfg.encoder_layers,
+             "encoder_ffn_embed_dim": cfg.encoder_ffn_dim,
+             "encoder_attention_heads": cfg.encoder_heads,
+             "conv_bias": cfg.conv_bias, "deep_norm": cfg.deep_norm,
+             "layer_norm_first": cfg.layer_norm_first,
+             "relative_position_embedding": cfg.relative_position_embedding,
+             "num_buckets": cfg.num_buckets,
+             "max_distance": cfg.max_distance,
+             "gru_rel_pos": cfg.gru_rel_pos, "conv_pos": cfg.conv_pos,
+             "conv_pos_groups": cfg.conv_pos_groups}
+    return sd, flags
+
+
+def checkpoint_format() -> str:
+    """safetensors where it imports, else torch ``.bin`` shards."""
+    try:
+        import safetensors.torch  # noqa: F401
+        return "safetensors"
+    except ImportError:
+        return "bin"
+
+
+def _write_sd(sd: dict, path_stem: Path, fmt: str) -> Path:
+    import torch
+    if fmt == "safetensors":
+        from safetensors.torch import save_file
+        path = path_stem.with_name(path_stem.name + ".safetensors")
+        save_file(sd, str(path))
+    else:
+        path = path_stem.with_name(path_stem.name + ".bin")
+        torch.save(sd, path)
+    return path
+
+
+def write_checkpoints(work: Path, sources, cfgs, fmt: str) -> dict:
+    """The three checkpoints under ``work``: LLaMA as P15_SHARDS shards
+    (HF names: ``model-0000k-of-0000n`` or ``pytorch_model-0000k-of-...``),
+    CLIP in HF CLIPVisionModel names (``clip_to_torch_state_dict``, bf16)
+    and BEATs as a ``{cfg, model}`` ``.pt``."""
+    import torch
+    from moka_tpu_torch.train.checkpoint import clip_to_torch_state_dict
+    base, clip, beats = sources
+    lcfg, ccfg, bcfg = cfgs
+    llama_dir = work / "llama"
+    llama_dir.mkdir(parents=True, exist_ok=True)
+    n = lcfg.n_layers
+    cuts = np.linspace(0, n, min(P15_SHARDS, n) + 1).astype(int)
+    stem = "model" if fmt == "safetensors" else "pytorch_model"
+    for k, (a, b) in enumerate(zip(cuts[:-1], cuts[1:]), 1):
+        _write_sd(llama_hf_state_dict(base, range(a, b)),
+                  llama_dir / f"{stem}-{k:05d}-of-{len(cuts) - 1:05d}", fmt)
+    clip_sd = {k: v.to(torch.bfloat16) for k, v in
+               clip_to_torch_state_dict(clip, ccfg).items()}
+    clip_path = _write_sd(clip_sd, work / "clip", fmt)
+    sd, flags = beats_hf_state_dict(beats, bcfg)
+    torch.save({"cfg": flags, "model": sd}, work / "beats.pt")
+    return {"llama": llama_dir, "clip": clip_path, "beats": work / "beats.pt"}
+
+
+def _tree_equal(got, want, what: str) -> None:
+    import torch
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{what}: keys differ")
+        for k in want:
+            _tree_equal(got[k], want[k], f"{what}/{k}")
+        return
+    if want is None or got is None:
+        if got is not want:
+            raise AssertionError(f"{what}: {got} != {want}")
+        return
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not torch.equal(got, want.to(got.device)):
+        raise AssertionError(f"{what}: differs from the source tree "
+                             f"({got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)})")
+
+
+def check_importers(paths: dict, sources, cfgs, device) -> dict:
+    """Every importer on the files against the tree they were written
+    from, exactly; ``import_llama_quantized``'s codes against
+    ``quantize_llama_base`` of the source (int4, int8 head)."""
+    import torch
+    from moka_tpu_torch.ops.quant import (import_llama_quantized,
+                                          quantize_llama_base)
+    from moka_tpu_torch.train import import_torch as imp
+    base, clip, beats = sources
+    lcfg, ccfg, bcfg = cfgs
+    out = {}
+    t0 = time.perf_counter()
+    sd = imp.load_torch(str(paths["llama"]))
+    out["llama_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _tree_equal(imp.import_llama(sd, lcfg, device=device), base, "llama")
+    out["llama_import_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q = import_llama_quantized(sd, lcfg, bits=4, head_bits=8, device=device)
+    _sync(device)
+    out["llama_import_quantized_s"] = time.perf_counter() - t0
+    _tree_equal(q, quantize_llama_base(base, bits=4, head_bits=8),
+                "llama int4 (int8 head)")
+    del sd, q
+    t0 = time.perf_counter()
+    _tree_equal(imp.import_clip(imp.load_torch(str(paths["clip"])), ccfg,
+                                dtype=torch.bfloat16, device=device),
+                clip, "clip")
+    out["clip_read_import_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bsd, flags = imp.load_torch(str(paths["beats"]))
+    bc = imp.beats_config_from_ckpt(flags)
+    if bc != bcfg:
+        raise AssertionError(f"BEATs config {bc} != {bcfg}")
+    _tree_equal(imp.import_beats(bsd, bc, dtype=torch.bfloat16,
+                                 device=device), beats, "beats")
+    out["beats_read_import_s"] = time.perf_counter() - t0
+    return out
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p15_data(work: Path, image_size: int, n_frames: int):
+    """The CLIs' inputs under ``work``: P15_SAMPLES AVQA samples (a cv2
+    MJPG ``.avi`` of ``n_frames`` frames and a 60 s 16 kHz ``.wav`` each),
+    as many LLaVA-Instruct rows over seeded PNGs, a caption JSON over the
+    first P15_PRETRAIN_IMAGES of them, and a SentencePiece model (phase
+    14's 32000 pieces, over every word the three CLIs tokenize)."""
+    import cv2
+    from PIL import Image
+    from scipy.io import wavfile
+    from moka_tpu_torch.data.datasets import (AVQA_INSTRUCTION,
+                                              PRETRAIN_IMAGE_PROMPT,
+                                              llama2_chat_prompt)
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(P15_SEED)
+    text, ann, rows, caps = [], [], [], []
+    for i in range(P15_SAMPLES):
+        q, a = P15_QUESTIONS[i % len(P15_QUESTIONS)]
+        vid, wav = work / f"v{i}.avi", work / f"a{i}.wav"
+        w = cv2.VideoWriter(str(vid), cv2.VideoWriter_fourcc(*"MJPG"), 5,
+                            (64, 64))
+        for _ in range(n_frames):
+            w.write(rng.integers(0, 255, (64, 64, 3), np.uint8))
+        w.release()
+        wavfile.write(wav, 16000, (rng.standard_normal(16000 * 60) *
+                                   3000).astype(np.int16))
+        ann.append({"video_id": f"v{i}", "question_id": i,
+                    "type": ["Audio", "Counting"], "video_path": str(vid),
+                    "audio_path": str(wav), "question": q, "answer": a,
+                    "label": f"<answer> {a} </answer>"})
+        text += [llama2_chat_prompt(AVQA_INSTRUCTION.format(question=q)), a]
+        png = f"img{i}.png"
+        size = (image_size + 16 * (i % 3), image_size + 8 * (i % 2))
+        Image.fromarray(rng.integers(0, 256, (size[1], size[0], 3),
+                                     np.uint8)).save(work / png)
+        user = f"<image>\n{q}"
+        rows.append({"image": png, "conversations": [
+            {"from": "human", "value": user}, {"from": "gpt", "value": a}]})
+        text += [llama2_chat_prompt(user), a]
+        if i < P15_PRETRAIN_IMAGES:
+            cap = P15_CAPTIONS[i % len(P15_CAPTIONS)]
+            caps.append({"image": str(work / png), "caption": cap})
+            text += [llama2_chat_prompt(PRETRAIN_IMAGE_PROMPT), cap]
+    (work / "avqa.json").write_text(json.dumps(ann))
+    (work / "llava_instruct.json").write_text(json.dumps(rows))
+    (work / "captions.json").write_text(json.dumps(caps))
+    (work / "tokenizer.model").write_bytes(sp_model_bytes(
+        sorted(set(re.findall(r"[A-Za-z]+", " ".join(text))))))
+    return {"avqa": work / "avqa.json", "vt": work / "llava_instruct.json",
+            "captions": work / "captions.json",
+            "tokenizer": work / "tokenizer.model", "images": work}
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(main_fn, argv: list, device: str, steps_before: int = 0
+            ) -> tuple:
+    """One CLI ``main(argv)`` with the launch counts zeroed before and read
+    after, the wall, the peak device memory, its stdout (kept), the
+    ``[... ready in X s]`` import seconds, and the step times of this
+    invocation from ``metrics.jsonl`` less each preceding checkpoint
+    save (timed by wrapping ``checkpoint.save``).  -> (trainer, batches,
+    record)."""
+    import torch
+    from moka_tpu_torch.train import checkpoint as ckpt
+    on_card = torch.device(device).type == "cuda"
+    saves: dict = {}
+    real_save = ckpt.save
+
+    def timed_save(directory, state, *a, **k):
+        t = time.perf_counter()
+        real_save(directory, state, *a, **k)
+        saves[int(state.step)] = time.perf_counter() - t
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    tee = _Tee(sys.stdout)
+    ckpt.save = timed_save
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            trainer, batches = main_fn(argv)
+        _sync(device)
+    finally:
+        ckpt.save = real_save
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    text = tee.buf.getvalue()
+    ready = re.search(r"ready in ([0-9.]+) s", text)
+    out = Path(argv[argv.index("--output-dir") + 1])
+    rows = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    rows = [r for r in rows if r["step"] > steps_before and "loss" in r]
+    step_s = [r["step_time_s"] - saves.get(r["step"] - 1, 0.0)
+              for r in rows]
+    steps = len(rows)
+    per_step = {k: v // max(steps, 1) for k, v in launches.items()}
+    if any(v % max(steps, 1) for v in launches.values()):
+        raise AssertionError(f"launches {launches} not a multiple of "
+                             f"{steps} steps")
+    batch = int(argv[argv.index("--global-batch") + 1])
+    pad_to = int(argv[argv.index("--pad-to") + 1])
+    median = float(np.median(step_s[1:])) if steps > 1 else float("nan")
+    rec = {"wall_s": wall, "import_s": float(ready.group(1)) if ready else
+           None, "steps": steps, "losses": [r["loss"] for r in rows],
+           "step_ms": [s * 1e3 for s in step_s],
+           "step_ms_median": median * 1e3,
+           "save_ms": {k: v * 1e3 for k, v in saves.items()},
+           "tokens_per_s": batch * pad_to / median,
+           "supervised_tokens_per_s": float(np.median(
+               [r["supervised_tokens"] for r in rows[1:]] or [0])) / median,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()
+           if on_card else 0,
+           "launches_per_step": per_step, "stdout": text}
+    return trainer, batches, rec
+
+
+def _log_cli(name: str, rec: dict, smi: str) -> None:
+    log(f"  {name}: wall {rec['wall_s']:.1f} s, checkpoint read + import "
+        f"(+ quantize) {rec['import_s']:.2f} s, {rec['steps']} steps, "
+        f"step median {rec['step_ms_median']:.1f} ms (first excluded, "
+        f"checkpoint saves excluded: "
+        f"{ {k: round(v, 1) for k, v in rec['save_ms'].items()} } ms), "
+        f"{rec['tokens_per_s']:.1f} tokens/s "
+        f"({rec['supervised_tokens_per_s']:.1f} supervised), peak "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+        f"{[round(x, 4) for x in rec['losses']]}; {smi}")
+    log(f"    launches a step: "
+        f"{ {k: v for k, v in rec['launches_per_step'].items() if v} }")
+
+
+def flash_per_step(n_layers: int, policy: str | None, flash: bool,
+                   device: str) -> dict:
+    """Kernels 1 and 2 a training step, from the config: one flash
+    forward a layer when the remat policy keeps the flash residuals (out,
+    lse), else two (the recompute reruns it); one fused backward a layer
+    (L <= 1024); none without flash or off the card."""
+    from moka_tpu_torch.models.llama import REMAT_POLICIES
+    if not flash or device != "cuda":
+        return _launches()
+    keeps = {"flash_out", "flash_lse"} <= set(REMAT_POLICIES[policy])
+    return _launches(flash_fwd=n_layers * (1 if keeps else 2),
+                     flash_bwd_fused=n_layers)
+
+
+def resume_parity(trainer, batches, out: Path, step: int) -> dict:
+    """Phase 15 (c): the checkpoint of ``step`` restored into a fresh
+    ``TrainState`` (the trainer's optimizer, a new trainable template),
+    one step on the run's batch ``step + 1``; its loss against the
+    uninterrupted run's logged loss of step ``step + 1``."""
+    import itertools
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train import checkpoint as ckpt
+    from moka_tpu_torch.train.optim import tree_map
+    from moka_tpu_torch.train.step import init_train_state
+    template = init_train_state(tree_map(torch.empty_like,
+                                         trainer.state.params),
+                                trainer.tx, DropoutKey(0))
+    state = ckpt.restore(str(out / "checkpoints"), template, step=step)
+    if state.step != step:
+        raise AssertionError(f"restored step {state.step}, want {step}")
+    batch = next(itertools.islice(batches(), step, None))
+    _, metrics = trainer.step_fn(state, trainer.frozen, batch)
+    loss = float(metrics["loss"])
+    want = next(json.loads(line)["loss"] for line in
+                (out / "metrics.jsonl").read_text().splitlines()
+                if json.loads(line)["step"] == step + 1)
+    diff = abs(loss - want)
+    log(f"  (c) resume parity: step-{step} checkpoint restored, one step on "
+        f"batch {step + 1}: loss {loss!r} vs the uninterrupted {want!r}, "
+        f"|difference| {diff!r} (tolerance {RESUME_TOL})")
+    if not diff <= RESUME_TOL:
+        raise AssertionError(f"resumed loss {loss} != {want}")
+    return {"loss": loss, "uninterrupted": want, "abs_diff": diff,
+            "tolerance": RESUME_TOL}
+
+
+def _params_equal(got, want, what: str) -> None:
+    from moka_tpu_torch.train.optim import tree_map
+    _tree_equal(tree_map(lambda t: t.cpu(), got),
+                tree_map(lambda t: t.cpu(), want), what)
+
+
+def p15_summary(res: dict) -> dict:
+    """Phase 15's numbers for the log line: no trees, paths or stdout."""
+    return {k: ({f: x for f, x in v.items() if f != "stdout"}
+                if isinstance(v, dict) else v) for k, v in res.items()
+            if not k.endswith(("_params", "_out"))}
+
+
+def phase15(work: Path, device: str = "cuda", tiny: bool = False,
+            smi: str = "") -> dict:
+    """Phase 15: the training life cycle from checkpoint files through the
+    three training CLIs' ``main``, at LLaMA-2-7B's full width and depth
+    (``tiny``: the CLIs' tiny preset, the rehearsal on the CPU).
+
+    (a) disk checked, LLaMA-2-7B (vocab 32011), CLIP ViT-L/14 and BEATs
+    written from P15_SEED in bf16 and read back through every importer
+    exactly; (b) ``finetune`` with the shipping AVT flags, 3 steps, a
+    checkpoint every step, kernels 1 and 2 a step asserted, then a second
+    invocation with one more epoch that resumes from step 3; (c) the
+    step-2 checkpoint restored and stepped on batch 3 against the
+    uninterrupted step-3 loss; (d) ``train_vt`` with the VT shipping
+    flags, 3 steps, ``model.safetensors`` read back exactly; (e)
+    ``pretrain --branch visual``, 2 steps, no kernel launched, the stage-1
+    artifacts read back exactly."""
+    import dataclasses
+    import gc
+    import torch
+    from moka_tpu_torch.cli import finetune, pretrain, train_vt
+    from moka_tpu_torch.models import llava, unified
+    from moka_tpu_torch.train import import_torch as imp
+
+    cfgs = p15_configs(tiny)
+    lcfg, ccfg, bcfg = cfgs
+    fmt = checkpoint_format()
+    res: dict = {"format": fmt, "device": device}
+    # (a)
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    llama_bytes = sum(2 * math.prod(s) for s in (
+        (lcfg.vocab_size, lcfg.dim), (lcfg.dim, lcfg.vocab_size))) + \
+        2 * lcfg.n_layers * (4 * lcfg.dim * lcfg.dim +
+                             3 * lcfg.dim * lcfg.intermediate)
+    free = shutil.disk_usage(work).free
+    need = llama_bytes + (P15_MARGIN >> 7 if tiny else P15_MARGIN)
+    log(f"  (a) disk under {work}: {free / 2**30:.1f} GiB free, "
+        f"{need / 2**30:.1f} GiB needed ({llama_bytes / 2**30:.2f} GiB of "
+        f"LLaMA checkpoint); format {fmt}")
+    if free < need:
+        raise RuntimeError(f"phase 15 needs {need / 2**30:.1f} GiB of disk "
+                           f"under {work}, {free / 2**30:.1f} GiB free")
+    t0 = time.perf_counter()
+    sources = p15_sources(lcfg, ccfg, bcfg, device)
+    _sync(device)
+    res["sources_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = write_checkpoints(work / "ckpt", sources, cfgs, fmt)
+    res["write_s"] = time.perf_counter() - t0
+    res["file_bytes"] = sum(f.stat().st_size for f in
+                            (work / "ckpt").rglob("*") if f.is_file())
+    res["importers"] = check_importers(paths, sources, cfgs, device)
+    log(f"  checkpoints written in {res['write_s']:.1f} s "
+        f"({res['file_bytes'] / 2**30:.2f} GiB); every importer returns "
+        f"its source tree exactly: {res['importers']}")
+    del sources
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    data = p15_data(work / "data", ccfg.image_size, 2 if tiny else 10)
+    preset = "tiny" if tiny else "7b"
+    common = ["--llama-ckpt", str(paths["llama"]),
+              "--clip-ckpt", str(paths["clip"]),
+              "--tokenizer-json", str(data["tokenizer"]),
+              "--model-preset", preset, "--global-batch", "4",
+              "--device", device]
+    quant = ["--quantize-base", "4", "--quantize-head", "8",
+             "--quantize-encoders", "8", "--a8-dots", "full"]
+    pad = ["--pad-to", "256" if tiny else "1024"]  # tiny: max_seq_len
+
+    # (b) finetune, 3 steps, then (c), then the second invocation
+    ft_out = work / "finetune"
+    ft_argv = common + quant + pad + [
+        "--beats-ckpt", str(paths["beats"]),
+        "--avqa-annotation", str(data["avqa"]),
+        "--remat-policy", "qkvod_lse", "--save-steps", "1",
+        "--output-dir", str(ft_out)]
+    want = flash_per_step(lcfg.n_layers, "qkvod_lse", not tiny, device)
+    log(f"  (b) finetune {' '.join(ft_argv)} --epochs 1; kernels 1 and 2 a "
+        f"step worked out from the config: flash_fwd {want['flash_fwd']}, "
+        f"flash_bwd_fused {want['flash_bwd_fused']}")
+    trainer, batches, rec = run_cli(finetune.main, ft_argv + ["--epochs",
+                                                              "1"], device)
+    _log_cli("finetune", rec, smi)
+    if rec["launches_per_step"] != want or rec["steps"] != 3:
+        raise AssertionError(f"finetune: {rec['steps']} steps, launches a "
+                             f"step {rec['launches_per_step']}, want {want}")
+    if trainer.state.step != 3:
+        raise AssertionError(f"finetune ended at step {trainer.state.step}")
+    res["finetune"] = rec
+    res["resume_parity"] = resume_parity(trainer, batches, ft_out, 2)
+    ft_params = trainer.state.params
+    del trainer, batches
+    gc.collect()
+    trainer, _, rec2 = run_cli(finetune.main, ft_argv + ["--epochs", "2"],
+                               device, steps_before=3)
+    _log_cli("finetune, second invocation (--epochs 2)", rec2, smi)
+    if "[trainer] resumed from step 3" not in rec2["stdout"] or \
+            trainer.state.step != 6 or rec2["steps"] != 3 or \
+            rec2["launches_per_step"] != want:
+        raise AssertionError(f"the second finetune did not resume from "
+                             f"step 3 to 6: step {trainer.state.step}, "
+                             f"{rec2['steps']} steps, launches "
+                             f"{rec2['launches_per_step']}")
+    log(f"  second invocation: resumed from step 3, reached step "
+        f"{trainer.state.step}")
+    res["finetune_resumed"] = rec2
+    res["finetune_params"] = ft_params
+    res["finetune_resumed_params"] = trainer.state.params
+    res["finetune_out"] = ft_out
+    del trainer
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) train_vt
+    vt_out = work / "train_vt"
+    vt_argv = common + quant + pad + [
+        "--save-q8", "--remat-policy", "proj_lse",
+        "--data-json", str(data["vt"]), "--image-root", str(data["images"]),
+        "--epochs", "1", "--output-dir", str(vt_out)]
+    want = flash_per_step(lcfg.n_layers, "proj_lse", not tiny, device)
+    log(f"  (d) train_vt {' '.join(vt_argv)}; kernels 1 and 2 a step: "
+        f"flash_fwd {want['flash_fwd']}, flash_bwd_fused "
+        f"{want['flash_bwd_fused']}")
+    trainer, _, rec = run_cli(train_vt.main, vt_argv, device)
+    _log_cli("train_vt", rec, smi)
+    if rec["launches_per_step"] != want or rec["steps"] != 3:
+        raise AssertionError(f"train_vt: {rec['steps']} steps, launches a "
+                             f"step {rec['launches_per_step']}, want {want}")
+    vcfg = (dataclasses.replace(llava.LlavaConfig.tiny(),
+                                llama=lcfg) if tiny else
+            llava.LlavaConfig.vt_7b(vocab_size=lcfg.vocab_size))
+    back = imp.import_vt_trainable(
+        imp.load_torch(str(vt_out / "model.safetensors")), vcfg, {},
+        device=device)
+    _params_equal(back, trainer.state.params, "model.safetensors")
+    log("  model.safetensors read back through import_vt_trainable: the "
+        "final params exactly")
+    res["train_vt"] = rec
+    res["train_vt_params"] = trainer.state.params
+    res["train_vt_out"] = vt_out
+    del trainer, back
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e) pretrain, visual branch
+    pt_out = work / "pretrain"
+    pt_argv = ["--llama-ckpt", str(paths["llama"]),
+               "--clip-ckpt", str(paths["clip"]),
+               "--tokenizer-json", str(data["tokenizer"]),
+               "--image-json", str(data["captions"]), "--branch", "visual",
+               "--global-batch", "4", "--pad-to", "512", "--epochs", "1",
+               "--output-dir", str(pt_out), "--device", device]
+    log(f"  (e) pretrain {' '.join(pt_argv)}: no kernel (its loss passes "
+        f"no use_flash)")
+    trainer, _, rec = run_cli(pretrain.main, pt_argv, device)
+    _log_cli("pretrain", rec, smi)
+    if rec["launches_per_step"] != _launches() or rec["steps"] != 2:
+        raise AssertionError(f"pretrain: {rec['steps']} steps, launches a "
+                             f"step {rec['launches_per_step']}")
+    ucfg = unified.UnifiedConfig.avt_7b(vocab_size=lcfg.vocab_size)
+    sd = imp.load_torch(str(pt_out / "non_lora_trainables.bin"))
+    if not all(k.startswith("model.") for k in sd):
+        raise AssertionError("stage-1 keys without the model. prefix")
+    for key, kind in (("vl_projector", "visual"), ("al_projector", "audio")):
+        back = imp.import_projector(imp.strip_to_submodule(sd, f"{key}."),
+                                    getattr(ucfg, key), kind=kind,
+                                    device=device)
+        _params_equal(back, trainer.state.params[key], key)
+    log("  stage-1 non_lora_trainables.bin (model. prefixes) read back "
+        "through strip_to_submodule + import_projector: the final params "
+        "exactly")
+    res["pretrain"] = rec
+    res["pretrain_params"] = trainer.state.params
+    res["pretrain_out"] = pt_out
+    del trainer
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -4152,6 +4825,22 @@ def main() -> int:
         f"dots, chunked CE on the a8 head, b 4 L 1024, "
         f"{vcfg.llama.n_layers} layers")
     vt_train = vt_steps(vcfg, vfrozen, vtrain)
+    del vfrozen, vtrain, qfrozen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[15] the training life cycle from checkpoint files: the CLIs "
+        f"finetune, train_vt and pretrain at LLaMA-2-7B's full width and "
+        f"depth ({torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated from the earlier phases)")
+    work = ROOT / "build" / "p15"
+    t15 = time.perf_counter()
+    try:
+        p15 = phase15(work, "cuda", smi=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    p15["phase_s"] = time.perf_counter() - t15
+    log(f"  phase 15 passed in {p15['phase_s']:.1f} s")
 
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "rank-8 serving (greedy_generate)":
@@ -4171,7 +4860,10 @@ def main() -> int:
              "VT eval (run_inference, llava.generate)":
                  vt_gen["eval_launches"],
              "VT HTTP front (serve)": vt_http["launches"],
-             "VT step": vt_train["launches_per_step"]}
+             "VT step": vt_train["launches_per_step"],
+             "finetune CLI step": p15["finetune"]["launches_per_step"],
+             "train_vt CLI step": p15["train_vt"]["launches_per_step"],
+             "pretrain CLI step": p15["pretrain"]["launches_per_step"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -4200,8 +4892,9 @@ def main() -> int:
                     "boft": boft, "rank_check": rank_check,
                     "rank_train": rank, "mm_generate": mm_gen,
                     "mm_train": mm_train, "vt_generate": vt_gen,
-                    "vt_http": vt_http, "vt_train": vt_train}))
-    log(f"[15] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "vt_http": vt_http, "vt_train": vt_train,
+                    "p15": p15_summary(p15)}))
+    log(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Decoder and training configs and config snapshots (port of
 ``moka_tpu/core/config.py``).
 
-What the ported slices need: ``LlamaConfig`` with the presets the port
-runs, ``TrainConfig`` and ``dump_config``.  Frozen dataclasses, so configs
-hash and compare cleanly.
+``LlamaConfig`` with its presets, ``MeshConfig``, ``PrecisionConfig``,
+``TrainConfig`` and ``dump_config``, with the JAX package's fields and
+defaults.  Frozen dataclasses, so configs hash and compare cleanly.
 """
 
 from __future__ import annotations
@@ -48,11 +48,54 @@ class LlamaConfig:
         return LlamaConfig(vocab_size=vocab_size)
 
     @staticmethod
+    def llama2_13b(vocab_size: int = 32000) -> "LlamaConfig":
+        return LlamaConfig(vocab_size=vocab_size, dim=5120, n_layers=40,
+                           n_heads=40, n_kv_heads=40, intermediate=13824)
+
+    @staticmethod
+    def llama_34b(vocab_size: int = 32000) -> "LlamaConfig":
+        """CodeLlama-34B dims."""
+        return LlamaConfig(vocab_size=vocab_size, dim=8192, n_layers=48,
+                           n_heads=64, n_kv_heads=8, intermediate=22016,
+                           max_seq_len=4096, rope_theta=1e6)
+
+    @staticmethod
+    def llama2_70b(vocab_size: int = 32000) -> "LlamaConfig":
+        return LlamaConfig(vocab_size=vocab_size, dim=8192, n_layers=80,
+                           n_heads=64, n_kv_heads=8, intermediate=28672,
+                           max_seq_len=4096)
+
+    @staticmethod
     def tiny(vocab_size: int = 256, n_layers: int = 2) -> "LlamaConfig":
         """Small config for tests: 2 layers, dim 64, GQA 4:2."""
         return LlamaConfig(vocab_size=vocab_size, dim=64, n_layers=n_layers,
                            n_heads=4, n_kv_heads=2, intermediate=128,
                            max_seq_len=256)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes: ``data`` = pure data parallel, ``fsdp`` =
+    parameter-sharded data parallel, ``model`` = tensor parallel.  The port
+    runs on one device; the training CLIs refuse a product above 1."""
+
+    data: int = 1
+    fsdp: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.fsdp * self.model
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionConfig:
+    """bf16 compute with an fp32 master copy and optimizer state."""
+
+    param_dtype: str = "float32"       # master copy of trainables
+    frozen_dtype: str = "bfloat16"     # frozen base weights
+    compute_dtype: str = "bfloat16"
+    softmax_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +118,9 @@ class TrainConfig:
     seed: int = 42
     remat: bool = True                 # gradient checkpointing per layer
     remat_policy: str | None = None    # see models.llama.REMAT_POLICIES
-    rng_impl: str | None = None        # a JAX PRNG choice; unused here
+    rng_impl: str | None = None        # a JAX PRNG choice: recorded in
+                                       # saved_config.json, one dropout
+                                       # generator here (core.rng)
     log_every: int = 1
     save_every_steps: float = 0        # 0 = only final; 0<x<1 = fraction
                                        # of total steps

@@ -142,8 +142,13 @@ def patchify_fbank(fbank: torch.Tensor, patch: int) -> torch.Tensor:
 
 def _pos_conv(x: torch.Tensor, params: dict, cfg: BeatsConfig
               ) -> torch.Tensor:
-    """Grouped conv positional embedding, SamePad trim, exact GELU."""
-    y = F.conv1d(x.transpose(1, 2), params["pos_conv_w"],
+    """Grouped conv positional embedding, SamePad trim, exact GELU.  A
+    kernel of another dtype than x (the importer's tree: a bf16 kernel
+    after fp32 dense layers) promotes both, as ``layers.dense`` does; the
+    JAX convolution raises there."""
+    w = params["pos_conv_w"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = F.conv1d(x.transpose(1, 2).to(dt), w.to(dt),
                  padding=cfg.conv_pos // 2, groups=cfg.conv_pos_groups)
     y = y + params["pos_conv_b"][None, :, None]
     if cfg.conv_pos % 2 == 0:

@@ -22,13 +22,16 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
 def dense(x: torch.Tensor, p: dict, a8: bool = False) -> torch.Tensor:
     """x @ w + b.  ``p["w"]`` may be a quantized dict (``quantize_encoder``):
     with ``a8``, an int8 weight and a 3-D x, the W8A8 product
-    (``qmatmul_a8``), else the weight-only one (``qmatmul``)."""
+    (``qmatmul_a8``), else the weight-only one (``qmatmul``).  A plain
+    weight of another dtype than x (the importers' trees: bf16 embeddings,
+    fp32 layers) promotes both operands, as ``jnp.einsum`` does."""
     w = p["w"]
     if is_quantized(w):
         if a8 and "w_i8" in w and x.dim() == 3:
             return qmatmul_a8(x, w) + p["b"]
         return qmatmul(x, w) + p["b"]
-    return torch.matmul(x, w) + p["b"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt)) + p["b"]
 
 
 def stacked_layer(layers: dict, i: int) -> dict:

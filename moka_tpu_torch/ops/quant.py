@@ -387,3 +387,41 @@ def init_llama_params_quantized(generator: torch.Generator, cfg,
             "final_norm": torch.ones((cfg.dim,), dtype=torch.bfloat16,
                                      device=dev),
             "lm_head": lm_head}
+
+
+def import_llama_quantized(sd: dict, cfg, bits: int = 8,
+                           head_bits: int | None = None, *,
+                           device=None) -> dict:
+    """Checkpoint import straight to int8/int4: each layer's projection
+    weight is cast to bf16 on ``device`` (default: the card), quantized and
+    written into the preallocated codes, so no bf16 projection family is
+    ever whole.  Codes and scales equal ``quantize_llama_base(import_llama(
+    sd))``'s bit for bit: the scale reduces over d_in within a layer."""
+    from moka_tpu_torch.core.device import resolve_device
+    from moka_tpu_torch.models.llama import _proj_shapes
+    from moka_tpu_torch.train.import_torch import llama_weight, llama_whole
+    dev = resolve_device(device)
+    n = cfg.n_layers
+    quant = {8: quantize_int8, 4: quantize_int4}[bits]
+    layers = {}
+    for name in _proj_shapes(cfg):
+        codes = None
+        for i in range(n):
+            q = quant(llama_weight(sd, name, i, dev).to(torch.bfloat16))
+            if codes is None:
+                codes = {k: torch.empty((n, *v.shape), dtype=v.dtype,
+                                        device=dev) for k, v in q.items()}
+            for k, v in q.items():
+                codes[k][i].copy_(v)
+        layers[name] = codes
+    for name in ("attn_norm", "mlp_norm"):
+        layers[name] = torch.stack([
+            llama_weight(sd, name, i, dev).to(torch.bfloat16)
+            for i in range(n)])
+    lm_head = llama_whole(sd, "lm_head", torch.bfloat16, dev)
+    if head_bits:
+        lm_head = {8: quantize_int8, 4: quantize_int4}[head_bits](lm_head)
+    return {"embed": llama_whole(sd, "embed", torch.bfloat16, dev),
+            "layers": layers,
+            "final_norm": llama_whole(sd, "final_norm", torch.bfloat16, dev),
+            "lm_head": lm_head}

@@ -39,9 +39,9 @@ def make_llama_moka_loss(cfg: LlamaConfig, spec: MokaSpec,
     raise."""
     for flag, value, item in (
             ("context_parallel", context_parallel is not None,
-             "module item 10, parallelism"),
+             "module item 4, parallelism"),
             ("host_stream", host_stream is not None,
-             "module item 10, parallelism")):
+             "module item 4, parallelism")):
         if value:
             raise NotImplementedError(_NOT_PORTED.format(flag, item))
 

@@ -1,0 +1,214 @@
+"""The port's three training CLIs (``cli/{finetune,train_vt,pretrain}.py``)
+at tiny size on the CPU, from checkpoint files to exported artifacts, and
+the JAX package reading those artifacts back.
+
+The life cycle is ``chip_smoke.py``'s phase 15 run at the CLIs' tiny
+preset with ``--device cpu`` (its rehearsal): LLaMA, CLIP and BEATs
+checkpoints written from a seed in bf16 and read back exactly by every
+importer; ``finetune`` with the AVT shipping flags for 3 steps, a second
+invocation that resumes from step 3, and the step-2 checkpoint stepped on
+batch 3 to the uninterrupted step-3 loss; ``train_vt`` with the VT
+shipping flags; ``pretrain --branch visual`` (the JAX driver hard-codes
+``avt_7b``; here that preset is the tiny config).  The JAX importers must
+read the port's ``adapter_model.bin``, ``non_lora_trainables.bin`` and
+``model.safetensors`` back to the port's final parameters exactly.
+"""
+
+import contextlib
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from moka_tpu.core.config import LlamaConfig as JLlamaConfig
+from moka_tpu.models import unified as junified
+from moka_tpu.models.llava import LlavaConfig as JLlavaConfig
+from moka_tpu.train import import_torch as jimp
+from moka_tpu_torch.convert import params_from_numpy
+from moka_tpu_torch.core.config import LlamaConfig
+from moka_tpu_torch.models import unified
+
+ROOT = Path(__file__).resolve().parents[1]
+VOCAB = 32011  # the SentencePiece model's 32000 pieces + 11 special tokens
+
+
+@contextlib.contextmanager
+def one_thread():
+    """One torch and one BLAS thread.  These runs are many small ops: in
+    the parallel test run (a worker on every core) idle intra-op threads
+    spin against the other workers' (the life cycle beside 7 busy
+    processes: 174 s with torch's default threads, 31 s with one, 12 s
+    alone)."""
+    from threadpoolctl import threadpool_limits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    return cs
+
+
+@pytest.fixture(scope="module")
+def life_cycle(chip_smoke, tmp_path_factory):
+    def tiny_avt(vocab_size=VOCAB, spec=None):
+        t = unified.UnifiedConfig.tiny(spec)
+        return dataclasses.replace(t, llama=LlamaConfig.tiny(
+            vocab_size=vocab_size))
+
+    work = tmp_path_factory.mktemp("p15")
+    with one_thread(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(unified.UnifiedConfig, "avt_7b", staticmethod(tiny_avt))
+        return chip_smoke.phase15(work, device="cpu", tiny=True)
+
+
+def _same(got, want, path=""):
+    """Port tensors against a JAX tree carried over: exact."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same(got[k], want[k], f"{path}/{k}")
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, path
+    assert torch.equal(got, want), path
+
+
+def _jax(tree):
+    return params_from_numpy(jax.tree.map(np.asarray, tree), "cpu")
+
+
+def test_life_cycle_runs(life_cycle):
+    res = life_cycle
+    assert res["format"] == "safetensors"
+    assert res["resume_parity"]["abs_diff"] == 0.0
+    assert "[trainer] resumed from step 3" in \
+        res["finetune_resumed"]["stdout"]
+    for cli, steps in (("finetune", 3), ("finetune_resumed", 3),
+                       ("train_vt", 3), ("pretrain", 2)):
+        rec = res[cli]
+        assert rec["steps"] == steps and np.all(np.isfinite(rec["losses"]))
+        assert rec["import_s"] is not None
+        assert not any(rec["launches_per_step"].values())  # the CPU
+
+
+def test_finetune_artifacts_read_back_by_jax(life_cycle):
+    out = life_cycle["finetune_out"]
+    params = life_cycle["finetune_resumed_params"]
+    jcfg = JLlamaConfig.tiny(vocab_size=VOCAB)
+    sd = jimp.load_torch(str(out / "adapter_model.bin"))
+    _same(params["adapters"],
+          _jax(jimp.import_moka_adapters_avt(sd, jcfg, 3, 4)))
+    sd = jimp.load_torch(str(out / "non_lora_trainables.bin"))
+    assert all(k.startswith("base_model.model.model.") for k in sd)
+    ucfg = junified.UnifiedConfig.tiny()
+    for key, kind in (("vl_projector", "visual"), ("al_projector", "audio")):
+        back = jimp.import_projector(jimp.strip_to_submodule(sd, f"{key}."),
+                                     getattr(ucfg, key), kind=kind)
+        _same(params[key], _jax(back), key)
+
+
+def test_train_vt_safetensors_read_back_by_jax(life_cycle):
+    out = life_cycle["train_vt_out"]
+    params = life_cycle["train_vt_params"]
+    jcfg = JLlavaConfig.tiny()
+    jcfg = dataclasses.replace(jcfg, llama=JLlamaConfig.tiny(
+        vocab_size=VOCAB))
+    sd = jimp.load_torch(str(out / "model.safetensors"))  # safetensors.numpy
+    back = jimp.import_vt_trainable(sd, jcfg, {})
+    _same(params, _jax(back))
+
+
+def test_pretrain_stage1_artifacts_read_back_by_jax(life_cycle):
+    out = life_cycle["pretrain_out"]
+    params = life_cycle["pretrain_params"]
+    sd = jimp.load_torch(str(out / "non_lora_trainables.bin"))
+    assert all(k.startswith("model.") for k in sd)
+    assert not (out / "adapter_model.bin").exists()
+    ucfg = junified.UnifiedConfig.tiny()
+    for key, kind in (("vl_projector", "visual"), ("al_projector", "audio")):
+        back = jimp.import_projector(jimp.strip_to_submodule(sd, f"{key}."),
+                                     getattr(ucfg, key), kind=kind)
+        _same(params[key], _jax(back), key)
+
+
+def _tiny_assets(life_cycle):
+    data = life_cycle["finetune_out"].parent / "data"
+    return data / "tokenizer.model", data / "avqa.json"
+
+
+def test_finetune_loftq_quantized(life_cycle, tmp_path):
+    """--quantize-base 4 --loftq-iters 2 on the tiny random base: LoftQ
+    adapters (B non-zero at step 0) train and export."""
+    from moka_tpu_torch.cli.finetune import main
+    tok, ann = _tiny_assets(life_cycle)
+    with one_thread():
+        trainer, _ = main(["--tokenizer-json", str(tok),
+                           "--avqa-annotation", str(ann),
+                           "--output-dir", str(tmp_path / "run"),
+                           "--model-preset", "tiny", "--global-batch", "4",
+                           "--epochs", "1", "--pad-to", "256",
+                           "--quantize-base", "4", "--loftq-iters", "2",
+                           "--device", "cpu"])
+    assert trainer.state.step == 3
+    sd = torch.load(tmp_path / "run" / "adapter_model.bin",
+                    weights_only=True)
+    b_keys = [k for k in sd if ".lora_B0.weight" in k]
+    assert b_keys and any(float(sd[k].abs().max()) > 0 for k in b_keys)
+    q = trainer.frozen["llama"]["layers"]["q"]
+    assert set(q) == {"w_i4", "scale"}
+
+
+@pytest.mark.parametrize("cli,extra", [
+    ("finetune", ["--mesh", "1,2,1"]), ("finetune", ["--host-offload"]),
+    ("train_vt", ["--mesh", "2,1,1"]), ("train_vt", ["--host-offload"]),
+    ("pretrain", ["--mesh", "1,1,2"])])
+def test_parallelism_flags_refused(cli, extra):
+    import importlib
+    main = importlib.import_module(f"moka_tpu_torch.cli.{cli}").main
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, module item 4, parallelism"):
+        main(extra + ["--device", "cpu"])
+
+
+def test_one_device_meshes_accepted():
+    from moka_tpu_torch.cli.finetune import mesh_from_flag
+    for flag in ("fsdp", "data", "1,1,1"):
+        assert mesh_from_flag(flag).num_devices == 1
+
+
+def test_objectives_name_the_parallelism_item():
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    for kw in ({"context_parallel": object()}, {"host_stream": {}}):
+        with pytest.raises(NotImplementedError,
+                           match=r"\(ROADMAP.md, module item 4, "
+                                 r"parallelism\)"):
+            make_llama_moka_loss(LlamaConfig.tiny(), MokaSpec.avt(), **kw)
+
+
+def test_cli_flags_match_jax():
+    """The same flags with the same defaults, plus ``--device``."""
+    import importlib
+    for cli in ("finetune", "train_vt", "pretrain"):
+        tp = importlib.import_module(
+            f"moka_tpu_torch.cli.{cli}").build_argparser()
+        jp = importlib.import_module(f"moka_tpu.cli.{cli}").build_argparser()
+        tacts = {a.dest: a for a in tp._actions}
+        jacts = {a.dest: a for a in jp._actions}
+        assert set(tacts) - set(jacts) == {"device"}, cli
+        assert tacts["device"].default == "cuda"
+        for dest, a in jacts.items():
+            b = tacts[dest]
+            assert (b.default, b.const, b.choices, b.nargs, b.type) == \
+                (a.default, a.const, a.choices, a.nargs, a.type), (cli, dest)
