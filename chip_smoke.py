@@ -83,7 +83,17 @@ Phases, in order; any failed build, launch or check exits non-zero:
      µs a call); kernel 1 at the CLIP
      tower's shape (b*t 40 and 80 frames, 257 tokens, 16 heads, head_dim
      64, non-causal, every key valid) and a ragged one with padded keys
-     (library: ``scaled_dot_product_attention`` without a mask);
+     (library: ``scaled_dot_product_attention`` without a mask); the
+     decode kernel (``paged_decode.cu``) at DECODE_CASES (the 7B serving
+     shape b 8, S 1024, length 928 with pads 0-6 and a row without keys;
+     infer's and eval_vt's cache, S 1280, length 1025: five chunks, the
+     last holding one key; the llama2_70b heads, GQA 64:8; one chunk), on
+     bf16 and int8 caches with a poisoned tail, rows without keys reading
+     0, and on both 7B serving cases 20 repeats bit-identical and the
+     mutants (DECODE_MUTANTS: vs dropped, the last chunk left out of the
+     merge) failing
+     (library: SDPA over the valid prefix with the boolean mask, the int8
+     prefix dequantized first);
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -93,7 +103,13 @@ Phases, in order; any failed build, launch or check exits non-zero:
      base (what ``moka_tpu/cli/infer.py --lora-r 8`` serves): the prefill
      logits under the same rule, ``greedy_generate`` and one ``DecodeEngine``
      request with their defaults, each through kernel 5 (224 launches a
-     prefill);
+     prefill); then ``greedy_generate`` with ``paged_decode`` on a bf16
+     and an int8 cache (32 decode-kernel launches a decode step), and the
+     decode logits teacher-forced on the eager bf16 path's tokens: paged
+     against eager on the same cache within KV_KERNEL_TOL, the int8 cache
+     against the bf16 one within KV8_LOGIT_TOL, the decode kernel's
+     mutants beyond both; every decode path's launch counts include the decode kernel
+     where ``paged_decode_auto`` takes it;
   5. ``serve_continuous`` over a ``DecodeEngine``: three concurrent
      /generate requests of different prompt buckets and one
      /generate_stream request, each answered with its full token count;
@@ -194,7 +210,18 @@ Phases, in order; any failed build, launch or check exits non-zero:
      visual``, 2 steps, no kernel launched, the stage-1 artifacts read
      back exactly; each CLI's wall, import seconds, step median, tokens/s
      and peak memory printed;
- 16. one JSON line with every kernel's numbers, then the card's line.
+ 16. (inside phase 15's work directory, before it is removed) inference
+     from checkpoint files (``phase16``): ``infer`` with the int4 base,
+     int8 head, b 8 and 32 new tokens on the 12 AVQA items, with a bf16
+     and an int8 cache (kernels 1 and 5 and the decode kernel asserted a
+     generate, each JSONL scored by ``score``, the first batch timed
+     again), ``infer --serve --continuous --kv-quant`` in a process of its
+     own answering three HTTP requests, ``eval_vt`` on ``train_vt``'s
+     ``model.safetensors`` over phase 14's MMBench items with its scores
+     written, and the decode step eager against paged on bf16 and int8
+     caches of 512-4096 cells (``paged_decode_auto``'s readings, which
+     must give its answer: paged faster in most pairings on each cache);
+ 17. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -339,6 +366,7 @@ def _wrappers() -> dict:
     from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
     from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
+    from moka_tpu_torch.ops.paged_decode import paged_decode_attention
     return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
@@ -349,30 +377,36 @@ def _wrappers() -> dict:
             "block_diag": fbd.block_diag_matmul,
             "flash_rank_fwd": fa.flash_rank_fwd,
             "flash_rank_bwd_dq": fa.flash_rank_bwd_dq,
-            "flash_rank_bwd_dkv": fa.flash_rank_bwd_dkv}
+            "flash_rank_bwd_dkv": fa.flash_rank_bwd_dkv,
+            "paged_decode": paged_decode_attention}
 
 
 def _counts() -> dict:
-    """Launches by kernel name, and ``flash_fwd_hd64``: those of the flash
+    """Launches by kernel name, ``flash_fwd_hd64``: those of the flash
     forward at head_dim 64 (the CLIP tower), which ``flash_fwd`` counts
-    too."""
+    too, and ``paged_decode_int8``: the decode kernel's on an int8 cache,
+    which ``paged_decode`` counts too."""
     from moka_tpu_torch.ops.flash_attention import flash_fwd
+    from moka_tpu_torch.ops.paged_decode import paged_decode_attention
     out = {name: fn.launches for name, fn in _wrappers().items()}
     out["flash_fwd_hd64"] = flash_fwd.launches_by_head_dim.get(64, 0)
+    out["paged_decode_int8"] = paged_decode_attention.int8_launches
     return out
 
 
 def _zero_counts() -> None:
     from moka_tpu_torch.ops.flash_attention import flash_fwd
+    from moka_tpu_torch.ops.paged_decode import paged_decode_attention
     for fn in _wrappers().values():
         fn.launches = 0
     flash_fwd.launches_by_head_dim.clear()
+    paged_decode_attention.int8_launches = 0
 
 
 def _launches(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` kernels, every other 0."""
-    return {name: nonzero.get(name, 0)
-            for name in (*_wrappers(), "flash_fwd_hd64")}
+    return {name: nonzero.get(name, 0) for name in
+            (*_wrappers(), "flash_fwd_hd64", "paged_decode_int8")}
 
 
 # ------------------------------------------------------------------ phase 2
@@ -587,12 +621,19 @@ CE_FWD_MUTANTS = {  # fused_ce.cu (kernel 8)
          "  for (int u0 = 0; u0 < UNITS_EACH / 2; u0 += CONVERT_UNROLL) {")],
     "drops the phantom-column mask": [
         ("      if (v_sub + TV > a.v_real)\n", "      if (false)\n")]}
+DECODE_MUTANTS = {  # paged_decode.cu
+    "drops the value scales vs": [("      wg[j] = p * vs;",
+                                   "      wg[j] = p;")],
+    "leaves the last chunk out of the merge": [
+        ("      for (int s = 0; s < a.n_split; ++s) {",
+         "      for (int s = 0; s < a.n_split - 1; ++s) {")]}
 MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu",
                                   {**RANK_MUTANTS, **RANK_BWD_MUTANTS}),
                   "block_diag": ("block_diag.cu", BD_MUTANTS),
                   "moka_delta_fwd": ("moka_delta_fwd.cu", MOKA_MUTANTS),
                   "fused_dropout": ("fused_dropout.cu", DROP_MUTANTS),
-                  "fused_ce": ("fused_ce.cu", CE_FWD_MUTANTS)}
+                  "fused_ce": ("fused_ce.cu", CE_FWD_MUTANTS),
+                  "paged_decode": ("paged_decode.cu", DECODE_MUTANTS)}
 MUTANTS: dict = {}  # library name: {fault: loaded library}, after phase 2
 
 
@@ -605,7 +646,9 @@ def swapped_library(name, lib):
     from moka_tpu_torch.ops import fused_ce as fc
     from moka_tpu_torch.ops import fused_dropout as fd
     from moka_tpu_torch.ops import moka_pallas as mp
-    own = {"block_diag": fbd, "moka_delta_fwd": mp, "fused_dropout": fd}
+    from moka_tpu_torch.ops import paged_decode as pd
+    own = {"block_diag": fbd, "moka_delta_fwd": mp, "fused_dropout": fd,
+           "paged_decode": pd}
     by_name = fc if name.startswith("fused_ce") else fa  # _libs by name
     if name in own:
         kept = own[name]._library()
@@ -2130,6 +2173,299 @@ def rank_flash_records(b, L) -> list[dict]:
     return records
 
 
+# ----------------------------------------------- phase 3: the decode kernel
+
+DECODE_TOL = FLASH_OUT_TOL  # kernel 1's rule, per element: both sides sum
+                  # in fp32 (the kernel in base 2 on a prescaled q, in other
+                  # orders) and round out to bf16 once
+DECODE_CASES = (  # name, (B, H, K, S, length), left pads, rows without keys
+    ("7B serving", (8, 32, 32, 1024, 928), (0, 1, 2, 3, 4, 5, 6), (7,)),
+    ("7B serving, infer and eval_vt's cache (pad-to 1024 + 32)",
+     (8, 32, 32, 1280, 1025), (0, 7, 1, 6, 2, 5, 3, 0), (4,)),
+    ("llama2_70b heads, GQA 64:8", (4, 64, 8, 1024, 700), (0, 3, 0, 9),
+     (2,)),
+    ("one chunk", (2, 32, 32, 256, 200), (0, 5), ()))
+DECODE_LAYERS = 2  # layers of a checked cache; the kernel reads layer 1
+DECODE_REPEATS = 20  # launches on one input, all bit-identical: the chunks
+                     # merge in chunk order whichever CTA comes last
+DECODE_SERVING = DECODE_CASES[:2]  # the repeats' and the mutants' cases:
+                     # four chunks with a 160-key tail, and five with a
+                     # one-key tail (phase 16's first decode step)
+
+
+def decode_case(B, H, K, S, length, pads, dead, quantized, seed):
+    """q (B, 1, H, 128) bf16 and a (DECODE_LAYERS, B, S, K, 128) cache from
+    ``seed``, bf16 or int8 (``_kv_quantize``'s codes and scales), its
+    cells at and past ``length`` poisoned (k +1e6, v -1e6); an int32 mask
+    with row i's first pads[i] keys masked and the ``dead`` rows fully
+    masked."""
+    import torch
+    from moka_tpu_torch.models.llama import _kv_quantize
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, 1, H, 128), generator=g, device="cuda").bfloat16()
+    shape = (DECODE_LAYERS, B, S, K, 128)
+    k = torch.randn(shape, generator=g, device="cuda")
+    v = torch.randn(shape, generator=g, device="cuda")
+    k[:, :, length:] = 1e6
+    v[:, :, length:] = -1e6
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    for i, p in enumerate(pads):
+        mask[i, :p] = 0
+    for i in dead:
+        mask[i] = 0
+    if not quantized:
+        return q, k.bfloat16(), v.bfloat16(), mask
+    (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+    return q, {"q": kq, "s": ks}, {"q": vq, "s": vs}, mask
+
+
+def check_decode(name, q, ck, cv, mask, length, layer=1) -> float:
+    """The decode kernel against ``paged_decode_attention_plain`` on the
+    rows that see a key (DECODE_TOL); a row that sees no key must read out
+    exactly 0 (the plain loop gives it the mean of the values it walked);
+    every value finite (the poisoned tail is never read)."""
+    import torch
+    from moka_tpu_torch.ops.paged_decode import (
+        paged_decode_attention, paged_decode_attention_plain)
+    out = paged_decode_attention(q, ck, cv, mask, layer, length)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_plain(q, ck, cv, mask, layer, length)
+    rows = (mask[:, :length] > 0).any(dim=1)
+    atol, rtol = DECODE_TOL
+    diff = (out.float() - ref.float()).abs()[rows]
+    excess = float((diff - rtol * ref.float().abs()[rows]).max())
+    d_out = float(diff.max())
+    dead_ok = bool((out[~rows] == 0).all())
+    finite = bool(torch.isfinite(out).all())
+    log(f"  decode {name}: q {tuple(q.shape)} length {length}: max|err| "
+        f"{d_out:.3e}, max(|err| - {rtol:.4g}|plain|) {excess:.3e} (tol "
+        f"{atol}), rows with keys {int(rows.sum())}/{rows.numel()}, rows "
+        f"without keys out 0: {dead_ok}, finite {finite}")
+    if not (excess <= atol and dead_ok and finite):
+        raise AssertionError(f"decode kernel disagrees with its plain "
+                             f"version ({name})")
+    return d_out
+
+
+def decode_records() -> list[dict]:
+    """The decode kernel on DECODE_CASES, bf16 and int8 caches (length not
+    a multiple of 256, a poisoned tail, left pads, a row without keys);
+    on each DECODE_SERVING case with an int8 cache, DECODE_REPEATS launches
+    bit-identical and each DECODE_MUTANTS fault failing; then timed at the
+    7B serving shape on each cache beside the
+    plain loop and the library call, SDPA over the valid prefix with the
+    boolean mask (the int8 cache dequantized first, in the same call's
+    time).  The bound: the visible key rows' k and v bytes (and scales),
+    q and out, at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops.paged_decode import (
+        paged_decode_attention, paged_decode_attention_plain)
+    err = {False: 0.0, True: 0.0}
+    for i, (name, shape, pads, dead) in enumerate(DECODE_CASES):
+        for quantized in (False, True):
+            case = decode_case(*shape, pads, dead, quantized, seed=40 + i)
+            err[quantized] = max(err[quantized], check_decode(
+                f"{name}, {'int8' if quantized else 'bf16'} cache", *case,
+                shape[4]))
+    for i, (name, shape, pads, dead) in enumerate(DECODE_SERVING):
+        length = shape[4]
+        q, ck, cv, mask = decode_case(*shape, pads, dead, True, seed=50 + i)
+        first = paged_decode_attention(q, ck, cv, mask, 1, length)
+        same = all(torch.equal(first, paged_decode_attention(
+            q, ck, cv, mask, 1, length)) for _ in range(DECODE_REPEATS))
+        log(f"  decode {name}, int8: {DECODE_REPEATS} more launches "
+            f"bit-identical: {same}")
+        if not same:
+            raise AssertionError("decode kernel: repeated launches differ")
+        for what, lib in MUTANTS["paged_decode"].items():
+            with swapped_library("paged_decode", lib):
+                must_fail(f"decode kernel mutant ({what}), {name}",
+                          lambda: check_decode(f"{name}, int8, mutant", q,
+                                               ck, cv, mask, length))
+        del q, ck, cv, mask
+    name, shape, pads, dead = DECODE_CASES[0]
+    B, H, K, S, length = shape
+    records = []
+    for quantized in (False, True):
+        q, ck, cv, mask = decode_case(*shape, pads, dead, quantized, seed=45)
+        qs = q.transpose(1, 2)
+        bmask = (mask[:, :length] > 0)[:, None, None, :]
+
+        def prefix(side):
+            if isinstance(side, dict):
+                side = (side["q"][1, :, :length].float() *
+                        side["s"][1, :, :length]).bfloat16()
+            else:
+                side = side[1, :, :length]
+            return side.transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, prefix(ck), prefix(cv), attn_mask=bmask, enable_gqa=True)
+
+        rows = bmask[:, 0, 0].any(dim=1)
+        ref = paged_decode_attention_plain(q, ck, cv, mask, 1, length)
+        lib_err = float((library().transpose(1, 2).float() - ref.float())
+                        .abs()[rows].max()) / float(ref.float().abs().max())
+        if lib_err > SAME_FUNCTION_TOL:
+            raise AssertionError(f"the decode yardstick computes another "
+                                 f"function: {lib_err:.3e}")
+        ms = time_ms(lambda: paged_decode_attention(q, ck, cv, mask, 1,
+                                                    length),
+                     iters=50, warmup=5)
+        plain_ms = time_ms(lambda: paged_decode_attention_plain(
+            q, ck, cv, mask, 1, length), iters=5, warmup=1)
+        lib_ms = time_ms(library, iters=50, warmup=5)
+        visible = int(bmask.sum())            # (sample, key) pairs
+        row_bytes = 128 * (1 if quantized else 2) + (4 if quantized else 0)
+        n_bytes = 2 * visible * K * row_bytes + 2 * nbytes(q)
+        bms, by = bound_ms(n_bytes, 4.0 * 128 * visible * H, FP32_FLOPS)
+        kind = "int8" if quantized else "bf16"
+        log(f"  decode timing {name}, {kind} cache: kernel {ms:.4f} ms "
+            f"({n_bytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms (its output within {lib_err:.2e} of "
+            f"the plain version's), bound {bms:.4f} ms ({by})")
+        records.append({
+            "name": "paged_decode" + ("_int8" if quantized else ""),
+            "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/paged_decode.cu",
+            "replaces": "moka_tpu/ops/paged_decode.py:40 (not a Pallas "
+                        "kernel; an XLA loop in JAX)",
+            "launches": None, "max_abs_err": err[quantized],
+            "tolerance": f"|err| <= {DECODE_TOL[0]} + "
+                         f"{DECODE_TOL[1]:.4g}|plain| on rows with keys; 0 "
+                         f"on rows without",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention over the valid prefix "
+                       "with the boolean mask, enable_gqa" +
+                       (", the int8 prefix dequantized first" if quantized
+                        else ""),
+            "shape": f"B {B}, H {H}, K {K}, S {S}, length {length}, one "
+                     f"layer, {kind} cache"})
+    return records
+
+
+def decode_launches(cfg, capacity: int, new_tokens: int,
+                    kv_quant: bool = False, calls: int = 1) -> dict:
+    """The decode kernel's launches of ``calls`` generate calls of
+    ``new_tokens`` at cache ``capacity``: one a layer each decode step when
+    ``paged_decode_auto`` takes the paged path, else none (``_launches``
+    keywords)."""
+    from moka_tpu_torch.eval.decode import paged_decode_auto
+    if not paged_decode_auto(cfg, capacity, kv_quant, device="cuda"):
+        return {}
+    n = calls * (new_tokens - 1) * cfg.n_layers
+    return {"paged_decode": n, **({"paged_decode_int8": n} if kv_quant
+                                  else {})}
+
+
+GATE_CAPACITIES = (512, 1024, 2048, 4096)  # paged_decode_auto's readings
+GATE_TURNS = 5   # rounds of eager, paged, paged, eager blocks a reading
+GATE_STEPS = 3   # decode steps a block, after one warm-up block a path
+
+
+def paged_gate_readings(cfg, spec, base, adapters, batch: int = 8,
+                        device: str = "cuda",
+                        capacities=GATE_CAPACITIES,
+                        steps: int = GATE_STEPS,
+                        turns: int = GATE_TURNS) -> dict:
+    """The measurements behind ``decode.paged_decode_auto``: the 7B decode
+    step (one token for ``batch`` lanes through ``llama.forward``, host
+    and card, synchronised) eager against paged, on a bf16 and an int8
+    cache of each capacities size holding random values, at position
+    capacity - 16: one warm-up block a path, then ``turns`` rounds of
+    eager, paged, paged, eager blocks of ``steps`` steps, so that each
+    round holds two pairings of an eager and a paged block side by side
+    (the host's drift falls on both alike).
+
+    The rule: paged on a cache when the paged block was faster in more
+    than half of that cache's pairings, pooled over every capacity
+    measured.  Returns {"bf16"|"int8": {"by_capacity": {capacity:
+    {"eager_ms", "paged_ms" (each path's median block), the blocks,
+    "paged_won" (its pairings)}}, "pairings", "paged_won", "paged" (the
+    rule's answer)}}."""
+    import torch
+    from moka_tpu_torch.models import llama
+    g = torch.Generator(device=device).manual_seed(17)
+    tok = torch.randint(3, cfg.vocab_size, (batch, 1), generator=g,
+                        device=device)
+    out: dict = {}
+    for kv_quant in (False, True):
+        kind = "int8" if kv_quant else "bf16"
+        rows = {}
+        for cap in capacities:
+            cache = llama.init_kv_cache(cfg, batch, cap, quantized=kv_quant,
+                                        device=device)
+            for side in (cache["k"], cache["v"]):
+                if kv_quant:
+                    side["q"].random_(-127, 128, generator=g)
+                    side["s"].fill_(0.02)
+                else:
+                    side.normal_(0.0, 1.0, generator=g)
+            pos = cap - 16
+            cache["length"] = pos
+            mask = torch.ones((batch, cap), dtype=torch.int32, device=device)
+            positions = torch.full((batch, 1), pos, device=device)
+            blocks: dict = {False: [], True: []}
+
+            def block(paged):
+                _sync(device)
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    llama.forward(base, cfg, adapters=adapters, spec=spec,
+                                  tokens=tok, attn_mask=mask,
+                                  positions=positions, cache=cache,
+                                  paged_decode=paged)
+                _sync(device)
+                return (time.perf_counter() - t0) / steps * 1e3
+
+            with torch.inference_mode():
+                block(False)
+                block(True)
+                for _ in range(turns):
+                    for paged in (False, True, True, False):
+                        blocks[paged].append(block(paged))
+            won = sum(p < e for e, p in zip(blocks[False], blocks[True]))
+            rows[cap] = {"eager_ms": float(np.median(blocks[False])),
+                         "paged_ms": float(np.median(blocks[True])),
+                         "eager_blocks_ms": blocks[False],
+                         "paged_blocks_ms": blocks[True], "paged_won": won}
+            del cache
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            log(f"  decode step b {batch}, {kind} cache of {cap}: eager "
+                f"{rows[cap]['eager_ms']:.2f} ms "
+                f"({min(blocks[False]):.2f}-{max(blocks[False]):.2f}), "
+                f"paged {rows[cap]['paged_ms']:.2f} ms "
+                f"({min(blocks[True]):.2f}-{max(blocks[True]):.2f}), "
+                f"medians of {len(blocks[True])} blocks of {steps} steps; "
+                f"paged faster in {won} of {len(blocks[True])} pairings")
+        n = sum(len(r["paged_blocks_ms"]) for r in rows.values())
+        won = sum(r["paged_won"] for r in rows.values())
+        out[kind] = {"by_capacity": rows, "pairings": n, "paged_won": won,
+                     "paged": 2 * won > n}
+        log(f"  {kind} cache: paged faster in {won} of {n} pairings over "
+            f"the capacities {list(capacities)}: paged {2 * won > n}")
+    return out
+
+
+def check_paged_gate(cfg, readings: dict, device: str) -> None:
+    """``decode.paged_decode_auto`` answers as the readings' rule does, at
+    every capacity measured, on both caches; raises otherwise."""
+    from moka_tpu_torch.eval.decode import paged_decode_auto
+    for kv_quant, kind in ((False, "bf16"), (True, "int8")):
+        rows = readings[kind]
+        auto = {c: paged_decode_auto(cfg, c, kv_quant, device=device)
+                for c in rows["by_capacity"]}
+        if any(a != rows["paged"] for a in auto.values()):
+            raise AssertionError(
+                f"paged_decode_auto on a {kind} cache answers {auto}, the "
+                f"readings {rows['paged']} (paged faster in "
+                f"{rows['paged_won']} of {rows['pairings']} pairings)")
+
+
 # ------------------------------------------------------------------ phase 4
 
 def build_model(cfg, spec, seed=0):
@@ -2227,12 +2563,13 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
 
 
 def main_path(gen, batch: int, new_tokens: int, vocab: int, want: dict,
-              what: str) -> dict:
+              what: str, warm: bool = False, prefill_runs: int = 3) -> dict:
     """Times ``gen(1)`` (the prefill and the head on its last row, no
-    decode step; median of three) and ``gen(new_tokens)`` (the main path:
-    launch counts zeroed just before, read just after, and required to
-    equal ``want``).  Decode = the difference; its cache is new_tokens - 1
-    positions longer."""
+    decode step; median of ``prefill_runs``) and ``gen(new_tokens)`` (the
+    main path: launch counts zeroed just before, read just after, and
+    required to equal ``want``), after a warm-up ``gen(new_tokens)``
+    unless the caller ran these shapes already (``warm``).  Decode = the
+    difference; its cache is new_tokens - 1 positions longer."""
     import torch
 
     def timed(n):
@@ -2243,8 +2580,10 @@ def main_path(gen, batch: int, new_tokens: int, vocab: int, want: dict,
         return toks, time.perf_counter() - t0
 
     with torch.inference_mode():
-        gen(new_tokens)  # warm-up
-        prefill_s = sorted(timed(1)[1] for _ in range(3))[1]
+        if not warm:
+            gen(new_tokens)
+        runs = sorted(timed(1)[1] for _ in range(prefill_runs))
+        prefill_s = runs[len(runs) // 2]
         _zero_counts()
         toks, total_s = timed(new_tokens)
         launches = _counts()
@@ -2261,6 +2600,111 @@ def main_path(gen, batch: int, new_tokens: int, vocab: int, want: dict,
     return {"launches": launches, "prefill_ms": prefill_s * 1e3,
             "decode_ms": (total_s - prefill_s) * 1e3, "decode_tok_s": tps,
             "total_ms": total_s * 1e3}
+
+
+KV8_LOGIT_TOL = 0.2  # each decode step's logits on the int8 cache, eager
+                  # or paged, against the bf16 cache's (eager), teacher-
+                  # forced on the same tokens, rel L2.  The codes round k and
+                  # v to 1/254 of a row's max, and 32 random layers amplify
+                  # any rounding: on the H100 the int8 cache read 0.105
+                  # paged and 0.109 eager, the vs-dropped mutant 1.375 (a
+                  # first limit of 5e-2, set before any reading, lay below
+                  # the bf16 cache's own 5.6e-2 through the kernel)
+KV_KERNEL_TOL = 0.1  # the same, the paged step against the eager one on the
+                  # same cache, bf16 or int8, where only the decode kernel
+                  # differs: bf16 read 5.6e-2 on the H100 before this limit
+                  # was set; int8 had not been read
+
+
+def paged_serving(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
+    """Phase 4's serving path through the decode kernel, on phase 4's base
+    and prompts: ``greedy_generate`` with ``paged_decode=True`` on a bf16
+    cache, then on an int8 one (``kv_quant``), each through ``main_path``
+    (one decode-kernel launch a layer a decode step asserted); the tokens
+    against the eager bf16 path's; then teacher-forced on the eager
+    path's tokens, every decode step's logits: the paged step within
+    KV_KERNEL_TOL rel L2 of the eager one on the same cache (bf16 and
+    int8), and the int8 cache (eager and paged) within KV8_LOGIT_TOL of
+    the bf16 cache (eager); each DECODE_MUTANTS fault, on the int8 cache,
+    must exceed both.  The tokens' agreement with the eager path's is
+    logged, not held: the random weights' logits are flat, and one
+    rounding flips a token that every later step then feeds back."""
+    import torch
+    from moka_tpu_torch.eval.decode import greedy_generate, prefill
+    from moka_tpu_torch.models import llama
+    n, b = cfg.n_layers, inputs["inputs_embeds"].shape[0]
+    kw = dict(cfg=cfg, spec=spec, max_new_tokens=new_tokens, eos_id=-1,
+              **inputs)
+    with torch.inference_mode():
+        eager = greedy_generate(base, adapters, paged_decode=False, **kw)
+    out = {}
+    for kv_quant in (False, True):
+        kind = "int8" if kv_quant else "bf16"
+        out[kind] = main_path(
+            lambda k, q=kv_quant: greedy_generate(
+                base, adapters, **dict(kw, max_new_tokens=k),
+                paged_decode=True, kv_quant=q), b, new_tokens,
+            cfg.vocab_size,
+            _launches(flash_fwd=n, moka_delta_fwd=7 * n,
+                      paged_decode=(new_tokens - 1) * n,
+                      paged_decode_int8=(new_tokens - 1) * n * kv_quant),
+            f"greedy_generate, paged, {kind} cache")
+        with torch.inference_mode():
+            toks = greedy_generate(base, adapters, paged_decode=True,
+                                   kv_quant=kv_quant, **kw)
+        out[kind]["tokens_as_eager"] = float((toks == eager).float().mean())
+
+    L = inputs["prompt_mask"].shape[1]
+    n_prompt = inputs["prompt_mask"].sum(dim=-1)
+
+    def forced(kv_quant, paged):
+        with torch.inference_mode():
+            _, cache, cmask = prefill(
+                base, adapters, cfg=cfg, spec=spec, **inputs,
+                max_new_tokens=new_tokens, use_flash=True,
+                use_fused_moka=True, kv_quant=kv_quant, paged_decode=paged)
+            steps = []
+            for t in range(new_tokens - 1):
+                cmask[:, L + t] = 1
+                logits, cache = llama.forward(
+                    base, cfg, adapters=adapters, spec=spec,
+                    inputs_embeds=base["embed"][eager[:, t:t + 1].long()],
+                    attn_mask=cmask, positions=(n_prompt + t)[:, None],
+                    cache=cache, paged_decode=paged)
+                steps.append(logits[:, -1].float())
+        return torch.stack(steps, dim=1)
+
+    def worst(got, ref):
+        return float(((got - ref).norm(dim=(0, 2)) /
+                      ref.norm(dim=(0, 2))).max())
+
+    ref, ref8 = forced(False, False), forced(True, False)
+    kernel = {"bf16": worst(forced(False, True), ref)}  # paged vs eager
+    paged8 = forced(True, True)
+    kernel["int8"] = worst(paged8, ref8)
+    cache8 = {"eager": worst(ref8, ref), "paged": worst(paged8, ref)}
+    mutants = {}
+    for what, lib in MUTANTS["paged_decode"].items():
+        with swapped_library("paged_decode", lib):
+            got = forced(True, True)
+        mutants[what] = {"vs int8 eager": worst(got, ref8),
+                         "vs bf16 eager": worst(got, ref)}
+    rel = {"kernel": kernel, "int8_cache": cache8, "mutants": mutants}
+    log(f"  teacher-forced decode logits, worst step's rel L2: paged "
+        f"against eager on the same cache {kernel} (limit {KV_KERNEL_TOL});"
+        f" the int8 cache against the bf16 one (eager) {cache8} (limit "
+        f"{KV8_LOGIT_TOL}); the mutants, which must exceed both, {mutants};"
+        f" tokens as the eager path's: bf16 paged "
+        f"{out['bf16']['tokens_as_eager']:.3f}, int8 paged "
+        f"{out['int8']['tokens_as_eager']:.3f}")
+    if not (max(kernel.values()) <= KV_KERNEL_TOL and
+            max(cache8.values()) <= KV8_LOGIT_TOL) or any(
+            not (m["vs int8 eager"] > KV_KERNEL_TOL and
+                 m["vs bf16 eager"] > KV8_LOGIT_TOL)
+            for m in mutants.values()):
+        raise AssertionError(f"decode logits through the kernel: {rel}")
+    out["forced_rel_l2"] = rel
+    return out
 
 
 OTHER_RANK = 8  # what moka_tpu/cli/infer.py --lora-r 8 serves on the TPU
@@ -2284,7 +2728,9 @@ def serve_other_rank(cfg, base, inputs, new_tokens,
     for p in adapters["layers"].values():
         p["b"].normal_(0.0, 0.02, generator=g)
     check_logits(cfg, spec, base, adapters, inputs, new_tokens)
-    want = _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers)
+    L = inputs["prompt_mask"].shape[1]
+    want = _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers,
+                     **decode_launches(cfg, L + new_tokens, new_tokens))
     b = inputs["inputs_embeds"].shape[0]
     with torch.inference_mode():
         _zero_counts()
@@ -2294,7 +2740,6 @@ def serve_other_rank(cfg, base, inputs, new_tokens,
     if gen_launches != want or tuple(toks.shape) != (b, new_tokens):
         raise AssertionError(f"rank {rank} greedy_generate: launches "
                              f"{gen_launches}, tokens {tuple(toks.shape)}")
-    L = inputs["prompt_mask"].shape[1]
     engine = DecodeEngine(base, adapters, cfg=cfg, spec=spec, n_slots=1,
                           cache_capacity=L + new_tokens, eos_id=-1,
                           cache_dtype=base["embed"].dtype)
@@ -3374,6 +3819,7 @@ def mm_generate(ucfg, frozen, trainable, batch_size=8,
     inputs = {"inputs_embeds": embeds, "prompt_mask": batch["attn_mask"],
               "masks": llama.MaskBundle(batch["modality_masks"],
                                         batch["question_mask"])}
+    capacity = embeds.shape[1] + new_tokens
     log(f"  prompts b {batch_size} L {embeds.shape[1]} "
         f"({int(batch['video_pos'].shape[1] + batch['audio_pos'].shape[1])}"
         f" multimodal tokens a prompt):")
@@ -3390,7 +3836,9 @@ def mm_generate(ucfg, frozen, trainable, batch_size=8,
     out = main_path(gen, batch_size, new_tokens, ucfg.llama.vocab_size,
                     _launches(flash_fwd=ucfg.llama.n_layers + n_clip,
                               flash_fwd_hd64=n_clip,
-                              moka_delta_fwd=7 * ucfg.llama.n_layers),
+                              moka_delta_fwd=7 * ucfg.llama.n_layers,
+                              **decode_launches(ucfg.llama, capacity,
+                                                new_tokens)),
                     f"unified.generate b {batch_size}")
     out.update(tower_check=tower, **stages,
                prefill_after_towers_ms=out["prefill_ms"] -
@@ -3785,7 +4233,9 @@ def vt_eval(vcfg, frozen, trainable, records, work: Path) -> tuple:
     log(f"  CLIP pass {stages['clip_ms']:.2f} ms, projector "
         f"{stages['projector_ms']:.2f} ms (b {pixels.shape[0]})")
     want = _launches(flash_fwd=n + sel, flash_fwd_hd64=sel,
-                     moka_delta_fwd=7 * n)
+                     moka_delta_fwd=7 * n, **decode_launches(
+                         vcfg.llama, batch["attn_mask"].shape[1] +
+                         VT_NEW_TOKENS, VT_NEW_TOKENS))
     timed = main_path(lambda k: llava.generate(
         trainable, frozen, vcfg, batch, max_new_tokens=k, eos_id=-1),
         len(ds), VT_NEW_TOKENS, vcfg.llama.vocab_size, want,
@@ -3838,6 +4288,7 @@ def vt_serve(vcfg, frozen, trainable, tok) -> dict:
     from moka_tpu_torch.eval.server import serve
     from moka_tpu_torch.models import llava
     nq, tokenize = vcfg.projector.num_query_tokens, tok.as_tokenize()
+    decode = {}  # the decode kernel's launches of the generate calls
 
     def generate_fn(items):
         out = [None] * len(items)
@@ -3849,6 +4300,10 @@ def vt_serve(vcfg, frozen, trainable, tok) -> dict:
             group = [items[i] for i in idx]
             batch = build_eval_batch(group, tokenize, nq) if with_image \
                 else text_batch(group, tokenize)
+            for k, v in decode_launches(
+                    vcfg.llama, batch["attn_mask"].shape[1] + VT_NEW_TOKENS,
+                    VT_NEW_TOKENS).items():
+                decode[k] = decode.get(k, 0) + v
             toks = llava.generate(trainable, frozen, vcfg, to_card(batch),
                                   max_new_tokens=VT_NEW_TOKENS, eos_id=-1,
                                   pad_id=tok.pad_id)
@@ -3892,7 +4347,7 @@ def vt_serve(vcfg, frozen, trainable, tok) -> dict:
     launches = _counts()
     n, sel = vcfg.llama.n_layers, vcfg.select_layer
     want = _launches(flash_fwd=2 * n + sel, flash_fwd_hd64=sel,
-                     moka_delta_fwd=2 * 7 * n)
+                     moka_delta_fwd=2 * 7 * n, **decode)
     log(f"  HTTP front: {len(answers)} requests in {wall:.2f} s: "
         f"{ {k: (s, o[:40]) for k, (s, o) in answers.items()} }; launches "
         f"{ {k: v for k, v in launches.items() if v} }")
@@ -4436,7 +4891,14 @@ def p15_summary(res: dict) -> dict:
     """Phase 15's numbers for the log line: no trees, paths or stdout."""
     return {k: ({f: x for f, x in v.items() if f != "stdout"}
                 if isinstance(v, dict) else v) for k, v in res.items()
-            if not k.endswith(("_params", "_out"))}
+            if not k.endswith(("_params", "_out")) and k != "files"}
+
+
+def p16_summary(res: dict) -> dict:
+    """Phase 16's numbers for the log line: no stdout or paths."""
+    return {k: ({f: str(x) if isinstance(x, Path) else x
+                 for f, x in v.items() if f != "stdout"}
+                if isinstance(v, dict) else v) for k, v in res.items()}
 
 
 def phase15(work: Path, device: str = "cuda", tiny: bool = False,
@@ -4618,7 +5080,269 @@ def phase15(work: Path, device: str = "cuda", tiny: bool = False,
     res["pretrain"] = rec
     res["pretrain_params"] = trainer.state.params
     res["pretrain_out"] = pt_out
+    res["files"] = {**{k: Path(v) for k, v in paths.items()},
+                    **{f"data_{k}": Path(v) for k, v in data.items()}}
     del trainer
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------- phase 16
+
+P16_NEW_TOKENS = 32  # new tokens a generate of infer (b 8, 12 AVQA items)
+P16_PROMPTS = ("How many instruments are playing?",
+               "What is the person doing in the video?",
+               "Which instrument is the loudest?")  # the HTTP requests
+
+
+@contextlib.contextmanager
+def per_generate(module, device: str, calls: list):
+    """Within: each ``module.generate`` call appends {"launches", "s",
+    "args", "kwargs"} to ``calls`` (launch counts zeroed just before the
+    call, read just after)."""
+    real = module.generate
+
+    def wrapped(*args, **kwargs):
+        _sync(device)
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        _sync(device)
+        calls.append({"launches": _counts(), "s": time.perf_counter() - t0,
+                      "args": args, "kwargs": kwargs})
+        return out
+
+    module.generate = wrapped
+    try:
+        yield real
+    finally:
+        module.generate = real
+
+
+def run_generating_cli(name: str, main_fn, argv: list, module, device: str,
+                       want: dict, new_tokens: int, smi: str) -> dict:
+    """An inference CLI's ``main(argv)`` with its stdout kept, its wall and
+    peak device memory, and every ``module.generate`` call's launches
+    required to equal ``want``; then the first call's batch timed again
+    (``main_path``, the CLI's calls its warm-up: 1 and ``new_tokens``
+    new tokens, decode = the difference)."""
+    import torch
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    calls: list = []
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with per_generate(module, device, calls) as real, \
+            contextlib.redirect_stdout(tee):
+        result = main_fn(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    bad = [c["launches"] for c in calls if c["launches"] != want]
+    log(f"  {name}: wall {wall:.2f} s, {len(calls)} generate calls "
+        f"({[round(c['s'], 3) for c in calls]} s), launches a call "
+        f"{ {k: v for k, v in calls[0]['launches'].items() if v} }, peak "
+        f"{peak / 2**30:.2f} GiB; {smi}")
+    if not calls or bad:
+        raise AssertionError(f"{name}: launches {bad}, want {want}")
+    generate_s = [c["s"] for c in calls]
+    args, kwargs = calls[0]["args"], dict(calls[0]["kwargs"], eos_id=-1)
+    calls.clear()
+    kwargs.pop("generator", None)
+    if "temperature" in kwargs:
+        kwargs["temperature"] = 0.0
+    timed = main_path(
+        lambda k: real(*args, **dict(kwargs, max_new_tokens=k)),
+        args[3]["attn_mask"].shape[0], new_tokens,
+        args[2].llama.vocab_size, want, f"{name}, its first batch again",
+        warm=True, prefill_runs=1) if on_card else {}
+    return {"wall_s": wall, "peak_memory_bytes": peak, "result": result,
+            "generate_s": generate_s, "launches_per_generate": want,
+            "stdout": tee.buf.getvalue(), **timed}
+
+
+def serve_subprocess(argv: list, device: str, prompts=P16_PROMPTS,
+                     timeout: float = 600.0) -> dict:
+    """``python -m moka_tpu_torch.cli.infer --serve --continuous`` in a
+    process of its own (its ``main`` serves until stopped), on an
+    OS-chosen port read from its "serving (continuous) on :PORT" line;
+    the ``prompts`` posted together to /generate must each answer 200 with
+    text; the process is terminated (killed if it lingers) in every
+    case."""
+    import os
+    import queue
+    cmd = [sys.executable, "-m", "moka_tpu_torch.cli.infer", *argv,
+           "--serve", "--continuous", "--port", "0"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if device != "cuda":
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    out, answers, port = [], {}, None
+    try:
+        while port is None:
+            line = lines.get(timeout=timeout)
+            out.append(line)
+            m = re.search(r"serving \(continuous\) on :(\d+)", line)
+            if m:
+                port = int(m.group(1))
+            if proc.poll() is not None and lines.empty():
+                raise AssertionError("the server exited: " + "".join(out))
+        ready_s = time.perf_counter() - t0
+
+        def post(i):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps({"prompt": prompts[i]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                answers[i] = (resp.status, json.loads(resp.read())["output"])
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=timeout)
+        wall = time.perf_counter() - t1
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    log(f"  infer --serve --continuous: ready in {ready_s:.1f} s, "
+        f"{len(answers)} requests in {wall:.2f} s: "
+        f"{ {i: (st, o[:40]) for i, (st, o) in answers.items()} }")
+    if sorted(answers) != list(range(len(prompts))) or any(
+            st != 200 or o.startswith("ERROR") for st, o in answers.values()):
+        raise AssertionError(f"continuous server answers {answers}: "
+                             + "".join(out)[-2000:])
+    return {"ready_s": ready_s, "wall_s": wall,
+            "statuses": [answers[i][0] for i in range(len(prompts))]}
+
+
+def phase16(work: Path, p15: dict, device: str = "cuda", tiny: bool = False,
+            smi: str = "") -> dict:
+    """Phase 16: inference from checkpoint files, inside phase 15's work
+    directory, on the LLaMA-2-7B, CLIP and BEATs files phase 15 wrote and
+    ``finetune``'s and ``train_vt``'s exported artifacts (``tiny``: the
+    CLIs' tiny preset, the rehearsal on the CPU).
+
+    (a) ``infer`` at the shipping serving flags (int4 base, int8 head, b 8,
+    P16_NEW_TOKENS new tokens) on phase 15's 12 AVQA items, with the cache
+    in bf16 and in int8 (``--kv-quant``): kernel 1, kernel 5 and the
+    decode kernel a generate asserted, each JSONL scored by ``score --task
+    avqa``, the first batch timed again; (b) ``infer --serve --continuous
+    --kv-quant`` answering P16_PROMPTS over HTTP; (c) ``eval_vt`` with
+    ``train_vt``'s ``model.safetensors`` on the MMBench items of phase 14
+    (its TSV), its scores written; (d) the measurements behind
+    ``paged_decode_auto`` on the int4 base ``infer`` imports."""
+    import torch
+    from moka_tpu_torch.cli import eval_vt, infer, score
+    from moka_tpu_torch.models import llava, unified
+    files, ft = p15["files"], p15["finetune_out"]
+    lcfg = p15_configs(tiny)[0]
+    pad_to = 256 if tiny else 1024
+    res: dict = {}
+    model = ["--llama-ckpt", str(files["llama"]),
+             "--clip-ckpt", str(files["clip"]),
+             "--model-preset", "tiny" if tiny else "7b",
+             "--pad-to", str(pad_to), "--device", device]
+    avt = model + ["--tokenizer-json", str(files["data_tokenizer"]),
+                   "--beats-ckpt", str(files["beats"]),
+                   "--adapter-ckpt", str(ft / "adapter_model.bin"),
+                   "--non-lora-ckpt", str(ft / "non_lora_trainables.bin"),
+                   "--quantize-base", "4", "--quantize-head", "8",
+                   "--max-new-tokens", str(P16_NEW_TOKENS)]
+    n = lcfg.n_layers
+    for kv_quant in (False, True):
+        kind = "int8" if kv_quant else "bf16"
+        out = work / f"infer_{kind}"
+        argv = avt + ["--annotation", str(files["data_avqa"]),
+                      "--batch-size", "8", "--output-dir", str(out)] + \
+            (["--kv-quant"] if kv_quant else [])
+        want = _launches() if device != "cuda" else _launches(
+            flash_fwd=n, moka_delta_fwd=7 * n, **decode_launches(
+                lcfg, pad_to + P16_NEW_TOKENS, P16_NEW_TOKENS, kv_quant))
+        log(f"  (a) infer {' '.join(argv)}")
+        rec = run_generating_cli(f"infer, {kind} cache", infer.main, argv,
+                                 unified, device, want, P16_NEW_TOKENS, smi)
+        rows = [json.loads(x) for x in Path(rec["result"]).read_text()
+                .splitlines()]
+        rec["scores"] = score.main(["--task", "avqa", "--path",
+                                    str(rec["result"])])
+        rec["predictions"] = [r["predict"] for r in rows]
+        log(f"  score --task avqa: {rec['scores']}; {len(rows)} rows, first "
+            f"prediction {rows[0]['predict'][:60]!r}")
+        if len(rows) != P15_SAMPLES or "overall" not in rec["scores"]:
+            raise AssertionError(f"infer ({kind}): {len(rows)} rows, scores "
+                                 f"{rec['scores']}")
+        res[f"infer_{kind}"] = rec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(res["infer_bf16"]["predictions"],
+                                   res["infer_int8"]["predictions"])]
+    res["int8_predictions_as_bf16"] = sum(same) / len(same)
+    log(f"  the int8 cache's predictions equal the bf16 cache's on "
+        f"{sum(same)} of {len(same)} items")
+
+    log("  (b) infer --serve --continuous --kv-quant")
+    res["serve"] = serve_subprocess(avt + ["--kv-quant"], device)
+
+    ds, _ = vt_eval_data(work / "mmbench")  # its tokenizer: the same
+    vt_out = work / "eval_vt"                # 32011 ids over its words
+    argv = model + ["--tokenizer-json",
+                    str(work / "mmbench" / "tokenizer.model"),
+                    "--task", "mmbench", "--data",
+                    str(work / "mmbench" / "mmbench.tsv"),
+                    "--model-ckpt", str(p15["train_vt_out"] /
+                                        "model.safetensors"),
+                    "--batch-size", "8", "--output-dir", str(vt_out)]
+    vt_new = eval_vt.MAX_NEW["mmbench"]
+    want = _launches() if device != "cuda" else _launches(
+        flash_fwd=n, moka_delta_fwd=7 * n, **decode_launches(
+            lcfg, pad_to + vt_new, vt_new))
+    log(f"  (c) eval_vt {' '.join(argv)}")
+    rec = run_generating_cli("eval_vt", eval_vt.main, argv, llava, device,
+                             want, vt_new, smi)
+    written = json.loads((vt_out / "scores_mmbench.json").read_text())
+    log(f"  eval_vt scores {rec['result']}")
+    if written != rec["result"] or written["total"] != len(ds):
+        raise AssertionError(f"eval_vt scores {written}")
+    res["eval_vt"] = rec
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    log("  (d) the decode step, eager against paged (paged_decode_auto's "
+        "readings), on the int4 base and adapters infer imports")
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.ops.quant import import_llama_quantized
+    from moka_tpu_torch.train import import_torch as imp
+    spec = MokaSpec.avt(rank=4, dropout_rate=0.0)
+    base = import_llama_quantized(imp.load_torch(str(files["llama"])), lcfg,
+                                  bits=4, head_bits=8, device=device)
+    adapters = imp.import_moka_adapters_avt(
+        imp.load_torch(str(ft / "adapter_model.bin")), lcfg, 3, 4,
+        device=device)
+    res["paged_gate"] = paged_gate_readings(
+        lcfg, spec, base, adapters, device=device,
+        capacities=(256,) if tiny else GATE_CAPACITIES,
+        steps=1 if tiny else GATE_STEPS, turns=1 if tiny else GATE_TURNS)
+    if device == "cuda":
+        check_paged_gate(lcfg, res["paged_gate"], device)
+    del base, adapters
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -4689,7 +5413,7 @@ def main() -> int:
                *dropout_records(4 * 1024, cfg.dim, cfg.intermediate),
                *ce_records(4 * 1023, cfg.dim, 32011),
                *block_diag_records(), *rank_flash_records(4, 1024),
-               clip_flash_record()]
+               clip_flash_record(), *decode_records()]
     mm_prefill_checks(records, new_tokens)
     torch.cuda.empty_cache()
 
@@ -4700,11 +5424,16 @@ def main() -> int:
     timings = main_path(
         lambda n: generate(cfg, spec, base, adapters, inputs, n), batch,
         new_tokens, cfg.vocab_size,
-        _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers),
+        _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers,
+                  **decode_launches(cfg, prompt_len + new_tokens,
+                                    new_tokens)),
         f"greedy_generate b {batch} prompt {prompt_len}")
     log(f"  a rank-{OTHER_RANK} adapter tree on the same base, "
         f"with the decode paths' defaults")
     other_rank = serve_other_rank(cfg, base, inputs, new_tokens)
+    log("  the decode steps through the decode kernel, on a bf16 and an "
+        "int8 cache")
+    paged = paged_serving(cfg, spec, base, adapters, inputs, new_tokens)
 
     log("[5] HTTP serving over the continuous-batching engine")
     served = serve_requests(cfg, spec, base, adapters, new_tokens=new_tokens)
@@ -4837,10 +5566,17 @@ def main() -> int:
     t15 = time.perf_counter()
     try:
         p15 = phase15(work, "cuda", smi=smi)
+        p15["phase_s"] = time.perf_counter() - t15
+        log(f"  phase 15 passed in {p15['phase_s']:.1f} s")
+        log("[16] inference from checkpoint files: the CLIs infer (bf16 and "
+            "int8 cache, the continuous HTTP server), eval_vt and score at "
+            "LLaMA-2-7B's full width and depth, on phase 15's files")
+        t16 = time.perf_counter()
+        p16 = phase16(work, p15, "cuda", smi=smi)
+        p16["phase_s"] = time.perf_counter() - t16
+        log(f"  phase 16 passed in {p16['phase_s']:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    p15["phase_s"] = time.perf_counter() - t15
-    log(f"  phase 15 passed in {p15['phase_s']:.1f} s")
 
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "rank-8 serving (greedy_generate)":
@@ -4863,7 +5599,16 @@ def main() -> int:
              "VT step": vt_train["launches_per_step"],
              "finetune CLI step": p15["finetune"]["launches_per_step"],
              "train_vt CLI step": p15["train_vt"]["launches_per_step"],
-             "pretrain CLI step": p15["pretrain"]["launches_per_step"]}
+             "pretrain CLI step": p15["pretrain"]["launches_per_step"],
+             "paged serving, bf16 cache (greedy_generate)":
+                 paged["bf16"]["launches"],
+             "paged serving, int8 cache (greedy_generate)":
+                 paged["int8"]["launches"],
+             "infer CLI generate, bf16 cache":
+                 p16["infer_bf16"]["launches_per_generate"],
+             "infer CLI generate, int8 cache":
+                 p16["infer_int8"]["launches_per_generate"],
+             "eval_vt CLI generate": p16["eval_vt"]["launches_per_generate"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -4877,7 +5622,9 @@ def main() -> int:
            "flash_rank_fwd": "flash rank attention step",
            "flash_rank_bwd_dq": "flash rank attention step",
            "flash_rank_bwd_dkv": "flash rank attention step",
-           "flash_fwd_hd64": "multimodal generate (unified.generate)"}
+           "flash_fwd_hd64": "multimodal generate (unified.generate)",
+           "paged_decode": "paged serving, bf16 cache (greedy_generate)",
+           "paged_decode_int8": "paged serving, int8 cache (greedy_generate)"}
     for rec in records:
         rec["launches"] = int(paths[own[rec["name"]]][rec["name"]])
         rec["launches_path"] = own[rec["name"]]
@@ -4893,8 +5640,9 @@ def main() -> int:
                     "rank_train": rank, "mm_generate": mm_gen,
                     "mm_train": mm_train, "vt_generate": vt_gen,
                     "vt_http": vt_http, "vt_train": vt_train,
-                    "p15": p15_summary(p15)}))
-    log(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "paged_serving": paged, "p15": p15_summary(p15),
+                    "p16": p16_summary(p16)}))
+    log(f"[17] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

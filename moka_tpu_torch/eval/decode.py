@@ -3,8 +3,10 @@
 
 Prompts are LEFT-padded, so every sample's last prompt token sits at the
 same index.  The prefill carries the modality masks; each decode step uses
-the text-adapter path (masks None) and eager attention over the cache.  The
-KV cache is written in place.
+the text-adapter path (masks None) and attends over the cache, eagerly or,
+with ``paged_decode``, through the length-aware decode attention
+(``ops/paged_decode.py``: the CUDA decode kernel on the card).  The KV
+cache is written in place, bf16 or int8 (``kv_quant``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from moka_tpu_torch.core.config import LlamaConfig
 from moka_tpu_torch.models import llama
 from moka_tpu_torch.ops.moka import MokaSpec
 from moka_tpu_torch.ops.moka_pallas import fused_moka_supported
+from moka_tpu_torch.ops.paged_decode import HEAD_DIM, MAX_GROUP
 
 
 def positions_from_mask(attn_mask: torch.Tensor) -> torch.Tensor:
@@ -23,12 +26,25 @@ def positions_from_mask(attn_mask: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.cumsum(attn_mask, dim=-1) - 1, min=0)
 
 
-def paged_decode_auto(cfg: LlamaConfig, capacity: int,
-                      kv_quant: bool = False) -> bool:
-    """Whether to take the length-aware paged decode loop.  The JAX gate is
-    a TPU measurement and the loop is not ported (ROADMAP.md, decode), so
-    the port always answers False."""
-    return False
+def paged_decode_auto(cfg: LlamaConfig, capacity: int, kv_quant: bool = False,
+                      device: torch.device | str | None = None,
+                      dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the decode steps take the length-aware paged attention.
+    False off the card (the JAX package answers False off the TPU) and for
+    a model the decode kernel does not take (not bf16, head_dim not 128,
+    more than 8 query heads a kv head); on the card True at every
+    ``capacity`` and on either cache.  JAX's capacity thresholds are the
+    TPU's; on the card the paged 7B decode step won most pairings against
+    the eager one at every capacity measured, 512 to 4096 cells, on both
+    caches, with no crossover outside the readings' spread
+    (``chip_smoke.py::paged_gate_readings``, which phase 16 holds to this
+    answer)."""
+    del capacity, kv_quant
+    if device is None or torch.device(device).type != "cuda":
+        return False
+    return dtype == torch.bfloat16 and cfg.head_dim == HEAD_DIM and \
+        cfg.n_heads % cfg.n_kv_heads == 0 and \
+        cfg.n_heads // cfg.n_kv_heads <= MAX_GROUP
 
 
 def _on_card(t: torch.Tensor, flag: bool | None) -> bool:
@@ -50,14 +66,21 @@ def fused_moka_route(device: torch.device, flag: bool | None,
         for d_in, d_out in llama._proj_shapes(cfg).values())
 
 
+PAGED_BLOCK = 256  # the paged allocation's multiple (JAX's block_k)
+
+
 def prefill(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask, masks,
-            max_new_tokens, use_flash, use_fused_moka, kv_quant=False):
+            max_new_tokens, use_flash, use_fused_moka, kv_quant=False,
+            paged_decode=False):
     """The prefill of ``greedy_generate`` / ``sample_generate``: a KV cache
-    of L + max_new_tokens positions is made and filled in place with the
-    prompt.  Returns (final-normed hidden states (b, L, d), cache, the
-    cache's (b, S) valid-key mask)."""
+    of L + max_new_tokens positions (rounded up to a multiple of
+    PAGED_BLOCK for ``paged_decode``, the tail masked) is made and filled
+    in place with the prompt.  Returns (final-normed hidden states (b, L,
+    d), cache, the cache's (b, S) valid-key mask)."""
     b, L, _ = inputs_embeds.shape
     S = L + max_new_tokens
+    if paged_decode:
+        S = -(-S // PAGED_BLOCK) * PAGED_BLOCK
     cache = llama.init_kv_cache(cfg, b, S, dtype=inputs_embeds.dtype,
                                 quantized=kv_quant,
                                 device=inputs_embeds.device)
@@ -74,9 +97,6 @@ def _generate(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask,
               masks, max_new_tokens, eos_id, pad_id, use_flash,
               use_fused_moka, paged_decode, kv_quant, generator=None,
               temperature=None, top_k=None, top_p=None) -> torch.Tensor:
-    if paged_decode:
-        raise NotImplementedError("paged decode is not ported yet "
-                                  "(ROADMAP.md, decode)")
     b, L, _ = inputs_embeds.shape
     dev = inputs_embeds.device
 
@@ -90,7 +110,8 @@ def _generate(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask,
     h, cache, cache_mask = prefill(
         base, adapters, cfg=cfg, spec=spec, inputs_embeds=inputs_embeds,
         prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
-        use_flash=use_flash, use_fused_moka=use_fused_moka, kv_quant=kv_quant)
+        use_flash=use_flash, use_fused_moka=use_fused_moka, kv_quant=kv_quant,
+        paged_decode=paged_decode)
     # only the last position's logits are read: the head runs on that row
     tok = pick(llama.head_logits(h[:, -1:], base["lm_head"])[:, 0])
 
@@ -107,10 +128,19 @@ def _generate(base, adapters, *, cfg, spec, inputs_embeds, prompt_mask,
         logits, cache = llama.forward(
             base, cfg, adapters=adapters, spec=spec, inputs_embeds=embeds,
             masks=None, attn_mask=cache_mask,
-            positions=(n_prompt + t)[:, None], cache=cache)
+            positions=(n_prompt + t)[:, None], cache=cache,
+            paged_decode=paged_decode)
         new_tok = pick(logits[:, -1, :])
         tok = torch.where(done, torch.full_like(new_tok, eos_id), new_tok)
     return torch.stack(out, dim=1)  # (b, max_new_tokens)
+
+
+def _paged(flag, cfg, inputs_embeds, max_new_tokens, kv_quant) -> bool:
+    if flag is not None:
+        return flag
+    return paged_decode_auto(cfg, inputs_embeds.shape[1] + max_new_tokens,
+                             kv_quant=kv_quant, device=inputs_embeds.device,
+                             dtype=inputs_embeds.dtype)
 
 
 def greedy_generate(base: dict, adapters: dict | None, *,
@@ -129,11 +159,11 @@ def greedy_generate(base: dict, adapters: dict | None, *,
     through the flash and fused-MokA kernels; None means on for CUDA tensors
     (the fused delta only for a spec the kernel takes: ``fused_moka_route``;
     the JAX package leaves it off by default because its TPU kernel rounds
-    A to bf16; the CUDA kernel keeps A fp32).  Returns
+    A to bf16; the CUDA kernel keeps A fp32).  ``paged_decode``: the
+    decode steps through the length-aware decode attention (None =
+    ``paged_decode_auto`` on the device and dtype of ``inputs_embeds``).
+    ``kv_quant``: an int8 cache with per-(token, head) scales.  Returns
     (b, max_new_tokens) int32, pad_id after eos."""
-    if paged_decode is None:
-        paged_decode = paged_decode_auto(
-            cfg, inputs_embeds.shape[1] + max_new_tokens, kv_quant=kv_quant)
     return _generate(
         base, adapters, cfg=cfg, spec=spec, inputs_embeds=inputs_embeds,
         prompt_mask=prompt_mask, masks=masks, max_new_tokens=max_new_tokens,
@@ -141,7 +171,9 @@ def greedy_generate(base: dict, adapters: dict | None, *,
         use_flash=_on_card(inputs_embeds, use_flash),
         use_fused_moka=fused_moka_route(inputs_embeds.device, use_fused_moka,
                                         cfg, spec),
-        paged_decode=paged_decode, kv_quant=kv_quant)
+        paged_decode=_paged(paged_decode, cfg, inputs_embeds,
+                            max_new_tokens, kv_quant),
+        kv_quant=kv_quant)
 
 
 def sample_generate(base: dict, adapters: dict | None, *,
@@ -162,9 +194,6 @@ def sample_generate(base: dict, adapters: dict | None, *,
     dev = inputs_embeds.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    if paged_decode is None:
-        paged_decode = paged_decode_auto(
-            cfg, inputs_embeds.shape[1] + max_new_tokens, kv_quant=kv_quant)
     b = inputs_embeds.shape[0]
 
     def row(x, dtype):
@@ -178,6 +207,8 @@ def sample_generate(base: dict, adapters: dict | None, *,
         use_flash=_on_card(inputs_embeds, use_flash),
         use_fused_moka=fused_moka_route(inputs_embeds.device, use_fused_moka,
                                         cfg, spec),
-        paged_decode=paged_decode, kv_quant=kv_quant, generator=generator,
+        paged_decode=_paged(paged_decode, cfg, inputs_embeds,
+                            max_new_tokens, kv_quant),
+        kv_quant=kv_quant, generator=generator,
         temperature=row(temperature, torch.float32),
         top_k=row(top_k, torch.int64), top_p=row(top_p, torch.float32))

@@ -21,7 +21,10 @@ mid-stream.  The scheduling is the JAX engine's:
 
 Where JAX donates buffers, the port updates the cache, the mask and the
 lane state in place; CUDA stream order keeps every update behind the work
-queued before it.
+queued before it.  The cache is bf16 (``cache_dtype``) or int8 with
+per-(token, head) scales (``kv_quant``; every cache step below handles the
+``{"q", "s"}`` sides leaf by leaf); ``paged_decode`` runs the decode steps
+through the length-aware decode attention (the CUDA kernel on the card).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from moka_tpu_torch.core.config import LlamaConfig
-from moka_tpu_torch.eval.decode import (fused_moka_route,
+from moka_tpu_torch.eval.decode import (PAGED_BLOCK, fused_moka_route,
                                         paged_decode_auto)
 from moka_tpu_torch.eval.sampling import sample_tokens
 from moka_tpu_torch.models import llama
@@ -46,18 +49,22 @@ from moka_tpu_torch.ops.moka import MokaSpec
 
 # ----------------------------------------------------------- device steps
 
+@torch.no_grad()
 def _prefill(base, adapters, *, cfg: LlamaConfig, spec: MokaSpec | None,
              inputs_embeds: torch.Tensor, prompt_mask: torch.Tensor,
              masks: llama.MaskBundle | None, generator: torch.Generator,
              temperature: torch.Tensor, top_k: torch.Tensor,
              top_p: torch.Tensor, use_flash: bool = False,
-             use_fused_moka: bool = False, cache_dtype=torch.bfloat16):
+             use_fused_moka: bool = False, cache_dtype=torch.bfloat16,
+             kv_quant: bool = False):
     """Batched prefill of n bucket-padded requests into fresh lane caches.
 
-    Returns (first tokens (n,) int32, lane k, lane v (layers, n, Lp, K, hd));
-    the first token is sampled per request (temperature 0 = argmax)."""
+    Returns (first tokens (n,) int32, lane k, lane v (layers, n, Lp, K, hd),
+    or int8 ``{"q", "s"}`` sides with ``kv_quant``); the first token is
+    sampled per request (temperature 0 = argmax)."""
     n, Lp, _ = inputs_embeds.shape
     cache = llama.init_kv_cache(cfg, n, Lp, dtype=cache_dtype,
+                                quantized=kv_quant,
                                 device=inputs_embeds.device)
     pos = torch.clamp(torch.cumsum(prompt_mask, dim=-1) - 1, min=0)
     h, cache = llama.forward(
@@ -74,25 +81,36 @@ def _prefill(base, adapters, *, cfg: LlamaConfig, spec: MokaSpec | None,
     return tok, cache["k"], cache["v"]
 
 
+def _leaves(side) -> list:
+    """A cache side's tensors: itself, or an int8 side's codes and
+    scales."""
+    return [side["q"], side["s"]] if isinstance(side, dict) else [side]
+
+
 def _insert(gk, gv, amask, lanes_k, lanes_v, lane_masks, slots) -> None:
     """Copy n prefilled lanes into the global cache rows ``slots``, in
-    place; cells past the lane's bucket are zeroed and masked so the
-    previous occupant never leaks into attention."""
-    Lp = lanes_k.shape[2]
+    place, leaf by leaf; cells past the lane's bucket are zeroed (an int8
+    side's scales too, as JAX pads them) and masked, so the previous
+    occupant never leaks into attention."""
+    Lp = llama.kv_cache_shape({"k": lanes_k})[2]
+    pairs = [*zip(_leaves(gk), _leaves(lanes_k)),
+             *zip(_leaves(gv), _leaves(lanes_v))]
     for i, slot in enumerate(slots):
-        for g, lane in ((gk, lanes_k), (gv, lanes_v)):
+        for g, lane in pairs:
             g[:, slot, Lp:] = 0
             g[:, slot, :Lp] = lane[:, i]
         amask[slot, Lp:] = 0
         amask[slot, :Lp] = lane_masks[i]
 
 
+@torch.no_grad()
 def _step_multi(base, adapters, gk, gv, amask, tokens, counts, active,
                 budget, cur: int, generator, temperature, top_k, top_p, *,
-                cfg: LlamaConfig, spec: MokaSpec | None, n_steps: int,
-                eos_id: int):
+                cfg: LlamaConfig, spec: MokaSpec | None, paged_decode: bool,
+                n_steps: int, eos_id: int):
     """``n_steps`` decode steps for every lane; the cache and mask update in
-    place.  Lanes that emit eos or exhaust their budget go inactive (their
+    place (no autograd: adapters that require grad, a trainer's live
+    tree, would make ``llama.forward`` write the cache out of place).  Lanes that emit eos or exhaust their budget go inactive (their
     cells stay masked, their rows repeat the last token).
 
     Returns (toks (n_steps, slots), tokens, counts, active, budget)."""
@@ -104,7 +122,8 @@ def _step_multi(base, adapters, gk, gv, amask, tokens, counts, active,
         logits, _ = llama.forward(
             base, cfg, adapters=adapters, spec=spec, inputs_embeds=embeds,
             masks=None, attn_mask=amask, positions=counts[:, None],
-            cache={"k": gk, "v": gv, "length": cell})
+            cache={"k": gk, "v": gv, "length": cell},
+            paged_decode=paged_decode)
         new_tok = sample_tokens(logits[:, -1, :], generator, temperature,
                                 top_k, top_p)
         new_tok = torch.where(active, new_tok, tokens)
@@ -123,7 +142,7 @@ def _compact(gk, gv, amask) -> int:
     # stable argsort of ~valid puts valid cell indices first, in order
     order = torch.argsort(1 - amask, dim=1, stable=True)
     for slot in range(amask.shape[0]):
-        for g in (gk, gv):
+        for g in (*_leaves(gk), *_leaves(gv)):
             g[:, slot] = g[:, slot].index_select(1, order[slot])
     counts = amask.sum(dim=1).to(torch.int32)
     amask.copy_((torch.arange(S, device=amask.device)[None, :]
@@ -167,8 +186,12 @@ class DecodeEngine:
     eos_id / pad_id: termination token / padding of returned sequences;
     use_flash / use_fused_moka: the prefill through the kernels (None = on
     for a base on the card; the fused delta only for a spec the kernel
-    takes, ``decode.fused_moka_route``).  The engine runs on the device of
-    ``base["embed"]``."""
+    takes, ``decode.fused_moka_route``); paged_decode: the decode steps
+    through the length-aware decode attention (None =
+    ``decode.paged_decode_auto`` for the capacity, cache and device; a
+    capacity above ``PAGED_BLOCK`` is then rounded up to a multiple of it,
+    where the JAX engine's first step raises); kv_quant: an int8 cache.  The
+    engine runs on the device of ``base["embed"]``."""
 
     def __init__(self, base, adapters, *, cfg: LlamaConfig,
                  spec: MokaSpec | None, n_slots: int = 8,
@@ -190,12 +213,16 @@ class DecodeEngine:
         self.use_fused_moka = fused_moka_route(dev, use_fused_moka, cfg, spec)
         if paged_decode is None:
             paged_decode = paged_decode_auto(cfg, cache_capacity,
-                                             kv_quant=kv_quant)
-        if paged_decode:
-            raise NotImplementedError("paged decode is not ported yet "
-                                      "(ROADMAP.md, decode)")
+                                             kv_quant=kv_quant, device=dev,
+                                             dtype=cache_dtype)
+        self.paged_decode = paged_decode
+        if paged_decode and cache_capacity % min(PAGED_BLOCK,
+                                                 cache_capacity):
+            cache_capacity = -(-cache_capacity // PAGED_BLOCK) * PAGED_BLOCK
+            self.S = cache_capacity
         self.steps_per_dispatch = steps_per_dispatch
         self.cache_dtype = cache_dtype
+        self.kv_quant = kv_quant
         cache = llama.init_kv_cache(cfg, n_slots, cache_capacity,
                                     dtype=cache_dtype, quantized=kv_quant,
                                     device=dev)
@@ -367,7 +394,7 @@ class DecodeEngine:
                 top_p=row([r.top_p for r in group], torch.float32),
                 use_flash=self.use_flash,
                 use_fused_moka=self.use_fused_moka,
-                cache_dtype=self.cache_dtype)
+                cache_dtype=self.cache_dtype, kv_quant=self.kv_quant)
             slots = [free.pop(0) for _ in group]
             _insert(self.gk, self.gv, self.amask, ks, vs,
                     torch.as_tensor(pmask, device=dev), slots)
@@ -465,7 +492,7 @@ class DecodeEngine:
             self._tokens_dev, self._counts_dev, self._active_dev,
             self._budget_dev, self.cur, self._generator, self._temp_dev,
             self._topk_dev, self._topp_dev, cfg=self.cfg, spec=self.spec,
-            n_steps=k, eos_id=self.eos_id)
+            paged_decode=self.paged_decode, n_steps=k, eos_id=self.eos_id)
         # which request held each slot at issue time: harvest emits a row
         # only while the same request still owns the slot
         self._inflight.append((toks_d, list(self.slot_req)))

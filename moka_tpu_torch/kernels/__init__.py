@@ -32,6 +32,7 @@ SOURCES = {
     "fused_ce_bwd": "fused_ce_bwd.cu",
     "block_diag": "block_diag.cu",
     "flash_rank": "flash_rank.cu",
+    "paged_decode": "paged_decode.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -21,8 +21,13 @@ key alone, so the recompute regenerates the same masks.  ``save_q8``
 rounds the named projection outputs to per-token int8 (or fp8) codes in
 the forward, and the checkpoint keeps the codes.
 
-Not ported yet (each raises ``NotImplementedError``): int8 KV caches,
-``host_stream``, ``context_parallel`` and ``paged_decode`` (ROADMAP.md).
+Serving: the KV cache is bf16 (or the model's dtype) or int8 with fp32
+per-(token, head) scales (``init_kv_cache(quantized=True)``); a decode
+step with ``paged_decode`` attends through ``ops/paged_decode.py`` (a CUDA
+kernel on the card) over the valid cache prefix only.
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
+module item 4, parallelism): ``host_stream`` and ``context_parallel``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from moka_tpu_torch.ops.fused_ce import fused_ce_loss
 from moka_tpu_torch.ops.moka import (MokaSpec, decode_scale, lora_delta,
                                      lora_dropout, moka_delta)
 from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
+from moka_tpu_torch.ops.paged_decode import paged_decode_attention
 from moka_tpu_torch.ops.quant import (codes_value, dequantize,
                                       fp8_roundtrip, is_quantized, qmatmul,
                                       qmatmul_a8, qmatmul_dx, q8_roundtrip)
@@ -61,7 +67,7 @@ _PROJ_INDEX = {name: i for i, name in enumerate(PROJ_DIMS)}
 _PROJ_GROUP = {"q": 0, "k": 0, "v": 0, "o": 1, "gate": 2, "up": 2,
                "down": 3}
 
-_NOT_PORTED = "{} is not ported yet (ROADMAP.md, {})"
+_NOT_PORTED = "{} is not ported yet (ROADMAP.md, module item 4, parallelism)"
 
 
 def _proj_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
@@ -383,55 +389,90 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, quantized: bool = False, *,
                   device=None) -> dict:
     """Zeroed (n_layers, batch, max_len, n_kv_heads, head_dim) k/v caches;
-    ``length`` is a host int (the next write position)."""
-    if quantized:
-        raise NotImplementedError(_NOT_PORTED.format("the int8 KV cache",
-                                                     "decode"))
+    ``length`` is a host int (the next write position).  ``quantized``
+    stores each side int8 with fp32 per-(token, head) scales, ``{"q": int8
+    zeros, "s": fp32 ones (..., 1)}``: half the bytes a decode step
+    reads."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if quantized:
+        def side():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "s": torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                    device=dev)}
+        return {"k": side(), "v": side(), "length": 0}
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "length": 0}
 
 
-def _kv_update(side: torch.Tensor, new: torch.Tensor, layer_idx: int,
-               pos: int) -> None:
+def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 over head_dim: (..., hd) -> (int8
+    codes, fp32 scale (..., 1)), JAX's arithmetic: scale max|x| / 127 (1
+    for an all-zero row, which then quantizes exactly), codes rounded half
+    to even and clipped to +-127."""
+    xf = x.float()
+    ax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(ax == 0, torch.ones_like(ax), ax / 127.0)
+    q = torch.clamp(torch.round(xf / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _kv_update(side, new: torch.Tensor, layer_idx: int, pos: int):
     """Write ``new`` (b, L, K, hd) into layer ``layer_idx`` of one cache
-    side at positions [pos, pos + L), in place."""
+    side at positions [pos, pos + L) and return the side.  An int8 side
+    quantizes ``new`` (``_kv_quantize``) and writes both leaves in place.
+    A plain side is written in place too, unless autograd records the
+    write (a cache built from learnable prefixes, or k/v that depend on
+    them): then out of place, so that the tensors earlier layers saved
+    for the backward stay as they were and the gradient reaches the
+    cache."""
+    end = pos + new.shape[1]
     if isinstance(side, dict):
-        raise NotImplementedError(_NOT_PORTED.format("the int8 KV cache",
-                                                     "decode"))
-    side[layer_idx, :, pos:pos + new.shape[1]] = new.to(side.dtype)
+        q, s = _kv_quantize(new)
+        side["q"][layer_idx, :, pos:end] = q
+        side["s"][layer_idx, :, pos:end] = s
+        return side
+    new = new.to(side.dtype)
+    if torch.is_grad_enabled() and (side.requires_grad or
+                                    new.requires_grad):
+        layer = side[layer_idx].slice_scatter(new, dim=1, start=pos,
+                                              end=end)
+        return side.select_scatter(layer, 0, layer_idx)
+    side[layer_idx, :, pos:end] = new
+    return side
 
 
-def _kv_layer(side: torch.Tensor, layer_idx: int,
-              dtype: torch.dtype) -> torch.Tensor:
-    """One layer's (b, S, K, hd) slice in ``dtype``."""
+def _kv_layer(side, layer_idx: int, dtype: torch.dtype) -> torch.Tensor:
+    """One layer's (b, S, K, hd) slice in ``dtype``; an int8 side
+    dequantizes as JAX does: ``(codes.float() * scale).to(dtype)``."""
     if isinstance(side, dict):
-        raise NotImplementedError(_NOT_PORTED.format("the int8 KV cache",
-                                                     "decode"))
+        return (side["q"][layer_idx].float() * side["s"][layer_idx]).to(dtype)
     return side[layer_idx].to(dtype)
 
 
 def kv_cache_shape(cache: dict) -> tuple:
-    """(n_layers, batch, S, K, hd)."""
-    if isinstance(cache["k"], dict):
-        raise NotImplementedError(_NOT_PORTED.format("the int8 KV cache",
-                                                     "decode"))
-    return tuple(cache["k"].shape)
+    """(n_layers, batch, S, K, hd) for plain or int8 caches."""
+    k = cache["k"]
+    return tuple((k["q"] if isinstance(k, dict) else k).shape)
 
 
 def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
-                   use_fused_moka: bool, a8_dots: bool | str, save_q8: tuple,
+                   use_fused_moka: bool, paged_decode: bool,
+                   a8_dots: bool | str, save_q8: tuple,
                    h: torch.Tensor, layer: dict,
                    adapters: dict | None, masks: MaskBundle | None,
                    bias: torch.Tensor | None, attn_mask: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, cache: dict | None,
                    layer_idx: int, dropout_rng=None,
                    saves: _RematSaves | None = None) -> torch.Tensor:
-    """One decoder block; with a cache, writes this layer's k/v into it in
-    place and attends over the whole cache.  ``saves``: the tensors a remat
-    policy keeps for the recompute (under ``torch.utils.checkpoint``)."""
+    """One decoder block; with a cache, writes this layer's k/v into it
+    (``_kv_update``: ``cache["k"]``/``["v"]`` are replaced by what it
+    returns) and attends over the whole cache, dequantized for an int8 one
+    as JAX does, or, for a single token with ``paged_decode``, through
+    ``paged_decode_attention`` over the valid prefix.  ``saves``: the
+    tensors a remat policy keeps for the recompute (under
+    ``torch.utils.checkpoint``)."""
     b, L, _ = h.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
@@ -445,15 +486,20 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
     k = apply_rope(proj("k", x).reshape(b, L, K, hd), cos, sin)
     v = proj("v", x).reshape(b, L, K, hd)
 
+    paged = cache is not None and paged_decode and L == 1
     q_offset = 0
     if cache is not None:
         q_offset = cache["length"]
-        _kv_update(cache["k"], k, layer_idx, q_offset)
-        _kv_update(cache["v"], v, layer_idx, q_offset)
-        k = _kv_layer(cache["k"], layer_idx, q.dtype)
-        v = _kv_layer(cache["v"], layer_idx, q.dtype)
+        cache["k"] = _kv_update(cache["k"], k, layer_idx, q_offset)
+        cache["v"] = _kv_update(cache["v"], v, layer_idx, q_offset)
+        if not paged:
+            k = _kv_layer(cache["k"], layer_idx, q.dtype)
+            v = _kv_layer(cache["v"], layer_idx, q.dtype)
 
-    if use_flash:
+    if paged:
+        attn = paged_decode_attention(q, cache["k"], cache["v"], attn_mask,
+                                      layer_idx, q_offset + 1)
+    elif use_flash:
         attn = flash_mha(q, k, v, attn_mask, q_offset=q_offset,
                          residuals=None if saves is None else
                          saves.flash_residuals())
@@ -490,10 +536,17 @@ def forward(base: dict, cfg: LlamaConfig, *,
     attn_mask: (b, S) valid-key mask over the attention span (the current
       sequence without a cache; the whole cache with one).
     positions: (b, L) RoPE positions of the current tokens (default arange).
-    cache: from ``init_kv_cache``.  The cached forward writes the new k/v
-      into ``cache["k"]``/``cache["v"]`` IN PLACE at [length, length + L)
-      and returns a new dict holding the same tensors with ``length``
-      advanced; the caller's dict is not modified otherwise.
+    cache: from ``init_kv_cache`` (plain or int8).  The cached forward
+      writes the new k/v into ``cache["k"]``/``cache["v"]`` IN PLACE at
+      [length, length + L) and returns a new dict holding the same tensors
+      with ``length`` advanced; the caller's dict is not modified
+      otherwise.  Where autograd records the write (a cache built from
+      learnable prefixes, ``adapters/prompt.py::prefix_cache``), the
+      write is out of place and the returned dict holds the new tensors.
+    paged_decode: a single-token cached step attends through
+      ``ops.paged_decode.paged_decode_attention`` (the CUDA decode kernel
+      on the card) over the cache's valid prefix; longer calls ignore it,
+      as in JAX.
     use_flash: attention through ``flash_mha`` (the CUDA kernels on the
       card, forward and backward).
     use_fused_moka: MokA deltas through ``moka_delta_fused``.
@@ -520,12 +573,10 @@ def forward(base: dict, cfg: LlamaConfig, *,
     ``logits=False``; the new cache or None).
     """
     kept = _remat_policy(remat_policy) if remat else frozenset()
-    for flag, value, item in (
-            ("paged_decode", paged_decode, "decode"),
-            ("context_parallel", context_parallel is not None, "parallelism"),
-            ("host_stream", host_stream is not None, "parallelism")):
+    for flag, value in (("context_parallel", context_parallel is not None),
+                        ("host_stream", host_stream is not None)):
         if value:
-            raise NotImplementedError(_NOT_PORTED.format(flag, item))
+            raise NotImplementedError(_NOT_PORTED.format(flag))
     if inputs_embeds is None:
         inputs_embeds = base["embed"][tokens.long()]
     h = inputs_embeds
@@ -539,18 +590,26 @@ def forward(base: dict, cfg: LlamaConfig, *,
                             cfg.rope_scaling, seq_len=total_len,
                             max_seq_len=cfg.max_seq_len)
 
+    paged = cache is not None and paged_decode and L == 1
     if cache is not None:
         S = kv_cache_shape(cache)[2]
         if attn_mask is None:
             raise ValueError("cached forward needs attn_mask over the cache")
         q_offset = cache["length"]
+        cache = dict(cache)  # layers replace its sides (_kv_update)
     else:
         S, q_offset = L, 0
         if attn_mask is None:
             attn_mask = torch.ones((b, L), dtype=torch.int32, device=dev)
-    if use_flash:
+    if use_flash or paged:
         bias = None
-        attn_mask = attn_mask.to(torch.int32)  # once, not per layer
+        if use_flash:
+            attn_mask = attn_mask.to(torch.int32)  # once, not per layer
+        elif attn_mask.dtype not in (torch.int32, torch.float32):
+            # the decode kernel reads int32 or fp32 masks
+            attn_mask = attn_mask.to(torch.float32 if
+                                     attn_mask.is_floating_point() else
+                                     torch.int32)
     else:
         bias = causal_bias(attn_mask, L, S, q_offset=q_offset)
 
@@ -566,8 +625,8 @@ def forward(base: dict, cfg: LlamaConfig, *,
         if adapters is not None:
             ad = {name: {"a": p["a"][i], "b": p["b"][i]}
                   for name, p in adapters["layers"].items()}
-        args = (cfg, spec, use_flash, use_fused_moka, a8_dots, q8, h, layer,
-                ad, masks, bias, attn_mask, cos, sin, cache, i,
+        args = (cfg, spec, use_flash, use_fused_moka, paged_decode, a8_dots,
+                q8, h, layer, ad, masks, bias, attn_mask, cos, sin, cache, i,
                 layer_rngs[i])
         if recompute:  # keeps h and the policy's tags; reruns the rest
             saves = _RematSaves(kept)

@@ -161,8 +161,9 @@ def generate(trainable: dict, frozen: dict, cfg: LlavaConfig, batch: dict,
     """Greedy generation of left-padded prompts: the tower, projector and
     splice, then the masked MokA prefill and the text-adapter decode loop
     (``eval.decode.greedy_generate`` with its defaults: the flash and
-    fused-MokA kernels for CUDA tensors).  ``kv_quant`` (the int8 cache)
-    is not ported yet and raises.  Returns (b, max_new_tokens) int32."""
+    fused-MokA kernels for CUDA tensors, the paged decode attention where
+    ``decode.paged_decode_auto`` says so).  ``kv_quant`` stores the decode
+    cache int8.  Returns (b, max_new_tokens) int32."""
     from moka_tpu_torch.eval.decode import greedy_generate
     embeds = build_inputs_embeds(trainable, frozen, cfg, batch)
     return greedy_generate(

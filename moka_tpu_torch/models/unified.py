@@ -212,8 +212,10 @@ def generate(trainable: dict, frozen: dict, cfg: UnifiedConfig, batch: dict,
     masked MokA prefill and the text-adapter decode loop
     (``eval.decode``).  Greedy unless some ``temperature`` is above 0
     (scalars or per-row (b,) values, with top-k / top-p); ``kv_quant``
-    (the int8 cache) is not ported yet and raises.  Returns (b,
-    max_new_tokens) int32."""
+    stores the decode cache int8 (half the cache bytes a step reads).  The
+    decode steps take the paged decode attention where
+    ``decode.paged_decode_auto`` says so.  Returns (b, max_new_tokens)
+    int32."""
     from moka_tpu_torch.eval.decode import greedy_generate, sample_generate
     embeds = build_inputs_embeds(trainable, frozen, cfg, batch)
     masks = llama.MaskBundle(batch["modality_masks"], batch["question_mask"])

@@ -42,6 +42,13 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int,
     return torch.cos(emb), torch.sin(emb)
 
 
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """[-x2, x1] for the two halves x1, x2 of the last axis (HF's helper;
+    ``apply_rope`` rotates the half-planes directly)."""
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (b, L, n_heads, head_dim); cos/sin: (b, L, head_dim) fp32.

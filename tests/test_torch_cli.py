@@ -3,7 +3,8 @@ at tiny size on the CPU, from checkpoint files to exported artifacts, and
 the JAX package reading those artifacts back.
 
 The life cycle is ``chip_smoke.py``'s phase 15 run at the CLIs' tiny
-preset with ``--device cpu`` (its rehearsal): LLaMA, CLIP and BEATs
+preset with ``--device cpu`` (its rehearsal), then phase 16 (inference
+from those files) likewise: LLaMA, CLIP and BEATs
 checkpoints written from a seed in bf16 and read back exactly by every
 importer; ``finetune`` with the AVT shipping flags for 3 steps, a second
 invocation that resumes from step 3, and the step-2 checkpoint stepped on
@@ -70,7 +71,10 @@ def life_cycle(chip_smoke, tmp_path_factory):
     work = tmp_path_factory.mktemp("p15")
     with one_thread(), pytest.MonkeyPatch.context() as mp:
         mp.setattr(unified.UnifiedConfig, "avt_7b", staticmethod(tiny_avt))
-        return chip_smoke.phase15(work, device="cpu", tiny=True)
+        res = chip_smoke.phase15(work, device="cpu", tiny=True)
+        # phase 16 runs on phase 15's files, as on the card
+        res["p16"] = chip_smoke.phase16(work, res, device="cpu", tiny=True)
+        return res
 
 
 def _same(got, want, path=""):
@@ -212,3 +216,25 @@ def test_cli_flags_match_jax():
             b = tacts[dest]
             assert (b.default, b.const, b.choices, b.nargs, b.type) == \
                 (a.default, a.const, a.choices, a.nargs, a.type), (cli, dest)
+
+
+def test_phase16_rehearsal_runs(life_cycle):
+    """chip_smoke's phase 16 at the CLIs' tiny preset on phase 15's files:
+    ``infer`` with a bf16 and an int8 cache (12 items in 2 generate calls,
+    no launch on the CPU, each JSONL scored), the continuous server in a
+    process of its own answering 200, ``eval_vt`` on ``train_vt``'s
+    ``model.safetensors`` scoring all 8 MMBench items, and the decode step
+    timed eager and paged."""
+    res = life_cycle["p16"]
+    for kind in ("bf16", "int8"):
+        rec = res[f"infer_{kind}"]
+        assert len(rec["predictions"]) == 12 and "overall" in rec["scores"]
+        assert len(rec["generate_s"]) == 2
+        assert not any(rec["launches_per_generate"].values())
+    assert res["serve"]["statuses"] == [200, 200, 200]
+    assert res["eval_vt"]["result"]["total"] == 8
+    for kind in ("bf16", "int8"):
+        gate = res["paged_gate"][kind]
+        assert {"eager_ms", "paged_ms"} <= set(gate["by_capacity"][256])
+        assert gate["pairings"] == 2 and gate["paged"] == (
+            2 * gate["paged_won"] > 2)

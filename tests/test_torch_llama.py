@@ -312,19 +312,26 @@ def test_params_from_numpy_keeps_layout_and_bf16():
 
 
 def test_unported_forward_options_raise(model):
+    """What is not ported raises, naming ROADMAP.md's parallelism item;
+    ``paged_decode`` (a no-op without a cache, as in JAX) and the int8
+    cache are ported (tests/test_torch_kv_cache.py)."""
     _, (tb, ta) = model
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    for kw in (dict(paged_decode=True), dict(context_parallel=object()),
-               dict(host_stream={})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(context_parallel=object()), dict(host_stream={})):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, module item 4, parallelism"):
             tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
                            **kw)
     # the named remat policies are ported; an unknown name raises as in JAX
     with pytest.raises(ValueError, match="unknown remat policy"):
         tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
                        remat=True, remat_policy="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.init_kv_cache(CFG, 1, 8, quantized=True, device="cpu")
+    plain, _ = tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks)
+    paged, _ = tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
+                              paged_decode=True)
+    assert torch.equal(plain, paged)
+    cache = tllama.init_kv_cache(CFG, 1, 8, quantized=True, device="cpu")
+    assert cache["k"]["q"].dtype == torch.int8
 
 
 class JaxKey:

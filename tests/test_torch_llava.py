@@ -280,13 +280,16 @@ def test_generate_greedy_tokens_match_jax(prompts):
 
 
 def test_generate_kv_quant_raises(prompts):
-    """The int8 cache is not ported yet: generation raises rather than
-    going on without it."""
-    _, tcfg, frozen, trainable, batch = prompts
+    """The int8 cache is ported (it raised before): generation with
+    ``kv_quant`` gives JAX's greedy ids exactly."""
+    jcfg, tcfg, frozen, trainable, batch = prompts
+    want = np.asarray(jllava.generate(trainable, frozen, jcfg,
+                                      jnp_batch(batch), max_new_tokens=4,
+                                      eos_id=10 ** 9, kv_quant=True))
     tfrozen, ttrain, tbatch = to_port(frozen, trainable, batch)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tllava.generate(ttrain, tfrozen, tcfg, tbatch, max_new_tokens=2,
-                        eos_id=10 ** 9, kv_quant=True)
+    got = tllava.generate(ttrain, tfrozen, tcfg, tbatch, max_new_tokens=4,
+                          eos_id=10 ** 9, kv_quant=True)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_entry_points_need_cuda_unless_told_cpu():

@@ -37,11 +37,18 @@ def test_entry_points_need_cuda_unless_told_cpu():
     from moka_tpu_torch.ops.moka import MokaSpec
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
+    from moka_tpu_torch.adapters import prompt
+    from moka_tpu_torch.cli import eval_vt, infer
     g = torch.Generator()
     cfg = LlamaConfig.tiny()
     for call in (lambda: llama.init_llama_params(g, cfg),
                  lambda: llama.init_moka_adapters(g, cfg, MokaSpec.avt()),
-                 lambda: llama.init_kv_cache(cfg, 1, 8)):
+                 lambda: llama.init_kv_cache(cfg, 1, 8),
+                 lambda: llama.init_kv_cache(cfg, 1, 8, quantized=True),
+                 lambda: prompt.init_prefix(g, cfg, 2),
+                 lambda: infer.main(["--model-preset", "tiny"]),
+                 lambda: eval_vt.main(["--task", "seed",
+                                       "--model-preset", "tiny"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert llama.init_kv_cache(cfg, 1, 8, device="cpu")["k"].shape == \
@@ -881,3 +888,81 @@ def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
     seen = fa._valid(mask, L, L, *args)  # (b, L, S)
     assert not dq[~seen.any(dim=-1)].any()
     assert not dk[~seen.any(dim=1)].any() and not dv[~seen.any(dim=1)].any()
+
+
+def test_decode_mutant_edits_apply():
+    """The decode kernel's mutant (chip_smoke.py's DECODE_MUTANTS, which
+    phase 3 requires to fail) edits paged_decode.cu by text: its old text
+    occurs exactly once and the copy differs."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    import profile_port
+    src = "paged_decode.cu"
+    base = profile_port.ablation_source([], kernels.CSRC, src)
+    for name, changes in chip_smoke.DECODE_MUTANTS.items():
+        for old, _ in changes:
+            assert base.count(old) == 1, (name, old)
+        assert profile_port.ablation_source(changes, kernels.CSRC,
+                                            src) != base
+    assert chip_smoke.MUTANT_SOURCES["paged_decode"] == (
+        src, chip_smoke.DECODE_MUTANTS)
+
+
+def test_decode_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises: fp32 q,
+    head_dim 64, GQA above 8:1, an int64 mask and a length past the cache
+    raise before any launch (the library is never loaded)."""
+    from moka_tpu_torch.ops import paged_decode as pd
+    monkeypatch.setattr(pd, "_library", lambda: pytest.fail("launched"))
+
+    def case(hd=128, H=8, K=2, dtype=torch.bfloat16, mask=torch.int32,
+             length=10):
+        q = torch.zeros((2, 1, H, hd), dtype=dtype)
+        cache = torch.zeros((1, 2, 16, K, hd), dtype=torch.bfloat16)
+        return (q, cache, cache.clone(), torch.ones((2, 16), dtype=mask), 0,
+                length)
+
+    for kw, err in ((dict(dtype=torch.float32), TypeError),
+                    (dict(hd=64), ValueError), (dict(H=18, K=2), ValueError),
+                    (dict(mask=torch.int64), TypeError),
+                    (dict(length=17), ValueError)):
+        with pytest.raises(err):
+            pd._launch(*case(**kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("H,K,length", [(8, 8, 300), (16, 2, 100),
+                                        (8, 8, 1025)])
+def test_decode_kernel_matches_plain_on_card(card, quantized, H, K, length):
+    """The decode kernel against ``paged_decode_attention_plain`` on a bf16
+    and an int8 cache: one, two and five 256-key chunks (the last holding
+    one key), GQA 8:1, left pads, a row without keys (out 0) and a
+    poisoned tail; kernel 1's rule (4e-3 + 2^-7 |plain|), one launch
+    counted."""
+    from moka_tpu_torch.models.llama import _kv_quantize
+    from moka_tpu_torch.ops.paged_decode import (
+        paged_decode_attention, paged_decode_attention_plain)
+    g = torch.Generator(device=card).manual_seed(H + length)
+    B, S = 3, max(512, -(-(length + 1) // 256) * 256)
+    q = torch.randn((B, 1, H, 128), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((2, B, S, K, 128), generator=g, device=card)
+            for _ in range(2))
+    k[:, :, length:], v[:, :, length:] = 1e6, -1e6
+    mask = torch.ones((B, S), dtype=torch.int32, device=card)
+    mask[1, :7] = 0
+    mask[2] = 0
+    if quantized:
+        (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+        ck, cv = {"q": kq, "s": ks}, {"q": vq, "s": vs}
+    else:
+        ck, cv = k.bfloat16(), v.bfloat16()
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, ck, cv, mask, 1, length)
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_plain(q, ck, cv, mask, 1, length)
+    assert ((out[:2].float() - ref[:2].float()).abs() -
+            2 ** -7 * ref[:2].float().abs()).max() <= 4e-3
+    assert not out[2].any() and torch.isfinite(out).all()

@@ -92,9 +92,9 @@ def test_generate_greedy_tokens_match_jax(prompts):
 
 def test_generate_sampled_rows_and_kv_quant(prompts):
     """Per-row temperatures: a row at 0 decodes greedily, a sampled row
-    stays in the vocabulary and follows its generator; the int8 cache is
-    not ported yet and raises."""
-    _, tcfg, frozen, trainable, batch = prompts
+    stays in the vocabulary and follows its generator; the int8 cache
+    (ported; it raised before) gives JAX's greedy ids."""
+    jcfg, tcfg, frozen, trainable, batch = prompts
     tfrozen, ttrain, tbatch = to_port(frozen, trainable, batch)
     greedy = tunified.generate(ttrain, tfrozen, tcfg, tbatch,
                                max_new_tokens=4, eos_id=10 ** 9)
@@ -108,6 +108,10 @@ def test_generate_sampled_rows_and_kv_quant(prompts):
     a, b = sampled(0), sampled(0)
     assert torch.equal(a, b) and torch.equal(a[0], greedy[0])
     assert 0 <= int(a.min()) and int(a.max()) < tcfg.llama.vocab_size
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tunified.generate(ttrain, tfrozen, tcfg, tbatch, max_new_tokens=2,
-                          eos_id=10 ** 9, kv_quant=True)
+    want = np.asarray(junified.generate(
+        trainable, frozen, jcfg, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, max_new_tokens=4,
+        eos_id=10 ** 9, kv_quant=True))
+    got = tunified.generate(ttrain, tfrozen, tcfg, tbatch, max_new_tokens=4,
+                            eos_id=10 ** 9, kv_quant=True)
+    np.testing.assert_array_equal(got.numpy(), want)
