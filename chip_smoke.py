@@ -8,11 +8,14 @@ Phases, in order; any failed build, launch or check exits non-zero:
   2. build the CUDA kernels from ``moka_tpu_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source, in parallel) and, beside them, the
      deliberate faults RANK_MUTANTS, RANK_BWD_MUTANTS, BD_MUTANTS,
-     MOKA_MUTANTS and DROP_MUTANTS (edited copies of the rank kernels',
-     kernel 10's, kernel 5's and kernels 6-7's sources), print ptxas's
+     MOKA_MUTANTS, DROP_MUTANTS, CE_FWD_MUTANTS and DECODE_MUTANTS
+     (edited copies of the rank kernels', kernel 10's, kernel 5's, kernels
+     6-7's, kernel 8's and the decode kernel's sources), print ptxas's
      resource lines
      and the SASS counts of the flash kernels, the fused CE pair, the rank
-     kernels, kernel 10, kernel 5 and kernels 6-7 (``cuobjdump -sass``: a
+     kernels, kernel 10, kernel 5, kernels 6-7 and the decode kernel
+     (``cuobjdump -sass``: a decode instance without UTMALDG or HMMA, or
+     an int8 one with more I2F than the bf16 one, fails the phase; a
      forward instance, the dq kernel or a key-major backward kernel
      without HGMMA or UTMALDG or with HMMA, the fused backward without its
      bulk reduction, kernel 9 without HGMMA, UTMALDG or a bulk reduction
@@ -86,14 +89,18 @@ Phases, in order; any failed build, launch or check exits non-zero:
      (library: ``scaled_dot_product_attention`` without a mask); the
      decode kernel (``paged_decode.cu``) at DECODE_CASES (the 7B serving
      shape b 8, S 1024, length 928 with pads 0-6 and a row without keys;
-     infer's and eval_vt's cache, S 1280, length 1025: five chunks, the
-     last holding one key; the llama2_70b heads, GQA 64:8; one chunk), on
-     bf16 and int8 caches with a poisoned tail, rows without keys reading
-     0, and on both 7B serving cases 20 repeats bit-identical and the
-     mutants (DECODE_MUTANTS: vs dropped, the last chunk left out of the
-     merge) failing
-     (library: SDPA over the valid prefix with the boolean mask, the int8
-     prefix dequantized first);
+     infer's and eval_vt's cache, S 1280, length 1025: the last 64-key
+     tile holding one key; the llama2_70b heads, GQA 64:8; one 256-key
+     block; one sample, S 4096, length 3000: eight spans a pair merged in
+     the launch), on bf16 and int8 caches with a poisoned tail, rows
+     without keys reading 0, and on both 7B serving cases and the
+     one-sample case 20 repeats bit-identical and the mutants
+     (DECODE_MUTANTS: vs dropped, a span's last tile never loaded, and,
+     on the one-sample case, the last span left out of the merge)
+     failing; timed at the 7B serving shape, infer's cache and GQA 64:8
+     (the wrapper back to back, the kernel alone in a CUDA graph, the
+     host's µs a call; library: SDPA over the valid prefix with the
+     boolean mask, the int8 prefix dequantized first);
   4. LLaMA-2-7B (bf16 base, random weights from a seed) with MokA AVT r=4
      adapters (B seeded non-zero) at full width and depth: the logits of
      ``greedy_generate``'s prefill of the whole batch through the kernels
@@ -425,7 +432,8 @@ def sass_counts(name: str) -> dict:
     """Instruction counts by kernel function in library ``name``'s SASS
     (``cuobjdump -sass``): wgmma (HGMMA), TMA loads and stores (UTMALDG,
     UTMASTG), bulk and tensor reductions (UBLKRED, UTMAREDG), mma.sync
-    (HMMA) and atomics (ATOM: ``ATOMICS``)."""
+    (HMMA), atomics (ATOM: ``ATOMICS``) and int-to-float conversions
+    (I2F: I2F and I2FP)."""
     import re
     from moka_tpu_torch import kernels
     tool = Path(kernels._nvcc()).with_name("cuobjdump")
@@ -436,11 +444,12 @@ def sass_counts(name: str) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = dict.fromkeys((*SASS_OPS, "ATOM"), 0)
+            counts[fn] = dict.fromkeys((*SASS_OPS, "ATOM", "I2F"), 0)
         elif fn is not None:
             for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
                 counts[fn][op] += 1
             counts[fn]["ATOM"] += len(re.findall(ATOMICS, line))
+            counts[fn]["I2F"] += len(re.findall(r"\bI2FP?\b", line))
     return counts
 
 
@@ -474,6 +483,33 @@ def check_ce_sass() -> dict:
         raise AssertionError(f"no ptxas report for kernel 8's library: {text}")
     if WGMMA_SERIALIZED in text.read_text():
         raise AssertionError(f"ptxas serialized kernel 8's wgmmas: see {text}")
+    return out
+
+
+DECODE_SASS = ("paged_decode", "paged_decode_kernel", 2)  # library,
+# function stem, instances (bf16 and int8 cache)
+
+
+def check_decode_sass() -> dict:
+    """The decode kernel loads k and v by TMA and takes both products on
+    mma.sync: each instance (bf16 and int8 cache) shows UTMALDG and HMMA;
+    and the int8 instance converts no more ints to floats (I2F, I2FP)
+    than the bf16 one, whose few are the seeds of its integer divisions:
+    its codes are widened by LOP3 and HFMA2.  Raises otherwise."""
+    lib, stem, n = DECODE_SASS
+    out = sass_counts(lib)
+    for fn, c in out.items():
+        log(f"    {lib} SASS {fn}: " +
+            ", ".join(f"{op} {k}" for op, k in c.items()))
+    ks = {fn: c for fn, c in out.items() if stem in fn}
+    int8 = [c for fn, c in ks.items() if "ILb1E" in fn]
+    bf16 = [c for fn, c in ks.items() if "ILb0E" in fn]
+    if len(ks) != n or len(int8) != 1 or len(bf16) != 1 or any(
+            c["UTMALDG"] == 0 or c["HMMA"] == 0 for c in ks.values()) or \
+            int8[0]["I2F"] > bf16[0]["I2F"]:
+        raise AssertionError(f"{lib} SASS: an instance lacks TMA loads or "
+                             f"mma.sync, or the int8 one converts its "
+                             f"codes: {out}")
     return out
 
 
@@ -622,11 +658,17 @@ CE_FWD_MUTANTS = {  # fused_ce.cu (kernel 8)
     "drops the phantom-column mask": [
         ("      if (v_sub + TV > a.v_real)\n", "      if (false)\n")]}
 DECODE_MUTANTS = {  # paged_decode.cu
-    "drops the value scales vs": [("      wg[j] = p * vs;",
-                                   "      wg[j] = p;")],
-    "leaves the last chunk out of the merge": [
-        ("      for (int s = 0; s < a.n_split; ++s) {",
-         "      for (int s = 0; s < a.n_split - 1; ++s) {")]}
+    "drops the value scales vs": [
+        ("        p[i] = vis[i] ? p[i] * st->vs[key] : 0.f;",
+         "        p[i] = vis[i] ? p[i] : 0.f;")],
+    "leaves the last span out of the merge": [
+        ("    for (int s = 0; s < a.n_span; ++s) {",
+         "    for (int s = 0; s < a.n_span - 1; ++s) {")],
+    "the producer never loads a span's last tile": [
+        ("    if (t < t_hi) {", "    if (t < t_hi - 1) {")]}
+DECODE_MERGE_MUTANTS = ("leaves the last span out of the merge",)  # faults
+# that show only where a pair's keys split into several spans (not on the
+# 7B serving path: one span a pair there)
 MUTANT_SOURCES = {"flash_rank": ("flash_rank.cu",
                                   {**RANK_MUTANTS, **RANK_BWD_MUTANTS}),
                   "block_diag": ("block_diag.cu", BD_MUTANTS),
@@ -2184,13 +2226,16 @@ DECODE_CASES = (  # name, (B, H, K, S, length), left pads, rows without keys
      (8, 32, 32, 1280, 1025), (0, 7, 1, 6, 2, 5, 3, 0), (4,)),
     ("llama2_70b heads, GQA 64:8", (4, 64, 8, 1024, 700), (0, 3, 0, 9),
      (2,)),
-    ("one chunk", (2, 32, 32, 256, 200), (0, 5), ()))
+    ("one 256-key block", (2, 32, 32, 256, 200), (0, 5), ()),
+    ("one sample, several spans", (1, 32, 32, 4096, 3000), (5,), ()))
 DECODE_LAYERS = 2  # layers of a checked cache; the kernel reads layer 1
-DECODE_REPEATS = 20  # launches on one input, all bit-identical: the chunks
-                     # merge in chunk order whichever CTA comes last
+DECODE_REPEATS = 20  # launches on one input, all bit-identical: the spans
+                     # merge in span order whichever CTA comes last
 DECODE_SERVING = DECODE_CASES[:2]  # the repeats' and the mutants' cases:
-                     # four chunks with a 160-key tail, and five with a
-                     # one-key tail (phase 16's first decode step)
+                     # one span a pair with a 32-key and a one-key last tile
+                     # (phase 16's first decode step) ...
+DECODE_SPLIT = DECODE_CASES[4]  # ... and eight spans a pair (the merge)
+DECODE_TIMED = DECODE_CASES[:3]  # timed: serving, infer's cache, GQA 64:8
 
 
 def decode_case(B, H, K, S, length, pads, dead, quantized, seed):
@@ -2247,29 +2292,94 @@ def check_decode(name, q, ck, cv, mask, length, layer=1) -> float:
     return d_out
 
 
-def decode_records() -> list[dict]:
-    """The decode kernel on DECODE_CASES, bf16 and int8 caches (length not
-    a multiple of 256, a poisoned tail, left pads, a row without keys);
-    on each DECODE_SERVING case with an int8 cache, DECODE_REPEATS launches
-    bit-identical and each DECODE_MUTANTS fault failing; then timed at the
-    7B serving shape on each cache beside the
+def decode_spans(shape) -> int:
+    """The decode kernel's spans a (sample, kv head) at ``shape`` (B, H,
+    K, S, length) on this card."""
+    import torch
+    from moka_tpu_torch.ops.paged_decode import plan_spans
+    B, _, K, _, length = shape
+    return plan_spans(B, K, length, torch.cuda.get_device_properties(
+        0).multi_processor_count)[1]
+
+
+def decode_timing(shape, pads, dead, quantized, seed) -> dict:
+    """The decode kernel at ``shape`` on one cache: the wrapper back to
+    back (ms), the kernel alone (``profile_port.graph_ms``: a CUDA graph
+    of 100 launches), the host's µs a call (``profile_port.host_us``), the
     plain loop and the library call, SDPA over the valid prefix with the
     boolean mask (the int8 cache dequantized first, in the same call's
-    time).  The bound: the visible key rows' k and v bytes (and scales),
-    q and out, at 3.35 TB/s."""
+    time), whose output must be the plain version's; and the bound: the
+    visible key rows' k and v bytes (and scales), q and out, at 3.35
+    TB/s."""
     import torch
     import torch.nn.functional as F
+    import profile_port
     from moka_tpu_torch.ops.paged_decode import (
         paged_decode_attention, paged_decode_attention_plain)
+    B, H, K, S, length = shape
+    q, ck, cv, mask = decode_case(*shape, pads, dead, quantized, seed=seed)
+    qs = q.transpose(1, 2)
+    bmask = (mask[:, :length] > 0)[:, None, None, :]
+
+    def prefix(side):
+        if isinstance(side, dict):
+            side = (side["q"][1, :, :length].float() *
+                    side["s"][1, :, :length]).bfloat16()
+        else:
+            side = side[1, :, :length]
+        return side.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qs, prefix(ck), prefix(cv), attn_mask=bmask, enable_gqa=True)
+
+    def kernel():
+        return paged_decode_attention(q, ck, cv, mask, 1, length)
+
+    rows = bmask[:, 0, 0].any(dim=1)
+    ref = paged_decode_attention_plain(q, ck, cv, mask, 1, length)
+    lib_err = float((library().transpose(1, 2).float() - ref.float())
+                    .abs()[rows].max()) / float(ref.float().abs().max())
+    if lib_err > SAME_FUNCTION_TOL:
+        raise AssertionError(f"the decode yardstick computes another "
+                             f"function: {lib_err:.3e}")
+    ms = time_ms(kernel, iters=50, warmup=5)
+    device_ms = profile_port.graph_ms(kernel)
+    host_us = profile_port.host_us(kernel)
+    plain_ms = time_ms(lambda: paged_decode_attention_plain(
+        q, ck, cv, mask, 1, length), iters=5, warmup=1)
+    lib_ms = time_ms(library, iters=50, warmup=5)
+    visible = int(bmask.sum())            # (sample, key) pairs
+    row_bytes = 128 * (1 if quantized else 2) + (4 if quantized else 0)
+    n_bytes = 2 * visible * K * row_bytes + 2 * nbytes(q)
+    bms, by = bound_ms(n_bytes, 4.0 * 128 * visible * H, FP32_FLOPS)
+    return {"ms": ms, "device_ms": device_ms, "host_us": host_us,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "library_rel_err": lib_err,
+            "spans": decode_spans(shape)}
+
+
+def decode_records() -> list[dict]:
+    """The decode kernel on DECODE_CASES, bf16 and int8 caches (length not
+    a multiple of 64, a poisoned tail, left pads, a row without keys, one
+    span and several); on each DECODE_SERVING case and DECODE_SPLIT with an
+    int8 cache, DECODE_REPEATS launches bit-identical and each
+    DECODE_MUTANTS fault failing (those of DECODE_MERGE_MUTANTS where a
+    pair has several spans: DECODE_SPLIT); then timed (``decode_timing``)
+    at DECODE_TIMED on each cache.  The record is the 7B serving shape's,
+    the other timed shapes under ``at``."""
+    import torch
+    from moka_tpu_torch.ops.paged_decode import paged_decode_attention
     err = {False: 0.0, True: 0.0}
     for i, (name, shape, pads, dead) in enumerate(DECODE_CASES):
         for quantized in (False, True):
             case = decode_case(*shape, pads, dead, quantized, seed=40 + i)
             err[quantized] = max(err[quantized], check_decode(
-                f"{name}, {'int8' if quantized else 'bf16'} cache", *case,
-                shape[4]))
-    for i, (name, shape, pads, dead) in enumerate(DECODE_SERVING):
-        length = shape[4]
+                f"{name} ({decode_spans(shape)} span(s) a pair), "
+                f"{'int8' if quantized else 'bf16'} cache", *case, shape[4]))
+    for i, (name, shape, pads, dead) in enumerate((*DECODE_SERVING,
+                                                   DECODE_SPLIT)):
+        length, split = shape[4], decode_spans(shape) > 1
         q, ck, cv, mask = decode_case(*shape, pads, dead, True, seed=50 + i)
         first = paged_decode_attention(q, ck, cv, mask, 1, length)
         same = all(torch.equal(first, paged_decode_attention(
@@ -2279,53 +2389,30 @@ def decode_records() -> list[dict]:
         if not same:
             raise AssertionError("decode kernel: repeated launches differ")
         for what, lib in MUTANTS["paged_decode"].items():
+            if what in DECODE_MERGE_MUTANTS and not split:
+                continue
             with swapped_library("paged_decode", lib):
                 must_fail(f"decode kernel mutant ({what}), {name}",
                           lambda: check_decode(f"{name}, int8, mutant", q,
                                                ck, cv, mask, length))
         del q, ck, cv, mask
-    name, shape, pads, dead = DECODE_CASES[0]
-    B, H, K, S, length = shape
     records = []
     for quantized in (False, True):
-        q, ck, cv, mask = decode_case(*shape, pads, dead, quantized, seed=45)
-        qs = q.transpose(1, 2)
-        bmask = (mask[:, :length] > 0)[:, None, None, :]
-
-        def prefix(side):
-            if isinstance(side, dict):
-                side = (side["q"][1, :, :length].float() *
-                        side["s"][1, :, :length]).bfloat16()
-            else:
-                side = side[1, :, :length]
-            return side.transpose(1, 2)
-
-        def library():
-            return F.scaled_dot_product_attention(
-                qs, prefix(ck), prefix(cv), attn_mask=bmask, enable_gqa=True)
-
-        rows = bmask[:, 0, 0].any(dim=1)
-        ref = paged_decode_attention_plain(q, ck, cv, mask, 1, length)
-        lib_err = float((library().transpose(1, 2).float() - ref.float())
-                        .abs()[rows].max()) / float(ref.float().abs().max())
-        if lib_err > SAME_FUNCTION_TOL:
-            raise AssertionError(f"the decode yardstick computes another "
-                                 f"function: {lib_err:.3e}")
-        ms = time_ms(lambda: paged_decode_attention(q, ck, cv, mask, 1,
-                                                    length),
-                     iters=50, warmup=5)
-        plain_ms = time_ms(lambda: paged_decode_attention_plain(
-            q, ck, cv, mask, 1, length), iters=5, warmup=1)
-        lib_ms = time_ms(library, iters=50, warmup=5)
-        visible = int(bmask.sum())            # (sample, key) pairs
-        row_bytes = 128 * (1 if quantized else 2) + (4 if quantized else 0)
-        n_bytes = 2 * visible * K * row_bytes + 2 * nbytes(q)
-        bms, by = bound_ms(n_bytes, 4.0 * 128 * visible * H, FP32_FLOPS)
         kind = "int8" if quantized else "bf16"
-        log(f"  decode timing {name}, {kind} cache: kernel {ms:.4f} ms "
-            f"({n_bytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, "
-            f"library {lib_ms:.4f} ms (its output within {lib_err:.2e} of "
-            f"the plain version's), bound {bms:.4f} ms ({by})")
+        at = {}
+        for i, (name, shape, pads, dead) in enumerate(DECODE_TIMED):
+            at[name] = t = decode_timing(shape, pads, dead, quantized,
+                                         seed=45 + i)
+            log(f"  decode timing {name}, {kind} cache ({t['spans']} "
+                f"span(s) a pair): kernel alone {t['device_ms']:.4f} ms, "
+                f"back to back {t['ms']:.4f} ms, host {t['host_us']:.1f} "
+                f"us a call, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms (its output within "
+                f"{t['library_rel_err']:.2e} of the plain version's), bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
+                f"{t['bound_ms'] / t['device_ms']:.0%} of it alone)")
+        name, (B, H, K, S, length), _, _ = DECODE_TIMED[0]
+        main = at.pop(name)
         records.append({
             "name": "paged_decode" + ("_int8" if quantized else ""),
             "route": "cuda",
@@ -2336,14 +2423,15 @@ def decode_records() -> list[dict]:
             "tolerance": f"|err| <= {DECODE_TOL[0]} + "
                          f"{DECODE_TOL[1]:.4g}|plain| on rows with keys; 0 "
                          f"on rows without",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms,
+            **main,
             "library": "scaled_dot_product_attention over the valid prefix "
                        "with the boolean mask, enable_gqa" +
                        (", the int8 prefix dequantized first" if quantized
                         else ""),
             "shape": f"B {B}, H {H}, K {K}, S {S}, length {length}, one "
-                     f"layer, {kind} cache"})
+                     f"layer, {kind} cache; ms the wrapper back to back, "
+                     f"device_ms a CUDA graph of launches",
+            "at": at})
     return records
 
 
@@ -2625,7 +2713,9 @@ def paged_serving(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
     path's tokens, every decode step's logits: the paged step within
     KV_KERNEL_TOL rel L2 of the eager one on the same cache (bf16 and
     int8), and the int8 cache (eager and paged) within KV8_LOGIT_TOL of
-    the bf16 cache (eager); each DECODE_MUTANTS fault, on the int8 cache,
+    the bf16 cache (eager); each DECODE_MUTANTS fault but the merge's
+    (DECODE_MERGE_MUTANTS: this path has one span a pair), on the int8
+    cache,
     must exceed both.  The tokens' agreement with the eager path's is
     logged, not held: the random weights' logits are flat, and one
     rounding flips a token that every later step then feeds back."""
@@ -2685,6 +2775,8 @@ def paged_serving(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
     cache8 = {"eager": worst(ref8, ref), "paged": worst(paged8, ref)}
     mutants = {}
     for what, lib in MUTANTS["paged_decode"].items():
+        if what in DECODE_MERGE_MUTANTS:  # one span a pair on this path
+            continue
         with swapped_library("paged_decode", lib):
             got = forced(True, True)
         mutants[what] = {"vs int8 eager": worst(got, ref8),
@@ -5401,6 +5493,7 @@ def main() -> int:
     check_bd_rank_sass()
     check_moka_sass()
     check_dropout_sass()
+    check_decode_sass()
     PHILOX.update(profile_port.philox_sass()["per_call"])
 
     cfg = LlamaConfig.llama2_7b()

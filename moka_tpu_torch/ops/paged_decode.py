@@ -15,11 +15,21 @@ CUDA tensors, launches the hand-written kernel
 kernel does not take.  The kernel gives 0 to a row that sees no key, where
 the loop gives the mean of the values it walked; callers read only rows
 that see a key.  Forward only (decode never differentiates).
+
+The kernel splits each (sample, kv head)'s keys below ``length`` into
+spans of whole 64-key tiles, one CTA a span: ``plan_spans`` sizes them
+from B * K, ``length`` and the card's SM count so that the grid is about
+one wave (one span a pair at the 7B serving shape, several for one
+sample), and the last span ends at ``length``.  Spans merge in span order
+in the same launch.  ``paged_decode_split_plain`` is that split and merge
+in plain PyTorch (the kernel's base-2 arithmetic, in fp32), which the
+tests hold against JAX's loop; nothing on the main path calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -28,7 +38,8 @@ from moka_tpu_torch.core.device import on_card, raw_stream
 NEG_INF = -1e30
 HEAD_DIM = 128   # the kernel's head_dim
 MAX_GROUP = 8    # query heads a kv head the kernel takes (GQA 64:8)
-CHUNK = 256      # keys a CTA of the kernel (its split of the prefix)
+TILE_KEYS = 64   # keys a stage of the kernel's ring (a span holds whole tiles)
+CTAS_PER_SM = 2  # the kernel's CTAs an SM: its grid is about one wave of them
 
 
 def _sides(cache_k, cache_v):
@@ -90,16 +101,84 @@ def paged_decode_attention_plain(q, cache_k, cache_v, attn_mask, layer_idx,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def plan_spans(B: int, K: int, length: int, sms: int) -> tuple[int, int]:
+    """The kernel's split of each (sample, kv head)'s keys below ``length``:
+    (tiles a span, spans a pair).  About CTAS_PER_SM CTAs an SM over the
+    B * K pairs (at least one span a pair, at most one a tile), whole
+    TILE_KEYS-key tiles a span, no span empty; the last span ends at
+    ``length``."""
+    tiles = -(-length // TILE_KEYS)
+    want = min(tiles, max(1, sms * CTAS_PER_SM // (B * K)))
+    per = -(-tiles // want)
+    return per, -(-tiles // per)
+
+
+def span_ranges(B: int, K: int, length: int, sms: int) -> list:
+    """``plan_spans``' spans as [start, stop) key ranges, in order."""
+    per, n = plan_spans(B, K, length, sms)
+    keys = per * TILE_KEYS
+    return [(i * keys, min((i + 1) * keys, length)) for i in range(n)]
+
+
+def paged_decode_split_plain(q, cache_k, cache_v, attn_mask, layer_idx,
+                             length, spans):
+    """The kernel's split and merge in plain PyTorch, in fp32: for each
+    [start, stop) key range of ``spans`` (``span_ranges``), base-2 scores
+    (times log2(e) / sqrt(hd), and ks on an int8 cache), -inf where a key
+    is not visible, the span's max m, sum l of p = 2^(s - m) and unscaled
+    output (p times vs on an int8 cache) v; then the spans merged in order
+    with weights 2^(m_span - max m).  A row that sees no key gives 0.  The
+    arguments are ``paged_decode_attention``'s; returns (B, 1, H, hd) in
+    q's dtype.  Used by the tests, not by the main path."""
+    kv_quant, k_arr, v_arr, k_s, v_s = _sides(cache_k, cache_v)
+    B, _, H, hd = q.shape
+    KH = k_arr.shape[3]
+    G = H // KH
+    scale = math.log2(math.e) / math.sqrt(hd)
+    qf = q[:, 0].reshape(B, KH, G, hd).float()
+    parts = []
+    for start, stop in spans:
+        k_blk = k_arr[layer_idx, :, start:stop].float()    # (B, n, KH, hd)
+        v_blk = v_arr[layer_idx, :, start:stop].float()
+        ok = attn_mask[:, start:stop] > 0                  # (B, n); < length
+        s = torch.einsum("bkgd,bskd->bkgs", qf, k_blk) * scale
+        if kv_quant:
+            s = s * k_s[layer_idx, :, start:stop, :, 0].transpose(1, 2)[
+                :, :, None]
+        s = torch.where(ok[:, None, None, :], s, float("-inf"))
+        m = s.amax(dim=-1)
+        p = torch.exp2(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+        l = p.sum(dim=-1)
+        if kv_quant:
+            p = p * v_s[layer_idx, :, start:stop, :, 0].transpose(1, 2)[
+                :, :, None]
+        parts.append((m, l, torch.einsum("bkgs,bskd->bkgd", p, v_blk)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    base = torch.where(m_all == float("-inf"), 0.0, m_all)
+    l_all = torch.zeros_like(m_all)
+    o_all = torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        wgt = torch.exp2(m - base)
+        l_all = l_all + l * wgt
+        o_all = o_all + o * wgt[..., None]
+    out = torch.where(l_all[..., None] > 0,
+                      o_all / torch.where(l_all > 0, l_all, 1.0)[..., None],
+                      0.0)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
 _lib = None
 _tickets: dict = {}  # device -> int32 zeros, one per (sample, kv head)
+_workspace: dict = {}  # device -> fp32 (m, l, unscaled out) of the spans
+_sms: dict = {}  # device -> streaming multiprocessors
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set ``moka_paged_decode``'s argument and result types on ``lib``
     (the built library, or an edited copy of its source) and return it."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.moka_paged_decode.argtypes = [p, p, p, p, p, p, i, p, p, p, p,
-                                      i, i, i, i, i, i, p]
+    lib.moka_paged_decode.argtypes = [p, p, p, p, p, p, i, p, p, p,
+                                      i, i, i, i, i, i, i, i, p]
     lib.moka_paged_decode.restype = i
     return lib
 
@@ -122,6 +201,24 @@ def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
+def _workspace_for(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` fp32 of span partials, kept per device and grown as
+    needed (each launch writes what it reads)."""
+    w = _workspace.get(device)
+    if w is None or w.numel() < n:
+        w = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=device)
+        _workspace[device] = w
+    return w
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sms[device] = n
+    return n
+
+
 def _launch(q, cache_k, cache_v, attn_mask, layer_idx, length):
     """The decode kernel on the card: checks what it takes (bf16 q with
     head_dim 128; a bf16 cache, or an int8 one with fp32 scales; H / K at
@@ -133,7 +230,7 @@ def _launch(q, cache_k, cache_v, attn_mask, layer_idx, length):
         raise ValueError(f"cache {tuple(k_arr.shape)} is not (N, B, S, K, hd)")
     N, Bc, S, K, hdc = k_arr.shape
     if L != 1 or hd != HEAD_DIM or hdc != hd or Bc != B or \
-            tuple(v_arr.shape) != tuple(k_arr.shape):
+            v_arr.shape != k_arr.shape:
         raise ValueError(f"decode kernel takes q (B, 1, H, {HEAD_DIM}) and a "
                          f"matching cache, not q {tuple(q.shape)}, k "
                          f"{tuple(k_arr.shape)}, v {tuple(v_arr.shape)}")
@@ -147,10 +244,10 @@ def _launch(q, cache_k, cache_v, attn_mask, layer_idx, length):
         raise TypeError(f"decode kernel takes a bf16 cache or an int8 one, "
                         f"not {k_arr.dtype} / {v_arr.dtype}")
     if kv_quant and (k_s.dtype != torch.float32 or v_s.dtype != torch.float32
-                     or tuple(k_s.shape) != (N, B, S, K, 1)
-                     or tuple(v_s.shape) != (N, B, S, K, 1)):
+                     or k_s.shape != (N, B, S, K, 1)
+                     or v_s.shape != (N, B, S, K, 1)):
         raise TypeError("decode kernel takes fp32 scales (N, B, S, K, 1)")
-    if tuple(attn_mask.shape) != (B, S) or \
+    if attn_mask.shape != (B, S) or \
             attn_mask.dtype not in (torch.int32, torch.float32):
         raise TypeError(f"decode kernel takes an int32 or fp32 (B, S) mask, "
                         f"not {attn_mask.dtype} {tuple(attn_mask.shape)}")
@@ -158,7 +255,8 @@ def _launch(q, cache_k, cache_v, attn_mask, layer_idx, length):
     if not 0 < length <= S or not 0 <= layer_idx < N:
         raise ValueError(f"length {length} of {S}, layer {layer_idx} of {N}")
     tensors = [q, k_arr, v_arr, attn_mask] + ([k_s, v_s] if kv_quant else [])
-    if any(t.device != q.device for t in tensors):
+    device = q.device
+    if any(t.device != device for t in tensors):
         raise ValueError("decode kernel inputs on more than one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode kernel takes contiguous tensors")
@@ -171,22 +269,17 @@ def _launch(q, cache_k, cache_v, attn_mask, layer_idx, length):
     if kv_quant:
         ks_ptr = k_s.data_ptr() + layer_idx * B * S * K * 4
         vs_ptr = v_s.data_ptr() + layer_idx * B * S * K * 4
-    G = H // K
-    n_split = -(-length // CHUNK)
-    ws_o = ws_ml = None
-    if n_split > 1:
-        ws_o = torch.empty((B * K, n_split, G, hd), dtype=torch.float32,
-                           device=q.device)
-        ws_ml = torch.empty((B * K, n_split, G, 2), dtype=torch.float32,
-                            device=q.device)
+    span_tiles, n_span = plan_spans(B, K, length, _sm_count(device))
+    ws = tickets = None
+    if n_span > 1:
+        ws = _workspace_for(device, B * H * n_span * (hd + 2)).data_ptr()
+        tickets = _tickets_for(device, B * K).data_ptr()
     out = torch.empty_like(q)
     status = _library().moka_paged_decode(
         q.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr, attn_mask.data_ptr(),
-        int(attn_mask.dtype == torch.float32), out.data_ptr(),
-        None if ws_o is None else ws_o.data_ptr(),
-        None if ws_ml is None else ws_ml.data_ptr(),
-        _tickets_for(q.device, B * K).data_ptr(), B, H, K, S, length,
-        int(kv_quant), raw_stream(q.device))
+        int(attn_mask.dtype == torch.float32), out.data_ptr(), ws, tickets,
+        B, H, K, S, length, int(kv_quant), span_tiles, n_span,
+        raw_stream(device))
     if status:
         from moka_tpu_torch import kernels
         kernels.check(status, "paged_decode")
@@ -204,7 +297,7 @@ def paged_decode_attention(q, cache_k, cache_v, attn_mask, layer_idx,
     layer_idx, length: the layer and the valid slots including the token
     just written.  S must be a multiple of ``block_k`` (the caller rounds
     the allocation up).  The kernel for CUDA tensors (its own split is
-    ``CHUNK`` keys whatever ``block_k``: keys at or past ``length`` are
+    ``plan_spans``' whatever ``block_k``: keys at or past ``length`` are
     never read), the plain loop for CPU tensors; ``interpret`` is accepted
     as JAX's signature has it.  Returns (B, 1, H, hd) in q's dtype."""
     del interpret

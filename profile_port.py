@@ -21,6 +21,8 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py moka_ablation
     python3 profile_port.py fused_dropout [--root DIR]
     python3 profile_port.py fused_dropout_ablation
+    python3 profile_port.py paged_decode [--root DIR]
+    python3 profile_port.py paged_decode_ablation
 
 ``flash`` (not among the default windows) times the query-major flash
 kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
@@ -69,7 +71,12 @@ rank 4 alone where its kernels take no other M*r);
 ``fused_dropout_ablation`` times them with parts taken out
 (DROP_ABLATIONS: edited copies of fused_dropout.cu), twice in turn, and
 counts a Philox call's SASS instructions and multiplies
-(``philox_sass``).
+(``philox_sass``).  ``paged_decode`` times the decode kernel through its
+wrapper at DECODE_SHAPES (chip_smoke's timed shapes and one sample) on a
+bf16 and an int8 cache the same way (with ``--root``, another
+checkout's); ``paged_decode_ablation`` times it with parts taken out and
+its ring resized (DECODE_ABLATIONS: edited copies of paged_decode.cu),
+twice in turn.
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -1425,6 +1432,127 @@ def fused_dropout_window(host_calls: int = 50) -> dict:
     return {"fused_dropout": out}
 
 
+DECODE_SHAPES = {  # name: (B, H, K, S, length, left pads), chip_smoke's
+    "7B serving": (8, 32, 32, 1024, 928, 7),           # DECODE_TIMED
+    "infer's cache": (8, 32, 32, 1280, 1025, 7),
+    "llama2_70b heads, GQA 64:8": (4, 64, 8, 1024, 700, 9),
+    "one sample": (1, 32, 32, 4096, 3000, 5)}
+
+
+def decode_case(B, H, K, S, length, pads, quantized, seed: int = 0):
+    """The decode kernel's arguments at a DECODE_SHAPES shape: q and a
+    2-layer cache from ``seed`` (bf16, or int8 codes with fp32 scales),
+    row i's first ``pads * i // B`` keys masked, the last row without
+    keys.  Built here, not imported from chip_smoke, so that ``--root``
+    can time another checkout's wrapper."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, 1, H, 128), generator=g, device="cuda").bfloat16()
+    shape = (2, B, S, K, 128)
+    sides = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=g, device="cuda")
+        if quantized:
+            s = x.abs().amax(dim=-1, keepdim=True) / 127.0
+            sides.append({"q": torch.round(x / s).to(torch.int8), "s": s})
+        else:
+            sides.append(x.bfloat16())
+    mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    for i in range(B):
+        mask[i, :pads * i // B] = 0
+    if B > 1:
+        mask[B - 1] = 0
+    return q, sides[0], sides[1], mask, 1, length
+
+
+def decode_window(host_calls: int = 200) -> dict:
+    """The decode kernel through its wrapper at DECODE_SHAPES on a bf16 and
+    an int8 cache: the kernel alone (``graph_ms``, a CUDA graph of 100
+    launches), the host's µs a call (``host_us``) and the wrapper back to
+    back (with ``--root``, another checkout's)."""
+    from moka_tpu_torch.ops import paged_decode as pd
+    out = {"package": pd.__file__}
+    for quantized in (False, True):
+        kind = "int8" if quantized else "bf16"
+        for name, (B, H, K, S, length, pads) in DECODE_SHAPES.items():
+            args = decode_case(B, H, K, S, length, pads, quantized)
+
+            def call():
+                pd.paged_decode_attention(*args)
+
+            res = {"graph_ms": graph_ms(call),
+                   "host_us": host_us(call, host_calls),
+                   "back_to_back_ms": event_ms(call, 50)}
+            out[f"{name}, {kind}"] = res
+            print(f"  decode {name}, {kind} cache: kernel alone "
+                  f"{res['graph_ms']:.4f} ms, host {res['host_us']:.1f} us a "
+                  f"call, back to back {res['back_to_back_ms']:.4f} ms",
+                  flush=True)
+            del args
+    return {"paged_decode": out}
+
+
+DECODE_ABLATIONS = {  # name: edits of paged_decode.cu (hopper.cuh inlined);
+    "kernel": [],     # the edited kernels' outputs are wrong, only times
+    "consumers idle (the loads alone)": [
+        ("    const uint32_t kb = ring + s * C::STAGE, vb = kb + C::SIDE;\n",
+         "    const uint32_t kb = ring + s * C::STAGE, vb = kb + C::SIDE;\n"
+         "    if (true) {\n      __syncwarp();\n"
+         "      if (lane == 0) mbar_arrive(empty0 + 8 * s);\n"
+         "      continue;\n    }\n")],
+    "no P v": [("#pragma unroll\n        for (int i = 0; i < 4; ++i) "
+                "mma(o[4 * G4 + i], pa0, pa2, b0[i], b1[i]);",
+                "#pragma unroll\n        for (int i = 0; i < 0; ++i) "
+                "mma(o[4 * G4 + i], pa0, pa2, b0[i], b1[i]);"),
+               ("        mma(o[2 * jp], pa0, pa2, vr[jp][0], vr[jp][1]);\n"
+                "        mma(o[2 * jp + 1], pa0, pa2, vr[jp][2], vr[jp][3]);\n",
+                "")],
+    "bf16 ring of 2 stages": [
+        ("static constexpr int STAGES = INT8 ? 2 : 3;",
+         "static constexpr int STAGES = 2;")],
+    "int8 ring of 4 stages": [
+        ("static constexpr int STAGES = INT8 ? 2 : 3;",
+         "static constexpr int STAGES = INT8 ? 4 : 3;")],
+    "rings of 4 stages, one CTA an SM": [
+        ("static constexpr int STAGES = INT8 ? 2 : 3;",
+         "static constexpr int STAGES = 4;"),
+        ("__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 1)")]}
+
+
+def decode_ablation_window(turns: int = 2) -> dict:
+    """The decode kernel with parts taken out or its ring resized
+    (DECODE_ABLATIONS: edited copies of paged_decode.cu) at the 7B serving
+    shape and one sample, each cache, alone in a CUDA graph, ``turns``
+    times in turn."""
+    from moka_tpu_torch.ops import paged_decode as pd
+    libs = finish_variants(start_variants("paged_decode.cu",
+                                          DECODE_ABLATIONS))
+    kept = pd._library()
+    out = {}
+    try:
+        for quantized in (False, True):
+            kind = "int8" if quantized else "bf16"
+            for name in ("7B serving", "one sample"):
+                B, H, K, S, length, pads = DECODE_SHAPES[name]
+                args = decode_case(B, H, K, S, length, pads, quantized)
+                for turn in range(turns):
+                    for what, lib in libs.items():
+                        pd._lib = pd.bind(lib)
+
+                        def call():
+                            pd.paged_decode_attention(*args)
+
+                        ms = graph_ms(call)
+                        out.setdefault(f"{name}, {kind}: {what}", []).append(
+                            ms)
+                        print(f"  decode {name}, {kind} cache, {what}: "
+                              f"alone {ms:.4f} ms", flush=True)
+                del args
+    finally:
+        pd._lib = kept
+    return {"paged_decode_ablation": out}
+
+
 _DROP_NO_PHILOX = (
     "    const uint32_t g = static_cast<uint32_t>(c) >> 2;\n"
     "    philox(static_cast<uint32_t>(n), g, rk, w);\n"
@@ -1614,7 +1742,9 @@ def main(argv=None) -> int:
                       "moka_ablation": moka_ablation_window,
                       "fused_dropout": fused_dropout_window,
                       "fused_dropout_ablation":
-                          fused_dropout_ablation_window}
+                          fused_dropout_ablation_window,
+                      "paged_decode": decode_window,
+                      "paged_decode_ablation": decode_ablation_window}
     if set(names) - {*WINDOWS, *kernel_windows}:
         print(f"profile_port: windows are {WINDOWS} and "
               f"{tuple(kernel_windows)}", file=sys.stderr)

@@ -891,9 +891,10 @@ def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
 
 
 def test_decode_mutant_edits_apply():
-    """The decode kernel's mutant (chip_smoke.py's DECODE_MUTANTS, which
-    phase 3 requires to fail) edits paged_decode.cu by text: its old text
-    occurs exactly once and the copy differs."""
+    """The decode kernel's mutants (chip_smoke.py's DECODE_MUTANTS, which
+    phase 3 requires to fail) edit paged_decode.cu by text: each old text
+    occurs exactly once and the copy differs; the merge's mutants are
+    among them."""
     import sys
     from moka_tpu_torch import kernels
     sys.path.insert(0, str(ROOT))
@@ -908,6 +909,24 @@ def test_decode_mutant_edits_apply():
                                             src) != base
     assert chip_smoke.MUTANT_SOURCES["paged_decode"] == (
         src, chip_smoke.DECODE_MUTANTS)
+    assert set(chip_smoke.DECODE_MERGE_MUTANTS) < set(
+        chip_smoke.DECODE_MUTANTS)
+
+
+def test_decode_ablation_edits_apply():
+    """profile_port.py's DECODE_ABLATIONS edit paged_decode.cu by text:
+    each old text occurs exactly once and each copy differs."""
+    import sys
+    from moka_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT))
+    import profile_port
+    src = "paged_decode.cu"
+    base = profile_port.ablation_source([], kernels.CSRC, src)
+    for name, changes in profile_port.DECODE_ABLATIONS.items():
+        for old, _ in changes:
+            assert base.count(old) == 1, (name, old)
+        assert (profile_port.ablation_source(changes, kernels.CSRC, src)
+                != base) == bool(changes)
 
 
 def test_decode_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
@@ -938,10 +957,10 @@ def test_decode_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
                                         (8, 8, 1025)])
 def test_decode_kernel_matches_plain_on_card(card, quantized, H, K, length):
     """The decode kernel against ``paged_decode_attention_plain`` on a bf16
-    and an int8 cache: one, two and five 256-key chunks (the last holding
-    one key), GQA 8:1, left pads, a row without keys (out 0) and a
-    poisoned tail; kernel 1's rule (4e-3 + 2^-7 |plain|), one launch
-    counted."""
+    and an int8 cache: 5, 2 and 17 64-key tiles (the last holding one
+    key), each pair's keys in several spans on an H100 (5, 2 and 9), GQA
+    8:1, left pads, a row without keys (out 0) and a poisoned tail; kernel
+    1's rule (4e-3 + 2^-7 |plain|), one launch counted."""
     from moka_tpu_torch.models.llama import _kv_quantize
     from moka_tpu_torch.ops.paged_decode import (
         paged_decode_attention, paged_decode_attention_plain)
