@@ -228,7 +228,30 @@ Phases, in order; any failed build, launch or check exits non-zero:
      written, and the decode step eager against paged on bf16 and int8
      caches of 512-4096 cells (``paged_decode_auto``'s readings, which
      must give its answer: paged faster in most pairings on each cache);
- 17. one JSON line with every kernel's numbers, then the card's line.
+ 17. parallelism (``phase17``, after phase 16 with the earlier trees
+     freed): (a) phase 6's step with the bf16 base resident (twice: the
+     spread) and in pinned host memory through ``host_stream`` (layers
+     copied a layer at a time inside the remat region, 2 x 32 layer
+     fetches a step): loss and gradients within the spread, the streamed
+     peak at least 10 GiB lower, the bytes copied and the GB/s printed;
+     then two ranks on the card in gloo groups (CUDA tensors cross their
+     sends as host copies): (b) phase 7's long-context step (b 1, L 4096) as the
+     flash ring over a ("seq",) mesh of 2 against rank 0's one-process
+     flash step (RING_DEEP_TOL), kernels 1, 3 and 4 launched 2 x 2 x 32,
+     2 x 32, 2 x 32 times a rank and kernel 2 never, and at 2 layers the
+     flash and the dense ring each under phase 6's rule against fp32;
+     (c) ``make_train_step`` on meshes 1,2,1 (FSDP: half the base a rank)
+     and 2,1,1 at 7B widths and 4 layers, 2 + 3 steps on rows with
+     different supervised counts, against one process on the global batch
+     (within REMAT_NOISE of two one-process runs' spread), the bytes
+     gathered a step printed, and one step of 2,1,1 with the fused
+     dropout (kernels 6-7 launched 2 x 7 x 4 and 7 x 4 times a rank,
+     drawing the global rows' masks through the key's row map) against
+     one process; before the world, kernels 6-7 on a rank's rows of a
+     batch and of a sequence split against the whole array's rows;
+     (d) ``finetune``
+     (tiny preset) with ``--mesh 1,2,1 --host-offload`` on both ranks;
+ 18. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -2556,15 +2579,16 @@ def check_paged_gate(cfg, readings: dict, device: str) -> None:
 
 # ------------------------------------------------------------------ phase 4
 
-def build_model(cfg, spec, seed=0):
-    """bf16 LLaMA base and fp32 MokA adapters on the card, random from
-    ``seed``; B is seeded non-zero (it starts at zero, a no-op)."""
+def build_model(cfg, spec, seed=0, device="cuda"):
+    """bf16 LLaMA base and fp32 MokA adapters on the card (or ``device``),
+    random from ``seed``; B is seeded non-zero (it starts at zero, a
+    no-op)."""
     import torch
     from moka_tpu_torch.models import llama
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    base = llama.init_llama_params(g, cfg, device="cuda",
+    g = torch.Generator(device=device).manual_seed(seed)
+    base = llama.init_llama_params(g, cfg, device=device,
                                    dtype=torch.bfloat16)
-    adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+    adapters = llama.init_moka_adapters(g, cfg, spec, device=device)
     for p in adapters["layers"].values():
         p["b"].normal_(0.0, 0.02, generator=g)
     return base, adapters
@@ -2961,7 +2985,7 @@ def build_trainer(cfg, spec, seed=1):
     return base, {"adapters": adapters}
 
 
-def train_batch(cfg, b, L, seed=0) -> dict:
+def train_batch(cfg, b, L, seed=0, device="cuda") -> dict:
     """bench.py:91-104: random tokens, a quarter of the labels ignored,
     text / video / audio = 1/2, 1/4, 1/4, question span 2:L//8."""
     import torch
@@ -2974,7 +2998,7 @@ def train_batch(cfg, b, L, seed=0) -> dict:
     mod[2, :, 3 * L // 4:] = 1
     q = np.zeros((b, L), np.float32)
     q[:, 2: L // 8] = 1
-    return {k: torch.as_tensor(v, device="cuda") for k, v in
+    return {k: torch.as_tensor(v, device=device) for k, v in
             dict(tokens=toks, labels=labels, modality_masks=mod,
                  question_mask=q).items()}
 
@@ -5443,6 +5467,697 @@ def phase16(work: Path, p15: dict, device: str = "cuda", tiny: bool = False,
 
 # ------------------------------------------------------------------- main
 
+# ----------------------------------------------------------------- phase 17
+
+P17_RANKS = 2  # ranks on the one card: gloo groups (NCCL refuses two ranks
+               # on a device), whose collectives move host copies
+P17_OFFLOAD_GAP = 10 * 2**30  # the host-streamed step's peak device memory
+                              # at least this far below the resident one's
+P17_FSDP_LAYERS = 4  # the FSDP / data-parallel steps' depth at 7B widths:
+                     # a gloo all-gather of 32 layers a step takes too long
+P17_STEPS = (2, 3)  # warm-up and further steps of the mesh step checks
+P17_TINY_STEPS = (1, 1)  # the CPU rehearsal's
+RING_DEEP_TOL = (2e-3, 0.25)  # the ring's loss (relative) and adapter
+                              # gradients (relative L2, per projection)
+                              # against the one-process flash step through
+                              # 32 layers: each shard's partial output is
+                              # rounded to bf16 before the fp32 merge, the
+                              # class of difference between the kernels and
+                              # the plain attention, whose 32-layer gradients
+                              # phase 6 finds 0.15 apart; the tight rule is
+                              # phase 6's, at SHALLOW layers against fp32
+
+
+def p17_configs(tiny: bool):
+    """(the ring's long-context config, the streamed / mesh config, spec):
+    phase 6-7's LLaMA-2-7B and MokA AVT r4 (dropout 0.05, question window
+    256), or ``LlamaConfig.tiny`` for the CPU rehearsal."""
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.ops.moka import MokaSpec
+    if not tiny:
+        cfg, spec = train_config()
+        return train_config(long_context=True)[0], cfg, spec
+    cfg = LlamaConfig.tiny(vocab_size=300)
+    spec = MokaSpec.avt(rank=4, dropout_rate=0.05).with_question_window(8)
+    return dataclasses.replace(cfg, rope_scaling=("dynamic", 2.0)), cfg, spec
+
+
+def _grads(loss_fn, frozen, trainable, batch, key) -> tuple:
+    """(loss, {projection: its adapter gradients of every layer, flat})."""
+    import torch
+    from moka_tpu_torch.train.optim import tree_leaves
+    leaves = tree_leaves(trainable)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = loss_fn(trainable, frozen, batch, key)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    flat: dict = {}
+    for (name, _), g in zip(sorted((n, ab) for n in PROJS for ab in "ab"),
+                            grads):
+        flat.setdefault(name, []).append(g.flatten().float())
+    return float(loss.detach()), {n: torch.cat(v) for n, v in flat.items()}
+
+
+
+def p17_stream(cfg, spec, device: str, tiny: bool, smi: str) -> dict:
+    """(a) Phase 6's step (b 4 L 1024, full remat, flash, chunked CE) with
+    the base resident, twice (the spread: kernel 2's dq reductions change
+    order from run to run), then with the base in pinned host memory
+    through ``host_stream``; the streamed loss and gradients within the
+    spread, its peak at least P17_OFFLOAD_GAP lower."""
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.parallel import stream as tstream
+    from moka_tpu_torch.parallel.sharding import (shard_params,
+                                                  stream_shardings)
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    on_card = device == "cuda"
+    b, L = (2, 32) if tiny else (4, 1024)
+    frozen, adapters = build_model(cfg, spec, seed=1, device=device)
+    trainable = {"adapters": adapters}
+    batch = train_batch(cfg, b, L, device=device)
+    key = DropoutKey(11)
+
+    def run(base, host_stream=None):
+        loss_fn = make_llama_moka_loss(cfg, spec, remat=True,
+                                       use_flash=True, fused_loss=True,
+                                       ce_chunk=128, host_stream=host_stream)
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        tstream.reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = _grads(loss_fn, base, trainable, batch, key)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        return {"loss": loss, "grads": grads, "ms": ms,
+                "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+                "launches": _counts(), "moved": dict(tstream.COUNTS)}
+
+    if on_card:
+        run(frozen)  # the process's first step: library loads, allocator
+    resident = [run(frozen) for _ in range(2)]
+    host = shard_params(None, frozen, host_offload=True)
+    whole = sum(nbytes(t) for t in _leaves(frozen))
+    layers = sum(nbytes(t) for t in _leaves(frozen["layers"]))
+    del frozen
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    pinned = all(t.is_pinned() for t in _leaves(host)) if on_card else False
+    streamed = run(host, stream_shardings(None, host))
+    spread = {n: rel(resident[1]["grads"][n], resident[0]["grads"][n])
+              for n in PROJS}
+    res = {"resident_ms": [r["ms"] for r in resident],
+           "streamed_ms": streamed["ms"],
+           "resident_peak": resident[0]["peak"],
+           "streamed_peak": streamed["peak"],
+           "loss": {"resident": [r["loss"] for r in resident],
+                    "streamed": streamed["loss"]},
+           "grad_rel_l2": {n: rel(streamed["grads"][n],
+                                  resident[0]["grads"][n]) for n in PROJS},
+           "spread_rel_l2": spread, "moved": streamed["moved"],
+           "base_bytes": whole, "layer_bytes": layers,
+           "launches": streamed["launches"], "pinned": pinned}
+    want_bytes = 2 * layers + whole - layers  # layers twice, head, embed, norm
+    h2d = streamed["moved"]["h2d_bytes"]
+    res["h2d_gb_per_s"] = h2d / streamed["ms"] * 1e-6
+    log(f"  (a) resident step {res['resident_ms'][0]:.1f} / "
+        f"{res['resident_ms'][1]:.1f} ms, peak "
+        f"{res['resident_peak'] / 2**30:.2f} GiB; streamed step "
+        f"{res['streamed_ms']:.1f} ms, peak "
+        f"{res['streamed_peak'] / 2**30:.2f} GiB (pinned host base "
+        f"{pinned}); {streamed['moved']['layer_fetches']} layer fetches, "
+        f"{h2d / 1e9:.3f} GB host to device a step ({2 * layers / 1e9:.3f} "
+        f"GB of layers, forward and recompute, + head, embed, norm; "
+        f"expected {want_bytes / 1e9:.3f}), {res['h2d_gb_per_s']:.2f} GB/s "
+        f"over the step; {smi}")
+    log(f"  losses resident {res['loss']['resident']}, streamed "
+        f"{streamed['loss']}; gradients streamed vs resident rel L2 "
+        f"{ {n: f'{v:.2e}' for n, v in res['grad_rel_l2'].items()} }, "
+        f"resident vs resident "
+        f"{ {n: f'{v:.2e}' for n, v in spread.items()} } (rule, per "
+        f"projection: <= {REMAT_NOISE[0]} x that + {REMAT_NOISE[1]})")
+    if streamed["moved"]["layer_fetches"] != 2 * cfg.n_layers:
+        raise AssertionError(f"host_stream fetched "
+                             f"{streamed['moved']['layer_fetches']} layers, "
+                             f"want {2 * cfg.n_layers}")
+    if on_card and (h2d != want_bytes or not pinned):
+        raise AssertionError(f"host_stream moved {h2d} bytes, want "
+                             f"{want_bytes} (pinned {pinned})")
+    loss_noise = REMAT_NOISE[0] * abs(resident[1]["loss"] -
+                                      resident[0]["loss"]) + \
+        REMAT_NOISE[1] * abs(resident[0]["loss"])
+    if any(not res["grad_rel_l2"][n] <= REMAT_NOISE[0] * spread[n] +
+           REMAT_NOISE[1] for n in PROJS) or \
+            abs(streamed["loss"] - resident[0]["loss"]) > loss_noise:
+        raise AssertionError("the streamed step is not the resident one")
+    if streamed["launches"] != resident[0]["launches"]:
+        raise AssertionError(f"streamed launches {streamed['launches']} vs "
+                             f"{resident[0]['launches']}")
+    if on_card and res["resident_peak"] - res["streamed_peak"] < \
+            P17_OFFLOAD_GAP:
+        raise AssertionError("the streamed peak is not "
+                             f"{P17_OFFLOAD_GAP / 2**30:.0f} GiB lower")
+    return res
+
+
+def p17_dropout_rows(device: str, tiny: bool) -> dict:
+    """Kernels 6-7 on one rank's rows of a split array (x at 7B width, A of
+    AVT r4): the rank's x with its key's ``row_map`` against the same rows
+    of the whole array through the kernels (the masks, dx's zeros,
+    exactly; out within DROP_TOL of the largest, dx within one bf16 ulp)
+    and against the plain versions at the same rows, for the batch
+    split (the last of 4 ranks, a sample each) and the sequence split (the
+    second of 2 ranks).  Without the row map the rank's mask would be
+    another: that is checked too, so the check can see a lost map."""
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops import fused_dropout as fd
+    B, L, d, mr = (4, 32, 64, 12) if tiny else (4, 1024, 4096, 12)
+    g = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((B, L, d), generator=g, device=device).to(torch.bfloat16)
+    a = torch.randn((d, mr), generator=g, device=device) * 0.02
+    gout = torch.randn((B, L, mr), generator=g, device=device)
+    key = DropoutKey(23).fold_in(5)
+    _zero_counts()
+    whole = fd.dropout_a_fwd(x.reshape(-1, d), a, key, DROP_RATE)
+    wdx, _ = fd.dropout_a_bwd(x.reshape(-1, d), a, gout.reshape(-1, mr), key,
+                              DROP_RATE)
+    whole, wdx = whole.reshape(B, L, mr), wdx.reshape(B, L, d)
+    out = {}
+    for name, (dim, start, size, total) in {
+            "batch split": (0, B - 1, 1, B),
+            "sequence split": (1, L // 2, L // 2, L)}.items():
+        idx = (slice(start, start + size),) if dim == 0 else \
+            (slice(None), slice(start, start + size))
+        xl = x[idx].reshape(-1, d).contiguous()
+        gl = gout[idx].reshape(-1, mr).contiguous()
+        rk = key.rows(dim, start, total)
+        rows = rk.row_map(x[idx].shape)
+        got = fd.dropout_a_fwd(xl, a, rk, DROP_RATE, rows=rows)
+        dx, _ = fd.dropout_a_bwd(xl, a, gl, rk, DROP_RATE, rows=rows)
+        pout = fd.dropout_a_fwd_plain(xl, a, rk, DROP_RATE, rows=rows)
+        pdx, _ = fd.dropout_a_bwd_plain(xl, a, gl, rk, DROP_RATE, rows=rows)
+        want, wantdx = whole[idx].reshape(-1, mr), wdx[idx].reshape(-1, d)
+        unmapped = fd.dropout_a_bwd_plain(xl, a, gl, key, DROP_RATE)[0]
+
+        def frac(p, q):
+            return float((p.float() - q.float()).abs().max() /
+                         q.float().abs().max())
+
+        def ulps(p, q):  # > 0: some element beyond one bf16 ulp
+            p, q = p.float(), q.float()
+            return float(((p - q).abs() - 2 ** -7 * q.abs()).max())
+
+        rec = {"rows": list(rows), "out_vs_whole": frac(got, want),
+               "dx_vs_whole": ulps(dx, wantdx),
+               "out_vs_plain": frac(got, pout), "dx_vs_plain": ulps(dx, pdx),
+               "mask_is_whole": bool(torch.equal(dx != 0, wantdx != 0)),
+               "mask_is_plain": bool(torch.equal(dx != 0, pdx != 0)),
+               "mask_without_map_differs": not torch.equal(
+                   unmapped != 0, pdx != 0)}
+        out[name] = rec
+        log(f"  dropout kernels at a rank's rows, {name} (row map "
+            f"{rows}): x {tuple(xl.shape)} of {(B * L, d)}; out vs the "
+            f"whole array's rows {rec['out_vs_whole']:.2e}, vs plain "
+            f"{rec['out_vs_plain']:.2e} (tol {DROP_TOL}); dx beyond one ulp "
+            f"{rec['dx_vs_whole']:.2e} / {rec['dx_vs_plain']:.2e}; masks = "
+            f"whole {rec['mask_is_whole']}, = plain {rec['mask_is_plain']}; "
+            f"another mask without the map "
+            f"{rec['mask_without_map_differs']}")
+        if not (rec["mask_is_whole"] and rec["mask_is_plain"] and
+                rec["mask_without_map_differs"] and
+                max(rec["out_vs_whole"], rec["out_vs_plain"]) <= DROP_TOL
+                and max(rec["dx_vs_whole"], rec["dx_vs_plain"]) <= 0):
+            raise AssertionError(f"dropout kernels at a rank's rows, {name}")
+    want = _launches(dropout_a_fwd=3, dropout_a_bwd=3) \
+        if device == "cuda" else _launches()
+    if _counts() != want:
+        raise AssertionError(f"row-map launches {_counts()}, want {want}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _rank_log(rank: int, *a) -> None:
+    if rank == 0:
+        log(*a)
+
+
+def _seq_mesh():
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, (dist.get_world_size(),),
+                            mesh_dim_names=("seq",))
+
+
+def p17_ring(rank: int, cfg, spec, device: str, tiny: bool) -> dict:
+    """(b) Phase 7's long-context step (b 1, L 4096, dynamic-NTK RoPE,
+    full remat, chunked CE) as ``make_llama_moka_loss(context_parallel=
+    (mesh, "seq"), use_flash=True)`` over the ranks: loss and adapter
+    gradients against rank 0's one-process flash step (RING_DEEP_TOL), the
+    launches of kernels 1, 3 and 4 a rank and none of kernel 2; then, at
+    SHALLOW layers, the flash ring and the dense ring under phase 6's rule
+    (each within TRAIN_RATIO of the one-process flash step's distance from
+    an fp32 eager step)."""
+    import torch
+    import torch.distributed as dist
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    on_card = device == "cuda"
+    L = 64 if tiny else 4096
+    n = dist.get_world_size()
+    frozen, adapters = build_model(cfg, spec, seed=1, device=device)
+    trainable = {"adapters": adapters}
+    batch = train_batch(cfg, 1, L, seed=2, device=device)
+    key = DropoutKey(13)
+    mesh = _seq_mesh()
+
+    def loss(c, flash=True, ring=True):
+        return make_llama_moka_loss(
+            c, spec, remat=True, use_flash=flash, fused_loss=True,
+            ce_chunk=128, context_parallel=(mesh, "seq") if ring else None)
+
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref = _grads(loss(cfg, ring=False), frozen, trainable, batch, key)
+        _sync(device)
+        ref_ms = (time.perf_counter() - t0) * 1e3
+    dist.barrier()
+    _sync(device)
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = _grads(loss(cfg), frozen, trainable, batch, key)
+    _sync(device)
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    want = _launches(flash_fwd=2 * n * cfg.n_layers,
+                     flash_bwd_dq=n * cfg.n_layers,
+                     flash_bwd_dkv=n * cfg.n_layers) if on_card \
+        else _launches()
+    if counts != want:
+        raise AssertionError(f"rank {rank}: ring launches {counts}, want "
+                             f"{want}")
+    out = {"launches": counts, "ring_ms": ring_ms, "loss": got[0]}
+    if rank == 0:
+        gap = {p: rel(got[1][p], ref[1][p]) for p in PROJS}
+        dloss = abs(got[0] - ref[0]) / abs(ref[0])
+        out.update(one_ms=ref_ms, one_loss=ref[0], grad_rel_l2=gap,
+                   loss_rel=dloss)
+        log(f"  (b) flash ring over {n} ranks, {cfg.n_layers} layers, b 1 L "
+            f"{L}: loss {got[0]:.6f} vs one process {ref[0]:.6f} (rel "
+            f"{dloss:.2e}); adapter gradients rel L2 "
+            f"{ {p: f'{v:.2e}' for p, v in gap.items()} } (tol "
+            f"{RING_DEEP_TOL}); {ring_ms:.1f} ms a rank (two ranks share "
+            f"the card: no speed figure) vs {ref_ms:.1f} ms in one "
+            f"process; launches a rank {counts}")
+        if dloss > RING_DEEP_TOL[0] or max(gap.values()) > RING_DEEP_TOL[1]:
+            raise AssertionError("the flash ring is not the one-process step")
+    # the rehearsal's model has SHALLOW layers: its flash ring and one
+    # process at SHALLOW layers are the runs above
+    reuse = cfg.n_layers == SHALLOW
+    if not reuse:
+        del got, ref
+        gc.collect()
+
+    # phase 6's rule at SHALLOW layers: the rings against fp32
+    sh = dataclasses.replace(cfg, n_layers=SHALLOW)
+    fr = first_layers(frozen, SHALLOW)
+    tr = {"adapters": first_layers(adapters, SHALLOW)}
+    rings = {"flash": got if reuse else _grads(loss(sh), fr, tr, batch, key),
+             "dense": _grads(loss(sh, flash=False), fr, tr, batch, key)}
+    if rank == 0:
+        one = ref if reuse else _grads(loss(sh, ring=False), fr, tr, batch,
+                                       key)
+        exact = _grads(loss(sh, flash=False, ring=False), float32(fr), tr,
+                       batch, key)
+        out["shallow"] = {}
+        for name, r in rings.items():
+            dr, do = abs(r[0] - exact[0]), abs(one[0] - exact[0])
+            ok = dr <= TRAIN_RATIO * do + TRAIN_FLOOR * abs(exact[0])
+            rec = {"loss": r[0], "one_loss": one[0], "fp32_loss": exact[0],
+                   "grad_rel_l2": {}}
+            for p in PROJS:
+                er, eo = rel(r[1][p], exact[1][p]), rel(one[1][p],
+                                                        exact[1][p])
+                ok &= er <= TRAIN_RATIO * eo + TRAIN_FLOOR
+                rec["grad_rel_l2"][p] = {"ring_vs_fp32": er,
+                                         "one_vs_fp32": eo}
+            out["shallow"][name] = rec
+            log(f"  {name} ring at {SHALLOW} layers: loss {r[0]:.6f}, one "
+                f"process {one[0]:.6f}, fp32 {exact[0]:.6f}; gradients rel "
+                f"L2 vs fp32 ring / one process "
+                f"{ {p: (f'{v['ring_vs_fp32']:.2e}', f'{v['one_vs_fp32']:.2e}') for p, v in rec['grad_rel_l2'].items()} }"
+                f" (tol: ring <= {TRAIN_RATIO} x one process + "
+                f"{TRAIN_FLOOR})")
+            if not ok:
+                raise AssertionError(f"the {name} ring fails phase 6's rule")
+    del frozen, adapters, trainable, fr, tr, rings
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _mesh_batch(cfg, B: int, L: int, device: str) -> dict:
+    """``train_batch`` with every row's supervised count different: row i
+    keeps its labels from position L * i / (B + 1) on."""
+    batch = train_batch(cfg, B, L, seed=4, device=device)
+    for i in range(B):
+        batch["labels"][i, : L * i // (B + 1)] = -100
+    return batch
+
+
+def p17_mesh(rank: int, cfg, spec, device: str, tiny: bool) -> dict:
+    """(c) ``make_train_step`` on the meshes 1,2,1 (FSDP: each rank holds
+    half of every sharded leaf, gathered a layer at a time) and 2,1,1
+    (data parallel) at 7B widths and P17_FSDP_LAYERS layers, P17_STEPS
+    steps, each rank on its rows of a global batch of 4 x 1024 whose rows
+    hold different counts of supervised tokens: losses and adapter updates
+    (params - init) against rank 0's one process on the global batch,
+    within REMAT_NOISE of the spread of two one-process runs (kernel 2's
+    dq reductions change order from run to run, and Adam normalises each
+    entry's update, so a small gradient's noise moves it by the learning
+    rate).  With random weights every row's CE is about ln(vocab), so this
+    rule cannot tell the global count of targets from a mean of the ranks'
+    means: ``tests/test_torch_mesh.py`` holds that against JAX.  Then the
+    fused dropout (kernels 6-7) on the data-parallel mesh: their launches
+    a rank, and the first step's global gradients against one process's
+    under the same rule, its noise the larger of two one-process runs'
+    spread and the unfused data-parallel mesh's first-step gradients'
+    distance from one process's (the split alone changes the shapes of
+    the base's bf16 products, and so their rounding; the masks are held
+    exactly by ``p17_dropout_rows``).  The rehearsal (``tiny``) runs
+    P17_TINY_STEPS steps and one one-process run (the CPU repeats itself
+    exactly)."""
+    import torch
+    import torch.distributed as dist
+    from moka_tpu_torch.core.config import MeshConfig, TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.parallel import stream as tstream
+    from moka_tpu_torch.parallel.mesh import data_parallel_index, make_mesh
+    from moka_tpu_torch.parallel.sharding import shard_params
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    from moka_tpu_torch.train.optim import make_optimizer, tree_leaves
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    on_card = device == "cuda"
+    cfg = dataclasses.replace(cfg, n_layers=2 if tiny else P17_FSDP_LAYERS)
+    B, L = (4, 32) if tiny else (4, 1024)
+    n_steps = sum(P17_TINY_STEPS if tiny else P17_STEPS)
+    frozen, adapters = build_model(cfg, spec, seed=3, device=device)
+    init = [p.clone() for p in tree_leaves(adapters)]
+    batch = _mesh_batch(cfg, B, L, device)
+    names = sorted((x, y) for x in PROJS for y in "ab")
+
+    def by_proj(leaves):
+        return {n: torch.cat([t.flatten().float() for (name, _), t in
+                              zip(names, leaves) if name == n])
+                for n in PROJS}
+
+    def steps(base, local, mesh=None, sp=spec, count=n_steps):
+        trainable = {"adapters": {"layers": {
+            n: {k: v.clone() for k, v in p.items()}
+            for n, p in adapters["layers"].items()}}}
+        tx = make_optimizer(TrainConfig(), total_steps=1000)
+        state = init_train_state(trainable, tx, DropoutKey(0))
+        step = make_train_step(make_llama_moka_loss(
+            cfg, sp, remat=True, use_flash=True, fused_loss=True,
+            ce_chunk=128, mesh=mesh), tx, mesh=mesh,
+            grad_taps=lambda g: [t.clone() for t in tree_leaves(g)])
+        losses, times, moved, first = [], [], [], None
+        _zero_counts()
+        for _ in range(count):
+            tstream.reset_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, base, local)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            moved.append(tstream.COUNTS["gathered_bytes"])
+            first = m["grad_taps"] if first is None else first
+        delta = by_proj([p - p0 for p, p0 in
+                         zip(tree_leaves(state.params), init)])
+        return {"losses": losses, "ms": times, "gathered": moved,
+                "delta": delta, "grads": by_proj(first),
+                "launches": _counts()}
+
+    def spread_of(a, b, key):
+        out = {p: rel(b[key][p], a[key][p]) for p in PROJS}
+        out["loss"] = max(abs(x - y) for x, y in zip(a["losses"],
+                                                     b["losses"]))
+        return out
+
+    def within(got, ref, spread, key):
+        dl = max(abs(a - b) for a, b in zip(got["losses"], ref["losses"]))
+        du = {p: rel(got[key][p], ref[key][p]) for p in PROJS}
+        ok = dl <= REMAT_NOISE[0] * spread["loss"] + \
+            REMAT_NOISE[1] * abs(ref["losses"][0]) and all(
+                du[p] <= REMAT_NOISE[0] * spread[p] + REMAT_NOISE[1]
+                for p in PROJS)
+        return dl, du, ok
+
+    def local_rows(mesh):
+        index, size = data_parallel_index(mesh)
+        rows = B // size
+        return {k: (v[:, index * rows:(index + 1) * rows]
+                    if k == "modality_masks" else
+                    v[index * rows:(index + 1) * rows])
+                for k, v in batch.items()}
+
+    ref = spread = None
+    if rank == 0:
+        ref = steps(frozen, batch)
+        spread = spread_of(ref, ref if tiny else steps(frozen, batch),
+                           "delta")
+    whole = sum(nbytes(t) for t in _leaves(frozen))
+    n = dist.get_world_size()
+    out = {}
+    for name, mc in ((f"1,{n},1", MeshConfig(1, n, 1)),
+                     (f"{n},1,1", MeshConfig(n, 1, 1))):
+        mesh = make_mesh(mc)
+        local_base = shard_params(mesh, frozen)
+        held = sum(nbytes(t) for t in _leaves(local_base))
+        local = local_rows(mesh)
+        got = steps(local_base, local, mesh)
+        rec = {"losses": got["losses"], "step_ms": got["ms"],
+               "gathered_bytes_per_step": got["gathered"][-1],
+               "resident_base_bytes": held, "whole_base_bytes": whole,
+               "supervised": int((local["labels"][:, 1:] != -100).sum())}
+        if mc.fsdp > 1:
+            # every leaf but the norms is split over the fsdp ranks
+            norms = sum(nbytes(t) for k, t in frozen["layers"].items()
+                        if k.endswith("norm")) + nbytes(frozen["final_norm"])
+            if held != (whole - norms) // mc.fsdp + norms:
+                raise AssertionError(f"rank {rank} holds {held} bytes of a "
+                                     f"{whole}-byte base under fsdp "
+                                     f"{mc.fsdp}")
+        if rank == 0:
+            dl, du, ok = within(got, ref, spread, "delta")
+            rec.update(loss_abs=dl, update_rel_l2=du, spread=spread,
+                       one_losses=ref["losses"], one_ms=ref["ms"],
+                       grad_rel_l2=spread_of(ref, got, "grads"))
+            log(f"  (c) mesh {name}, {cfg.n_layers} layers (a depth cut: a "
+                f"gloo all-gather of the full depth takes too long a step), "
+                f"b {B} x L {L}: losses {[round(x, 5) for x in got['losses']]}"
+                f" vs one process {[round(x, 5) for x in ref['losses']]} "
+                f"(max |diff| {dl:.2e}, two one-process runs "
+                f"{spread['loss']:.2e}); adapter updates rel L2 "
+                f"{ {p: f'{v:.2e}' for p, v in du.items()} }, two "
+                f"one-process runs "
+                f"{ {p: f'{spread[p]:.2e}' for p in PROJS} } (rule: <= "
+                f"{REMAT_NOISE[0]} x that + {REMAT_NOISE[1]}); this rank's "
+                f"supervised tokens "
+                f"{rec['supervised']}; resident base "
+                f"{held / 2**30:.3f} of {whole / 2**30:.3f} GiB; gathered "
+                f"{got['gathered'][-1] / 1e9:.3f} GB a step; step ms "
+                f"{[round(t, 1) for t in got['ms']]} (two ranks share the "
+                f"card: no speed figure)")
+            if not ok:
+                raise AssertionError(f"mesh {name} is not one process")
+        out[name] = rec
+        del local_base, got
+        gc.collect()
+        dist.barrier()
+
+    # kernels 6-7 on the data-parallel mesh: each rank's kernels draw its
+    # rows of the global batch's masks (the key's row map)
+    fspec = spec.with_fused_dropout()
+    mesh = make_mesh(MeshConfig(n, 1, 1))
+    got = steps(frozen, local_rows(mesh), mesh, fspec, 1)
+    want = _launches(flash_fwd=2 * cfg.n_layers,
+                     flash_bwd_fused=cfg.n_layers,
+                     dropout_a_fwd=2 * 7 * cfg.n_layers,
+                     dropout_a_bwd=7 * cfg.n_layers) if on_card \
+        else _launches()
+    if got["launches"] != want:
+        raise AssertionError(f"rank {rank}: fused-dropout mesh step "
+                             f"launches {got['launches']}, want {want}")
+    rec = {"launches": got["launches"], "losses": got["losses"]}
+    if rank == 0:
+        fref = steps(frozen, batch, None, fspec, 1)
+        fspread = spread_of(fref, fref if tiny else
+                            steps(frozen, batch, None, fspec, 1), "grads")
+        split = out[f"{n},1,1"]["grad_rel_l2"]
+        noise = {k: max(fspread[k], split[k]) for k in fspread}
+        dl, dg, ok = within(got, fref, noise, "grads")
+        rec.update(loss_abs=dl, grad_rel_l2=dg, spread=fspread,
+                   split_rel_l2=split, one_losses=fref["losses"])
+        log(f"  (c) fused dropout (kernels 6-7) on mesh {n},1,1: loss "
+            f"{got['losses'][0]:.6f} vs one process {fref['losses'][0]:.6f}"
+            f"; global gradients rel L2 "
+            f"{ {p: f'{v:.2e}' for p, v in dg.items()} }, two one-process "
+            f"runs {  {p: f'{fspread[p]:.2e}' for p in PROJS} }, the "
+            f"unfused mesh's first step from one process "
+            f"{ {p: f'{split[p]:.2e}' for p in PROJS} } (rule: <= "
+            f"{REMAT_NOISE[0]} x the larger + {REMAT_NOISE[1]}); launches "
+            f"a rank { {k: v for k, v in got['launches'].items() if v} }")
+        if not ok:
+            raise AssertionError("the fused-dropout mesh step is not one "
+                                 "process")
+    out[f"{n},1,1+fused_dropout"] = rec
+    del frozen, adapters, got
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def p17_cli(rank: int, work: Path, device: str) -> dict:
+    """(d) The finetune CLI at its tiny preset on every rank: ``--mesh
+    fsdp --host-offload`` (1, ranks, 1), 3 steps on phase 15's data files
+    (a CLI wiring check: the numbers are (c)'s)."""
+    import torch.distributed as dist
+    from moka_tpu_torch.cli import finetune
+    out = work / "finetune"
+    argv = ["--tokenizer-json", str(work / "data" / "tokenizer.model"),
+            "--avqa-annotation", str(work / "data" / "avqa.json"),
+            "--model-preset", "tiny", "--global-batch", "4",
+            "--pad-to", "256", "--epochs", "1", "--mesh", "fsdp",
+            "--host-offload", "--output-dir", str(out), "--device", device]
+    trainer, _ = finetune.main(argv)
+    q = trainer.frozen["llama"]["layers"]["q"]
+    rows = [json.loads(x) for x in
+            (out / "metrics.jsonl").read_text().splitlines()] \
+        if rank == 0 else []
+    rec = {"steps": int(trainer.state.step), "q_shape": list(q.shape),
+           "q_device": str(q.device),
+           "losses": [r["loss"] for r in rows if "loss" in r]}
+    _rank_log(rank, f"  (d) finetune {' '.join(argv)} on "
+              f"{dist.get_world_size()} ranks: {rec['steps']} steps, losses "
+              f"{rec['losses']}; this rank's q {rec['q_shape']} on "
+              f"{rec['q_device']}")
+    if rec["steps"] < 2 or q.device.type != "cpu" or \
+            not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"finetune --mesh fsdp --host-offload: {rec}")
+    return rec
+
+
+def p17_rank(rank: int, work: Path, device: str, tiny: bool) -> None:
+    """One rank of phase 17's world: (b), (c) and (d); its results in
+    ``p17_r<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    from moka_tpu_torch.parallel import comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":  # ranks beyond the cards share them
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:  # the rehearsal: each rank a core's worth of threads
+        torch.set_num_threads(1)
+    long_cfg, cfg, spec = p17_configs(tiny)
+    out = {"transport": {op: comm.transport(dist.group.WORLD, op) for op in
+                         ("all_reduce", "all_gather", "send")},
+           "backend": dist.get_backend()}
+    out["seconds"] = {}
+    for part, fn in (("ring", lambda: p17_ring(rank, long_cfg, spec, device,
+                                               tiny)),
+                     ("mesh", lambda: p17_mesh(rank, cfg, spec, device,
+                                               tiny)),
+                     ("cli", lambda: p17_cli(rank, work, device))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out["seconds"][part] = time.perf_counter() - t0
+    (work / f"p17_r{rank}.json").write_text(json.dumps(out, default=float))
+
+
+def phase17(work: Path, device: str = "cuda", tiny: bool = False,
+            smi: str = "") -> dict:
+    """Phase 17: parallelism at LLaMA-2-7B's width (``tiny``: the
+    rehearsal on the CPU).  (a) the host-streamed base in this process;
+    then a world of P17_RANKS ranks on the one card (gloo:
+    ``parallel.mesh.run_world``) for (b) the flash ring, (c) the FSDP and
+    data-parallel steps and (d) the finetune CLI over a mesh with
+    ``--host-offload``."""
+    import torch
+    long_cfg, cfg, spec = p17_configs(tiny)
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+
+    def here() -> dict:
+        out = {"stream": p17_stream(cfg, spec, device, tiny, smi),
+               "dropout_rows": p17_dropout_rows(device, tiny)}
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    # the card runs (a) alone (its peaks and times), the rehearsal beside
+    # the world (the ranks' start-up takes most of its time)
+    res = {} if tiny else here()
+    log(f"  a world of {P17_RANKS} ranks on the {device} (gloo groups: "
+        f"CUDA tensors in its all-reduce and all-gather as they are, in its "
+        f"sends as host copies)")
+    res.update(p17_world(work, device, tiny, P17_RANKS, "gloo",
+                         beside=here if tiny else None))
+    return res
+
+
+def p17_world(work: Path, device: str, tiny: bool, ranks: int,
+              backend: str, beside=None) -> dict:
+    """(b), (c) and (d) in a world of ``ranks`` ranks over ``backend``
+    (gloo: the ranks share the card; NCCL: one card a rank); rank 0's
+    results, with every rank's ring launches, and those of ``beside()``,
+    run in this process while the world runs."""
+    from moka_tpu_torch.parallel.mesh import start_world, wait_world
+    # (d)'s files, at the tiny preset's image size
+    p15_data(work / "data", p15_configs(True)[1].image_size, 2)
+    t0 = time.perf_counter()
+    ctx = start_world(p17_rank, ranks, (work, device, tiny), backend=backend)
+    try:
+        here = beside() if beside is not None else {}
+    finally:
+        wait_world(ctx, timeout=900)
+    got = [json.loads((work / f"p17_r{r}.json").read_text())
+           for r in range(ranks)]
+    for r in got[1:]:
+        for name, rec in got[0]["mesh"].items():
+            if r["mesh"][name]["losses"] != rec["losses"]:
+                raise AssertionError(f"the ranks' mesh {name} losses differ")
+    res = dict(got[0], world_s=time.perf_counter() - t0, **here)
+    res["ring"]["launches_by_rank"] = [r["ring"]["launches"] for r in got]
+    log(f"  the world ran in {res['world_s']:.1f} s (rank 0: "
+        f"{ {k: round(v, 1) for k, v in res['seconds'].items()} } s); "
+        f"transport "
+        f"{res['transport']} ({res['backend']})")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -5670,6 +6385,23 @@ def main() -> int:
         log(f"  phase 16 passed in {p16['phase_s']:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[17] parallelism at LLaMA-2-7B's width: (a) the base in pinned "
+        f"host memory streamed a layer at a time, then {P17_RANKS} ranks on "
+        f"the card for (b) the flash ring, (c) FSDP and data-parallel "
+        f"steps, (d) the finetune CLI with --mesh and --host-offload "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+        f"from the earlier phases)")
+    work = ROOT / "build" / "p17"
+    t17 = time.perf_counter()
+    try:
+        p17 = phase17(work, "cuda", smi=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    p17["phase_s"] = time.perf_counter() - t17
+    log(f"  phase 17 passed in {p17['phase_s']:.1f} s")
 
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "rank-8 serving (greedy_generate)":
@@ -5701,7 +6433,11 @@ def main() -> int:
                  p16["infer_bf16"]["launches_per_generate"],
              "infer CLI generate, int8 cache":
                  p16["infer_int8"]["launches_per_generate"],
-             "eval_vt CLI generate": p16["eval_vt"]["launches_per_generate"]}
+             "eval_vt CLI generate": p16["eval_vt"]["launches_per_generate"],
+             "flash ring step (context parallel, a rank)":
+                 p17["ring"]["launches"],
+             "fused-dropout data-parallel step (2,1,1, a rank)":
+                 p17["mesh"]["2,1,1+fused_dropout"]["launches"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -5734,8 +6470,8 @@ def main() -> int:
                     "mm_train": mm_train, "vt_generate": vt_gen,
                     "vt_http": vt_http, "vt_train": vt_train,
                     "paged_serving": paged, "p15": p15_summary(p15),
-                    "p16": p16_summary(p16)}))
-    log(f"[17] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "p16": p16_summary(p16), "p17": p17}))
+    log(f"[18] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,19 +10,27 @@ checkpointing, global batch 32, 3 epochs.
         --beats-ckpt FILE.pt --tokenizer-json tokenizer.json \\
         --avqa-annotation avqa.json --output-dir runs/ft
 
-It runs on one device, the card unless ``--device cpu``: ``--mesh``
-accepts ``fsdp`` and ``data`` (one device either way) and refuses axis
-sizes whose product is above 1, and ``--host-offload`` is refused, until
-parallelism is ported (ROADMAP.md, module item 4).  ``--rng-impl`` is
-recorded in ``saved_config.json``; the port has one dropout generator.
+On the card unless ``--device cpu``.  Several ranks run under torchrun,
+one GPU a rank over NCCL (gloo on the CPU):
+
+    torchrun --nproc_per_node 8 -m moka_tpu_torch.cli.finetune ... \
+        --mesh fsdp
+
+``--mesh``: ``fsdp`` = (1, world, 1), ``data`` = (world, 1, 1), or
+explicit ``d,f,m`` sizes whose product is the world size; the frozen LLaMA
+base is sharded by the rule table (``parallel.sharding``), each rank feeds
+its slice of every global batch, and the step sums the gradients over
+data x fsdp.  A ``model`` size above 1 is refused (ROADMAP.md, item 4b).
+``--host-offload`` keeps the frozen LLaMA base in pinned host memory and
+streams it to the card a layer at a time (``llama.forward(host_stream=
+...)``).  ``--rng-impl`` is recorded in ``saved_config.json``; the port
+has one dropout generator.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-
-PARALLELISM = "ROADMAP.md, module item 4, parallelism"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -54,8 +62,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="absolute steps, or a 0-1 fraction of total steps "
                         "(reference --save_steps 0.1)")
     p.add_argument("--mesh", default="fsdp",
-                   help="'fsdp' | 'data' | 'd,f,m' explicit axis sizes (one "
-                        "device: a product above 1 is refused)")
+                   help="'fsdp' | 'data' | 'd,f,m' explicit axis sizes "
+                        "(their product: the world size)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--quantize-base", nargs="?", type=int, const=8,
                    default=0, choices=[4, 8], metavar="BITS",
@@ -78,8 +86,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="with --quantize-base: LoftQ adapter init (N rounds "
                         "of quantize-residual SVD, adapters/loftq.py)")
     p.add_argument("--host-offload", action="store_true",
-                   help="frozen base in pinned host memory (not ported: "
-                        "refused)")
+                   help="frozen LLaMA base in pinned host memory, streamed "
+                        "to the card a layer at a time")
     p.add_argument("--remat-policy", default="auto",
                    help="per-layer remat policy (models.llama."
                         "REMAT_POLICIES); 'auto' = 'qkvod' for 7b, full "
@@ -109,28 +117,63 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def init_distributed() -> None:
-    """A no-op in one process: the port runs on one device."""
+def init_distributed(device=None) -> None:
+    """The process group from torchrun's environment (none in one
+    process): ``parallel.mesh.init_distributed``."""
+    from moka_tpu_torch.parallel.mesh import init_distributed as init
+    init(device)
 
 
 def mesh_from_flag(flag: str):
-    """The ``--mesh`` flag on one device: 'fsdp' and 'data' give a
-    one-device mesh; explicit 'd,f,m' sizes must multiply to 1."""
+    """The ``--mesh`` flag as a ``MeshConfig`` over the world: 'fsdp' is
+    (1, world, 1), 'data' (world, 1, 1), else the explicit 'd,f,m' sizes;
+    a ``model`` size above 1 raises (ROADMAP.md, item 4b)."""
     from moka_tpu_torch.core.config import MeshConfig
-    if flag in ("fsdp", "data"):
-        return MeshConfig(1, 1, 1)
+    from moka_tpu_torch.parallel.mesh import TENSOR_PARALLEL, world_size
+    n = world_size()
+    if flag == "fsdp":
+        return MeshConfig(1, n, 1)
+    if flag == "data":
+        return MeshConfig(n, 1, 1)
     mesh = MeshConfig(*(int(x) for x in flag.split(",")))
-    if mesh.num_devices > 1:
-        raise NotImplementedError(
-            f"--mesh {flag} asks for {mesh.num_devices} devices; the port "
-            f"runs on one ({PARALLELISM})")
+    if mesh.model > 1:
+        raise NotImplementedError(f"--mesh {flag}: {TENSOR_PARALLEL}")
     return mesh
 
 
-def refuse_host_offload(host_offload: bool) -> None:
-    if host_offload:
-        raise NotImplementedError(
-            f"--host-offload is not ported yet ({PARALLELISM})")
+def make_mesh_from_flag(flag: str):
+    """The ``DeviceMesh`` of ``--mesh`` (``parallel.mesh.make_mesh``), or
+    None in one process, where the sizes must multiply to 1."""
+    from moka_tpu_torch.parallel.mesh import initialized, make_mesh
+    cfg = mesh_from_flag(flag)
+    if not initialized():
+        if cfg.num_devices != 1:
+            raise ValueError(f"mesh {cfg} wants {cfg.num_devices} devices, "
+                             f"have 1")
+        return None
+    return make_mesh(cfg)
+
+
+def place_llama(mesh, tree: dict, host_offload: bool):
+    """The frozen LLaMA tree sharded by the rule table, in pinned host
+    memory with ``host_offload``; returns (tree, the ``host_stream``
+    placements for the loss, or None).  The encoders stay whole on the
+    card (replicated by the rules; they cannot be streamed)."""
+    from moka_tpu_torch.parallel.sharding import shard_params, \
+        stream_shardings
+    placed = shard_params(mesh, tree, host_offload=host_offload)
+    return placed, (stream_shardings(mesh, tree) if host_offload else None)
+
+
+def describe_placement(tree: dict) -> str:
+    q = tree["layers"]["q"]
+    arr = q.get("w_i8", q.get("w_i4")) if isinstance(q, dict) else q
+    from moka_tpu_torch.parallel.sharding import shard_info
+    info = shard_info(arr)
+    spec = info.placement.spec if info is not None else "whole"
+    return (f"{arr.device} {arr.dtype} {tuple(arr.shape)} (sharding "
+            f"{spec}, quantized={isinstance(q, dict)}, pinned="
+            f"{arr.is_pinned() if arr.device.type == 'cpu' else False})")
 
 
 def resolve_remat(policy: str, preset: str):
@@ -157,18 +200,18 @@ def main(argv=None):
     import torch
 
     from moka_tpu_torch.core.config import LlamaConfig, TrainConfig
-    from moka_tpu_torch.core.device import resolve_device
     from moka_tpu_torch.data.datasets import UnifiedDataset
     from moka_tpu_torch.data.tokenizer import load_tokenizer
     from moka_tpu_torch.models import unified
     from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.parallel.mesh import (host_local_batch_size,
+                                              rank_device, world_size)
     from moka_tpu_torch.train import import_torch as imp
     from moka_tpu_torch.train.trainer import Trainer, process_rank
 
-    dev = resolve_device(args.device)
-    init_distributed()
-    mesh_from_flag(args.mesh)
-    refuse_host_offload(args.host_offload)
+    init_distributed(args.device)
+    dev = rank_device(args.device)
+    mesh = make_mesh_from_flag(args.mesh)
 
     spec = MokaSpec.avt(rank=args.lora_r, lora_alpha=args.lora_alpha,
                         blc_weight=args.blc_weight,
@@ -257,17 +300,16 @@ def main(argv=None):
                                           bits=args.quantize_encoders)
         frozen["beats"] = quantize_encoder(frozen["beats"],
                                            bits=args.quantize_encoders)
+    frozen["llama"], host_stream = place_llama(mesh, frozen["llama"],
+                                               args.host_offload)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # the whole base, once sharded/offloaded
     rank = process_rank()
     if rank == 0:
-        q_leaf = frozen["llama"]["layers"]["q"]
-        q_arr = (q_leaf.get("w_i8", q_leaf.get("w_i4"))
-                 if isinstance(q_leaf, dict) else q_leaf)
-        print(f"base q: {q_arr.device} {q_arr.dtype} "
-              f"(quantized={isinstance(q_leaf, dict)}); frozen trees "
-              f"ready in {time.perf_counter() - t0:.2f} s (checkpoint "
-              f"read + import + quantize)", flush=True)
+        print(f"base q: {describe_placement(frozen['llama'])}; frozen "
+              f"trees ready in {time.perf_counter() - t0:.2f} s (checkpoint "
+              f"read + import + quantize + placement)", flush=True)
 
     trainable = unified.init_trainable(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
@@ -320,26 +362,28 @@ def main(argv=None):
                                            remat_policy=remat_policy,
                                            use_flash=big, fused_loss=big,
                                            a8_dots=args.a8_dots,
-                                           save_q8=args.save_q8),
-                      trainable, frozen, tcfg, total_steps, full_config=tcfg)
+                                           save_q8=args.save_q8, mesh=mesh,
+                                           host_stream=host_stream),
+                      trainable, frozen, tcfg, total_steps, full_config=tcfg,
+                      mesh=mesh)
 
     def batches():
         # every process draws the SAME global order (same seed) and feeds
         # its own slice of each global batch; video decode and fbank run
         # in a thread pool overlapping the device step.  Batches are
         # task-grouped: AVQA and AVE have different audio segment shapes.
-        import torch.distributed as tdist
         from moka_tpu_torch.data.prefetch import ParallelLoader
         from moka_tpu_torch.train.trainer import host_sharded_order
-        world = tdist.get_world_size() if tdist.is_available() and \
-            tdist.is_initialized() else 1
+        world = world_size()
 
         def collate(items):
             return to_device(ds.collate(items, pad_to=args.pad_to), dev)
 
         group_key = [s["task_name"] for s in ds.samples]
         lengths = [len(s["instruction"]) for s in ds.samples]
-        loader = ParallelLoader(ds, collate, batch_size=per_step // world)
+        loader = ParallelLoader(ds, collate,
+                                batch_size=host_local_batch_size(per_step,
+                                                                 mesh))
         for epoch in range(args.epochs):
             order = host_sharded_order(lengths, group_key, per_step,
                                        rank, world, seed=args.seed + epoch)

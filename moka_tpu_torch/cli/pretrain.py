@@ -9,8 +9,9 @@ state (``non_lora_trainables.bin`` under ``model.`` prefixes).
         --tokenizer-json tokenizer.json --image-json captions.json \\
         --branch visual --output-dir runs/pretrain
 
-One device, the card unless ``--device cpu``; ``--mesh`` as in
-``cli/finetune.py``.
+On the card unless ``--device cpu``; several ranks under torchrun and
+``--mesh`` as in ``cli/finetune.py`` (each rank feeds its slice of every
+global batch).
 """
 
 from __future__ import annotations
@@ -50,10 +51,12 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     import torch
 
-    from moka_tpu_torch.cli.finetune import (init_distributed, mesh_from_flag,
+    from moka_tpu_torch.cli.finetune import (init_distributed,
+                                             make_mesh_from_flag, place_llama,
                                              to_device)
     from moka_tpu_torch.core.config import TrainConfig
-    from moka_tpu_torch.core.device import resolve_device
+    from moka_tpu_torch.parallel.mesh import (host_local_batch_size,
+                                              rank_device)
     from moka_tpu_torch.data import assembler as asm
     from moka_tpu_torch.data.datasets import PretrainDataset
     from moka_tpu_torch.data.tokenizer import load_tokenizer
@@ -61,8 +64,8 @@ def main(argv=None):
     from moka_tpu_torch.train import import_torch as imp
     from moka_tpu_torch.train.trainer import Trainer, process_rank
 
-    dev = resolve_device(args.device)
-    init_distributed()
+    init_distributed(args.device)
+    dev = rank_device(args.device)
     # the reference pretrains the two branches in separate runs; a mixed
     # batch would need both towers and per-modality audio shapes
     if args.branch == "visual" and args.audio_json:
@@ -72,7 +75,7 @@ def main(argv=None):
     if args.branch == "audio" and (args.image_json or args.video_json):
         raise SystemExit("--branch audio cannot take --image-json/"
                          "--video-json (run the visual branch separately)")
-    mesh_from_flag(args.mesh)
+    mesh = make_mesh_from_flag(args.mesh)
     tok = load_tokenizer(args.tokenizer_json)
     cfg = unified.UnifiedConfig.avt_7b(vocab_size=tok.vocab_size)
 
@@ -90,8 +93,10 @@ def main(argv=None):
             sd, imp.beats_config_from_ckpt(bcfg), dtype=torch.bfloat16,
             device=dev)
         frozen["clip"] = None
+    frozen["llama"], _ = place_llama(mesh, frozen["llama"], False)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
     if process_rank() == 0:
         print(f"[pretrain] frozen trees ready in "
               f"{time.perf_counter() - t0:.2f} s (checkpoint read + import)",
@@ -111,8 +116,11 @@ def main(argv=None):
                        num_epochs=args.epochs,
                        global_batch_size=per_step,
                        output_dir=args.output_dir, seed=args.seed)
-    trainer = Trainer(unified.unified_loss(cfg, train_adapters=False),
-                      trainable, frozen, tcfg, total_steps)
+    trainer = Trainer(unified.unified_loss(cfg, train_adapters=False,
+                                           mesh=mesh),
+                      trainable, frozen, tcfg, total_steps, mesh=mesh)
+    per_rank = host_local_batch_size(per_step, mesh)
+    first = process_rank() * per_rank
 
     # one image (or video clip, or audio clip) -> the projector's queries
     # (32 at 7B; the JAX driver writes 32)
@@ -125,7 +133,9 @@ def main(argv=None):
         for _ in range(args.epochs):
             order = rng.permutation(len(ds))
             for i in range(0, len(order) - per_step + 1, per_step):
-                items = [ds[int(j)] for j in order[i:i + per_step]]
+                # every rank draws the same order and keeps its slice
+                items = [ds[int(j)] for j in
+                         order[i + first:i + first + per_rank]]
                 assembled, videos, audios = [], [], []
                 for it in items:
                     inst = t.encode(it["instruction"])

@@ -10,8 +10,9 @@ the trainable state as ``model.safetensors`` in the reference schema.
         --tokenizer-json tokenizer.json --data-json llava_instruct.json \\
         --image-root coco/train2017 --output-dir runs/vt
 
-One device, the card unless ``--device cpu``; ``--mesh`` and
-``--host-offload`` as in ``cli/finetune.py``.
+On the card unless ``--device cpu``; several ranks under torchrun,
+``--mesh`` and ``--host-offload`` as in ``cli/finetune.py`` (each rank
+feeds its slice of every global batch).
 """
 
 from __future__ import annotations
@@ -121,11 +122,13 @@ def main(argv=None):
 
     import torch
 
-    from moka_tpu_torch.cli.finetune import (init_distributed, mesh_from_flag,
-                                             refuse_host_offload,
+    from moka_tpu_torch.cli.finetune import (describe_placement,
+                                             init_distributed,
+                                             make_mesh_from_flag, place_llama,
                                              resolve_remat, to_device)
     from moka_tpu_torch.core.config import TrainConfig
-    from moka_tpu_torch.core.device import resolve_device
+    from moka_tpu_torch.parallel.mesh import (host_local_batch_size,
+                                              rank_device)
     from moka_tpu_torch.data.tokenizer import load_tokenizer
     from moka_tpu_torch.data.vt_dataset import collate_vt
     from moka_tpu_torch.models import llava
@@ -134,10 +137,9 @@ def main(argv=None):
     from moka_tpu_torch.train import import_torch as imp
     from moka_tpu_torch.train.trainer import Trainer, process_rank
 
-    dev = resolve_device(args.device)
-    init_distributed()
-    mesh_from_flag(args.mesh)
-    refuse_host_offload(args.host_offload)
+    init_distributed(args.device)
+    dev = rank_device(args.device)
+    mesh = make_mesh_from_flag(args.mesh)
     tok = load_tokenizer(args.tokenizer_json)
     if args.model_preset == "tiny":
         base = llava.LlavaConfig.tiny()
@@ -190,12 +192,16 @@ def main(argv=None):
         from moka_tpu_torch.ops.quant import quantize_encoder
         frozen["clip"] = quantize_encoder(frozen["clip"],
                                           bits=args.quantize_encoders)
+    frozen["llama"], host_stream = place_llama(mesh, frozen["llama"],
+                                               args.host_offload)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
     if process_rank() == 0:
-        print(f"[train_vt] frozen trees ready in "
-              f"{time.perf_counter() - t0:.2f} s (checkpoint read + import "
-              f"+ quantize)", flush=True)
+        print(f"[train_vt] base q: {describe_placement(frozen['llama'])}; "
+              f"frozen trees ready in {time.perf_counter() - t0:.2f} s "
+              f"(checkpoint read + import + quantize + placement)",
+              flush=True)
     trainable = llava.init_trainable(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
     if args.visual_pretrain:
@@ -219,15 +225,20 @@ def main(argv=None):
                                        fused_loss=big,
                                        remat_policy=remat_policy,
                                        a8_dots=args.a8_dots,
-                                       save_q8=args.save_q8),
-                      trainable, frozen, tcfg, total_steps)
+                                       save_q8=args.save_q8, mesh=mesh,
+                                       host_stream=host_stream),
+                      trainable, frozen, tcfg, total_steps, mesh=mesh)
+    per_rank = host_local_batch_size(per_step, mesh)
+    first = process_rank() * per_rank
 
     def batches():
         rng = np.random.default_rng(args.seed)
         for _ in range(args.epochs):
             order = rng.permutation(len(samples))
             for i in range(0, len(order) - per_step + 1, per_step):
-                items = [samples[int(j)] for j in order[i:i + per_step]]
+                # every rank draws the same order and keeps its slice
+                items = [samples[int(j)] for j in
+                         order[i + first:i + first + per_rank]]
                 pix = np.stack([s["pixel_values"] for s in items])
                 batch = collate_vt(
                     [{k: v for k, v in s.items() if k != "pixel_values"}
@@ -242,6 +253,7 @@ def main(argv=None):
         ckpt.save_vt_safetensors(
             os.path.join(args.output_dir, "model.safetensors"),
             state.params, cfg)
+    ckpt.barrier()
     trainer.finalize()
     return trainer, batches
 

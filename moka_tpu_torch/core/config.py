@@ -76,8 +76,10 @@ class LlamaConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device mesh axes: ``data`` = pure data parallel, ``fsdp`` =
-    parameter-sharded data parallel, ``model`` = tensor parallel.  The port
-    runs on one device; the training CLIs refuse a product above 1."""
+    parameter-sharded data parallel, ``model`` = tensor parallel.  In the
+    port one rank (process) holds one device; ``parallel.mesh.make_mesh``
+    lays the ranks out on these axes (their product is the world size).
+    ``model`` above 1 is not ported (ROADMAP.md, item 4b)."""
 
     data: int = 1
     fsdp: int = 1

@@ -9,11 +9,13 @@ but not an explicit generator's, so a recompute that drew from a shared
 generator would get other masks and silently wrong gradients.
 
 ``DropoutKey`` keeps the JAX shape instead: ``split(n)`` and ``fold_in(i)``
-derive new keys by hashing, and ``bits`` seeds a fresh generator from the
-key alone, so the same key gives the same bits on every call, before and
-after a checkpoint recompute.  The bits are not JAX's (threefry cannot be
-reproduced here); the parity tests pass a key whose ``bits`` come from
-``jax.random`` along the same path.
+derive new keys by hashing, and ``bits`` seeds fresh generators from the
+key alone, a block of rows each (a sample and up to ``BITS_BLOCK``
+positions), so the same key gives the same bits on every call, before and
+after a checkpoint recompute, and a rank that holds some rows of the
+array draws only the blocks those rows are in.  The bits are not JAX's
+(threefry cannot be reproduced here); the parity tests pass a key whose
+``bits`` come from ``jax.random`` along the same path.
 
 ``bits32`` serves the fused dropout (``ops.fused_dropout``): 32-bit words
 of Philox4x32-10 under the key's 64-bit ``philox_key``, one word per
@@ -21,7 +23,9 @@ element of an (N, d) array, element (n, c) being word c % 4 of the block
 at counter (n, c // 4, 0, 0).  The CUDA kernels (``kernels/csrc/
 fused_dropout.cu``) draw the same words in the same layout, so the plain
 version and the kernels drop the same elements, and the mask does not
-depend on how a kernel tiles the array.
+depend on how a kernel tiles the array.  A key for one rank's rows of a
+larger array (``rows``) gives its row counters as ``row_map``, which the
+kernels and ``bits32`` take.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _PHILOX_ROUNDS = 10
+
+BITS_BLOCK = 1024  # positions (dim 1) of a sample that one generator draws
 
 
 def _derive(seed: int, *parts: int) -> int:
@@ -75,25 +81,84 @@ def philox4x32(counters: tuple[torch.Tensor, ...],
 
 class DropoutKey:
     """An immutable dropout key: ``split``, ``fold_in``, ``bits`` and
-    ``bits32``."""
+    ``bits32``.
 
-    __slots__ = ("seed",)
+    ``rows(dim, start, total)`` gives a key for one rank's rows of a
+    larger array: an activation (b, L, d) that is rows [start, start +
+    its size) of the whole along ``dim`` (the batch split over data
+    parallel ranks: dim 0; the sequence split over a ring: dim 1).  Its
+    ``bits``, and ``bits32`` at its ``row_map``, are those the whole array
+    would draw, at this rank's rows, so a run split over ranks drops the
+    elements one process drops; keys derived from it keep the view."""
 
-    def __init__(self, seed: int):
+    __slots__ = ("seed", "view")
+
+    def __init__(self, seed: int, view: tuple | None = None):
         self.seed = int(seed) & _MASK63
+        self.view = view
 
     def split(self, n: int = 2) -> list["DropoutKey"]:
-        return [DropoutKey(_derive(self.seed, 0, n, i)) for i in range(n)]
+        return [DropoutKey(_derive(self.seed, 0, n, i), self.view)
+                for i in range(n)]
 
     def fold_in(self, i: int) -> "DropoutKey":
-        return DropoutKey(_derive(self.seed, 1, i))
+        return DropoutKey(_derive(self.seed, 1, i), self.view)
+
+    def rows(self, dim: int, start: int, total: int) -> "DropoutKey":
+        return DropoutKey(self.seed, (dim, start, total))
 
     def bits(self, shape, device) -> torch.Tensor:
         """Uniform 16-bit values in [0, 65536) as int32 (torch compares no
-        uint16), drawn from a generator seeded by this key alone."""
-        g = torch.Generator(device=device).manual_seed(self.seed)
-        return torch.randint(0, 1 << 16, tuple(shape), generator=g,
-                             device=device, dtype=torch.int32)
+        uint16).  An array (samples, positions, ...) is drawn a block at a
+        time: sample i's positions [j, j + 1) * ``BITS_BLOCK`` from a
+        generator seeded by this key, i and j alone.  With a view, the
+        array is this rank's rows of the whole one: it draws only the
+        blocks its rows are in, and gets the whole array's values there."""
+        shape = tuple(shape)
+        if len(shape) < 2:
+            return self.bits((1, *shape), device).reshape(shape)
+        n, length, rest = shape[0], shape[1], shape[2:]
+        first_sample = first_pos = 0
+        whole = length  # the whole array's positions
+        if self.view is not None:
+            dim, start, total = self.view
+            if dim == 0:
+                first_sample = start
+            else:
+                first_pos, whole = start, total
+        out = torch.empty(shape, dtype=torch.int32, device=device)
+        lo, hi = first_pos, first_pos + length
+        g = torch.Generator(device=device)  # reseeded a block (a launch
+        for i in range(n):                  # takes its state by value)
+            for j in range(lo // BITS_BLOCK, -(-hi // BITS_BLOCK)):
+                b0 = j * BITS_BLOCK
+                b1 = min(b0 + BITS_BLOCK, whole)
+                g.manual_seed(_derive(self.seed, 2, first_sample + i, j))
+                a, b = max(lo, b0), min(hi, b1)
+                dst = out[i, a - lo:b - lo]
+                if (a, b) == (b0, b1):
+                    dst.random_(0, 1 << 16, generator=g)
+                else:  # the block's values as a whole draw gives them
+                    block = torch.empty((b1 - b0, *rest), dtype=torch.int32,
+                                        device=device)
+                    block.random_(0, 1 << 16, generator=g)
+                    dst.copy_(block[a - b0:b - b0])
+        return out
+
+    def row_map(self, shape3) -> tuple[int, int, int] | None:
+        """With a view, where the rows of this rank's flattened (b, L, d)
+        activation sit in the whole flattened (rows, d) array, as the
+        fused-dropout kernels take it: (seg, stride, base), row n being
+        base + n when seg is 0 (the batch split: a contiguous run), else
+        (n // seg) * stride + base + n % seg (the sequence split: seg rows
+        of each sample).  None without a view."""
+        if self.view is None:
+            return None
+        _, L, _ = shape3
+        dim, start, total = self.view
+        if dim == 0:
+            return 0, 0, start * L
+        return L, total, start
 
     @property
     def philox_key(self) -> tuple[int, int]:
@@ -101,13 +166,20 @@ class DropoutKey:
         high) 32-bit words: the seed itself (already a hash)."""
         return self.seed & _MASK32, self.seed >> 32
 
-    def bits32(self, shape, device) -> torch.Tensor:
+    def bits32(self, shape, device, rows: tuple[int, int, int] | None = None
+               ) -> torch.Tensor:
         """Uniform 32-bit values in [0, 2^32) as int64 for an (N, d) array:
         element (n, c) is word c % 4 of Philox4x32-10 at counter
-        (n, c // 4, 0, 0) under ``philox_key``, as the kernels draw it."""
+        (n, c // 4, 0, 0) under ``philox_key``, as the kernels draw it
+        (``rows``: a ``row_map``, whose row of n is the counter's)."""
         n, d = shape
         groups = -(-d // 4)
-        rows = torch.arange(n, device=device, dtype=torch.int64)[:, None]
+        idx = torch.arange(n, device=device, dtype=torch.int64)
+        if rows is not None:
+            seg, stride, base = rows
+            idx = idx + base if seg == 0 else \
+                idx // seg * stride + base + idx % seg
+        rows = idx[:, None]
         cols = torch.arange(groups, device=device, dtype=torch.int64)[None]
         rows, cols = torch.broadcast_tensors(rows, cols)
         zero = torch.zeros_like(rows)

@@ -15,7 +15,10 @@
 // Philox4x32-10 at counter (n, c / 4, 0, 0) under the 64-bit key (k0, k1),
 // the layout core/rng.py::DropoutKey.bits32 computes in plain torch, so both
 // kernels, and the plain version, draw the same mask whatever the tiling.
-// With a bits pointer (tests) the words are read from it instead.
+// Where the array is one rank's rows of a larger one (a batch or sequence
+// split over ranks), n is the larger array's row (RoundKeys' row map), so
+// the ranks drop what one process drops.  With a bits pointer (tests) the
+// words are read from it instead.
 //
 // What bounds them (bf16 x, the training path): per element one read of x
 // (backward: and one write of dx) and a quarter of a Philox call (ten
@@ -92,18 +95,35 @@ constexpr int BOX = 64 * 128;        // 64 rows of 128 bytes (64 bf16)
 
 // Philox4x32-10's round keys: round r takes (k0 + r W0, k1 + r W1).  The
 // host computes them once; the kernels read them from their parameters, so
-// a call spends no instruction on the key schedule
+// a call spends no instruction on the key schedule.  With them the rows'
+// counters: row n of the (N, d) array a kernel sees draws at the counter
+// row of the whole array it is part of (one rank's rows of a batch or a
+// sequence split over ranks), base + n when seg is 0 (a contiguous run:
+// the batch split), else (n / seg) * stride + base + n % seg (seg rows of
+// each sample: the sequence split); 0, 0, 0 is the array itself
 struct RoundKeys {
   uint32_t k0[10], k1[10];
+  uint32_t seg, stride, base;
 };
 
-RoundKeys round_keys(uint32_t k0, uint32_t k1) {
+RoundKeys round_keys(uint32_t k0, uint32_t k1, uint32_t seg,
+                     uint32_t stride, uint32_t base) {
   RoundKeys rk;
   for (int r = 0; r < 10; ++r) {
     rk.k0[r] = k0 + static_cast<uint32_t>(r) * 0x9E3779B9u;
     rk.k1[r] = k1 + static_cast<uint32_t>(r) * 0xBB67AE85u;
   }
+  rk.seg = seg;
+  rk.stride = stride;
+  rk.base = base;
   return rk;
+}
+
+// the counter row of row n (core/rng.py::DropoutKey.row_map's rule)
+__device__ __forceinline__ uint32_t counter_row(const RoundKeys& rk, int n) {
+  const uint32_t u = static_cast<uint32_t>(n);
+  return rk.seg == 0u ? rk.base + u
+                      : u / rk.seg * rk.stride + rk.base + u % rk.seg;
 }
 
 // Philox4x32-10: counter (c0, c1, 0, 0), key rk -> four words
@@ -145,8 +165,9 @@ __device__ __forceinline__ void words8(const uint32_t* bits, int n, int c,
     w[4] = v.x; w[5] = v.y; w[6] = v.z; w[7] = v.w;
   } else {
     const uint32_t g = static_cast<uint32_t>(c) >> 2;
-    philox(static_cast<uint32_t>(n), g, rk, w);
-    philox(static_cast<uint32_t>(n), g + 1u, rk, w + 4);
+    const uint32_t row = counter_row(rk, n);
+    philox(row, g, rk, w);
+    philox(row, g + 1u, rk, w + 4);
   }
 }
 
@@ -734,7 +755,7 @@ __global__ void __launch_bounds__(F32_BWD_WARPS * 32)
       if (live) wd = bits[static_cast<size_t>(n) * d + c];
     } else {
       uint32_t w4[4];
-      philox(static_cast<uint32_t>(n), static_cast<uint32_t>(c) >> 2, rk, w4);
+      philox(counter_row(rk, n), static_cast<uint32_t>(c) >> 2, rk, w4);
       const int e = c & 3;
       wd = e == 0 ? w4[0] : e == 1 ? w4[1] : e == 2 ? w4[2] : w4[3];
     }
@@ -796,7 +817,7 @@ long fwd_workspace(int d, int mr, int a_bf16) {
 template <typename TA, bool FORCED>
 int launch_fwd(const void* x, const void* a, const void* bits, void* out,
                void* work, int n, int d, int mr, uint32_t thresh,
-               float x_scale, uint32_t k0, uint32_t k1, cudaStream_t st) {
+               float x_scale, const RoundKeys& rk, cudaStream_t st) {
   constexpr int H = a_parts<TA>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       dropout_fwd_kernel<TA, FORCED>,
@@ -825,7 +846,7 @@ int launch_fwd(const void* x, const void* a, const void* bits, void* out,
   const int smem = 1024 + sh.stages * sh.stage_bytes + tail;
   sh.thresh = thresh;
   sh.scale2 = bf16_pair(x_scale);
-  sh.key = round_keys(k0, k1);
+  sh.key = rk;
   CUtensorMap tm_x, tm_at;
   const uint64_t at_dims[4] = {uint64_t(d), uint64_t(rows), uint64_t(H), 1};
   const uint32_t at_box[4] = {64, uint32_t(rows), 1, 1};
@@ -860,7 +881,7 @@ bool f32_rows_map(CUtensorMap* map, const void* p, int rows, int cols,
 template <typename TA, bool FORCED>
 int launch_bwd(const void* x, const void* a, const void* bits, const void* g,
                void* dx, void* da, int n, int d, int mr, uint32_t thresh,
-               float inv_keep, uint32_t k0, uint32_t k1, cudaStream_t st) {
+               float inv_keep, const RoundKeys& rk, cudaStream_t st) {
   BwdShape sh;
   sh.n_rows = n;
   sh.d = d;
@@ -881,7 +902,7 @@ int launch_bwd(const void* x, const void* a, const void* bits, const void* g,
   sh.off_bars = sh.off_af + 4 * 64 * mr;
   sh.thresh = thresh;
   sh.inv_keep = inv_keep;
-  sh.key = round_keys(k0, k1);
+  sh.key = rk;
   // the ring holds the warpgroups' and the pair's sums at the end
   if (sh.stages * sh.stage_bytes < 2 * 32 * 128 * 4)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -905,27 +926,27 @@ int launch_bwd(const void* x, const void* a, const void* bits, const void* g,
 template <typename TA>
 int fwd_bf16(const void* x, const void* a, const void* bits, void* out,
              void* work, int n, int d, int mr, uint32_t thresh, float x_scale,
-             uint32_t k0, uint32_t k1, cudaStream_t st) {
+             const RoundKeys& rk, cudaStream_t st) {
   return bits ? launch_fwd<TA, true>(x, a, bits, out, work, n, d, mr, thresh,
-                                     x_scale, k0, k1, st)
+                                     x_scale, rk, st)
               : launch_fwd<TA, false>(x, a, bits, out, work, n, d, mr,
-                                      thresh, x_scale, k0, k1, st);
+                                      thresh, x_scale, rk, st);
 }
 
 template <typename TA>
 int bwd_bf16(const void* x, const void* a, const void* bits, const void* g,
              void* dx, void* da, int n, int d, int mr, uint32_t thresh,
-             float inv_keep, uint32_t k0, uint32_t k1, cudaStream_t st) {
+             float inv_keep, const RoundKeys& rk, cudaStream_t st) {
   return bits ? launch_bwd<TA, true>(x, a, bits, g, dx, da, n, d, mr, thresh,
-                                     inv_keep, k0, k1, st)
+                                     inv_keep, rk, st)
               : launch_bwd<TA, false>(x, a, bits, g, dx, da, n, d, mr, thresh,
-                                      inv_keep, k0, k1, st);
+                                      inv_keep, rk, st);
 }
 
 template <typename TA>
 int launch_fwd_f32(const void* x, const void* a, const void* bits, void* out,
                    int n, int d, int mr, uint32_t thresh, float x_scale,
-                   uint32_t k0, uint32_t k1, cudaStream_t st) {
+                   const RoundKeys& rk, cudaStream_t st) {
   const int grid = (n + F32_FWD_WARPS - 1) / F32_FWD_WARPS;
   const float* xp = static_cast<const float*>(x);
   const TA* ap = static_cast<const TA*>(a);
@@ -933,17 +954,17 @@ int launch_fwd_f32(const void* x, const void* a, const void* bits, void* out,
   float* op = static_cast<float*>(out);
   if (mr <= 16)
     dropout_fwd_f32<TA, 16><<<grid, F32_FWD_WARPS * 32, 0, st>>>(
-        xp, ap, bp, op, n, d, mr, thresh, x_scale, round_keys(k0, k1));
+        xp, ap, bp, op, n, d, mr, thresh, x_scale, rk);
   else
     dropout_fwd_f32<TA, 64><<<grid, F32_FWD_WARPS * 32, 0, st>>>(
-        xp, ap, bp, op, n, d, mr, thresh, x_scale, round_keys(k0, k1));
+        xp, ap, bp, op, n, d, mr, thresh, x_scale, rk);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TA>
 int launch_bwd_f32(const void* x, const void* a, const void* bits,
                    const void* g, void* dx, void* da, int n, int d, int mr,
-                   uint32_t thresh, float inv_keep, uint32_t k0, uint32_t k1,
+                   uint32_t thresh, float inv_keep, const RoundKeys& rk,
                    cudaStream_t st) {
   const int grid = (d + 31) / 32;
   const float* xp = static_cast<const float*>(x);
@@ -954,12 +975,10 @@ int launch_bwd_f32(const void* x, const void* a, const void* bits,
   TA* dap = static_cast<TA*>(da);
   if (mr <= 16)
     dropout_bwd_f32<TA, 16><<<grid, F32_BWD_WARPS * 32, 0, st>>>(
-        xp, ap, bp, gp, dxp, dap, n, d, mr, thresh, inv_keep,
-        round_keys(k0, k1));
+        xp, ap, bp, gp, dxp, dap, n, d, mr, thresh, inv_keep, rk);
   else
     dropout_bwd_f32<TA, 64><<<grid, F32_BWD_WARPS * 32, 0, st>>>(
-        xp, ap, bp, gp, dxp, dap, n, d, mr, thresh, inv_keep,
-        round_keys(k0, k1));
+        xp, ap, bp, gp, dxp, dap, n, d, mr, thresh, inv_keep, rk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -972,7 +991,8 @@ extern "C" long moka_dropout_fwd_workspace(int d, int mr, int a_bf16) {
 }
 
 // Kernel 6.  x (n, d) bf16 (x_bf16 = 1) or fp32, A (d, mr) bf16 (a_bf16 =
-// 1) or fp32, bits (n, d) 32-bit words or null (Philox under (k0, k1)),
+// 1) or fp32, bits (n, d) 32-bit words or null (Philox under (k0, k1), row
+// n at counter row (row_seg, row_stride, row_base)'s row of it: RoundKeys),
 // out (n, mr) fp32, work moka_dropout_fwd_workspace's bytes (bf16 x); all
 // contiguous and 16-byte aligned; x_scale is s_x (a bf16 value for bf16
 // x).  bf16 x launches the transpose pass, then the kernel.  Returns
@@ -982,18 +1002,21 @@ extern "C" int moka_dropout_a_fwd(const void* x, int x_bf16, const void* a,
                                   int a_bf16, const void* bits, void* out,
                                   void* work, int n, int d, int mr,
                                   uint32_t thresh, float x_scale, uint32_t k0,
-                                  uint32_t k1, void* stream) {
+                                  uint32_t k1, uint32_t row_seg,
+                                  uint32_t row_stride, uint32_t row_base,
+                                  void* stream) {
   if (!takes(n, d, mr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RoundKeys rk = round_keys(k0, k1, row_seg, row_stride, row_base);
   if (x_bf16)
     return a_bf16 ? fwd_bf16<__nv_bfloat16>(x, a, bits, out, work, n, d, mr,
-                                            thresh, x_scale, k0, k1, s)
+                                            thresh, x_scale, rk, s)
                   : fwd_bf16<float>(x, a, bits, out, work, n, d, mr, thresh,
-                                    x_scale, k0, k1, s);
+                                    x_scale, rk, s);
   return a_bf16 ? launch_fwd_f32<__nv_bfloat16>(x, a, bits, out, n, d, mr,
-                                                thresh, x_scale, k0, k1, s)
+                                                thresh, x_scale, rk, s)
                 : launch_fwd_f32<float>(x, a, bits, out, n, d, mr, thresh,
-                                        x_scale, k0, k1, s);
+                                        x_scale, rk, s);
 }
 
 // Kernel 7.  g (n, mr) fp32; dx (n, d) in x's type; da (d, mr) in A's type;
@@ -1002,17 +1025,19 @@ extern "C" int moka_dropout_a_bwd(const void* x, int x_bf16, const void* a,
                                   int a_bf16, const void* bits, const void* g,
                                   void* dx, void* da, int n, int d, int mr,
                                   uint32_t thresh, float inv_keep, uint32_t k0,
-                                  uint32_t k1, void* stream) {
+                                  uint32_t k1, uint32_t row_seg,
+                                  uint32_t row_stride, uint32_t row_base,
+                                  void* stream) {
   if (!takes(n, d, mr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RoundKeys rk = round_keys(k0, k1, row_seg, row_stride, row_base);
   if (x_bf16)
     return a_bf16 ? bwd_bf16<__nv_bfloat16>(x, a, bits, g, dx, da, n, d, mr,
-                                            thresh, inv_keep, k0, k1, s)
+                                            thresh, inv_keep, rk, s)
                   : bwd_bf16<float>(x, a, bits, g, dx, da, n, d, mr, thresh,
-                                    inv_keep, k0, k1, s);
+                                    inv_keep, rk, s);
   return a_bf16 ? launch_bwd_f32<__nv_bfloat16>(x, a, bits, g, dx, da, n, d,
-                                                mr, thresh, inv_keep, k0, k1,
-                                                s)
+                                                mr, thresh, inv_keep, rk, s)
                 : launch_bwd_f32<float>(x, a, bits, g, dx, da, n, d, mr,
-                                        thresh, inv_keep, k0, k1, s);
+                                        thresh, inv_keep, rk, s);
 }

@@ -26,8 +26,13 @@ per-(token, head) scales (``init_kv_cache(quantized=True)``); a decode
 step with ``paged_decode`` attends through ``ops/paged_decode.py`` (a CUDA
 kernel on the card) over the valid cache prefix only.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-module item 4, parallelism): ``host_stream`` and ``context_parallel``.
+Parallelism (``parallel/``): a base whose leaves are fsdp-sharded
+(``sharding.shard_params``) or in pinned host memory (``host_stream``) is
+fetched a layer at a time inside the remat region (``parallel.stream``),
+so the recompute fetches it again; ``context_parallel=(mesh, axis)`` runs
+each rank's sequence shard with attention through a k/v ring
+(``parallel.ring_attention``) and MokA's rank attention over the question
+keys of every shard.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from moka_tpu_torch.ops.quant import (codes_value, dequantize,
                                       fp8_roundtrip, is_quantized, qmatmul,
                                       qmatmul_a8, qmatmul_dx, q8_roundtrip)
 from moka_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from moka_tpu_torch.parallel.stream import (LayerRef, LayerStream,
+                                            elsewhere, fetch, needs_fetch)
 
 PROJ_DIMS = {  # name -> (d_in_attr, d_out_attr)
     "q": ("dim", "q_out"), "k": ("dim", "kv_out"), "v": ("dim", "kv_out"),
@@ -66,9 +73,6 @@ _PROJ_INDEX = {name: i for i, name in enumerate(PROJ_DIMS)}
 # dropout key per group instead of one per projection
 _PROJ_GROUP = {"q": 0, "k": 0, "v": 0, "o": 1, "gate": 2, "up": 2,
                "down": 3}
-
-_NOT_PORTED = "{} is not ported yet (ROADMAP.md, module item 4, parallelism)"
-
 
 def _proj_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
     dims = {"dim": cfg.dim, "q_out": cfg.n_heads * cfg.head_dim,
@@ -133,9 +137,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 class MaskBundle:
     """Token-level modality masks for one batch.
 
-    modality: (M, b, L) 0/1 with index 0 the text; question: (b, L) 0/1."""
+    modality: (M, b, L) 0/1 with index 0 the text; question: (b, L) 0/1.
+    Under context parallelism (set by ``forward``): ``key_question`` the
+    question mask of the whole sequence, and ``gather_keys`` the
+    differentiable all-gather of a (b, L_shard, r) shard of question keys
+    over the sequence group."""
     modality: torch.Tensor
     question: torch.Tensor
+    key_question: torch.Tensor | None = None
+    gather_keys: object = None
 
 
 class _FrozenMatmul(torch.autograd.Function):
@@ -376,13 +386,18 @@ def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused,
                                   spec.dropout_shared_masks else
                                   _PROJ_INDEX[name])
     if fused:
+        if masks.gather_keys is not None:
+            raise ValueError("the fused MokA kernel attends within one "
+                             "sequence: it takes no context parallelism")
         # dropout applies to the adapter's input only: outside the kernel,
         # the base matmul keeps the clean x
         x_d = x if rng is None else lora_dropout(x, rng, spec.dropout_rate)
         return moka_delta_fused(x_d, a, b, masks.modality, masks.question,
                                 spec)
     return moka_delta(x, a, b, masks.modality, masks.question, spec,
-                      dropout_rng=rng, flash_residuals=flash_residuals)
+                      dropout_rng=rng, flash_residuals=flash_residuals,
+                      key_question=masks.key_question,
+                      gather_keys=masks.gather_keys)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -465,16 +480,21 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
                    bias: torch.Tensor | None, attn_mask: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, cache: dict | None,
                    layer_idx: int, dropout_rng=None,
-                   saves: _RematSaves | None = None) -> torch.Tensor:
+                   saves: _RematSaves | None = None,
+                   ring=None) -> torch.Tensor:
     """One decoder block; with a cache, writes this layer's k/v into it
     (``_kv_update``: ``cache["k"]``/``["v"]`` are replaced by what it
     returns) and attends over the whole cache, dequantized for an int8 one
     as JAX does, or, for a single token with ``paged_decode``, through
     ``paged_decode_attention`` over the valid prefix.  ``saves``: the
     tensors a remat policy keeps for the recompute (under
-    ``torch.utils.checkpoint``)."""
+    ``torch.utils.checkpoint``).  ``layer`` may be a ``LayerRef``: the
+    weights are fetched here, inside the remat region.  ``ring``: the
+    context-parallel attention over this rank's sequence shard."""
     b, L, _ = h.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if isinstance(layer, LayerRef):
+        layer = layer.get()
 
     def proj(name, x):
         return _apply_proj(name, x, layer[name], adapters, spec, masks,
@@ -499,6 +519,8 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
     if paged:
         attn = paged_decode_attention(q, cache["k"], cache["v"], attn_mask,
                                       layer_idx, q_offset + 1)
+    elif ring is not None:
+        attn = ring(q, k.to(q.dtype), v.to(q.dtype), attn_mask)
     elif use_flash:
         attn = flash_mha(q, k, v, attn_mask, q_offset=q_offset,
                          residuals=None if saves is None else
@@ -569,23 +591,61 @@ def forward(base: dict, cfg: LlamaConfig, *,
       or those named (a tuple), to per-token int8 codes (or fp8 with
       "fp8" / a leading "fp8"), straight-through; the checkpoint keeps the
       codes (``_resolve_save_q8``).
+    context_parallel: (mesh, axis): the inputs are this rank's shard of
+      the sequence split over mesh axis ``axis`` (shard ``idx`` holds
+      global positions [idx * L, (idx + 1) * L); default ``positions``
+      follow them), attention runs through the k/v ring
+      (``parallel.ring_attention``: the flash ring with ``use_flash``), the
+      rank attention's question keys are all-gathered over the group, and
+      a ``DropoutKey`` draws the global rows' masks.  Training and prefill
+      only (no cache), as in JAX.
+    host_stream: ``parallel.sharding.stream_shardings(mesh, base)`` when
+      the base is in pinned host memory (``shard_params(...,
+      host_offload=True)``): each layer is copied to the compute device
+      inside the remat region (``parallel.stream.LayerStream``), the
+      embedding table, final norm and lm_head per use.  A base whose leaves
+      are fsdp-sharded is all-gathered the same way with or without it.
     Returns (fp32 logits, or the final-normed hidden state when
     ``logits=False``; the new cache or None).
     """
     kept = _remat_policy(remat_policy) if remat else frozenset()
-    for flag, value in (("context_parallel", context_parallel is not None),
-                        ("host_stream", host_stream is not None)):
-        if value:
-            raise NotImplementedError(_NOT_PORTED.format(flag))
+    if context_parallel is not None and cache is not None:
+        raise ValueError("context_parallel is a training/prefill path; "
+                         "cached decode is not sequence-sharded")
+    dev = (tokens if inputs_embeds is None else inputs_embeds).device
+    if host_stream is None and elsewhere(base["layers"], dev):
+        raise ValueError("the base is not on the compute device: pass "
+                         "host_stream=parallel.sharding.stream_shardings"
+                         "(mesh, base) to stream it per layer")
     if inputs_embeds is None:
-        inputs_embeds = base["embed"][tokens.long()]
+        inputs_embeds = fetch(base["embed"], dev)[tokens.long()]
     h = inputs_embeds
     b, L, _ = h.shape
-    dev = h.device
 
+    ring, total_len, start = None, L, 0
+    if context_parallel is not None:
+        from moka_tpu_torch.parallel import comm
+        from moka_tpu_torch.parallel.ring_attention import (
+            make_ring_attention, make_ring_flash_attention)
+        cp_mesh, cp_axis = context_parallel
+        group = cp_mesh.get_group(cp_axis)
+        n_shards = comm.group_size(group)
+        start = cp_mesh.get_local_rank(cp_axis) * L
+        total_len = L * n_shards  # dynamic-NTK scales by the global length
+        ring = (make_ring_flash_attention if use_flash
+                else make_ring_attention)(cp_mesh, cp_axis)
+        if masks is not None:
+            masks = dataclasses.replace(
+                masks, key_question=comm.all_gather(
+                    masks.question.detach(), group, dim=1),
+                gather_keys=lambda t: comm.gather_seq(t, group, dim=1))
+        if dropout_rng is not None and hasattr(dropout_rng, "rows"):
+            # the masks of the global rows, as one process draws them
+            dropout_rng = dropout_rng.rows(1, start, total_len)
     if positions is None:
-        positions = torch.arange(L, device=dev).expand(b, L)
-    total_len = cache["length"] + L if cache is not None else L
+        positions = (start + torch.arange(L, device=dev)).expand(b, L)
+    if cache is not None:
+        total_len = cache["length"] + L
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling, seq_len=total_len,
                             max_seq_len=cfg.max_seq_len)
@@ -601,11 +661,11 @@ def forward(base: dict, cfg: LlamaConfig, *,
         S, q_offset = L, 0
         if attn_mask is None:
             attn_mask = torch.ones((b, L), dtype=torch.int32, device=dev)
-    if use_flash or paged:
+    if use_flash or paged or ring is not None:
         bias = None
         if use_flash:
             attn_mask = attn_mask.to(torch.int32)  # once, not per layer
-        elif attn_mask.dtype not in (torch.int32, torch.float32):
+        elif paged and attn_mask.dtype not in (torch.int32, torch.float32):
             # the decode kernel reads int32 or fp32 masks
             attn_mask = attn_mask.to(torch.float32 if
                                      attn_mask.is_floating_point() else
@@ -616,11 +676,17 @@ def forward(base: dict, cfg: LlamaConfig, *,
     layer_rngs = dropout_rng.split(cfg.n_layers) \
         if dropout_rng is not None else [None] * cfg.n_layers
     recompute = remat and torch.is_grad_enabled()
+    stream = None
+    if host_stream is not None or needs_fetch(base["layers"], dev):
+        stream = LayerStream(base["layers"], dev, cfg.n_layers, recompute)
     q8 = _resolve_save_q8(save_q8, remat_policy)
     for i in range(cfg.n_layers):
-        layer = {name: ({k: v[i] for k, v in t.items()}
-                        if isinstance(t, dict) else t[i])
-                 for name, t in base["layers"].items()}
+        if stream is not None:
+            layer = stream.ref(i)
+        else:
+            layer = {name: ({k: v[i] for k, v in t.items()}
+                            if isinstance(t, dict) else t[i])
+                     for name, t in base["layers"].items()}
         ad = None
         if adapters is not None:
             ad = {name: {"a": p["a"][i], "b": p["b"][i]}
@@ -630,17 +696,22 @@ def forward(base: dict, cfg: LlamaConfig, *,
                 layer_rngs[i])
         if recompute:  # keeps h and the policy's tags; reruns the rest
             saves = _RematSaves(kept)
-            h = checkpoint(_decoder_layer, *args, saves, use_reentrant=False)
+            h = checkpoint(_decoder_layer, *args, saves=saves, ring=ring,
+                           use_reentrant=False)
             saves.replay = True
         else:
-            h = _decoder_layer(*args)
+            h = _decoder_layer(*args, ring=ring)
+        if stream is not None:
+            stream.after_forward(i, h)
 
     new_cache = None
     if cache is not None:
         new_cache = {"k": cache["k"], "v": cache["v"],
                      "length": cache["length"] + L}
-    h = rmsnorm(h, base["final_norm"], cfg.rms_eps)
-    return (head_logits(h, base["lm_head"]) if logits else h), new_cache
+    h = rmsnorm(h, fetch(base["final_norm"], dev), cfg.rms_eps)
+    if not logits:
+        return h, new_cache
+    return head_logits(h, fetch(base["lm_head"], dev)), new_cache
 
 
 def head_logits(h: torch.Tensor, lm_head, a8: bool | str = False
@@ -670,12 +741,20 @@ def _masked_nll_sum(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = -100) -> torch.Tensor:
+                       ignore_index: int = -100, shifted: bool = False,
+                       count: torch.Tensor | None = None) -> torch.Tensor:
     """Shift-by-one CE over the supervised positions: the mean over
-    targets ``labels[:, 1:]`` that are not ``ignore_index``."""
-    targets = labels[:, 1:]
-    count = torch.clamp((targets != ignore_index).sum(), min=1)
-    return _masked_nll_sum(logits[:, :-1], targets, ignore_index) / count
+    targets ``labels[:, 1:]`` that are not ``ignore_index``.  ``shifted``:
+    ``labels`` are already each position's target (a shard of a sequence
+    whose shift was done whole); ``count``: divide by it instead (the
+    targets of a whole batch or sequence split over ranks)."""
+    if shifted:
+        targets = labels
+    else:
+        targets, logits = labels[:, 1:], logits[:, :-1]
+    if count is None:
+        count = torch.clamp((targets != ignore_index).sum(), min=1)
+    return _masked_nll_sum(logits, targets, ignore_index) / count
 
 
 def _chunk_nll(h: torch.Tensor, lm_head, targets: torch.Tensor,
@@ -687,7 +766,9 @@ def _chunk_nll(h: torch.Tensor, lm_head, targets: torch.Tensor,
 def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
                           ignore_index: int = -100, chunk: int = 128,
                           a8: bool | str = False, pallas_ce: bool = False,
-                          rows_layout: bool = False) -> torch.Tensor:
+                          rows_layout: bool = False, shifted: bool = False,
+                          count: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """``cross_entropy_loss(head_logits(h, lm_head), labels)`` without the
     full (b, L, V) fp32 logits: the lm_head product and the CE run over
     chunks, each recomputed in the backward (``torch.utils.checkpoint``,
@@ -700,15 +781,28 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
     shorter; the JAX package pads it with ignored targets, which add 0.
     A quantized head and ``a8`` go to ``head_logits``.  ``pallas_ce``
     (an int8 head only, either layout) runs every row at once through
-    ``fused_ce_loss``: kernels 8-9 on the card, no logits in memory."""
+    ``fused_ce_loss``: kernels 8-9 on the card, no logits in memory.
+    ``shifted`` and ``count`` as ``cross_entropy_loss``'s (with
+    ``shifted``, every row of h against its own target, in rows)."""
     b, L, d = h.shape
     if pallas_ce:
         if not (is_quantized(lm_head) and "w_i8" in lm_head):
             raise ValueError("pallas_ce requires an int8-quantized lm_head")
-        return fused_ce_loss(h[:, :-1].reshape(b * (L - 1), d), lm_head,
-                             labels[:, 1:].reshape(b * (L - 1)),
-                             ignore_index=ignore_index)
-    if rows_layout:
+        rows, t = ((h.reshape(b * L, d), labels.reshape(b * L)) if shifted
+                   else (h[:, :-1].reshape(b * (L - 1), d),
+                         labels[:, 1:].reshape(b * (L - 1))))
+        loss = fused_ce_loss(rows, lm_head, t, ignore_index=ignore_index)
+        if count is None:
+            return loss
+        # the kernels give the mean over this call's targets
+        local = torch.clamp((t != ignore_index).sum(), min=1)
+        return loss * (local / count).to(loss.dtype)
+    if shifted:
+        targets = labels.reshape(b * L)
+        rows = h.reshape(b * L, d)
+        pieces = [(rows[i:i + chunk], targets[i:i + chunk])
+                  for i in range(0, b * L, chunk)]
+    elif rows_layout:
         ignored = torch.full((b, 1), ignore_index, dtype=labels.dtype,
                              device=labels.device)
         targets = torch.cat([labels[:, 1:], ignored], dim=1).reshape(b * L)
@@ -728,5 +822,6 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head, labels: torch.Tensor,
         else:
             part = _chunk_nll(hc, lm_head, tc, ignore_index, a8)
         loss_sum = loss_sum + part
-    count = torch.clamp((targets != ignore_index).sum(), min=1)
+    if count is None:
+        count = torch.clamp((targets != ignore_index).sum(), min=1)
     return loss_sum / count

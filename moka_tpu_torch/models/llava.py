@@ -30,6 +30,7 @@ from moka_tpu_torch.models.projectors import (ProjectorConfig,
                                               init_projector_params,
                                               project_visual)
 from moka_tpu_torch.ops.moka import MokaSpec
+from moka_tpu_torch.parallel.stream import fetch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +108,10 @@ def image_features(trainable: dict, frozen: dict, cfg: LlavaConfig,
 def build_inputs_embeds(trainable: dict, frozen: dict, cfg: LlavaConfig,
                         batch: dict) -> torch.Tensor:
     """Token embeddings with the image tokens spliced in at
-    ``image_pos`` when the batch has ``pixel_values``."""
-    embeds = frozen["llama"]["embed"][batch["ids"].long()]
+    ``image_pos`` when the batch has ``pixel_values`` (the table fetched
+    whole: ``parallel.stream.fetch``)."""
+    ids = batch["ids"].long()
+    embeds = fetch(frozen["llama"]["embed"], ids.device)[ids]
     if "pixel_values" in batch:
         feats = image_features(trainable, frozen, cfg, batch["pixel_values"])
         embeds = splice_features(embeds, video_features=feats,
@@ -126,30 +129,27 @@ def llava_loss(cfg: LlavaConfig, remat: bool = True,
                use_flash: bool = False, fused_loss: bool = False,
                remat_policy: str | None = None,
                a8_dots: bool | str = False,
-               save_q8: bool | tuple = False):
+               save_q8: bool | tuple = False, mesh=None,
+               host_stream: dict | None = None):
     """Loss closure for ``train.step.make_train_step``:
     loss_fn(trainable, frozen, batch, rng) -> (loss, {"supervised_tokens"}).
     ``fused_loss``: the chunked lm_head + CE (the a8 head product with
-    ``a8_dots``); the other options as ``llama.forward``'s."""
+    ``a8_dots``); the other options as ``llama.forward``'s; ``mesh`` and
+    ``host_stream`` as ``unified.unified_loss``'s."""
+    from moka_tpu_torch.train.objectives import decoder_loss
 
     def loss_fn(trainable, frozen, batch, rng):
         embeds = build_inputs_embeds(trainable, frozen, cfg, batch)
-        out, _ = llama.forward(
-            frozen["llama"], cfg.llama, adapters=trainable["adapters"],
-            spec=cfg.spec, inputs_embeds=embeds, masks=_masks(batch),
-            attn_mask=batch.get("attn_mask"),
-            positions=batch.get("positions"), remat=remat,
-            remat_policy=remat_policy,
-            use_flash=use_flash, logits=not fused_loss, a8_dots=a8_dots,
-            save_q8=save_q8,
-            dropout_rng=rng if cfg.spec.dropout_rate > 0 else None)
-        if fused_loss:
-            loss = llama.chunked_cross_entropy(
-                out, frozen["llama"]["lm_head"], batch["labels"],
-                a8=a8_dots)
-        else:
-            loss = llama.cross_entropy_loss(out, batch["labels"])
-        return loss, {"supervised_tokens": (batch["labels"] != -100).sum()}
+        return decoder_loss(
+            frozen["llama"], cfg.llama, batch["labels"], mesh, rng,
+            dict(adapters=trainable["adapters"], spec=cfg.spec,
+                 inputs_embeds=embeds, masks=_masks(batch),
+                 attn_mask=batch.get("attn_mask"),
+                 positions=batch.get("positions"), remat=remat,
+                 remat_policy=remat_policy, use_flash=use_flash,
+                 a8_dots=a8_dots, save_q8=save_q8, host_stream=host_stream),
+            dropout=cfg.spec.dropout_rate > 0, fused_loss=fused_loss,
+            a8=a8_dots)
 
     return loss_fn
 

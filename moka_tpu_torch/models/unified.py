@@ -10,8 +10,9 @@ Parameters split as in JAX:
 Stage 1 trains only the projectors (``train_adapters=False``); stage 2
 the projectors and the adapters.  The towers run under ``torch.no_grad()``
 (JAX's ``stop_gradient``): no autograd graph is built through their 24 +
-12 layers.  The JAX ``mesh`` options belong to the parallelism slice and
-are not here.
+12 layers.  Under a mesh (``mesh=``) each rank holds its own samples: the
+batch constraints JAX's ``mesh`` option sets have nothing to do, and the
+loss is the rank's share of the global loss (``train.objectives``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from moka_tpu_torch.models.projectors import (ProjectorConfig,
                                               init_projector_params,
                                               project_audio, project_visual)
 from moka_tpu_torch.ops.moka import MokaSpec
+from moka_tpu_torch.parallel.stream import fetch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,12 +146,16 @@ def encode_modalities(trainable: dict, frozen: dict, cfg: UnifiedConfig,
 
 
 def build_inputs_embeds(trainable: dict, frozen: dict, cfg: UnifiedConfig,
-                        batch: dict) -> torch.Tensor:
+                        batch: dict, mesh=None,
+                        batch_axes=("data", "fsdp")) -> torch.Tensor:
     """Token embeddings (the trainable rows over the appended special
     tokens) with the projector outputs spliced in at ``video_pos`` and
-    ``audio_pos``."""
+    ``audio_pos``.  The table is fetched whole (``parallel.stream.fetch``:
+    gathered if fsdp-sharded, copied if in host memory).  ``mesh`` and
+    ``batch_axes`` are JAX's: each rank's batch is its own samples, so
+    there is no constraint to set."""
     ids = batch["ids"].long()
-    embeds = frozen["llama"]["embed"][ids]
+    embeds = fetch(frozen["llama"]["embed"], ids.device)[ids]
     if "new_token_embeds" in trainable:
         new = trainable["new_token_embeds"]
         base = cfg.llama.vocab_size - new.shape[0]
@@ -169,35 +175,36 @@ def build_inputs_embeds(trainable: dict, frozen: dict, cfg: UnifiedConfig,
 def unified_loss(cfg: UnifiedConfig, remat: bool = True,
                  train_adapters: bool = True, use_flash: bool = False,
                  fused_loss: bool = False, remat_policy: str | None = None,
+                 mesh=None, batch_axes=("data", "fsdp"),
                  a8_dots: bool | str = False,
-                 save_q8: bool | tuple = False):
+                 save_q8: bool | tuple = False,
+                 host_stream: dict | None = None):
     """Loss closure for ``train.step.make_train_step``:
     loss_fn(trainable, frozen, batch, rng) -> (loss, {"supervised_tokens"}).
     ``train_adapters=False`` is stage 1: the decoder runs without adapter
     deltas.  ``fused_loss``: the chunked lm_head + CE (128 positions, the
     a8 head product with ``a8_dots``); the other options as
-    ``llama.forward``'s."""
+    ``llama.forward``'s.  ``mesh``: the rank's share of the global loss, as
+    ``train.objectives.make_llama_moka_loss(mesh=...)``; ``host_stream``:
+    the LLaMA base in pinned host memory, streamed per layer."""
+    from moka_tpu_torch.train.objectives import decoder_loss
 
     def loss_fn(trainable, frozen, batch, rng):
-        embeds = build_inputs_embeds(trainable, frozen, cfg, batch)
+        embeds = build_inputs_embeds(trainable, frozen, cfg, batch,
+                                     mesh=mesh, batch_axes=batch_axes)
         adapters = trainable.get("adapters") if train_adapters else None
         spec = cfg.spec if adapters is not None else None
         masks = llama.MaskBundle(batch["modality_masks"],
                                  batch["question_mask"])
-        out, _ = llama.forward(
-            frozen["llama"], cfg.llama, adapters=adapters, spec=spec,
-            inputs_embeds=embeds,
-            masks=masks if adapters is not None else None,
-            attn_mask=batch["attn_mask"], positions=batch["positions"],
-            remat=remat, remat_policy=remat_policy, use_flash=use_flash,
-            logits=not fused_loss, a8_dots=a8_dots, save_q8=save_q8,
-            dropout_rng=rng if (spec and spec.dropout_rate > 0) else None)
-        if fused_loss:
-            loss = llama.chunked_cross_entropy(
-                out, frozen["llama"]["lm_head"], batch["labels"], a8=a8_dots)
-        else:
-            loss = llama.cross_entropy_loss(out, batch["labels"])
-        return loss, {"supervised_tokens": (batch["labels"] != -100).sum()}
+        return decoder_loss(
+            frozen["llama"], cfg.llama, batch["labels"], mesh, rng,
+            dict(adapters=adapters, spec=spec, inputs_embeds=embeds,
+                 masks=masks if adapters is not None else None,
+                 attn_mask=batch["attn_mask"], positions=batch["positions"],
+                 remat=remat, remat_policy=remat_policy, use_flash=use_flash,
+                 a8_dots=a8_dots, save_q8=save_q8, host_stream=host_stream),
+            dropout=bool(spec and spec.dropout_rate > 0),
+            fused_loss=fused_loss, a8=a8_dots)
 
     return loss_fn
 

@@ -21,11 +21,14 @@ compares them.  Element (n, c) of the (N, d) input takes word c % 4 of
 Philox4x32-10 at counter (n, c // 4) under the key's ``philox_key``
 (``core.rng.DropoutKey.bits32`` computes the same words in plain torch), so
 the mask depends on the key alone: the forward, its remat recompute and the
-backward drop the same elements whatever the tiling.  The TPU kernel seeds
-its generator per row block instead, and JAX's interpret mode (the CPU)
-draws ``jax.random.bits(key, (N, d), uint32)``; the parity tests hand the
-port those words through the key's ``bits32``, or through ``_force_bits``,
-which both the plain versions and the kernels take.
+backward drop the same elements whatever the tiling.  A key for one rank's
+rows of a larger array (``DropoutKey.rows``: the batch or the sequence
+split over ranks) hands the kernels its ``row_map``, and row n draws at the
+larger array's row, so the ranks drop what one process drops.  The TPU
+kernel seeds its generator per row block instead, and JAX's interpret mode
+(the CPU) draws ``jax.random.bits(key, (N, d), uint32)``; the parity tests
+hand the port those words through the key's ``bits32``, or through
+``_force_bits``, which both the plain versions and the kernels take.
 
 Numerics, as the JAX kernels: forward ``x_d = where(keep, x * (1/keep
 rounded to x's dtype), 0)`` in x's dtype, then the product in fp32;
@@ -58,27 +61,30 @@ def threshold(rate: float) -> int:
     return min(0xFFFFFFFF, int(round((1.0 - rate) * 4294967296.0)))
 
 
-def _bits(key, bits, x2d: torch.Tensor) -> torch.Tensor:
-    """The (N, d) 32-bit words as int64: forced, or drawn from the key."""
+def _bits(key, bits, x2d: torch.Tensor, rows=None) -> torch.Tensor:
+    """The (N, d) 32-bit words as int64: forced, or drawn from the key
+    (at the counter rows of ``rows``, a ``DropoutKey.row_map``)."""
     if bits is not None:
         return bits.to(device=x2d.device, dtype=torch.int64)
-    return key.bits32(tuple(x2d.shape), x2d.device)
+    if rows is None:  # a key without views (the parity tests' JAX key)
+        return key.bits32(tuple(x2d.shape), x2d.device)
+    return key.bits32(tuple(x2d.shape), x2d.device, rows=rows)
 
 
 def dropout_a_fwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor, key,
-                        rate: float, bits=None) -> torch.Tensor:
+                        rate: float, bits=None, rows=None) -> torch.Tensor:
     """(N, M*r) fp32 = where(keep, x * (1/keep in x's dtype), 0) @ A."""
-    keep = _bits(key, bits, x2d) < threshold(rate)
+    keep = _bits(key, bits, x2d, rows) < threshold(rate)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x2d.dtype)
     xd = torch.where(keep, x2d * scale, x2d.new_zeros(()))
     return xd.float() @ a_flat.float()
 
 
 def dropout_a_bwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor,
-                        g: torch.Tensor, key, rate: float, bits=None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        g: torch.Tensor, key, rate: float, bits=None,
+                        rows=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dA in A's dtype) for the cotangent g (N, M*r)."""
-    keep = _bits(key, bits, x2d) < threshold(rate)
+    keep = _bits(key, bits, x2d, rows) < threshold(rate)
     m = torch.where(keep, 1.0 / (1.0 - rate), 0.0)  # fp32
     g = g.float()
     dx = ((g @ a_flat.float().t()) * m).to(x2d.dtype)
@@ -97,12 +103,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
     lib.moka_dropout_a_fwd.argtypes = [p, i, p, i, p, p, p, i, i, i, u, f, u,
-                                       u, p]
+                                       u, u, u, u, p]
     lib.moka_dropout_a_fwd.restype = i
     lib.moka_dropout_fwd_workspace.argtypes = [i, i, i]
     lib.moka_dropout_fwd_workspace.restype = ctypes.c_long
     lib.moka_dropout_a_bwd.argtypes = [p, i, p, i, p, p, p, p, i, i, i, u, f,
-                                       u, u, p]
+                                       u, u, u, u, u, p]
     lib.moka_dropout_a_bwd.restype = i
     return lib
 
@@ -148,9 +154,25 @@ def _kernel_inputs(x2d, a_flat, key, bits):
     return x2d, a_flat, bits, k0, k1
 
 
-def _launch_fwd(x2d, a_flat, key, rate, bits):
+def _row_map(n: int, rows, forced: bool) -> tuple[int, int, int]:
+    """The kernels' (seg, stride, base) for ``rows`` (a
+    ``DropoutKey.row_map`` or None: the array itself; forced words have
+    no counters), checked to keep every row's counter in 32 bits."""
+    if forced or rows is None:
+        return 0, 0, 0
+    seg, stride, base = rows
+    last = n - 1 + base if seg == 0 else \
+        (n - 1) // seg * stride + base + (n - 1) % seg
+    if last >= 1 << 32:
+        raise ValueError(f"row map {rows}: row {last} of {n} rows leaves "
+                         f"the 32-bit Philox counter")
+    return seg, stride, base
+
+
+def _launch_fwd(x2d, a_flat, key, rate, bits, rows):
     from moka_tpu_torch import kernels
     x2d, a_flat, bits, k0, k1 = _kernel_inputs(x2d, a_flat, key, bits)
+    keys = (k0, k1, *_row_map(x2d.shape[0], rows, bits is not None))
     n, d = x2d.shape
     mr = a_flat.shape[1]
     lib = _library()
@@ -163,16 +185,17 @@ def _launch_fwd(x2d, a_flat, key, rate, bits):
     status = lib.moka_dropout_a_fwd(
         x2d.data_ptr(), x_bf16, a_flat.data_ptr(), a_bf16,
         None if bits is None else bits.data_ptr(), out.data_ptr(),
-        work.data_ptr(), n, d, mr, threshold(rate), x_scale, k0, k1,
+        work.data_ptr(), n, d, mr, threshold(rate), x_scale, *keys,
         raw_stream(x2d.device))
     kernels.check(status, "dropout_a_fwd")
     dropout_a_fwd.launches += 1
     return out
 
 
-def _launch_bwd(x2d, a_flat, g, key, rate, bits):
+def _launch_bwd(x2d, a_flat, g, key, rate, bits, rows):
     from moka_tpu_torch import kernels
     x2d, a_flat, bits, k0, k1 = _kernel_inputs(x2d, a_flat, key, bits)
+    keys = (k0, k1, *_row_map(x2d.shape[0], rows, bits is not None))
     n, d = x2d.shape
     mr = a_flat.shape[1]
     if tuple(g.shape) != (n, mr):
@@ -187,29 +210,30 @@ def _launch_bwd(x2d, a_flat, g, key, rate, bits):
         int(a_flat.dtype == torch.bfloat16),
         None if bits is None else bits.data_ptr(), g.data_ptr(),
         dx.data_ptr(), da.data_ptr(), n, d, mr, threshold(rate),
-        1.0 / (1.0 - rate), k0, k1, raw_stream(x2d.device))
+        1.0 / (1.0 - rate), *keys, raw_stream(x2d.device))
     kernels.check(status, "dropout_a_bwd")
     dropout_a_bwd.launches += 1
     return dx, da
 
 
 def dropout_a_fwd(x2d: torch.Tensor, a_flat: torch.Tensor, key, rate: float,
-                  bits=None) -> torch.Tensor:
+                  bits=None, rows=None) -> torch.Tensor:
     """Kernel 6: (N, M*r) fp32 from x (N, d) and A (d, M*r); ``bits``
-    (N, d) integers in [0, 2^32) replace the key's words."""
+    (N, d) integers in [0, 2^32) replace the key's words; ``rows`` (a
+    ``DropoutKey.row_map``) places x's rows in a larger array."""
     if on_card(x2d, "fused dropout"):
-        return _launch_fwd(x2d, a_flat, key, rate, bits)
-    return dropout_a_fwd_plain(x2d, a_flat, key, rate, bits)
+        return _launch_fwd(x2d, a_flat, key, rate, bits, rows)
+    return dropout_a_fwd_plain(x2d, a_flat, key, rate, bits, rows)
 
 
 def dropout_a_bwd(x2d: torch.Tensor, a_flat: torch.Tensor, g: torch.Tensor,
-                  key, rate: float, bits=None
+                  key, rate: float, bits=None, rows=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel 7: (dx (N, d) in x's dtype, dA (d, M*r) in A's dtype) with
-    the mask drawn again from the same key (or ``bits``)."""
+    the mask drawn again from the same key (or ``bits``) and rows."""
     if on_card(x2d, "fused dropout"):
-        return _launch_bwd(x2d, a_flat, g, key, rate, bits)
-    return dropout_a_bwd_plain(x2d, a_flat, g, key, rate, bits)
+        return _launch_bwd(x2d, a_flat, g, key, rate, bits, rows)
+    return dropout_a_bwd_plain(x2d, a_flat, g, key, rate, bits, rows)
 
 
 # kernel launches (CUDA tensors only)
@@ -221,26 +245,28 @@ class _DropA(torch.autograd.Function):
     """Saves x and A (never the mask); the backward draws it again."""
 
     @staticmethod
-    def forward(ctx, x2d, a_flat, key, bits, rate, plain):
-        ctx.key, ctx.rate, ctx.plain = key, rate, plain
+    def forward(ctx, x2d, a_flat, key, bits, rows, rate, plain):
+        ctx.key, ctx.rows, ctx.rate, ctx.plain = key, rows, rate, plain
         ctx.save_for_backward(x2d, a_flat, bits)
         fwd = dropout_a_fwd_plain if plain else dropout_a_fwd
-        return fwd(x2d, a_flat, key, rate, bits)
+        return fwd(x2d, a_flat, key, rate, bits, rows)
 
     @staticmethod
     def backward(ctx, g):
         x2d, a_flat, bits = ctx.saved_tensors
         bwd = dropout_a_bwd_plain if ctx.plain else dropout_a_bwd
-        dx, da = bwd(x2d, a_flat, g, ctx.key, ctx.rate, bits)
-        return dx, da, None, None, None, None
+        dx, da = bwd(x2d, a_flat, g, ctx.key, ctx.rate, bits, ctx.rows)
+        return dx, da, None, None, None, None, None
 
 
 def _proj(x, lora_a, key, rate, bits, plain):
     b, L, d = x.shape
     m, _, r = lora_a.shape
+    # one rank's rows of a split array: where they sit in the whole one
+    rows = key.row_map(x.shape) if hasattr(key, "row_map") else None
     a_flat = lora_a.permute(1, 0, 2).reshape(d, m * r)
-    out = _DropA.apply(x.reshape(b * L, d), a_flat, key, bits, float(rate),
-                       plain)
+    out = _DropA.apply(x.reshape(b * L, d), a_flat, key, bits, rows,
+                       float(rate), plain)
     return out.reshape(b, L, m, r).permute(2, 0, 1, 3)
 
 

@@ -190,7 +190,9 @@ def _dot_operand(t: torch.Tensor, spec: MokaSpec) -> torch.Tensor:
 def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
                modality_masks: torch.Tensor, question_mask: torch.Tensor,
                spec: MokaSpec, *, dropout_rng=None,
-               flash_residuals: dict | None = None) -> torch.Tensor:
+               flash_residuals: dict | None = None,
+               key_question: torch.Tensor | None = None,
+               gather_keys=None) -> torch.Tensor:
     """The MokA low-rank delta for one linear layer.
 
     x: (b, L, d_in); lora_a: (M, d_in, r); lora_b: (r, d_out);
@@ -201,6 +203,10 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
     flash_residuals: with ``spec.flash_rank_attn``, where each modality's
       rank attention keeps its flash residuals (one dict a modality, under
       its index) for a remat policy that keeps them (``models.llama``).
+    key_question, gather_keys: context parallelism (x is one shard of the
+      sequence): the question keys of every shard are gathered with
+      ``gather_keys`` and masked by ``key_question``, the (b, L_total)
+      question mask of the whole sequence.
     Returns the (b, L, d_out) delta in x's dtype (bf16 with
     ``spec.bf16_dots``, as JAX)."""
     m, _, r = lora_a.shape
@@ -230,10 +236,14 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
 
     keys = a_all[0] * qmask[..., None]  # (b, L, r)
     q_mask = qmask
+    if gather_keys is not None:
+        keys = gather_keys(keys)
+        q_mask = key_question.float()
     if spec.flash_rank_attn:
-        q_mask = question_mask.to(torch.int32)  # the key mask, once
+        q_mask = q_mask.to(torch.int32)  # the key mask, once
     elif spec.max_question_tokens is not None:
-        keys, q_mask = question_window(keys, qmask, spec.max_question_tokens)
+        keys, q_mask = question_window(keys, q_mask,
+                                       spec.max_question_tokens)
 
     buffer = a_all.sum(dim=0)
     for i in spec.attn_modalities:

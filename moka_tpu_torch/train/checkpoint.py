@@ -13,7 +13,10 @@ Three artifact families:
 
 A step is written into a temporary directory beside the others and renamed
 into place, so ``latest_step`` never sees a half-written step; saving a
-step that already exists replaces it.  Only the main process saves.
+step that already exists replaces it.  Only the main process saves
+(``save_on_main``: every rank of a group waits at a barrier before and
+after the main one writes; the adapters are replicated, so rank 0 holds
+all of them).
 
 The exports return ``{name: tensor}`` dicts of CPU tensors with the keys,
 shapes and dtypes (fp32; int64 position ids) of the JAX exports.
@@ -28,6 +31,7 @@ import tempfile
 import torch
 
 from moka_tpu_torch.core.rng import DropoutKey
+from moka_tpu_torch.parallel.mesh import initialized, process_rank
 from moka_tpu_torch.train.import_torch import QFORMER_LAYER_KEYS
 from moka_tpu_torch.train.optim import OptState, tree_map
 from moka_tpu_torch.train.step import TrainState
@@ -48,6 +52,23 @@ def _steps(directory: str) -> list[int]:
         return []
     return sorted(int(n) for n in os.listdir(directory) if n.isdigit()
                   and os.path.exists(os.path.join(directory, n, _STATE)))
+
+
+def barrier() -> None:
+    """Every rank of the default process group waits here (nothing in one
+    process)."""
+    if initialized():
+        torch.distributed.barrier()
+
+
+def save_on_main(directory: str, state: TrainState,
+                 max_to_keep: int = 3) -> None:
+    """``save`` by rank 0 only, between two barriers: no rank runs ahead
+    of a save in progress, or reads a step before it is written."""
+    barrier()
+    if process_rank() == 0:
+        save(directory, state, max_to_keep)
+    barrier()
 
 
 def save(directory: str, state: TrainState, max_to_keep: int = 3) -> None:

@@ -6,6 +6,13 @@ gradient of the frozen base is ever formed.  Where the JAX step donates
 its state and returns a new one, this step updates the trainable tree and
 the optimizer state in place and returns a new ``TrainState`` that holds
 them.
+
+Under a mesh (``make_train_step(mesh=...)``) each rank feeds its own
+samples and its loss function returns its share of the global loss (the
+losses' ``mesh`` option); the step sums the shares and the trainables'
+gradients over the mesh's data x fsdp group (one flat all-reduce) before
+the global norm, the clipping and AdamW, so every rank applies the same
+update to its replica of the trainables, as JAX's step does once.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Any, Callable
 import torch
 
 from moka_tpu_torch.core.rng import DropoutKey
+from moka_tpu_torch.parallel import comm
+from moka_tpu_torch.parallel.mesh import data_parallel_group
 from moka_tpu_torch.train.optim import AdamW, OptState, global_norm, \
     tree_leaves, tree_map
 
@@ -34,13 +43,16 @@ def init_train_state(params, tx: AdamW, rng: DropoutKey) -> TrainState:
 
 
 def make_train_step(loss_fn: Callable, tx: AdamW,
-                    grad_taps: Callable | None = None):
+                    grad_taps: Callable | None = None, mesh=None):
     """loss_fn(trainable, frozen, batch, rng) -> (loss, metrics dict).
 
     grad_taps(grads) -> a small tree surfaced as metrics["grad_taps"].
+    mesh: sum the loss and the gradients over its data x fsdp group (the
+    loss must be the rank's share: see the module docstring).
     Returns step(state, frozen, batch) -> (state, metrics) with the loss,
     the global norm of the (unclipped) gradients and the loss's metrics, as
     0-dim tensors on the parameters' device."""
+    group = data_parallel_group(mesh)
 
     def step(state: TrainState, frozen, batch):
         rng, sub = state.rng.split(2)
@@ -57,11 +69,14 @@ def make_train_step(loss_fn: Callable, tx: AdamW,
         finally:
             for p in leaves:
                 p.requires_grad_(False)
+        loss = loss.detach()
+        if group is not None:
+            *grads, loss = comm.flat_all_reduce([*grads, loss], group)
         it = iter(grads)
         grads = tree_map(lambda _: next(it), state.params)
         tx.update(grads, state.opt_state, state.params)
         metrics = dict(metrics)
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss
         metrics["grad_norm"] = global_norm(grads)
         if grad_taps is not None:
             metrics["grad_taps"] = grad_taps(grads)

@@ -8,7 +8,9 @@ AdaLoRA rank schedule, an eval hook, and ``torch.profiler`` tracing of a
 window of steps (a Chrome trace under ``out_dir/trace``).
 
 Only the main process (``torch.distributed`` rank 0, or the only process)
-writes files.  After a resume, ``train`` reads the batch iterator from its
+logs and writes files; every rank waits at a barrier around a save.  With
+a ``mesh`` the step sums the ranks' losses and gradients
+(``train.step.make_train_step``), so the logged loss is the global one.  After a resume, ``train`` reads the batch iterator from its
 start and trains until the total step count, as the JAX trainer does: it
 does not skip the batches the restored steps consumed.
 """
@@ -25,6 +27,7 @@ import torch
 
 from moka_tpu_torch.core.config import TrainConfig, dump_config
 from moka_tpu_torch.core.rng import DropoutKey
+from moka_tpu_torch.parallel.mesh import process_rank
 from moka_tpu_torch.train import checkpoint as ckpt
 from moka_tpu_torch.train.optim import make_optimizer
 from moka_tpu_torch.train.step import init_train_state, make_train_step
@@ -74,14 +77,6 @@ def host_sharded_order(lengths: list[int], group_key: list,
             for j in order[i + rank * per_host: i + (rank + 1) * per_host]]
 
 
-def process_rank() -> int:
-    """The ``torch.distributed`` rank when a group is initialized, else 0."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
-
-
 def _sync(t) -> None:
     if torch.is_tensor(t) and t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
@@ -90,7 +85,7 @@ def _sync(t) -> None:
 class Trainer:
     def __init__(self, loss_fn: Callable, trainable, frozen,
                  cfg: TrainConfig, total_steps: int,
-                 full_config=None):
+                 full_config=None, mesh=None):
         self.cfg = cfg
         self.frozen = frozen
         self.tx = make_optimizer(cfg, total_steps)
@@ -98,7 +93,8 @@ class Trainer:
         if cfg.adalora_budget > 0:
             from moka_tpu_torch.adapters.peft import adalora_grad_taps
             taps = adalora_grad_taps
-        self.step_fn = make_train_step(loss_fn, self.tx, grad_taps=taps)
+        self.step_fn = make_train_step(loss_fn, self.tx, grad_taps=taps,
+                                       mesh=mesh)
         self.state = init_train_state(trainable, self.tx,
                                       DropoutKey(cfg.seed))
         self.total_steps = total_steps
@@ -177,10 +173,9 @@ class Trainer:
                 em = {f"eval_{k}": float(v)
                       for k, v in eval_fn(self.state).items()}
                 self.logger.log(step, em)
-            if self.save_every and step % self.save_every == 0 and \
-                    self.is_main:
-                ckpt.save(os.path.join(self.out_dir, "checkpoints"),
-                          self.state)
+            if self.save_every and step % self.save_every == 0:
+                ckpt.save_on_main(os.path.join(self.out_dir, "checkpoints"),
+                                  self.state)
         if prof is not None:
             prof.stop()
         return self.state
@@ -190,9 +185,10 @@ class Trainer:
         ``non_lora_trainables.bin``) and a last checkpoint.  ``stage1``
         selects the reference's stage-1 (unwrapped ``model.``) key
         prefixes."""
-        if not self.is_main:
-            return
-        ckpt.save(os.path.join(self.out_dir, "checkpoints"), self.state)
-        ckpt.export_torch_artifacts(self.out_dir, self.state.params,
-                                    stage1=stage1)
-        self.logger.close()
+        ckpt.save_on_main(os.path.join(self.out_dir, "checkpoints"),
+                          self.state)
+        if self.is_main:
+            ckpt.export_torch_artifacts(self.out_dir, self.state.params,
+                                        stage1=stage1)
+            self.logger.close()
+        ckpt.barrier()

@@ -23,6 +23,7 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py fused_dropout_ablation
     python3 profile_port.py paged_decode [--root DIR]
     python3 profile_port.py paged_decode_ablation
+    python3 profile_port.py data_parallel   # one card, or an NCCL world
 
 ``flash`` (not among the default windows) times the query-major flash
 kernels through their wrappers at chip_smoke's shapes: kernel 1 at the
@@ -76,7 +77,10 @@ wrapper at DECODE_SHAPES (chip_smoke's timed shapes and one sample) on a
 bf16 and an int8 cache the same way (with ``--root``, another
 checkout's); ``paged_decode_ablation`` times it with parts taken out and
 its ring resized (DECODE_ABLATIONS: edited copies of paged_decode.cu),
-twice in turn.
+twice in turn.  ``data_parallel`` times and traces phase 17 (c)'s step
+as a rank of the data-parallel mesh computes it (one row, the dropout
+key's view of the rank's rows) beside one process on one row and on the
+global batch, and with several cards the mesh itself over NCCL.
 
 Serving, two windows: ``greedy_generate`` for one new token (the prefill
 and the head on its last row, no decode step) and for NEW_TOKENS (the main
@@ -96,6 +100,7 @@ from __future__ import annotations
 import gc
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1555,8 +1560,9 @@ def decode_ablation_window(turns: int = 2) -> dict:
 
 _DROP_NO_PHILOX = (
     "    const uint32_t g = static_cast<uint32_t>(c) >> 2;\n"
-    "    philox(static_cast<uint32_t>(n), g, rk, w);\n"
-    "    philox(static_cast<uint32_t>(n), g + 1u, rk, w + 4);\n",
+    "    const uint32_t row = counter_row(rk, n);\n"
+    "    philox(row, g, rk, w);\n"
+    "    philox(row, g + 1u, rk, w + 4);\n",
     "    for (int e = 0; e < 8; ++e) w[e] = 0u;  // ablation: every word "
     "kept\n")
 DROP_ABLATIONS = {  # name: edits of fused_dropout.cu (hopper.cuh inlined);
@@ -1719,6 +1725,178 @@ TRAIN_KEYS = {"full": "train_step", "fused": "train_step_fused_proj_lse",
               "rank": "train_step_flash_rank", "mm": "train_step_multimodal"}
 
 
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather",
+            "all_gather_into_tensor", "send_recv")
+
+
+def _gloo_op_rank(rank: int, op: str, out_dir: Path) -> None:
+    """One rank of a 2-rank gloo world: collective ``op`` on a CUDA tensor
+    as it is; writes what happened (a rank that aborts writes nothing)."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(4, device="cuda")
+    run = {"all_reduce": lambda: dist.all_reduce(t.clone()),
+           "broadcast": lambda: dist.broadcast(t.clone(), 0),
+           "all_gather": lambda: dist.all_gather(
+               [torch.empty_like(t) for _ in range(2)], t),
+           "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+               t.new_empty(8), t),
+           "send_recv": lambda: [r.wait() for r in dist.batch_isend_irecv([
+               dist.P2POp(dist.isend, t.clone(), 1 - rank),
+               dist.P2POp(dist.irecv, torch.empty_like(t), 1 - rank)])]}[op]
+    try:
+        run()
+        torch.cuda.synchronize()
+        what = "ok"
+    except Exception as e:  # noqa: BLE001 - the reading is the error
+        what = f"raised {type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    (out_dir / f"{op}.{rank}").write_text(what)
+
+
+def gloo_cuda_window() -> dict:
+    """Which gloo collectives take a CUDA tensor as it is, one 2-rank world
+    a collective (all started together: an op that aborts a rank ends
+    only its own world).  ``parallel.comm.transport`` follows the
+    reading: gloo's sends get host copies, its other collectives CUDA
+    tensors as they are."""
+    import tempfile
+    from moka_tpu_torch.parallel.mesh import start_world
+    out_dir = Path(tempfile.mkdtemp(prefix="gloo_cuda_"))
+    worlds = {op: start_world(_gloo_op_rank, 2, (op, out_dir))
+              for op in GLOO_OPS}
+    res = {}
+    for op, ctx in worlds.items():
+        try:
+            while not ctx.join(timeout=120):
+                pass
+        except Exception as e:  # noqa: BLE001 - a rank died: the reading
+            res[op] = f"world failed: {str(e).splitlines()[0][:120]}"
+        got = [out_dir / f"{op}.{r}" for r in range(2)]
+        res.setdefault(op, [f.read_text() if f.exists() else "no result"
+                            for f in got])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"gloo collectives on CUDA tensors: {res}", flush=True)
+    return {"gloo_cuda": res}
+
+
+DP_RANKS = 4  # the data-parallel mesh whose rank ``data_parallel`` emulates
+DP_STEPS = 5  # timed steps, after two warm-up steps
+
+
+def _dp_setup(device, mesh=None, batch_rows=None, view=None):
+    """Phase 17 (c)'s step (7B widths at P17_FSDP_LAYERS layers, full
+    remat, flash, chunked CE, dropout 0.05; ``chip_smoke.p17_mesh``) on
+    ``batch_rows`` of its global batch of 4 x 1024 (all: None), with the
+    dropout key's view ``view`` (a rank's rows) or none: (one step, the
+    state's key)."""
+    import dataclasses
+    from chip_smoke import (P17_FSDP_LAYERS, _mesh_batch, build_model,
+                            p17_configs)
+    from moka_tpu_torch.core.config import TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    from moka_tpu_torch.train.optim import make_optimizer
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    _, cfg, spec = p17_configs(False)
+    cfg = dataclasses.replace(cfg, n_layers=P17_FSDP_LAYERS)
+    frozen, adapters = build_model(cfg, spec, seed=3, device=device)
+    batch = _mesh_batch(cfg, 4, 1024, device)
+    if batch_rows is not None:
+        batch = {k: (v[:, batch_rows] if k == "modality_masks" else
+                     v[batch_rows]) for k, v in batch.items()}
+    tx = make_optimizer(TrainConfig(), total_steps=1000)
+    key = DropoutKey(0) if view is None else DropoutKey(0).rows(*view)
+    state = init_train_state({"adapters": adapters}, tx, key)
+    step = make_train_step(make_llama_moka_loss(
+        cfg, spec, remat=True, use_flash=True, fused_loss=True, ce_chunk=128,
+        mesh=mesh), tx, mesh=mesh)
+
+    def one():
+        nonlocal state
+        state, m = step(state, frozen, batch)
+        float(m["loss"])
+
+    return one
+
+
+def _dp_times(one) -> list:
+    import torch
+    for _ in range(2):
+        one()
+    out = []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _dp_rank(rank: int, out_dir: Path) -> None:
+    """One rank of the NCCL world: the data-parallel step on its rows,
+    timed; rank 0 traces one step."""
+    import torch
+    from moka_tpu_torch.core.config import MeshConfig
+    from moka_tpu_torch.parallel.mesh import make_mesh
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    n = torch.distributed.get_world_size()
+    rows = 4 // n
+    one = _dp_setup("cuda", make_mesh(MeshConfig(n, 1, 1)),
+                    slice(rank * rows, (rank + 1) * rows),
+                    (0, rank * rows, 4))
+    rec = {"step_ms": _dp_times(one)}
+    # every rank takes the same steps: each step's collectives need all
+    traced, ops, host = trace(one)
+    wall = wall_ms(one)
+    if rank == 0:
+        rec["trace"] = summary(f"a rank of the {n},1,1 mesh (NCCL, one card "
+                               f"a rank), {rows} of 4 rows", wall, traced,
+                               ops, host=host)
+    (out_dir / f"dp{rank}.json").write_text(json.dumps(rec))
+
+
+def data_parallel_window() -> dict:
+    """Why a rank of the data-parallel mesh (phase 17 (c), DP_RANKS,1,1)
+    takes no less time than one process on the whole batch.  On one card,
+    one process, no collectives: the step on the global batch (4 rows),
+    on one row, and on one row with the dropout key's view of a rank's
+    rows (what a rank of DP_RANKS computes); each timed over DP_STEPS
+    steps, the last traced.  With several cards, the mesh itself in an
+    NCCL world of one card a rank, each rank timed, rank 0 traced."""
+    import tempfile
+    import torch
+    out = {}
+    for name, rows, view in (("b4", None, None), ("b1", slice(0, 1), None),
+                             ("b1_rank_view", slice(0, 1),
+                              (0, 0, DP_RANKS))):
+        one = _dp_setup("cuda", None, rows, view)
+        times = _dp_times(one)
+        traced, ops, host = trace(one)
+        out[f"dp_{name}"] = dict(summary(
+            f"phase 17 (c)'s step, one process, {name}", wall_ms(one),
+            traced, ops, host=host), step_ms=times)
+        print(f"  {name}: step ms {[round(t, 2) for t in times]}",
+              flush=True)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n > 1:
+        from moka_tpu_torch.parallel.mesh import run_world
+        out_dir = Path(tempfile.mkdtemp(prefix="dp_world_"))
+        run_world(_dp_rank, n, (out_dir,), backend="nccl", timeout=300)
+        out["dp_world"] = [json.loads((out_dir / f"dp{r}.json").read_text())
+                           for r in range(n)]
+        for r, rec in enumerate(out["dp_world"]):
+            print(f"  rank {r} of {n}: step ms "
+                  f"{[round(t, 2) for t in rec['step_ms']]}", flush=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
     names = list(argv or sys.argv[1:]) or list(WINDOWS)
@@ -1744,7 +1922,9 @@ def main(argv=None) -> int:
                       "fused_dropout_ablation":
                           fused_dropout_ablation_window,
                       "paged_decode": decode_window,
-                      "paged_decode_ablation": decode_ablation_window}
+                      "paged_decode_ablation": decode_ablation_window,
+                      "gloo_cuda": gloo_cuda_window,
+                      "data_parallel": data_parallel_window}
     if set(names) - {*WINDOWS, *kernel_windows}:
         print(f"profile_port: windows are {WINDOWS} and "
               f"{tuple(kernel_windows)}", file=sys.stderr)

@@ -177,28 +177,54 @@ def test_finetune_loftq_quantized(life_cycle, tmp_path):
     ("finetune", ["--mesh", "1,2,1"]), ("finetune", ["--host-offload"]),
     ("train_vt", ["--mesh", "2,1,1"]), ("train_vt", ["--host-offload"]),
     ("pretrain", ["--mesh", "1,1,2"])])
-def test_parallelism_flags_refused(cli, extra):
+def test_parallelism_flags_refused(cli, extra, tmp_path):
+    """What one process refuses: a mesh of two devices (JAX's
+    ``make_mesh`` refuses sizes that are not the device count) and the
+    ``model`` axis (ROADMAP.md, item 4b).  ``--host-offload`` is taken:
+    the run gets past the parallel setup to the missing tokenizer file
+    (the CLIs run with it in ``tests/test_torch_phase17.py``)."""
     import importlib
     main = importlib.import_module(f"moka_tpu_torch.cli.{cli}").main
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, module item 4, parallelism"):
-        main(extra + ["--device", "cpu"])
+    argv = extra + ["--device", "cpu", "--tokenizer-json",
+                    str(tmp_path / "missing.json")]
+    if extra[0] == "--host-offload":
+        # the tokenizers library's own error for a missing file
+        with pytest.raises(Exception, match="No such file or directory"):
+            main(argv)
+    elif extra[1] == "1,1,2":
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            main(argv)
+    else:
+        with pytest.raises(ValueError, match="wants 2 devices, have 1"):
+            main(argv)
 
 
 def test_one_device_meshes_accepted():
-    from moka_tpu_torch.cli.finetune import mesh_from_flag
+    from moka_tpu_torch.cli.finetune import make_mesh_from_flag, \
+        mesh_from_flag
     for flag in ("fsdp", "data", "1,1,1"):
         assert mesh_from_flag(flag).num_devices == 1
+        assert make_mesh_from_flag(flag) is None  # one process: no mesh
 
 
 def test_objectives_name_the_parallelism_item():
+    """The objectives take ``context_parallel`` and ``host_stream`` now;
+    what is left of the parallelism item raises naming it: the model axis
+    (ROADMAP.md, item 4b), and a sequence ring combined with a
+    data-parallel mesh."""
+    from moka_tpu_torch.core.config import MeshConfig
     from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.parallel import sharding
     from moka_tpu_torch.train.objectives import make_llama_moka_loss
     for kw in ({"context_parallel": object()}, {"host_stream": {}}):
-        with pytest.raises(NotImplementedError,
-                           match=r"\(ROADMAP.md, module item 4, "
-                                 r"parallelism\)"):
-            make_llama_moka_loss(LlamaConfig.tiny(), MokaSpec.avt(), **kw)
+        make_llama_moka_loss(LlamaConfig.tiny(), MokaSpec.avt(), **kw)
+    with pytest.raises(ValueError, match="do not combine"):
+        make_llama_moka_loss(LlamaConfig.tiny(), MokaSpec.avt(),
+                             context_parallel=object(), mesh=object())
+    with pytest.raises(NotImplementedError,
+                       match=r"\(ROADMAP.md, item 4b\)"):
+        sharding.param_shardings(MeshConfig(1, 1, 2), {"lm_head": torch.zeros(
+            (8, 4))})
 
 
 def test_cli_flags_match_jax():

@@ -308,3 +308,46 @@ def test_forward_with_fused_dropout_matches_jax(shared):
                               inputs_embeds=torch.from_numpy(emb),
                               masks=masks)
     assert not np.allclose(got.numpy(), clean.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("split", ["batch", "sequence"])
+def test_rank_views_draw_the_whole_arrays_rows(split, monkeypatch):
+    """A key for one rank's rows (``DropoutKey.rows``): ``bits`` (blocks of
+    a sample's positions, made small here so that a view cuts blocks) and
+    ``bits32`` at its ``row_map`` are the whole array's values at those
+    rows, and ``dropout_a_proj`` there is the whole array's projection at
+    those rows, forward and backward (the plain versions, as on the
+    CPU).  A batch split reads whole samples, a sequence split ragged
+    shards."""
+    from moka_tpu_torch.core import rng
+    monkeypatch.setattr(rng, "BITS_BLOCK", 8)
+    B, L, d = 4, 21, 16
+    key = DropoutKey(31).split(2)[1]
+    shards = [(0, 1), (1, 3), (3, 4)] if split == "batch" else \
+        [(0, 5), (5, 13), (13, 21)]
+    whole16 = key.bits((B, L, d), "cpu")
+    whole32 = key.bits32((B * L, d), "cpu").reshape(B, L, d)
+    x = torch.randn((B, L, d), generator=torch.Generator().manual_seed(0))
+    a = torch.randn((2, d, 4), generator=torch.Generator().manual_seed(1))
+    xw = x.clone().requires_grad_(True)
+    out = fd.dropout_a_proj(xw, a, key, 0.2)
+    out.sum().backward()
+    for lo, hi in shards:
+        idx = (slice(lo, hi),) if split == "batch" else \
+            (slice(None), slice(lo, hi))
+        rk = key.rows(0, lo, B) if split == "batch" else key.rows(1, lo, L)
+        shape = x[idx].shape
+        assert torch.equal(rk.fold_in(0).bits(shape, "cpu"),
+                           key.fold_in(0).bits((B, L, d), "cpu")[idx])
+        assert torch.equal(rk.bits(shape, "cpu"), whole16[idx])
+        n = shape[0] * shape[1]
+        got32 = rk.bits32((n, d), "cpu", rows=rk.row_map(shape))
+        assert torch.equal(got32, whole32[idx].reshape(n, d))
+        xl = x[idx].clone().requires_grad_(True)
+        part = fd.dropout_a_proj(xl, a, rk, 0.2)
+        torch.testing.assert_close(part, out[(slice(None), *idx)],
+                                   rtol=1e-6, atol=1e-6)
+        part.sum().backward()
+        torch.testing.assert_close(xl.grad, xw.grad[idx], rtol=1e-6,
+                                   atol=1e-6)
+        assert torch.equal(xl.grad == 0, xw.grad[idx] == 0)

@@ -312,16 +312,21 @@ def test_params_from_numpy_keeps_layout_and_bf16():
 
 
 def test_unported_forward_options_raise(model):
-    """What is not ported raises, naming ROADMAP.md's parallelism item;
-    ``paged_decode`` (a no-op without a cache, as in JAX) and the int8
-    cache are ported (tests/test_torch_kv_cache.py)."""
+    """The parallelism options are ported (``tests/test_torch_ring.py``,
+    ``tests/test_torch_mesh.py``): context parallelism with a cache raises
+    as in JAX, and ``host_stream`` on a base already on the compute device
+    gives the resident forward's logits; ``paged_decode`` (a no-op without
+    a cache, as in JAX) and the int8 cache are ported
+    (tests/test_torch_kv_cache.py)."""
     _, (tb, ta) = model
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    for kw in (dict(context_parallel=object()), dict(host_stream={})):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, module item 4, parallelism"):
-            tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
-                           **kw)
+    cache = tllama.init_kv_cache(CFG, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="context_parallel is a training"):
+        tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
+                       cache=cache, attn_mask=torch.ones((1, 8)),
+                       context_parallel=object())
+    streamed, _ = tllama.forward(tb, CFG, adapters=ta, spec=SPEC,
+                                 tokens=toks, host_stream={})
     # the named remat policies are ported; an unknown name raises as in JAX
     with pytest.raises(ValueError, match="unknown remat policy"):
         tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
@@ -330,6 +335,7 @@ def test_unported_forward_options_raise(model):
     paged, _ = tllama.forward(tb, CFG, adapters=ta, spec=SPEC, tokens=toks,
                               paged_decode=True)
     assert torch.equal(plain, paged)
+    assert torch.equal(plain, streamed)
     cache = tllama.init_kv_cache(CFG, 1, 8, quantized=True, device="cpu")
     assert cache["k"]["q"].dtype == torch.int8
 

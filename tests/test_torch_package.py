@@ -985,3 +985,44 @@ def test_decode_kernel_matches_plain_on_card(card, quantized, H, K, length):
     assert ((out[:2].float() - ref[:2].float()).abs() -
             2 ** -7 * ref[:2].float().abs()).max() <= 4e-3
     assert not out[2].any() and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["batch", "sequence"])
+@pytest.mark.parametrize("xdt", ["bf16", "fp32"])
+def test_fused_dropout_kernels_at_a_ranks_rows_on_card(card, split, xdt):
+    """Kernels 6 and 7 on one rank's rows of a split array, with the key's
+    row map: the masks of the whole array's rows exactly, out to fp32
+    summation order and dx to one bf16 ulp of both the whole array's
+    rows and the plain versions at the same rows."""
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops import fused_dropout as fd
+    g = torch.Generator(device=card).manual_seed(5)
+    B, L, d, mr = 3, 100, 200, 12
+    dt = torch.bfloat16 if xdt == "bf16" else torch.float32
+    x = torch.randn((B, L, d), generator=g, device=card).to(dt)
+    a = torch.randn((d, mr), generator=g, device=card) * 0.05
+    gout = torch.randn((B, L, mr), generator=g, device=card)
+    key = DropoutKey(9)
+    whole = fd.dropout_a_fwd(x.reshape(-1, d), a, key, 0.05)
+    wdx, _ = fd.dropout_a_bwd(x.reshape(-1, d), a, gout.reshape(-1, mr),
+                              key, 0.05)
+    idx, view = ((slice(1, 3),), (0, 1, B)) if split == "batch" else \
+        ((slice(None), slice(40, 100)), (1, 40, L))
+    xl = x[idx].reshape(-1, d).contiguous()
+    gl = gout[idx].reshape(-1, mr).contiguous()
+    rk = key.rows(*view)
+    rows = rk.row_map(x[idx].shape)
+    out = fd.dropout_a_fwd(xl, a, rk, 0.05, rows=rows)
+    dx, _ = fd.dropout_a_bwd(xl, a, gl, rk, 0.05, rows=rows)
+    want = whole.reshape(B, L, mr)[idx].reshape(-1, mr)
+    wantdx = wdx.reshape(B, L, d)[idx].reshape(-1, d)
+    ref = fd.dropout_a_fwd_plain(xl, a, rk, 0.05, rows=rows)
+    rdx, _ = fd.dropout_a_bwd_plain(xl, a, gl, rk, 0.05, rows=rows)
+    assert torch.equal(dx != 0, wantdx != 0)
+    assert torch.equal(dx != 0, rdx != 0)
+    for w in (want, ref):
+        assert (out - w).abs().max() <= 1e-4 * w.abs().max()
+    for w in (wantdx, rdx):
+        assert ((dx.float() - w.float()).abs()
+                <= 2 ** -7 * w.float().abs()).all()

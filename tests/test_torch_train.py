@@ -316,9 +316,14 @@ def test_remat_gives_the_same_gradients(world, use_flash, fused):
 
 
 def test_loss_unported_options_raise():
+    """The parallelism options build (their parity: tests/test_torch_ring.py
+    and tests/test_torch_mesh.py); a ring with a data-parallel mesh does
+    not."""
     for kw in (dict(context_parallel=object()), dict(host_stream={})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_llama_moka_loss(CFG, SPEC, **kw)
+        make_llama_moka_loss(CFG, SPEC, **kw)
+    with pytest.raises(ValueError, match="do not combine"):
+        make_llama_moka_loss(CFG, SPEC, context_parallel=object(),
+                             mesh=object())
     make_llama_moka_loss(CFG, SPEC, a8_dots="full", save_q8=True,
                          pallas_ce=True)
     # pallas_ce needs an int8 head, as in JAX (a bf16 or int4 head raises)
