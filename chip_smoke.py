@@ -124,7 +124,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      r=4 with dropout 0.05, full remat, flash, chunked CE, AdamW with
      warmup + cosine) at b 4, L 1024, full width and depth: the loss and
      every projection's adapter gradients through the kernels against the
-     plain attention and an fp32 run, then 2 warm-up and 5 timed steps of
+     plain attention and an fp32 run, then 2 warm-up and 3 timed steps of
      ``make_train_step`` (launch counts zeroed before the timed steps and
      read after: 64 flash forward, 32 fused backward a step);
   7. one long-context step (b 1, L 4096, dynamic-NTK RoPE, full depth),
@@ -133,7 +133,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      fused dropout and remat policy ``proj_lse``): at 2 layers the kernel
      path's gradients against the plain path (same Philox masks) and fp32,
      proj_lse against full remat, and the same gradient check on an AVT
-     rank-8 tree (M*r 24) and a VT tree (M*r 8); then 2 warm-up and 5
+     rank-8 tree (M*r 24) and a VT tree (M*r 8); then 2 warm-up and 3
      timed steps
      (32 flash forward, 32 fused backward, 448 dropout forward and 224
      dropout backward launches a step), one traced step for the device's
@@ -143,7 +143,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      int4 base and int8 head built on the card, a8_dots "full", save_q8,
      proj_lse, bf16 dots): at 2 layers route B's gradients (flash and the
      fused CE kernels 8-9) against the plain path and fp32; route B
-     (``pallas_ce``) for 2 + 5 steps (32 flash forward, 32 fused backward,
+     (``pallas_ce``) for 2 + 3 steps (32 flash forward, 32 fused backward,
      1 fused CE forward and 1 backward launch a step) with a traced step,
      route A (the chunked CE on the a8 head) for 1 + 3 (flash only), their
      first losses within the head's rounding;
@@ -178,7 +178,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      head, b 4 x L 1024, the trainable tree {adapters, vl_projector,
      al_projector}): at 2 decoder layers with the full towers the loss and
      every adapter's and projector's gradients through the kernels against
-     the plain path and fp32 (phase 6's rule), then 2 warm-up and 5 timed
+     the plain path and fp32 (phase 6's rule), then 2 warm-up and 3 timed
      steps with a traced one (55 flash forward, 23 of them CLIP's, and 32
      fused backward launches a step);
  14. (run after phase 13, on phase 9's int4 base and int8 head and phase
@@ -195,7 +195,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      an image request and a text one, both answered 200; (c) the VT step
      (b 4 x L 1024, proj_lse, a8_dots "full", save_q8, bf16 dots): the
      2-layer gradient check with the full tower against the plain path and
-     fp32 (phase 13's rule), then 2 warm-up and 5 timed steps (55 flash
+     fp32 (phase 13's rule), then 2 warm-up and 3 timed steps (55 flash
      forward, 23 of them CLIP's, and 32 fused backward launches a step);
  15. (after phase 14, its trees freed) the training life cycle from
      checkpoint files through the three training CLIs' ``main`` at
@@ -237,11 +237,11 @@ Phases, in order; any failed build, launch or check exits non-zero:
      then two ranks on the card in gloo groups (CUDA tensors cross their
      sends as host copies): (b) phase 7's long-context step (b 1, L 4096) as the
      flash ring over a ("seq",) mesh of 2 against rank 0's one-process
-     flash step (RING_DEEP_TOL), kernels 1, 3 and 4 launched 2 x 2 x 32,
+     flash step (RING_DEEP_TOL), kernels 1, 3 and 4 launched 2 x 2 x 16,
      2 x 32, 2 x 32 times a rank and kernel 2 never, and at 2 layers the
      flash and the dense ring each under phase 6's rule against fp32;
      (c) ``make_train_step`` on meshes 1,2,1 (FSDP: half the base a rank)
-     and 2,1,1 at 7B widths and 4 layers, 2 + 3 steps on rows with
+     and 2,1,1 at 7B widths and 4 layers, 2 + 1 steps on rows with
      different supervised counts, against one process on the global batch
      (within REMAT_NOISE of two one-process runs' spread), the bytes
      gathered a step printed, and one step of 2,1,1 with the fused
@@ -251,7 +251,25 @@ Phases, in order; any failed build, launch or check exits non-zero:
      batch and of a sequence split against the whole array's rows;
      (d) ``finetune``
      (tiny preset) with ``--mesh 1,2,1 --host-offload`` on both ranks;
- 18. one JSON line with every kernel's numbers, then the card's line.
+ 18. tensor parallelism on the model axis (``phase18``, after phase 17):
+     (b) first, kernels 6-7 on column slices of a 7B-width x (o's and
+     down's inputs over 2 and 4 ranks) at the key's column view against
+     the whole array's launch: masks and dx identical, dA's rows and the
+     summed out within DROP_TOL; every case's one process on the global
+     batch, twice (the spread); then two worlds on the card in gloo
+     groups, the base split by the rule table (each rank's resident bytes
+     checked) and each case against its one process: the losses within
+     TRAIN_FLOOR, the first step's gradients no further from an fp32
+     step than phase 6's rule lets one process be (the distance from one
+     process and two one-process runs' spread printed), each rank's
+     kernels 1 and 2 launched once a layer a step
+     at its H/m query heads: two ranks for (a) phase 6's model at 4 layers
+     on 1,1,2, (b) one fused-dropout step on 1,1,2 (kernels 6-7 at a
+     column offset on the second rank's o and down), (d) phase 9's int4
+     recipe on 1,1,2 (kernels 8-9 replicated) and (e) ``finetune --mesh
+     1,1,2 --host-offload`` at the tiny preset; four for (a) on 1,2,2 and
+     (c) CodeLlama-34B's widths (64 heads, 8 kv heads: 2 a rank) on 1,1,4;
+ 19. one JSON line with every kernel's numbers, then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -350,7 +368,14 @@ HEAD_ROUTES_TOL = 1e-3  # route A's loss against route B's, relative: they
                    # int8 codes (1/127 of a row's max) against bf16
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print; a phase's header line (``[N] ...``) also gets the seconds
+    since the script started."""
+    if a and isinstance(a[0], str) and re.match(r"\[\d+\] ", a[0]):
+        a = (*a, f"(at {time.perf_counter() - _T0:.1f} s)")
     print(*a, flush=True)
 
 
@@ -425,11 +450,15 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    from moka_tpu_torch.ops.flash_attention import flash_fwd
+    from moka_tpu_torch.ops import fused_dropout as fd
+    from moka_tpu_torch.ops.flash_attention import flash_bwd_fused, flash_fwd
     from moka_tpu_torch.ops.paged_decode import paged_decode_attention
     for fn in _wrappers().values():
         fn.launches = 0
     flash_fwd.launches_by_head_dim.clear()
+    flash_fwd.launches_by_heads.clear()
+    flash_bwd_fused.launches_by_heads.clear()
+    fd.dropout_a_fwd.offset_launches = fd.dropout_a_bwd.offset_launches = 0
     paged_decode_attention.int8_launches = 0
 
 
@@ -2474,7 +2503,7 @@ def decode_launches(cfg, capacity: int, new_tokens: int,
 
 GATE_CAPACITIES = (512, 1024, 2048, 4096)  # paged_decode_auto's readings
 GATE_TURNS = 5   # rounds of eager, paged, paged, eager blocks a reading
-GATE_STEPS = 3   # decode steps a block, after one warm-up block a path
+GATE_STEPS = 2   # decode steps a block, after one warm-up block a path
 
 
 def paged_gate_readings(cfg, spec, base, adapters, batch: int = 8,
@@ -3153,7 +3182,7 @@ def _check_train_grads(cfg, spec, frozen, trainable, batch, policy=None,
 
 
 def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
-                busy=False, n_warm=2, n_timed=5, loss_fn=None,
+                busy=False, n_warm=2, n_timed=3, loss_fn=None,
                 **quant) -> dict:
     """A training path: ``make_train_step`` with
     ``make_optimizer(TrainConfig(), total_steps=1000)`` and remat under
@@ -3463,13 +3492,13 @@ def check_quant_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
 
 
 def quant_steps(cfg, spec, frozen, trainable, batch, fused_peak) -> dict:
-    """Route B (``pallas_ce``: kernels 8-9) for 2 + 5 steps with a traced
+    """Route B (``pallas_ce``: kernels 8-9) for 2 + 3 steps with a traced
     step, then route A (the chunked CE on the a8 head) for 1 + 3, each
     from the same adapters and key: launches a step asserted, losses must
     fall, and the two routes' first losses (same forward, other head
     product) agree within HEAD_ROUTES_TOL."""
     out = {}
-    for route, kw, steps in (("B", dict(pallas_ce=True), (2, 5)),
+    for route, kw, steps in (("B", dict(pallas_ce=True), (2, 3)),
                              ("A", {}, (1, 3))):
         log(f"  route {route}:")
         run = train_steps(cfg, spec, frozen, clone_tree(trainable), batch,
@@ -4077,7 +4106,7 @@ def mm_steps(ucfg, frozen, trainable) -> dict:
     """Phase 13: ``bench.py::run_multimodal``'s step on the stack (b 4 x
     L 1024, MM_LOSS, ``make_optimizer(TrainConfig(), 1000)``, the
     trainable tree {adapters, vl_projector, al_projector}): the SHALLOW
-    gradient check, then at full depth 2 warm-up and 5 timed steps with a
+    gradient check, then at full depth 2 warm-up and 3 timed steps with a
     traced one; launches a step asserted; the towers' forward ms at b 4."""
     import torch
     batch = mm_batch(ucfg, 4, L=1024)
@@ -4519,7 +4548,7 @@ def vt_steps(vcfg, frozen, trainable) -> dict:
     """Phase 14 (c): the VT fine-tune step ``vt_7b_int4a8f_qh_qenc_sq8plse``
     (b 4 x L 1024, VT_LOSS, ``make_optimizer(TrainConfig(), 1000)``, the
     trainable tree {adapters, projector}): the SHALLOW gradient check
-    (phase 13's rule), then at full depth 2 warm-up and 5 timed steps;
+    (phase 13's rule), then at full depth 2 warm-up and 3 timed steps;
     launches a step asserted (32 + 23 flash forward, 23 at head_dim 64,
     32 fused backward)."""
     import torch
@@ -5475,12 +5504,14 @@ P17_OFFLOAD_GAP = 10 * 2**30  # the host-streamed step's peak device memory
                               # at least this far below the resident one's
 P17_FSDP_LAYERS = 4  # the FSDP / data-parallel steps' depth at 7B widths:
                      # a gloo all-gather of 32 layers a step takes too long
-P17_STEPS = (2, 3)  # warm-up and further steps of the mesh step checks
+P17_STEPS = (2, 1)  # warm-up and further steps of the mesh step checks
+P17_RING_LAYERS = 16  # (b)'s depth: a cut from 32, for the script's time
 P17_TINY_STEPS = (1, 1)  # the CPU rehearsal's
 RING_DEEP_TOL = (2e-3, 0.25)  # the ring's loss (relative) and adapter
                               # gradients (relative L2, per projection)
                               # against the one-process flash step through
-                              # 32 layers: each shard's partial output is
+                              # its layers (set at 32, now P17_RING_LAYERS):
+                              # each shard's partial output is
                               # rounded to bf16 before the fp32 merge, the
                               # class of difference between the kernels and
                               # the plain attention, whose 32-layer gradients
@@ -5491,12 +5522,14 @@ RING_DEEP_TOL = (2e-3, 0.25)  # the ring's loss (relative) and adapter
 def p17_configs(tiny: bool):
     """(the ring's long-context config, the streamed / mesh config, spec):
     phase 6-7's LLaMA-2-7B and MokA AVT r4 (dropout 0.05, question window
-    256), or ``LlamaConfig.tiny`` for the CPU rehearsal."""
+    256), the ring at P17_RING_LAYERS layers, or ``LlamaConfig.tiny`` for
+    the CPU rehearsal."""
     from moka_tpu_torch.core.config import LlamaConfig
     from moka_tpu_torch.ops.moka import MokaSpec
     if not tiny:
         cfg, spec = train_config()
-        return train_config(long_context=True)[0], cfg, spec
+        return dataclasses.replace(train_config(long_context=True)[0],
+                                   n_layers=P17_RING_LAYERS), cfg, spec
     cfg = LlamaConfig.tiny(vocab_size=300)
     spec = MokaSpec.avt(rank=4, dropout_rate=0.05).with_question_window(8)
     return dataclasses.replace(cfg, rope_scaling=("dynamic", 2.0)), cfg, spec
@@ -6158,6 +6191,532 @@ def p17_world(work: Path, device: str, tiny: bool, ranks: int,
     return res
 
 
+# ------------------------------------------------------------------ phase 18
+
+P18_WORLDS = (2, 4)  # ranks of its two worlds on the one card (gloo)
+P18_LAYERS = 4  # (a) at 7B widths: a depth cut, as phase 17 (c)'s
+P18_SHORT = 2   # (b)'s fused-dropout step, (c) 34B widths and (d) int4
+P18_BATCH = (4, 512)  # global rows x positions of every step
+P18_STEPS = 2
+P18_COLS = (4096, 11008)  # (b): 7B's o and down inputs, split at c0
+P18_MESHES = {2: (("a", (1, 1, 2)), ("b", (1, 1, 2)), ("d", (1, 1, 2))),
+              4: (("a", (1, 2, 2)), ("c", (1, 1, 4)))}
+
+
+def p18_cases(tiny: bool) -> dict:
+    """(config, spec, loss options) of each case: (a) phase 6's LLaMA-2-7B
+    and MokA AVT r4 at P18_LAYERS layers, flash, chunked CE, proj_lse;
+    (b) the same at P18_SHORT layers with fused dropout (kernels 6-7) and
+    bf16 dots, as phase 8; (c) CodeLlama-34B's widths (dim 8192, 64 heads,
+    8 kv heads: GQA 8:1, intermediate 22016) at P18_SHORT layers; (d)
+    phase 9's quantized recipe (int4 base, int8 head, a8 full, save_q8,
+    bf16 dots, route B: kernels 8-9) at P18_SHORT layers.  ``tiny``: the
+    CPU rehearsal's widths (8 heads, intermediate 176; 4 kv heads in
+    (c))."""
+    from moka_tpu_torch.core.config import LlamaConfig
+    cfg, spec = train_config()
+    big = LlamaConfig.llama_34b()
+    if tiny:
+        cfg = LlamaConfig(vocab_size=300, dim=64, n_layers=2, n_heads=8,
+                          n_kv_heads=8, intermediate=176)
+        big = dataclasses.replace(cfg, n_kv_heads=4)
+        spec = dataclasses.replace(spec, max_question_tokens=8)
+    short = 2 if tiny else P18_SHORT
+    loss = dict(remat=True, use_flash=True, fused_loss=True,
+                remat_policy="proj_lse")
+    return {
+        "a": (dataclasses.replace(cfg, n_layers=2 if tiny else P18_LAYERS),
+              spec, loss),
+        "b": (dataclasses.replace(cfg, n_layers=short),
+              spec.with_bf16_dots().with_fused_dropout(), loss),
+        "c": (dataclasses.replace(big, n_layers=short), spec, loss),
+        "d": (dataclasses.replace(cfg, n_layers=short), spec.with_bf16_dots(),
+              dict(loss, pallas_ce=True, **QUANT_RECIPE))}
+
+
+def p18_model(case: str, tiny: bool, device: str):
+    """The case's base (bf16, or (d)'s int4 base with an int8 head built
+    on the device) and fp32 adapters, B seeded non-zero: the same on every
+    rank."""
+    import torch
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.quant import init_llama_params_quantized
+    cfg, spec, _ = p18_cases(tiny)[case]
+    if case != "d":
+        return build_model(cfg, spec, seed=3, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    base = init_llama_params_quantized(g, cfg, bits=4, head_bits=8,
+                                       device=device)
+    adapters = llama.init_moka_adapters(g, cfg, spec, device=device)
+    for p in adapters["layers"].values():
+        p["b"].normal_(0.0, 0.02, generator=g)
+    return base, adapters
+
+
+def _by_proj(leaves) -> dict:
+    """Adapter leaves (``tree_leaves`` order: projections sorted, a then
+    b) flattened and concatenated by projection."""
+    import torch
+    names = sorted((x, y) for x in PROJS for y in "ab")
+    return {n: torch.cat([t.flatten().float() for (name, _), t in
+                          zip(names, leaves) if name == n])
+            for n in PROJS}
+
+
+def p18_steps(case: str, tiny: bool, base, adapters, batch, mesh=None,
+              count: int = P18_STEPS) -> dict:
+    """``count`` steps of ``make_train_step`` on ``batch`` (this rank's
+    rows under ``mesh``): losses, step ms, the adapters' gradients of each
+    step and their updates by projection, the last step's launches, flash
+    launches by query heads and offset dropout launches, and the bytes
+    all-reduced over the model group a step."""
+    import torch
+    from moka_tpu_torch.core.config import TrainConfig
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops import fused_dropout as fd
+    from moka_tpu_torch.ops.flash_attention import flash_bwd_fused, flash_fwd
+    from moka_tpu_torch.parallel import comm
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    from moka_tpu_torch.train.optim import make_optimizer, tree_leaves
+    from moka_tpu_torch.train.step import init_train_state, make_train_step
+    cfg, spec, loss = p18_cases(tiny)[case]
+    init = [p.clone() for p in tree_leaves(adapters)]
+    trainable = {"adapters": {"layers": {
+        n: {k: v.clone() for k, v in p.items()}
+        for n, p in adapters["layers"].items()}}}
+    tx = make_optimizer(TrainConfig(), total_steps=1000)
+    state = init_train_state(trainable, tx, DropoutKey(0))
+    step = make_train_step(make_llama_moka_loss(cfg, spec, mesh=mesh,
+                                                **loss), tx, mesh=mesh,
+                           grad_taps=lambda g: [t.clone() for t in
+                                                tree_leaves(g)])
+    model = None if mesh is None or "model" not in mesh.mesh_dim_names \
+        else mesh.get_group("model")
+    out = {"losses": [], "ms": [], "reduced": [], "grads": []}
+    dev = batch["tokens"].device
+    for _ in range(count):
+        _zero_counts()
+        comm.REDUCED_BYTES.clear()
+        _sync(str(dev.type))
+        t0 = time.perf_counter()
+        state, m = step(state, base, batch)
+        out["losses"].append(float(m["loss"]))
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["reduced"].append(comm.REDUCED_BYTES.get(model, 0))
+        out["grads"].append(_by_proj(m["grad_taps"]))
+    out["launches"] = _counts()
+    out["fwd_heads"] = dict(flash_fwd.launches_by_heads)
+    out["bwd_heads"] = dict(flash_bwd_fused.launches_by_heads)
+    out["offset"] = (fd.dropout_a_fwd.offset_launches,
+                     fd.dropout_a_bwd.offset_launches)
+    out["delta"] = _by_proj([p - p0 for p, p0 in
+                             zip(tree_leaves(state.params), init)])
+    return out
+
+
+def _p18_noise(a: dict, b: dict) -> dict:
+    """Two runs' distance: the largest loss difference and, by projection,
+    the largest relative L2 of a step's gradients (the updates, Adam's
+    per-entry normalisation of them, are reported: ``update_rel_l2``)."""
+    out = {p: max(rel(gb[p], ga[p]) for ga, gb in
+                  zip(a["grads"], b["grads"])) for p in PROJS}
+    out["loss"] = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    return out
+
+
+def p18_exact(case: str, tiny: bool, base, adapters, batch) -> dict:
+    """The case's first step in fp32: the base's values in fp32 (a
+    quantized base keeps its codes), eager attention and the plain
+    versions of the other kernels, the first step's dropout key: its
+    loss and gradients by projection."""
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    from moka_tpu_torch.train.optim import tree_leaves
+    cfg, spec, loss = p18_cases(tiny)[case]
+    trainable = {"adapters": adapters}
+    leaves = tree_leaves(trainable)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with plain_versions():
+            value, _ = make_llama_moka_loss(cfg, spec, **dict(
+                loss, use_flash=False))(trainable, float32(base), batch,
+                                        DropoutKey(0).split(2)[1])
+            grads = torch.autograd.grad(value, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return {"loss": float(value.detach()), "grads": _cpu_tree(
+        {"delta": {}, "grads": [_by_proj(grads)]})["grads"][0]}
+
+
+def p18_within(got: dict, ref: dict) -> tuple:
+    """(the distances, within the rule).  The rule, phase 6's: the first
+    step's loss and each projection's gradients at most TRAIN_RATIO times
+    (+ TRAIN_FLOOR) as far from the fp32 step (``p18_exact``) as one
+    process's, and every step's loss within TRAIN_FLOOR of one process's
+    (relative).  Reported beside it: the distance from one process
+    against two one-process runs' spread (REMAT_NOISE's terms)."""
+    d = _p18_noise(ref, got)
+    exact = ref["exact"]
+    d["fp32"] = {p: rel(got["grads"][0][p], exact["grads"][p])
+                 for p in PROJS}
+    d["one_fp32"] = {p: rel(ref["grads"][0][p], exact["grads"][p])
+                     for p in PROJS}
+    dl = abs(got["losses"][0] - exact["loss"])
+    dl_one = abs(ref["losses"][0] - exact["loss"])
+    ok = dl <= TRAIN_RATIO * dl_one + TRAIN_FLOOR * abs(exact["loss"]) and \
+        d["loss"] <= TRAIN_FLOOR * abs(ref["losses"][0]) and all(
+            d["fp32"][p] <= TRAIN_RATIO * d["one_fp32"][p] + TRAIN_FLOOR
+            for p in PROJS)
+    return d, ok
+
+
+def _cpu_tree(rec: dict) -> dict:
+    out = dict(rec, delta={p: t.cpu() for p, t in rec["delta"].items()})
+    out["grads"] = [{p: t.cpu() for p, t in g.items()} for g in rec["grads"]]
+    return out
+
+
+def p18_references(work: Path, device: str, tiny: bool) -> dict:
+    """Each case's one process on the global batch, twice on the card
+    (the spread: kernel 2's dq reductions change order from run to run),
+    and its first step in fp32 (``p18_exact``), saved as
+    ``ref_<case>.pt`` for the ranks."""
+    import torch
+    out = {}
+    for case, (cfg, _, _) in p18_cases(tiny).items():
+        base, adapters = p18_model(case, tiny, device)
+        batch = _mesh_batch(cfg, *(_p18_batch(tiny)), device)
+        count = 1 if case == "b" else P18_STEPS
+        runs = [p18_steps(case, tiny, base, adapters, batch, count=count)
+                for _ in range(1 if tiny else 2)]
+        spread = _p18_noise(runs[0], runs[-1])
+        exact = p18_exact(case, tiny, base, adapters, batch)
+        rec = dict(_cpu_tree(runs[0]), spread=spread, exact=exact)
+        torch.save(rec, work / f"ref_{case}.pt")
+        out[case] = {"losses": runs[0]["losses"], "ms": runs[0]["ms"],
+                     "spread": spread, "fp32_loss": exact["loss"],
+                     "launches": {
+                         k: v for k, v in runs[0]["launches"].items() if v}}
+        log(f"  one process, case ({case}): {cfg.n_layers} layers, dim "
+            f"{cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads: losses "
+            f"{[round(x, 5) for x in runs[0]['losses']]}, step ms "
+            f"{[round(t, 1) for t in runs[0]['ms']]}, two runs' spread "
+            f"{ {k: f'{v:.2e}' for k, v in spread.items()} }")
+        del base, adapters, batch, runs
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _p18_batch(tiny: bool) -> tuple:
+    return (4, 32) if tiny else P18_BATCH
+
+
+def p18_dropout_cols(device: str, tiny: bool) -> dict:
+    """(b) Kernels 6-7 on column slices [c0, c0 + d/m) of a 7B-width x
+    (P18_COLS: o's and down's inputs, m 2 and 4, bf16 x and A, M*r 12)
+    at the key's column view, against the same columns of the whole
+    array's launch: the keep masks and dx identical, out summed over the
+    slices and dA's rows within DROP_TOL of the whole's, and the plain
+    versions at the same offset dropping the same elements."""
+    import torch
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops import fused_dropout as fd
+    n = 64 if tiny else P18_BATCH[0] * P18_BATCH[1]
+    g = torch.Generator(device=device).manual_seed(18)
+    out = {}
+    for d in ((176,) if tiny else P18_COLS):
+        x = torch.randn((n, d), generator=g, device=device).to(torch.bfloat16)
+        a = (torch.randn((d, 12), generator=g, device=device) * 0.02).to(
+            torch.bfloat16)
+        gout = torch.randn((n, 12), generator=g, device=device)
+        key = DropoutKey(11).rows(0, 8, 4 * n)
+        rows = key.row_map((1, n, d))
+        whole = fd.dropout_a_fwd(x, a, key, DROP_RATE, rows=rows)
+        wdx, wda = fd.dropout_a_bwd(x, a, gout, key, DROP_RATE, rows=rows)
+        for m in (2, 4):
+            w = d // m
+            total = torch.zeros_like(whole)
+            worst = {"dx_mismatch": 0.0, "da": 0.0}
+            for i in range(m):
+                c0 = i * w
+                part = key.cols(c0, d)
+                xs, as_ = x[:, c0:c0 + w].contiguous(), \
+                    a[c0:c0 + w].contiguous()
+                total += fd.dropout_a_fwd(xs, as_, part, DROP_RATE, rows=rows,
+                                          col0=c0)
+                dx, da = fd.dropout_a_bwd(xs, as_, gout, part, DROP_RATE,
+                                          rows=rows, col0=c0)
+                pdx, _ = fd.dropout_a_bwd_plain(xs, as_, gout, part,
+                                                DROP_RATE, rows=rows, col0=c0)
+                want_dx = wdx[:, c0:c0 + w]
+                if not torch.equal(dx != 0, want_dx != 0) or \
+                        not torch.equal(dx != 0, pdx != 0):
+                    raise AssertionError(f"kernel 7 at column offset {c0} "
+                                         f"of {d}: masks differ")
+                worst["dx_mismatch"] = max(worst["dx_mismatch"], float(
+                    (dx != want_dx).float().mean()))
+                worst["da"] = max(worst["da"], float(
+                    (da.float() - wda[c0:c0 + w].float()).abs().max() /
+                    wda.float().abs().max()))
+            e_out = float((total - whole).abs().max() / whole.abs().max())
+            rec = dict(worst, out=e_out)
+            out[f"{d}/{m}"] = rec
+            log(f"  (b) kernels 6-7 on column slices of x ({n}, {d}) bf16 "
+                f"over {m} ranks (c0 = i x {w}): masks = the whole launch's "
+                f"and the plain versions'; dx elements not bit-identical "
+                f"{worst['dx_mismatch']:.2e}; dA rows {worst['da']:.2e} and "
+                f"the slices' summed out {e_out:.2e} of max (tol "
+                f"{DROP_TOL})")
+            if worst["dx_mismatch"] > 0 or worst["da"] > DROP_TOL or \
+                    e_out > DROP_TOL:
+                raise AssertionError(f"kernels 6-7 on column slices of {d} "
+                                     f"over {m}: {rec}")
+        del x, a, gout, whole, wdx, wda
+    return out
+
+
+def _expected_resident(mesh, whole: dict) -> int:
+    """A rank's bytes of ``whole`` under the rule table on ``mesh``: each
+    leaf over the product of its split axes."""
+    from moka_tpu_torch.parallel.mesh import axis_size
+    from moka_tpu_torch.parallel.sharding import _names, param_shardings
+    shardings = param_shardings(mesh, whole)
+
+    def walk(tree, sh):
+        if isinstance(tree, dict):
+            return sum(walk(tree[k], sh[k]) for k in tree)
+        n = 1
+        for part in sh.spec:
+            for name in _names(part):
+                n *= axis_size(mesh, name)
+        return nbytes(tree) // n
+    return walk(whole, shardings)
+
+
+def p18_case(rank: int, case: str, sizes: tuple, work: Path, device: str,
+             tiny: bool) -> dict:
+    """One case on this rank's mesh: the base split by the rule table (the
+    whole base freed), P18_STEPS steps on its rows against the one-process
+    and fp32 references by ``p18_within``; each rank's flash launches at its
+    H/m query heads, once a layer a step; (b) each rank's kernels 6-7, at
+    a column offset on the ranks past the first."""
+    import torch
+    import torch.distributed as dist
+    from moka_tpu_torch.core.config import MeshConfig
+    from moka_tpu_torch.parallel.mesh import data_parallel_index, make_mesh
+    from moka_tpu_torch.parallel.sharding import shard_params
+    cfg, spec, _ = p18_cases(tiny)[case]
+    mc = MeshConfig(*sizes)
+    mesh = make_mesh(mc)
+    base, adapters = p18_model(case, tiny, device)
+    whole = sum(nbytes(t) for t in _leaves(base))
+    want_held = _expected_resident(mesh, base)
+    local_base = shard_params(mesh, base)
+    del base
+    gc.collect()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = sum(nbytes(t) for t in _leaves(local_base))
+    if held != want_held:
+        raise AssertionError(f"rank {rank} holds {held} bytes of the base, "
+                             f"want {want_held}")
+    batch = _mesh_batch(cfg, *(_p18_batch(tiny)), device)
+    index, size = data_parallel_index(mesh)
+    rows = batch["labels"].shape[0] // size
+    local = {k: (v[:, index * rows:(index + 1) * rows]
+                 if k == "modality_masks" else
+                 v[index * rows:(index + 1) * rows])
+             for k, v in batch.items()}
+    ref = torch.load(work / f"ref_{case}.pt")
+    count = len(ref["losses"])
+    got = _cpu_tree(p18_steps(case, tiny, local_base, adapters, local, mesh,
+                              count))
+    d, ok = p18_within(got, ref)
+    moved = {p: rel(got["delta"][p], ref["delta"][p]) for p in PROJS}
+    m = mc.model
+    n = cfg.n_layers
+    want_heads = {cfg.n_heads // m: n} if on_card else {}
+    if got["fwd_heads"] != want_heads or got["bwd_heads"] != want_heads:
+        raise AssertionError(f"rank {rank} case ({case}): flash launches by "
+                             f"query heads {got['fwd_heads']} / "
+                             f"{got['bwd_heads']}, want {want_heads}")
+    want = {"flash_fwd": n, "flash_bwd_fused": n}
+    if case == "b":  # every projection's delta, forward and recompute
+        want.update(dropout_a_fwd=2 * 7 * n, dropout_a_bwd=7 * n)
+    if case == "d":
+        want.update(fused_ce_fwd=1, fused_ce_bwd=1)
+    want = _launches(**want) if on_card else _launches()
+    if got["launches"] != want:
+        raise AssertionError(f"rank {rank} case ({case}): launches "
+                             f"{got['launches']}, want {want}")
+    c_rank = mesh.get_local_rank("model")
+    if case == "b" and on_card and got["offset"] != \
+            ((2 * 2 * n, 2 * n) if c_rank else (0, 0)):
+        raise AssertionError(f"rank {rank}: kernels 6-7 at a column offset "
+                             f"{got['offset']} times")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    rec = {"losses": got["losses"], "step_ms": got["ms"],
+           "model_reduced_bytes": got["reduced"][-1],
+           "resident_base_bytes": held, "whole_base_bytes": whole,
+           "peak_bytes": peak, "loss_abs": d["loss"],
+           "grad_rel_l2": {p: d[p] for p in PROJS},
+           "grad_rel_l2_fp32": d["fp32"], "one_rel_l2_fp32": d["one_fp32"],
+           "update_rel_l2": moved,
+           "spread": ref["spread"], "one_losses": ref["losses"],
+           "launches": {k: v for k, v in got["launches"].items() if v},
+           "offset_launches": got["offset"], "ok": ok}
+    name = ",".join(map(str, sizes))
+    spread = ref["spread"]
+    _rank_log(rank, f"  ({case}) mesh {name}, {n} layers, dim {cfg.dim}, "
+              f"{cfg.n_heads // m} query / "
+              f"{max(cfg.n_kv_heads // m, 1)} kv heads a rank: losses "
+              f"{[round(x, 5) for x in got['losses']]} vs one process "
+              f"{[round(x, 5) for x in ref['losses']]} (|diff| "
+              f"{d['loss']:.2e}, spread {ref['spread']['loss']:.2e}); "
+              f"first step's gradients rel L2 from fp32 "
+              f"{ {p: f'{v:.2e}' for p, v in d['fp32'].items()} }, one "
+              f"process's { {p: f'{v:.2e}' for p, v in d['one_fp32'].items()} }"
+              f" (rule: <= {TRAIN_RATIO} x one process's + {TRAIN_FLOOR}; "
+              f"losses within {TRAIN_FLOOR} of one process's, relative); "
+              f"gradients rel L2 from one process "
+              f"{ {p: f'{d[p]:.2e}' for p in PROJS} }, two one-process runs' "
+              f"spread { {p: f'{spread[p]:.2e}' for p in PROJS} }; "
+              f"updates rel L2 { {p: f'{v:.2e}' for p, v in moved.items()} };"
+              f" "
+              f"step ms {[round(t, 1) for t in got['ms']]} (ranks share "
+              f"the card through gloo); all-reduced over the model group "
+              f"{got['reduced'][-1] / 1e6:.1f} MB a step; resident base "
+              f"{held / 2**30:.3f} of {whole / 2**30:.3f} GiB; peak "
+              f"{peak / 2**30:.2f} GiB; launches {rec['launches']}")
+    if not ok:
+        raise AssertionError(f"rank {rank} case ({case}) on {name} is not "
+                             f"one process: {d}")
+    del local_base, adapters, got
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def p18_cli(rank: int, work: Path, device: str) -> dict:
+    """(e) The finetune CLI at its tiny preset on two ranks, ``--mesh
+    1,1,2 --host-offload``: each rank holds half of q's columns in host
+    memory (a wiring check: the numbers are (a)-(d)'s)."""
+    import torch.distributed as dist
+    from moka_tpu_torch.cli import finetune
+    from moka_tpu_torch.parallel.sharding import shard_info
+    out = work / "finetune"
+    argv = ["--tokenizer-json", str(work / "data" / "tokenizer.model"),
+            "--avqa-annotation", str(work / "data" / "avqa.json"),
+            "--model-preset", "tiny", "--global-batch", "4",
+            "--pad-to", "256", "--epochs", "1", "--mesh", "1,1,2",
+            "--host-offload", "--output-dir", str(out), "--device", device]
+    trainer, _ = finetune.main(argv)
+    q = trainer.frozen["llama"]["layers"]["q"]
+    rows = [json.loads(x) for x in
+            (out / "metrics.jsonl").read_text().splitlines()] \
+        if rank == 0 else []
+    rec = {"steps": int(trainer.state.step), "q_shape": list(q.shape),
+           "q_device": str(q.device),
+           "losses": [r["loss"] for r in rows if "loss" in r]}
+    _rank_log(rank, f"  (e) finetune {' '.join(argv)} on "
+              f"{dist.get_world_size()} ranks: {rec['steps']} steps, losses "
+              f"{rec['losses']}; this rank's q {rec['q_shape']} on "
+              f"{rec['q_device']}")
+    info = shard_info(q)
+    if rec["steps"] < 2 or q.device.type != "cpu" or info is None or \
+            info.placement.spec != (None, "fsdp", "model") or \
+            not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"finetune --mesh 1,1,2 --host-offload: {rec}")
+    return rec
+
+
+def p18_rank(rank: int, work: Path, device: str, tiny: bool,
+             world: int) -> None:
+    """One rank of a phase 18 world: its cases (P18_MESHES) and, in the
+    two-rank world, (e); its results in ``p18_<world>_r<rank>.json``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":  # ranks beyond the cards share them
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    out, seconds = {}, {}
+    for case, sizes in P18_MESHES[world]:
+        t0 = time.perf_counter()
+        out[f"{case}/{','.join(map(str, sizes))}"] = p18_case(
+            rank, case, sizes, work, device, tiny)
+        seconds[case] = time.perf_counter() - t0
+    if world == 2:
+        t0 = time.perf_counter()
+        out["cli"] = p18_cli(rank, work, device)
+        seconds["cli"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    (work / f"p18_{world}_r{rank}.json").write_text(
+        json.dumps(out, default=float))
+
+
+def phase18(work: Path, device: str = "cuda", tiny: bool = False,
+            smi: str = "") -> dict:
+    """Phase 18: tensor parallelism on the model axis at 7B and 34B widths
+    (``tiny``: the CPU rehearsal).  (b)'s kernel checks and every case's
+    one-process reference in this process, then two worlds on the one card
+    (gloo groups, as phase 17): two ranks for (a) 1,1,2, (b) the
+    fused-dropout step, (d) the int4 base and (e) the finetune CLI; four
+    for (a) 1,2,2 and (c) 34B widths on 1,1,4, side by side (their
+    start-ups overlap)."""
+    import torch
+    from moka_tpu_torch.parallel.mesh import start_world, wait_world
+    t_phase = time.perf_counter()
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    res = {"dropout_cols": p18_dropout_cols(device, tiny)}
+    res["one_process"] = p18_references(work, device, tiny)
+    p15_data(work / "data", p15_configs(True)[1].image_size, 2)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctxs = [start_world(p18_rank, world, (work, device, tiny, world))
+            for world in P18_WORLDS]
+    try:
+        for ctx in ctxs:
+            wait_world(ctx, timeout=600)
+    finally:  # a failed world leaves the other's ranks to be ended
+        for ctx in ctxs:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+    for world in P18_WORLDS:
+        got = [json.loads((work / f"p18_{world}_r{r}.json").read_text())
+               for r in range(world)]
+        for r in got[1:]:
+            for name, rec in got[0].items():
+                if name not in ("seconds", "cli") and \
+                        r[name]["losses"] != rec["losses"]:
+                    raise AssertionError(f"the ranks' {name} losses differ")
+        res[f"world{world}"] = dict(got[0], world_s=time.perf_counter() - t0,
+                                    launches_by_rank=[
+                                        {k: v["launches"] for k, v in r.items()
+                                         if k not in ("seconds", "cli")}
+                                        for r in got])
+        log(f"  the {world}-rank world (side by side with the other) ran in "
+            f"{res[f'world{world}']['world_s']:.1f} s to its end (rank 0: "
+            f"{ {k: round(v, 1) for k, v in got[0]['seconds'].items()} } s)")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18 wall {res['phase_s']:.1f} s ({smi})")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -6403,6 +6962,20 @@ def main() -> int:
     p17["phase_s"] = time.perf_counter() - t17
     log(f"  phase 17 passed in {p17['phase_s']:.1f} s")
 
+    log(f"[18] tensor parallelism on the model axis: (b) kernels 6-7 at a "
+        f"column offset, every case's one process, then worlds of "
+        f"{P18_WORLDS} ranks on the card for (a) LLaMA-2-7B widths on 1,1,2 "
+        f"and 1,2,2, (b) the fused-dropout step on 1,1,2, (c) CodeLlama-34B "
+        f"widths (GQA 8:1) on 1,1,4, (d) the int4 recipe on 1,1,2 and (e) "
+        f"finetune --mesh 1,1,2 ({torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB still allocated from the earlier phases)")
+    work = ROOT / "build" / "p18"
+    try:
+        p18 = phase18(work, "cuda", smi=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 18 passed in {p18['phase_s']:.1f} s")
+
     paths = {"serving main path (greedy_generate)": timings["launches"],
              "rank-8 serving (greedy_generate)":
                  other_rank["generate_launches"],
@@ -6437,7 +7010,17 @@ def main() -> int:
              "flash ring step (context parallel, a rank)":
                  p17["ring"]["launches"],
              "fused-dropout data-parallel step (2,1,1, a rank)":
-                 p17["mesh"]["2,1,1+fused_dropout"]["launches"]}
+                 p17["mesh"]["2,1,1+fused_dropout"]["launches"],
+             "tensor-parallel step (1,1,2, a rank)":
+                 p18["world2"]["a/1,1,2"]["launches"],
+             "tensor-parallel step (1,2,2, a rank)":
+                 p18["world4"]["a/1,2,2"]["launches"],
+             "tensor-parallel fused-dropout step (1,1,2, a rank)":
+                 p18["world2"]["b/1,1,2"]["launches"],
+             "tensor-parallel 34B-width step (1,1,4, a rank)":
+                 p18["world4"]["c/1,1,4"]["launches"],
+             "tensor-parallel int4 step (1,1,2, a rank)":
+                 p18["world2"]["d/1,1,2"]["launches"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -6470,8 +7053,8 @@ def main() -> int:
                     "mm_train": mm_train, "vt_generate": vt_gen,
                     "vt_http": vt_http, "vt_train": vt_train,
                     "paged_serving": paged, "p15": p15_summary(p15),
-                    "p16": p16_summary(p16), "p17": p17}))
-    log(f"[18] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "p16": p16_summary(p16), "p17": p17, "p18": p18}))
+    log(f"[19] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

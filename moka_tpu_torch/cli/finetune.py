@@ -19,8 +19,12 @@ one GPU a rank over NCCL (gloo on the CPU):
 ``--mesh``: ``fsdp`` = (1, world, 1), ``data`` = (world, 1, 1), or
 explicit ``d,f,m`` sizes whose product is the world size; the frozen LLaMA
 base is sharded by the rule table (``parallel.sharding``), each rank feeds
-its slice of every global batch, and the step sums the gradients over
-data x fsdp.  A ``model`` size above 1 is refused (ROADMAP.md, item 4b).
+its slice of every global batch (the ranks of one model group the same
+slice), and the step sums the gradients over data x fsdp.  A ``model``
+size above 1 runs the decoder tensor-parallel (``parallel.tensor``: the
+projections split over the model group, the gradient parts summed over
+it), e.g. ``torchrun --nproc_per_node 2 -m moka_tpu_torch.cli.finetune
+... --mesh 1,1,2``.
 ``--host-offload`` keeps the frozen LLaMA base in pinned host memory and
 streams it to the card a layer at a time (``llama.forward(host_stream=
 ...)``).  ``--rng-impl`` is recorded in ``saved_config.json``; the port
@@ -126,19 +130,16 @@ def init_distributed(device=None) -> None:
 
 def mesh_from_flag(flag: str):
     """The ``--mesh`` flag as a ``MeshConfig`` over the world: 'fsdp' is
-    (1, world, 1), 'data' (world, 1, 1), else the explicit 'd,f,m' sizes;
-    a ``model`` size above 1 raises (ROADMAP.md, item 4b)."""
+    (1, world, 1), 'data' (world, 1, 1), else the explicit 'd,f,m' sizes
+    (``model`` above 1: tensor parallelism)."""
     from moka_tpu_torch.core.config import MeshConfig
-    from moka_tpu_torch.parallel.mesh import TENSOR_PARALLEL, world_size
+    from moka_tpu_torch.parallel.mesh import world_size
     n = world_size()
     if flag == "fsdp":
         return MeshConfig(1, n, 1)
     if flag == "data":
         return MeshConfig(n, 1, 1)
-    mesh = MeshConfig(*(int(x) for x in flag.split(",")))
-    if mesh.model > 1:
-        raise NotImplementedError(f"--mesh {flag}: {TENSOR_PARALLEL}")
-    return mesh
+    return MeshConfig(*(int(x) for x in flag.split(",")))
 
 
 def make_mesh_from_flag(flag: str):
@@ -204,8 +205,9 @@ def main(argv=None):
     from moka_tpu_torch.data.tokenizer import load_tokenizer
     from moka_tpu_torch.models import unified
     from moka_tpu_torch.ops.moka import MokaSpec
-    from moka_tpu_torch.parallel.mesh import (host_local_batch_size,
-                                              rank_device, world_size)
+    from moka_tpu_torch.parallel.mesh import (data_parallel_index,
+                                              host_local_batch_size,
+                                              rank_device)
     from moka_tpu_torch.train import import_torch as imp
     from moka_tpu_torch.train.trainer import Trainer, process_rank
 
@@ -369,12 +371,13 @@ def main(argv=None):
 
     def batches():
         # every process draws the SAME global order (same seed) and feeds
-        # its own slice of each global batch; video decode and fbank run
-        # in a thread pool overlapping the device step.  Batches are
+        # its data group's slice of each global batch (the ranks of one
+        # model group the same one); video decode and fbank run in a
+        # thread pool overlapping the device step.  Batches are
         # task-grouped: AVQA and AVE have different audio segment shapes.
         from moka_tpu_torch.data.prefetch import ParallelLoader
         from moka_tpu_torch.train.trainer import host_sharded_order
-        world = world_size()
+        index, world = data_parallel_index(mesh)
 
         def collate(items):
             return to_device(ds.collate(items, pad_to=args.pad_to), dev)
@@ -386,7 +389,7 @@ def main(argv=None):
                                                                  mesh))
         for epoch in range(args.epochs):
             order = host_sharded_order(lengths, group_key, per_step,
-                                       rank, world, seed=args.seed + epoch)
+                                       index, world, seed=args.seed + epoch)
             yield from loader.epoch(order)
 
     trainer.train(batches())

@@ -11,7 +11,7 @@ state (``non_lora_trainables.bin`` under ``model.`` prefixes).
 
 On the card unless ``--device cpu``; several ranks under torchrun and
 ``--mesh`` as in ``cli/finetune.py`` (each rank feeds its slice of every
-global batch).
+global batch, the ranks of one model group the same slice).
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ def main(argv=None):
                                              make_mesh_from_flag, place_llama,
                                              to_device)
     from moka_tpu_torch.core.config import TrainConfig
-    from moka_tpu_torch.parallel.mesh import (host_local_batch_size,
+    from moka_tpu_torch.parallel.mesh import (data_parallel_index,
+                                              host_local_batch_size,
                                               rank_device)
     from moka_tpu_torch.data import assembler as asm
     from moka_tpu_torch.data.datasets import PretrainDataset
@@ -120,7 +121,8 @@ def main(argv=None):
                                            mesh=mesh),
                       trainable, frozen, tcfg, total_steps, mesh=mesh)
     per_rank = host_local_batch_size(per_step, mesh)
-    first = process_rank() * per_rank
+    # the ranks of one model group feed the same slice
+    first = data_parallel_index(mesh)[0] * per_rank
 
     # one image (or video clip, or audio clip) -> the projector's queries
     # (32 at 7B; the JAX driver writes 32)

@@ -12,7 +12,8 @@ the trainable state as ``model.safetensors`` in the reference schema.
 
 On the card unless ``--device cpu``; several ranks under torchrun,
 ``--mesh`` and ``--host-offload`` as in ``cli/finetune.py`` (each rank
-feeds its slice of every global batch).
+feeds its slice of every global batch, the ranks of one model group
+the same slice).
 """
 
 from __future__ import annotations
@@ -127,7 +128,8 @@ def main(argv=None):
                                              make_mesh_from_flag, place_llama,
                                              resolve_remat, to_device)
     from moka_tpu_torch.core.config import TrainConfig
-    from moka_tpu_torch.parallel.mesh import (host_local_batch_size,
+    from moka_tpu_torch.parallel.mesh import (data_parallel_index,
+                                              host_local_batch_size,
                                               rank_device)
     from moka_tpu_torch.data.tokenizer import load_tokenizer
     from moka_tpu_torch.data.vt_dataset import collate_vt
@@ -229,7 +231,8 @@ def main(argv=None):
                                        host_stream=host_stream),
                       trainable, frozen, tcfg, total_steps, mesh=mesh)
     per_rank = host_local_batch_size(per_step, mesh)
-    first = process_rank() * per_rank
+    # the ranks of one model group feed the same slice
+    first = data_parallel_index(mesh)[0] * per_rank
 
     def batches():
         rng = np.random.default_rng(args.seed)

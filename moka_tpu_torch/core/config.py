@@ -79,7 +79,8 @@ class MeshConfig:
     parameter-sharded data parallel, ``model`` = tensor parallel.  In the
     port one rank (process) holds one device; ``parallel.mesh.make_mesh``
     lays the ranks out on these axes (their product is the world size).
-    ``model`` above 1 is not ported (ROADMAP.md, item 4b)."""
+    ``model`` above 1 splits each decoder layer's projections over that
+    many ranks (``parallel.tensor``), whose samples are the same."""
 
     data: int = 1
     fsdp: int = 1

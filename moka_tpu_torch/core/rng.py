@@ -25,7 +25,10 @@ fused_dropout.cu``) draw the same words in the same layout, so the plain
 version and the kernels drop the same elements, and the mask does not
 depend on how a kernel tiles the array.  A key for one rank's rows of a
 larger array (``rows``) gives its row counters as ``row_map``, which the
-kernels and ``bits32`` take.
+kernels and ``bits32`` take; a key for one rank's columns of it (``cols``:
+the input of a row-parallel projection, split over the model axis) gives
+its first column as ``col_start``, and element (n, c) of the rank's array
+draws word (c0 + c) % 4 at counter (row, (c0 + c) // 4).
 """
 
 from __future__ import annotations
@@ -89,23 +92,39 @@ class DropoutKey:
     parallel ranks: dim 0; the sequence split over a ring: dim 1).  Its
     ``bits``, and ``bits32`` at its ``row_map``, are those the whole array
     would draw, at this rank's rows, so a run split over ranks drops the
-    elements one process drops; keys derived from it keep the view."""
+    elements one process drops; keys derived from it keep the view.
 
-    __slots__ = ("seed", "view")
+    ``cols(start, total)`` gives a key for columns [start, start + its
+    width) of an array ``total`` wide in its last dim: its ``bits`` are
+    the whole rows' values at those columns (drawn whole and narrowed) and
+    its ``bits32`` those at ``col_start``.  The two views combine."""
 
-    def __init__(self, seed: int, view: tuple | None = None):
+    __slots__ = ("seed", "view", "col_view")
+
+    def __init__(self, seed: int, view: tuple | None = None,
+                 col_view: tuple | None = None):
         self.seed = int(seed) & _MASK63
         self.view = view
+        self.col_view = col_view
 
     def split(self, n: int = 2) -> list["DropoutKey"]:
-        return [DropoutKey(_derive(self.seed, 0, n, i), self.view)
-                for i in range(n)]
+        return [DropoutKey(_derive(self.seed, 0, n, i), self.view,
+                           self.col_view) for i in range(n)]
 
     def fold_in(self, i: int) -> "DropoutKey":
-        return DropoutKey(_derive(self.seed, 1, i), self.view)
+        return DropoutKey(_derive(self.seed, 1, i), self.view, self.col_view)
 
     def rows(self, dim: int, start: int, total: int) -> "DropoutKey":
-        return DropoutKey(self.seed, (dim, start, total))
+        return DropoutKey(self.seed, (dim, start, total), self.col_view)
+
+    def cols(self, start: int, total: int) -> "DropoutKey":
+        return DropoutKey(self.seed, self.view, (start, total))
+
+    @property
+    def col_start(self) -> int:
+        """The first column of this key's array in the whole one (0
+        without a column view)."""
+        return 0 if self.col_view is None else self.col_view[0]
 
     def bits(self, shape, device) -> torch.Tensor:
         """Uniform 16-bit values in [0, 65536) as int32 (torch compares no
@@ -113,8 +132,14 @@ class DropoutKey:
         time: sample i's positions [j, j + 1) * ``BITS_BLOCK`` from a
         generator seeded by this key, i and j alone.  With a view, the
         array is this rank's rows of the whole one: it draws only the
-        blocks its rows are in, and gets the whole array's values there."""
+        blocks its rows are in, and gets the whole array's values there.
+        With a column view the whole rows are drawn and narrowed."""
         shape = tuple(shape)
+        if self.col_view is not None:
+            start, total = self.col_view
+            rows = DropoutKey(self.seed, self.view).bits(
+                (*shape[:-1], total), device)
+            return rows.narrow(-1, start, shape[-1]).contiguous()
         if len(shape) < 2:
             return self.bits((1, *shape), device).reshape(shape)
         n, length, rest = shape[0], shape[1], shape[2:]
@@ -166,22 +191,27 @@ class DropoutKey:
         high) 32-bit words: the seed itself (already a hash)."""
         return self.seed & _MASK32, self.seed >> 32
 
-    def bits32(self, shape, device, rows: tuple[int, int, int] | None = None
-               ) -> torch.Tensor:
+    def bits32(self, shape, device, rows: tuple[int, int, int] | None = None,
+               col0: int = 0) -> torch.Tensor:
         """Uniform 32-bit values in [0, 2^32) as int64 for an (N, d) array:
-        element (n, c) is word c % 4 of Philox4x32-10 at counter
-        (n, c // 4, 0, 0) under ``philox_key``, as the kernels draw it
-        (``rows``: a ``row_map``, whose row of n is the counter's)."""
+        element (n, c) is word (c0 + c) % 4 of Philox4x32-10 at counter
+        (n, (c0 + c) // 4, 0, 0) under ``philox_key``, as the kernels draw
+        it (``rows``: a ``row_map``, whose row of n is the counter's;
+        ``col0``: the array's first column in the whole one)."""
         n, d = shape
-        groups = -(-d // 4)
+        g0 = col0 // 4
+        groups = -(-(col0 + d) // 4) - g0
         idx = torch.arange(n, device=device, dtype=torch.int64)
         if rows is not None:
             seg, stride, base = rows
             idx = idx + base if seg == 0 else \
                 idx // seg * stride + base + idx % seg
         rows = idx[:, None]
-        cols = torch.arange(groups, device=device, dtype=torch.int64)[None]
+        cols = g0 + torch.arange(groups, device=device,
+                                 dtype=torch.int64)[None]
         rows, cols = torch.broadcast_tensors(rows, cols)
         zero = torch.zeros_like(rows)
         words = philox4x32((rows, cols, zero, zero), self.philox_key)
-        return torch.stack(words, dim=-1).reshape(n, 4 * groups)[:, :d]
+        first = col0 - 4 * g0
+        return torch.stack(words, dim=-1).reshape(
+            n, 4 * groups)[:, first:first + d]

@@ -100,14 +100,17 @@ constexpr int BOX = 64 * 128;        // 64 rows of 128 bytes (64 bf16)
 // row of the whole array it is part of (one rank's rows of a batch or a
 // sequence split over ranks), base + n when seg is 0 (a contiguous run:
 // the batch split), else (n / seg) * stride + base + n % seg (seg rows of
-// each sample: the sequence split); 0, 0, 0 is the array itself
+// each sample: the sequence split); 0, 0, 0 is the array itself.  Column
+// c draws at column counter col + c / 4: col is c0 / 4 for an array that
+// holds columns [c0, ...) of the whole one (the input of a row-parallel
+// projection split over the model axis; c0 a multiple of 4), else 0
 struct RoundKeys {
   uint32_t k0[10], k1[10];
-  uint32_t seg, stride, base;
+  uint32_t seg, stride, base, col;
 };
 
 RoundKeys round_keys(uint32_t k0, uint32_t k1, uint32_t seg,
-                     uint32_t stride, uint32_t base) {
+                     uint32_t stride, uint32_t base, uint32_t col) {
   RoundKeys rk;
   for (int r = 0; r < 10; ++r) {
     rk.k0[r] = k0 + static_cast<uint32_t>(r) * 0x9E3779B9u;
@@ -116,6 +119,7 @@ RoundKeys round_keys(uint32_t k0, uint32_t k1, uint32_t seg,
   rk.seg = seg;
   rk.stride = stride;
   rk.base = base;
+  rk.col = col;
   return rk;
 }
 
@@ -164,7 +168,7 @@ __device__ __forceinline__ void words8(const uint32_t* bits, int n, int c,
     w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
     w[4] = v.x; w[5] = v.y; w[6] = v.z; w[7] = v.w;
   } else {
-    const uint32_t g = static_cast<uint32_t>(c) >> 2;
+    const uint32_t g = (static_cast<uint32_t>(c) >> 2) + rk.col;
     const uint32_t row = counter_row(rk, n);
     philox(row, g, rk, w);
     philox(row, g + 1u, rk, w + 4);
@@ -755,7 +759,8 @@ __global__ void __launch_bounds__(F32_BWD_WARPS * 32)
       if (live) wd = bits[static_cast<size_t>(n) * d + c];
     } else {
       uint32_t w4[4];
-      philox(counter_row(rk, n), static_cast<uint32_t>(c) >> 2, rk, w4);
+      philox(counter_row(rk, n), (static_cast<uint32_t>(c) >> 2) + rk.col,
+             rk, w4);
       const int e = c & 3;
       wd = e == 0 ? w4[0] : e == 1 ? w4[1] : e == 2 ? w4[2] : w4[3];
     }
@@ -992,7 +997,8 @@ extern "C" long moka_dropout_fwd_workspace(int d, int mr, int a_bf16) {
 
 // Kernel 6.  x (n, d) bf16 (x_bf16 = 1) or fp32, A (d, mr) bf16 (a_bf16 =
 // 1) or fp32, bits (n, d) 32-bit words or null (Philox under (k0, k1), row
-// n at counter row (row_seg, row_stride, row_base)'s row of it: RoundKeys),
+// n at counter row (row_seg, row_stride, row_base)'s row of it and column
+// c at column counter col_group + c / 4: RoundKeys),
 // out (n, mr) fp32, work moka_dropout_fwd_workspace's bytes (bf16 x); all
 // contiguous and 16-byte aligned; x_scale is s_x (a bf16 value for bf16
 // x).  bf16 x launches the transpose pass, then the kernel.  Returns
@@ -1004,10 +1010,11 @@ extern "C" int moka_dropout_a_fwd(const void* x, int x_bf16, const void* a,
                                   uint32_t thresh, float x_scale, uint32_t k0,
                                   uint32_t k1, uint32_t row_seg,
                                   uint32_t row_stride, uint32_t row_base,
-                                  void* stream) {
+                                  uint32_t col_group, void* stream) {
   if (!takes(n, d, mr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const RoundKeys rk = round_keys(k0, k1, row_seg, row_stride, row_base);
+  const RoundKeys rk =
+      round_keys(k0, k1, row_seg, row_stride, row_base, col_group);
   if (x_bf16)
     return a_bf16 ? fwd_bf16<__nv_bfloat16>(x, a, bits, out, work, n, d, mr,
                                             thresh, x_scale, rk, s)
@@ -1027,10 +1034,11 @@ extern "C" int moka_dropout_a_bwd(const void* x, int x_bf16, const void* a,
                                   uint32_t thresh, float inv_keep, uint32_t k0,
                                   uint32_t k1, uint32_t row_seg,
                                   uint32_t row_stride, uint32_t row_base,
-                                  void* stream) {
+                                  uint32_t col_group, void* stream) {
   if (!takes(n, d, mr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const RoundKeys rk = round_keys(k0, k1, row_seg, row_stride, row_base);
+  const RoundKeys rk =
+      round_keys(k0, k1, row_seg, row_stride, row_base, col_group);
   if (x_bf16)
     return a_bf16 ? bwd_bf16<__nv_bfloat16>(x, a, bits, g, dx, da, n, d, mr,
                                             thresh, inv_keep, rk, s)

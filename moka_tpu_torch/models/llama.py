@@ -32,7 +32,11 @@ fetched a layer at a time inside the remat region (``parallel.stream``),
 so the recompute fetches it again; ``context_parallel=(mesh, axis)`` runs
 each rank's sequence shard with attention through a k/v ring
 (``parallel.ring_attention``) and MokA's rank attention over the question
-keys of every shard.
+keys of every shard.  A base whose projections ``shard_params`` split over
+a ``model`` axis runs tensor-parallel (``parallel.tensor``): each rank
+computes its H/m query heads (and K/m kv heads, or all of them where K % m
+!= 0) with column-parallel q/k/v/gate/up and row-parallel o/down, whose
+outputs are summed over the model group.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from moka_tpu_torch.ops.quant import (codes_value, dequantize,
                                       fp8_roundtrip, is_quantized, qmatmul,
                                       qmatmul_a8, qmatmul_dx, q8_roundtrip)
 from moka_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from moka_tpu_torch.parallel import tensor as tp
 from moka_tpu_torch.parallel.stream import (LayerRef, LayerStream,
                                             elsewhere, fetch, needs_fetch)
 
@@ -168,14 +173,23 @@ class _FrozenMatmul(torch.autograd.Function):
         return torch.matmul(g, ctx.w.t()), None
 
 
-def _product(x: torch.Tensor, w, a8: bool | str = False) -> torch.Tensor:
+def _product(x: torch.Tensor, w, a8: bool | str = False,
+             split: tp.ModelSplit | None = None, layout: str | None = None
+             ) -> torch.Tensor:
     """The frozen product: plain, weight-only quantized, or with ``a8`` on
     a quantized weight and a 3-D x (as JAX) the W4A8/W8A8 product ("full":
-    int8 dX products too).  Only the plain product saves its weight."""
+    int8 dX products too).  Only the plain product saves its weight.
+    Under tensor parallelism (``split``), a "row" ``layout`` sums the
+    rank's partial product over the model group (``tensor.row_matmul``)
+    and a "column" one takes the cotangent's a8 scale over the whole
+    row."""
+    if layout == "row":
+        return tp.row_matmul(x, w, split, a8)
     if not is_quantized(w):
         return torch.matmul(x, w)
     if a8 and x.dim() == 3:
-        return qmatmul_a8(x, w, bwd_a8=(a8 == "full"))
+        return qmatmul_a8(x, w, bwd_a8=(a8 == "full"),
+                          group=split.group if layout == "column" else None)
     return _FrozenMatmul.apply(x, w)
 
 
@@ -291,16 +305,18 @@ class _RematSaves:
         self.replay = False
 
     def product(self, name: str, x: torch.Tensor, w, a8: bool | str = False,
-                keep: bool = True) -> torch.Tensor:
+                keep: bool = True, split=None, layout=None) -> torch.Tensor:
         """The frozen product, kept (unless ``keep`` is False: its rounded
-        output's codes are kept instead) or, in the recompute, read."""
+        output's codes are kept instead) or, in the recompute, read (every
+        rank of a model group skips the same products, so their
+        collectives stay in step)."""
         if torch.is_tensor(w) and w.requires_grad:  # trained: saves x, reruns
             return torch.matmul(x, w)
         tag = f"proj_{name}"
         if self.replay and keep and tag in self.kept:
             return self.kept[tag].detach()
-        y = _FrozenMatmul.apply(x, w) if torch.is_tensor(w) else \
-            _product(x, w, a8)
+        y = _FrozenMatmul.apply(x, w) if torch.is_tensor(w) and \
+            layout != "row" else _product(x, w, a8, split, layout)
         if keep and tag in self.names:
             self.kept[tag] = y.detach()
         return y
@@ -341,7 +357,8 @@ def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
                 spec: MokaSpec | None, masks: MaskBundle | None,
                 dropout_rng=None, fused: bool = False,
                 a8: bool | str = False, save_q8: tuple = ("int8", ()),
-                saves: _RematSaves | None = None) -> torch.Tensor:
+                saves: _RematSaves | None = None,
+                split: tp.ModelSplit | None = None) -> torch.Tensor:
     """Frozen projection ``x @ base_w`` (``_product``; ``a8``: the W4A8
     product on a quantized base) plus the adapter delta: the text adapter
     alone when masks are None (decode steps), else the MokA delta (the
@@ -352,40 +369,70 @@ def _apply_proj(name: str, x: torch.Tensor, base_w, adapters: dict | None,
     decode path) through ``q8_roundtrip`` or ``fp8_roundtrip``.  The delta
     runs before the frozen product, so that a checkpoint recompute, which
     stops after the last tensor the backward needs, stops before the down
-    projection's product (``saves``: the layer's ``_RematSaves``)."""
+    projection's product (``saves``: the layer's ``_RematSaves``).
+    ``split``: the rank's part of a tensor-parallel layer (``ModelSplit``:
+    this projection's layout, ``parallel.tensor``)."""
+    layout = None if split is None else split.layout(name)
     delta = None
     if adapters is not None and name in adapters:
         residuals = None
         if saves is not None and spec.flash_rank_attn:
             residuals = saves.flash_residuals(name)
         delta = _adapter_delta(name, x, adapters[name], spec, masks,
-                               dropout_rng, fused, residuals)
+                               dropout_rng, fused, residuals, split)
     mode, names = save_q8
     if name not in names or (delta is not None and masks is None):
-        y = _product(x, base_w, a8) if saves is None else \
-            saves.product(name, x, base_w, a8)
+        y = _product(x, base_w, a8, split, layout) if saves is None else \
+            saves.product(name, x, base_w, a8, split=split, layout=layout)
         return y if delta is None else y + delta
     tag = f"proj_{name}"
     if saves is not None and saves.replay and tag in saves.kept:
         return _Kept.apply(codes_value(saves.kept[tag], x.dtype), x, delta)
-    y = _product(x, base_w, a8) if saves is None else \
-        saves.product(name, x, base_w, a8, keep=False)
+    y = _product(x, base_w, a8, split, layout) if saves is None else \
+        saves.product(name, x, base_w, a8, keep=False, split=split,
+                      layout=layout)
     out = y if delta is None else y + delta
     roundtrip = fp8_roundtrip if mode == "fp8" else q8_roundtrip
-    return roundtrip(out, None if saves is None else saves.keeper(tag))
+    keep = None if saves is None else saves.keeper(tag)
+    if layout != "column":
+        return roundtrip(out, keep)
+    # a column-parallel output holds the rank's columns of each token: its
+    # int8 scale is the whole row's
+    return roundtrip(out, keep, split.group)
 
 
 def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused,
-                   flash_residuals=None):
+                   flash_residuals=None, split=None):
+    """The adapter delta of projection ``name``.  Under tensor parallelism
+    (``split``) a column-parallel projection takes B's columns of the rank,
+    and a row-parallel one A's rows (x holds those columns; the dropout key
+    draws their masks) with the partial A products summed over the model
+    group; the fused MokA kernel cannot run that sum, so a row-parallel
+    projection takes the unfused delta (its dropout drawn as the fused
+    route draws it, on x itself)."""
     a, b = adapter["a"], adapter["b"]
+    layout = None if split is None else split.layout(name)
+    add = None
+    if layout == "row":
+        c0, n = split.part(a.shape[1])
+        a, add = a.narrow(1, c0, n), tp.sum_a(split)
+        if dropout_rng is not None and spec.dropout_rate > 0:
+            if not hasattr(dropout_rng, "cols"):
+                raise ValueError("a row-parallel projection's dropout needs "
+                                 "a key with a column view "
+                                 "(core.rng.DropoutKey)")
+            dropout_rng = dropout_rng.cols(c0, a.shape[1] * split.size)
+    elif layout == "column":
+        c0, n = split.part(b.shape[1])
+        b = b.narrow(1, c0, n)
     if masks is None:
-        return lora_delta(x, a[0], b, decode_scale(spec))
+        return lora_delta(x, a[0], b, decode_scale(spec), sum_a=add)
     rng = None
     if dropout_rng is not None and spec.dropout_rate > 0:
         rng = dropout_rng.fold_in(_PROJ_GROUP[name] if
                                   spec.dropout_shared_masks else
                                   _PROJ_INDEX[name])
-    if fused:
+    if fused and layout != "row":
         if masks.gather_keys is not None:
             raise ValueError("the fused MokA kernel attends within one "
                              "sequence: it takes no context parallelism")
@@ -394,10 +441,12 @@ def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused,
         x_d = x if rng is None else lora_dropout(x, rng, spec.dropout_rate)
         return moka_delta_fused(x_d, a, b, masks.modality, masks.question,
                                 spec)
+    if fused:  # the fused route's dropout: lora_dropout on x
+        spec = dataclasses.replace(spec, fused_dropout=False)
     return moka_delta(x, a, b, masks.modality, masks.question, spec,
                       dropout_rng=rng, flash_residuals=flash_residuals,
                       key_question=masks.key_question,
-                      gather_keys=masks.gather_keys)
+                      gather_keys=masks.gather_keys, sum_a=add)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -481,7 +530,8 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
                    cos: torch.Tensor, sin: torch.Tensor, cache: dict | None,
                    layer_idx: int, dropout_rng=None,
                    saves: _RematSaves | None = None,
-                   ring=None) -> torch.Tensor:
+                   ring=None, split: tp.ModelSplit | None = None
+                   ) -> torch.Tensor:
     """One decoder block; with a cache, writes this layer's k/v into it
     (``_kv_update``: ``cache["k"]``/``["v"]`` are replaced by what it
     returns) and attends over the whole cache, dequantized for an int8 one
@@ -490,21 +540,40 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
     tensors a remat policy keeps for the recompute (under
     ``torch.utils.checkpoint``).  ``layer`` may be a ``LayerRef``: the
     weights are fetched here, inside the remat region.  ``ring``: the
-    context-parallel attention over this rank's sequence shard."""
+    context-parallel attention over this rank's sequence shard.
+    ``split``: the rank's part of a tensor-parallel layer: H/m query heads
+    and K/m kv heads (or the kv heads of its query heads, from k and v
+    whole), each block's input through ``tensor.enter``."""
     b, L, _ = h.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    kv_sel = None
+    if split is not None:
+        H = H // split.size
+        if split.kv_whole:
+            kv_sel = tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, split)
+        else:
+            K = K // split.size
     if isinstance(layer, LayerRef):
         layer = layer.get()
 
     def proj(name, x):
         return _apply_proj(name, x, layer[name], adapters, spec, masks,
                            dropout_rng, fused=use_fused_moka, a8=a8_dots,
-                           save_q8=save_q8, saves=saves)
+                           save_q8=save_q8, saves=saves, split=split)
+
+    def heads(t):  # (b, L, K, hd) -> this rank's kv heads
+        if kv_sel is None:
+            return t
+        if isinstance(kv_sel, slice):
+            return t[:, :, kv_sel]
+        return t.index_select(2, kv_sel.to(t.device))
 
     x = rmsnorm(h, layer["attn_norm"], cfg.rms_eps)
+    if split is not None:
+        x = tp.enter(x, split)
     q = apply_rope(proj("q", x).reshape(b, L, H, hd), cos, sin)
-    k = apply_rope(proj("k", x).reshape(b, L, K, hd), cos, sin)
-    v = proj("v", x).reshape(b, L, K, hd)
+    k = apply_rope(heads(proj("k", x).reshape(b, L, K, hd)), cos, sin)
+    v = heads(proj("v", x).reshape(b, L, K, hd))
 
     paged = cache is not None and paged_decode and L == 1
     q_offset = 0
@@ -533,6 +602,8 @@ def _decoder_layer(cfg: LlamaConfig, spec: MokaSpec | None, use_flash: bool,
     h = h + proj("o", attn)
 
     x = rmsnorm(h, layer["mlp_norm"], cfg.rms_eps)
+    if split is not None:
+        x = tp.enter(x, split)
     gate = proj("gate", x)
     up = proj("up", x)
     act = F.silu(gate.float()).to(up.dtype) * up
@@ -571,7 +642,10 @@ def forward(base: dict, cfg: LlamaConfig, *,
       as in JAX.
     use_flash: attention through ``flash_mha`` (the CUDA kernels on the
       card, forward and backward).
-    use_fused_moka: MokA deltas through ``moka_delta_fused``.
+    use_fused_moka: MokA deltas through ``moka_delta_fused`` (under tensor
+      parallelism the column-parallel projections hand it B's local
+      columns; o and down take the unfused delta, whose partial A products
+      are summed over the model group, which the kernel cannot do).
     remat: recompute each layer in the backward (while gradients are
       recorded), keeping its input and what ``remat_policy`` keeps: None or
       "full" nothing else, a name of ``REMAT_POLICIES`` its tags.  Per
@@ -605,6 +679,11 @@ def forward(base: dict, cfg: LlamaConfig, *,
       inside the remat region (``parallel.stream.LayerStream``), the
       embedding table, final norm and lm_head per use.  A base whose leaves
       are fsdp-sharded is all-gathered the same way with or without it.
+    A base split over a ``model`` axis (``shard_params`` on a mesh whose
+      model size is above 1) runs tensor-parallel (``parallel.tensor``):
+      every rank of a model group passes the same batch and gets the same
+      output.  Training and prefill only: a cached forward raises (no
+      entry point serves under a mesh).
     Returns (fp32 logits, or the final-normed hidden state when
     ``logits=False``; the new cache or None).
     """
@@ -612,6 +691,15 @@ def forward(base: dict, cfg: LlamaConfig, *,
     if context_parallel is not None and cache is not None:
         raise ValueError("context_parallel is a training/prefill path; "
                          "cached decode is not sequence-sharded")
+    split = tp.model_split(base["layers"], cfg)
+    if split is not None and cache is not None:
+        raise ValueError("a base split over the model axis trains and "
+                         "prefills only: decode with a KV cache under tensor "
+                         "parallelism is not supported (no entry point "
+                         "serves under a mesh)")
+    if split is not None and context_parallel is not None:
+        raise ValueError("context parallelism and a model axis do not "
+                         "combine")
     dev = (tokens if inputs_embeds is None else inputs_embeds).device
     if host_stream is None and elsewhere(base["layers"], dev):
         raise ValueError("the base is not on the compute device: pass "
@@ -677,8 +765,10 @@ def forward(base: dict, cfg: LlamaConfig, *,
         if dropout_rng is not None else [None] * cfg.n_layers
     recompute = remat and torch.is_grad_enabled()
     stream = None
-    if host_stream is not None or needs_fetch(base["layers"], dev):
-        stream = LayerStream(base["layers"], dev, cfg.n_layers, recompute)
+    whole = () if split is None else split.whole_leaves()
+    if host_stream is not None or needs_fetch(base["layers"], dev, whole):
+        stream = LayerStream(base["layers"], dev, cfg.n_layers, recompute,
+                             whole)
     q8 = _resolve_save_q8(save_q8, remat_policy)
     for i in range(cfg.n_layers):
         if stream is not None:
@@ -697,10 +787,10 @@ def forward(base: dict, cfg: LlamaConfig, *,
         if recompute:  # keeps h and the policy's tags; reruns the rest
             saves = _RematSaves(kept)
             h = checkpoint(_decoder_layer, *args, saves=saves, ring=ring,
-                           use_reentrant=False)
+                           split=split, use_reentrant=False)
             saves.replay = True
         else:
-            h = _decoder_layer(*args, ring=ring)
+            h = _decoder_layer(*args, ring=ring, split=split)
         if stream is not None:
             stream.after_forward(i, h)
 

@@ -185,8 +185,11 @@ def unified_loss(cfg: UnifiedConfig, remat: bool = True,
     deltas.  ``fused_loss``: the chunked lm_head + CE (128 positions, the
     a8 head product with ``a8_dots``); the other options as
     ``llama.forward``'s.  ``mesh``: the rank's share of the global loss, as
-    ``train.objectives.make_llama_moka_loss(mesh=...)``; ``host_stream``:
-    the LLaMA base in pinned host memory, streamed per layer."""
+    ``train.objectives.make_llama_moka_loss(mesh=...)`` (with a model axis
+    the decoder runs tensor-parallel while the towers, Q-Formers and
+    projectors run whole on every rank of a model group, so their
+    gradients are whole there); ``host_stream``: the LLaMA base in pinned
+    host memory, streamed per layer."""
     from moka_tpu_torch.train.objectives import decoder_loss
 
     def loss_fn(trainable, frozen, batch, rng):

@@ -283,6 +283,8 @@ def _launch_fwd(q, k, v, attn_mask, q_offset: int, causal: bool):
     flash_fwd.launches += 1
     by_hd = flash_fwd.launches_by_head_dim
     by_hd[hd] = by_hd.get(hd, 0) + 1
+    by_h = flash_fwd.launches_by_heads
+    by_h[H] = by_h.get(H, 0) + 1
     return out, lse
 
 
@@ -345,6 +347,8 @@ def flash_bwd_fused(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
     dq, dk, dv = _launch_bwd("fused", q, k, v, attn_mask, dout, lse, delta,
                              q_offset, causal)
     flash_bwd_fused.launches += 1
+    by_h = flash_bwd_fused.launches_by_heads
+    by_h[q.shape[2]] = by_h.get(q.shape[2], 0) + 1
     kv_heads = k.shape[2]
     return (dq.to(q.dtype), _group_sum(dk, kv_heads),
             _group_sum(dv, kv_heads))
@@ -516,7 +520,9 @@ def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
 # kernel launches (CUDA tensors only); the forward's also by head_dim
 flash_fwd.launches = 0
 flash_fwd.launches_by_head_dim = {}
+flash_fwd.launches_by_heads = {}  # by query heads (a rank's under TP)
 flash_bwd_fused.launches = 0
+flash_bwd_fused.launches_by_heads = {}
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 flash_rank_fwd.launches = 0

@@ -24,7 +24,12 @@ the mask depends on the key alone: the forward, its remat recompute and the
 backward drop the same elements whatever the tiling.  A key for one rank's
 rows of a larger array (``DropoutKey.rows``: the batch or the sequence
 split over ranks) hands the kernels its ``row_map``, and row n draws at the
-larger array's row, so the ranks drop what one process drops.  The TPU
+larger array's row, so the ranks drop what one process drops; a key for
+one rank's columns (``DropoutKey.cols``: the input of a row-parallel
+projection under tensor parallelism) hands them its ``col_start`` c0, and
+column c draws at counter (row, (c0 + c) // 4), word (c0 + c) % 4 (the
+kernels take c0 a multiple of 4, as every shipped width's split gives:
+4096/m, 11008/m and 22016/m for m in 2, 4, 8).  The TPU
 kernel seeds its generator per row block instead, and JAX's interpret mode
 (the CPU) draws ``jax.random.bits(key, (N, d), uint32)``; the parity tests
 hand the port those words through the key's ``bits32``, or through
@@ -61,20 +66,23 @@ def threshold(rate: float) -> int:
     return min(0xFFFFFFFF, int(round((1.0 - rate) * 4294967296.0)))
 
 
-def _bits(key, bits, x2d: torch.Tensor, rows=None) -> torch.Tensor:
+def _bits(key, bits, x2d: torch.Tensor, rows=None, col0: int = 0
+          ) -> torch.Tensor:
     """The (N, d) 32-bit words as int64: forced, or drawn from the key
-    (at the counter rows of ``rows``, a ``DropoutKey.row_map``)."""
+    (at the counter rows of ``rows``, a ``DropoutKey.row_map``, and the
+    columns from ``col0`` on)."""
     if bits is not None:
         return bits.to(device=x2d.device, dtype=torch.int64)
-    if rows is None:  # a key without views (the parity tests' JAX key)
+    if rows is None and not col0:  # (also the parity tests' JAX key)
         return key.bits32(tuple(x2d.shape), x2d.device)
-    return key.bits32(tuple(x2d.shape), x2d.device, rows=rows)
+    return key.bits32(tuple(x2d.shape), x2d.device, rows=rows, col0=col0)
 
 
 def dropout_a_fwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor, key,
-                        rate: float, bits=None, rows=None) -> torch.Tensor:
+                        rate: float, bits=None, rows=None,
+                        col0: int = 0) -> torch.Tensor:
     """(N, M*r) fp32 = where(keep, x * (1/keep in x's dtype), 0) @ A."""
-    keep = _bits(key, bits, x2d, rows) < threshold(rate)
+    keep = _bits(key, bits, x2d, rows, col0) < threshold(rate)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x2d.dtype)
     xd = torch.where(keep, x2d * scale, x2d.new_zeros(()))
     return xd.float() @ a_flat.float()
@@ -82,9 +90,10 @@ def dropout_a_fwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor, key,
 
 def dropout_a_bwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor,
                         g: torch.Tensor, key, rate: float, bits=None,
-                        rows=None) -> tuple[torch.Tensor, torch.Tensor]:
+                        rows=None, col0: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dA in A's dtype) for the cotangent g (N, M*r)."""
-    keep = _bits(key, bits, x2d, rows) < threshold(rate)
+    keep = _bits(key, bits, x2d, rows, col0) < threshold(rate)
     m = torch.where(keep, 1.0 / (1.0 - rate), 0.0)  # fp32
     g = g.float()
     dx = ((g @ a_flat.float().t()) * m).to(x2d.dtype)
@@ -103,12 +112,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
     lib.moka_dropout_a_fwd.argtypes = [p, i, p, i, p, p, p, i, i, i, u, f, u,
-                                       u, u, u, u, p]
+                                       u, u, u, u, u, p]
     lib.moka_dropout_a_fwd.restype = i
     lib.moka_dropout_fwd_workspace.argtypes = [i, i, i]
     lib.moka_dropout_fwd_workspace.restype = ctypes.c_long
     lib.moka_dropout_a_bwd.argtypes = [p, i, p, i, p, p, p, p, i, i, i, u, f,
-                                       u, u, u, u, u, p]
+                                       u, u, u, u, u, u, p]
     lib.moka_dropout_a_bwd.restype = i
     return lib
 
@@ -154,25 +163,36 @@ def _kernel_inputs(x2d, a_flat, key, bits):
     return x2d, a_flat, bits, k0, k1
 
 
-def _row_map(n: int, rows, forced: bool) -> tuple[int, int, int]:
+def _counters(x2d, rows, col0: int, forced: bool
+              ) -> tuple[int, int, int, int]:
     """The kernels' (seg, stride, base) for ``rows`` (a
     ``DropoutKey.row_map`` or None: the array itself; forced words have
-    no counters), checked to keep every row's counter in 32 bits."""
-    if forced or rows is None:
-        return 0, 0, 0
+    no counters), checked to keep every row's counter in 32 bits, and the
+    column counter of x's first column, ``col0 // 4`` (``col0`` a multiple
+    of 4: the kernels add it to the counter of a group of four columns)."""
+    if forced:
+        return 0, 0, 0, 0
+    if col0 % 4 or col0 < 0:
+        raise ValueError(f"fused dropout kernels take a column offset that "
+                         f"is a multiple of 4, not {col0}")
+    if (col0 + x2d.shape[1]) // 4 >= 1 << 32:
+        raise ValueError(f"columns from {col0} leave the 32-bit counter")
+    if rows is None:
+        return 0, 0, 0, col0 // 4
+    n = x2d.shape[0]
     seg, stride, base = rows
     last = n - 1 + base if seg == 0 else \
         (n - 1) // seg * stride + base + (n - 1) % seg
     if last >= 1 << 32:
         raise ValueError(f"row map {rows}: row {last} of {n} rows leaves "
                          f"the 32-bit Philox counter")
-    return seg, stride, base
+    return seg, stride, base, col0 // 4
 
 
-def _launch_fwd(x2d, a_flat, key, rate, bits, rows):
+def _launch_fwd(x2d, a_flat, key, rate, bits, rows, col0):
     from moka_tpu_torch import kernels
     x2d, a_flat, bits, k0, k1 = _kernel_inputs(x2d, a_flat, key, bits)
-    keys = (k0, k1, *_row_map(x2d.shape[0], rows, bits is not None))
+    keys = (k0, k1, *_counters(x2d, rows, col0, bits is not None))
     n, d = x2d.shape
     mr = a_flat.shape[1]
     lib = _library()
@@ -189,13 +209,14 @@ def _launch_fwd(x2d, a_flat, key, rate, bits, rows):
         raw_stream(x2d.device))
     kernels.check(status, "dropout_a_fwd")
     dropout_a_fwd.launches += 1
+    dropout_a_fwd.offset_launches += int(keys[-1] > 0)
     return out
 
 
-def _launch_bwd(x2d, a_flat, g, key, rate, bits, rows):
+def _launch_bwd(x2d, a_flat, g, key, rate, bits, rows, col0):
     from moka_tpu_torch import kernels
     x2d, a_flat, bits, k0, k1 = _kernel_inputs(x2d, a_flat, key, bits)
-    keys = (k0, k1, *_row_map(x2d.shape[0], rows, bits is not None))
+    keys = (k0, k1, *_counters(x2d, rows, col0, bits is not None))
     n, d = x2d.shape
     mr = a_flat.shape[1]
     if tuple(g.shape) != (n, mr):
@@ -213,59 +234,69 @@ def _launch_bwd(x2d, a_flat, g, key, rate, bits, rows):
         1.0 / (1.0 - rate), *keys, raw_stream(x2d.device))
     kernels.check(status, "dropout_a_bwd")
     dropout_a_bwd.launches += 1
+    dropout_a_bwd.offset_launches += int(keys[-1] > 0)
     return dx, da
 
 
 def dropout_a_fwd(x2d: torch.Tensor, a_flat: torch.Tensor, key, rate: float,
-                  bits=None, rows=None) -> torch.Tensor:
+                  bits=None, rows=None, col0: int = 0) -> torch.Tensor:
     """Kernel 6: (N, M*r) fp32 from x (N, d) and A (d, M*r); ``bits``
     (N, d) integers in [0, 2^32) replace the key's words; ``rows`` (a
-    ``DropoutKey.row_map``) places x's rows in a larger array."""
+    ``DropoutKey.row_map``) places x's rows in a larger array and ``col0``
+    its columns (a ``DropoutKey.col_start``)."""
     if on_card(x2d, "fused dropout"):
-        return _launch_fwd(x2d, a_flat, key, rate, bits, rows)
-    return dropout_a_fwd_plain(x2d, a_flat, key, rate, bits, rows)
+        return _launch_fwd(x2d, a_flat, key, rate, bits, rows, col0)
+    return dropout_a_fwd_plain(x2d, a_flat, key, rate, bits, rows, col0)
 
 
 def dropout_a_bwd(x2d: torch.Tensor, a_flat: torch.Tensor, g: torch.Tensor,
-                  key, rate: float, bits=None, rows=None
+                  key, rate: float, bits=None, rows=None, col0: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel 7: (dx (N, d) in x's dtype, dA (d, M*r) in A's dtype) with
-    the mask drawn again from the same key (or ``bits``) and rows."""
+    the mask drawn again from the same key (or ``bits``), rows and
+    columns."""
     if on_card(x2d, "fused dropout"):
-        return _launch_bwd(x2d, a_flat, g, key, rate, bits, rows)
-    return dropout_a_bwd_plain(x2d, a_flat, g, key, rate, bits, rows)
+        return _launch_bwd(x2d, a_flat, g, key, rate, bits, rows, col0)
+    return dropout_a_bwd_plain(x2d, a_flat, g, key, rate, bits, rows, col0)
 
 
-# kernel launches (CUDA tensors only)
+# kernel launches (CUDA tensors only); ``offset_launches``: those at a
+# column offset above 0 (a row-parallel projection's columns)
 dropout_a_fwd.launches = 0
 dropout_a_bwd.launches = 0
+dropout_a_fwd.offset_launches = 0
+dropout_a_bwd.offset_launches = 0
 
 
 class _DropA(torch.autograd.Function):
     """Saves x and A (never the mask); the backward draws it again."""
 
     @staticmethod
-    def forward(ctx, x2d, a_flat, key, bits, rows, rate, plain):
-        ctx.key, ctx.rows, ctx.rate, ctx.plain = key, rows, rate, plain
+    def forward(ctx, x2d, a_flat, key, bits, rows, col0, rate, plain):
+        ctx.key, ctx.rows, ctx.col0 = key, rows, col0
+        ctx.rate, ctx.plain = rate, plain
         ctx.save_for_backward(x2d, a_flat, bits)
         fwd = dropout_a_fwd_plain if plain else dropout_a_fwd
-        return fwd(x2d, a_flat, key, rate, bits, rows)
+        return fwd(x2d, a_flat, key, rate, bits, rows, col0)
 
     @staticmethod
     def backward(ctx, g):
         x2d, a_flat, bits = ctx.saved_tensors
         bwd = dropout_a_bwd_plain if ctx.plain else dropout_a_bwd
-        dx, da = bwd(x2d, a_flat, g, ctx.key, ctx.rate, bits, ctx.rows)
-        return dx, da, None, None, None, None, None
+        dx, da = bwd(x2d, a_flat, g, ctx.key, ctx.rate, bits, ctx.rows,
+                     ctx.col0)
+        return dx, da, None, None, None, None, None, None
 
 
 def _proj(x, lora_a, key, rate, bits, plain):
     b, L, d = x.shape
     m, _, r = lora_a.shape
-    # one rank's rows of a split array: where they sit in the whole one
+    # one rank's rows (or columns) of a split array: where they sit in the
+    # whole one
     rows = key.row_map(x.shape) if hasattr(key, "row_map") else None
+    col0 = getattr(key, "col_start", 0)
     a_flat = lora_a.permute(1, 0, 2).reshape(d, m * r)
-    out = _DropA.apply(x.reshape(b * L, d), a_flat, key, bits, rows,
+    out = _DropA.apply(x.reshape(b * L, d), a_flat, key, bits, rows, col0,
                        float(rate), plain)
     return out.reshape(b, L, m, r).permute(2, 0, 1, 3)
 

@@ -192,7 +192,7 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
                spec: MokaSpec, *, dropout_rng=None,
                flash_residuals: dict | None = None,
                key_question: torch.Tensor | None = None,
-               gather_keys=None) -> torch.Tensor:
+               gather_keys=None, sum_a=None) -> torch.Tensor:
     """The MokA low-rank delta for one linear layer.
 
     x: (b, L, d_in); lora_a: (M, d_in, r); lora_b: (r, d_out);
@@ -207,6 +207,12 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
       sequence): the question keys of every shard are gathered with
       ``gather_keys`` and masked by ``key_question``, the (b, L_total)
       question mask of the whole sequence.
+    sum_a: tensor parallelism, a row-parallel projection (x holds this
+      rank's columns of the input and lora_a its rows, the dropout key
+      their columns): the partial fp32 A products are summed over the
+      model group with ``sum_a`` before anything else reads them (the
+      rank attention is not linear in them); the rest runs whole on every
+      rank.
     Returns the (b, L, d_out) delta in x's dtype (bf16 with
     ``spec.bf16_dots``, as JAX)."""
     m, _, r = lora_a.shape
@@ -230,6 +236,8 @@ def moka_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
             x_d = lora_dropout(x_d, dropout_rng, spec.dropout_rate)
         a_all = torch.einsum("bld,mdr->mblr", _dot_operand(x_d, spec),
                              _dot_operand(lora_a, spec))
+    if sum_a is not None:
+        a_all = sum_a(a_all)
     masks = modality_masks.float()
     qmask = question_mask.float()
     a_all = a_all * masks[..., None] * spec.pre_scale
@@ -281,10 +289,13 @@ def lora_dropout(x: torch.Tensor, rng, rate: float) -> torch.Tensor:
 
 
 def lora_delta(x: torch.Tensor, lora_a0: torch.Tensor, lora_b: torch.Tensor,
-               scale: float) -> torch.Tensor:
+               scale: float, sum_a=None) -> torch.Tensor:
     """Plain text-adapter LoRA path ``B(A0(x) * scale)`` in fp32 (the
-    single-token decode path and the masks-None fallback)."""
+    single-token decode path and the masks-None fallback); ``sum_a`` as
+    ``moka_delta``'s."""
     a = torch.einsum("...d,dr->...r", x.float(), lora_a0.float())
+    if sum_a is not None:
+        a = sum_a(a)
     delta = torch.einsum("...r,rd->...d", a * scale, lora_b.float())
     return delta.to(x.dtype)
 

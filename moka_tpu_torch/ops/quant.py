@@ -21,6 +21,12 @@ Products:
 - ``q8_roundtrip`` / ``fp8_roundtrip``: the save-set rounding of
   ``save_q8`` with a straight-through gradient.
 
+Under tensor parallelism (``parallel.tensor``) a per-token scale is taken
+over the whole row, as one process takes it, where the row is split over
+the model group: ``group`` all-reduces the per-token max (the a8 codes of
+a row-parallel input, the cotangent of a column-parallel output under
+``bwd_a8``, the save set of a column-parallel output).
+
 Rounding keeps JAX's order of operations (``amax / 127``, then ``x /
 scale``, round half to even, clip; ``(acc * sx) * sw`` in fp32), so codes
 and a8 outputs from the same fp32 inputs match bit for bit.
@@ -31,6 +37,8 @@ from __future__ import annotations
 import weakref
 
 import torch
+
+from moka_tpu_torch.parallel import comm
 
 QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
 
@@ -60,10 +68,16 @@ def quantize_int4(w: torch.Tensor, axis: int = -2) -> dict:
     if d_in % 2:
         raise ValueError(f"input dim {d_in} must be even for nibble packing")
     q, scale = _sym_quantize(w, -2, 7)
-    h = d_in // 2
-    lo, hi = q[..., :h, :], q[..., h:, :]
-    packed = ((lo & 0x0F) | (hi << 4)).view(torch.uint8)
-    return {"w_i4": packed, "scale": scale}
+    return {"w_i4": pack_int4(q), "scale": scale}
+
+
+def pack_int4(q: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """int8 values in [-8, 7] (an even length along ``dim``) two a byte:
+    the first half of ``dim`` in the low nibbles, the second in the
+    high."""
+    h = q.shape[dim] // 2
+    lo, hi = q.narrow(dim, 0, h), q.narrow(dim, h, h)
+    return ((lo & 0x0F) | (hi << 4)).view(torch.uint8)
 
 
 def unpack_int4(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -121,10 +135,15 @@ def qmatmul_dx(g: torch.Tensor, w: dict, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(gs, int_weight(w).to(dtype).transpose(-1, -2))
 
 
-def _a8_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _a8_quantize(x: torch.Tensor, group=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-token symmetric int8 over the last dim: int8 codes and
-    (..., 1) fp32 scales; an all-zero row gets scale 1 (exact zeros)."""
+    (..., 1) fp32 scales; an all-zero row gets scale 1 (exact zeros).
+    ``group``: x is this rank's columns of rows split over it; the max is
+    the whole row's."""
     ax = x.abs().amax(dim=-1, keepdim=True).float()  # exact in x's dtype
+    if group is not None:
+        ax = comm.all_reduce_max(ax, group)
     sx = torch.where(ax == 0, torch.ones_like(ax), ax / 127.0)
     q = torch.round(x / sx).clamp_(-127, 127)  # x / sx: in fp32
     return q.to(torch.int8), sx
@@ -207,14 +226,15 @@ def _a8_forward(x: torch.Tensor, w: dict, out_dtype) -> torch.Tensor:
 
 
 def _a8_dx(g: torch.Tensor, w: dict, bwd_a8: bool,
-           dtype: torch.dtype) -> torch.Tensor:
+           dtype: torch.dtype, group=None) -> torch.Tensor:
     """The straight-through dX of ``qmatmul_a8``: (g * sw) @ W_int^T in
     bf16 products with fp32 sums, or (``bwd_a8``) with g * sw quantized per
     token to int8 (sw varies along the contracted axis, so it folds in
-    before the quantization)."""
+    before the quantization; ``group``: g holds this rank's columns of
+    rows split over it, and the scale is the whole row's)."""
     if not bwd_a8:
         return qmatmul_dx(g, w, dtype)
-    gq, sg = _a8_quantize(g.float() * _out_scale(w, g.dim()))
+    gq, sg = _a8_quantize(g.float() * _out_scale(w, g.dim()), group)
     d_in = 2 * w["w_i4"].shape[-2] if "w_i4" in w else w["w_i8"].shape[-2]
     dx = int8_matmul(gq.reshape(-1, gq.shape[-1]),
                      _weight_operand(w, True))[:, :d_in]
@@ -228,30 +248,35 @@ class _A8Matmul(torch.autograd.Function):
     and the backward needs only W and its scale."""
 
     @staticmethod
-    def forward(ctx, x, w, bwd_a8, out_dtype):
-        ctx.w, ctx.bwd_a8, ctx.dtype = w, bwd_a8, x.dtype
+    def forward(ctx, x, w, bwd_a8, out_dtype, group):
+        ctx.w, ctx.bwd_a8, ctx.dtype, ctx.group = w, bwd_a8, x.dtype, group
         return _a8_forward(x, w, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        dx = _a8_dx(g, ctx.w, ctx.bwd_a8, ctx.dtype)
-        return dx, None, None, None
+        dx = _a8_dx(g, ctx.w, ctx.bwd_a8, ctx.dtype, ctx.group)
+        return dx, None, None, None, None
 
 
 def qmatmul_a8(x: torch.Tensor, w: dict, bwd_a8: bool = False,
-               out_dtype=None) -> torch.Tensor:
+               out_dtype=None, group=None) -> torch.Tensor:
     """x @ w with x dynamically quantized to int8 per token (W4A8 / W8A8):
     ``(acc * sx) * sw`` from the exact int32 product, in ``out_dtype``
     (default x's dtype).  Differentiable in x only (the weight is frozen);
-    ``bwd_a8`` quantizes the scaled cotangent too (int8 dX products)."""
-    return _A8Matmul.apply(x, w, bwd_a8, out_dtype)
+    ``bwd_a8`` quantizes the scaled cotangent too (int8 dX products).
+    ``group``: w holds this rank's output columns of a product split over
+    it (column-parallel), so the cotangent's per-token scale is the whole
+    row's."""
+    return _A8Matmul.apply(x, w, bwd_a8, out_dtype, group)
 
 
 # ------------------------------------------------- the save-set rounding
 
-def q8_codes(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The per-token int8 codes and fp32 scales ``q8_roundtrip`` keeps."""
-    return _a8_quantize(y)
+def q8_codes(y: torch.Tensor, group=None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-token int8 codes and fp32 scales ``q8_roundtrip`` keeps
+    (``group``: y is this rank's columns, the scale the whole row's)."""
+    return _a8_quantize(y, group)
 
 
 def q8_value(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
@@ -270,12 +295,12 @@ class _RoundTrip(torch.autograd.Function):
     (or None) receives the codes (a checkpoint's save set)."""
 
     @staticmethod
-    def forward(ctx, y, mode, keep):
+    def forward(ctx, y, mode, keep, group):
         if mode == "fp8":
             codes = (fp8_codes(y),)
             out = codes[0].to(y.dtype)
         else:
-            codes = q8_codes(y)
+            codes = q8_codes(y) if group is None else q8_codes(y, group)
             out = q8_value(*codes, y.dtype)
         if keep is not None:
             keep(codes)
@@ -283,17 +308,19 @@ class _RoundTrip(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
-def q8_roundtrip(y: torch.Tensor, keep=None) -> torch.Tensor:
-    """Per-token int8 quantize -> dequantize, straight-through gradient."""
-    return _RoundTrip.apply(y, "int8", keep)
+def q8_roundtrip(y: torch.Tensor, keep=None, group=None) -> torch.Tensor:
+    """Per-token int8 quantize -> dequantize, straight-through gradient
+    (``group``: y is this rank's columns of rows split over it)."""
+    return _RoundTrip.apply(y, "int8", keep, group)
 
 
-def fp8_roundtrip(y: torch.Tensor, keep=None) -> torch.Tensor:
-    """fp8-e4m3fn convert -> convert back, straight-through gradient."""
-    return _RoundTrip.apply(y, "fp8", keep)
+def fp8_roundtrip(y: torch.Tensor, keep=None, group=None) -> torch.Tensor:
+    """fp8-e4m3fn convert -> convert back, straight-through gradient
+    (elementwise: ``group`` changes nothing)."""
+    return _RoundTrip.apply(y, "fp8", keep, None)
 
 
 def codes_value(codes: tuple, dtype) -> torch.Tensor:

@@ -15,9 +15,12 @@ by trying one and catching its error.
 Besides the plain collectives, four autograd functions: ``ring_shift``
 (k/v to the next rank of a ring, the gradients back the other way),
 ``gather_seq`` (a sequence all-gather whose backward sums the gradients
-back to their shard), ``sum_value`` (a loss value summed over a group, its
-gradient passed through) and ``sum_grads`` (parameters passed through,
-their gradients summed over a group in one flat all-reduce).
+back to their shard), ``sum_value`` (a value summed over a group, its
+gradient passed through) and ``sum_grads`` (tensors passed through, their
+gradients summed over a group in one flat all-reduce).  The last two are
+Megatron's conjugate pair of tensor parallelism (``parallel.tensor``):
+``sum_value`` ends a row-parallel block, ``sum_grads`` starts a
+column-parallel one.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import torch.distributed as dist
 
 
 GLOO_DEVICE_OPS = ("all_reduce", "all_gather", "broadcast")
+
+REDUCED_BYTES: dict = {}  # bytes each group has all-reduced (by group)
 
 
 def transport(group, op: str) -> str:
@@ -51,12 +56,16 @@ def _out(t: torch.Tensor, group, op: str) -> tuple[torch.Tensor, bool]:
     return t, False
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns it."""
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (a sum, or ``op``); returns
+    it."""
     if group_size(group) == 1:
         return t
     buf, back = _out(t, group, "all_reduce")
-    dist.all_reduce(buf, group=group)
+    REDUCED_BYTES[group] = REDUCED_BYTES.get(group, 0) + \
+        buf.numel() * buf.element_size()
+    dist.all_reduce(buf, op=op, group=group)
     if back or buf.data_ptr() != t.data_ptr():
         t.copy_(buf)
     return t
@@ -65,6 +74,12 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: ``t`` summed over ``group``."""
     return all_reduce_(t.detach().clone(), group)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the elementwise max of ``t`` over ``group`` (the
+    per-token scales of a row split over the model axis)."""
+    return all_reduce_(t.detach().clone(), group, dist.ReduceOp.MAX)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

@@ -8,6 +8,13 @@ by ``torchrun`` (or ``torch.multiprocessing``), names its collectives
 A rank's device is ``cuda:LOCAL_RANK % device_count()``, or the CPU when
 the caller asks for it; NCCL groups serve CUDA ranks and gloo groups CPU
 ones.
+
+Two groups of a rank carry the training step's collectives: its data
+group (``data_parallel_group``: the ranks of its model coordinate over
+data x fsdp, which split the batch and sum the gradients) and its model
+group (``model_parallel_group``: the ranks that hold the other parts of
+its layers' projections, ``parallel.tensor``).  The ranks of one model
+group feed the same samples.
 """
 
 from __future__ import annotations
@@ -26,9 +33,6 @@ AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_MODEL = "model"
 AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
-
-TENSOR_PARALLEL = ("tensor parallelism on the 'model' axis is not ported yet "
-                   "(ROADMAP.md, item 4b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +88,11 @@ def rank_device(device=None) -> torch.device:
 def make_mesh(cfg: MeshConfig | None = None):
     """A ("data", "fsdp", "model") ``DeviceMesh`` over every rank of the
     default group (``cfg`` None: all of them on fsdp, the ZeRO-3-style
-    default).  Raises when the mesh's size is not the world size."""
+    default).  Raises when the mesh's size is not the world size.  With
+    data, fsdp and model all above 1 it also builds each model
+    coordinate's data x fsdp group (every rank creates every one of them,
+    in the same order, as ``dist.new_group`` requires) and keeps this
+    rank's on the mesh for ``data_parallel_group``."""
     from torch.distributed.device_mesh import init_device_mesh
     n = world_size()
     if cfg is None:
@@ -93,8 +101,16 @@ def make_mesh(cfg: MeshConfig | None = None):
         raise ValueError(f"mesh {cfg} wants {cfg.num_devices} devices, "
                          f"have {n}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (cfg.data, cfg.fsdp, cfg.model),
+    mesh = init_device_mesh(device_type, (cfg.data, cfg.fsdp, cfg.model),
                             mesh_dim_names=AXES)
+    if min(cfg.data, cfg.fsdp, cfg.model) > 1:
+        ranks = mesh.mesh.reshape(cfg.data * cfg.fsdp, cfg.model)
+        me = mesh.get_local_rank(AXIS_MODEL)
+        for m in range(cfg.model):
+            group = dist.new_group(ranks[:, m].tolist())
+            if m == me:
+                mesh._moka_data_group = group
+    return mesh
 
 
 def axis_size(mesh, name: str) -> int:
@@ -110,21 +126,34 @@ def axis_size(mesh, name: str) -> int:
 
 
 def data_parallel_group(mesh):
-    """The group over which the batch is split (data x fsdp): the gradients
-    and the loss are summed over it.  None without a mesh.  With the model
-    axis at 1 that is the whole mesh: the group of its one split axis, or,
-    with both above 1, the default group (``make_mesh`` spans it)."""
+    """The group over which the batch is split: the data x fsdp ranks of
+    this rank's model coordinate; the gradients and the loss are summed
+    over it.  None without a mesh.  That is the group of the mesh's one
+    split axis, or, with both above 1, the default group when the model
+    axis is 1 (``make_mesh`` spans it) and the group ``make_mesh`` built
+    for this model coordinate when it is not."""
     if mesh is None:
         return None
-    if axis_size(mesh, AXIS_MODEL) > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
     split = [a for a in (AXIS_DATA, AXIS_FSDP) if axis_size(mesh, a) > 1]
     if len(split) < 2:
         return mesh.get_group(split[0] if split else AXIS_FSDP)
-    if mesh.size() != world_size():
-        raise ValueError(f"a mesh split over both data and fsdp spans every "
-                         f"rank: {mesh.size()} of {world_size()}")
+    group = getattr(mesh, "_moka_data_group", None)
+    if group is not None:
+        return group
+    if axis_size(mesh, AXIS_MODEL) > 1 or mesh.size() != world_size():
+        raise ValueError(f"a mesh split over data and fsdp needs its data "
+                         f"group from make_mesh (model axis "
+                         f"{axis_size(mesh, AXIS_MODEL)}, {mesh.size()} of "
+                         f"{world_size()} ranks)")
     return dist.group.WORLD
+
+
+def model_parallel_group(mesh):
+    """The ranks that split this rank's projections (the mesh's ``model``
+    sub-group of this rank); None without a mesh."""
+    if mesh is None:
+        return None
+    return mesh.get_group(AXIS_MODEL)
 
 
 def data_parallel_index(mesh) -> tuple[int, int]:
@@ -136,10 +165,12 @@ def data_parallel_index(mesh) -> tuple[int, int]:
 
 
 def host_local_batch_size(global_batch: int, mesh) -> int:
-    """Samples this process feeds a step.  The batch is split over
-    processes; a batch the data x fsdp size does not divide warns, as in
-    JAX (the split is by process)."""
-    world = world_size()
+    """Samples this process feeds a step.  The batch is split over the
+    processes that feed distinct samples: the ranks of one model group
+    feed the same ones, so a rank's share is the global batch over
+    world / model (one process: all of it); a batch the data x fsdp size
+    does not divide warns, as in JAX (the split is by process)."""
+    world = max(world_size() // axis_size(mesh, AXIS_MODEL), 1)
     if global_batch % world:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"host count {world}")

@@ -7,15 +7,21 @@ JAX's ``PartitionSpec`` reads as a tuple.
 
 Where JAX places each leaf on the mesh and XLA all-gathers it per use,
 ``shard_params`` gives each rank its local slice as a plain tensor and
-records the placement on it; ``models.llama.forward`` gathers a layer
-inside its remat region (``parallel.stream``), so the recompute gathers it
-again and the gathered copy is freed after the layer.  No DTensor reaches
-a layer: the CUDA kernels take plain tensors.  ``host_offload`` keeps the
-slices in pinned host memory, from which ``forward(host_stream=...)``
-copies one layer at a time to the card.
+records the placement on it; ``models.llama.forward`` gathers a layer's
+fsdp dims inside its remat region (``parallel.stream``), so the recompute
+gathers them again and the gathered copy is freed after the layer.  The
+``model`` dims stay local: the column- and row-parallel products consume
+the rank's slice (``parallel.tensor``).  No DTensor reaches a layer: the
+CUDA kernels take plain tensors.  ``host_offload`` keeps the slices in
+pinned host memory, from which ``forward(host_stream=...)`` copies one
+layer at a time to the card.
 
-The ``model`` axis is not ported: a spec that names it on a mesh where it
-is larger than 1 raises (ROADMAP.md, item 4b).
+An int4 o/down weight (``w_i4``: input rows [0, h) in the low nibbles,
+[h, 2h) in the high ones) is repacked on the model axis: a contiguous
+slice of its packed rows would hold input rows [a, b) and [h + a, h + b),
+not the block of heads or FFN columns the rank's x holds, so each rank
+unpacks its own block of input rows and packs it again, its first half
+in the low nibbles (``_model_rows_int4``).
 """
 
 from __future__ import annotations
@@ -25,8 +31,7 @@ import re
 
 import torch
 
-from moka_tpu_torch.parallel.mesh import (AXIS_MODEL, TENSOR_PARALLEL,
-                                          Placement, axis_size)
+from moka_tpu_torch.parallel.mesh import AXIS_MODEL, Placement, axis_size
 
 # (path regex, spec) pairs; the first match wins.  Paths look like
 # "llama/layers/q", "adapters/layers/q/a", "llama/embed", ...
@@ -89,13 +94,8 @@ def _names(part) -> tuple:
 
 
 def _resolved(mesh, path: str, shape) -> tuple:
-    """The leaf's spec on ``mesh``; raises where it would shard over a
-    ``model`` axis larger than 1."""
-    spec = _divisible_spec(mesh, spec_for_path(path, len(shape)), shape)
-    if axis_size(mesh, AXIS_MODEL) > 1 and \
-            any(AXIS_MODEL in _names(p) for p in spec):
-        raise NotImplementedError(f"{path}: {TENSOR_PARALLEL}")
-    return spec
+    """The leaf's spec on ``mesh``."""
+    return _divisible_spec(mesh, spec_for_path(path, len(shape)), shape)
 
 
 def _map(fn, tree, prefix: str = ""):
@@ -144,6 +144,13 @@ class ShardInfo:
         return [(d, name) for d, p in enumerate(self.placement.spec)
                 for name in _names(p) if axis_size(self.mesh, name) > 1]
 
+    def gathered_dims(self, whole: bool = False) -> list[tuple[int, str]]:
+        """The split dims a use gathers: those over fsdp (and data), which
+        hold parts of the rank's own work; ``whole``: every split dim, the
+        ``model`` ones too (a leaf used whole on every rank)."""
+        return [(d, name) for d, name in self.sharded_dims()
+                if whole or name != AXIS_MODEL]
+
 
 def shard_info(t) -> ShardInfo | None:
     return getattr(t, "_moka_shard", None)
@@ -170,17 +177,43 @@ def _pinned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _model_rows_int4(mesh, packed: torch.Tensor, spec: tuple
+                     ) -> torch.Tensor:
+    """This rank's slice of a row-parallel int4 weight (..., h, d_out),
+    packed rows on the ``model`` axis: its block of the 2h input rows,
+    repacked (first half low nibbles, second half high), and its d_out
+    slice of the other split dims."""
+    from moka_tpu_torch.ops.quant import pack_int4, unpack_int4
+    dim = next(d for d, p in enumerate(spec) if AXIS_MODEL in _names(p))
+    rows = torch.cat(unpack_int4(packed), dim=dim)
+    n = axis_size(mesh, AXIS_MODEL)
+    size = rows.shape[dim] // n
+    mine = rows.narrow(dim, mesh.get_local_rank(AXIS_MODEL) * size, size)
+    rest = tuple(None if AXIS_MODEL in _names(p) else p for p in spec)
+    return pack_int4(_local(mesh, mine, rest), dim)
+
+
+def _repacked(path: str, spec: tuple, mesh) -> bool:
+    return bool(re.fullmatch(r".*layers/(o|down)/w_i4", path)) and \
+        axis_size(mesh, AXIS_MODEL) > 1 and \
+        any(AXIS_MODEL in _names(p) for p in spec)
+
+
 def shard_params(mesh, params, host_offload: bool = False):
     """Each rank's local slice of every leaf (a plain tensor), its
     ``Placement`` recorded on it (``shard_info``) where it is split;
     ``host_offload`` moves the slices to pinned host memory.  Leaves the
     rules replicate, and every leaf without a mesh, stay whole (and where
-    they are, unless offloaded)."""
+    they are, unless offloaded).  A row-parallel int4 weight's slice is
+    repacked (``_model_rows_int4``)."""
     shardings = param_shardings(mesh, params, host_offload)
 
     def one(path, leaf):
         placement = _get(shardings, path)
-        local = _local(mesh, leaf, placement.spec)
+        if _repacked(path, placement.spec, mesh):
+            local = _model_rows_int4(mesh, leaf, placement.spec)
+        else:
+            local = _local(mesh, leaf, placement.spec)
         if local is not leaf:
             local = local.contiguous().clone()
         if host_offload:

@@ -3,7 +3,12 @@ one use (or one layer) at a time.
 
 Two kinds of leaf need it: an fsdp-sharded local slice
 (``sharding.shard_params``), all-gathered over its fsdp group, and a leaf
-in pinned host memory (``host_offload``), copied to the card.  ``fetch``
+in pinned host memory (``host_offload``), copied to the card.  A layer's
+``model`` dims stay local (the rank's part of a tensor-parallel product,
+``parallel.tensor``), except in the leaves named ``whole`` (k and v where
+the kv heads do not split over the model axis), which are gathered over
+model too; a leaf used whole (``fetch``) is gathered over every split
+dim.  ``fetch``
 does both for a leaf used whole (the embedding table, the final norm, the
 lm_head).  ``LayerStream`` does it for the decoder's stacked layers: the
 forward (``models.llama``) asks for layer i inside the function that
@@ -70,21 +75,32 @@ def elsewhere(tree, device: torch.device) -> bool:
     return any(t.device != device for _, t in _leaves(tree))
 
 
-def needs_fetch(tree, device: torch.device) -> bool:
-    """Whether a leaf of ``tree`` is sharded or elsewhere."""
+def _gathers(path: tuple, t: torch.Tensor, whole: tuple) -> list:
+    """The split dims of leaf ``t`` (at key path ``path`` of a layer) that
+    a layer's use gathers (``ShardInfo.gathered_dims``)."""
+    info = shard_info(t)
+    if info is None:
+        return []
+    return info.gathered_dims(bool(path) and path[0] in whole)
+
+
+def needs_fetch(tree, device: torch.device, whole: tuple = ()) -> bool:
+    """Whether a leaf of ``tree`` is elsewhere or split on a dim a layer's
+    use gathers (``whole``: the names whose model dims are gathered)."""
     return elsewhere(tree, device) or \
-        any(shard_info(t) is not None for _, t in _leaves(tree))
+        any(_gathers(path, t, whole) for path, t in _leaves(tree))
 
 
-def _gather(local: torch.Tensor, info, drop_layer: bool,
+def _gather(local: torch.Tensor, dims: list, mesh, drop_layer: bool,
             device: torch.device) -> torch.Tensor:
-    """The whole tensor from this rank's slice: an all-gather over each
-    split dim's group (``drop_layer``: ``local`` is one layer of a stacked
-    leaf, one dim fewer than the placement)."""
+    """The tensor whole along ``dims`` ((dim, axis) of the placement) from
+    this rank's slice: an all-gather over each dim's group
+    (``drop_layer``: ``local`` is one layer of a stacked leaf, one dim
+    fewer than the placement)."""
     out = local.to(device, non_blocking=True)
-    for dim, name in info.sharded_dims():
+    for dim, name in dims:
         d = dim - 1 if drop_layer else dim
-        out = comm.all_gather(out, info.mesh.get_group(name), d)
+        out = comm.all_gather(out, mesh.get_group(name), d)
     COUNTS["gathered_bytes"] += _nbytes(out)
     return out
 
@@ -96,7 +112,8 @@ def fetch(tree, device):
     for path, t in list(_leaves(tree)):
         info = shard_info(t)
         if info is not None:
-            tree = _set(tree, path, _gather(t, info, False, device))
+            tree = _set(tree, path, _gather(t, info.sharded_dims(), info.mesh,
+                                            False, device))
         elif t.device != device:
             COUNTS["h2d_bytes"] += _nbytes(t)
             tree = _set(tree, path, t.to(device, non_blocking=True))
@@ -122,11 +139,14 @@ class LayerStream:
     ``recompute``: the layers run under a checkpoint whose backward needs
     them again (the forward frees each and the backward refills it); else,
     with gradients on, fetched layers are kept for the backward, and
-    without gradients each is freed after its forward."""
+    without gradients each is freed after its forward.  ``whole``: the
+    names of the layer's leaves gathered over the model axis too."""
 
-    def __init__(self, layers: dict, device, n_layers: int, recompute: bool):
+    def __init__(self, layers: dict, device, n_layers: int, recompute: bool,
+                 whole: tuple = ()):
         self.layers = layers
         self.paths = list(_leaves(layers))
+        self.dims = [_gathers(path, t, whole) for path, t in self.paths]
         self.device = torch.device(device)
         self.n = n_layers
         self.recompute = recompute
@@ -134,7 +154,7 @@ class LayerStream:
         self.live: set[int] = set()
         self.ready: dict[int, torch.cuda.Event] = {}
         self.direction = 1  # the forward walks up, the backward down
-        sharded = any(shard_info(t) is not None for _, t in self.paths)
+        sharded = any(self.dims)
         host = any(t.device != self.device for _, t in self.paths)
         # host copies overlap compute on a side stream, one layer ahead;
         # gathers are collectives and run in order on the compute stream
@@ -150,12 +170,11 @@ class LayerStream:
             # the buffers below may reuse memory that the compute stream
             # freed but its queued kernels still read: copy after them
             self.side.wait_stream(torch.cuda.current_stream(self.device))
-        for path, stacked in self.paths:
+        for (path, stacked), dims in zip(self.paths, self.dims):
             src = stacked[i]
-            info = shard_info(stacked)
-            if info is not None:
-                slot[path] = _into(slot.get(path),
-                                   _gather(src, info, True, self.device))
+            if dims:
+                slot[path] = _into(slot.get(path), _gather(
+                    src, dims, shard_info(stacked).mesh, True, self.device))
             elif src.device == self.device:
                 slot[path] = src  # resident: a view, nothing to free
             else:

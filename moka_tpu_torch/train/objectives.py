@@ -1,5 +1,12 @@
 """Loss functions binding the model to the generic train step (port of
-``moka_tpu/train/objectives.py``)."""
+``moka_tpu/train/objectives.py``).
+
+Under a mesh each rank's loss is its share of the global loss over its
+data group (``parallel.mesh.data_parallel_group``: the data x fsdp ranks
+of its model coordinate).  The ranks of one model group pass the same
+samples and compute the same loss; their adapter gradients are whole or
+parts by ``parallel.tensor.grad_is_part``, and ``train.step`` sums the
+parts over the model group."""
 
 from __future__ import annotations
 
@@ -9,8 +16,9 @@ from moka_tpu_torch.core.config import LlamaConfig
 from moka_tpu_torch.models import llama
 from moka_tpu_torch.ops.moka import MokaSpec
 from moka_tpu_torch.parallel import comm
-from moka_tpu_torch.parallel.mesh import data_parallel_group, \
-    data_parallel_index
+from moka_tpu_torch.parallel import tensor as tp
+from moka_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, \
+    data_parallel_group, data_parallel_index
 from moka_tpu_torch.parallel.stream import fetch
 from moka_tpu_torch.train.optim import tree_leaves, tree_map
 
@@ -20,7 +28,7 @@ IGNORE = -100
 def global_counts(labels: torch.Tensor, mesh) -> torch.Tensor:
     """(the supervised targets, ``labels[:, 1:]`` not ignored; the labels
     not ignored, JAX's ``supervised_tokens``) of the global batch: this
-    rank's, summed over the mesh's data x fsdp group without a gradient."""
+    rank's, summed over its data group without a gradient."""
     counts = torch.stack([(labels[:, 1:] != IGNORE).sum(),
                           (labels != IGNORE).sum()])
     return comm.all_reduce_sum(counts, data_parallel_group(mesh))
@@ -34,6 +42,19 @@ def rank_share(loss: torch.Tensor, labels: torch.Tensor, count) -> torch.Tensor:
     global loss and their gradients the global gradient."""
     local = torch.clamp((labels[:, 1:] != IGNORE).sum(), min=1)
     return loss * (local / torch.clamp(count, min=1)).to(loss.dtype)
+
+
+def check_model_split(base: dict, cfg: LlamaConfig, mesh) -> None:
+    """Raise unless the base is split over the mesh's model axis exactly
+    when that axis is above 1: the step sums the gradient parts over it
+    (``train.step``), and a base split otherwise would train wrong."""
+    split = tp.model_split(base["layers"], cfg)
+    m = axis_size(mesh, AXIS_MODEL)
+    if (split.size if split is not None else 1) != m:
+        raise ValueError(f"the base is split over "
+                         f"{split.size if split is not None else 1} model "
+                         f"ranks and the mesh's model axis is {m}: place it "
+                         f"with parallel.sharding.shard_params(mesh, ...)")
 
 
 def data_rows(rng, mesh, batch_size: int):
@@ -55,6 +76,7 @@ def decoder_loss(base: dict, cfg: LlamaConfig, labels: torch.Tensor, mesh,
     dropout key when ``dropout``; under ``mesh``, the rank's share of the
     global loss and the global count (``rank_share``, ``global_counts``).
     Returns (loss, {"supervised_tokens"})."""
+    check_model_split(base, cfg, mesh)
     key = data_rows(rng, mesh, labels.shape[0]) if dropout else None
     out, _ = llama.forward(base, cfg, dropout_rng=key,
                            logits=not fused_loss, **fwd)
@@ -123,12 +145,15 @@ def make_llama_moka_loss(cfg: LlamaConfig, spec: MokaSpec,
       host_stream: ``parallel.sharding.stream_shardings(mesh, frozen)``
         for a base in pinned host memory: the layers stream per use
         (``llama.forward``) and the lm_head is copied once a call.
-      mesh: the training mesh; the batch is this rank's samples, the loss
-        this rank's share of the global loss (``rank_share``: the CE over
-        the global count of targets, as JAX's over the whole batch) and
+      mesh: the training mesh; the batch is this rank's samples (the
+        same on every rank of a model group), the loss this rank's share
+        of the global loss (``rank_share``: the CE over the global count
+        of targets, as JAX's over the whole batch) and
         ``supervised_tokens`` the global count.  ``make_train_step(mesh=
         ...)`` sums the shares and the gradients.  Dropout draws the
-        masks of this rank's rows of the global batch.
+        masks of this rank's rows of the global batch (and, in a
+        row-parallel projection, of its columns).  With a model axis
+        above 1 the base must be split over it (``shard_params``).
       context_parallel: (mesh, axis): every rank passes the whole batch;
         each runs its shard of the sequence (``llama.forward``'s ring) and
         the loss comes back whole on every rank, with the whole gradient

@@ -1559,7 +1559,7 @@ def decode_ablation_window(turns: int = 2) -> dict:
 
 
 _DROP_NO_PHILOX = (
-    "    const uint32_t g = static_cast<uint32_t>(c) >> 2;\n"
+    "    const uint32_t g = (static_cast<uint32_t>(c) >> 2) + rk.col;\n"
     "    const uint32_t row = counter_row(rk, n);\n"
     "    philox(row, g, rk, w);\n"
     "    philox(row, g + 1u, rk, w + 4);\n",

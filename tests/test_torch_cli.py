@@ -178,11 +178,12 @@ def test_finetune_loftq_quantized(life_cycle, tmp_path):
     ("train_vt", ["--mesh", "2,1,1"]), ("train_vt", ["--host-offload"]),
     ("pretrain", ["--mesh", "1,1,2"])])
 def test_parallelism_flags_refused(cli, extra, tmp_path):
-    """What one process refuses: a mesh of two devices (JAX's
-    ``make_mesh`` refuses sizes that are not the device count) and the
-    ``model`` axis (ROADMAP.md, item 4b).  ``--host-offload`` is taken:
-    the run gets past the parallel setup to the missing tokenizer file
-    (the CLIs run with it in ``tests/test_torch_phase17.py``)."""
+    """What one process refuses: a mesh of two devices, on the data, fsdp
+    or model axis (JAX's ``make_mesh`` refuses sizes that are not the
+    device count).  ``--host-offload`` is taken: the run gets past the
+    parallel setup to the missing tokenizer file (the CLIs run with it in
+    ``tests/test_torch_phase17.py``, and with a model axis in
+    ``tests/test_torch_tp.py``)."""
     import importlib
     main = importlib.import_module(f"moka_tpu_torch.cli.{cli}").main
     argv = extra + ["--device", "cpu", "--tokenizer-json",
@@ -190,9 +191,6 @@ def test_parallelism_flags_refused(cli, extra, tmp_path):
     if extra[0] == "--host-offload":
         # the tokenizers library's own error for a missing file
         with pytest.raises(Exception, match="No such file or directory"):
-            main(argv)
-    elif extra[1] == "1,1,2":
-        with pytest.raises(NotImplementedError, match="item 4b"):
             main(argv)
     else:
         with pytest.raises(ValueError, match="wants 2 devices, have 1"):
@@ -208,11 +206,19 @@ def test_one_device_meshes_accepted():
 
 
 def test_objectives_name_the_parallelism_item():
-    """The objectives take ``context_parallel`` and ``host_stream`` now;
-    what is left of the parallelism item raises naming it: the model axis
-    (ROADMAP.md, item 4b), and a sequence ring combined with a
-    data-parallel mesh."""
+    """The objectives take ``context_parallel`` and ``host_stream``; a
+    sequence ring combined with a data-parallel mesh raises.  The model
+    axis is placed as JAX's rules place it: the lm_head over (fsdp,
+    model), the column- and row-parallel projections of a tiny tree on a
+    (1, 1, 2) mesh, leaf by leaf against JAX's ``param_shardings``."""
+    import jax
+    from moka_tpu.core.config import LlamaConfig as JCfg
+    from moka_tpu.core.config import MeshConfig as JMesh
+    from moka_tpu.models.llama import init_llama_params as j_init
+    from moka_tpu.parallel.mesh import make_mesh
+    from moka_tpu.parallel.sharding import param_shardings
     from moka_tpu_torch.core.config import MeshConfig
+    from moka_tpu_torch.models.llama import init_llama_params
     from moka_tpu_torch.ops.moka import MokaSpec
     from moka_tpu_torch.parallel import sharding
     from moka_tpu_torch.train.objectives import make_llama_moka_loss
@@ -221,10 +227,17 @@ def test_objectives_name_the_parallelism_item():
     with pytest.raises(ValueError, match="do not combine"):
         make_llama_moka_loss(LlamaConfig.tiny(), MokaSpec.avt(),
                              context_parallel=object(), mesh=object())
-    with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP.md, item 4b\)"):
-        sharding.param_shardings(MeshConfig(1, 1, 2), {"lm_head": torch.zeros(
-            (8, 4))})
+    assert sharding.param_shardings(MeshConfig(1, 1, 2), {
+        "lm_head": torch.zeros((8, 4))})["lm_head"].spec == ("fsdp", "model")
+    mesh = make_mesh(JMesh(1, 1, 2), devices=jax.devices()[:2])
+    want = param_shardings(mesh, jax.eval_shape(
+        lambda: j_init(jax.random.key(0), JCfg.tiny())))
+    got = sharding.param_shardings(MeshConfig(1, 1, 2), init_llama_params(
+        torch.Generator().manual_seed(0), LlamaConfig.tiny(), device="cpu"))
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        assert got["layers"][name].spec == \
+            tuple(want["layers"][name].spec), name
+    assert got["lm_head"].spec == tuple(want["lm_head"].spec)
 
 
 def test_cli_flags_match_jax():

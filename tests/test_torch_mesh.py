@@ -7,9 +7,9 @@ gloo ranks started once for the file (``parallel.mesh.start_world``): the
 meshes (2, 2, 1) over all four, (1, 2, 1) and (2, 1, 1) twice side by side
 (``_mesh``: this rank's of two), two steps each on a global batch whose rows
 hold different counts of supervised tokens, so the ranks do too; then
-(1, 2, 1) with the base in host memory, (4, 1, 1) with LoRA dropout
-(unfused and fused) against one process, and a (1, 2, 2) mesh, whose
-model axis must raise.  JAX runs the same steps on the same ``MeshConfig``, one
+(1, 2, 1) with the base in host memory and (4, 1, 1) with LoRA dropout
+(unfused and fused) against one process (the model axis:
+``tests/test_torch_tp.py``).  JAX runs the same steps on the same ``MeshConfig``, one
 process a mesh, beside the world.  The ranks import no JAX: the worker is
 a module-level function and the module imports JAX only inside
 functions.  The host-streamed step runs in this process.
@@ -169,11 +169,6 @@ def _worker(rank, out_dir):
     for name, spec in DROP_SPECS.items():
         res.update({f"drop_{name}/{k}": v for k, v in _run_steps(
             mesh, base, trainable, with_masks(batch), spec=spec).items()})
-    mesh = make_mesh(MeshConfig(1, 2, 2))
-    try:
-        tsh.shard_params(mesh, base)
-    except NotImplementedError as e:
-        res["model_axis_error"] = np.asarray(str(e))
     np.savez(out_dir / f"r{rank}.npz", **res)
 
 
@@ -379,29 +374,33 @@ def test_divisible_spec_matches_jax():
 def test_offload_and_stream_placements_match_jax():
     """``param_shardings(host_offload=True)`` (pinned host memory) and
     ``stream_shardings`` (device memory, the layer axis dropped) on a
-    (1, 4, 1) mesh, leaf by leaf, for a bf16 and an int8 tree; a model
-    axis above 1 raises naming ROADMAP item 4b."""
+    (1, 4, 1) mesh, leaf by leaf, for a bf16 and an int8 tree, and on a
+    (1, 2, 2) mesh, whose model axis splits the projections as JAX's
+    rules do."""
     import jax
     from moka_tpu.core.config import MeshConfig as JMesh
     from moka_tpu.parallel.mesh import make_mesh
     from moka_tpu.parallel.sharding import param_shardings, stream_shardings
-    mesh = make_mesh(JMesh(1, 4, 1), devices=jax.devices()[:4])
-    cfg = MeshConfig(1, 4, 1)
-    for kind in ("bf16", "int8"):
-        jt, pt = _jax_llama(kind), _port_llama(kind)
-        for jfn, pfn in (
-                (lambda t: param_shardings(mesh, t, host_offload=True),
-                 lambda t: tsh.param_shardings(cfg, t, host_offload=True)),
-                (lambda t: stream_shardings(mesh, t),
-                 lambda t: tsh.stream_shardings(cfg, t))):
-            want = {p: (tuple(s.spec), s.memory_kind) for p, s in _flat(
-                jax.tree.map(lambda s: s, jfn(jt),
-                             is_leaf=lambda s: hasattr(s, "spec"))).items()}
-            got = {p: (s.spec, s.memory_kind)
-                   for p, s in _flat(pfn(pt)).items()}
-            assert got == want
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        tsh.param_shardings(MeshConfig(1, 2, 2), _port_llama("bf16"))
+    for sizes in ((1, 4, 1), (1, 2, 2)):
+        mesh = make_mesh(JMesh(*sizes), devices=jax.devices()[:4])
+        cfg = MeshConfig(*sizes)
+        for kind in ("bf16", "int8"):
+            jt, pt = _jax_llama(kind), _port_llama(kind)
+            for jfn, pfn in (
+                    (lambda t: param_shardings(mesh, t, host_offload=True),
+                     lambda t: tsh.param_shardings(cfg, t,
+                                                   host_offload=True)),
+                    (lambda t: stream_shardings(mesh, t),
+                     lambda t: tsh.stream_shardings(cfg, t))):
+                want = {p: (tuple(s.spec), s.memory_kind)
+                        for p, s in _flat(jax.tree.map(
+                            lambda s: s, jfn(jt),
+                            is_leaf=lambda s: hasattr(s, "spec"))).items()}
+                got = {p: (s.spec, s.memory_kind)
+                       for p, s in _flat(pfn(pt)).items()}
+                assert got == want
+    assert tsh.param_shardings(MeshConfig(1, 2, 2), _port_llama("bf16"))[
+        "layers"]["o"].spec == (None, "model", "fsdp")
 
 
 def test_host_local_batch_size_matches_jax():
@@ -483,11 +482,6 @@ def test_mesh_dropout_matches_one_process(world, name):
                 continue
             np.testing.assert_allclose(got, w, **tol,
                                        err_msg=f"rank {r} {key}")
-
-
-def test_model_axis_raises_item_4b(world):
-    for res in world.results():
-        assert "ROADMAP.md, item 4b" in str(res["model_axis_error"])
 
 
 def test_host_stream_step_matches_resident():
