@@ -53,7 +53,8 @@ Phases, in order; any failed build, launch or check exits non-zero:
      shard visible; all of it masked, where dq, dk and dv must be exactly
      zero), and the fused and dq kernels launched with causal flipped
      must fail the check; the fused dropout kernels
-     (6-7) at every M*r they take (4-64: ranks 4, 8, 16 x 1-4 modalities)
+     (6-7) at every M*r of ranks 4, 8, 16 x 1-4 modalities (4-64; phase
+     19 the wider ones)
      at the training path's (4096, 4096) and (4096, 11008) with fp32 and
      bf16 A, in Philox and forced-words modes, and at a ragged (333, 200)
      with fp32 and bf16 x, masks held exactly and repeats bit-identical,
@@ -124,7 +125,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      r=4 with dropout 0.05, full remat, flash, chunked CE, AdamW with
      warmup + cosine) at b 4, L 1024, full width and depth: the loss and
      every projection's adapter gradients through the kernels against the
-     plain attention and an fp32 run, then 2 warm-up and 3 timed steps of
+     plain attention and an fp32 run, then 2 warm-up and 2 timed steps of
      ``make_train_step`` (launch counts zeroed before the timed steps and
      read after: 64 flash forward, 32 fused backward a step);
   7. one long-context step (b 1, L 4096, dynamic-NTK RoPE, full depth),
@@ -133,7 +134,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      fused dropout and remat policy ``proj_lse``): at 2 layers the kernel
      path's gradients against the plain path (same Philox masks) and fp32,
      proj_lse against full remat, and the same gradient check on an AVT
-     rank-8 tree (M*r 24) and a VT tree (M*r 8); then 2 warm-up and 3
+     rank-8 tree (M*r 24) and a VT tree (M*r 8); then 2 warm-up and 2
      timed steps
      (32 flash forward, 32 fused backward, 448 dropout forward and 224
      dropout backward launches a step), one traced step for the device's
@@ -158,7 +159,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      phase 6's step with ``with_flash_rank_attn()``: at 2 layers the rank
      kernels' gradients against the plain versions and fp32, and against
      the plain rank attention (the same math); at full depth 2 warm-up and
-     3 timed steps (64 flash forward, 32 fused backward, 896 rank forward,
+     2 timed steps (64 flash forward, 32 fused backward, 896 rank forward,
      448 rank dq and 448 rank dk/dv launches a step: full remat reruns
      every rank forward) with a traced step, and one ``proj_lse`` step
      (448 rank forwards: the policy keeps their residuals);
@@ -178,7 +179,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      head, b 4 x L 1024, the trainable tree {adapters, vl_projector,
      al_projector}): at 2 decoder layers with the full towers the loss and
      every adapter's and projector's gradients through the kernels against
-     the plain path and fp32 (phase 6's rule), then 2 warm-up and 3 timed
+     the plain path and fp32 (phase 6's rule), then 2 warm-up and 2 timed
      steps with a traced one (55 flash forward, 23 of them CLIP's, and 32
      fused backward launches a step);
  14. (run after phase 13, on phase 9's int4 base and int8 head and phase
@@ -195,7 +196,7 @@ Phases, in order; any failed build, launch or check exits non-zero:
      an image request and a text one, both answered 200; (c) the VT step
      (b 4 x L 1024, proj_lse, a8_dots "full", save_q8, bf16 dots): the
      2-layer gradient check with the full tower against the plain path and
-     fp32 (phase 13's rule), then 2 warm-up and 3 timed steps (55 flash
+     fp32 (phase 13's rule), then 2 warm-up and 2 timed steps (55 flash
      forward, 23 of them CLIP's, and 32 fused backward launches a step);
  15. (after phase 14, its trees freed) the training life cycle from
      checkpoint files through the three training CLIs' ``main`` at
@@ -269,7 +270,27 @@ Phases, in order; any failed build, launch or check exits non-zero:
      recipe on 1,1,2 (kernels 8-9 replicated) and (e) ``finetune --mesh
      1,1,2 --host-offload`` at the tiny preset; four for (a) on 1,2,2 and
      (c) CodeLlama-34B's widths (64 heads, 8 kv heads: 2 a rank) on 1,1,4;
- 19. one JSON line with every kernel's numbers, then the card's line.
+ 19. MokA at any rank from 1 to 64, right after phase 5 on phase 4's
+     base (phase 10 empties it), with (d) after phase 16: (a) kernel 5 at
+     P19_RANKS (AVT) and P19_VT_RANK (VT), bf16, every projection shape of
+     a 7B layer against the plain version and the layer timed; kernels 6-7
+     at P19_DROP_MRS on N 4096 and the 7B widths and on phase 3's ragged
+     (333, 200) rows with fp32 and bf16 x, phase 3's rules and kernel 7's
+     dx equal to the plain version's bit for bit, a layer timed; kernel 5
+     also with four modalities (P19_MOKA_M4), on fp32 x (P19_MOKA_F32) and
+     at rank 64 past its key chunk; R1-R3 at P19_RANK_DIMS, b 4 L 1024 with 126 question keys and
+     a causal case, each timed; (b) phase 4's base serving rank-32 and
+     rank-6 AVT trees (``serve_other_rank``: phase 4's logits rule, 224
+     launches of kernel 5 a prefill, a ``DecodeEngine`` request), one new
+     token at each other rank; (c) the fused step at rank 32 on 8 of the
+     32 layers (phases 8's and 11's gradient rules, then 2 + 1 steps with
+     the launch counts asserted) and one step at ranks 2, 6 and 64; (d)
+     ``infer --lora-r 32`` on phase 15's files with rank-32 adapter files
+     the phase writes, kernel 5 launched on every prefill; the phase
+     prints its wall and fails past P19_LIMIT_S (120 s);
+ 20. one JSON line with every kernel's numbers (phase 19's instances
+     with their launches on phase 19's paths, null for M*r 256, which no
+     phase-19 step runs), then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -277,6 +298,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -480,6 +502,24 @@ ATOMICS = r"\b(?:ATOM[A-Z]*|RED(?!UX)[A-Z]*)\b"  # ATOM, ATOMG, ATOMS, RED,
 # ...: atomics and reductions to memory (REDUX, a warp's reduction, is not)
 
 
+_SASS: dict = {}  # library name: its ``cuobjdump -sass`` text
+
+
+def sass_prefetch(names) -> None:
+    """``cuobjdump -sass`` of each library in ``names``, all at once (the
+    SASS checks then read them from ``_SASS``)."""
+    from moka_tpu_torch import kernels
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    procs = {n: subprocess.Popen([str(tool), "-sass",
+                                  str(kernels._target(n))],
+                                 stdout=subprocess.PIPE, text=True)
+             for n in names}
+    for n, proc in procs.items():
+        _SASS[n] = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump failed on {n}")
+
+
 def sass_counts(name: str) -> dict:
     """Instruction counts by kernel function in library ``name``'s SASS
     (``cuobjdump -sass``): wgmma (HGMMA), TMA loads and stores (UTMALDG,
@@ -487,21 +527,18 @@ def sass_counts(name: str) -> dict:
     (HMMA), atomics (ATOM: ``ATOMICS``) and int-to-float conversions
     (I2F: I2F and I2FP)."""
     import re
-    from moka_tpu_torch import kernels
-    tool = Path(kernels._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(kernels._target(name))],
-                          capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = dict.fromkeys((*SASS_OPS, "ATOM", "I2F"), 0)
-        elif fn is not None:
-            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
-                counts[fn][op] += 1
-            counts[fn]["ATOM"] += len(re.findall(ATOMICS, line))
-            counts[fn]["I2F"] += len(re.findall(r"\bI2FP?\b", line))
+    if name not in _SASS:
+        sass_prefetch([name])
+    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", "\n" + _SASS[name])[1:]:
+        fn, _, body = block.partition("\n")
+        c = counts[fn.split()[0]] = dict.fromkeys((*SASS_OPS, "ATOM", "I2F"),
+                                                  0)
+        for op in ops.findall(body):
+            c[op] += 1
+        c["ATOM"] = len(re.findall(ATOMICS, body))
+        c["I2F"] = len(re.findall(r"\bI2FP?\b", body))
     return counts
 
 
@@ -569,8 +606,9 @@ BD_SASS = ("block_diag", "block_diag_kernel", 4)  # kernel 10: library,
                                                  # function stem, instances
 
 
-RANK_BWD_SASS = (("flash_rank_dq_kernel", "flash_rank_dkv_kernel"), 3)
-# the rank backward (fp32 SIMT): function stems, instances each (hd 4, 8, 16)
+RANK_BWD_SASS = (("flash_rank_dq_kernel", "flash_rank_dkv_kernel"), 5)
+# the rank backward (fp32 SIMT): function stems, instances each (hd 4, 8,
+# 16, 32, 64)
 
 
 def check_bd_rank_sass() -> dict:
@@ -598,13 +636,14 @@ def check_bd_rank_sass() -> dict:
     return out
 
 
-MOKA_SASS = ("moka_delta_fwd", "moka_delta_kernelILi", 12)  # kernel 5:
-# library, the bf16 kernel's mangled stem, instances (R 4/8/16 x M 1-4)
+MOKA_SASS = ("moka_delta_fwd", "moka_delta_kernelILi", 20)  # kernel 5:
+# library, the bf16 kernel's mangled stem, instances (R 4/8/16/32/64 x M
+# 1-4)
 
 
 def check_moka_sass() -> dict:
     """Kernel 5's bf16 path runs its products on wgmma and moves x and the
-    delta by TMA: each of its twelve instances shows HGMMA, UTMALDG and
+    delta by TMA: each of its twenty instances shows HGMMA, UTMALDG and
     UTMASTG and no HMMA; the key pass and the fp32 path (SIMT) are only
     printed.  Raises otherwise."""
     out = sass_counts(MOKA_SASS[0])
@@ -657,7 +696,8 @@ RANK_MUTANTS = {  # flash_rank.cu's forward
          "  const int end = min(causal ? min(hi, row + q_offset) : hi,\n"
          "                      lo / 256 * 256 + 255);")],
     "gives 0 to a row that sees no key": [
-        ("o[d] = vsum[d] / static_cast<float>(S);", "o[d] = 0.f;")]}
+        ("o[g * W + d] = vsum[d] / static_cast<float>(S);",
+         "o[g * W + d] = 0.f;")]}
 RANK_BWD_MUTANTS = {  # flash_rank.cu's dq (R2) and dk/dv (R3)
     "dq walks only the first 32 keys of the span": [
         ("  const int stop = causal ? min(last, row + q_offset) : last;",
@@ -680,8 +720,8 @@ BD_MUTANTS = {  # block_diag.cu
          "w[i8][j] = __ldg(bp + j * 8 + i8);")]}
 MOKA_MUTANTS = {  # moka_delta_fwd.cu's bf16 kernel (the main path's)
     "drops the attention term": [
-        ("          if (w != 0.f) v += w * (a.attn_weight * "
-         "att[(jm * TOK + t) * R + r]);", "          (void)w;")],
+        ("        if (add) buf[at * R + r] += w * (a.attn_weight * (o / l));",
+         "        (void)o;")],
     "walks only the first key chunk": [
         ("      for (int c0 = 0; c0 < n_q; c0 += C::KCAP) {",
          "      for (int c0 = 0; c0 < min(n_q, C::KCAP); c0 += C::KCAP) {")]}
@@ -1229,7 +1269,7 @@ def flash_bwd_records() -> list[dict]:
     return records
 
 
-MOKA_RANKS = (4, 8, 16)  # the ranks kernel 5 is built for
+MOKA_RANKS = (4, 8, 16)  # phase 3's ranks of kernel 5 (phase 19: the rest)
 
 
 def moka_inputs(b, L, d_in, d_out, flavour, dtype, seed, rank=4,
@@ -1455,7 +1495,7 @@ def moka_record(b, L, dim, inter) -> dict:
 
 DROP_RATE = 0.05   # the training path's LoRA dropout
 DROP_MRS = (4, 8, 12, 16, 24, 32, 48, 64)  # M * r of ranks 4, 8, 16 x 1-4
-                   # modalities: what kernels 6-7 take
+                   # modalities, phase 3's (phase 19: up to 256)
 DROP_TIMED = {4: 12, 8: 24, 16: 48}  # rank: M * r of AVT, timed a layer
 
 
@@ -3182,7 +3222,7 @@ def _check_train_grads(cfg, spec, frozen, trainable, batch, policy=None,
 
 
 def train_steps(cfg, spec, frozen, trainable, batch, policy=None,
-                busy=False, n_warm=2, n_timed=3, loss_fn=None,
+                busy=False, n_warm=2, n_timed=2, loss_fn=None,
                 **quant) -> dict:
     """A training path: ``make_train_step`` with
     ``make_optimizer(TrainConfig(), total_steps=1000)`` and remat under
@@ -3734,7 +3774,7 @@ def check_rank_train_grads(cfg, spec, frozen, trainable, batch) -> dict:
 
 
 def rank_steps(cfg, spec, frozen, trainable, batch) -> dict:
-    """Phase 11 at full depth: 2 warm-up and 3 timed steps under full remat
+    """Phase 11 at full depth: 2 warm-up and 2 timed steps under full remat
     (asserting 64 flash forward and 32 fused backward launches, 14 rank
     calls a layer forward, all rerun by the recompute, and their dq and
     dk/dv a step) with a traced step; then one ``proj_lse`` step, whose
@@ -3742,7 +3782,7 @@ def rank_steps(cfg, spec, frozen, trainable, batch) -> dict:
     n = cfg.n_layers
     calls = 2 * len(PROJS) * n  # 2 attending modalities, 7 projections
     run = train_steps(cfg, spec, frozen, clone_tree(trainable), batch,
-                      busy=True, n_warm=2, n_timed=3)
+                      busy=True, n_warm=2, n_timed=2)
     want = _launches(flash_fwd=2 * n, flash_bwd_fused=n,
                      flash_rank_fwd=2 * calls, flash_rank_bwd_dq=calls,
                      flash_rank_bwd_dkv=calls)
@@ -4106,7 +4146,7 @@ def mm_steps(ucfg, frozen, trainable) -> dict:
     """Phase 13: ``bench.py::run_multimodal``'s step on the stack (b 4 x
     L 1024, MM_LOSS, ``make_optimizer(TrainConfig(), 1000)``, the
     trainable tree {adapters, vl_projector, al_projector}): the SHALLOW
-    gradient check, then at full depth 2 warm-up and 3 timed steps with a
+    gradient check, then at full depth 2 warm-up and 2 timed steps with a
     traced one; launches a step asserted; the towers' forward ms at b 4."""
     import torch
     batch = mm_batch(ucfg, 4, L=1024)
@@ -4548,7 +4588,7 @@ def vt_steps(vcfg, frozen, trainable) -> dict:
     """Phase 14 (c): the VT fine-tune step ``vt_7b_int4a8f_qh_qenc_sq8plse``
     (b 4 x L 1024, VT_LOSS, ``make_optimizer(TrainConfig(), 1000)``, the
     trainable tree {adapters, projector}): the SHALLOW gradient check
-    (phase 13's rule), then at full depth 2 warm-up and 3 timed steps;
+    (phase 13's rule), then at full depth 2 warm-up and 2 timed steps;
     launches a step asserted (32 + 23 flash forward, 23 at head_dim 64,
     32 fused backward)."""
     import torch
@@ -5505,7 +5545,7 @@ P17_OFFLOAD_GAP = 10 * 2**30  # the host-streamed step's peak device memory
 P17_FSDP_LAYERS = 4  # the FSDP / data-parallel steps' depth at 7B widths:
                      # a gloo all-gather of 32 layers a step takes too long
 P17_STEPS = (2, 1)  # warm-up and further steps of the mesh step checks
-P17_RING_LAYERS = 16  # (b)'s depth: a cut from 32, for the script's time
+P17_RING_LAYERS = 8  # (b)'s depth: a cut from 32, for the script's time
 P17_TINY_STEPS = (1, 1)  # the CPU rehearsal's
 RING_DEEP_TOL = (2e-3, 0.25)  # the ring's loss (relative) and adapter
                               # gradients (relative L2, per projection)
@@ -6717,6 +6757,518 @@ def phase18(work: Path, device: str = "cuda", tiny: bool = False,
     return res
 
 
+# ------------------------------------------------------------------ phase 19
+
+P19_RANKS = (1, 2, 6, 12, 32, 64)  # kernel 5's ranks, AVT (M 3)
+P19_VT_RANK = 32                    # and VT (M 2)
+P19_DROP_MRS = (6, 18, 96, 192, 256)  # kernels 6-7: ranks 2, 6, 32, 64 x 3
+                                      # modalities and 64 x 4
+P19_RANK_DIMS = (2, 6, 32, 64)      # R1-R3: rank attention head dims
+P19_MOKA_M4 = (12, 64)  # kernel 5 with four modalities (64: its four passes)
+P19_MOKA_F32 = (6, 32, 64)  # kernel 5 on fp32 x (its rank slices of 16)
+P19_SERVED = (32, 6)  # ranks phase 4's base serves in full (logits rule)
+P19_STEP = (32, 8)    # the fused training step: rank, layers (a depth cut)
+P19_STEP_RANKS = (2, 6, 64)  # one more step each, for their instances'
+                             # launches on a main path
+P19_CLI_RANK = 32     # infer --lora-r
+P19_CLI_SAMPLES = 4
+P19_LIMIT_S = 120     # the phase's wall, (a)-(d), at most
+
+
+def p19_layer_shapes(cfg) -> dict:
+    return {"q": (cfg.dim, cfg.dim), "k": (cfg.dim, cfg.dim),
+            "v": (cfg.dim, cfg.dim), "o": (cfg.dim, cfg.dim),
+            "gate": (cfg.dim, cfg.intermediate),
+            "up": (cfg.dim, cfg.intermediate),
+            "down": (cfg.intermediate, cfg.dim)}
+
+
+def p19_moka_shapes() -> dict:
+    """Kernel 5's other instances past rank 16 against the plain version
+    (``check_moka``): four modalities (three attending) at each rank of
+    P19_MOKA_M4, fp32 x with a question mask with gaps at each of
+    P19_MOKA_F32, and rank 64 with a question span past the main kernel's
+    key chunk (KCAP 64 keys, 109 here); max|err| by the rank's record."""
+    import torch
+    errs = {}
+    for rank in P19_MOKA_M4:
+        x, a, bm, mod, qm, spec = moka_inputs(4, 500, 1024, 2048, "avt",
+                                              torch.bfloat16, 11, rank)
+        spec = dataclasses.replace(spec, num_modalities=4,
+                                   attn_modalities=(1, 2, 3))
+        a = torch.cat([a, a[2:]]).contiguous()
+        mod = torch.cat([mod, mod[2:]]).contiguous()
+        d = check_moka(f"M 4 r{rank} bf16 1024->2048", x, a, bm, mod, qm,
+                       spec)
+        errs[f"avt_r{rank}"] = max(errs.get(f"avt_r{rank}", 0.0), d)
+    for rank in P19_MOKA_F32:
+        d = check_moka(f"fp32 x r{rank} 512->1024, question gaps",
+                       *moka_inputs(2, 200, 512, 1024, "avt", torch.float32,
+                                    3, rank, qspans=MOKA_SPLIT_Q))
+        errs[f"avt_r{rank}_fp32"] = d
+    d = check_moka("r64 bf16 1024->1024, 109 question keys",
+                   *moka_inputs(2, 2 * 64 + 152, 1024, 1024, "avt",
+                                torch.bfloat16, 5, 64,
+                                qspans=((1, 64 + 45),)))
+    errs["avt_r64"] = max(errs.get("avt_r64", 0.0), d)
+    return errs
+
+
+def p19_moka_records(cfg, b=8, L=896) -> list[dict]:
+    """Kernel 5 at each of P19_RANKS (AVT) and at P19_VT_RANK (VT), bf16,
+    at the serving prefill (b, L): every distinct projection shape of a
+    LLaMA-2-7B layer against the plain version (``check_moka``), then the
+    layer's seven projections timed (the kernel alone in a CUDA graph),
+    beside the plain version and the bound (the bytes of x and delta; the
+    products at the true rank).  ``p19_moka_shapes``'s checks go into the
+    rank's record (bf16), and its fp32 ones into ``fp32_x_max_abs_err``."""
+    import torch
+    from moka_tpu_torch.ops.moka_pallas import (kernel_rank,
+                                                moka_delta_fused,
+                                                moka_delta_fused_plain)
+    from profile_port import graph_ms
+    shapes = p19_layer_shapes(cfg)
+    more = p19_moka_shapes()
+    records = []
+    for flavour, rank in [("avt", r) for r in P19_RANKS] + \
+            [("vt", P19_VT_RANK)]:
+        err = more.get(f"{flavour}_r{rank}", 0.0)
+        for i, (d_in, d_out) in enumerate(sorted(set(shapes.values()))):
+            err = max(err, check_moka(
+                f"{flavour} r{rank} (instance r{kernel_rank(rank)}) bf16 "
+                f"{d_in}->{d_out}",
+                *moka_inputs(b, L, d_in, d_out, flavour, torch.bfloat16,
+                             60 + i, rank)))
+        t = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+        for name, (d_in, d_out) in shapes.items():
+            x, a, bm, mod, qm, spec = moka_inputs(
+                b, L, d_in, d_out, flavour, torch.bfloat16, 70, rank)
+
+            def call():
+                moka_delta_fused(x, a, bm, mod, qm, spec)
+
+            t["ms"] += graph_ms(call, n=10)
+            t["plain_ms"] += time_ms(lambda: moka_delta_fused_plain(
+                x, a, bm, mod, qm, spec), iters=2, warmup=1)
+            t["bytes"] += nbytes(x, a, bm, mod, qm) + \
+                b * L * d_out * x.element_size()
+            M, nq = spec.num_modalities, float(qm.sum(dim=-1).max())
+            n_att = len(spec.attn_modalities)
+            # the function's work at the true rank: the down and up
+            # products on the tensor cores, the attention in fp32
+            t["ops"] += 2.0 * b * L * (d_in * M * rank + d_out * rank) / \
+                BF16_FLOPS + 2.0 * b * L * nq * 2 * n_att * rank / FP32_FLOPS
+            del x
+        bms, by = bound_ms(t["bytes"], t["ops"], 1.0)
+        log(f"  moka {flavour} r{rank} (instance r{kernel_rank(rank)}), a "
+            f"layer's seven projections (b {b}, L {L}, bf16): kernel alone "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        records.append({
+            "name": f"moka_delta_fwd_{flavour}_r{rank}", "route": "cuda",
+            "source": "moka_tpu_torch/kernels/csrc/moka_delta_fwd.cu",
+            "replaces": "moka_tpu/ops/moka_pallas.py:112",
+            "launches": None, "max_abs_err": err,
+            "tolerance": MOKA_TOL["bfloat16"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "instance_rank": kernel_rank(rank),
+            "shape": f"b {b} L {L} bf16 {flavour.upper()} r{rank}, one "
+                     f"layer: the seven projections summed, the kernel "
+                     f"alone in a CUDA graph"})
+        if f"{flavour}_r{rank}_fp32" in more:
+            records[-1]["fp32_x_max_abs_err"] = \
+                more[f"{flavour}_r{rank}_fp32"]
+    return records
+
+
+def p19_dropout_records(cfg, n=4096) -> list[dict]:
+    """Kernels 6-7 at each M*r of P19_DROP_MRS, N ``n``, d the model's
+    width and intermediate, bf16 x, fp32 A, Philox and forced words, and
+    phase 3's ragged (333, 200) cases (fp32 x and A, Philox; bf16 x and
+    A, forced words): ``check_dropout``'s rules and, beyond them, kernel
+    7's dx equal to the plain version's bit for bit (the FMA chain in the
+    plain version's order); then one layer's seven projections timed (bf16 x and A,
+    Philox) beside the plain versions, ``F.dropout(x) @ A`` (phase 3's
+    library yardstick; backward: its autograd backward alone) and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops import fused_dropout as fd
+    bf, f32 = torch.bfloat16, torch.float32
+    dims = [cfg.dim] * 6 + [cfg.intermediate]
+    records = []
+    for mr in P19_DROP_MRS:
+        err = 0.0
+        for j, (rows, d, xdt, adt, forced) in enumerate((
+                (n, cfg.dim, bf, f32, False),
+                (n, cfg.intermediate, bf, f32, True),
+                (333, 200, f32, f32, False), (333, 200, bf, bf, True))):
+            x, a, gout, key, bits = dropout_case(rows, d, xdt, adt, forced,
+                                                 seed=80 + j, mr=mr)
+            err = max(err, check_dropout(
+                f"M*r {mr} ({rows}, {d}) x {str(xdt)[6:]} A {str(adt)[6:]}",
+                x, a, gout, key, bits))
+            dx, _ = fd.dropout_a_bwd(x, a, gout, key, DROP_RATE, bits)
+            rdx, _ = fd.dropout_a_bwd_plain(x, a, gout, key, DROP_RATE, bits)
+            differ = int((dx != rdx).sum())
+            log(f"    dx elements that differ from the plain version's: "
+                f"{differ} of {dx.numel()}")
+            if differ:
+                raise AssertionError(f"kernel 7's dx is not the plain "
+                                     f"version's bit for bit (M*r {mr})")
+            del x, a, gout, bits, dx, rdx
+        tot = {k: 0.0 for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
+                                "fwd_lib", "bwd_lib", "fwd_bytes",
+                                "bwd_bytes", "fwd_flops", "bwd_flops",
+                                "bwd_fma", "philox", "philox_mul")}
+        for d in dims:
+            x, a, gout, key, _ = dropout_case(n, d, bf, bf, False, seed=85,
+                                              mr=mr)
+            tot["fwd"] += time_ms(lambda: fd.dropout_a_fwd(x, a, key,
+                                                           DROP_RATE))
+            tot["bwd"] += time_ms(lambda: fd.dropout_a_bwd(x, a, gout, key,
+                                                           DROP_RATE))
+            tot["fwd_plain"] += time_ms(lambda: fd.dropout_a_fwd_plain(
+                x, a, key, DROP_RATE), iters=2, warmup=1)
+            tot["bwd_plain"] += time_ms(lambda: fd.dropout_a_bwd_plain(
+                x, a, gout, key, DROP_RATE), iters=2, warmup=1)
+            xg = x.clone().requires_grad_(True)
+            ag = a.clone().requires_grad_(True)
+            gb = gout.to(torch.bfloat16)
+            lib_out = F.dropout(xg, DROP_RATE) @ ag
+            tot["fwd_lib"] += time_ms(lambda: F.dropout(xg, DROP_RATE) @ ag)
+            tot["bwd_lib"] += time_ms(lambda: torch.autograd.grad(
+                lib_out, (xg, ag), gb, retain_graph=True))
+            del xg, ag, gb, lib_out
+            elems = n * d
+            tot["fwd_bytes"] += nbytes(x, a) + n * mr * 4
+            tot["bwd_bytes"] += 2 * nbytes(x) + nbytes(a, gout) + nbytes(a)
+            tot["fwd_flops"] += 2 * elems * mr
+            tot["bwd_flops"] += 2 * elems * mr
+            tot["bwd_fma"] += 2 * elems * mr  # dx's fp32 chain
+            tot["philox"] += elems / 4 * PHILOX["instructions"]
+            tot["philox_mul"] += elems / 4 * PHILOX["multiplies"]
+            del x, a, gout
+        for which, line, kernel in (("fwd", 127, 6), ("bwd", 157, 7)):
+            more = [(tot["philox"], LANE_INSTR),
+                    (tot["philox_mul"], IMUL_RATE)]
+            if which == "bwd":
+                more.append((tot["bwd_fma"], FP32_FLOPS))
+            bms, by = bound_ms(tot[f"{which}_bytes"], tot[f"{which}_flops"],
+                               BF16_FLOPS, *more)
+            log(f"  dropout {which} M*r {mr}, one layer's seven projections "
+                f"(N {n}, d {cfg.dim} x6 + {cfg.intermediate}, bf16 x and A, "
+                f"Philox): kernel {tot[which]:.4f} ms, plain "
+                f"{tot[which + '_plain']:.4f} ms, F.dropout + matmul "
+                f"{tot[which + '_lib']:.4f} ms, bound {bms:.4f} ms ({by})")
+            records.append({
+                "name": f"dropout_a_{which}_mr{mr}", "route": "cuda",
+                "source": "moka_tpu_torch/kernels/csrc/fused_dropout.cu",
+                "replaces": f"moka_tpu/ops/fused_dropout.py:{line}",
+                "launches": None, "max_abs_err": err,
+                "tolerance": f"out, dA {DROP_TOL} of max|plain|; dx bit for "
+                             f"bit; masks exact",
+                "ms": tot[which], "plain_ms": tot[which + "_plain"],
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": tot[which + "_lib"],
+                "library": "F.dropout(x) @ A_flat in bf16" + (
+                    "" if which == "fwd" else
+                    ", its autograd backward alone"),
+                "shape": f"N {n}, d {cfg.dim} (6 projections) and "
+                         f"{cfg.intermediate} (down), x and A bf16, Philox, "
+                         f"M*r {mr}: one layer, seven launches of kernel "
+                         f"{kernel}"})
+    return records
+
+
+def p19_rank_records(b=4, L=1024) -> list[dict]:
+    """R1-R3 at each head dim of P19_RANK_DIMS: ``check_rank`` at (b, L)
+    with 126 question keys a sample and a sample with none, and causal
+    with rows before the first visible key; each kernel then timed beside
+    its plain version, ``scaled_dot_product_attention`` (fp32, boolean key
+    mask; the backward rows forward + backward less forward, as phase 3)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from moka_tpu_torch.ops import flash_attention as fa
+    records = []
+    for hd in P19_RANK_DIMS:
+        errs = [check_rank(f"hd {hd}", *rank_case(b, L, hd=hd, dead=True,
+                                                  seed=90 + hd)),
+                check_rank(f"hd {hd} causal",
+                           *rank_case(2, L, hd=hd, seed=95 + hd,
+                                      spans=RANK_CAUSAL),
+                           RANK_CAUSAL_OFFSET, True)]
+        q, k, v, mask, dout = rank_case(b, L, hd=hd, seed=99)
+        out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
+        delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
+        args = (q, k, v, mask, dout, lse, delta, 0, False)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        bool_mask = (mask > 0)[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=bool_mask)
+
+        lib_fwd = time_ms(sdpa, iters=20)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dout.transpose(1, 2)), iters=20) - lib_fwd
+        seen = int(mask.sum())
+        pairs = float(L * seen)
+        row, rows = 4 * hd, b * L * 4
+        kv_in = seen * 2 * row + nbytes(mask)
+        for which, fn, plain, flops, n_bytes, line, names, lib in (
+                ("fwd", lambda: fa.flash_rank_fwd(q, k, v, mask, 0, False),
+                 lambda: fa.flash_fwd_plain(q, k, v, mask, 0, False),
+                 4 * hd, 2 * nbytes(q) + kv_in + rows, 360, ("out", "lse"),
+                 lib_fwd),
+                ("bwd_dq", lambda: fa.flash_rank_bwd_dq(*args),
+                 lambda: fa.flash_bwd_dq_plain(*args), 6 * hd,
+                 3 * nbytes(q) + kv_in + 2 * rows, 428, ("dq",), lib_bwd),
+                ("bwd_dkv", lambda: fa.flash_rank_bwd_dkv(*args),
+                 lambda: fa.flash_bwd_dkv_plain(*args), 8 * hd,
+                 2 * nbytes(q) + kv_in + 2 * rows + 2 * nbytes(k), 473,
+                 ("dk", "dv"), lib_bwd)):
+            ms = time_ms(fn, iters=20)
+            plain_ms = time_ms(plain, iters=3, warmup=1)
+            bms, by = bound_ms(n_bytes, flops * pairs, FP32_FLOPS,
+                               (pairs, SFU_OPS))
+            log(f"  rank flash {which} hd {hd} (b {b}, L {L}, {seen // b} "
+                f"question keys a sample): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms "
+                f"({by})")
+            records.append({
+                "name": f"flash_rank_{which}_hd{hd}", "route": "cuda",
+                "source": "moka_tpu_torch/kernels/csrc/flash_rank.cu",
+                "replaces": f"moka_tpu/ops/flash_attention.py:{line} (at "
+                            f"head_dim r, moka_tpu/ops/moka.py:210)",
+                "launches": None,
+                "max_abs_err": max(e[n] for e in errs for n in names),
+                "tolerance": f"{RANK_TOL if which == 'fwd' else RANK_BWD_TOL}"
+                             f" of max|plain|",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib,
+                "library": "scaled_dot_product_attention fp32, boolean key "
+                           "mask" + ("" if which == "fwd" else
+                                     ": forward + backward less forward"),
+                "instance_head_dim": fa.rank_built_dim(hd),
+                "shape": f"b {b} L {L} S {L} H 1 hd {hd} fp32, question keys "
+                         f"2:{L // 8}, one call, the wrapper back to back"})
+    return records
+
+
+def p19_serving(cfg, base, inputs, new_tokens) -> dict:
+    """Phase 4's base (full depth) serving MokA AVT trees on the decode
+    paths' default route: at each of P19_SERVED in full
+    (``serve_other_rank``: the prefill logits under phase 4's rule, then
+    ``greedy_generate`` and a ``DecodeEngine`` request, each with kernel 5
+    launched 7 x n_layers times a prefill); then one new token at each
+    other rank of P19_RANKS and, on VT masks, at P19_VT_RANK, whose launch
+    counts are their instances' on the main path."""
+    import torch
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.moka import MokaSpec
+    out = {}
+    for rank in P19_SERVED:
+        log(f"  (b) a rank-{rank} AVT tree on phase 4's base")
+        out[f"avt_r{rank}"] = serve_other_rank(cfg, base, inputs, new_tokens,
+                                               rank)
+    n = cfg.n_layers
+    for flavour, rank in [("avt", r) for r in P19_RANKS
+                          if r not in P19_SERVED] + [("vt", P19_VT_RANK)]:
+        spec = (MokaSpec.avt if flavour == "avt" else MokaSpec.vt)(
+            rank=rank, dropout_rate=0.0)
+        g = torch.Generator(device="cuda").manual_seed(100 + rank)
+        adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+        for p in adapters["layers"].values():
+            p["b"].normal_(0.0, 0.02, generator=g)
+        ins = inputs
+        if flavour == "vt":
+            mod = inputs["masks"].modality
+            ins = dict(inputs, masks=llama.MaskBundle(
+                torch.stack([mod[0], mod[1] + mod[2]]),
+                inputs["masks"].question))
+        with torch.inference_mode():
+            _zero_counts()
+            toks = generate(cfg, spec, base, adapters, ins, 1)
+            torch.cuda.synchronize()
+            launches = _counts()
+        want = _launches(flash_fwd=n, moka_delta_fwd=7 * n)
+        log(f"  (b) {flavour.upper()} r{rank}: one new token, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if launches != want or tuple(toks.shape) != (ins["inputs_embeds"]
+                                                     .shape[0], 1):
+            raise AssertionError(f"{flavour} r{rank} generate: launches "
+                                 f"{launches}, want {want}")
+        out[f"{flavour}_r{rank}"] = {"rank": rank,
+                                     "generate_launches": launches}
+        del adapters
+    return out
+
+
+def p19_training(cfg, base) -> dict:
+    """The fused step at P19_STEP's rank and depth (AVT, dropout 0.05,
+    bf16 dots, kernels 6-7, the rank kernels, ``proj_lse``, b 4 L 1024) on
+    phase 4's base cut to that depth: phase 8's gradient rules
+    (``check_fused_train_grads``: kernels vs plain and fp32, proj_lse vs
+    full remat) and phase 11's (``check_rank_train_grads``, without bf16
+    dots: kernels vs plain and fp32, then in fp32 the rank kernels against
+    the plain rank attention), then 2 + 1 steps with the launch counts
+    asserted; then one step at each rank of P19_STEP_RANKS for their
+    instances' launches."""
+    import dataclasses
+    import torch
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.moka import MokaSpec
+    rank, depth = P19_STEP
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    frozen = first_layers(base, depth)
+    batch = train_batch(cfg, 4, 1024, seed=3)
+
+    def tree(r, seed):
+        spec = MokaSpec.avt(rank=r, dropout_rate=0.05).with_bf16_dots() \
+            .with_fused_dropout().with_flash_rank_attn()
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+        for p in adapters["layers"].values():
+            p["b"].normal_(0.0, 0.02, generator=g)
+        return spec, {"adapters": adapters}
+
+    spec, trainable = tree(rank, 40)
+    log(f"  (c) LLaMA-2-7B widths cut to {depth} of 32 layers, MokA AVT "
+        f"r{rank} (M*r {3 * rank}, rank attention head_dim {rank}), phase "
+        f"8's rules:")
+    out = {"depth": depth, "rank": rank,
+           "fused_check": check_fused_train_grads(cfg, spec, frozen,
+                                                  trainable, batch)}
+    log("  phase 11's rules (without bf16 dots):")
+    out["rank_check"] = check_rank_train_grads(
+        cfg, dataclasses.replace(spec, bf16_dots=False, fused_dropout=False),
+        frozen, trainable,
+        batch)
+    n, n_proj = depth, 7 * depth
+    calls = 2 * n_proj
+    run = train_steps(cfg, spec, frozen, clone_tree(trainable), batch,
+                      policy="proj_lse", n_warm=2, n_timed=1)
+    want = _launches(flash_fwd=n, flash_bwd_fused=n,
+                     dropout_a_fwd=2 * n_proj, dropout_a_bwd=n_proj,
+                     flash_rank_fwd=calls, flash_rank_bwd_dq=calls,
+                     flash_rank_bwd_dkv=calls)
+    log(f"  (c) r{rank} step launches: "
+        f"{ {k: v for k, v in run['launches_per_step'].items() if v} }")
+    if run["launches_per_step"] != want:
+        raise AssertionError(f"rank-{rank} fused step launches "
+                             f"{run['launches_per_step']}, want {want}")
+    out["step"] = {f"r{rank}": run}
+    for r in P19_STEP_RANKS:
+        spec_r, tr = tree(r, 40 + r)
+        one = train_steps(cfg, spec_r, frozen, tr, batch, policy="proj_lse",
+                          n_warm=1, n_timed=1)
+        if one["launches_per_step"] != want:
+            raise AssertionError(f"rank-{r} fused step launches "
+                                 f"{one['launches_per_step']}, want {want}")
+        out["step"][f"r{r}"] = one
+        del tr
+    return out
+
+
+def p19_cli(work: Path, p15: dict, device: str = "cuda",
+            smi: str = "") -> dict:
+    """``infer --lora-r P19_CLI_RANK`` on phase 15's LLaMA-2-7B, CLIP and
+    BEATs files as phase 16 reads them (int4 base, int8 head, bf16 cache),
+    with rank-P19_CLI_RANK adapter files this phase writes
+    (``export_torch_artifacts`` of a random tree, B non-zero, beside
+    ``finetune``'s projectors), on P19_CLI_SAMPLES of phase 15's AVQA
+    items: it must exit with its JSONL and launch kernel 5 (and kernel 1
+    and the decode kernel) on every prefill."""
+    import torch
+    from moka_tpu_torch.cli import infer
+    from moka_tpu_torch.models import llama, unified
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.train.checkpoint import export_torch_artifacts
+    files, ft = p15["files"], p15["finetune_out"]
+    lcfg = p15_configs(device != "cuda")[0]
+    spec = MokaSpec.avt(rank=P19_CLI_RANK, dropout_rate=0.0)
+    g = torch.Generator().manual_seed(19)
+    adapters = llama.init_moka_adapters(g, lcfg, spec, device="cpu")
+    for p in adapters["layers"].values():
+        p["b"].normal_(0.0, 0.02, generator=g)
+    out_dir = work / "p19_adapters"
+    export_torch_artifacts(str(out_dir), {"adapters": adapters})
+    del adapters
+    items = json.loads(Path(files["data_avqa"]).read_text())
+    ann = work / "p19_avqa.json"
+    ann.write_text(json.dumps(items[:P19_CLI_SAMPLES]))
+    pad_to = 1024 if device == "cuda" else 256
+    argv = ["--llama-ckpt", str(files["llama"]),
+            "--clip-ckpt", str(files["clip"]),
+            "--model-preset", "7b" if device == "cuda" else "tiny",
+            "--pad-to", str(pad_to), "--device", device,
+            "--tokenizer-json", str(files["data_tokenizer"]),
+            "--beats-ckpt", str(files["beats"]),
+            "--adapter-ckpt", str(out_dir / "adapter_model.bin"),
+            "--non-lora-ckpt", str(ft / "non_lora_trainables.bin"),
+            "--quantize-base", "4", "--quantize-head", "8",
+            "--max-new-tokens", str(P16_NEW_TOKENS),
+            "--lora-r", str(P19_CLI_RANK),
+            "--annotation", str(ann), "--batch-size", "8",
+            "--output-dir", str(work / "p19_infer")]
+    n = lcfg.n_layers
+    want = _launches() if device != "cuda" else _launches(
+        flash_fwd=n, moka_delta_fwd=7 * n, **decode_launches(
+            lcfg, pad_to + P16_NEW_TOKENS, P16_NEW_TOKENS))
+    log(f"  (d) infer {' '.join(argv)}")
+    calls: list = []
+    t0 = time.perf_counter()
+    with per_generate(unified, device, calls):
+        result = infer.main(argv)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(x) for x in Path(result).read_text().splitlines()]
+    launches = [c["launches"] for c in calls]
+    log(f"  (d) infer --lora-r {P19_CLI_RANK}: exit with {len(rows)} rows in "
+        f"{wall:.1f} s, {len(calls)} generate calls, launches "
+        f"{[{k: v for k, v in c.items() if v} for c in launches]}; {smi}")
+    if len(rows) != P19_CLI_SAMPLES or not calls or \
+            any(c != want for c in launches):
+        raise AssertionError(f"infer --lora-r {P19_CLI_RANK}: {len(rows)} rows, "
+                             f"launches {launches}, want {want}")
+    return {"rank": P19_CLI_RANK, "rows": len(rows), "wall_s": wall,
+            "launches_per_generate": launches[0],
+            "first_prediction": rows[0]["predict"]}
+
+
+def p19_records_launches(records, serving, training) -> None:
+    """Each phase-19 record's launches: those of its kernel in the phase's
+    main-path run at its rank (kernel 5: the serving prefill; kernels 6-7
+    and R1-R3: a training step), None where no main path runs it (kernels
+    6-7 at M*r 256), with ``launches_path`` saying which run counted."""
+    by_rank = {k: v["generate_launches"] for k, v in serving.items()}
+    steps = {int(k[1:]): v["launches_per_step"]
+             for k, v in training["step"].items()}
+    for rec in records:
+        name = rec["name"]
+        if name.startswith("moka_delta_fwd_"):
+            key = name[len("moka_delta_fwd_"):]
+            rec["launches"] = int(by_rank[key]["moka_delta_fwd"])
+            rec["launches_path"] = f"phase 19 (b) {key} greedy_generate"
+            continue
+        if name.startswith("dropout_a_"):
+            kernel, mr = name.rsplit("_mr", 1)
+            rank = next((r for r in steps if 3 * r == int(mr)), None)
+            why = f"M*r {mr} is not three modalities at a stepped rank"
+        else:
+            kernel, hd = name.rsplit("_hd", 1)
+            rank = int(hd) if int(hd) in steps else None
+            why = f"head_dim {hd} is not a stepped rank"
+        if rank is None:  # (M*r 256: rank 64 with four modalities)
+            rec["launches"] = None
+            rec["launches_path"] = f"none: no phase-19 step runs it ({why})"
+        else:
+            rec["launches"] = int(steps[rank][kernel])
+            rec["launches_path"] = f"phase 19 (c) r{rank} fused step"
+
+
 def main() -> int:
     try:
         import torch
@@ -6762,13 +7314,16 @@ def main() -> int:
                 if "registers" in line or "spill" in line or \
                         "setmaxnreg" in line or "C75" in line:
                     log(f"    {name}: {line.strip()}")
-    check_flash_sass()
-    check_ce_sass()
-    check_bd_rank_sass()
-    check_moka_sass()
-    check_dropout_sass()
-    check_decode_sass()
-    PHILOX.update(profile_port.philox_sass()["per_call"])
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        philox = pool.submit(profile_port.philox_sass)  # an nvcc of its own
+        sass_prefetch(kernels.SOURCES)
+        check_flash_sass()
+        check_ce_sass()
+        check_bd_rank_sass()
+        check_moka_sass()
+        check_dropout_sass()
+        check_decode_sass()
+        PHILOX.update(philox.result()["per_call"])
 
     cfg = LlamaConfig.llama2_7b()
     spec = MokaSpec.avt(rank=4, dropout_rate=0.0)
@@ -6807,6 +7362,23 @@ def main() -> int:
     if min(served["launches"][k] for k in ("flash_fwd", "moka_delta_fwd")) \
             <= 0:
         raise AssertionError("serving did not launch the kernels")
+
+    t19 = time.perf_counter()
+    log(f"[19] MokA at any rank: (a) kernel 5 at ranks {P19_RANKS} (AVT) and "
+        f"{P19_VT_RANK} (VT), kernels 6-7 at M*r {P19_DROP_MRS}, R1-R3 at "
+        f"head_dim {P19_RANK_DIMS} against their plain versions; (b) phase "
+        f"4's base serving rank-{P19_SERVED[0]} and rank-{P19_SERVED[1]} AVT "
+        f"trees; (c) the fused step at rank {P19_STEP[0]}; (d), after phase "
+        f"16, infer --lora-r {P19_CLI_RANK}")
+    p19_records = [*p19_moka_records(cfg), *p19_dropout_records(cfg),
+                   *p19_rank_records()]
+    p19 = {"serving": p19_serving(cfg, base, inputs, new_tokens)}
+    p19["training"] = p19_training(cfg, base)
+    p19_records_launches(p19_records, p19["serving"], p19["training"])
+    p19["phase_s"] = time.perf_counter() - t19
+    log(f"  phase 19 (a)-(c) took {p19['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log(f"[10] BOFT merge and serve: BoftSpec(8, 2) on all "
         f"{7 * cfg.n_layers} projections of phase 4's base, then its prefill")
@@ -6942,6 +7514,15 @@ def main() -> int:
         p16 = phase16(work, p15, "cuda", smi=smi)
         p16["phase_s"] = time.perf_counter() - t16
         log(f"  phase 16 passed in {p16['phase_s']:.1f} s")
+        t19 = time.perf_counter()
+        log(f"[19] (d) infer --lora-r {P19_CLI_RANK} on phase 15's files")
+        p19["cli"] = p19_cli(work, p15, "cuda", smi=smi)
+        p19["phase_s"] += time.perf_counter() - t19
+        log(f"  phase 19 passed in {p19['phase_s']:.1f} s (its limit "
+            f"{P19_LIMIT_S} s)")
+        if p19["phase_s"] > P19_LIMIT_S:
+            raise AssertionError(f"phase 19 took {p19['phase_s']:.1f} s, "
+                                 f"past its {P19_LIMIT_S} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
@@ -7020,7 +7601,13 @@ def main() -> int:
              "tensor-parallel 34B-width step (1,1,4, a rank)":
                  p18["world4"]["c/1,1,4"]["launches"],
              "tensor-parallel int4 step (1,1,2, a rank)":
-                 p18["world2"]["d/1,1,2"]["launches"]}
+                 p18["world2"]["d/1,1,2"]["launches"],
+             **{f"phase 19 (b) {k} greedy_generate": v["generate_launches"]
+                for k, v in p19["serving"].items()},
+             **{f"phase 19 (c) {k} fused step": v["launches_per_step"]
+                for k, v in p19["training"]["step"].items()},
+             f"infer CLI --lora-r {P19_CLI_RANK} generate":
+                 p19["cli"]["launches_per_generate"]}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -7042,6 +7629,7 @@ def main() -> int:
         rec["launches_path"] = own[rec["name"]]
         rec["launches_by_path"] = {p: c.get(rec["name"], 0) for p, c in
                                    paths.items()}
+    records += p19_records  # their launches: their instances' (phase 19)
     log(json.dumps({"main_path": timings, "rank8_serving": other_rank,
                     "serving": served,
                     "train_check": train_check, "train": train,
@@ -7053,8 +7641,9 @@ def main() -> int:
                     "mm_train": mm_train, "vt_generate": vt_gen,
                     "vt_http": vt_http, "vt_train": vt_train,
                     "paged_serving": paged, "p15": p15_summary(p15),
-                    "p16": p16_summary(p16), "p17": p17, "p18": p18}))
-    log(f"[19] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "p16": p16_summary(p16), "p17": p17, "p18": p18,
+                    "p19": p19}))
+    log(f"[20] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,8 @@ through the continuous-batching ``DecodeEngine``.
         --annotation avqa_test.json --output-dir runs/infer
 
 It runs on one device, the card unless ``--device cpu``.  On the card
-the prefill takes the flash kernel and, for ``--lora-r`` 4, 8 or 16, the
-fused MokA kernel (any other rank the unfused delta); the decode steps
+the prefill takes the flash kernel and, for ``--lora-r`` 1 to 64, the
+fused MokA kernel (a larger rank the unfused delta); the decode steps
 take the decode kernel where ``eval.decode.paged_decode_auto`` says so,
 on a bf16 cache or (``--kv-quant``) an int8 one.
 """

@@ -1,5 +1,12 @@
 // Flash attention at MokA's rank-space shape for Hopper (sm_90a): one head,
-// head_dim r (4, 8 or 16), fp32 throughout.  Forward, dq and dk/dv.
+// head_dim r, fp32 throughout.  Forward, dq and dk/dv.  Built for head dims
+// 4, 8, 16, 32 and 64; ops/flash_attention.py pads any other r <= 64 with
+// zero columns up to the next of them (exact: a zero column adds nothing
+// to a score, its output and gradient columns are zero and dropped) and
+// passes the scales of the true r.  At 4-16 a lane holds a whole row of q,
+// k, v or dO; at 32 and 64 two or four adjacent lanes share a row, 16
+// values each, their partial dot products summed by shuffles within the
+// group (Split, group_sum), so a lane's registers are those of r 16.
 //
 // Replaces the TPU kernels moka_tpu/ops/flash_attention.py::_fwd_kernel,
 // _bwd_fused_kernel, _bwd_dq_kernel and _bwd_dkv_kernel where
@@ -125,16 +132,45 @@ constexpr int FWD_WARPS = 8;  // forward: a CTA of 8 warps, a warp a row
 constexpr int FWD_NT = 32 * FWD_WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
+// A row of HD values split over G adjacent lanes of W each: at HD <= 16 a
+// lane holds the whole row (G 1), at 32 and 64 two and four lanes share a
+// key or a query, so a lane's registers hold 16 values of each row it
+// touches whatever the head dim
+template <int HD>
+struct Split {
+  static constexpr int W = HD < 16 ? HD : 16;  // values a lane
+  static constexpr int G = HD / W;             // lanes a row
+};
+
+// the lanes of this lane's group of G (adjacent, aligned)
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  return G == 1 ? 1u << lane : ((1u << G) - 1u) << (lane & ~(G - 1));
+}
+
+// the sum of x over the G lanes of a group, which all get it (a butterfly:
+// each lane adds the same pairs in the same order); the group's lanes may
+// run apart from the rest of the warp
+template <int G>
+__device__ __forceinline__ float group_sum(float x, unsigned gmask) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) x += __shfl_xor_sync(gmask, x, off);
+  return x;
+}
+
+// the sum of x over the lanes that hold the same slice (lane % G) of
+// their rows: the whole warp at G 1
+template <int G>
+__device__ __forceinline__ float slice_sum(float x) {
+#pragma unroll
+  for (int off = 16; off >= G; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
   return x;
 }
 
@@ -149,6 +185,16 @@ __device__ __forceinline__ void load_row(const float* p, float (&r)[HD]) {
     r[d + 2] = a.z;
     r[d + 3] = a.w;
   }
+}
+
+// W floats of r to p (16-byte aligned), each times s
+template <int W>
+__device__ __forceinline__ void store_row(float* p, const float (&r)[W],
+                                          float s) {
+#pragma unroll
+  for (int d = 0; d < W; d += 4)
+    *reinterpret_cast<float4*>(p + d) =
+        make_float4(r[d] * s, r[d + 1] * s, r[d + 2] * s, r[d + 3] * s);
 }
 
 // The backward's visible span of a sample: the first and last key whose
@@ -189,23 +235,27 @@ __global__ void __launch_bounds__(FWD_NT)
                           const int* __restrict__ mask, float* __restrict__ out,
                           float* __restrict__ lse, int L, int S, int q_offset,
                           int causal, float qscale) {
-  constexpr int U = 16 / HD;  // keys a lane loads before it computes
+  constexpr int W = Split<HD>::W, G = Split<HD>::G;
+  constexpr int U = 16 / W;       // keys a lane loads before it computes
+  constexpr int SLOTS = 32 / G;   // keys a warp takes at once, each u
   __shared__ int span_lo[FWD_WARPS], span_hi[FWD_WARPS];
   __shared__ float vsum_part[FWD_WARPS][HD];
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane % G, slot = lane / G;  // the row's slice, the key slot
+  const unsigned gmask = group_mask<G>(lane);
   const int row0 = blockIdx.x * FWD_WARPS;
   const int* mrow = mask + static_cast<long>(b) * S;
   const int row = row0 + warp;
   const long r = static_cast<long>(b) * L + row;
-  // the row's q, loaded before the mask scan so that the two trips to
-  // memory overlap
-  float qs[HD];
+  // the lane's slice of the row's q, loaded before the mask scan so that
+  // the two trips to memory overlap
+  float qs[W];
   if (row < L) {
-    load_row<HD>(q + r * HD, qs);
+    load_row<W>(q + r * HD + g * W, qs);
   } else {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qs[d] = 0.f;
+    for (int d = 0; d < W; ++d) qs[d] = 0.f;
   }
 
   // the sample's visible span [lo, hi]: first and last key with mask > 0
@@ -232,27 +282,27 @@ __global__ void __launch_bounds__(FWD_NT)
 
   // the sum of V over all S keys, for the rows that see no key; the CTA's
   // first row has the earliest causal limit, so it is such a row if any is
-  float vsum[HD];
+  float vsum[W];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) vsum[d] = 0.f;
+  for (int d = 0; d < W; ++d) vsum[d] = 0.f;
   if (hi < 0 || (causal && row0 + q_offset < lo)) {
-    for (int j = threadIdx.x; j < S; j += FWD_NT) {
-      float vr[HD];
-      load_row<HD>(v + (static_cast<long>(b) * S + j) * HD, vr);
+    for (int j = threadIdx.x / G; j < S; j += FWD_NT / G) {
+      float vr[W];
+      load_row<W>(v + (static_cast<long>(b) * S + j) * HD + g * W, vr);
 #pragma unroll
-      for (int d = 0; d < HD; ++d) vsum[d] += vr[d];
+      for (int d = 0; d < W; ++d) vsum[d] += vr[d];
     }
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      vsum[d] = warp_sum(vsum[d]);
-      if (lane == 0) vsum_part[warp][d] = vsum[d];
+    for (int d = 0; d < W; ++d) {
+      vsum[d] = slice_sum<G>(vsum[d]);
+      if (lane < G) vsum_part[warp][g * W + d] = vsum[d];
     }
     __syncthreads();
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < W; ++d) {
       vsum[d] = 0.f;
 #pragma unroll
-      for (int w = 0; w < FWD_WARPS; ++w) vsum[d] += vsum_part[w][d];
+      for (int w = 0; w < FWD_WARPS; ++w) vsum[d] += vsum_part[w][g * W + d];
     }
   }
 
@@ -260,68 +310,69 @@ __global__ void __launch_bounds__(FWD_NT)
   float* o = out + r * HD;
   const int end = causal ? min(hi, row + q_offset) : hi;  // last key it may see
   if (end < lo) {  // the row sees no key: every score is -1e30
-    if (lane == 0) {
+    if (lane < G) {
 #pragma unroll
-      for (int d = 0; d < HD; ++d) o[d] = vsum[d] / static_cast<float>(S);
-      lse[r] = (NEG_INF + log2f(static_cast<float>(S))) * LN2;
+      for (int d = 0; d < W; ++d)
+        o[g * W + d] = vsum[d] / static_cast<float>(S);
     }
+    if (lane == 0) lse[r] = (NEG_INF + log2f(static_cast<float>(S))) * LN2;
     return;
   }
-  float acc[HD];
+  float acc[W];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < W; ++d) {
     qs[d] *= qscale;
     acc[d] = 0.f;
   }
   float m = NEG_INF, l = 0.f;
-  for (int j0 = lo + lane; j0 <= end; j0 += 32 * U) {
-    float kr[U][HD], vr[U][HD];
+  for (int j0 = lo + slot; j0 <= end; j0 += SLOTS * U) {
+    float kr[U][W], vr[U][W];
     int mk[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int j = j0 + 32 * u;
+      const int j = j0 + SLOTS * u;
       mk[u] = 0;
       if (j <= end) {
         const long kk = static_cast<long>(b) * S + j;
-        load_row<HD>(k + kk * HD, kr[u]);
-        load_row<HD>(v + kk * HD, vr[u]);
+        load_row<W>(k + kk * HD + g * W, kr[u]);
+        load_row<W>(v + kk * HD + g * W, vr[u]);
         mk[u] = __ldg(mrow + j) > 0 ? 1 : -1;
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (mk[u] == 0) continue;  // past the end of the span
-      const float s = mk[u] > 0 ? dot<HD>(qs, kr[u]) : NEG_INF;
+      if (mk[u] == 0) continue;  // past the end of the span (a whole group)
+      const float dqk = group_sum<G>(dot<W>(qs, kr[u]), gmask);
+      const float s = mk[u] > 0 ? dqk : NEG_INF;
       if (s > m) {  // the running max moves: rescale what was summed
         const float alpha = exp2f(m - s);
         l *= alpha;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+        for (int d = 0; d < W; ++d) acc[d] *= alpha;
         m = s;
       }
       const float p = exp2f(s - m);
       l += p;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vr[u][d], acc[d]);
+      for (int d = 0; d < W; ++d) acc[d] = fmaf(p, vr[u][d], acc[d]);
     }
   }
-  // merge the 32 lanes' partial softmaxes; lane 0 took the first visible
-  // key, so the row's max is finite and a lane that saw only masked keys
-  // weighs exp2(-1e30 - mm) = 0
+  // merge the key slots' partial softmaxes (a group's lanes hold the same
+  // m and l); lane 0 took the first visible key, so the row's max is
+  // finite and a slot that saw only masked keys weighs exp2(-1e30 - mm) = 0
   const float mm = warp_max(m);
   const float sc = exp2f(m - mm);
-  l = warp_sum(l * sc);
+  l = slice_sum<G>(l * sc);
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = warp_sum(acc[d] * sc);
-  if (lane == 0) {
-    const float safe = l == 0.f ? 1.f : l;
+  for (int d = 0; d < W; ++d) acc[d] = slice_sum<G>(acc[d] * sc);
+  const float safe = l == 0.f ? 1.f : l;
+  if (lane < G) {
+    float res[W];
 #pragma unroll
-    for (int d = 0; d < HD; d += 4)
-      *reinterpret_cast<float4*>(o + d) =
-          make_float4(acc[d] / safe, acc[d + 1] / safe, acc[d + 2] / safe,
-                      acc[d + 3] / safe);
-    lse[r] = (mm + log2f(safe)) * LN2;
+    for (int d = 0; d < W; ++d) res[d] = acc[d] / safe;
+    store_row<W>(o + g * W, res, 1.f);
   }
+  if (lane == 0) lse[r] = (mm + log2f(safe)) * LN2;
 }
 
 template <int HD>
@@ -335,18 +386,23 @@ __global__ void __launch_bounds__(FWD_NT)
                          const float* __restrict__ delta, float* __restrict__ dq,
                          int L, int S, int q_offset, int causal, float qscale,
                          float scale) {
-  constexpr int KIF = 16 / HD;  // keys in flight a lane
+  constexpr int W = Split<HD>::W, G = Split<HD>::G;
+  constexpr int KIF = 16 / W;     // keys in flight a lane
+  constexpr int SLOTS = 32 / G;   // keys a warp takes at once, each u
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane % G, slot = lane / G;
+  const unsigned gmask = group_mask<G>(lane);
   const int row = blockIdx.x * FWD_WARPS + warp;
   const long qr = static_cast<long>(b) * L + row;
   const int* keys_on = mask + static_cast<long>(b) * S;
-  // the row's q, dO, lse and delta, on their way before the mask scan
-  float qs[HD], dov[HD];
+  // the lane's slices of the row's q and dO, its lse and delta, on their
+  // way before the mask scan
+  float qs[W], dov[W];
   float lse2 = NEG_INF, dlt = 0.f;
   if (row < L) {
-    load_row<HD>(q + qr * HD, qs);
-    load_row<HD>(dout + qr * HD, dov);
+    load_row<W>(q + qr * HD + g * W, qs);
+    load_row<W>(dout + qr * HD + g * W, dov);
     lse2 = __ldg(lse + qr) * LOG2E;
     dlt = __ldg(delta + qr);
   }
@@ -357,52 +413,46 @@ __global__ void __launch_bounds__(FWD_NT)
 
   if (row >= L) return;
   const int stop = causal ? min(last, row + q_offset) : last;
-  float g[HD];
+  float gq[W];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) g[d] = 0.f;
+  for (int d = 0; d < W; ++d) gq[d] = 0.f;
   // a row that sees no key (fully masked lse, or stop < first) keeps dq = 0
   if (lse2 > NEG_INF * 0.5f && stop >= first) {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qs[d] *= qscale;
-    for (int j0 = first + lane; j0 <= stop; j0 += 32 * KIF) {
-      float kr[KIF][HD], vr[KIF][HD];
+    for (int d = 0; d < W; ++d) qs[d] *= qscale;
+    for (int j0 = first + slot; j0 <= stop; j0 += SLOTS * KIF) {
+      float kr[KIF][W], vr[KIF][W];
       bool on[KIF];
 #pragma unroll
       for (int u = 0; u < KIF; ++u) {
-        const int j = j0 + 32 * u;
+        const int j = j0 + SLOTS * u;
         on[u] = false;
         if (j <= stop) {
           const long kk = static_cast<long>(b) * S + j;
-          load_row<HD>(k + kk * HD, kr[u]);
-          load_row<HD>(v + kk * HD, vr[u]);
+          load_row<W>(k + kk * HD + g * W, kr[u]);
+          load_row<W>(v + kk * HD + g * W, vr[u]);
           on[u] = __ldg(keys_on + j) > 0;
         }
       }
 #pragma unroll
       for (int u = 0; u < KIF; ++u) {
         if (!on[u]) continue;  // past the span's end, or masked inside it
-        const float p = exp2f(dot<HD>(qs, kr[u]) - lse2);
-        const float ds = p * (dot<HD>(dov, vr[u]) - dlt);
+        const float p =
+            exp2f(group_sum<G>(dot<W>(qs, kr[u]), gmask) - lse2);
+        const float ds =
+            p * (group_sum<G>(dot<W>(dov, vr[u]), gmask) - dlt);
 #pragma unroll
-        for (int d = 0; d < HD; ++d) g[d] = fmaf(ds, kr[u][d], g[d]);
+        for (int d = 0; d < W; ++d) gq[d] = fmaf(ds, kr[u][d], gq[d]);
       }
     }
 #pragma unroll
-    for (int d = 0; d < HD; ++d) g[d] = warp_sum(g[d]);
+    for (int d = 0; d < W; ++d) gq[d] = slice_sum<G>(gq[d]);
   }
-  if (lane == 0) {
-    float* out = dq + qr * HD;
-#pragma unroll
-    for (int d = 0; d < HD; d += 4)
-      *reinterpret_cast<float4*>(out + d) =
-          make_float4(g[d] * scale, g[d + 1] * scale, g[d + 2] * scale,
-                      g[d + 3] * scale);
-  }
+  if (lane < G) store_row<W>(dq + qr * HD + g * W, gq, scale);
 }
 
 constexpr int BWD_KEYS = 4;  // dk/dv: keys a work CTA takes at a time
 constexpr int BWD_NT = 256;  // 8 warps
-constexpr int PHASES = BWD_NT / BWD_KEYS;  // query phases a key
 constexpr int SPAN_SHARE = 8;  // work CTAs for a span of S / 8 keys
 
 template <int HD>
@@ -417,9 +467,11 @@ __global__ void __launch_bounds__(BWD_NT)
                           float* __restrict__ dk, float* __restrict__ dv, int L,
                           int S, int q_offset, int causal, float qscale,
                           int work) {
-  constexpr int CHUNK = 4096 / HD;  // queries staged at a time
-  constexpr int QIF = 16 / HD;      // queries in flight a lane
+  constexpr int W = Split<HD>::W, G = Split<HD>::G;
+  constexpr int CHUNK = (HD >= 32 ? 2048 : 4096) / HD;  // queries staged
+  constexpr int QIF = 16 / W;      // queries in flight a lane
   constexpr int WARPS = BWD_NT / 32;
+  constexpr int PHASES = BWD_NT / (BWD_KEYS * G);  // query phases a key
   __shared__ __align__(16) float q_sm[CHUNK * HD];
   __shared__ __align__(16) float do_sm[CHUNK * HD];
   __shared__ float2 row_sm[CHUNK];  // (lse * log2 e, delta) a query
@@ -450,8 +502,10 @@ __global__ void __launch_bounds__(BWD_NT)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // the last key some query may see
   const int reach = causal ? min(hi, L - 1 + q_offset) : hi;
-  const int t = lane % BWD_KEYS;
-  const int phase = warp * (32 / BWD_KEYS) + lane / BWD_KEYS;
+  // lane: slice g of key t of the block, in query phase `phase`
+  const int g = lane % G, t = lane / G % BWD_KEYS;
+  const int phase = warp * (32 / (BWD_KEYS * G)) + lane / (BWD_KEYS * G);
+  const unsigned gmask = group_mask<G>(lane);
   const long q_base = static_cast<long>(b) * L;
   int staged = -1;  // the first query of the chunk in shared memory
   // the span's blocks of BWD_KEYS keys, every work-th one from this CTA's
@@ -481,13 +535,13 @@ __global__ void __launch_bounds__(BWD_NT)
 
     const int key = key0 + t;
     const bool mine = live >> t & 1u;
-    float kr[HD], vr[HD], dka[HD], dva[HD];
+    float kr[W], vr[W], dka[W], dva[W];
     if (mine) {
-      load_row<HD>(k + (k_base + key) * HD, kr);
-      load_row<HD>(v + (k_base + key) * HD, vr);
+      load_row<W>(k + (k_base + key) * HD + g * W, kr);
+      load_row<W>(v + (k_base + key) * HD + g * W, vr);
     }
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
+    for (int d = 0; d < W; ++d) dka[d] = dva[d] = 0.f;
     // causal: no query before the first live key's reach sees a key here
     const int q_from =
         causal ? max(0, key0 + __ffs(static_cast<int>(live)) - 1 - q_offset)
@@ -526,17 +580,17 @@ __global__ void __launch_bounds__(BWD_NT)
       if (causal && key - q_offset - i0 > c)
         c += (key - q_offset - i0 - c + PHASES - 1) / PHASES * PHASES;
       for (; c < n; c += PHASES * QIF) {
-        float qv[QIF][HD], dov[QIF][HD];
+        float qv[QIF][W], dov[QIF][W];
         float2 rw[QIF];
 #pragma unroll
         for (int u = 0; u < QIF; ++u) {
           const int cc = min(c + PHASES * u, n - 1);
 #pragma unroll
-          for (int d = 0; d < HD; d += 4) {
+          for (int d = 0; d < W; d += 4) {
             const float4 a =
-                *reinterpret_cast<const float4*>(q_sm + cc * HD + d);
+                *reinterpret_cast<const float4*>(q_sm + cc * HD + g * W + d);
             const float4 o =
-                *reinterpret_cast<const float4*>(do_sm + cc * HD + d);
+                *reinterpret_cast<const float4*>(do_sm + cc * HD + g * W + d);
             qv[u][d] = a.x;
             qv[u][d + 1] = a.y;
             qv[u][d + 2] = a.z;
@@ -550,11 +604,13 @@ __global__ void __launch_bounds__(BWD_NT)
         }
 #pragma unroll
         for (int u = 0; u < QIF; ++u) {
-          if (c + PHASES * u < n) {
-            const float p = exp2f(dot<HD>(qv[u], kr) - rw[u].x);
-            const float ds = p * (dot<HD>(dov[u], vr) - rw[u].y);
+          if (c + PHASES * u < n) {  // the same for a group's lanes
+            const float p =
+                exp2f(group_sum<G>(dot<W>(qv[u], kr), gmask) - rw[u].x);
+            const float ds =
+                p * (group_sum<G>(dot<W>(dov[u], vr), gmask) - rw[u].y);
 #pragma unroll
-            for (int d = 0; d < HD; ++d) {
+            for (int d = 0; d < W; ++d) {
               dva[d] = fmaf(p, dov[u][d], dva[d]);
               dka[d] = fmaf(ds, qv[u][d], dka[d]);
             }
@@ -563,25 +619,25 @@ __global__ void __launch_bounds__(BWD_NT)
       }
     }
     // the query phases of a key meet: first within the warp (lanes with
-    // the same l % BWD_KEYS), then the warps' sums in warp order
+    // the same slice of the same key), then the warps' sums in warp order
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < W; ++d) {
 #pragma unroll
-      for (int off = BWD_KEYS; off < 32; off <<= 1) {
+      for (int off = BWD_KEYS * G; off < 32; off <<= 1) {
         dka[d] += __shfl_xor_sync(FULL, dka[d], off);
         dva[d] += __shfl_xor_sync(FULL, dva[d], off);
       }
     }
-    if (lane < BWD_KEYS) {
+    if (lane < BWD_KEYS * G) {
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        part[warp][lane][d] = dka[d];
-        part[warp][lane][HD + d] = dva[d];
+      for (int d = 0; d < W; ++d) {
+        part[warp][t][g * W + d] = dka[d];
+        part[warp][t][HD + g * W + d] = dva[d];
       }
     }
     __syncthreads();
-    if (threadIdx.x < BWD_KEYS * 2 * HD) {
-      const int kt = threadIdx.x / (2 * HD), e = threadIdx.x % (2 * HD);
+    for (int i = threadIdx.x; i < BWD_KEYS * 2 * HD; i += BWD_NT) {
+      const int kt = i / (2 * HD), e = i % (2 * HD);
       if (live >> kt & 1u) {
         float sum = 0.f;
 #pragma unroll
@@ -597,53 +653,24 @@ __global__ void __launch_bounds__(BWD_NT)
   }
 }
 
+// the head dims the kernels are built for; the wrapper pads any other
+// head dim up to the next one with zero columns
 bool bad_dims(int B, int L, int S, int hd) {
   return B <= 0 || L <= 0 || S <= 0 || B > 65535 ||
-         !(hd == 4 || hd == 8 || hd == 16);
+         !(hd == 4 || hd == 8 || hd == 16 || hd == 32 || hd == 64);
 }
 
-template <int HD>
-void fwd(dim3 grid, cudaStream_t st, const void* q, const void* k,
-         const void* v, const void* mask, void* out, void* lse, int L, int S,
-         int q_offset, int causal, float qscale) {
-  flash_rank_fwd_kernel<HD><<<grid, FWD_NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(mask),
-      static_cast<float*>(out), static_cast<float*>(lse), L, S, q_offset,
-      causal, qscale);
-}
-
-template <int HD>
-void dq(dim3 grid, cudaStream_t st, const void* q, const void* k,
-        const void* v, const void* mask, const void* dout, const void* lse,
-        const void* delta, void* dqp, int L, int S, int q_offset, int causal,
-        float qscale, float scale) {
-  flash_rank_dq_kernel<HD><<<grid, FWD_NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(mask),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dqp), L, S,
-      q_offset, causal, qscale, scale);
-}
-
-template <int HD>
-void dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
-         const void* v, const void* mask, const void* dout, const void* lse,
-         const void* delta, void* dkp, void* dvp, int L, int S, int q_offset,
-         int causal, float qscale, int work) {
-  flash_rank_dkv_kernel<HD><<<grid, BWD_NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(mask),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dkp),
-      static_cast<float*>(dvp), L, S, q_offset, causal, qscale, work);
-}
+// the instance of `kernel` for head dim hd (one bad_dims takes)
+#define RANK_INSTANCE(kernel, hd)                                   \
+  ((hd) == 4 ? kernel<4> : (hd) == 8 ? kernel<8> : (hd) == 16 ? kernel<16> \
+   : (hd) == 32 ? kernel<32> : kernel<64>)
 
 }  // namespace
 
-// q/out (B, L, 1, hd), k/v (B, S, 1, hd) fp32 with hd 4, 8 or 16, mask (B, S)
-// int32, lse (B, 1, L) fp32; all contiguous, q, k, v and out 16-byte
-// aligned.  Returns cudaGetLastError().
+// q/out (B, L, 1, hd), k/v (B, S, 1, hd) fp32 with hd 4, 8, 16, 32 or 64,
+// mask (B, S) int32, lse (B, 1, L) fp32; all contiguous, q, k, v and out
+// 16-byte aligned; qscale log2(e)/sqrt(r) of the true head dim r <= hd
+// (the columns past r zero).  Returns cudaGetLastError().
 extern "C" int moka_flash_rank_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
                                    int B, int L, int S, int hd, int q_offset,
@@ -651,12 +678,17 @@ extern "C" int moka_flash_rank_fwd(const void* q, const void* k, const void* v,
   if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = hd == 4 ? fwd<4> : hd == 8 ? fwd<8> : fwd<16>;
-  f(grid, st, q, k, v, mask, out, lse, L, S, q_offset, causal, qscale);
+  const auto kernel = RANK_INSTANCE(flash_rank_fwd_kernel, hd);
+  kernel<<<grid, FWD_NT, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(mask),
+      static_cast<float*>(out), static_cast<float*>(lse), L, S, q_offset,
+      causal, qscale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq (B, L, 1, hd) fp32 given the forward's lse and delta (B, 1, L).
+// dq (B, L, 1, hd) fp32 given the forward's lse and delta (B, 1, L); scale
+// 1/sqrt(r) of the true head dim.
 extern "C" int moka_flash_rank_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* mask,
                                       const void* dout, const void* lse,
@@ -667,9 +699,13 @@ extern "C" int moka_flash_rank_bwd_dq(const void* q, const void* k,
   if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = hd == 4 ? dq<4> : hd == 8 ? dq<8> : dq<16>;
-  f(grid, st, q, k, v, mask, dout, lse, delta, dqp, L, S, q_offset, causal,
-    qscale, scale);
+  const auto kernel = RANK_INSTANCE(flash_rank_dq_kernel, hd);
+  kernel<<<grid, FWD_NT, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(mask),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dqp), L, S,
+      q_offset, causal, qscale, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -691,8 +727,12 @@ extern "C" int moka_flash_rank_bwd_dkv(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B, blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = hd == 4 ? dkv<4> : hd == 8 ? dkv<8> : dkv<16>;
-  f(grid, st, q, k, v, mask, dout, lse, delta, dkp, dvp, L, S, q_offset,
-    causal, qscale, work);
+  const auto kernel = RANK_INSTANCE(flash_rank_dkv_kernel, hd);
+  kernel<<<grid, BWD_NT, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(mask),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dkp),
+      static_cast<float*>(dvp), L, S, q_offset, causal, qscale, work);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // LoRA dropout fused into the adapter's A projection, forward and backward,
-// for Hopper (sm_90a), at every M * r that ranks 4, 8 and 16 give with one
-// to four modalities: {4, 8, 12, 16, 24, 32, 48, 64}.
+// for Hopper (sm_90a), at every M * r from 1 to 256 (ranks 1-64 with one to
+// four modalities).
 //
 // Replaces the TPU kernels moka_tpu/ops/fused_dropout.py::_fwd_kernel (:55,
 // launched by _run_fwd :127) and ::_bwd_kernel (:70, launched by _run_bwd
@@ -29,7 +29,14 @@
 // dx bytes (0.175 ms) outweigh the generator.  The products have rank MR:
 // a few percent of the tensor cores' time.  So x streams once, the
 // forward's product and the backward's dA run on the tensor cores, and the
-// ordinary cores keep the generator and, backward, dx's FMA chain:
+// ordinary cores keep the generator and, backward, dx's FMA chain.  M * r
+// up to 64 is one tile of A^T's rows (wgmma's 64); above 64 the forward's
+// grid has a CTA for each 64-row tile (each draws its rows' words again)
+// and the backward's a CTA pair for each 64-row tile of dA^T, with dx from
+// a third kernel (dropout_dx_kernel: the same FMA chain over all of M * r,
+// A's rows in shared memory, g from L2).  Where M * r is not a multiple of
+// 4 the wrapper pads g with zero columns to one (g_width: TMA's 16-byte
+// rows) and the chains stop at M * r:
 //   * forward (dropout_fwd_kernel): out^T = A^T x_d^T, with the M * r rows
 //     on wgmma's 64-row side (rows past MR are computed and never read) and
 //     a CTA's 32 rows of x as N, so N 4096 gives 128 CTAs.  A first, small
@@ -57,7 +64,7 @@
 //     thread draws the words of eight columns of four rows once, masks x
 //     in place (x * keep: exact in bf16) and, with those bits in its
 //     registers, forms dx for the same 64 bytes: g A^T as an fp32 FMA chain
-//     over j = 0 .. MR-1 (the order of the plain version's fp32 product,
+//     over j = 0 .. MR-1 (the order of the plain version's fp32 chain,
 //     so dx matches it to the bit where a tensor-core sum would move the
 //     bf16 rounding of values that cancel; A's fp32 rows of the CTA's
 //     columns stay in shared memory), times m, rounded to x's type into a
@@ -257,6 +264,7 @@ struct FwdShape {
   int kb;                     // 64-column chunks of d
   int stages, stage_bytes;    // the ring: A^T's parts' boxes, then x's box
   int at_bytes;               // one part's box: a_rows(mr) rows of 128 bytes
+                              // (64 where M*r > 64: a CTA's tile of them)
   uint32_t thresh, scale2;    // keep threshold; s_x as a bf16 pair
   RoundKeys key;
 };
@@ -283,8 +291,9 @@ __global__ void __launch_bounds__(256)
         at + (static_cast<size_t>(h) * rows + j) * d + c) = p[h];
 }
 
-// Grid: one CTA per 32 rows.  Warpgroup wg takes the chunks it = wg, wg +
-// FWD_WG, ... of d; thread t of a warpgroup masks the units (row, 16-byte chunk)
+// Grid: one CTA per 32 rows and 64 of the M*r columns (one tile below 64:
+// blockIdx.y is the tile; above 64 each tile draws its rows' words
+// again).  Warpgroup wg takes the chunks it = wg, wg + FWD_WG, ... of d; thread t of a warpgroup masks the units (row, 16-byte chunk)
 // t and t + 128 of each of its stages.  A stage holds A^T's parts for the
 // chunk (a_rows(mr) rows each, by TMA from the transpose pass's output) and
 // x's box; wgmma reads 64 rows of each part, and the rows past a_rows(mr)
@@ -325,8 +334,8 @@ __global__ void __launch_bounds__(FWD_NT, 1)
         const uint32_t st = ring + s * sh.stage_bytes;
         mbar_arrive_expect_tx(full + 8 * s, H * sh.at_bytes + FWD_XBYTES);
         for (int h = 0; h < H; ++h)
-          tma_load_4d(st + h * sh.at_bytes, &tm_at, full + 8 * s, 64 * it, 0,
-                      h, 0, last);
+          tma_load_4d(st + h * sh.at_bytes, &tm_at, full + 8 * s, 64 * it,
+                      64 * blockIdx.y, h, 0, last);
         tma_load_4d(st + H * sh.at_bytes, &tm_x, full + 8 * s, 64 * it, row0,
                     0, 0, first);
       }
@@ -396,7 +405,8 @@ __global__ void __launch_bounds__(FWD_NT, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int k = 4 * jj + 2 * u + e;
-        const int j = r0 + 8 * u, n = row0 + 8 * jj + 2 * qd + e;
+        const int j = 64 * blockIdx.y + r0 + 8 * u;
+        const int n = row0 + 8 * jj + 2 * qd + e;
         if (j < sh.mr && n < sh.n_rows) {
           float v = acc[k];
 #pragma unroll
@@ -419,10 +429,14 @@ constexpr int FLUSH = 4;         // a warpgroup's tiles whose dA products one
 
 struct BwdShape {
   int n_rows, d, mr;
+  int gw;           // the width of a tile's g rows in the ring: g's padded
+                    // width (M*r up to a multiple of 4) where the kernel
+                    // forms dx, 64 where it takes a 64-column tile of dA
+  int with_dx;      // M*r <= 64: dx and all of dA; else dA's tile only
   int tiles;        // 64-row tiles of each CTA of a pair (the first takes
                     // tiles [0, tiles), the second the rest)
   int stages;       // the ring's depth
-  int stage_bytes;  // x's box (BOX), then g's 64 rows (256 mr bytes)
+  int stage_bytes;  // x's box (BOX), then g's 64 rows (256 gw bytes)
   int off_gp;       // each warpgroup's g parts: 3 bf16 tiles [row][j]
   int off_dx;       // each warpgroup's two dx staging tiles
   int off_af;       // A fp32 for the CTA's columns (conflict-free layout)
@@ -432,7 +446,9 @@ struct BwdShape {
   RoundKeys key;
 };
 
-// Grid (d / 64, 2), clusters of the two CTAs of a column chunk.  Warpgroup
+// Grid (d / 64, 2, tiles), clusters of the two CTAs of a column chunk; at
+// M*r > 64 blockIdx.z is the CTA's 64-row tile of dA^T (g's columns 64 z
+// ..) and dx comes from dropout_dx_kernel instead.  Warpgroup
 // wg takes the CTA's tiles wg, wg + 2, ...; thread t of it the units (row,
 // 16-byte chunk) of chunk q = t % 8 in rows t / 8 + 16 u, u < 4.  The two
 // warpgroups run their tiles apart, each with its own barriers, g parts
@@ -482,9 +498,10 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
           mbar_wait(empty + 8 * s, ((i / sh.stages) - 1) & 1);
         const uint32_t st = base + s * sh.stage_bytes;
         const int n0 = 64 * (tile0 + i);
-        mbar_arrive_expect_tx(full + 8 * s, BOX + 256 * sh.mr);
+        mbar_arrive_expect_tx(full + 8 * s, BOX + 256 * sh.gw);
         tma_load_4d(st, &tm_x, full + 8 * s, c0, n0, 0, 0, first);
-        tma_load_4d(st + BOX, &tm_g, full + 8 * s, 0, n0, 0, 0, last);
+        tma_load_4d(st + BOX, &tm_g, full + 8 * s, 64 * blockIdx.z, n0, 0, 0,
+                    last);
       }
     }
   } else {
@@ -495,7 +512,7 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
     for (int i = t; i < 3 * BOX / 16; i += 128)
       reinterpret_cast<uint4*>(sm + sh.off_gp + wg * 3 * BOX)[i] =
           make_uint4(0u, 0u, 0u, 0u);
-    for (int i = tid; i < sh.mr * 64; i += CONSUMERS) {
+    for (int i = tid; i < (sh.with_dx ? sh.mr * 64 : 0); i += CONSUMERS) {
       const int c = i / sh.mr, j = i % sh.mr;
       af[j * 64 + (c & 4) * 8 + (c >> 3) * 4 + (c & 3)] =
           c0 + c < sh.d ? to_float(a[static_cast<size_t>(c0 + c) * sh.mr + j])
@@ -503,7 +520,7 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
     }
     named_bar_sync(1, CONSUMERS);  // A's rows written
     const int q = t & 7, rr = t >> 3;
-    const int half = sh.mr / 2;  // g's column pairs a row
+    const int half = sh.gw / 2;  // g's column pairs a row
     // thread t's g items of a tile: (row, column pair) (i / half, i % half)
     // for i = t + 128 k, i < 64 half, stepped without a division
     const int ir = t / half, ij = t % half;
@@ -537,19 +554,20 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
         *p = v;
       }
       // dx = (g A^T) * m for the four rows: an fp32 FMA chain over j from
-      // 0, the order of the plain version's product, into the staging tile
-      // as bf16
+      // 0 to M*r - 1, the order of the plain version's product, into the
+      // staging tile as bf16 (four j a step, then the M*r % 4 left)
       float acc[4][8];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[u][e] = 0.f;
-      for (int j = 0; j < sh.mr; j += 4) {
+      int j = 0;
+      for (; j + 4 <= (sh.with_dx ? sh.mr : 0); j += 4) {
         float gj[4][4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const float4 v = *reinterpret_cast<const float4*>(
-              gs + (rr + 16 * u) * sh.mr + j);
+              gs + (rr + 16 * u) * sh.gw + j);
           gj[u][0] = v.x;
           gj[u][1] = v.y;
           gj[u][2] = v.z;
@@ -566,6 +584,18 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
 #pragma unroll
             for (int e = 0; e < 8; ++e)
               acc[u][e] = fmaf(gj[u][jj], av[e], acc[u][e]);
+        }
+      }
+      for (; j < (sh.with_dx ? sh.mr : 0); ++j) {
+        const float* ar = af + j * 64 + 4 * q;
+        const float4 a0 = *reinterpret_cast<const float4*>(ar);
+        const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float gu = gs[(rr + 16 * u) * sh.gw + j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[u][e] = fmaf(gu, av[e], acc[u][e]);
         }
       }
       // dx = sum * (1/keep) where kept, +0 where dropped (the plain
@@ -600,7 +630,7 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
         int r = ir, jp = ij;
         for (int it = t; it < 64 * half; it += 128) {
           const float2 v =
-              *reinterpret_cast<const float2*>(gs + r * sh.mr + 2 * jp);
+              *reinterpret_cast<const float2*>(gs + r * sh.gw + 2 * jp);
           uint32_t p[3];
           split3(v.x, v.y, p);
 #pragma unroll
@@ -629,7 +659,7 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
           wgmma_m64n64_ss<1, 1>(dacc, desc_sw128(gpa + h * BOX + kk * 2048),
                                 desc_sw128(xa + kk * 2048), 1);
       wgmma_commit();
-      if (t == 0) {
+      if (t == 0 && sh.with_dx) {
         tma_store_4d(&tm_dx, smem_addr(dxs), c0, n0, 0, 0, l2_evict_first());
         bulk_commit();
       }
@@ -671,7 +701,8 @@ __global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(BWD_NT, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int k = 4 * jj + 2 * u + e;
-          const int j = r0 + 8 * u, c = c0 + 8 * jj + 2 * qd + e;
+          const int j = 64 * blockIdx.z + r0 + 8 * u;
+          const int c = c0 + 8 * jj + 2 * qd + e;
           if (j < sh.mr && c < sh.d)
             from_float((dacc[k] + other[k * 128 + t]) * sh.inv_keep,
                        da + static_cast<size_t>(c) * sh.mr + j);
@@ -686,8 +717,9 @@ constexpr int F32_FWD_WARPS = 8;   // rows a forward CTA, one a warp
 constexpr int F32_BWD_WARPS = 4;   // a backward CTA: 32 columns, rows
                                    // split over the warps
 
-// A warp a row, a lane eight columns at a time; the MR sums reduced over
-// the warp by shuffles
+// A warp a row, a lane eight columns at a time; the sums of the CTA's
+// MRMAX columns of out (blockIdx.y's tile of M*r) reduced over the warp by
+// shuffles
 template <typename TA, int MRMAX>
 __global__ void __launch_bounds__(F32_FWD_WARPS * 32)
     dropout_fwd_f32(const float* __restrict__ x, const TA* __restrict__ a,
@@ -696,6 +728,7 @@ __global__ void __launch_bounds__(F32_FWD_WARPS * 32)
                     const __grid_constant__ RoundKeys rk) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n = blockIdx.x * F32_FWD_WARPS + warp;
+  const int j0 = blockIdx.y * MRMAX, jw = min(MRMAX, mr - j0);
   if (n >= n_rows) return;
   float acc[MRMAX];
 #pragma unroll
@@ -713,10 +746,10 @@ __global__ void __launch_bounds__(F32_FWD_WARPS * 32)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const float xd = w[e] < thresh ? xv[e] * x_scale : 0.f;
-      const TA* ar = a + static_cast<size_t>(c + e) * mr;
+      const TA* ar = a + static_cast<size_t>(c + e) * mr + j0;
 #pragma unroll
       for (int j = 0; j < MRMAX; ++j)
-        if (j < mr) acc[j] = fmaf(xd, to_float(ar[j]), acc[j]);
+        if (j < jw) acc[j] = fmaf(xd, to_float(ar[j]), acc[j]);
     }
   }
 #pragma unroll
@@ -729,28 +762,33 @@ __global__ void __launch_bounds__(F32_FWD_WARPS * 32)
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < MRMAX; ++j)
-      if (j < mr) out[static_cast<size_t>(n) * mr + j] = acc[j];
+      if (j < jw) out[static_cast<size_t>(n) * mr + j0 + j] = acc[j];
   }
 }
 
-// A lane a column (its MR values of A in registers), the warps taking every
-// F32_BWD_WARPS-th row; dA's partial sums added over the warps in order
+// A lane a column (its values of A in the CTA's MRMAX columns of M*r,
+// blockIdx.y's tile, in registers), the warps taking every
+// F32_BWD_WARPS-th row; dA's partial sums added over the warps in order.
+// With with_dx (M*r <= MRMAX: one tile) it also forms dx; above, dx comes
+// from dropout_dx_kernel
 template <typename TA, int MRMAX>
 __global__ void __launch_bounds__(F32_BWD_WARPS * 32)
     dropout_bwd_f32(const float* __restrict__ x, const TA* __restrict__ a,
                     const uint32_t* __restrict__ bits,
                     const float* __restrict__ g, float* __restrict__ dx,
-                    TA* __restrict__ da, int n_rows, int d, int mr,
-                    uint32_t thresh, float inv_keep,
+                    TA* __restrict__ da, int n_rows, int d, int mr, int gw,
+                    int with_dx, uint32_t thresh, float inv_keep,
                     const __grid_constant__ RoundKeys rk) {
   __shared__ float red[F32_BWD_WARPS][MRMAX][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = blockIdx.x * 32 + lane;
+  const int j0 = blockIdx.y * MRMAX, jw = min(MRMAX, mr - j0);
   const bool live = c < d;
   float av[MRMAX], acc[MRMAX];
 #pragma unroll
   for (int j = 0; j < MRMAX; ++j) {
-    av[j] = live && j < mr ? to_float(a[static_cast<size_t>(c) * mr + j]) : 0.f;
+    av[j] = live && j < jw
+        ? to_float(a[static_cast<size_t>(c) * mr + j0 + j]) : 0.f;
     acc[j] = 0.f;
   }
   for (int n = warp; n < n_rows; n += F32_BWD_WARPS) {
@@ -766,16 +804,16 @@ __global__ void __launch_bounds__(F32_BWD_WARPS * 32)
     }
     const float m = wd < thresh ? inv_keep : 0.f;
     const float xm = live ? x[static_cast<size_t>(n) * d + c] * m : 0.f;
-    const float* gr = g + static_cast<size_t>(n) * mr;
+    const float* gr = g + static_cast<size_t>(n) * gw + j0;
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < MRMAX; ++j)
-      if (j < mr) {
+      if (j < jw) {
         const float gj = gr[j];
         s = fmaf(gj, av[j], s);
         acc[j] = fmaf(xm, gj, acc[j]);
       }
-    if (live) dx[static_cast<size_t>(n) * d + c] = s * m;
+    if (live && with_dx) dx[static_cast<size_t>(n) * d + c] = s * m;
   }
 #pragma unroll
   for (int j = 0; j < MRMAX; ++j) red[warp][j][lane] = acc[j];
@@ -783,23 +821,114 @@ __global__ void __launch_bounds__(F32_BWD_WARPS * 32)
   if (warp == 0 && live) {
 #pragma unroll
     for (int j = 0; j < MRMAX; ++j)
-      if (j < mr) {
+      if (j < jw) {
         float s = red[0][j][lane];
 #pragma unroll
         for (int w = 1; w < F32_BWD_WARPS; ++w) s += red[w][j][lane];
-        from_float(s, da + static_cast<size_t>(c) * mr + j);
+        from_float(s, da + static_cast<size_t>(c) * mr + j0 + j);
       }
+  }
+}
+
+// ------------------------------------------------ dx at M*r > 64
+
+constexpr int DX_NT = 256;     // 32 rows of 64 columns a pass, 8 a thread
+
+// dx = ((g A^T) * m) in x's type where M*r > 64 and the backward's tiles
+// take dA alone (their stage holds 64 of g's columns, not all M*r).  A CTA
+// owns 64 columns of d and walks every gridDim.y-th group of 32 rows; a
+// thread takes 8 adjacent columns of a row.  A's fp32 rows of the CTA's
+// columns sit in shared memory in the backward kernel's layout (64 * M*r *
+// 4 bytes), g's rows come from L2 (the 8 threads of a row read the same
+// values), and the chain is the backward kernel's: fp32 FMAs over j from 0
+// to M*r - 1 in the plain version's order, so dx matches it to the bit.
+// Bound: M*r FMAs an element, 2 * N * d * M*r flops of the ordinary cores.
+template <typename T, typename TA, bool FORCED>
+__global__ void __launch_bounds__(DX_NT)
+    dropout_dx_kernel(const TA* __restrict__ a,
+                      const uint32_t* __restrict__ bits,
+                      const float* __restrict__ g, T* __restrict__ dx,
+                      int n_rows, int d, int mr, int gw, uint32_t thresh,
+                      float inv_keep, const __grid_constant__ RoundKeys rk) {
+  extern __shared__ __align__(16) float afs[];  // [mr][64]
+  const int c0 = blockIdx.x * 64, t = threadIdx.x, q = t & 7, rr = t >> 3;
+  for (int i = t; i < mr * 64; i += DX_NT) {
+    const int c = i / mr, j = i % mr;
+    afs[j * 64 + (c & 4) * 8 + (c >> 3) * 4 + (c & 3)] =
+        c0 + c < d ? to_float(a[static_cast<size_t>(c0 + c) * mr + j]) : 0.f;
+  }
+  __syncthreads();
+  if (c0 + 8 * q >= d) return;
+  for (int n = blockIdx.y * 32 + rr; n < n_rows; n += gridDim.y * 32) {
+    uint32_t w[8];
+    words8<FORCED>(bits, n, c0 + 8 * q, n_rows, d, rk, w);
+    const float* gr = g + static_cast<size_t>(n) * gw;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    int j = 0;
+    for (; j + 4 <= mr; j += 4) {
+      const float4 gv = *reinterpret_cast<const float4*>(gr + j);
+      const float gj[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* ar = afs + (j + jj) * 64 + 4 * q;
+        const float4 a0 = *reinterpret_cast<const float4*>(ar);
+        const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = fmaf(gj[jj], av[e], acc[e]);
+      }
+    }
+    for (; j < mr; ++j) {
+      const float* ar = afs + j * 64 + 4 * q;
+      const float4 a0 = *reinterpret_cast<const float4*>(ar);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float gu = gr[j];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = fmaf(gu, av[e], acc[e]);
+    }
+    // sum * (1/keep) where kept, +0 where dropped
+    T* o = dx + static_cast<size_t>(n) * d + c0 + 8 * q;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      from_float(w[e] < thresh ? acc[e] * inv_keep : 0.f, o + e);
   }
 }
 
 // ------------------------------------------------------------ launches
 
-// the M * r the kernels take: ranks 4, 8, 16 times 1-4 modalities; d % 8
-// == 0 (TMA rows of 16-byte multiples; eight columns a thread)
+// the M * r the kernels take: ranks 1-64 times 1-4 modalities; d % 8 ==
+// 0 (TMA rows of 16-byte multiples; eight columns a thread)
+constexpr int MAX_MR = 256;
 bool takes(int n, int d, int mr) {
-  const bool width = mr == 4 || mr == 8 || mr == 12 || mr == 16 ||
-                     mr == 24 || mr == 32 || mr == 48 || mr == 64;
-  return n > 0 && d > 0 && d % 8 == 0 && width;
+  return n > 0 && d > 0 && d % 8 == 0 && mr >= 1 && mr <= MAX_MR;
+}
+
+// g's row width in memory: M*r up to a multiple of 4 (the wrapper pads g
+// with zero columns), so its TMA rows are 16-byte multiples
+int g_width(int mr) { return (mr + 3) / 4 * 4; }
+
+// the dx kernel's launch for M*r > 64: a CTA 64 columns, row groups for
+// about four CTAs an SM
+template <typename T, typename TA, bool FORCED>
+int launch_dx(const void* a, const void* bits, const void* g, void* dx,
+              int n, int d, int mr, uint32_t thresh, float inv_keep,
+              const RoundKeys& rk, cudaStream_t st) {
+  const int smem = 4 * 64 * mr;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dropout_dx_kernel<T, TA, FORCED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * 64 * MAX_MR);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int cols = (d + 63) / 64, groups = (n + 31) / 32;
+  int gy = 4 * sm_count() / cols;
+  gy = gy < 1 ? 1 : gy > groups ? groups : gy;
+  dropout_dx_kernel<T, TA, FORCED><<<dim3(cols, gy), DX_NT, smem, st>>>(
+      static_cast<const TA*>(a), static_cast<const uint32_t*>(bits),
+      static_cast<const float*>(g), static_cast<T*>(dx), n, d, mr,
+      g_width(mr), thresh, inv_keep, rk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 uint32_t bf16_pair(float v) {  // v is a bf16 value: its high 16 bits, twice
@@ -829,6 +958,7 @@ int launch_fwd(const void* x, const void* a, const void* bits, void* out,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int rows = a_rows(mr);
+  const int box_rows = rows < 64 ? rows : 64;  // a CTA's tile of A^T's rows
   __nv_bfloat16* at = static_cast<__nv_bfloat16*>(work);
   transpose_a_kernel<TA><<<dim3((d / 2 + 255) / 256, rows), 256, 0, st>>>(
       static_cast<const TA*>(a), at, d, mr, rows);
@@ -839,7 +969,7 @@ int launch_fwd(const void* x, const void* a, const void* bits, void* out,
   sh.d = d;
   sh.mr = mr;
   sh.kb = (d + 63) / 64;
-  sh.at_bytes = rows * 128;
+  sh.at_bytes = box_rows * 128;
   sh.stage_bytes = H * sh.at_bytes + FWD_XBYTES;
   const int tail = FWD_RED + 16 * FWD_MAX_STAGES;
   sh.stages = (SMEM_LIMIT - 1024 - tail) / sh.stage_bytes;
@@ -854,28 +984,30 @@ int launch_fwd(const void* x, const void* a, const void* bits, void* out,
   sh.key = rk;
   CUtensorMap tm_x, tm_at;
   const uint64_t at_dims[4] = {uint64_t(d), uint64_t(rows), uint64_t(H), 1};
-  const uint32_t at_box[4] = {64, uint32_t(rows), 1, 1};
+  const uint32_t at_box[4] = {64, uint32_t(box_rows), 1, 1};
   if (!bf16_map(&tm_x, x, n, d, FWD_ROWS) ||
       !swizzled_map(&tm_at, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, at,
                     at_dims, at_box))
     return static_cast<int>(cudaErrorInvalidValue);
-  dropout_fwd_kernel<TA, FORCED><<<(n + FWD_ROWS - 1) / FWD_ROWS, FWD_NT,
-                                   smem, st>>>(
+  const dim3 grid((n + FWD_ROWS - 1) / FWD_ROWS, (mr + 63) / 64);
+  dropout_fwd_kernel<TA, FORCED><<<grid, FWD_NT, smem, st>>>(
       tm_x, tm_at, static_cast<const uint32_t*>(bits),
       static_cast<float*>(out), sh);
   return static_cast<int>(cudaGetLastError());
 }
 
 // a 4-D tensor map over a row-major (rows, cols) fp32 array, in unswizzled
-// boxes of box_rows whole rows; rows past the array load as zero
+// boxes of box_rows rows of box_cols; what lies past the array loads as
+// zero
 bool f32_rows_map(CUtensorMap* map, const void* p, int rows, int cols,
-                  int box_rows) {
+                  int box_cols, int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t row = 4ull * cols;
   const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows), 1, 1};
   const cuuint64_t strides[3] = {row, row * rows, row * rows};
-  const cuuint32_t box[4] = {cuuint32_t(cols), cuuint32_t(box_rows), 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1,
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(p),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -891,10 +1023,13 @@ int launch_bwd(const void* x, const void* a, const void* bits, const void* g,
   sh.n_rows = n;
   sh.d = d;
   sh.mr = mr;
+  sh.with_dx = mr <= 64;
+  sh.gw = sh.with_dx ? g_width(mr) : 64;
   sh.tiles = ((n + 63) / 64 + 1) / 2;
-  sh.stage_bytes = BOX + 256 * mr;
+  sh.stage_bytes = BOX + 256 * sh.gw;
   // after the ring: the g parts and staging tiles of the two warpgroups, A
-  const int rest = 2 * 3 * BOX + 2 * 2 * BOX + 4 * 64 * mr;
+  const int af_bytes = sh.with_dx ? 4 * 64 * mr : 0;
+  const int rest = 2 * 3 * BOX + 2 * 2 * BOX + af_bytes;
   sh.stages = (SMEM_LIMIT - 1024 - 16 * BWD_MAX_STAGES - rest) /
               sh.stage_bytes;
   sh.stages = sh.stages < BWD_MAX_STAGES ? sh.stages : BWD_MAX_STAGES;
@@ -904,7 +1039,7 @@ int launch_bwd(const void* x, const void* a, const void* bits, const void* g,
   sh.off_gp = sh.stages * sh.stage_bytes;
   sh.off_dx = sh.off_gp + 2 * 3 * BOX;
   sh.off_af = sh.off_dx + 2 * 2 * BOX;
-  sh.off_bars = sh.off_af + 4 * 64 * mr;
+  sh.off_bars = sh.off_af + af_bytes;
   sh.thresh = thresh;
   sh.inv_keep = inv_keep;
   sh.key = rk;
@@ -917,14 +1052,18 @@ int launch_bwd(const void* x, const void* a, const void* bits, const void* g,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap tm_x, tm_g, tm_dx;
-  if (!bf16_map(&tm_x, x, n, d, 64) || !f32_rows_map(&tm_g, g, n, mr, 64) ||
+  if (!bf16_map(&tm_x, x, n, d, 64) ||
+      !f32_rows_map(&tm_g, g, n, g_width(mr), sh.gw, 64) ||
       !bf16_map(&tm_dx, dx, n, d, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((d + BWD_COLS - 1) / BWD_COLS, 2);
+  const dim3 grid((d + BWD_COLS - 1) / BWD_COLS, 2, (mr + 63) / 64);
   dropout_bwd_kernel<TA, FORCED><<<grid, BWD_NT, smem, st>>>(
       tm_x, tm_g, tm_dx, static_cast<const TA*>(a),
       static_cast<const uint32_t*>(bits), static_cast<TA*>(da), sh);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || sh.with_dx) return static_cast<int>(err);
+  return launch_dx<__nv_bfloat16, TA, FORCED>(a, bits, g, dx, n, d, mr,
+                                              thresh, inv_keep, rk, st);
 }
 
 // bf16 x: the kernels' instance for forced words or the generator
@@ -952,16 +1091,17 @@ template <typename TA>
 int launch_fwd_f32(const void* x, const void* a, const void* bits, void* out,
                    int n, int d, int mr, uint32_t thresh, float x_scale,
                    const RoundKeys& rk, cudaStream_t st) {
-  const int grid = (n + F32_FWD_WARPS - 1) / F32_FWD_WARPS;
+  const int rows = (n + F32_FWD_WARPS - 1) / F32_FWD_WARPS;
   const float* xp = static_cast<const float*>(x);
   const TA* ap = static_cast<const TA*>(a);
   const uint32_t* bp = static_cast<const uint32_t*>(bits);
   float* op = static_cast<float*>(out);
   if (mr <= 16)
-    dropout_fwd_f32<TA, 16><<<grid, F32_FWD_WARPS * 32, 0, st>>>(
+    dropout_fwd_f32<TA, 16><<<rows, F32_FWD_WARPS * 32, 0, st>>>(
         xp, ap, bp, op, n, d, mr, thresh, x_scale, rk);
   else
-    dropout_fwd_f32<TA, 64><<<grid, F32_FWD_WARPS * 32, 0, st>>>(
+    dropout_fwd_f32<TA, 64><<<dim3(rows, (mr + 63) / 64),
+                              F32_FWD_WARPS * 32, 0, st>>>(
         xp, ap, bp, op, n, d, mr, thresh, x_scale, rk);
   return static_cast<int>(cudaGetLastError());
 }
@@ -971,20 +1111,29 @@ int launch_bwd_f32(const void* x, const void* a, const void* bits,
                    const void* g, void* dx, void* da, int n, int d, int mr,
                    uint32_t thresh, float inv_keep, const RoundKeys& rk,
                    cudaStream_t st) {
-  const int grid = (d + 31) / 32;
+  const int cols = (d + 31) / 32;
   const float* xp = static_cast<const float*>(x);
   const TA* ap = static_cast<const TA*>(a);
   const uint32_t* bp = static_cast<const uint32_t*>(bits);
   const float* gp = static_cast<const float*>(g);
   float* dxp = static_cast<float*>(dx);
   TA* dap = static_cast<TA*>(da);
+  const int gw = g_width(mr), with_dx = mr <= 64;
   if (mr <= 16)
-    dropout_bwd_f32<TA, 16><<<grid, F32_BWD_WARPS * 32, 0, st>>>(
-        xp, ap, bp, gp, dxp, dap, n, d, mr, thresh, inv_keep, rk);
+    dropout_bwd_f32<TA, 16><<<cols, F32_BWD_WARPS * 32, 0, st>>>(
+        xp, ap, bp, gp, dxp, dap, n, d, mr, gw, with_dx, thresh, inv_keep,
+        rk);
   else
-    dropout_bwd_f32<TA, 64><<<grid, F32_BWD_WARPS * 32, 0, st>>>(
-        xp, ap, bp, gp, dxp, dap, n, d, mr, thresh, inv_keep, rk);
-  return static_cast<int>(cudaGetLastError());
+    dropout_bwd_f32<TA, 64><<<dim3(cols, (mr + 63) / 64),
+                              F32_BWD_WARPS * 32, 0, st>>>(
+        xp, ap, bp, gp, dxp, dap, n, d, mr, gw, with_dx, thresh, inv_keep,
+        rk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || with_dx) return static_cast<int>(err);
+  return bits ? launch_dx<float, TA, true>(a, bits, g, dx, n, d, mr, thresh,
+                                          inv_keep, rk, st)
+              : launch_dx<float, TA, false>(a, bits, g, dx, n, d, mr, thresh,
+                                           inv_keep, rk, st);
 }
 
 }  // namespace
@@ -1026,8 +1175,9 @@ extern "C" int moka_dropout_a_fwd(const void* x, int x_bf16, const void* a,
                                         x_scale, rk, s);
 }
 
-// Kernel 7.  g (n, mr) fp32; dx (n, d) in x's type; da (d, mr) in A's type;
-// the rest as moka_dropout_a_fwd.  One launch.
+// Kernel 7.  g (n, g_width(mr)) fp32, its columns past mr zero; dx (n, d)
+// in x's type; da (d, mr) in A's type; the rest as moka_dropout_a_fwd.  One
+// launch at mr <= 64; above, the dA tiles' launch and the dx kernel's.
 extern "C" int moka_dropout_a_bwd(const void* x, int x_bf16, const void* a,
                                   int a_bf16, const void* bits, const void* g,
                                   void* dx, void* da, int n, int d, int mr,

@@ -1,5 +1,8 @@
-// Fused MokA adapter delta, forward, for Hopper (sm_90a), at ranks 4, 8 and
-// 16 with up to four modalities.
+// Fused MokA adapter delta, forward, for Hopper (sm_90a), at every rank
+// from 1 to 64 with up to four modalities.  Built for ranks R = 4, 8, 16,
+// 32 and 64; a true rank r <= R runs in the rank-R instance with A's
+// columns and B's rows past r zero (ops/moka_pallas.py pads them; exact:
+// see takes()) and the attention scale 1/sqrt(r) of the true rank.
 //
 // Replaces the TPU kernel moka_tpu/ops/moka_pallas.py::_kernel (:35,
 // launched by _fused_fwd :112).  For a tile of tokens of one batch row it
@@ -30,7 +33,13 @@
 //     item's attention and stores;
 //   * the down product runs on the tensor cores: one consumer warpgroup
 //     issues wgmma m64nNk16 (bf16 in, fp32 accumulate) with N = 2*M*r
-//     columns, every modality's r columns side by side.  A stays fp32 in
+//     columns, every modality's r columns side by side.  Where N passes
+//     wgmma's 256 or its ring would not fit (r 64 with 3 or 4 modalities)
+//     the item takes 2 or 4 passes over x (down_passes), NP = N / passes
+//     columns each: x is read again from L2 for each further pass.  A
+//     thread holds the same ranks of its two rows in every pass, so it
+//     sums the modalities' a_i into the rank-space buffer itself; the
+//     attention streams' a_i are also kept as their queries.  A stays fp32 in
 //     effect: the key pass splits it into bf16 halves hi = bf16(A) and
 //     lo = bf16(A - hi), interleaved column by column, and the two
 //     accumulators of a column pair are summed (|A - hi - lo| <= 2^-16 |A|;
@@ -38,14 +47,17 @@
 //   * the attention stages the row's n_q keys in shared memory once per
 //     row (in chunks of KCAP keys where n_q is larger) and walks only them:
 //     two threads a token, each every other key, an online softmax in exp2
-//     for each attention stream the token belongs to, merged by a shuffle;
+//     for each attention stream the token belongs to, merged by a shuffle
+//     and added into the token's buffer row;
 //   * the up product buf @ B also runs on the tensor cores, because at
 //     rank 16 its fp32 FMAs (64 tokens x d_out x 16 an item) would take as
 //     long as the item's bytes: wgmma m64n64k16 with buf as the register
 //     operand, split as [hi(buf), hi(buf), lo(buf)] against the rows
 //     [hi(B); lo(B); hi(B)] that the key pass writes (K = 3r padded to 16),
 //     which keeps the product within 2^-16 of fp32; B streams through a
-//     ring of 3-8 stages (36 KB) in chunks of 128 outputs by TMA.  Each
+//     ring of 2-8 stages (36-48 KB) in chunks of 128 outputs (64 at r 32
+//     and 64, where the rows of a box of 64 outputs are 12 and 24 KB) by
+//     TMA.  Each
 //     warp scales its 16 rows of a chunk, rounds them to bf16 into its own
 //     128-byte-swizzled staging tile (4 a warp) and stores them by TMA
 //     (rows past L are clipped), with no barrier across the warpgroup, so
@@ -88,6 +100,7 @@ struct Args {
   __nv_bfloat16* at;    // (2*M*R, d_in): A's bf16 halves (bf16 path)
   __nv_bfloat16* bs;    // (KPAD, d_out): [hi(B); lo(B); hi(B); 0] (bf16 path)
   int nb, L, d_in, d_out, M;
+  int rank;             // the true rank (<= R: the ranks past it are zero)
   int ds;               // the keys' partial sums: ceil(d_in / KEY_DCH)
   float pre_scale, attn_weight;
   int attn_bits, has_post;
@@ -149,14 +162,14 @@ __device__ __forceinline__ void reduce_scatter_step(float (&v)[64], int lane) {
 }
 
 // the sums of 64 values over the lanes of a warp that share lane % Q (Q =
-// 1, 2 or 4), scattered: the lane with (lane / Q) = l ends with the sums of
-// v[2 Q l .. 2 Q l + 2 Q) in v[0 .. 2 Q)
+// 1, 2, 4, 8 or 16), scattered: the lane with (lane / Q) = l ends with the
+// sums of v[2 Q l .. 2 Q l + 2 Q) in v[0 .. 2 Q)
 template <int Q>
 __device__ __forceinline__ void warp_reduce_scatter64(float (&v)[64],
                                                       int lane) {
   reduce_scatter_step<64, 16>(v, lane);
-  reduce_scatter_step<32, 8>(v, lane);
-  reduce_scatter_step<16, 4>(v, lane);
+  if constexpr (Q < 16) reduce_scatter_step<32, 8>(v, lane);
+  if constexpr (Q < 8) reduce_scatter_step<16, 4>(v, lane);
   if constexpr (Q < 4) reduce_scatter_step<8, 2>(v, lane);
   if constexpr (Q < 2) reduce_scatter_step<4, 1>(v, lane);
 }
@@ -296,8 +309,9 @@ __global__ void __launch_bounds__(KP_NT)
 #pragma unroll
     for (int i = 0; i < 2 * Q; ++i) red[warp][q][2 * Q * (lane / Q) + i] = acc[i];
     __syncthreads();
-    if (tid < KP_G * R && j0 + tid / R < n_q) {
-      const int u = tid / R, r = tid % R;
+    for (int e = tid; e < KP_G * R; e += KP_NT) {
+      const int u = e / R, r = e % R;
+      if (j0 + u >= n_q) break;
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) s += red[w][r / 4][4 * u + r % 4];
@@ -317,36 +331,51 @@ constexpr int CONSUMERS = 128;         // one consumer warpgroup
 constexpr int NT = CONSUMERS + 32;     // and one producer warp
 constexpr int BOX = 64 * 128;          // a 64-row box of 128-byte rows
 constexpr int MAX_STAGES = 8;
-constexpr int B_RING = 36 * 1024;      // the up product's B ring, at most
-constexpr int OUT_BUFS = 4;            // output staging tiles a warp
+constexpr int B_RING = 36 * 1024;      // the up product's B ring (two
+                                       // stages at least)
 constexpr int WROWS = 16;              // a consumer warp's rows of a tile
 constexpr int WBOX = WROWS * 128;      // its 64 outputs of them, one box
-constexpr int CHUNK = 128;             // outputs an up-product chunk
+
+// the down product's passes over an item's x: the fewest (1, 2 or 4) whose
+// NP = N / passes columns wgmma takes (<= 256: NP / 2 accumulators a
+// thread) and whose ring of two stages fits beside the tail
+constexpr int down_passes(int n, int tail) {
+  return n <= 256 && 1024 + tail + 2 * (BOX + n * 128) <= SMEM_LIMIT ? 1
+         : n <= 512 && n % 16 == 0 &&
+                 1024 + tail + 2 * (BOX + n / 2 * 128) <= SMEM_LIMIT ? 2
+                                                                      : 4;
+}
 
 template <int R, int M>
 struct Cfg {
   static constexpr int MR = M * R;
   static constexpr int N = 2 * MR;                    // down-product columns
   static constexpr int KPAD = 16 * ((3 * R + 15) / 16);  // up-product depth
-  static constexpr int STAGE = BOX + N * 128;         // x box + A's 64 rows
-  static constexpr int B_BYTES = 2 * KPAD * 128;      // two boxes of 64 outputs
-  static constexpr int B_STAGES =                     // 8 at r 4, 4 at 8, 3 at 16
-      B_RING / B_BYTES < 8 ? B_RING / B_BYTES : 8;
-  static constexpr int OUT_BYTES = 2 * WBOX;          // a warp's 16 x 128 outputs
-  static constexpr int KCAP = 4096 / R;               // keys staged at once
+  static constexpr int BOXES = R <= 16 ? 2 : 1;       // 64-output boxes a chunk
+  static constexpr int CHUNK = 64 * BOXES;            // outputs a chunk
+  static constexpr int B_BYTES = BOXES * KPAD * 128;  // a chunk of B's rows
+  static constexpr int B_STAGES =                     // 8 at r 4, 4 at 8, 3
+      B_RING / B_BYTES < 2 ? 2                        // at 16 and 32, 2 at 64
+      : B_RING / B_BYTES < 8 ? B_RING / B_BYTES : 8;
+  static constexpr int OUT_BUFS = R <= 32 ? 4 : 2;    // staging tiles a warp
+  static constexpr int OUT_BYTES = BOXES * WBOX;      // a warp's 16 x CHUNK outputs
+  static constexpr int KCAP = (R <= 32 ? 4096 : 2048) / R;  // keys staged at once
   // shared memory after the ring: B ring, staging, then fp32 arrays
   static constexpr int OFF_B = 0;
   static constexpr int OFF_OUT = OFF_B + B_STAGES * B_BYTES;
-  static constexpr int OFF_ABUF =                                  // [TOK][MR]
-      OFF_OUT + CONSUMERS / 32 * OUT_BUFS * OUT_BYTES;
-  static constexpr int OFF_ATT = OFF_ABUF + TOK * MR * 4;   // [M][TOK][R]
-  static constexpr int OFF_BUF = OFF_ATT + M * TOK * R * 4;     // [TOK][R]
+  static constexpr int OFF_QRY =                  // [M][TOK][R]: the attention
+      OFF_OUT + CONSUMERS / 32 * OUT_BUFS * OUT_BYTES;  // streams' queries
+  static constexpr int OFF_BUF = OFF_QRY + M * TOK * R * 4;     // [TOK][R]
   static constexpr int OFF_MK = OFF_BUF + TOK * R * 4;      // [MAXM][TOK]
   static constexpr int OFF_TS = OFF_MK + MAXM * TOK * 4;    // [TOK]
   static constexpr int OFF_KEYS = OFF_TS + TOK * 4;         // [KCAP][R]
   static constexpr int OFF_BARS = OFF_KEYS + KCAP * R * 4;
   static constexpr int TAIL = OFF_BARS + 8 * (2 * MAX_STAGES + 2 * B_STAGES);
-  static_assert(B_STAGES >= 2, "the B ring needs two stages");
+  static constexpr int PASSES = down_passes(N, TAIL);
+  static constexpr int NP = N / PASSES;               // columns a pass
+  static constexpr int STAGE = BOX + NP * 128;        // x box + A's 64 rows
+  static_assert(NP <= 256 && NP % 8 == 0, "a pass is one wgmma wide");
+  static_assert(1024 + TAIL + 2 * STAGE <= SMEM_LIMIT, "two stages fit");
 };
 
 struct Shape {
@@ -370,8 +399,7 @@ __global__ void __launch_bounds__(NT, 1)
   const uint32_t ring = smem_addr(sm);
   uint8_t* tail = sm + sh.stages * C::STAGE;
   const uint32_t tbase = smem_addr(tail);
-  float* abuf = reinterpret_cast<float*>(tail + C::OFF_ABUF);
-  float* att = reinterpret_cast<float*>(tail + C::OFF_ATT);
+  float* qry = reinterpret_cast<float*>(tail + C::OFF_QRY);
   float* buf = reinterpret_cast<float*>(tail + C::OFF_BUF);
   float* mk = reinterpret_cast<float*>(tail + C::OFF_MK);
   float* ts = reinterpret_cast<float*>(tail + C::OFF_TS);
@@ -400,15 +428,17 @@ __global__ void __launch_bounds__(NT, 1)
       int it = 0, jt = 0;
       for (int item = i0; item < i1; ++item) {
         const int bi = item / sh.tiles, t0 = (item % sh.tiles) * TOK;
-        for (int kb = 0; kb < sh.kb; ++kb, ++it) {
-          const int s = it % sh.stages;
-          if (it >= sh.stages)
-            mbar_wait(empty + 8 * s, ((it / sh.stages) - 1) & 1);
-          mbar_arrive_expect_tx(full + 8 * s, C::STAGE);
-          tma_load_4d(ring + s * C::STAGE, &tm_x, full + 8 * s, 64 * kb, t0,
-                      bi, 0, first);
-          tma_load_4d(ring + s * C::STAGE + BOX, &tm_at, full + 8 * s,
-                      64 * kb, 0, 0, 0, last);
+        for (int pass = 0; pass < C::PASSES; ++pass) {
+          for (int kb = 0; kb < sh.kb; ++kb, ++it) {
+            const int s = it % sh.stages;
+            if (it >= sh.stages)
+              mbar_wait(empty + 8 * s, ((it / sh.stages) - 1) & 1);
+            mbar_arrive_expect_tx(full + 8 * s, C::STAGE);
+            tma_load_4d(ring + s * C::STAGE, &tm_x, full + 8 * s, 64 * kb, t0,
+                        bi, 0, first);
+            tma_load_4d(ring + s * C::STAGE + BOX, &tm_at, full + 8 * s,
+                        64 * kb, pass * C::NP, 0, 0, last);
+          }
         }
         for (int ch = 0; ch < sh.chunks; ++ch, ++jt) {
           const int s = jt % C::B_STAGES;
@@ -416,11 +446,12 @@ __global__ void __launch_bounds__(NT, 1)
             mbar_wait(bempty + 8 * s, ((jt / C::B_STAGES) - 1) & 1);
           // a box wholly past d_out is not loaded (its products are
           // clipped by the store)
-          const int boxes = CHUNK * ch + 64 < a.d_out ? 2 : 1;
+          const int boxes =
+              C::BOXES == 2 && C::CHUNK * ch + 64 < a.d_out ? 2 : 1;
           mbar_arrive_expect_tx(bfull + 8 * s, boxes * C::KPAD * 128);
           for (int q = 0; q < boxes; ++q)
             tma_load_4d(tbase + C::OFF_B + s * C::B_BYTES + q * C::KPAD * 128,
-                        &tm_b, bfull + 8 * s, CHUNK * ch + 64 * q, 0, 0, 0,
+                        &tm_b, bfull + 8 * s, C::CHUNK * ch + 64 * q, 0, 0, 0,
                         last);
         }
       }
@@ -431,10 +462,15 @@ __global__ void __launch_bounds__(NT, 1)
   // the consumer warpgroup: thread tid holds rows r0 and r0 + 8 of every
   // wgmma fragment, columns 2 * qd (+1) of each group of 8
   const int r0 = 16 * warp + lane / 4, qd = lane % 4;
-  const float qk_scale = LOG2E / sqrtf(static_cast<float>(R));
-  int amods[MAXM], na = 0;
+  // the true rank's scale (the ranks past it are zero columns)
+  const float qk_scale = LOG2E / sqrtf(static_cast<float>(a.rank));
+  int amods[MAXM], stream_of[MAXM], na = 0;
+  for (int m = 0; m < MAXM; ++m) stream_of[m] = -1;
   for (int m = 0; m < M; ++m)
-    if ((a.attn_bits >> m) & 1) amods[na++] = m;
+    if ((a.attn_bits >> m) & 1) {
+      stream_of[m] = na;
+      amods[na++] = m;
+    }
   int it = 0, jt = 0, key_row = -1;
   for (int item = i0; item < i1; ++item) {
     const int bi = item / sh.tiles, t0 = (item % sh.tiles) * TOK;
@@ -445,38 +481,48 @@ __global__ void __launch_bounds__(NT, 1)
           ? a.masks[(static_cast<long>(m) * a.nb + bi) * a.L + t0 + t] : 0.f;
     }
 
-    // ---- a_i = x @ A_i on the tensor cores, hi and lo columns side by side
-    float acc[C::N / 2];
+    // ---- a_i = x @ A_i on the tensor cores, hi and lo columns side by
+    // side, NP of the N columns a pass over x
 #pragma unroll
-    for (int i = 0; i < C::N / 2; ++i) acc[i] = 0.f;
-    fence_operand(acc);
-    for (int kb = 0; kb < sh.kb; ++kb, ++it) {
-      const int s = it % sh.stages;
-      mbar_wait(full + 8 * s, (it / sh.stages) & 1);
-      const uint32_t xs = ring + s * C::STAGE;
-      wgmma_fence();
+    for (int pass = 0; pass < C::PASSES; ++pass) {
+      float acc[C::NP / 2];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64nN_ss<C::N>(acc, desc_sw128(xs + 32 * kk),
-                             desc_sw128(xs + BOX + 32 * kk), 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // the last stage's products are done
-      if (kb > 0 && lane == 0)
-        mbar_arrive(empty + 8 * ((it - 1) % sh.stages));
-    }
-    wgmma_wait<0>();
-    fence_operand(acc);
-    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % sh.stages));
-    named_bar_sync(1, CONSUMERS);  // mk written
+      for (int i = 0; i < C::NP / 2; ++i) acc[i] = 0.f;
+      fence_operand(acc);
+      for (int kb = 0; kb < sh.kb; ++kb, ++it) {
+        const int s = it % sh.stages;
+        mbar_wait(full + 8 * s, (it / sh.stages) & 1);
+        const uint32_t xs = ring + s * C::STAGE;
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < C::N / 8; ++j) {
-      const int q = 4 * j + qd, m = q / R;
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64nN_ss<C::NP>(acc, desc_sw128(xs + 32 * kk),
+                                desc_sw128(xs + BOX + 32 * kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the last stage's products are done
+        if (kb > 0 && lane == 0)
+          mbar_arrive(empty + 8 * ((it - 1) % sh.stages));
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % sh.stages));
+      if (pass == 0) named_bar_sync(1, CONSUMERS);  // mk written
+      // the pass's ranks q (modality q / R, rank q % R): a thread holds
+      // ranks q = qd mod 4 of its rows in every pass, so it sums the
+      // modalities into buf alone; an attention stream's a_i is also its
+      // query
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int t = r0 + 8 * u;
-        abuf[t * C::MR + q] =
-            (acc[4 * j + 2 * u] + acc[4 * j + 2 * u + 1]) * mk[m * TOK + t] *
-            a.pre_scale;
+      for (int j = 0; j < C::NP / 8; ++j) {
+        const int q4 = pass * (C::NP / 2) + 4 * j;  // known when unrolled
+        const int m = q4 / R, r = q4 % R + qd;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = r0 + 8 * u;
+          const float v = (acc[4 * j + 2 * u] + acc[4 * j + 2 * u + 1]) *
+                          mk[m * TOK + t] * a.pre_scale;
+          buf[t * R + r] = m == 0 ? v : buf[t * R + r] + v;
+          if (stream_of[m] >= 0) qry[(stream_of[m] * TOK + t) * R + r] = v;
+        }
       }
     }
     if (tid < TOK) {
@@ -487,21 +533,22 @@ __global__ void __launch_bounds__(NT, 1)
       }
       ts[tid] = p;
     }
-    named_bar_sync(1, CONSUMERS);  // abuf written
+    named_bar_sync(1, CONSUMERS);  // buf and the queries written
 
     // ---- rank-space attention over the row's n_q question keys: two
     // threads a token, each walking every other key with an online softmax
     // in exp2 for each attention stream the token belongs to (mostly one),
-    // merged by a shuffle
+    // merged by a shuffle and added into the token's buf row
     const int n_q = na > 0 ? a.nq[bi] : 0;
     const float* krow = a.keys + static_cast<long>(bi) * a.ds * a.L * R;
     const int at = tid >> 1, half = tid & 1;
     for (int jm = 0; jm < na; ++jm) {
-      const bool live = mk[amods[jm] * TOK + at] != 0.f;
+      const float w = mk[amods[jm] * TOK + at];
+      const bool live = w != 0.f;
       float qv[R], oa[R], om = -INFINITY, ol = 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        qv[r] = live ? abuf[at * C::MR + amods[jm] * R + r] * qk_scale : 0.f;
+        qv[r] = live ? qry[(jm * TOK + at) * R + r] * qk_scale : 0.f;
         oa[r] = 0.f;
       }
       for (int c0 = 0; c0 < n_q; c0 += C::KCAP) {
@@ -548,30 +595,14 @@ __global__ void __launch_bounds__(NT, 1)
       const float s1 = om == -INFINITY ? 0.f : exp2_approx(om - mx);
       const float s2 = om2 == -INFINITY ? 0.f : exp2_approx(om2 - mx);
       const float l = ol * s1 + ol2 * s2;
+      const bool add = half == 0 && live && l > 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float o = oa[r] * s1 + __shfl_xor_sync(0xffffffffu, oa[r], 1) * s2;
-        if (half == 0) att[(jm * TOK + at) * R + r] = live && l > 0.f ? o / l : 0.f;
+        if (add) buf[at * R + r] += w * (a.attn_weight * (o / l));
       }
     }
-    named_bar_sync(1, CONSUMERS);  // att written
-
-    // ---- the rank-space buffer
-    for (int i = tid; i < TOK * R; i += CONSUMERS) {
-      const int t = i / R, r = i % R;
-      float v = 0.f;
-      int jm = 0;
-      for (int m = 0; m < M; ++m) {
-        v += abuf[t * C::MR + m * R + r];
-        if ((a.attn_bits >> m) & 1) {
-          const float w = mk[m * TOK + t];
-          if (w != 0.f) v += w * (a.attn_weight * att[(jm * TOK + t) * R + r]);
-          ++jm;
-        }
-      }
-      buf[t * R + r] = v;
-    }
-    named_bar_sync(1, CONSUMERS);  // buf written
+    named_bar_sync(1, CONSUMERS);  // buf complete
 
     // ---- delta = buf @ B: A fragments [hi(buf), hi(buf), lo(buf)] (K-major
     // columns 2qd, 2qd + 1, +8, +9 of each 16), rows r0 and r0 + 8
@@ -591,36 +622,36 @@ __global__ void __launch_bounds__(NT, 1)
         af[kk][e] = pack_bf16(v[0], v[1]);
       }
     const float tsr[2] = {ts[r0], ts[r0 + 8]};
-    float dacc[2][32];  // each chunk's first products overwrite it
+    float dacc[C::BOXES][32];  // each chunk's first products overwrite it
     for (int ch = 0; ch < sh.chunks; ++ch, ++jt) {
       const int s = jt % C::B_STAGES;
       mbar_wait(bfull + 8 * s, (jt / C::B_STAGES) & 1);
       const uint32_t bb = tbase + C::OFF_B + s * C::B_BYTES;
-      fence_operand(dacc[0]);
-      fence_operand(dacc[1]);
+#pragma unroll
+      for (int n = 0; n < C::BOXES; ++n) fence_operand(dacc[n]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C::KPAD / 16; ++kk)
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < C::BOXES; ++n)
           wgmma_m64n64_rs<1>(dacc[n], af[kk],
                              desc_sw128(bb + n * C::KPAD * 128 + kk * 2048),
                              kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_operand(dacc[0]);
-      fence_operand(dacc[1]);
+#pragma unroll
+      for (int n = 0; n < C::BOXES; ++n) fence_operand(dacc[n]);
       if (lane == 0) mbar_arrive(bempty + 8 * s);
       // each warp stages its 16 rows of the chunk as bf16 in the
-      // 128-byte-swizzled layout its two output boxes read (row t's
-      // 16-byte chunk j at j ^ (t % 8)) and stores them by TMA itself: no
-      // barrier across the warpgroup, OUT_BUFS chunks in flight a warp
+      // 128-byte-swizzled layout its output boxes read (row t's 16-byte
+      // chunk j at j ^ (t % 8)) and stores them by TMA itself: no barrier
+      // across the warpgroup, OUT_BUFS chunks in flight a warp
       uint8_t* stage = tail + C::OFF_OUT +
-                       (warp * OUT_BUFS + jt % OUT_BUFS) * C::OUT_BYTES;
-      if (lane == 0) bulk_wait_read<OUT_BUFS - 1>();  // this tile's last store
+                       (warp * C::OUT_BUFS + jt % C::OUT_BUFS) * C::OUT_BYTES;
+      if (lane == 0) bulk_wait_read<C::OUT_BUFS - 1>();  // this tile's last store
       __syncwarp();
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int n = 0; n < C::BOXES; ++n)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -637,9 +668,10 @@ __global__ void __launch_bounds__(NT, 1)
         const uint64_t first = l2_evict_first();
         const uint32_t src = smem_addr(stage);
         const int row = t0 + WROWS * warp;
-        tma_store_4d(&tm_out, src, CHUNK * ch, row, bi, 0, first);
-        if (CHUNK * ch + 64 < a.d_out)
-          tma_store_4d(&tm_out, src + WBOX, CHUNK * ch + 64, row, bi, 0, first);
+        tma_store_4d(&tm_out, src, C::CHUNK * ch, row, bi, 0, first);
+        if (C::BOXES == 2 && C::CHUNK * ch + 64 < a.d_out)
+          tma_store_4d(&tm_out, src + WBOX, C::CHUNK * ch + 64, row, bi, 0,
+                       first);
         bulk_commit();
       }
     }
@@ -657,26 +689,46 @@ constexpr int J = NT / TOK;     // threads per token in the d_in reduction
 constexpr int VEC = 8;          // x elements per thread per slice
 constexpr int DC = J * VEC;     // d_in covered by one slice of every thread
 
+// the shared-memory layout of the rank-R instance, in floats
+template <int R>
+struct Lay {
+  static constexpr int RS = R < 16 ? R : 16;  // ranks of a down-product slice
+  static constexpr int UNROLL = 16 / RS;      // slices per thread per chunk
+  static constexpr int AS = VEC * RS + 4;     // padded floats a (modality, lane)
+  static constexpr int KC = 512 / R;          // keys staged at once
+  static constexpr int OFF_MK = MAXM * UNROLL * J * AS;  // after A's chunk
+  static constexpr int OFF_ABUF = OFF_MK + MAXM * TOK;   // [TOK][MAXM][R]
+  static constexpr int OFF_ATT = OFF_ABUF + TOK * MAXM * R;
+  static constexpr int OFF_BUF = OFF_ATT + TOK * MAXM * R;   // [TOK][R]
+  static constexpr int OFF_TS = OFF_BUF + TOK * R;
+  static constexpr int OFF_KBUF = OFF_TS + TOK;              // [KC][R]
+  static constexpr int BYTES = 4 * (OFF_KBUF + KC * R);
+};
+
 // 32 tokens of one batch row a CTA: each token's d_in reduction split over
 // 8 adjacent lanes, A streamed through shared memory in chunks of
-// UNROLL * DC rows of d_in (padded so the 8 lanes read distinct banks),
-// then the attention over the row's compacted keys (KC at a time, 4 lanes
-// a (token, modality) pair) and B read per output column pair from L2
+// UNROLL * DC rows of d_in (padded so the 8 lanes read distinct banks) and
+// slices of 16 ranks (one at r <= 16; x is read again for each further
+// slice), then the attention over the row's compacted keys (KC at a time,
+// 4 lanes a (token, modality) pair) and B read per output column pair
+// from L2
 template <int R>
 __global__ void __launch_bounds__(NT)
     moka_delta_kernel_f32(const Args a) {
-  constexpr int UNROLL = 16 / R;        // slices per thread per chunk
+  using Y = Lay<R>;
+  constexpr int RS = Y::RS, UNROLL = Y::UNROLL, AS = Y::AS, KC = Y::KC;
   constexpr int DCE = UNROLL * DC;      // d_in per staged chunk of A
-  constexpr int AS = VEC * R + 4;       // padded floats a (modality, lane)
-  constexpr int KC = 512 / R;           // keys staged at once
   constexpr int SPLIT = 4;              // lanes a (token, modality) pair
-  __shared__ __align__(16) float as[MAXM * UNROLL * J * AS];
-  __shared__ float mk[MAXM][TOK];
-  __shared__ float abuf[TOK][MAXM][R];
-  __shared__ float att[TOK][MAXM][R];
-  __shared__ float buf[TOK][R];
-  __shared__ float tscale[TOK];
-  __shared__ float kbuf[KC][R];
+  extern __shared__ __align__(16) float fsm[];
+  float* as = fsm;
+  float (*mk)[TOK] = reinterpret_cast<float (*)[TOK]>(fsm + Y::OFF_MK);
+  float (*abuf)[MAXM][R] =
+      reinterpret_cast<float (*)[MAXM][R]>(fsm + Y::OFF_ABUF);
+  float (*att)[MAXM][R] =
+      reinterpret_cast<float (*)[MAXM][R]>(fsm + Y::OFF_ATT);
+  float (*buf)[R] = reinterpret_cast<float (*)[R]>(fsm + Y::OFF_BUF);
+  float* tscale = fsm + Y::OFF_TS;
+  float (*kbuf)[R] = reinterpret_cast<float (*)[R]>(fsm + Y::OFF_KBUF);
 
   const float* x = static_cast<const float*>(a.x);
   const int bi = blockIdx.y, t0 = blockIdx.x * TOK, tid = threadIdx.x;
@@ -688,65 +740,68 @@ __global__ void __launch_bounds__(NT)
     mk[m][t] = t0 + t < L ? a.masks[(static_cast<long>(m) * a.nb + bi) * L + t0 + t] : 0.f;
   }
 
-  float acc[MAXM][R];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[m][r] = 0.f;
   const float* xrow = x + (static_cast<long>(bi) * L + (live ? l : 0)) * a.d_in;
-  constexpr int F4 = DCE * R / 4;  // float4s of A per modality and chunk
-  for (int d0 = 0; d0 < a.d_in; d0 += DCE) {
-    __syncthreads();  // previous chunk consumed
-    for (int f = tid; f < M * F4; f += NT) {
-      const int m = f / F4, rem = f % F4;
-      const int d = rem * 4 / R, rr = (rem * 4) % R;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (d0 + d < a.d_in)
-        val = *reinterpret_cast<const float4*>(
-            a.A + (static_cast<long>(m) * a.d_in + d0 + d) * R + rr);
-      const int u = d / DC, jg = (d % DC) / VEC, e = d % VEC;
-      *reinterpret_cast<float4*>(&as[((m * UNROLL + u) * J + jg) * AS + e * R + rr]) = val;
-    }
-    __syncthreads();
+  constexpr int F4 = DCE * RS / 4;  // float4s of A per modality and chunk
+  for (int rs = 0; rs < R; rs += RS) {
+    float acc[MAXM][RS];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int dx = d0 + u * DC + jj * VEC;
-      float xv[VEC];
-      if (live && dx < a.d_in) {
-        const float4 p = reinterpret_cast<const float4*>(xrow + dx)[0];
-        const float4 q = reinterpret_cast<const float4*>(xrow + dx)[1];
-        xv[0] = p.x; xv[1] = p.y; xv[2] = p.z; xv[3] = p.w;
-        xv[4] = q.x; xv[5] = q.y; xv[6] = q.z; xv[7] = q.w;
-      } else {
+    for (int m = 0; m < MAXM; ++m)
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) xv[e] = 0.f;
+      for (int r = 0; r < RS; ++r) acc[m][r] = 0.f;
+    for (int d0 = 0; d0 < a.d_in; d0 += DCE) {
+      __syncthreads();  // previous chunk consumed
+      for (int f = tid; f < M * F4; f += NT) {
+        const int m = f / F4, rem = f % F4;
+        const int d = rem * 4 / RS, rr = (rem * 4) % RS;
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (d0 + d < a.d_in)
+          val = *reinterpret_cast<const float4*>(
+              a.A + (static_cast<long>(m) * a.d_in + d0 + d) * R + rs + rr);
+        const int u = d / DC, jg = (d % DC) / VEC, e = d % VEC;
+        *reinterpret_cast<float4*>(&as[((m * UNROLL + u) * J + jg) * AS + e * RS + rr]) = val;
       }
+      __syncthreads();
 #pragma unroll
-      for (int m = 0; m < MAXM; ++m) {
-        if (m < M) {
-          const float* ap = &as[((m * UNROLL + u) * J + jj) * AS];
+      for (int u = 0; u < UNROLL; ++u) {
+        const int dx = d0 + u * DC + jj * VEC;
+        float xv[VEC];
+        if (live && dx < a.d_in) {
+          const float4 p = reinterpret_cast<const float4*>(xrow + dx)[0];
+          const float4 q = reinterpret_cast<const float4*>(xrow + dx)[1];
+          xv[0] = p.x; xv[1] = p.y; xv[2] = p.z; xv[3] = p.w;
+          xv[4] = q.x; xv[5] = q.y; xv[6] = q.z; xv[7] = q.w;
+        } else {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e)
+          for (int e = 0; e < VEC; ++e) xv[e] = 0.f;
+        }
 #pragma unroll
-            for (int r = 0; r < R; ++r) acc[m][r] += xv[e] * ap[e * R + r];
+        for (int m = 0; m < MAXM; ++m) {
+          if (m < M) {
+            const float* ap = &as[((m * UNROLL + u) * J + jj) * AS];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+#pragma unroll
+              for (int r = 0; r < RS; ++r) acc[m][r] += xv[e] * ap[e * RS + r];
+          }
         }
       }
     }
-  }
-  // the J lanes of a token are adjacent: combine their partial sums
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int off = 1; off < J; off <<= 1)
-        acc[m][r] += __shfl_xor_sync(0xffffffffu, acc[m][r], off);
-  if (jj == 0) {
+    // the J lanes of a token are adjacent: combine their partial sums
 #pragma unroll
     for (int m = 0; m < MAXM; ++m)
-      if (m < M)
 #pragma unroll
-        for (int r = 0; r < R; ++r) abuf[tt][m][r] = acc[m][r] * mk[m][tt] * a.pre_scale;
+      for (int r = 0; r < RS; ++r)
+#pragma unroll
+        for (int off = 1; off < J; off <<= 1)
+          acc[m][r] += __shfl_xor_sync(0xffffffffu, acc[m][r], off);
+    if (jj == 0) {
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m)
+        if (m < M)
+#pragma unroll
+          for (int r = 0; r < RS; ++r)
+            abuf[tt][m][rs + r] = acc[m][r] * mk[m][tt] * a.pre_scale;
+    }
   }
   __syncthreads();
 
@@ -755,7 +810,8 @@ __global__ void __launch_bounds__(NT)
   int na = 0;
   for (int m = 0; m < M; ++m)
     if ((a.attn_bits >> m) & 1) amods[na++] = m;
-  const float inv_sqrt_r = 1.0f / sqrtf(static_cast<float>(R));
+  // the true rank's scale (the ranks past it are zero columns)
+  const float inv_sqrt_r = 1.0f / sqrtf(static_cast<float>(a.rank));
   const int n_q = a.nq[bi];
   const float* krow = a.keys + static_cast<long>(bi) * a.ds * L * R;
   const int npairs = TOK * na;
@@ -873,8 +929,9 @@ __global__ void __launch_bounds__(NT)
 template <typename T, int R>
 int launch_keys(const Args& a, int kpad, cudaStream_t st) {
   // int row offsets; the row's question positions in shared memory, beside
-  // the static 8 KB of the reduction
-  constexpr int LIST_LIMIT = SMEM_LIMIT - 16384;
+  // the static arrays of the reduction (8 KB at r 16, 32 KB at 64)
+  constexpr int STATIC_BYTES = (KP_NT / 32) * (R / 4) * 64 * 4 + 4 * (KP_NT / 32);
+  constexpr int LIST_LIMIT = SMEM_LIMIT - STATIC_BYTES - 8192;
   const long list = 4L * a.L;
   if (static_cast<long>(a.L) * a.d_in >= (1L << 31) || list > LIST_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -919,11 +976,12 @@ int launch_bf16(const Args& a, cudaStream_t st) {
   if (items >= (1L << 31) / 2) return static_cast<int>(cudaErrorInvalidValue);
   sh.items = static_cast<int>(items);
   sh.kb = (a.d_in + 63) / 64;
-  sh.chunks = (a.d_out + CHUNK - 1) / CHUNK;
+  sh.chunks = (a.d_out + C::CHUNK - 1) / C::CHUNK;
   // x and delta over (d, L, nb), in boxes of 64 columns x 64 tokens (x)
   // and x 16 tokens (delta, a warp's rows; a ragged L is zero-filled by the
-  // loads and clipped by the stores); A's halves over (d_in, N) and B's
-  // over (d_out, KPAD), one box each a stage
+  // loads and clipped by the stores); A's halves over (d_in, N), NP rows a
+  // box (a pass's), and B's over (d_out, KPAD), one box a chunk's 64
+  // outputs
   CUtensorMap tm_x, tm_at, tm_b, tm_out;
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uint64_t x_dims[4] = {uint64_t(a.d_in), uint64_t(a.L), uint64_t(a.nb), 1};
@@ -932,7 +990,7 @@ int launch_bf16(const Args& a, cudaStream_t st) {
   const uint64_t b_dims[4] = {uint64_t(a.d_out), uint64_t(C::KPAD), 1, 1};
   const uint32_t tok_box[4] = {64, TOK, 1, 1};
   const uint32_t out_box[4] = {64, WROWS, 1, 1};
-  const uint32_t at_box[4] = {64, uint32_t(C::N), 1, 1};
+  const uint32_t at_box[4] = {64, uint32_t(C::NP), 1, 1};
   const uint32_t b_box[4] = {64, uint32_t(C::KPAD), 1, 1};
   if (!swizzled_map(&tm_x, bf16, 2, 4, a.x, x_dims, tok_box) ||
       !swizzled_map(&tm_out, bf16, 2, 4, a.out, o_dims, out_box) ||
@@ -949,8 +1007,13 @@ template <int R>
 int launch_f32(const Args& a, cudaStream_t st) {
   const int err = launch_keys<float, R>(a, 0, st);
   if (err != 0) return err;
+  constexpr int smem = f32::Lay<R>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      f32::moka_delta_kernel_f32<R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((a.L + f32::TOK - 1) / f32::TOK, a.nb);
-  f32::moka_delta_kernel_f32<R><<<grid, f32::NT, 0, st>>>(a);
+  f32::moka_delta_kernel_f32<R><<<grid, f32::NT, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -979,9 +1042,15 @@ long workspace(int nb, int L, int d_in, int d_out, int M, int R, int x_bf16,
   return off[3] + align256(2L * 16 * ((3 * R + 15) / 16) * d_out);
 }
 
+// the built ranks R: 4, 8, 16, 32 and 64; a true rank r <= R runs in the
+// rank-R instance with A's columns and B's rows past r zero (the wrapper
+// pads them), which changes nothing: a zero column of A gives zero ranks
+// of a_i and of the keys, so zero terms in every score, zero attention
+// output ranks, and zero rows of B meet them
 bool takes(int nb, int L, int d_in, int d_out, int M, int R) {
   return nb > 0 && L > 0 && M > 0 && M <= MAXM && d_in % 8 == 0 &&
-         d_out % 8 == 0 && (R == 4 || R == 8 || R == 16);
+         d_out % 8 == 0 &&
+         (R == 4 || R == 8 || R == 16 || R == 32 || R == 64);
 }
 
 }  // namespace
@@ -997,17 +1066,19 @@ extern "C" long moka_delta_workspace(int nb, int L, int d_in, int d_out,
 // x (nb, L, d_in) bf16 (x_bf16 = 1) or fp32; masks (M, nb, L), qmask (nb,
 // L), A (M, d_in, R), B (R, d_out) fp32; out (nb, L, d_out) in x's type;
 // work: moka_delta_workspace's bytes; all contiguous and 16-byte aligned
-// (work 256-byte), R in {4, 8, 16}, M <= 4, d_in % 8 == 0, d_out % 8 == 0.
-// Launches the key pass, then the main kernel.  Returns cudaGetLastError()
-// (or the error of setting up a launch).
+// (work 256-byte), R in {4, 8, 16, 32, 64}, the true rank 1 <= rank <= R
+// (A's columns and B's rows past it zero; the attention scale is
+// 1/sqrt(rank)), M <= 4, d_in % 8 == 0, d_out % 8 == 0.  Launches the key
+// pass, then the main kernel.  Returns cudaGetLastError() (or the error
+// of setting up a launch).
 extern "C" int moka_delta_fwd(const void* x, int x_bf16, const void* masks,
                               const void* qmask, const void* A, const void* Bm,
                               void* out, void* work, int nb, int L, int d_in,
-                              int d_out, int M, int R, float pre_scale,
-                              float attn_weight, int attn_bits, float p0,
-                              float p1, float p2, float p3, int has_post,
-                              void* stream) {
-  if (!takes(nb, L, d_in, d_out, M, R))
+                              int d_out, int M, int R, int rank,
+                              float pre_scale, float attn_weight,
+                              int attn_bits, float p0, float p1, float p2,
+                              float p3, int has_post, void* stream) {
+  if (!takes(nb, L, d_in, d_out, M, R) || rank < 1 || rank > R)
     return static_cast<int>(cudaErrorInvalidValue);
   long off[4];
   workspace(nb, L, d_in, d_out, M, R, x_bf16, off);
@@ -1028,6 +1099,7 @@ extern "C" int moka_delta_fwd(const void* x, int x_bf16, const void* masks,
   a.d_in = d_in;
   a.d_out = d_out;
   a.M = M;
+  a.rank = rank;
   a.ds = (d_in + KEY_DCH - 1) / KEY_DCH;
   a.pre_scale = pre_scale;
   a.attn_weight = attn_weight;
@@ -1038,7 +1110,11 @@ extern "C" int moka_delta_fwd(const void* x, int x_bf16, const void* masks,
   a.post[2] = p2;
   a.post[3] = p3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R == 4) return launch<4>(a, x_bf16, st);
-  if (R == 8) return launch<8>(a, x_bf16, st);
-  return launch<16>(a, x_bf16, st);
+  switch (R) {
+    case 4: return launch<4>(a, x_bf16, st);
+    case 8: return launch<8>(a, x_bf16, st);
+    case 16: return launch<16>(a, x_bf16, st);
+    case 32: return launch<32>(a, x_bf16, st);
+    default: return launch<64>(a, x_bf16, st);
+  }
 }

@@ -17,10 +17,11 @@ entry point (a ``torch.autograd.Function``) and dispatches the backward
 as the JAX custom VJP does (``use_fused_bwd``).
 
 The rank route: fp32 tensors with one head (H = KH = 1) and head_dim <=
-16, MokA's rank-space cross-attention (``ops.moka``, ``flash_rank_attn``),
+64, MokA's rank-space cross-attention (``ops.moka``, ``flash_rank_attn``),
 run on their own kernels (``kernels/csrc/flash_rank.cu``: a forward, a dq
-and a dk/dv kernel, fp32 SIMT, built for head_dim 4, 8 and 16) through the
-wrappers ``flash_rank_fwd``, ``flash_rank_bwd_dq`` and
+and a dk/dv kernel, fp32 SIMT, built for head_dim 4, 8, 16, 32 and 64; any
+other head_dim is padded with zero columns to the next, exactly, and runs
+with the scales of its own) through the wrappers ``flash_rank_fwd``, ``flash_rank_bwd_dq`` and
 ``flash_rank_bwd_dkv``, with the same contract and the same plain
 versions.  Its backward is always the dq + dk/dv pair.  bf16 at head_dim
 128 keeps the kernels above, and the forward also takes head_dim 64 (the
@@ -332,6 +333,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if is_rank_route(q, k):
         return flash_rank_fwd(q, k, v, attn_mask, q_offset, causal)
     if on_card(q, "flash attention"):
+        _refuse_wide_rank(q, k)
         return _launch_fwd(q, k, v, attn_mask, q_offset, causal)
     return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
 
@@ -383,26 +385,48 @@ def flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
 
 # ------------------------------------------------------------ rank route
 
-RANK_HEAD_DIMS = (4, 8, 16)  # the head dims flash_rank.cu is built for
+RANK_HEAD_DIMS = (4, 8, 16, 32, 64)  # the head dims flash_rank.cu is built
+RANK_MAX_HEAD_DIM = RANK_HEAD_DIMS[-1]  # for; any r up to the last is padded
 
 
 def is_rank_route(q: torch.Tensor, k: torch.Tensor) -> bool:
     """MokA's rank-space attention: fp32, one head (H = KH = 1),
-    head_dim <= 16."""
+    head_dim <= 64."""
     return q.dtype == torch.float32 and q.shape[2] == 1 and \
-        k.shape[2] == 1 and q.shape[-1] <= 16
+        k.shape[2] == 1 and q.shape[-1] <= RANK_MAX_HEAD_DIM
 
 
-_RANK_QSCALE = {hd: LOG2E / math.sqrt(hd) for hd in RANK_HEAD_DIMS}
+def _refuse_wide_rank(q: torch.Tensor, k: torch.Tensor) -> None:
+    """Rank-space attention past the widest head dim the rank kernels take
+    raises on the card (the bf16 kernels take no fp32 either)."""
+    if q.dtype == torch.float32 and q.shape[2] == 1 and k.shape[2] == 1:
+        raise ValueError(f"the rank flash kernels take head_dim 1-"
+                         f"{RANK_MAX_HEAD_DIM} (MokA ranks up to "
+                         f"{RANK_MAX_HEAD_DIM}), not {q.shape[-1]}")
+
+
+def rank_built_dim(hd: int) -> int:
+    """The head dim of the rank kernels' instance that runs head_dim
+    ``hd``: the smallest built one at least as wide."""
+    return next(h for h in RANK_HEAD_DIMS if h >= hd)
+
+
+def _rank_pad(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``t`` with zero columns up to head dim ``hd``: exact, since a zero
+    column of q and k adds nothing to a score and one of v gives a zero
+    output column."""
+    return t if t.shape[-1] == hd else \
+        torch.nn.functional.pad(t, (0, hd - t.shape[-1]))
 
 
 def _rank_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
-    """Check what the rank kernels take (fp32, one head of head_dim 4, 8 or
-    16, one device, 16-byte aligned) and return the tensors contiguous, the
-    mask as int32.  The checks run on every call, a wrapper runs three
-    times a rank attention and 1,792 times a training step, so they are
-    written out: a tensor that already passes is neither copied nor cast,
-    and the loops that name the offending tensor run only on failure."""
+    """Check what the rank kernels take (fp32, one head of head_dim 1 to
+    64, one device, 16-byte aligned) and return the tensors contiguous and
+    padded to the built head dim (``rank_built_dim``), the mask as int32.
+    The checks run on every call, a wrapper runs three times a rank
+    attention and 1,792 times a training step, so they are written out: a
+    tensor that already passes is neither copied nor cast, and the loops
+    that name the offending tensor run only on failure."""
     b, L, H, hd = q.shape
     S = k.shape[1]
     dev = q.device
@@ -419,22 +443,23 @@ def _rank_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
         name, t = next((n, t) for n, t in zip("q k v dout".split(), ts)
                        if t.device != dev)
         raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if hd not in _RANK_QSCALE or H != 1 or k.shape != (b, S, 1, hd) or \
-            v.shape != k.shape:
+    if not 1 <= hd <= RANK_MAX_HEAD_DIM or H != 1 or \
+            k.shape != (b, S, 1, hd) or v.shape != k.shape:
         raise ValueError(f"rank flash kernel takes one head of head_dim "
-                         f"{RANK_HEAD_DIMS}: q {tuple(q.shape)} k "
+                         f"1-{RANK_MAX_HEAD_DIM}: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if attn_mask.shape != (b, S):
         raise ValueError(f"attn_mask {tuple(attn_mask.shape)} != {(b, S)}")
     if dout is not None and dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    hp = rank_built_dim(hd)
+    q, k, v = (_rank_pad(t, hp).contiguous() for t in (q, k, v))
     if attn_mask.dtype != torch.int32 or attn_mask.device != dev or \
             not attn_mask.is_contiguous():
         attn_mask = attn_mask.to(device=dev, dtype=torch.int32).contiguous()
     out = [q, k, v, attn_mask]
     if dout is not None:
-        out.append(dout.contiguous())
+        out.append(_rank_pad(dout, hp).contiguous())
     if (q.data_ptr() | k.data_ptr() | v.data_ptr() |
             (0 if dout is None else out[4].data_ptr())) % 16:
         raise ValueError("rank flash kernel needs 16-byte aligned q, k, v, "
@@ -462,18 +487,20 @@ def flash_rank_fwd(q, k, v, attn_mask, q_offset: int = 0,
     plain version for CPU tensors."""
     if not on_card(q, "flash attention"):
         return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
+    r = q.shape[-1]
     q, k, v, mask = _rank_inputs(q, k, v, attn_mask)
     b, L, _, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, 1, L), dtype=torch.float32, device=q.device)
-    # the q scale goes as a c_float, rounded to fp32 as ``_prescaled``
-    # folds it for fp32 q
+    # the q scale of the true head dim goes as a c_float, rounded to fp32
+    # as ``_prescaled`` folds it for fp32 q
     _rank_check(_library("flash_rank").moka_flash_rank_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, L, k.shape[1], hd, int(q_offset),
-        int(bool(causal)), _RANK_QSCALE[hd], raw_stream(q.device)), "fwd")
+        int(bool(causal)), LOG2E / math.sqrt(r), raw_stream(q.device)),
+        "fwd")
     flash_rank_fwd.launches += 1
-    return out, lse
+    return out[..., :r], lse
 
 
 def flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,
@@ -482,6 +509,7 @@ def flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,
     if not on_card(q, "flash attention"):
         return flash_bwd_dq_plain(q, k, v, attn_mask, dout, lse, delta,
                                   q_offset, causal)
+    r = q.shape[-1]
     q, k, v, mask, dout, lse, delta = _rank_inputs(q, k, v, attn_mask, dout,
                                                    lse, delta)
     b, L, _, hd = q.shape
@@ -490,10 +518,10 @@ def flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
         L, k.shape[1], hd, int(q_offset), int(bool(causal)),
-        _RANK_QSCALE[hd], 1.0 / math.sqrt(hd), raw_stream(q.device)),
+        LOG2E / math.sqrt(r), 1.0 / math.sqrt(r), raw_stream(q.device)),
         "bwd_dq")
     flash_rank_bwd_dq.launches += 1
-    return dq
+    return dq[..., :r]
 
 
 def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
@@ -503,6 +531,7 @@ def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
     if not on_card(q, "flash attention"):
         return flash_bwd_dkv_plain(q, k, v, attn_mask, dout, lse, delta,
                                    q_offset, causal)
+    r = q.shape[-1]
     q, k, v, mask, dout, lse, delta = _rank_inputs(q, k, v, attn_mask, dout,
                                                    lse, delta)
     b, L, _, hd = q.shape
@@ -511,10 +540,10 @@ def flash_rank_bwd_dkv(q, k, v, attn_mask, dout, lse, delta,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, L, k.shape[1], hd, int(q_offset),
-        int(bool(causal)), _RANK_QSCALE[hd], raw_stream(q.device)),
+        int(bool(causal)), LOG2E / math.sqrt(r), raw_stream(q.device)),
         "bwd_dkv")
     flash_rank_bwd_dkv.launches += 1
-    return dk, dv
+    return dk[..., :r], dv[..., :r]
 
 
 # kernel launches (CUDA tensors only); the forward's also by head_dim

@@ -10,8 +10,8 @@ and writes dx and dA.  On a CUDA tensor ``dropout_a_fwd`` and
 ``dropout_a_bwd`` launch the kernels of ``kernels/csrc/fused_dropout.cu``
 (TPU kernels 6 and 7) or raise; on a CPU tensor they run
 ``dropout_a_fwd_plain`` / ``dropout_a_bwd_plain``, the same arithmetic in
-plain torch.  The kernels take every M*r that ranks 4, 8 and 16 give with
-one to four modalities and d a multiple of 8 (``fused_dropout_supported``);
+plain torch.  The kernels take every M*r from 1 to 256 (ranks 1-64 with
+one to four modalities) and d a multiple of 8 (``fused_dropout_supported``);
 the plain versions take any shape.  ``with_fused_dropout()`` is an explicit
 opt-in: on the card an M*r the kernels do not take raises, and nothing
 falls back to the unfused dropout, which draws other masks.
@@ -39,6 +39,8 @@ Numerics, as the JAX kernels: forward ``x_d = where(keep, x * (1/keep
 rounded to x's dtype), 0)`` in x's dtype, then the product in fp32;
 backward ``m = where(keep, 1/keep in fp32, 0)``, ``dx = ((g @ A^T) *
 m)`` in x's dtype and ``dA = (x * m)^T @ g`` in fp32, cast to A's dtype.
+The plain backward forms g @ A^T as one fp32 chain over the M*r columns
+in order, the chain kernel 7 runs, so that dx is the same to the bit.
 """
 
 from __future__ import annotations
@@ -49,16 +51,15 @@ import torch
 
 from moka_tpu_torch.core.device import on_card, raw_stream
 
-# the M * r the kernels take: ranks 4, 8 and 16 times one to four modalities
-KERNEL_MRS = tuple(sorted({m * r for m in range(1, 5) for r in (4, 8, 16)}))
+MAX_MR = 256  # the widest M * r the kernels take: rank 64 x 4 modalities
 
 
 def fused_dropout_supported(mr: int, d: int) -> bool:
     """Whether kernels 6-7 take an adapter of M*r ``mr`` on rows of width
-    ``d``: M*r in ``KERNEL_MRS`` (ranks 4, 8, 16 with 1-4 modalities) and d
+    ``d``: M*r from 1 to ``MAX_MR`` (ranks 1-64 with 1-4 modalities) and d
     a multiple of 8 (the TMA rows' 16-byte strides).  The wrappers raise on
     anything else on the card."""
-    return mr in KERNEL_MRS and d > 0 and d % 8 == 0
+    return 1 <= mr <= MAX_MR and d > 0 and d % 8 == 0
 
 
 def threshold(rate: float) -> int:
@@ -96,7 +97,15 @@ def dropout_a_bwd_plain(x2d: torch.Tensor, a_flat: torch.Tensor,
     keep = _bits(key, bits, x2d, rows, col0) < threshold(rate)
     m = torch.where(keep, 1.0 / (1.0 - rate), 0.0)  # fp32
     g = g.float()
-    dx = ((g @ a_flat.float().t()) * m).to(x2d.dtype)
+    # g A^T as one fp32 chain over j = 0 .. M*r - 1, the order kernel 7's
+    # dx takes (on the card each addcmul_ is a fused multiply-add): a
+    # library product may split the sum over j (cuBLAS does at N 333, d
+    # 200, M*r 256), which moves the rounding of dx
+    at = a_flat.float().t()
+    prod = g.new_zeros((x2d.shape[0], at.shape[1]))
+    for j in range(at.shape[0]):
+        prod.addcmul_(g[:, j:j + 1], at[j])
+    dx = (prod * m).to(x2d.dtype)
     da = (x2d.float() * m).t() @ g
     return dx, da.to(a_flat.dtype)
 
@@ -143,8 +152,8 @@ def _kernel_inputs(x2d, a_flat, key, bits):
         raise ValueError(f"A {tuple(a_flat.shape)} on {a_flat.device} for x "
                          f"{tuple(x2d.shape)} on {x2d.device}")
     if not fused_dropout_supported(mr, d):
-        raise ValueError(f"fused dropout kernels take M*r in {KERNEL_MRS} "
-                         f"(ranks 4, 8, 16 x 1-4 modalities) and d % 8 == 0, "
+        raise ValueError(f"fused dropout kernels take M*r 1-{MAX_MR} "
+                         f"(ranks 1-64 x 1-4 modalities) and d % 8 == 0, "
                          f"got M*r {mr}, d {d}")
     x2d, a_flat = x2d.contiguous(), a_flat.contiguous()
     if bits is not None:
@@ -221,7 +230,12 @@ def _launch_bwd(x2d, a_flat, g, key, rate, bits, rows, col0):
     mr = a_flat.shape[1]
     if tuple(g.shape) != (n, mr):
         raise ValueError(f"g {tuple(g.shape)} != {(n, mr)}")
-    g = g.to(device=x2d.device, dtype=torch.float32).contiguous()
+    # g's rows padded with zero columns to a multiple of 4 (the kernels'
+    # 16-byte TMA rows; their sums stop at M*r)
+    g = g.to(device=x2d.device, dtype=torch.float32)
+    if mr % 4:
+        g = torch.nn.functional.pad(g, (0, -mr % 4))
+    g = g.contiguous()
     if g.data_ptr() % 16:
         raise ValueError("fused dropout kernels need 16-byte aligned inputs")
     dx = torch.empty_like(x2d)

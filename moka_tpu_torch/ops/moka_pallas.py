@@ -11,9 +11,12 @@ plain fp32 product over every token; the CUDA source computes them in a
 first, small kernel (the key pass) that reads x only on question tokens
 and writes each row's keys contiguously, which the main kernel walks.
 
-The kernel takes ranks 4, 8 and 16 with at most four modalities
-(``fused_moka_supported``); the wrapper raises on any other spec, on any
-device.  It keeps A in fp32 in effect (bf16 x: A split into two bf16
+The kernel takes every rank from 1 to 64 with at most four modalities
+(``fused_moka_supported``): it is built for ranks 4, 8, 16, 32 and 64, and
+a rank between runs in the next built one with A's columns and B's rows
+past it zero (exact) and the attention scale of the true rank.  On the
+card the wrapper raises on any other spec; on the CPU the plain version
+takes any rank, as the JAX kernel does.  It keeps A in fp32 in effect (bf16 x: A split into two bf16
 halves on the tensor cores; fp32 x: fp32 FMAs); it does not round A to
 bf16 as the TPU kernel does.  Gradients: the backward is autograd through
 the plain ``moka_delta``, exact and without a backward kernel, as the JAX
@@ -31,17 +34,24 @@ from moka_tpu_torch.ops.moka import MokaSpec, moka_delta
 
 NEG_INF = -1e30
 _MAX_MODALITIES = 4
-KERNEL_RANKS = (4, 8, 16)  # the ranks moka_delta_fwd.cu is built for
+KERNEL_RANKS = (4, 8, 16, 32, 64)  # the ranks moka_delta_fwd.cu is built for
+MAX_RANK = KERNEL_RANKS[-1]  # every rank up to it runs, padded
+
+
+def kernel_rank(rank: int) -> int:
+    """The built rank whose instance runs ``rank`` (1-64): the smallest
+    one at least as large."""
+    return next(r for r in KERNEL_RANKS if r >= rank)
 
 
 def fused_moka_supported(spec: MokaSpec | None, d_in: int | None = None,
                          d_out: int | None = None) -> bool:
-    """Whether the fused kernel takes ``spec`` (rank 4, 8 or 16, one to four
+    """Whether the fused kernel takes ``spec`` (rank 1 to 64, one to four
     modalities) and, where they are given, these widths (d_in and d_out
     multiples of 8, the TMA rows' 16-byte strides).  The default route of
-    the decode paths asks this before any launch; the wrapper raises on a
-    spec it refuses."""
-    if spec is None or spec.rank not in KERNEL_RANKS or \
+    the decode paths asks this before any launch; on the card the wrapper
+    raises on a spec it refuses."""
+    if spec is None or not 1 <= spec.rank <= MAX_RANK or \
             not 1 <= spec.num_modalities <= _MAX_MODALITIES:
         return False
     return d_in is None or (d_in % 8 == 0 and d_out % 8 == 0)
@@ -90,7 +100,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     entry points' argument types set."""
     p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
     lib.moka_delta_fwd.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i,
-                                   f, f, i, f, f, f, f, i, p]
+                                   i, f, f, i, f, f, f, f, i, p]
     lib.moka_delta_fwd.restype = i
     lib.moka_delta_workspace.argtypes = [i, i, i, i, i, i, i]
     lib.moka_delta_workspace.restype = n
@@ -116,6 +126,10 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
                         f"{x.dtype}")
     if m != spec.num_modalities or r != spec.rank:
         raise ValueError(f"adapter shape {tuple(lora_a.shape)} vs {spec}")
+    if not fused_moka_supported(spec):
+        raise ValueError(f"the fused MokA kernel takes ranks 1-{MAX_RANK} "
+                         f"and 1-{_MAX_MODALITIES} modalities, not rank "
+                         f"{spec.rank} with {spec.num_modalities}")
     if not fused_moka_supported(spec, d_in, d_out):
         raise ValueError(f"fused MokA kernel needs d_in and d_out multiples "
                          f"of 8 (got {d_in}->{d_out})")
@@ -130,15 +144,20 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
     x = x.contiguous()
     masks = modality_masks.to(**f32).contiguous()
     qmask = question_mask.to(**f32).contiguous()
-    a = lora_a.to(**f32).contiguous()
-    b_mat = lora_b.to(**f32).contiguous()
+    # the built rank's instance: A's columns and B's rows past r are zero
+    kr = kernel_rank(r)
+    a, b_mat = lora_a.to(**f32), lora_b.to(**f32)
+    if kr != r:
+        a = torch.nn.functional.pad(a, (0, kr - r))
+        b_mat = torch.nn.functional.pad(b_mat, (0, 0, 0, kr - r))
+    a, b_mat = a.contiguous(), b_mat.contiguous()
     if any(t.data_ptr() % 16 for t in (x, a, b_mat)):
         raise ValueError("fused MokA kernel needs 16-byte aligned x, A, B")
     lib = _library()
     bf16 = int(x.dtype == torch.bfloat16)
     # the key pass's keys and counts and, for bf16 x, A's and B's bf16
     # halves: written by the kernels before they are read
-    work = torch.empty(lib.moka_delta_workspace(b, L, d_in, d_out, m, r,
+    work = torch.empty(lib.moka_delta_workspace(b, L, d_in, d_out, m, kr,
                                                 bf16),
                        dtype=torch.uint8, device=dev)
     out = torch.empty((b, L, d_out), dtype=x.dtype, device=dev)
@@ -147,7 +166,7 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
     status = lib.moka_delta_fwd(
         x.data_ptr(), bf16, masks.data_ptr(), qmask.data_ptr(), a.data_ptr(),
         b_mat.data_ptr(), out.data_ptr(), work.data_ptr(), b, L, d_in, d_out,
-        m, r, float(spec.pre_scale), float(spec.attn_weight), attn_bits,
+        m, kr, r, float(spec.pre_scale), float(spec.attn_weight), attn_bits,
         *map(float, post[:4]), int(spec.post_scales is not None),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(status, "moka_delta_fwd")
@@ -156,10 +175,6 @@ def _launch(x, lora_a, lora_b, modality_masks, question_mask,
 
 
 def _forward(x, lora_a, lora_b, modality_masks, question_mask, spec):
-    if not fused_moka_supported(spec):
-        raise ValueError(f"the fused MokA kernel takes ranks {KERNEL_RANKS} "
-                         f"and 1-{_MAX_MODALITIES} modalities, not rank "
-                         f"{spec.rank} with {spec.num_modalities}")
     if x.device.type == "cuda":
         return _launch(x, lora_a, lora_b, modality_masks, question_mask, spec)
     if x.device.type == "cpu":

@@ -20,7 +20,7 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py moka_delta [--root DIR]
     python3 profile_port.py moka_ablation
     python3 profile_port.py fused_dropout [--root DIR]
-    python3 profile_port.py fused_dropout_ablation
+    python3 profile_port.py fused_dropout_ablation dropout_dx_order
     python3 profile_port.py paged_decode [--root DIR]
     python3 profile_port.py paged_decode_ablation
     python3 profile_port.py data_parallel   # one card, or an NCCL world
@@ -72,7 +72,9 @@ rank 4 alone where its kernels take no other M*r);
 ``fused_dropout_ablation`` times them with parts taken out
 (DROP_ABLATIONS: edited copies of fused_dropout.cu), twice in turn, and
 counts a Philox call's SASS instructions and multiplies
-(``philox_sass``).  ``paged_decode`` times the decode kernel through its
+(``philox_sass``); ``dropout_dx_order`` counts where kernel 7's dx
+differs from cuBLAS's product and from the plain version's in-order
+chain.  ``paged_decode`` times the decode kernel through its
 wrapper at DECODE_SHAPES (chip_smoke's timed shapes and one sample) on a
 bf16 and an int8 cache the same way (with ``--root``, another
 checkout's); ``paged_decode_ablation`` times it with parts taken out and
@@ -926,19 +928,19 @@ RANK_ABLATIONS = {  # name: edits of flash_rank.cu; the edited forwards'
          "  const int* mrow = mask + static_cast<long>(b) * S;\n"
          "  if (L > 0) return;\n")],
     "q not loaded ahead of the mask scan": [
-        ("  if (row < L) {\n    load_row<HD>(q + r * HD, qs);",
-         "  if (false) {\n    load_row<HD>(q + r * HD, qs);"),
-        ("  float acc[HD];\n", "  float acc[HD];\n"
-         "  load_row<HD>(q + r * HD, qs);\n")],
+        ("  if (row < L) {\n    load_row<W>(q + r * HD + g * W, qs);",
+         "  if (false) {\n    load_row<W>(q + r * HD + g * W, qs);"),
+        ("  float acc[W];\n", "  float acc[W];\n"
+         "  load_row<W>(q + r * HD + g * W, qs);\n")],
     "no key walk (the mask scan, q, the merge, the stores)": [
-        ("for (int j0 = lo + lane; j0 <= end; j0 += 32 * U) {",
-         "for (int j0 = lo + lane; j0 <= end - S; j0 += 32 * U) {")],
+        ("for (int j0 = lo + slot; j0 <= end; j0 += SLOTS * U) {",
+         "for (int j0 = lo + slot; j0 <= end - S; j0 += SLOTS * U) {")],
     "every key walked (the span is the whole sample)": [
         ("  // the sum of V over all S keys, for the rows that see no key;",
          "  lo = 0;\n  hi = S - 1;\n"
          "  // the sum of V over all S keys, for the rows that see no key;")],
     "one key a lane at a time": [
-        ("constexpr int U = 16 / HD;", "constexpr int U = 1;")],
+        ("constexpr int U = 16 / W;", "constexpr int U = 1;")],
     "4 warps a CTA": [("constexpr int FWD_WARPS = 8;",
                        "constexpr int FWD_WARPS = 4;")],
     "16 warps a CTA": [("constexpr int FWD_WARPS = 8;",
@@ -1015,8 +1017,8 @@ RANK_BWD_ABLATIONS = {  # name: edits of flash_rank.cu's dq (R2) and dk/dv
          "  const long k_base = static_cast<long>(b) * S;\n"
          "  if (L > 0) return;\n")],
     "no key walk (dq), no query walk (dk/dv)": [
-        ("for (int j0 = first + lane; j0 <= stop; j0 += 32 * KIF) {",
-         "for (int j0 = first + lane; j0 <= stop - S; j0 += 32 * KIF) {"),
+        ("for (int j0 = first + slot; j0 <= stop; j0 += SLOTS * KIF) {",
+         "for (int j0 = first + slot; j0 <= stop - S; j0 += SLOTS * KIF) {"),
         ("for (; c < n; c += PHASES * QIF) {",
          "for (; c < n - CHUNK; c += PHASES * QIF) {")],
     "the whole sample walked (every key of a row, every key's queries)": [
@@ -1026,10 +1028,11 @@ RANK_BWD_ABLATIONS = {  # name: edits of flash_rank.cu's dq (R2) and dk/dv
          "  const int lo = 0, hi = S - 1;"),
         ("      if (j <= hi && __ldg(m + j) > 0) {", "      if (j <= hi) {")],
     "one key (dq), one query (dk/dv) in flight a lane": [
-        ("  constexpr int KIF = 16 / HD;", "  constexpr int KIF = 1;"),
-        ("  constexpr int QIF = 16 / HD;", "  constexpr int QIF = 1;")],
+        ("  constexpr int KIF = 16 / W;", "  constexpr int KIF = 1;"),
+        ("  constexpr int QIF = 16 / W;", "  constexpr int QIF = 1;")],
     "dk/dv: chunks of 2048 / r queries (21 KB at r 4)": [
-        ("  constexpr int CHUNK = 4096 / HD;", "  constexpr int CHUNK = 2048 / HD;")],
+        ("  constexpr int CHUNK = (HD >= 32 ? 2048 : 4096) / HD;",
+         "  constexpr int CHUNK = 2048 / HD;")],
     "dk/dv: 2 keys a block": [
         ("constexpr int BWD_KEYS = 4;", "constexpr int BWD_KEYS = 2;")],
     "dk/dv: 8 keys a block": [
@@ -1234,7 +1237,7 @@ def block_diag_ablation_window() -> dict:
 MOKA_SHAPE = (8, 896)  # chip_smoke's serving prefill: b, L
 MOKA_PROJS = {"q, k, v, o": ((4096, 4096), 4), "gate, up": ((4096, 11008), 2),
               "down": ((11008, 4096), 1)}  # LLaMA-2-7B: (d_in, d_out), count
-MOKA_RANKS = (4, 8, 16)
+MOKA_RANKS = (4, 8, 16, 32, 6)  # 6: a padded rank (the rank-8 instance)
 
 
 def moka_case(d_in, d_out, rank, seed: int = 0):
@@ -1265,14 +1268,15 @@ def moka_case(d_in, d_out, rank, seed: int = 0):
 
 def moka_delta_window(host_calls: int = 50) -> dict:
     """Kernel 5 through its wrapper at the serving prefill (MOKA_SHAPE,
-    bf16, AVT) for each projection shape of LLaMA-2-7B at ranks 4, 8 and
-    16 (rank 4 alone for a checkout whose kernel takes no other, as
-    ``--root`` of the parent): the kernel alone (``graph_ms``, a CUDA
+    bf16, AVT) for each projection shape of LLaMA-2-7B at MOKA_RANKS (4,
+    8 and 16, or rank 4 alone, for a checkout whose kernel takes only
+    those, as ``--root`` of a parent): the kernel alone (``graph_ms``, a CUDA
     graph of 20 launches; x, 59-158 MB, overflows the 50 MB L2, so it is
     read from HBM), the host's µs a call and the wrapper back to back; a
     layer sums the seven projections."""
     from moka_tpu_torch.ops import moka_pallas as mp
-    ranks = MOKA_RANKS if hasattr(mp, "fused_moka_supported") else (4,)
+    ranks = MOKA_RANKS if hasattr(mp, "kernel_rank") else (4, 8, 16) \
+        if hasattr(mp, "fused_moka_supported") else (4,)
     out = {"package": mp.__file__}
     for rank in ranks:
         layer = {"graph_ms": 0.0, "back_to_back_ms": 0.0}
@@ -1299,10 +1303,10 @@ def moka_delta_window(host_calls: int = 50) -> dict:
     return {"moka_delta": out}
 
 
-_MOKA_NO_DOWN = ("      for (int kk = 0; kk < 4; ++kk)\n"
-                 "        wgmma_m64nN_ss<C::N>(",
-                 "      for (int kk = 0; kk < 0; ++kk)\n"
-                 "        wgmma_m64nN_ss<C::N>(")
+_MOKA_NO_DOWN = ("        for (int kk = 0; kk < 4; ++kk)\n"
+                 "          wgmma_m64nN_ss<C::NP>(",
+                 "        for (int kk = 0; kk < 0; ++kk)\n"
+                 "          wgmma_m64nN_ss<C::NP>(")
 MOKA_ABLATIONS = {  # name: edits of moka_delta_fwd.cu (hopper.cuh inlined);
     "kernel": [],   # the edited kernels' delta is wrong, only times count
     "loads alone (x stages released unread; no B, attention or stores)": [
@@ -1311,8 +1315,8 @@ MOKA_ABLATIONS = {  # name: edits of moka_delta_fwd.cu (hopper.cuh inlined);
          "          const int s = jt % C::B_STAGES;",
          "        for (int ch = 0; ch < 0; ++ch, ++jt) {\n"
          "          const int s = jt % C::B_STAGES;"),
-        ("    named_bar_sync(1, CONSUMERS);  // abuf written\n",
-         "    named_bar_sync(1, CONSUMERS);  // abuf written\n"
+        ("    named_bar_sync(1, CONSUMERS);  // buf and the queries written\n",
+         "    named_bar_sync(1, CONSUMERS);  // buf and the queries written\n"
          "    if (sh.kb > 0) continue;  // ablation: the loads alone\n")],
     "no down product (x and A still loaded)": [_MOKA_NO_DOWN],
     "no attention (keys staged, not walked)": [
@@ -1320,14 +1324,14 @@ MOKA_ABLATIONS = {  # name: edits of moka_delta_fwd.cu (hopper.cuh inlined);
          "          for (int kq = half; kq < 0; kq += 2) {")],
     "no up product (the stores alone)": [
         ("      for (int kk = 0; kk < C::KPAD / 16; ++kk)\n#pragma unroll\n"
-         "        for (int n = 0; n < 2; ++n)",
+         "        for (int n = 0; n < C::BOXES; ++n)",
          "      for (int kk = 0; kk < 0; ++kk)\n#pragma unroll\n"
-         "        for (int n = 0; n < 2; ++n)")],
+         "        for (int n = 0; n < C::BOXES; ++n)")],
     "no stores (chunks computed and staged)": [
-        ("        tma_store_4d(&tm_out, src, CHUNK * ch, row, bi, 0, first);\n"
-         "        if (CHUNK * ch + 64 < a.d_out)\n"
-         "          tma_store_4d(&tm_out, src + WBOX, CHUNK * ch + 64, row, "
-         "bi, 0, first);\n", "")],
+        ("        tma_store_4d(&tm_out, src, C::CHUNK * ch, row, bi, 0, first);\n"
+         "        if (C::BOXES == 2 && C::CHUNK * ch + 64 < a.d_out)\n"
+         "          tma_store_4d(&tm_out, src + WBOX, C::CHUNK * ch + 64, row, "
+         "bi, 0,\n                       first);\n", "")],
     "the key pass alone (no main kernel)": [
         ("  moka_delta_kernel<R, M><<<grid, NT, smem, st>>>(tm_x, tm_at, "
          "tm_b, tm_out,\n                                                   "
@@ -1380,7 +1384,8 @@ def moka_ablation_window() -> dict:
 DROP_N = 4096  # chip_smoke's training rows (b 4 x L 1024)
 DROP_PROJS = {"q, k, v, o, gate, up": (4096, 6), "down": (11008, 1)}  # d,
                                                      # count (LLaMA-2-7B)
-DROP_MRS = {4: 12, 8: 24, 16: 48}  # AVT rank: M * r
+DROP_MRS = {4: 12, 8: 24, 16: 48, 32: 96, 6: 18}  # AVT rank: M * r (18
+                                                 # and 96: past the old set)
 
 
 def dropout_case(d, mr, seed: int = 0):
@@ -1402,13 +1407,16 @@ def dropout_case(d, mr, seed: int = 0):
 def fused_dropout_window(host_calls: int = 50) -> dict:
     """Kernels 6 and 7 through their wrappers at the fused step's shape (N
     4096, x and A bf16, Philox, rate 0.05) for each projection width of
-    LLaMA-2-7B at AVT ranks 4, 8 and 16 (rank 4 alone for a checkout whose
-    kernels take only M*r 12, as ``--root`` of the parent): the kernel
+    LLaMA-2-7B at the AVT ranks of DROP_MRS (4, 8 and 16, or rank 4
+    alone, for a checkout whose kernels take only those, as ``--root`` of
+    a parent): the kernel
     alone (``graph_ms``, a CUDA graph of 20 launches; x is 33-90 MB), the
     host's µs a call and the wrapper back to back; a layer sums the seven
     projections."""
     from moka_tpu_torch.ops import fused_dropout as fd
-    ranks = DROP_MRS if hasattr(fd, "fused_dropout_supported") else {4: 12}
+    ranks = DROP_MRS if hasattr(fd, "MAX_MR") else \
+        {r: m for r, m in DROP_MRS.items() if r in (4, 8, 16)} \
+        if hasattr(fd, "fused_dropout_supported") else {4: 12}
     out = {"package": fd.__file__}
     for rank, mr in ranks.items():
         layer = {f"{k}_{t}": 0.0 for k in ("fwd", "bwd")
@@ -1435,6 +1443,44 @@ def fused_dropout_window(host_calls: int = 50) -> dict:
               f"backward alone {layer['bwd_graph_ms']:.4f} ms (back to back "
               f"{layer['bwd_back_to_back_ms']:.4f})", flush=True)
     return {"fused_dropout": out}
+
+
+DX_ORDER_MRS = (18, 96, 192, 256)  # M*r where kernel 7's dx order is shown
+DX_ORDER_SHAPES = ((333, 200), (4096, 4096))  # (N, d): ragged and full
+
+
+def dropout_dx_order_window() -> dict:
+    """Why the plain kernel-7 backward forms g A^T as its own chain: at
+    each (N, d) of DX_ORDER_SHAPES and M*r of DX_ORDER_MRS (fp32 x and A,
+    forced words), the count of the kernel's dx elements that differ from
+    (a) cuBLAS's ``g @ A^T`` times the mask, (b) the same rows inside a
+    4096-row product (whose sum over M*r cuBLAS does not split) and (c)
+    ``dropout_a_bwd_plain`` (the in-order ``addcmul_`` chain)."""
+    import torch
+    from moka_tpu_torch.ops import fused_dropout as fd
+    out = {}
+    for n, d in DX_ORDER_SHAPES:
+        for mr in DX_ORDER_MRS:
+            g = torch.Generator(device="cuda").manual_seed(mr)
+            x = torch.randn((n, d), generator=g, device="cuda")
+            a = (torch.rand((d, mr), generator=g, device="cuda") * 2 - 1) \
+                / d ** 0.5
+            gout = torch.randn((n, mr), generator=g, device="cuda")
+            bits = torch.randint(0, 1 << 32, (n, d), generator=g,
+                                 device="cuda", dtype=torch.int64)
+            m = torch.where(bits < fd.threshold(0.05), 1.0 / 0.95, 0.0)
+            dx, _ = fd.dropout_a_bwd(x, a, gout, None, 0.05, bits)
+            tall = torch.zeros((max(n, 4096), mr), device="cuda")
+            tall[:n] = gout
+            rows = {"cublas": gout @ a.t(), "cublas_tall": (tall @ a.t())[:n],
+                    "plain": fd.dropout_a_bwd_plain(x, a, gout, None, 0.05,
+                                                    bits)[0]}
+            res = {k: int((dx != (v if k == "plain" else v * m)).sum())
+                   for k, v in rows.items()}
+            out[f"({n}, {d}) M*r {mr}"] = res
+            print(f"  ({n}, {d}) M*r {mr}: dx elements that differ of "
+                  f"{n * d}: {res}", flush=True)
+    return {"dropout_dx_order": out}
 
 
 DECODE_SHAPES = {  # name: (B, H, K, S, length, left pads), chip_smoke's
@@ -1579,8 +1625,7 @@ DROP_ABLATIONS = {  # name: edits of fused_dropout.cu (hopper.cuh inlined);
          "      for (int kk = 0; kk < 0; ++kk)\n"
          "        wgmma_m64nN_ss<FWD_ROWS>(")],
     "forward: the transpose pass alone (no main kernel)": [
-        ("  dropout_fwd_kernel<TA, FORCED><<<(n + FWD_ROWS - 1) / FWD_ROWS, "
-         "FWD_NT,\n                                   smem, st>>>(\n"
+        ("  dropout_fwd_kernel<TA, FORCED><<<grid, FWD_NT, smem, st>>>(\n"
          "      tm_x, tm_at, static_cast<const uint32_t*>(bits),\n"
          "      static_cast<float*>(out), sh);\n", "")],
     "forward: 2 consumer warpgroups": [
@@ -1600,8 +1645,10 @@ DROP_ABLATIONS = {  # name: edits of fused_dropout.cu (hopper.cuh inlined);
          "        for (int kk = 0; kk < 4; ++kk)\n"
          "          wgmma_m64n64_ss<1, 1>(")],
     "backward: no dx chain (dx = 0 * m)": [
-        ("      for (int j = 0; j < sh.mr; j += 4) {",
-         "      for (int j = 0; j < 0; j += 4) {")],
+        ("      for (; j + 4 <= (sh.with_dx ? sh.mr : 0); j += 4) {",
+         "      for (; j + 4 <= 0; j += 4) {"),
+        ("      for (; j < (sh.with_dx ? sh.mr : 0); ++j) {",
+         "      for (; j < 0; ++j) {")],
     "backward: no dx stores": [
         ("        tma_store_4d(&tm_dx, smem_addr(dxs), c0, n0, 0, 0, "
          "l2_evict_first());\n", "")]}
@@ -1921,6 +1968,7 @@ def main(argv=None) -> int:
                       "fused_dropout": fused_dropout_window,
                       "fused_dropout_ablation":
                           fused_dropout_ablation_window,
+                      "dropout_dx_order": dropout_dx_order_window,
                       "paged_decode": decode_window,
                       "paged_decode_ablation": decode_ablation_window,
                       "gloo_cuda": gloo_cuda_window,

@@ -74,6 +74,7 @@ def life_cycle(chip_smoke, tmp_path_factory):
         res = chip_smoke.phase15(work, device="cpu", tiny=True)
         # phase 16 runs on phase 15's files, as on the card
         res["p16"] = chip_smoke.phase16(work, res, device="cpu", tiny=True)
+        res["p19"] = chip_smoke.p19_cli(work, res, device="cpu")
         return res
 
 
@@ -277,3 +278,12 @@ def test_phase16_rehearsal_runs(life_cycle):
         assert {"eager_ms", "paged_ms"} <= set(gate["by_capacity"][256])
         assert gate["pairings"] == 2 and gate["paged"] == (
             2 * gate["paged_won"] > 2)
+
+
+def test_phase19_cli_rehearsal_runs(life_cycle):
+    """chip_smoke's phase 19 (d) at the CLIs' tiny preset on phase 15's
+    files: ``infer --lora-r 32`` with the rank-32 adapter files the phase
+    writes, on 4 AVQA items in one generate call (no launch on the CPU)."""
+    res = life_cycle["p19"]
+    assert res["rank"] == 32 and res["rows"] == 4
+    assert not any(res["launches_per_generate"].values())

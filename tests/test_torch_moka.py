@@ -192,23 +192,27 @@ def test_fused_plain_matches_jax_interpret_kernel(flavour, L, split, rank):
 
 
 def test_fused_route_follows_the_kernel_ranks():
-    """The kernel takes ranks 4, 8 and 16 with one to four modalities and
-    widths that are multiples of 8; the decode paths' default route takes
-    it only for such a spec on the card and the unfused delta otherwise
-    (as JAX's decode), and a forced fused delta at a rank it does not take
-    raises, on the CPU as on the card."""
+    """The kernel takes every rank from 1 to 64 with one to four modalities
+    and widths that are multiples of 8; the decode paths' default route
+    takes it for such a spec on the card and the unfused delta otherwise
+    (as JAX's decode, past rank 64); a forced fused delta on the CPU runs
+    the plain version at any rank, as JAX's kernel does, and the card's
+    wrapper refuses rank 65 before any launch, naming the limit."""
     from moka_tpu_torch.core.config import LlamaConfig
     from moka_tpu_torch.eval.decode import fused_moka_route
+    from moka_tpu_torch.ops import moka_pallas as mp
     from moka_tpu_torch.ops.moka_pallas import fused_moka_supported
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cfg = LlamaConfig.llama2_7b()
-    for r in (4, 8, 16):
+    for r in (1, 2, 4, 6, 8, 12, 16, 32, 64):
         for spec in (tm.MokaSpec.avt(rank=r), tm.MokaSpec.vt(rank=r)):
             assert fused_moka_supported(spec)
             assert fused_moka_supported(spec, 4096, 11008)
             assert fused_moka_route(cuda, None, cfg, spec)
             assert not fused_moka_route(cpu, None, cfg, spec)
-    for r in (2, 32):
+    assert [mp.kernel_rank(r) for r in (1, 4, 5, 6, 12, 17, 32, 33, 64)] == \
+        [4, 4, 8, 8, 16, 32, 32, 64, 64]
+    for r in (65, 128):
         spec = tm.MokaSpec.avt(rank=r)
         assert not fused_moka_supported(spec)
         assert not fused_moka_route(cuda, None, cfg, spec)
@@ -216,12 +220,20 @@ def test_fused_route_follows_the_kernel_ranks():
     five = dataclasses.replace(tm.MokaSpec.avt(rank=8), num_modalities=5)
     assert not fused_moka_supported(five) and not fused_moka_supported(None)
     assert not fused_moka_supported(tm.MokaSpec.avt(rank=8), 4096, 4100)
+    assert fused_moka_route(cuda, None, LlamaConfig.tiny(),
+                            tm.MokaSpec.avt(rank=32))
     assert not fused_moka_route(cuda, None, LlamaConfig.tiny(),
-                                tm.MokaSpec.avt(rank=32))
+                                tm.MokaSpec.avt(rank=65))
     js, ts = _specs("avt", rank=32)
     x, a, bm, mod, q = _inputs(9, 2, 12, 16, 8, 3, rank=32)
-    with pytest.raises(ValueError, match="ranks"):
-        moka_delta_fused(*_t(x, a, bm, mod, q), ts)
+    np.testing.assert_allclose(  # the plain version on the CPU, any rank
+        moka_delta_fused(*_t(x, a, bm, mod, q), ts).numpy(),
+        np.asarray(jm.moka_delta(*map(jnp.asarray, (x, a, bm, mod, q)), js)),
+        **TOL)
+    js, ts = _specs("avt", rank=65)
+    x, a, bm, mod, q = _inputs(9, 2, 16, 16, 8, 3, rank=65)
+    with pytest.raises(ValueError, match="ranks 1-64"):
+        mp._launch(*_t(x, a, bm, mod, q), ts)  # the card's checks
     np.testing.assert_allclose(  # the unfused delta takes any rank
         tm.moka_delta(*_t(x, a, bm, mod, q), ts).numpy(),
         np.asarray(jm.moka_delta(*map(jnp.asarray, (x, a, bm, mod, q)), js)),

@@ -253,9 +253,10 @@ def test_fused_dropout_source_contract():
     (m64n64, both warpgroups, no branch around the products) and its dx
     as an fp32 FMA chain over M*r in the plain product's order, stored by
     TMA; the backward's CTA pairs add dA through distributed shared memory
-    (a cluster of two), with no atomics, no workspace and no second
-    kernel (the forward's only scratch is A^T's parts); M*r is a runtime
-    width up to 64, the widest the wrapper takes."""
+    (a cluster of two), with no atomics and no workspace (the forward's
+    only scratch is A^T's parts), and a second kernel only for dx past
+    M*r 64 (the dx kernel, the same chain); M*r is a runtime width up to
+    256, the widest the wrapper takes."""
     import re
     from moka_tpu_torch import kernels
     from moka_tpu_torch.ops import fused_dropout as fd
@@ -276,10 +277,10 @@ def test_fused_dropout_source_contract():
     assert "__cluster_dims__(1, 2, 1)" in src
     entry = src[src.index('"C" int moka_dropout_a_bwd('):]
     assert "atomic" not in src and "work" not in bwd + entry
-    assert "sum_tiles" not in src and src.count("<<<") == 7
+    assert "sum_tiles" not in src and src.count("<<<") == 8
     takes = src[src.index("bool takes("):src.index("uint32_t bf16_pair(")]
-    assert sorted(map(int, re.findall(r"mr == (\d+)", takes))) == \
-        list(fd.KERNEL_MRS)
+    assert "mr <= MAX_MR" in takes and int(re.search(
+        r"constexpr int MAX_MR = (\d+);", src)[1]) == fd.MAX_MR
 
 
 def test_moka_delta_source_contract():
@@ -288,7 +289,8 @@ def test_moka_delta_source_contract():
     TMA stores; the attention walks the row's n_q compacted keys (no
     question mask read in the main kernel); the key pass runs a fixed
     number of CTAs a row (at most KP_CTAS), not one a token; instances for
-    ranks 4, 8 and 16, as ``fused_moka_supported`` says."""
+    ranks 4, 8, 16, 32 and 64 (``KERNEL_RANKS``), every rank up to 64
+    padded to one of them, as ``fused_moka_supported`` says."""
     import re
     from moka_tpu_torch import kernels
     from moka_tpu_torch.ops import moka_pallas as mp
@@ -296,7 +298,7 @@ def test_moka_delta_source_contract():
                  .read_text())
     main = src[src.index("moka_delta_kernel(const __grid_constant__"):
                src.index("namespace f32")]
-    assert "wgmma_m64nN_ss<C::N>" in main and "wgmma_m64n64_rs<1>" in main
+    assert "wgmma_m64nN_ss<C::NP>" in main and "wgmma_m64n64_rs<1>" in main
     assert "tma_load_4d(ring" in main and "tma_store_4d(&tm_out" in main
     assert "mbar_wait(full" in main and "a.qmask" not in main
     assert "kq < cn" in main and "a.nq[bi]" in main
@@ -306,7 +308,7 @@ def test_moka_delta_source_contract():
     assert "dim3(a.L" not in src and "dim3(L" not in src
     for r in mp.KERNEL_RANKS:
         assert f"launch<{r}>(a, x_bf16, st)" in src
-    assert mp.KERNEL_RANKS == (4, 8, 16)
+    assert mp.KERNEL_RANKS == (4, 8, 16, 32, 64) and mp.MAX_RANK == 64
 
 
 def test_rank_and_block_diag_source_contract():
@@ -322,7 +324,7 @@ def test_rank_and_block_diag_source_contract():
                rank.index("flash_rank_dq_kernel(const float*")]
     fwd = re.sub(r"//[^\n]*", "", fwd)
     assert "stage<" not in fwd and fwd.count("__syncthreads()") == 2
-    assert "__reduce_min_sync" in fwd and "load_row<HD>" in fwd
+    assert "__reduce_min_sync" in fwd and "load_row<W>" in fwd
     bd = re.sub(r"//[^\n]*", "", (kernels.CSRC / "block_diag.cu")
                 .read_text())
     assert "tma_load_4d" in bd and "swizzled_map" in bd
@@ -364,8 +366,8 @@ def test_rank_backward_source_contract():
         params = body[:body.index("{")]
         assert re.findall(r"\*\s*__restrict__\s+(\w+)", params) == \
             ["q", "k", "v", "mask", "dout", "lse", "delta", *outs]
-    assert "__syncthreads()" not in dq and "load_row<HD>(k + " in dq
-    assert "j0 = first + lane; j0 <= stop" in dq
+    assert "__syncthreads()" not in dq and "load_row<W>(k + " in dq
+    assert "j0 = first + slot; j0 <= stop" in dq
     assert dkv.index("return;") < dkv.index("visible_span<")
     assert dkv.index("if (live == 0u) continue;") < dkv.index("q_sm)[e]")
 

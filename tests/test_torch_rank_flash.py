@@ -59,18 +59,31 @@ RANK_CALLS = 14  # a layer: 7 projections x AVT's 2 attending modalities
 
 
 def test_rank_route_dispatch():
-    """fp32, one head, head_dim <= 16 take the rank route; bf16 at head_dim
-    128 and multi-head fp32 do not."""
+    """fp32, one head, head_dim <= 64 take the rank route; bf16 at head_dim
+    128, multi-head fp32 and head_dim 65 do not; a head dim between the
+    built ones runs in the next one, padded with zero columns, and head_dim
+    65 is refused on the card with the limit named."""
     def qk(dtype, H, hd):
         return (torch.zeros((1, 4, H, hd), dtype=dtype),
                 torch.zeros((1, 4, H, hd), dtype=dtype))
-    assert fa.is_rank_route(*qk(torch.float32, 1, 4))
-    assert fa.is_rank_route(*qk(torch.float32, 1, 16))
-    assert not fa.is_rank_route(*qk(torch.float32, 1, 32))
+    for hd in (1, 2, 4, 6, 16, 32, 64):
+        assert fa.is_rank_route(*qk(torch.float32, 1, hd))
+    assert not fa.is_rank_route(*qk(torch.float32, 1, 65))
     assert not fa.is_rank_route(*qk(torch.float32, 2, 4))
     assert not fa.is_rank_route(*qk(torch.bfloat16, 1, 4))
     assert not fa.is_rank_route(*qk(torch.bfloat16, 32, 128))
-    assert fa.RANK_HEAD_DIMS == (4, 8, 16)
+    assert fa.RANK_HEAD_DIMS == (4, 8, 16, 32, 64)
+    assert [fa.rank_built_dim(h) for h in (1, 3, 5, 6, 12, 20, 33, 64)] == \
+        [4, 4, 8, 8, 16, 32, 64, 64]
+    q, k = qk(torch.float32, 1, 6)
+    padded = fa._rank_inputs(q, k, k, torch.ones((1, 4)))
+    assert [t.shape[-1] for t in padded[:3]] == [8, 8, 8]
+    assert padded[3].dtype == torch.int32
+    with pytest.raises(ValueError, match="head_dim 1-64"):
+        fa._refuse_wide_rank(*qk(torch.float32, 1, 65))
+    with pytest.raises(ValueError, match="head_dim 1-64"):
+        q, k = qk(torch.float32, 1, 65)
+        fa._rank_inputs(q, k, k, torch.ones((1, 4)))
 
 
 @pytest.mark.parametrize("L", [1024, 1025])
@@ -275,8 +288,9 @@ def test_rank_inputs_pass_ready_tensors_through_and_check_the_rest():
     """The rank wrappers' input check (``_rank_inputs``, run before each of
     the three kernels): an fp32 q, k, v and an int32 contiguous mask on
     q's device come back as the same tensors, uncopied and uncast; a float
-    or strided mask is cast once; a wrong dtype, head count, head_dim,
-    mask shape, lse shape or a misaligned tensor raises."""
+    or strided mask is cast once; head_dim 3 comes back padded to the
+    built head_dim 4; a wrong dtype, head count, head_dim (65), mask
+    shape, lse shape or a misaligned tensor raises."""
     rng = np.random.default_rng(12)
     q, k, v, dout = (torch.tensor(rng.standard_normal((2, 24, 1, 4)),
                                   dtype=torch.float32) for _ in range(4))
@@ -293,7 +307,11 @@ def test_rank_inputs_pass_ready_tensors_through_and_check_the_rest():
     with pytest.raises(TypeError, match="v is torch.float64"):
         fa._rank_inputs(q, k, v.double(), mask)
     with pytest.raises(ValueError, match="one head of head_dim"):
-        fa._rank_inputs(q[..., :3], k[..., :3], v[..., :3], mask)
+        wide = torch.zeros((2, 24, 1, 65))
+        fa._rank_inputs(wide, wide, wide, mask)
+    three = fa._rank_inputs(q[..., :3], k[..., :3], v[..., :3], mask)
+    assert all(torch.equal(t[..., :3], u[..., :3]) and not t[..., 3].any()
+               for t, u in zip(three, (q, k, v)))  # padded to head_dim 4
     with pytest.raises(ValueError, match="one head of head_dim"):
         fa._rank_inputs(q.expand(2, 24, 2, 4), k, v, mask)
     with pytest.raises(ValueError, match="attn_mask"):
