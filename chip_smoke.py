@@ -288,9 +288,20 @@ Phases, in order; any failed build, launch or check exits non-zero:
      ``infer --lora-r 32`` on phase 15's files with rank-32 adapter files
      the phase writes, kernel 5 launched on every prefill; the phase
      prints its wall and fails past P19_LIMIT_S (120 s);
- 20. one JSON line with every kernel's numbers (phase 19's instances
-     with their launches on phase 19's paths, null for M*r 256, which no
-     phase-19 step runs), then the card's line.
+ 20. MokA past rank 64, right after phase 19's (a)-(c), with (d) in
+     phase 17's world: (a) kernel 5 at P20_RANKS (AVT) and P20_VT_RANK
+     (VT) through the wide path, with four modalities and on fp32 x,
+     kernels 6-7 at P20_DROP_MRS (dx bit for bit, N 4096 and the ragged
+     rows), R1-R3 at P20_RANK_DIMS, each against its plain version and
+     timed; (b) phase 4's base serving a rank-128 tree under phase 4's
+     logits rule (``moka_launches``: 224 down and 224 up products and 448
+     R1 launches a prefill); (c) the fused step at P20_STEP; (d) kernel 5
+     under a ring of 2 ranks at 2 layers, held to one process
+     (P20_RING_TOL), with ``keys_kept_home``'s fault required to fail;
+     the phase fails past P20_LIMIT_S (90 s);
+ 21. one JSON line with every kernel's numbers (phases 19-20's instances
+     with their launches on those phases' paths, null where no step runs
+     them), then the card's line.
 fp32 matmuls and convolutions run in full fp32 (TF32 off).  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -458,16 +469,27 @@ def _wrappers() -> dict:
             "paged_decode": paged_decode_attention}
 
 
+MOKA_MORE_COUNTS = {"moka_delta_keys": "keys_launches",
+                    "moka_delta_wide_down": "wide_down_launches",
+                    "moka_delta_wide_up": "wide_up_launches"}
+
+
 def _counts() -> dict:
     """Launches by kernel name, ``flash_fwd_hd64``: those of the flash
     forward at head_dim 64 (the CLIP tower), which ``flash_fwd`` counts
-    too, and ``paged_decode_int8``: the decode kernel's on an int8 cache,
-    which ``paged_decode`` counts too."""
+    too, ``paged_decode_int8``: the decode kernel's on an int8 cache,
+    which ``paged_decode`` counts too, and kernel 5's other launches
+    (MOKA_MORE_COUNTS: the key pass alone under a ring, the wide path's
+    down and up products past rank 64), which ``moka_delta_fwd`` does not
+    count."""
     from moka_tpu_torch.ops.flash_attention import flash_fwd
+    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
     from moka_tpu_torch.ops.paged_decode import paged_decode_attention
     out = {name: fn.launches for name, fn in _wrappers().items()}
     out["flash_fwd_hd64"] = flash_fwd.launches_by_head_dim.get(64, 0)
     out["paged_decode_int8"] = paged_decode_attention.int8_launches
+    for name, attr in MOKA_MORE_COUNTS.items():
+        out[name] = getattr(moka_delta_fused, attr)
     return out
 
 
@@ -482,12 +504,16 @@ def _zero_counts() -> None:
     flash_bwd_fused.launches_by_heads.clear()
     fd.dropout_a_fwd.offset_launches = fd.dropout_a_bwd.offset_launches = 0
     paged_decode_attention.int8_launches = 0
+    moka = _wrappers()["moka_delta_fwd"]
+    for attr in MOKA_MORE_COUNTS.values():
+        setattr(moka, attr, 0)
 
 
 def _launches(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` kernels, every other 0."""
     return {name: nonzero.get(name, 0) for name in
-            (*_wrappers(), "flash_fwd_hd64", "paged_decode_int8")}
+            (*_wrappers(), "flash_fwd_hd64", "paged_decode_int8",
+             *MOKA_MORE_COUNTS)}
 
 
 # ------------------------------------------------------------------ phase 2
@@ -609,13 +635,17 @@ BD_SASS = ("block_diag", "block_diag_kernel", 4)  # kernel 10: library,
 RANK_BWD_SASS = (("flash_rank_dq_kernel", "flash_rank_dkv_kernel"), 5)
 # the rank backward (fp32 SIMT): function stems, instances each (hd 4, 8,
 # 16, 32, 64)
+RANK_WIDE_SASS = ("flash_rank_fwd_wide", "flash_rank_dq_wide",
+                  "flash_rank_dkv_wide")  # past head_dim 64: one each
 
 
 def check_bd_rank_sass() -> dict:
     """Kernel 10 loads x by TMA: each of its four instances (bf16 and fp32
     x, b 8 and any b) shows UTMALDG; the rank backward sums in a fixed
     order: each instance of its dq and dk/dv kernels shows no atomic (ATOM,
-    RED), so repeats are bit-identical.  Raises otherwise."""
+    RED), so repeats are bit-identical, and so does each of the three
+    kernels past head_dim 64 (``RANK_WIDE_SASS``, one instance each).
+    Raises otherwise."""
     out = {}
     for lib in ("flash_rank", BD_SASS[0]):
         out[lib] = sass_counts(lib)
@@ -627,11 +657,13 @@ def check_bd_rank_sass() -> dict:
         raise AssertionError(f"block_diag SASS: an instance lacks its TMA "
                              f"loads: {out[BD_SASS[0]]}")
     stems, n = RANK_BWD_SASS
-    for stem in stems:
+    for stem, want in [(st, n) for st in stems] + \
+            [(st, 1) for st in RANK_WIDE_SASS]:
         ks = [c for fn, c in out["flash_rank"].items() if stem in fn]
-        if len(ks) != n or any(c["ATOM"] for c in ks):
+        if len(ks) != want or any(c["ATOM"] for c in ks):
             raise AssertionError(f"flash_rank SASS: {stem} has {len(ks)} "
-                                 f"instances, want {n}, or an atomic: "
+                                 f"instances, want {want}, or an "
+                                 f"atomic: "
                                  f"{out['flash_rank']}")
     return out
 
@@ -639,13 +671,17 @@ def check_bd_rank_sass() -> dict:
 MOKA_SASS = ("moka_delta_fwd", "moka_delta_kernelILi", 20)  # kernel 5:
 # library, the bf16 kernel's mangled stem, instances (R 4/8/16/32/64 x M
 # 1-4)
+MOKA_WIDE_SASS = ("moka_wide_kernel", 4)  # its wide path's products: x or
+# buf bf16 / fp32 x down / up, fp32 SIMT
 
 
 def check_moka_sass() -> dict:
     """Kernel 5's bf16 path runs its products on wgmma and moves x and the
     delta by TMA: each of its twenty instances shows HGMMA, UTMALDG and
-    UTMASTG and no HMMA; the key pass and the fp32 path (SIMT) are only
-    printed.  Raises otherwise."""
+    UTMASTG and no HMMA; the wide path's four product kernels
+    (``MOKA_WIDE_SASS``, fp32 FMAs) are there, with no atomic and no
+    mma.sync; the key pass and the fp32 path (SIMT) are only printed.
+    Raises otherwise."""
     out = sass_counts(MOKA_SASS[0])
     for fn, c in out.items():
         log(f"    {MOKA_SASS[0]} SASS {fn}: " +
@@ -656,6 +692,13 @@ def check_moka_sass() -> dict:
             c["HMMA"] for c in ks):
         raise AssertionError(f"moka_delta_fwd SASS: an instance of the bf16 "
                              f"kernel lacks wgmma or TMA: {out}")
+    wide = [c for fn, c in out.items() if MOKA_WIDE_SASS[0] in fn]
+    if len(wide) != MOKA_WIDE_SASS[1] or any(c["ATOM"] or c["HMMA"]
+                                             for c in wide):
+        raise AssertionError(f"moka_delta_fwd SASS: the wide path has "
+                             f"{len(wide)} product kernels, want "
+                             f"{MOKA_WIDE_SASS[1]}, or one has an atomic: "
+                             f"{out}")
     return out
 
 
@@ -663,6 +706,8 @@ DROP_SASS = ("fused_dropout", {"dropout_fwd_kernel": (4, False),
                                  "dropout_bwd_kernel": (4, True)})
 # kernels 6-7: library, {bf16-x kernel's stem: (instances (A bf16, fp32 x
 # the generator, forced words), TMA stores required)}
+DROP_DX_SASS = ("dropout_dx_kernel", 8)  # dx past M*r 64: x and A bf16 /
+# fp32 x the generator / forced words, fp32 SIMT
 
 
 def check_dropout_sass() -> dict:
@@ -670,8 +715,10 @@ def check_dropout_sass() -> dict:
     its dA; dx is an fp32 FMA chain) and moves x by TMA: each instance of
     the forward and of the backward (A bf16 and fp32, the generator and
     forced words) shows HGMMA and
-    UTMALDG and no HMMA, the backward's also UTMASTG (dx); the fp32-x
-    kernels (SIMT) are only printed.  Raises otherwise."""
+    UTMALDG and no HMMA, the backward's also UTMASTG (dx); the dx kernel
+    past M*r 64 (``DROP_DX_SASS``, its chunks of A's rows) has its eight
+    instances and no atomic (dx bit for bit); the fp32-x kernels (SIMT)
+    are only printed.  Raises otherwise."""
     lib, stems = DROP_SASS
     out = sass_counts(lib)
     for fn, c in out.items():
@@ -684,6 +731,11 @@ def check_dropout_sass() -> dict:
                 (stores and c["UTMASTG"] == 0) for c in ks):
             raise AssertionError(f"{lib} SASS: an instance of {stem} lacks "
                                  f"wgmma or TMA, or keeps mma.sync: {out}")
+    ks = [c for fn, c in out.items() if DROP_DX_SASS[0] in fn]
+    if len(ks) != DROP_DX_SASS[1] or any(c["ATOM"] for c in ks):
+        raise AssertionError(f"{lib} SASS: {DROP_DX_SASS[0]} has {len(ks)} "
+                             f"instances, want {DROP_DX_SASS[1]}, or an "
+                             f"atomic: {out}")
     return out
 
 
@@ -1515,14 +1567,16 @@ def dropout_case(n, d, x_dtype, a_dtype, forced, seed, mr=12):
     return x, a.to(a_dtype), gout, DropoutKey(1000 + seed), bits
 
 
-def check_dropout(name, x, a, gout, key, bits) -> float:
+def check_dropout(name, x, a, gout, key, bits, exact_dx=False) -> float:
     """Kernels 6 and 7 against ``dropout_a_fwd_plain`` /
     ``dropout_a_bwd_plain`` on the same words: out and dA within DROP_TOL
     (fp32 sums in another order; a bf16 dA within one bf16 ulp), dx within
     one bf16 ulp and bit-identical on all but DROP_DX_MISMATCH of its
     elements, dx's zeros exactly the plain mask, two calls bit-identical,
     the forward's mask the backward's (the kernel's out equals the plain
-    forward over dx's non-zero pattern), the keep share within 5 sigma."""
+    forward over dx's non-zero pattern), the keep share within 5 sigma;
+    ``exact_dx``: dx equal to the plain version's bit for bit (its FMA
+    chain in the plain version's order)."""
     import torch
     from moka_tpu_torch.ops import fused_dropout as fd
     n, d = x.shape
@@ -1561,14 +1615,16 @@ def check_dropout(name, x, a, gout, key, bits) -> float:
         e_da = frac(da, rda)
         da_ok = e_da <= DROP_TOL
     ok = (same and pattern and e_out <= DROP_TOL and e_own <= DROP_TOL
-          and ulp <= 0 and mism <= DROP_DX_MISMATCH and da_ok
+          and ulp <= 0 and mism <= (0 if exact_dx else DROP_DX_MISMATCH)
+          and da_ok
           and abs(share - (1 - DROP_RATE)) <= 5 * sigma)
     log(f"  dropout {name}: x {tuple(x.shape)} {str(x.dtype)[6:]}, A "
         f"{tuple(a.shape)} {str(a.dtype)[6:]}, "
         f"{'forced bits' if bits is not None else 'Philox'}"
         f": out rel err {e_out:.2e}, vs own-mask forward {e_own:.2e} (tol "
         f"{DROP_TOL}); dx beyond one ulp {ulp:.2e}, not bit-identical "
-        f"{mism:.2e} (tol {DROP_DX_MISMATCH}); dA err {e_da:.2e}; zeros = "
+        f"{mism:.2e} (tol {0 if exact_dx else DROP_DX_MISMATCH}); dA err "
+        f"{e_da:.2e}; zeros = "
         f"plain mask {pattern}; repeat bit-identical {same}; keep share "
         f"{share:.6f} ({(share - 1 + DROP_RATE) / sigma:+.2f} sigma)")
     if not ok:
@@ -2697,8 +2753,6 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
     import torch
     from moka_tpu_torch.eval.decode import prefill
     from moka_tpu_torch.models import llama
-    from moka_tpu_torch.ops.flash_attention import flash_fwd
-    from moka_tpu_torch.ops.moka_pallas import moka_delta_fused
 
     def logits(params, kernels, dtype):
         h, _, _ = prefill(
@@ -2708,19 +2762,26 @@ def check_logits(cfg, spec, base, adapters, inputs, new_tokens,
             use_fused_moka=kernels)
         return llama.head_logits(h, params["lm_head"])
 
+    # kernel 1's launches and kernel 5's (``moka_launches``: past rank 64
+    # its wide path's and R1's)
+    want = _launches(flash_fwd=cfg.n_layers,
+                     **moka_launches(spec, 7 * cfg.n_layers))
+    names = ("flash_fwd", "moka_delta_fwd", *MOKA_MORE_COUNTS,
+             "flash_rank_fwd")
+    want = {k: want[k] for k in names}
     with torch.inference_mode():
-        flash_fwd.launches = moka_delta_fused.launches = 0
+        _zero_counts()
         got = logits(base, True, torch.bfloat16)
-        counts = (flash_fwd.launches, moka_delta_fused.launches)
+        counts = {k: v for k, v in _counts().items() if k in names}
         ref = base if plain_base is None else plain_base
         plain = logits(ref, False, torch.bfloat16)
         base32 = float32(ref)  # a quantized base keeps its codes
         exact = logits(base32, False, torch.float32)
         del base32
-    log(f"  kernel prefill: flash launches {counts[0]}, fused MokA "
-        f"launches {counts[1]}")
-    if counts != (cfg.n_layers, 7 * cfg.n_layers):
-        raise AssertionError(f"prefill launches {counts}")
+    log(f"  kernel prefill: launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"prefill launches {counts}, want {want}")
     valid = inputs["prompt_mask"] > 0
     got, plain, exact = got[valid], plain[valid], exact[valid]
     std = float(exact.std())
@@ -2895,14 +2956,27 @@ def paged_serving(cfg, spec, base, adapters, inputs, new_tokens) -> dict:
 OTHER_RANK = 8  # what moka_tpu/cli/infer.py --lora-r 8 serves on the TPU
 
 
+def moka_launches(spec, calls: int, ring: bool = False) -> dict:
+    """The launches of ``calls`` kernel-5 calls at ``spec``: up to rank 64
+    one ``moka_delta_fwd`` each (and, under a ring, one key pass alone);
+    past it the wide path's down and up products and R1 once for each
+    attention stream."""
+    from moka_tpu_torch.ops.moka_pallas import KERNEL_RANKS
+    if spec.rank <= KERNEL_RANKS[-1]:
+        return {"moka_delta_fwd": calls,
+                "moka_delta_keys": calls if ring else 0}
+    return {"moka_delta_wide_down": calls, "moka_delta_wide_up": calls,
+            "flash_rank_fwd": calls * len(spec.attn_modalities)}
+
+
 def serve_other_rank(cfg, base, inputs, new_tokens,
-                     rank=OTHER_RANK) -> dict:
+                     rank=OTHER_RANK, engine=True) -> dict:
     """A rank-``rank`` MokA AVT adapter tree (B seeded non-zero) on phase
     4's base: the prefill logits under phase 4's rule through both
-    kernels (``check_logits``), then ``greedy_generate`` and one
-    ``DecodeEngine`` request (the first prompt), each with its defaults,
-    which must take kernel 5 (224 launches a prefill) and return every
-    token."""
+    kernels (``check_logits``), then ``greedy_generate`` and (``engine``)
+    one ``DecodeEngine`` request (the first prompt), each with its defaults,
+    which must take kernel 5 (224 calls a prefill: ``moka_launches``)
+    and return every token."""
     import torch
     from moka_tpu_torch.eval.engine import DecodeEngine
     from moka_tpu_torch.models import llama
@@ -2914,7 +2988,8 @@ def serve_other_rank(cfg, base, inputs, new_tokens,
         p["b"].normal_(0.0, 0.02, generator=g)
     check_logits(cfg, spec, base, adapters, inputs, new_tokens)
     L = inputs["prompt_mask"].shape[1]
-    want = _launches(flash_fwd=cfg.n_layers, moka_delta_fwd=7 * cfg.n_layers,
+    want = _launches(flash_fwd=cfg.n_layers,
+                     **moka_launches(spec, 7 * cfg.n_layers),
                      **decode_launches(cfg, L + new_tokens, new_tokens))
     b = inputs["inputs_embeds"].shape[0]
     with torch.inference_mode():
@@ -2925,6 +3000,10 @@ def serve_other_rank(cfg, base, inputs, new_tokens,
     if gen_launches != want or tuple(toks.shape) != (b, new_tokens):
         raise AssertionError(f"rank {rank} greedy_generate: launches "
                              f"{gen_launches}, tokens {tuple(toks.shape)}")
+    if not engine:
+        log(f"  rank {rank}: greedy_generate b {b} launches "
+            f"{ {k: v for k, v in gen_launches.items() if v} }")
+        return {"rank": rank, "generate_launches": gen_launches}
     engine = DecodeEngine(base, adapters, cfg=cfg, spec=spec, n_slots=1,
                           cache_capacity=L + new_tokens, eos_id=-1,
                           cache_dtype=base["embed"].dtype)
@@ -6142,7 +6221,8 @@ def p17_cli(rank: int, work: Path, device: str) -> dict:
 
 
 def p17_rank(rank: int, work: Path, device: str, tiny: bool) -> None:
-    """One rank of phase 17's world: (b), (c) and (d); its results in
+    """One rank of phase 17's world: (b), (c) and (d), then phase 20's (d)
+    (kernel 5 under the ring, ``p20_ring``); its results in
     ``p17_r<rank>.json``."""
     import torch
     import torch.distributed as dist
@@ -6161,7 +6241,8 @@ def p17_rank(rank: int, work: Path, device: str, tiny: bool) -> None:
                                                tiny)),
                      ("mesh", lambda: p17_mesh(rank, cfg, spec, device,
                                                tiny)),
-                     ("cli", lambda: p17_cli(rank, work, device))):
+                     ("cli", lambda: p17_cli(rank, work, device)),
+                     ("ring_fused", lambda: p20_ring(rank, device, tiny))):
         t0 = time.perf_counter()
         out[part] = fn()
         out["seconds"][part] = time.perf_counter() - t0
@@ -6224,6 +6305,9 @@ def p17_world(work: Path, device: str, tiny: bool, ranks: int,
                 raise AssertionError(f"the ranks' mesh {name} losses differ")
     res = dict(got[0], world_s=time.perf_counter() - t0, **here)
     res["ring"]["launches_by_rank"] = [r["ring"]["launches"] for r in got]
+    for name in res["ring_fused"]:
+        res["ring_fused"][name]["launches_by_rank"] = [
+            r["ring_fused"][name]["launches"] for r in got]
     log(f"  the world ran in {res['world_s']:.1f} s (rank 0: "
         f"{ {k: round(v, 1) for k, v in res['seconds'].items()} } s); "
         f"transport "
@@ -6814,24 +6898,26 @@ def p19_moka_shapes() -> dict:
     return errs
 
 
-def p19_moka_records(cfg, b=8, L=896) -> list[dict]:
-    """Kernel 5 at each of P19_RANKS (AVT) and at P19_VT_RANK (VT), bf16,
+def p19_moka_records(cfg, b=8, L=896, ranks=P19_RANKS, vt_rank=P19_VT_RANK,
+                     more=None) -> list[dict]:
+    """Kernel 5 at each of ``ranks`` (AVT) and at ``vt_rank`` (VT), bf16,
     at the serving prefill (b, L): every distinct projection shape of a
     LLaMA-2-7B layer against the plain version (``check_moka``), then the
     layer's seven projections timed (the kernel alone in a CUDA graph),
-    beside the plain version and the bound (the bytes of x and delta; the
-    products at the true rank).  ``p19_moka_shapes``'s checks go into the
-    rank's record (bf16), and its fp32 ones into ``fp32_x_max_abs_err``."""
+    beside the plain version and the bound (the bytes of x, A, B, the
+    masks and the delta; the products at the true rank at the tensor
+    cores' bf16 rate at every rank, the attention at the fp32 rate).  ``more``'s checks
+    (``p19_moka_shapes``'s by default) go into the rank's record (bf16),
+    and its fp32 ones into ``fp32_x_max_abs_err``."""
     import torch
-    from moka_tpu_torch.ops.moka_pallas import (kernel_rank,
+    from moka_tpu_torch.ops.moka_pallas import (KERNEL_RANKS, kernel_rank,
                                                 moka_delta_fused,
                                                 moka_delta_fused_plain)
     from profile_port import graph_ms
     shapes = p19_layer_shapes(cfg)
-    more = p19_moka_shapes()
+    more = p19_moka_shapes() if more is None else more
     records = []
-    for flavour, rank in [("avt", r) for r in P19_RANKS] + \
-            [("vt", P19_VT_RANK)]:
+    for flavour, rank in [("avt", r) for r in ranks] + [("vt", vt_rank)]:
         err = more.get(f"{flavour}_r{rank}", 0.0)
         for i, (d_in, d_out) in enumerate(sorted(set(shapes.values()))):
             err = max(err, check_moka(
@@ -6854,8 +6940,10 @@ def p19_moka_records(cfg, b=8, L=896) -> list[dict]:
                 b * L * d_out * x.element_size()
             M, nq = spec.num_modalities, float(qm.sum(dim=-1).max())
             n_att = len(spec.attn_modalities)
-            # the function's work at the true rank: the down and up
-            # products on the tensor cores, the attention in fp32
+            # the function's work at the true rank, whatever the design:
+            # the down and up products at the tensor cores' bf16 rate (the
+            # wide path's fp32 FMAs are its choice, not the function's),
+            # the attention in fp32
             t["ops"] += 2.0 * b * L * (d_in * M * rank + d_out * rank) / \
                 BF16_FLOPS + 2.0 * b * L * nq * 2 * n_att * rank / FP32_FLOPS
             del x
@@ -6872,6 +6960,8 @@ def p19_moka_records(cfg, b=8, L=896) -> list[dict]:
             "tolerance": MOKA_TOL["bfloat16"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": None, "instance_rank": kernel_rank(rank),
+            "design": "persistent TMA/wgmma kernel" if rank <=
+            KERNEL_RANKS[-1] else "wide path: down product, R1, up product",
             "shape": f"b {b} L {L} bf16 {flavour.upper()} r{rank}, one "
                      f"layer: the seven projections summed, the kernel "
                      f"alone in a CUDA graph"})
@@ -6881,8 +6971,8 @@ def p19_moka_records(cfg, b=8, L=896) -> list[dict]:
     return records
 
 
-def p19_dropout_records(cfg, n=4096) -> list[dict]:
-    """Kernels 6-7 at each M*r of P19_DROP_MRS, N ``n``, d the model's
+def p19_dropout_records(cfg, n=4096, mrs=P19_DROP_MRS) -> list[dict]:
+    """Kernels 6-7 at each M*r of ``mrs``, N ``n``, d the model's
     width and intermediate, bf16 x, fp32 A, Philox and forced words, and
     phase 3's ragged (333, 200) cases (fp32 x and A, Philox; bf16 x and
     A, forced words): ``check_dropout``'s rules and, beyond them, kernel
@@ -6897,7 +6987,10 @@ def p19_dropout_records(cfg, n=4096) -> list[dict]:
     bf, f32 = torch.bfloat16, torch.float32
     dims = [cfg.dim] * 6 + [cfg.intermediate]
     records = []
-    for mr in P19_DROP_MRS:
+    for mr in mrs:
+        # the plain backward is M*r launches of an (N, d) addcmul_
+        plain_iters = dict(iters=2, warmup=1) if mr <= 256 else \
+            dict(iters=1, warmup=0)
         err = 0.0
         for j, (rows, d, xdt, adt, forced) in enumerate((
                 (n, cfg.dim, bf, f32, False),
@@ -6905,18 +6998,11 @@ def p19_dropout_records(cfg, n=4096) -> list[dict]:
                 (333, 200, f32, f32, False), (333, 200, bf, bf, True))):
             x, a, gout, key, bits = dropout_case(rows, d, xdt, adt, forced,
                                                  seed=80 + j, mr=mr)
+            # dx bit for bit ("not bit-identical" 0)
             err = max(err, check_dropout(
                 f"M*r {mr} ({rows}, {d}) x {str(xdt)[6:]} A {str(adt)[6:]}",
-                x, a, gout, key, bits))
-            dx, _ = fd.dropout_a_bwd(x, a, gout, key, DROP_RATE, bits)
-            rdx, _ = fd.dropout_a_bwd_plain(x, a, gout, key, DROP_RATE, bits)
-            differ = int((dx != rdx).sum())
-            log(f"    dx elements that differ from the plain version's: "
-                f"{differ} of {dx.numel()}")
-            if differ:
-                raise AssertionError(f"kernel 7's dx is not the plain "
-                                     f"version's bit for bit (M*r {mr})")
-            del x, a, gout, bits, dx, rdx
+                x, a, gout, key, bits, exact_dx=True))
+            del x, a, gout, bits
         tot = {k: 0.0 for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
                                 "fwd_lib", "bwd_lib", "fwd_bytes",
                                 "bwd_bytes", "fwd_flops", "bwd_flops",
@@ -6931,7 +7017,7 @@ def p19_dropout_records(cfg, n=4096) -> list[dict]:
             tot["fwd_plain"] += time_ms(lambda: fd.dropout_a_fwd_plain(
                 x, a, key, DROP_RATE), iters=2, warmup=1)
             tot["bwd_plain"] += time_ms(lambda: fd.dropout_a_bwd_plain(
-                x, a, gout, key, DROP_RATE), iters=2, warmup=1)
+                x, a, gout, key, DROP_RATE), **plain_iters)
             xg = x.clone().requires_grad_(True)
             ag = a.clone().requires_grad_(True)
             gb = gout.to(torch.bfloat16)
@@ -6981,10 +7067,13 @@ def p19_dropout_records(cfg, n=4096) -> list[dict]:
     return records
 
 
-def p19_rank_records(b=4, L=1024) -> list[dict]:
-    """R1-R3 at each head dim of P19_RANK_DIMS: ``check_rank`` at (b, L)
+def p19_rank_records(b=4, L=1024, dims=P19_RANK_DIMS,
+                     layouts=False) -> list[dict]:
+    """R1-R3 at each head dim of ``dims``: ``check_rank`` at (b, L)
     with 126 question keys a sample and a sample with none, and causal
-    with rows before the first visible key; each kernel then timed beside
+    with rows before the first visible key (``layouts``: also phase 3's
+    key layouts, RANK_LAYOUTS, and its ragged L); each kernel then timed
+    beside
     its plain version, ``scaled_dot_product_attention`` (fp32, boolean key
     mask; the backward rows forward + backward less forward, as phase 3)
     and the bound."""
@@ -6992,13 +7081,20 @@ def p19_rank_records(b=4, L=1024) -> list[dict]:
     import torch.nn.functional as F
     from moka_tpu_torch.ops import flash_attention as fa
     records = []
-    for hd in P19_RANK_DIMS:
+    for hd in dims:
         errs = [check_rank(f"hd {hd}", *rank_case(b, L, hd=hd, dead=True,
                                                   seed=90 + hd)),
                 check_rank(f"hd {hd} causal",
                            *rank_case(2, L, hd=hd, seed=95 + hd,
                                       spans=RANK_CAUSAL),
                            RANK_CAUSAL_OFFSET, True)]
+        if layouts:
+            errs += [check_rank(f"hd {hd} key layouts",
+                                *rank_case(4, L, hd=hd, seed=3 + hd,
+                                           spans=RANK_LAYOUTS)),
+                     check_rank(f"hd {hd} ragged L",
+                                *rank_case(3, 333, hd=hd, dead=True,
+                                           seed=1 + hd))]
         q, k, v, mask, dout = rank_case(b, L, hd=hd, seed=99)
         out, lse = fa.flash_rank_fwd(q, k, v, mask, 0, False)
         delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
@@ -7058,25 +7154,27 @@ def p19_rank_records(b=4, L=1024) -> list[dict]:
     return records
 
 
-def p19_serving(cfg, base, inputs, new_tokens) -> dict:
+def p19_serving(cfg, base, inputs, new_tokens, served=P19_SERVED,
+                ranks=P19_RANKS, vt_rank=P19_VT_RANK, engine=True) -> dict:
     """Phase 4's base (full depth) serving MokA AVT trees on the decode
-    paths' default route: at each of P19_SERVED in full
+    paths' default route: at each of ``served`` in full
     (``serve_other_rank``: the prefill logits under phase 4's rule, then
-    ``greedy_generate`` and a ``DecodeEngine`` request, each with kernel 5
-    launched 7 x n_layers times a prefill); then one new token at each
-    other rank of P19_RANKS and, on VT masks, at P19_VT_RANK, whose launch
+    ``greedy_generate`` and (``engine``) a ``DecodeEngine`` request, each
+    with kernel 5 launched 7 x n_layers times a prefill); then one new
+    token at each
+    other rank of ``ranks`` and, on VT masks, at ``vt_rank``, whose launch
     counts are their instances' on the main path."""
     import torch
     from moka_tpu_torch.models import llama
     from moka_tpu_torch.ops.moka import MokaSpec
     out = {}
-    for rank in P19_SERVED:
+    for rank in served:
         log(f"  (b) a rank-{rank} AVT tree on phase 4's base")
         out[f"avt_r{rank}"] = serve_other_rank(cfg, base, inputs, new_tokens,
-                                               rank)
+                                               rank, engine)
     n = cfg.n_layers
-    for flavour, rank in [("avt", r) for r in P19_RANKS
-                          if r not in P19_SERVED] + [("vt", P19_VT_RANK)]:
+    for flavour, rank in [("avt", r) for r in ranks if r not in served] + \
+            [("vt", vt_rank)]:
         spec = (MokaSpec.avt if flavour == "avt" else MokaSpec.vt)(
             rank=rank, dropout_rate=0.0)
         g = torch.Generator(device="cuda").manual_seed(100 + rank)
@@ -7094,7 +7192,7 @@ def p19_serving(cfg, base, inputs, new_tokens) -> dict:
             toks = generate(cfg, spec, base, adapters, ins, 1)
             torch.cuda.synchronize()
             launches = _counts()
-        want = _launches(flash_fwd=n, moka_delta_fwd=7 * n)
+        want = _launches(flash_fwd=n, **moka_launches(spec, 7 * n))
         log(f"  (b) {flavour.upper()} r{rank}: one new token, launches "
             f"{ {k: v for k, v in launches.items() if v} }")
         if launches != want or tuple(toks.shape) != (ins["inputs_embeds"]
@@ -7107,21 +7205,22 @@ def p19_serving(cfg, base, inputs, new_tokens) -> dict:
     return out
 
 
-def p19_training(cfg, base) -> dict:
-    """The fused step at P19_STEP's rank and depth (AVT, dropout 0.05,
+def p19_training(cfg, base, step=P19_STEP,
+                 step_ranks=P19_STEP_RANKS) -> dict:
+    """The fused step at ``step``'s rank and depth (AVT, dropout 0.05,
     bf16 dots, kernels 6-7, the rank kernels, ``proj_lse``, b 4 L 1024) on
     phase 4's base cut to that depth: phase 8's gradient rules
     (``check_fused_train_grads``: kernels vs plain and fp32, proj_lse vs
     full remat) and phase 11's (``check_rank_train_grads``, without bf16
     dots: kernels vs plain and fp32, then in fp32 the rank kernels against
     the plain rank attention), then 2 + 1 steps with the launch counts
-    asserted; then one step at each rank of P19_STEP_RANKS for their
+    asserted; then one step at each rank of ``step_ranks`` for their
     instances' launches."""
     import dataclasses
     import torch
     from moka_tpu_torch.models import llama
     from moka_tpu_torch.ops.moka import MokaSpec
-    rank, depth = P19_STEP
+    rank, depth = step
     cfg = dataclasses.replace(cfg, n_layers=depth)
     frozen = first_layers(base, depth)
     batch = train_batch(cfg, 4, 1024, seed=3)
@@ -7161,7 +7260,7 @@ def p19_training(cfg, base) -> dict:
         raise AssertionError(f"rank-{rank} fused step launches "
                              f"{run['launches_per_step']}, want {want}")
     out["step"] = {f"r{rank}": run}
-    for r in P19_STEP_RANKS:
+    for r in step_ranks:
         spec_r, tr = tree(r, 40 + r)
         one = train_steps(cfg, spec_r, frozen, tr, batch, policy="proj_lse",
                           n_warm=1, n_timed=1)
@@ -7238,11 +7337,12 @@ def p19_cli(work: Path, p15: dict, device: str = "cuda",
             "first_prediction": rows[0]["predict"]}
 
 
-def p19_records_launches(records, serving, training) -> None:
-    """Each phase-19 record's launches: those of its kernel in the phase's
-    main-path run at its rank (kernel 5: the serving prefill; kernels 6-7
-    and R1-R3: a training step), None where no main path runs it (kernels
-    6-7 at M*r 256), with ``launches_path`` saying which run counted."""
+def p19_records_launches(records, serving, training, phase=19) -> None:
+    """Each phase-19 (or 20) record's launches: those of its kernel in the
+    phase's main-path run at its rank (kernel 5: the serving prefill;
+    kernels 6-7 and R1-R3: a training step), None where no main path runs
+    it (kernels 6-7 at M*r 256), with ``launches_path`` saying which run
+    counted."""
     by_rank = {k: v["generate_launches"] for k, v in serving.items()}
     steps = {int(k[1:]): v["launches_per_step"]
              for k, v in training["step"].items()}
@@ -7250,8 +7350,19 @@ def p19_records_launches(records, serving, training) -> None:
         name = rec["name"]
         if name.startswith("moka_delta_fwd_"):
             key = name[len("moka_delta_fwd_"):]
-            rec["launches"] = int(by_rank[key]["moka_delta_fwd"])
-            rec["launches_path"] = f"phase 19 (b) {key} greedy_generate"
+            counts = by_rank[key]
+            if rec["instance_rank"] > 64:  # the wide path: each launch
+                rec["launches_by_kernel"] = {
+                    k: int(counts[k]) for k in ("moka_delta_wide_down",
+                                                "moka_delta_wide_up",
+                                                "flash_rank_fwd")}
+                rec["launches"] = int(counts["moka_delta_wide_down"])
+                what = "the down-product launches (as many up products)"
+            else:
+                rec["launches"] = int(counts["moka_delta_fwd"])
+                what = "the moka_delta_fwd launches"
+            rec["launches_path"] = f"phase {phase} (b) {key} " \
+                                   f"greedy_generate: {what}"
             continue
         if name.startswith("dropout_a_"):
             kernel, mr = name.rsplit("_mr", 1)
@@ -7263,10 +7374,218 @@ def p19_records_launches(records, serving, training) -> None:
             why = f"head_dim {hd} is not a stepped rank"
         if rank is None:  # (M*r 256: rank 64 with four modalities)
             rec["launches"] = None
-            rec["launches_path"] = f"none: no phase-19 step runs it ({why})"
+            rec["launches_path"] = f"none: no phase-{phase} step runs it " \
+                                   f"({why})"
         else:
             rec["launches"] = int(steps[rank][kernel])
-            rec["launches_path"] = f"phase 19 (c) r{rank} fused step"
+            rec["launches_path"] = f"phase {phase} (c) r{rank} fused step"
+
+
+# ------------------------------------------------------------------ phase 20
+
+P20_RANKS = (65, 96, 128, 256, 512)  # kernel 5, AVT (M 3): the wide path
+P20_VT_RANK = 128                     # and VT (M 2)
+P20_MOKA_M4 = 128  # kernel 5 with four modalities (three attending)
+P20_MOKA_F32 = 128  # kernel 5 on fp32 x
+P20_DROP_MRS = (195, 288, 384, 768, 1536)  # kernels 6-7: ranks 65, 96,
+                                           # 128, 256, 512 x 3 modalities
+P20_RANK_DIMS = (65, 96, 128, 256, 512)  # R1-R3: the wide kernels
+P20_SERVED = (128,)  # the rank phase 4's base serves in full (logits rule)
+P20_STEP = (128, 8)  # the fused training step: rank, layers (a depth cut)
+P20_RING = (2, 2048, (4, 128))  # (d): layers, L, MokA ranks (the
+                                # persistent kernel's and the wide path's)
+P20_LIMIT_S = 90  # the phase's wall, (a)-(d), at most
+P20_RING_TOL = (2.5e-4, 0.1)  # (d)'s loss (relative) and adapter gradients
+                              # (relative L2, per projection) against one
+                              # process at P20_RING's 2 layers: ~4x and ~3x
+                              # the sound runs' largest gaps (5.81e-05 and
+                              # 3.24e-02, PERF.md §6); a ring whose
+                              # second shard gets no gathered keys
+                              # (``keys_kept_home``) must fail it
+
+
+def p20_moka_shapes() -> dict:
+    """Kernel 5's other cases past rank 64 against the plain version
+    (``check_moka``): four modalities (three attending) at P20_MOKA_M4,
+    fp32 x with a question mask with gaps at P20_MOKA_F32, and a question
+    span of 700 keys at rank 128 (R1 walks every key of it); max|err| by
+    the rank's record."""
+    import torch
+    x, a, bm, mod, qm, spec = moka_inputs(4, 500, 1024, 2048, "avt",
+                                          torch.bfloat16, 21, P20_MOKA_M4)
+    spec = dataclasses.replace(spec, num_modalities=4,
+                               attn_modalities=(1, 2, 3))
+    a = torch.cat([a, a[2:]]).contiguous()
+    mod = torch.cat([mod, mod[2:]]).contiguous()
+    errs = {f"avt_r{P20_MOKA_M4}": check_moka(
+        f"M 4 r{P20_MOKA_M4} bf16 1024->2048", x, a, bm, mod, qm, spec)}
+    errs[f"avt_r{P20_MOKA_F32}_fp32"] = check_moka(
+        f"fp32 x r{P20_MOKA_F32} 512->1024, question gaps",
+        *moka_inputs(2, 200, 512, 1024, "avt", torch.float32, 23,
+                     P20_MOKA_F32, qspans=MOKA_SPLIT_Q))
+    d = check_moka("r128 bf16 1024->1024, 700 question keys",
+                   *moka_inputs(2, 900, 1024, 1024, "avt", torch.bfloat16,
+                                25, 128, qspans=((100, 800),)))
+    errs["avt_r128"] = max(errs["avt_r128"], d)
+    return errs
+
+
+@contextlib.contextmanager
+def keys_kept_home():
+    """A fault planted in kernel 5 under the ring: every rank's gathered
+    question keys are zero in the other shards' rows, so a shard attends
+    only to its own keys (on P20_RING's batch the question sits in the
+    first shard: the second gets none).  The gather itself still runs on
+    every rank (a collective)."""
+    import torch.distributed as dist
+    from moka_tpu_torch.models import llama
+    fused = llama.moka_delta_fused
+
+    def faulty(*args, gather_keys=None, **kw):
+        def gather(t):
+            full = gather_keys(t)
+            n, i = t.shape[1], dist.get_rank()
+            kept = full.new_zeros(full.shape)
+            kept[:, i * n:(i + 1) * n] = full[:, i * n:(i + 1) * n]
+            return kept
+        return fused(*args, gather_keys=gather if gather_keys else None,
+                     **kw)
+
+    llama.moka_delta_fused = faulty
+    try:
+        yield
+    finally:
+        llama.moka_delta_fused = fused
+
+
+def p20_ring(rank: int, device: str, tiny: bool) -> dict:
+    """(d), in phase 17's world: kernel 5 under the context-parallel ring.
+    ``make_llama_moka_loss(use_fused_moka=True, context_parallel=...)``
+    (flash attention, full remat, chunked CE) at LLaMA-2-7B's widths cut
+    to P20_RING's layers, b 1 at its L, for each of its MokA ranks: each
+    rank's fused delta attends to the question keys of both shards
+    (gathered), its loss and adapter gradients held against rank 0's one
+    process (P20_RING_TOL), and kernel 5's launches counted on every rank
+    (7 calls a layer, twice under remat: ``moka_launches``); then the ring
+    with ``keys_kept_home``'s fault, which must fail the same check."""
+    import torch.distributed as dist
+    from moka_tpu_torch.core.rng import DropoutKey
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.train.objectives import make_llama_moka_loss
+    layers, L, ranks = P20_RING
+    cfg = dataclasses.replace(p17_configs(tiny)[0], n_layers=layers)
+    if tiny:  # the CPU rehearsal: the plain versions at either rank
+        L, ranks = 64, ranks[-1:]
+    n = dist.get_world_size()
+    mesh = _seq_mesh()
+    out = {}
+
+    def gaps(got, ref):
+        return abs(got[0] - ref[0]) / abs(ref[0]), \
+            {p: rel(got[1][p], ref[1][p]) for p in PROJS}
+
+    def within(dloss, gap) -> bool:
+        return dloss <= P20_RING_TOL[0] and \
+            max(gap.values()) <= P20_RING_TOL[1]
+
+    for r in ranks:
+        spec = MokaSpec.avt(rank=r, dropout_rate=0.05)
+        frozen, adapters = build_model(cfg, spec, seed=20 + r, device=device)
+        trainable = {"adapters": adapters}
+        batch = train_batch(cfg, 1, L, seed=21, device=device)
+        key = DropoutKey(22)
+
+        def loss(ring=True):
+            return make_llama_moka_loss(
+                cfg, spec, remat=True, use_flash=True, fused_loss=True,
+                ce_chunk=128, use_fused_moka=True,
+                context_parallel=(mesh, "seq") if ring else None)
+
+        ref = None
+        if rank == 0:
+            ref = _grads(loss(ring=False), frozen, trainable, batch, key)
+        dist.barrier()
+        _sync(device)
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = _grads(loss(), frozen, trainable, batch, key)
+        _sync(device)
+        ring_ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        want = _launches(flash_fwd=2 * n * layers, flash_bwd_dq=n * layers,
+                         flash_bwd_dkv=n * layers,
+                         **moka_launches(spec, 2 * 7 * layers, ring=True)) \
+            if device == "cuda" else _launches()
+        if counts != want:
+            raise AssertionError(f"rank {rank}: kernel 5 under the ring, "
+                                 f"MokA r{r}: launches {counts}, want {want}")
+        with keys_kept_home():
+            bad = _grads(loss(), frozen, trainable, batch, key)
+        rec = {"launches": counts, "ring_ms": ring_ms, "loss": got[0]}
+        if rank == 0:
+            dloss, gap = gaps(got, ref)
+            bad_loss, bad_gap = gaps(bad, ref)
+            rec.update(one_loss=ref[0], grad_rel_l2=gap, loss_rel=dloss,
+                       fault={"loss_rel": bad_loss, "grad_rel_l2": bad_gap})
+            log(f"  (d) kernel 5 under the ring over {n} ranks, MokA r{r}, "
+                f"{layers} layers, b 1 L {L}: loss {got[0]:.6f} vs one "
+                f"process {ref[0]:.6f} (rel {dloss:.2e}); adapter gradients "
+                f"rel L2 { {p: f'{v:.2e}' for p, v in gap.items()} } (tol "
+                f"{P20_RING_TOL}); launches a rank "
+                f"{ {k: v for k, v in counts.items() if v} }; with the "
+                f"second shard's keys not gathered: loss rel {bad_loss:.2e}, "
+                f"gradients rel L2 "
+                f"{ {p: f'{v:.2e}' for p, v in bad_gap.items()} }")
+            if not within(dloss, gap):
+                raise AssertionError(f"kernel 5 under the ring (r{r}) is not "
+                                     f"the one-process step")
+            if within(bad_loss, bad_gap):
+                raise AssertionError(f"kernel 5 under the ring (r{r}) with "
+                                     f"the keys not gathered passed the "
+                                     f"check")
+        out[f"r{r}"] = rec
+        del frozen, adapters, trainable, got, ref, bad
+        gc.collect()
+        if device == "cuda":
+            import torch
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def phase20_here(cfg, base, inputs, new_tokens) -> dict:
+    """Phase 20's (a)-(c), on phase 4's base: (a) kernel 5 at P20_RANKS
+    (AVT) and P20_VT_RANK (VT) with ``p20_moka_shapes``, kernels 6-7 at
+    P20_DROP_MRS and R1-R3 at P20_RANK_DIMS (with phase 3's key layouts)
+    against their plain versions, timed; (b) a rank-128 tree served in
+    full (no engine request) and one new token at each other rank; (c)
+    the fused-dropout
+    flash-rank step at P20_STEP.  The records' launches are their
+    instances' on (b) and (c); each part's wall is logged."""
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        walls[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    records = p19_moka_records(cfg, ranks=P20_RANKS, vt_rank=P20_VT_RANK,
+                               more=p20_moka_shapes())
+    lap("a_kernel5")
+    records += p19_dropout_records(cfg, mrs=P20_DROP_MRS)
+    lap("a_kernels67")
+    records += p19_rank_records(dims=P20_RANK_DIMS, layouts=True)
+    lap("a_rank")
+    out = {"serving": p19_serving(cfg, base, inputs, new_tokens,
+                                  served=P20_SERVED, ranks=P20_RANKS,
+                                  vt_rank=P20_VT_RANK, engine=False)}
+    lap("b")
+    out["training"] = p19_training(cfg, base, step=P20_STEP, step_ranks=())
+    lap("c")
+    p19_records_launches(records, out["serving"], out["training"], phase=20)
+    out["walls_s"] = walls
+    log(f"  phase 20 walls (s): { {k: round(v, 1) for k, v in walls.items()} }")
+    return records, out
 
 
 def main() -> int:
@@ -7377,6 +7696,19 @@ def main() -> int:
     p19_records_launches(p19_records, p19["serving"], p19["training"])
     p19["phase_s"] = time.perf_counter() - t19
     log(f"  phase 19 (a)-(c) took {p19['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t20 = time.perf_counter()
+    log(f"[20] MokA past rank 64: (a) kernel 5 at ranks {P20_RANKS} (AVT) "
+        f"and {P20_VT_RANK} (VT), kernels 6-7 at M*r {P20_DROP_MRS}, R1-R3 "
+        f"at head_dim {P20_RANK_DIMS} against their plain versions; (b) "
+        f"phase 4's base serving a rank-{P20_SERVED[0]} AVT tree; (c) the "
+        f"fused step at rank {P20_STEP[0]}; (d), in phase 17's world, "
+        f"kernel 5 under the context-parallel ring")
+    p20_records, p20 = phase20_here(cfg, base, inputs, new_tokens)
+    p20["phase_s"] = time.perf_counter() - t20
+    log(f"  phase 20 (a)-(c) took {p20['phase_s']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7542,6 +7874,14 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     p17["phase_s"] = time.perf_counter() - t17
     log(f"  phase 17 passed in {p17['phase_s']:.1f} s")
+    p20["ring"] = p17.pop("ring_fused")
+    p20["phase_s"] += p17["seconds"]["ring_fused"]
+    log(f"  phase 20 passed in {p20['phase_s']:.1f} s ((d): "
+        f"{p17['seconds']['ring_fused']:.1f} s of rank 0 in phase 17's "
+        f"world; its limit {P20_LIMIT_S} s)")
+    if p20["phase_s"] > P20_LIMIT_S:
+        raise AssertionError(f"phase 20 took {p20['phase_s']:.1f} s, past "
+                             f"its {P20_LIMIT_S} s")
 
     log(f"[18] tensor parallelism on the model axis: (b) kernels 6-7 at a "
         f"column offset, every case's one process, then worlds of "
@@ -7607,7 +7947,13 @@ def main() -> int:
              **{f"phase 19 (c) {k} fused step": v["launches_per_step"]
                 for k, v in p19["training"]["step"].items()},
              f"infer CLI --lora-r {P19_CLI_RANK} generate":
-                 p19["cli"]["launches_per_generate"]}
+                 p19["cli"]["launches_per_generate"],
+             **{f"phase 20 (b) {k} greedy_generate": v["generate_launches"]
+                for k, v in p20["serving"].items()},
+             **{f"phase 20 (c) {k} fused step": v["launches_per_step"]
+                for k, v in p20["training"]["step"].items()},
+             **{f"phase 20 (d) kernel 5 under the ring, {k} (a rank)":
+                v["launches"] for k, v in p20["ring"].items()}}
     own = {"flash_fwd": "serving main path (greedy_generate)",
            "moka_delta_fwd": "serving main path (greedy_generate)",
            "flash_bwd_fused": "training step",
@@ -7630,6 +7976,7 @@ def main() -> int:
         rec["launches_by_path"] = {p: c.get(rec["name"], 0) for p, c in
                                    paths.items()}
     records += p19_records  # their launches: their instances' (phase 19)
+    records += p20_records  # and phase 20's
     log(json.dumps({"main_path": timings, "rank8_serving": other_rank,
                     "serving": served,
                     "train_check": train_check, "train": train,
@@ -7642,8 +7989,8 @@ def main() -> int:
                     "vt_http": vt_http, "vt_train": vt_train,
                     "paged_serving": paged, "p15": p15_summary(p15),
                     "p16": p16_summary(p16), "p17": p17, "p18": p18,
-                    "p19": p19}))
-    log(f"[20] all phases passed in {time.perf_counter() - t_start:.1f} s")
+                    "p19": p19, "p20": p20}))
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

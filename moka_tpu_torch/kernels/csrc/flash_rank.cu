@@ -1,12 +1,20 @@
 // Flash attention at MokA's rank-space shape for Hopper (sm_90a): one head,
-// head_dim r, fp32 throughout.  Forward, dq and dk/dv.  Built for head dims
-// 4, 8, 16, 32 and 64; ops/flash_attention.py pads any other r <= 64 with
-// zero columns up to the next of them (exact: a zero column adds nothing
-// to a score, its output and gradient columns are zero and dropped) and
-// passes the scales of the true r.  At 4-16 a lane holds a whole row of q,
-// k, v or dO; at 32 and 64 two or four adjacent lanes share a row, 16
-// values each, their partial dot products summed by shuffles within the
-// group (Split, group_sum), so a lane's registers are those of r 16.
+// head_dim r, fp32 throughout.  Forward, dq and dk/dv, at any head dim.
+// Built for head dims 4, 8, 16, 32 and 64; ops/flash_attention.py pads any
+// other r <= 64 with zero columns up to the next of them, and any r past 64
+// up to a multiple of 64 (exact: a zero column adds nothing to a score, its
+// output and gradient columns are zero and dropped), and passes the scales
+// of the true r.  At 4-16 a lane holds a whole row of q, k, v or dO; at 32
+// and 64 two or four adjacent lanes share a row, 16 values each, their
+// partial dot products summed by shuffles within the group (Split,
+// group_sum), so a lane's registers are those of r 16.  Past 64 (the
+// *_wide kernels) a grid axis takes the 64-column chunks of the output
+// (out, dq, dk, dv): each chunk's CTA computes the scores' dot products
+// over the whole head dim, four lanes a row as at 64, reading q, k, v and
+// dO from L1 and L2 chunk by chunk, and keeps only its chunk's columns of
+// the weighted sums.  The scores are computed again in every chunk's CTA,
+// the same instructions on the same values, so each chunk sees the same
+// softmax; no register or shared array grows with the head dim.
 //
 // Replaces the TPU kernels moka_tpu/ops/flash_attention.py::_fwd_kernel,
 // _bwd_fused_kernel, _bwd_dq_kernel and _bwd_dkv_kernel where
@@ -653,37 +661,361 @@ __global__ void __launch_bounds__(BWD_NT)
   }
 }
 
-// the head dims the kernels are built for; the wrapper pads any other
-// head dim up to the next one with zero columns
-bool bad_dims(int B, int L, int S, int hd) {
-  return B <= 0 || L <= 0 || S <= 0 || B > 65535 ||
-         !(hd == 4 || hd == 8 || hd == 16 || hd == 32 || hd == 64);
+// ------------------------------------------------- head dims past 64
+
+constexpr int WCH = 64;   // the output columns of a chunk (a grid axis)
+constexpr int WW = 16;    // values of a row a lane holds: four lanes a row
+constexpr int WG = WCH / WW;
+
+// this lane's part of the dot product of two rows of ld floats (ld a
+// multiple of 64): its 16-value slice of every 64-wide chunk, chunk by
+// chunk, one FMA chain
+__device__ __forceinline__ float wide_dot(const float* a, const float* b,
+                                          int ld, float s) {
+  for (int c = 0; c < ld; c += WCH) {
+    float av[WW], bv[WW];
+    load_row<WW>(a + c, av);
+    load_row<WW>(b + c, bv);
+#pragma unroll
+    for (int d = 0; d < WW; ++d) s = fmaf(av[d], bv[d], s);
+  }
+  return s;
 }
 
-// the instance of `kernel` for head dim hd (one bad_dims takes)
+// The forward past head dim 64: grid (L / 8, B, ld / 64), a CTA of 8
+// warps serving 8 query rows, a warp a row, four lanes a key (8 keys at a
+// time), as flash_rank_fwd_kernel<64>; blockIdx.z is the chunk of the
+// output's columns this CTA writes, and chunk 0's CTA also writes lse.  A
+// row that sees no key takes the mean of V's chunk over all S keys.
+__global__ void __launch_bounds__(FWD_NT)
+    flash_rank_fwd_wide(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const int* __restrict__ mask, float* __restrict__ out,
+                        float* __restrict__ lse, int L, int S, int ld,
+                        int q_offset, int causal, float qscale) {
+  constexpr int SLOTS = 32 / WG;
+  __shared__ float vsum_part[FWD_WARPS][WCH];
+  const int b = blockIdx.y, oc = blockIdx.z * WCH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane % WG, slot = lane / WG;
+  const unsigned gmask = group_mask<WG>(lane);
+  const int row0 = blockIdx.x * FWD_WARPS, row = row0 + warp;
+  const long r = static_cast<long>(b) * L + row;
+  const int* mrow = mask + b * static_cast<long>(S);
+  const int2 span = visible_span<FWD_NT>(mrow, S);
+  const int lo = span.x;
+  const int hi = span.y;
+
+  // the sum of V's chunk over all S keys, for the rows that see no key
+  float vsum[WW];
+#pragma unroll
+  for (int d = 0; d < WW; ++d) vsum[d] = 0.f;
+  if (hi < 0 || (causal && row0 + q_offset < lo)) {
+    for (int j = threadIdx.x / WG; j < S; j += FWD_NT / WG) {
+      float vr[WW];
+      load_row<WW>(v + (static_cast<long>(b) * S + j) * ld + oc + g * WW, vr);
+#pragma unroll
+      for (int d = 0; d < WW; ++d) vsum[d] += vr[d];
+    }
+#pragma unroll
+    for (int d = 0; d < WW; ++d) {
+      vsum[d] = slice_sum<WG>(vsum[d]);
+      if (lane < WG) vsum_part[warp][g * WW + d] = vsum[d];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d < WW; ++d) {
+      vsum[d] = 0.f;
+#pragma unroll
+      for (int w = 0; w < FWD_WARPS; ++w) vsum[d] += vsum_part[w][g * WW + d];
+    }
+  }
+
+  if (row >= L) return;
+  float* o = out + r * ld + oc;
+  const int end = causal ? min(row + q_offset, hi) : hi;
+  if (end < lo) {  // the row sees no key: every score is -1e30
+    if (lane < WG) {
+#pragma unroll
+      for (int d = 0; d < WW; ++d)
+        o[g * WW + d] = vsum[d] / static_cast<float>(S);
+    }
+    if (lane == 0 && oc == 0)
+      lse[r] = (NEG_INF + log2f(static_cast<float>(S))) * LN2;
+    return;
+  }
+  const float* qrow = q + r * ld + g * WW;
+  float acc[WW];
+#pragma unroll
+  for (int d = 0; d < WW; ++d) acc[d] = 0.f;
+  float m = NEG_INF, l = 0.f;
+  for (int j = lo + slot; j <= end; j += SLOTS) {
+    const long kk = static_cast<long>(b) * S + j;
+    const float dqk =
+        group_sum<WG>(wide_dot(qrow, k + kk * ld + g * WW, ld, 0.f), gmask);
+    const float s = __ldg(mrow + j) > 0 ? dqk * qscale : NEG_INF;
+    if (s > m) {  // the running max moves: rescale what was summed
+      const float alpha = exp2f(m - s);
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < WW; ++d) acc[d] *= alpha;
+      m = s;
+    }
+    const float p = exp2f(s - m);
+    l += p;
+    float vr[WW];
+    load_row<WW>(v + kk * ld + oc + g * WW, vr);
+#pragma unroll
+    for (int d = 0; d < WW; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+  }
+  // merge the key slots' partial softmaxes, as flash_rank_fwd_kernel
+  const float mm = warp_max(m);
+  const float sc = exp2f(m - mm);
+  l = slice_sum<WG>(l * sc);
+#pragma unroll
+  for (int d = 0; d < WW; ++d) acc[d] = slice_sum<WG>(acc[d] * sc);
+  const float safe = l == 0.f ? 1.f : l;
+  if (lane < WG) {
+    float res[WW];
+#pragma unroll
+    for (int d = 0; d < WW; ++d) res[d] = acc[d] / safe;
+    store_row<WW>(o + g * WW, res, 1.f);
+  }
+  if (lane == 0 && oc == 0) lse[r] = (mm + log2f(safe)) * LN2;
+}
+
+// dq past head dim 64: flash_rank_dq_kernel<64>'s shape with the output
+// chunk as blockIdx.z; p and dp over the whole head dim, dq's chunk from
+// the keys' chunk.
+__global__ void __launch_bounds__(FWD_NT)
+    flash_rank_dq_wide(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const int* __restrict__ mask,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dq,
+                       int L, int S, int ld, int q_offset, int causal,
+                       float qscale, float scale) {
+  constexpr int SLOTS = 32 / WG;
+  const int b = blockIdx.y, oc = blockIdx.z * WCH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane % WG, slot = lane / WG;
+  const unsigned gmask = group_mask<WG>(lane);
+  const int row = blockIdx.x * FWD_WARPS + warp;
+  const long qr = static_cast<long>(b) * L + row;
+  const int* keys_on = mask + b * static_cast<long>(S);
+  float lse2 = NEG_INF, dlt = 0.f;
+  if (row < L) {
+    lse2 = __ldg(lse + qr) * LOG2E;
+    dlt = __ldg(delta + qr);
+  }
+  const int2 span = visible_span<FWD_NT>(keys_on, S);
+  const int first = span.x;
+  const int last = span.y;
+  if (row >= L) return;
+  const int stop = causal ? min(row + q_offset, last) : last;
+  float gq[WW];
+#pragma unroll
+  for (int d = 0; d < WW; ++d) gq[d] = 0.f;
+  // a row that sees no key (fully masked lse, or stop < first) keeps dq = 0
+  if (lse2 > NEG_INF * 0.5f && stop >= first) {
+    const float* qrow = q + qr * ld + g * WW;
+    const float* drow = dout + qr * ld + g * WW;
+    for (int j = first + slot; j <= stop; j += SLOTS) {
+      if (__ldg(keys_on + j) <= 0) continue;  // masked inside the span
+      const long kk = static_cast<long>(b) * S + j;
+      const float sqk =
+          group_sum<WG>(wide_dot(qrow, k + kk * ld + g * WW, ld, 0.f), gmask);
+      const float sdv =
+          group_sum<WG>(wide_dot(drow, v + kk * ld + g * WW, ld, 0.f), gmask);
+      const float p = exp2f(sqk * qscale - lse2);
+      const float ds = p * (sdv - dlt);
+      float kr[WW];
+      load_row<WW>(k + kk * ld + oc + g * WW, kr);
+#pragma unroll
+      for (int d = 0; d < WW; ++d) gq[d] = fmaf(ds, kr[d], gq[d]);
+    }
+#pragma unroll
+    for (int d = 0; d < WW; ++d) gq[d] = slice_sum<WG>(gq[d]);
+  }
+  if (lane < WG) store_row<WW>(dq + qr * ld + oc + g * WW, gq, scale);
+}
+
+// dk/dv past head dim 64: flash_rank_dkv_kernel<64>'s grid with the output
+// chunk as blockIdx.z (zero CTAs zero their chunk of the masked keys; work
+// CTAs take the span's blocks of 4 keys, lanes and warps over the
+// queries).  Nothing is staged: a pair's p and dp are dot products over
+// the whole head dim read from L1 and L2, and the chunk's columns of dk
+// and dv are summed over the queries, then the 8 warps' sums in warp
+// order, as the narrow kernel's.
+__global__ void __launch_bounds__(BWD_NT)
+    flash_rank_dkv_wide(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const int* __restrict__ mask,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int L,
+                        int S, int ld, int q_offset, int causal, float qscale,
+                        int work) {
+  constexpr int WARPS = BWD_NT / 32;
+  constexpr int PHASES = BWD_NT / (BWD_KEYS * WG);  // query phases a key
+  __shared__ float part[WARPS][BWD_KEYS][2 * WCH];
+  const int b = blockIdx.x, oc = blockIdx.z * WCH;
+  const long k_base = b * static_cast<long>(S);
+  const int* m = mask + k_base;
+  const int y = blockIdx.y;
+  if (y >= work) {  // a zero CTA: its chunk of every key with mask 0
+    const int j = (y - work) * BWD_NT + threadIdx.x;
+    if (j < S && __ldg(m + j) <= 0) {
+#pragma unroll
+      for (int d = 0; d < WCH; d += 4) {
+        *reinterpret_cast<float4*>(dk + (k_base + j) * ld + oc + d) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + (k_base + j) * ld + oc + d) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+  const int2 span = visible_span<BWD_NT>(m, S);
+  const int lo = span.x;
+  const int hi = span.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int reach = causal ? min(hi, L - 1 + q_offset) : hi;
+  const int g = lane % WG, t = lane / WG % BWD_KEYS;
+  const int phase = warp * (32 / (BWD_KEYS * WG)) + lane / (BWD_KEYS * WG);
+  const unsigned gmask = group_mask<WG>(lane);
+  const long q_base = static_cast<long>(b) * L;
+  for (int key0 = lo + y * BWD_KEYS; key0 <= hi; key0 += work * BWD_KEYS) {
+    unsigned live = 0, unreached = 0;  // keys to walk; visible, past reach
+#pragma unroll
+    for (int u = 0; u < BWD_KEYS; ++u) {
+      const int j = key0 + u;
+      if (j <= hi && __ldg(m + j) > 0)
+        (j <= reach ? live : unreached) |= 1u << u;
+    }
+    // a visible key no query may reach (causal): exact zeros
+    if (threadIdx.x < BWD_KEYS * WCH / 4) {
+      const int u = threadIdx.x / (WCH / 4);
+      if (unreached >> u & 1u) {
+        const long o = (k_base + key0 + u) * ld + oc + threadIdx.x % (WCH / 4) * 4;
+        *reinterpret_cast<float4*>(dk + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    if (live == 0u) continue;
+    const int key = key0 + t;
+    float dka[WW], dva[WW];
+#pragma unroll
+    for (int d = 0; d < WW; ++d) dka[d] = dva[d] = 0.f;
+    if (live >> t & 1u) {
+      const float* krow = k + (k_base + key) * ld + g * WW;
+      const float* vrow = v + (k_base + key) * ld + g * WW;
+      // this lane's first query that may see its key
+      int i = phase;
+      if (causal && key - q_offset > i)
+        i += (key - q_offset - i + PHASES - 1) / PHASES * PHASES;
+      for (; i < L; i += PHASES) {
+        const float l2 = __ldg(lse + q_base + i) * LOG2E;
+        if (l2 <= NEG_INF * 0.5f) continue;  // a fully masked row: p = 0
+        const float* qrow = q + (q_base + i) * ld + g * WW;
+        const float* drow = dout + (q_base + i) * ld + g * WW;
+        const float p = exp2f(
+            group_sum<WG>(wide_dot(qrow, krow, ld, 0.f), gmask) * qscale - l2);
+        const float ds =
+            p * (group_sum<WG>(wide_dot(drow, vrow, ld, 0.f), gmask) -
+                 __ldg(delta + q_base + i));
+        float qv[WW], dov[WW];
+        load_row<WW>(qrow + oc, qv);
+        load_row<WW>(drow + oc, dov);
+#pragma unroll
+        for (int d = 0; d < WW; ++d) {
+          dva[d] = fmaf(p, dov[d], dva[d]);
+          dka[d] = fmaf(ds, qv[d] * qscale, dka[d]);
+        }
+      }
+    }
+    // the query phases of a key meet: within the warp, then the warps'
+    // sums in warp order
+#pragma unroll
+    for (int d = 0; d < WW; ++d) {
+#pragma unroll
+      for (int off = BWD_KEYS * WG; off < 32; off <<= 1) {
+        dka[d] += __shfl_xor_sync(FULL, dka[d], off);
+        dva[d] += __shfl_xor_sync(FULL, dva[d], off);
+      }
+    }
+    if (lane < BWD_KEYS * WG) {
+#pragma unroll
+      for (int d = 0; d < WW; ++d) {
+        part[warp][t][g * WW + d] = dka[d];
+        part[warp][t][WCH + g * WW + d] = dva[d];
+      }
+    }
+    __syncthreads();
+    for (int e2 = threadIdx.x; e2 < BWD_KEYS * 2 * WCH; e2 += BWD_NT) {
+      const int kt = e2 / (2 * WCH), e = e2 % (2 * WCH);
+      if (live >> kt & 1u) {
+        float sum = 0.f;
+#pragma unroll
+        for (int wi = 0; wi < WARPS; ++wi) sum += part[wi][kt][e];  // in order
+        const long o = (k_base + key0 + kt) * ld + oc;
+        if (e < WCH)
+          dk[o + e] = sum * LN2;
+        else
+          dv[o + e - WCH] = sum;
+      }
+    }
+    __syncthreads();  // part is read before the next block writes it
+  }
+}
+
+// the head dims the kernels take: the built ones (4, 8, 16, 32, 64) and
+// any multiple of 64 past them (the wide kernels); the wrapper pads any
+// other head dim up to the next of these with zero columns
+bool bad_dims(int B, int L, int S, int hd) {
+  return B <= 0 || L <= 0 || S <= 0 || B > 65535 ||
+         !(hd == 4 || hd == 8 || hd == 16 || hd == 32 || hd == 64 ||
+           (hd > 64 && hd % WCH == 0 && hd / WCH <= 65535));
+}
+
+// the instance of `kernel` for head dim hd <= 64 (one bad_dims takes)
 #define RANK_INSTANCE(kernel, hd)                                   \
   ((hd) == 4 ? kernel<4> : (hd) == 8 ? kernel<8> : (hd) == 16 ? kernel<16> \
    : (hd) == 32 ? kernel<32> : kernel<64>)
 
 }  // namespace
 
-// q/out (B, L, 1, hd), k/v (B, S, 1, hd) fp32 with hd 4, 8, 16, 32 or 64,
-// mask (B, S) int32, lse (B, 1, L) fp32; all contiguous, q, k, v and out
-// 16-byte aligned; qscale log2(e)/sqrt(r) of the true head dim r <= hd
-// (the columns past r zero).  Returns cudaGetLastError().
+// q/out (B, L, 1, hd), k/v (B, S, 1, hd) fp32 with hd 4, 8, 16, 32, 64 or
+// a multiple of 64, mask (B, S) int32, lse (B, 1, L) fp32; all contiguous,
+// q, k, v and out 16-byte aligned; qscale log2(e)/sqrt(r) of the true head
+// dim r <= hd (the columns past r zero).  Returns cudaGetLastError().
 extern "C" int moka_flash_rank_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse,
                                    int B, int L, int S, int hd, int q_offset,
                                    int causal, float qscale, void* stream) {
   if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* mp = static_cast<const int*>(mask);
+  if (hd > 64) {
+    flash_rank_fwd_wide<<<dim3((L + FWD_WARPS - 1) / FWD_WARPS, B, hd / WCH),
+                          FWD_NT, 0, st>>>(
+        qp, kp, vp, mp, static_cast<float*>(out), static_cast<float*>(lse), L,
+        S, hd, q_offset, causal, qscale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   const auto kernel = RANK_INSTANCE(flash_rank_fwd_kernel, hd);
-  kernel<<<grid, FWD_NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(mask),
-      static_cast<float*>(out), static_cast<float*>(lse), L, S, q_offset,
-      causal, qscale);
+  kernel<<<grid, FWD_NT, 0, st>>>(qp, kp, vp, mp, static_cast<float*>(out),
+                                  static_cast<float*>(lse), L, S, q_offset,
+                                  causal, qscale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -697,15 +1029,25 @@ extern "C" int moka_flash_rank_bwd_dq(const void* q, const void* k,
                                       int causal, float qscale, float scale,
                                       void* stream) {
   if (bad_dims(B, L, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto kernel = RANK_INSTANCE(flash_rank_dq_kernel, hd);
-  kernel<<<grid, FWD_NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(mask),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dqp), L, S,
-      q_offset, causal, qscale, scale);
+  const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B, hd > 64 ? hd / WCH : 1);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* mp = static_cast<const int*>(mask);
+  const auto* dp = static_cast<const float*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* ep = static_cast<const float*>(delta);
+  if (hd > 64)
+    flash_rank_dq_wide<<<grid, FWD_NT, 0, st>>>(
+        qp, kp, vp, mp, dp, lp, ep, static_cast<float*>(dqp), L, S, hd,
+        q_offset, causal, qscale, scale);
+  else {
+    const auto kernel = RANK_INSTANCE(flash_rank_dq_kernel, hd);
+    kernel<<<grid, FWD_NT, 0, st>>>(qp, kp, vp, mp, dp, lp, ep,
+                                    static_cast<float*>(dqp), L, S, q_offset,
+                                    causal, qscale, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -725,14 +1067,25 @@ extern "C" int moka_flash_rank_bwd_dkv(const void* q, const void* k,
   const int blocks = work + (S + BWD_NT - 1) / BWD_NT;
   if (bad_dims(B, L, S, hd) || blocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, blocks);
+  const dim3 grid(B, blocks, hd > 64 ? hd / WCH : 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto kernel = RANK_INSTANCE(flash_rank_dkv_kernel, hd);
-  kernel<<<grid, BWD_NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(mask),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dkp),
-      static_cast<float*>(dvp), L, S, q_offset, causal, qscale, work);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* mp = static_cast<const int*>(mask);
+  const auto* dp = static_cast<const float*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* ep = static_cast<const float*>(delta);
+  if (hd > 64)
+    flash_rank_dkv_wide<<<grid, BWD_NT, 0, st>>>(
+        qp, kp, vp, mp, dp, lp, ep, static_cast<float*>(dkp),
+        static_cast<float*>(dvp), L, S, hd, q_offset, causal, qscale, work);
+  else {
+    const auto kernel = RANK_INSTANCE(flash_rank_dkv_kernel, hd);
+    kernel<<<grid, BWD_NT, 0, st>>>(qp, kp, vp, mp, dp, lp, ep,
+                                    static_cast<float*>(dkp),
+                                    static_cast<float*>(dvp), L, S, q_offset,
+                                    causal, qscale, work);
+  }
   return static_cast<int>(cudaGetLastError());
 }

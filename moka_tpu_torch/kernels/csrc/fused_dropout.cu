@@ -1,6 +1,7 @@
 // LoRA dropout fused into the adapter's A projection, forward and backward,
-// for Hopper (sm_90a), at every M * r from 1 to 256 (ranks 1-64 with one to
-// four modalities).
+// for Hopper (sm_90a), at every M * r (any rank with any number of
+// modalities: no width is built in; past 64 the kernels loop over 64-row
+// tiles of M * r and dx over chunks of A's rows at run time).
 //
 // Replaces the TPU kernels moka_tpu/ops/fused_dropout.py::_fwd_kernel (:55,
 // launched by _run_fwd :127) and ::_bwd_kernel (:70, launched by _run_bwd
@@ -34,7 +35,8 @@
 // grid has a CTA for each 64-row tile (each draws its rows' words again)
 // and the backward's a CTA pair for each 64-row tile of dA^T, with dx from
 // a third kernel (dropout_dx_kernel: the same FMA chain over all of M * r,
-// A's rows in shared memory, g from L2).  Where M * r is not a multiple of
+// A's rows staged in shared memory DX_JC at a time, g from L2).  Where M *
+// r is not a multiple of
 // 4 the wrapper pads g with zero columns to one (g_width: TMA's 16-byte
 // rows) and the chains stop at M * r:
 //   * forward (dropout_fwd_kernel): out^T = A^T x_d^T, with the M * r rows
@@ -271,24 +273,26 @@ struct FwdShape {
 
 // The transpose pass: A (d, mr) in TA -> its bf16 parts A^T (H, rows, d),
 // part h row j < mr = split3(A[:, j])[h], rows mr .. rows - 1 zero.  A
-// thread a column pair of one row.
+// thread a column pair of every gridDim.y-th row.
 template <typename TA>
 __global__ void __launch_bounds__(256)
     transpose_a_kernel(const TA* __restrict__ a, __nv_bfloat16* __restrict__ at,
                        int d, int mr, int rows) {
-  const int c = 2 * (blockIdx.x * 256 + threadIdx.x), j = blockIdx.y;
+  const int c = 2 * (blockIdx.x * 256 + threadIdx.x);
   if (c >= d) return;
-  float v0 = 0.f, v1 = 0.f;
-  if (j < mr) {
-    v0 = to_float(a[static_cast<size_t>(c) * mr + j]);
-    v1 = to_float(a[static_cast<size_t>(c + 1) * mr + j]);
-  }
-  uint32_t p[3];
-  split3(v0, v1, p);
+  for (int j = blockIdx.y; j < rows; j += gridDim.y) {
+    float v0 = 0.f, v1 = 0.f;
+    if (j < mr) {
+      v0 = to_float(a[static_cast<size_t>(c) * mr + j]);
+      v1 = to_float(a[static_cast<size_t>(c + 1) * mr + j]);
+    }
+    uint32_t p[3];
+    split3(v0, v1, p);
 #pragma unroll
-  for (int h = 0; h < a_parts<TA>(); ++h)
-    *reinterpret_cast<uint32_t*>(
-        at + (static_cast<size_t>(h) * rows + j) * d + c) = p[h];
+    for (int h = 0; h < a_parts<TA>(); ++h)
+      *reinterpret_cast<uint32_t*>(
+          at + (static_cast<size_t>(h) * rows + j) * d + c) = p[h];
+  }
 }
 
 // Grid: one CTA per 32 rows and 64 of the M*r columns (one tile below 64:
@@ -832,17 +836,22 @@ __global__ void __launch_bounds__(F32_BWD_WARPS * 32)
 
 // ------------------------------------------------ dx at M*r > 64
 
-constexpr int DX_NT = 256;     // 32 rows of 64 columns a pass, 8 a thread
+constexpr int DX_NT = 256;     // 32 row slots x 8 column groups of 8
+constexpr int DX_ROWS = 4;     // rows a thread: 128 rows a block, 32 apart
+constexpr int DX_JC = 256;     // rows j of A^T staged at once (64 KB)
 
 // dx = ((g A^T) * m) in x's type where M*r > 64 and the backward's tiles
 // take dA alone (their stage holds 64 of g's columns, not all M*r).  A CTA
-// owns 64 columns of d and walks every gridDim.y-th group of 32 rows; a
-// thread takes 8 adjacent columns of a row.  A's fp32 rows of the CTA's
-// columns sit in shared memory in the backward kernel's layout (64 * M*r *
-// 4 bytes), g's rows come from L2 (the 8 threads of a row read the same
-// values), and the chain is the backward kernel's: fp32 FMAs over j from 0
-// to M*r - 1 in the plain version's order, so dx matches it to the bit.
-// Bound: M*r FMAs an element, 2 * N * d * M*r flops of the ordinary cores.
+// owns 64 columns of d and walks every gridDim.y-th block of 128 rows; a
+// thread takes 8 adjacent columns of DX_ROWS rows.  A's fp32 rows of the
+// CTA's columns sit in shared memory in the backward kernel's layout, DX_JC
+// rows j at a time (64 * DX_JC * 4 bytes, whatever M*r): where M*r fits
+// one chunk they are staged once, else each row block stages the chunks in
+// order, its rows' accumulators held in registers across them.  g's rows
+// come from L2, and the chain is the backward kernel's: fp32 FMAs over j
+// from 0 to M*r - 1 in the plain version's order, so dx matches it to the
+// bit at every M*r.  Bound: M*r FMAs an element, 2 * N * d * M*r flops of
+// the ordinary cores.
 template <typename T, typename TA, bool FORCED>
 __global__ void __launch_bounds__(DX_NT)
     dropout_dx_kernel(const TA* __restrict__ a,
@@ -850,79 +859,117 @@ __global__ void __launch_bounds__(DX_NT)
                       const float* __restrict__ g, T* __restrict__ dx,
                       int n_rows, int d, int mr, int gw, uint32_t thresh,
                       float inv_keep, const __grid_constant__ RoundKeys rk) {
-  extern __shared__ __align__(16) float afs[];  // [mr][64]
+  extern __shared__ __align__(16) float afs[];  // [DX_JC][64]
   const int c0 = blockIdx.x * 64, t = threadIdx.x, q = t & 7, rr = t >> 3;
-  for (int i = t; i < mr * 64; i += DX_NT) {
-    const int c = i / mr, j = i % mr;
-    afs[j * 64 + (c & 4) * 8 + (c >> 3) * 4 + (c & 3)] =
-        c0 + c < d ? to_float(a[static_cast<size_t>(c0 + c) * mr + j]) : 0.f;
-  }
-  __syncthreads();
-  if (c0 + 8 * q >= d) return;
-  for (int n = blockIdx.y * 32 + rr; n < n_rows; n += gridDim.y * 32) {
-    uint32_t w[8];
-    words8<FORCED>(bits, n, c0 + 8 * q, n_rows, d, rk, w);
-    const float* gr = g + static_cast<size_t>(n) * gw;
-    float acc[8];
+  const int chunks = (mr + DX_JC - 1) / DX_JC;
+  const bool live = c0 + 8 * q < d;
+  for (int n0 = blockIdx.y * 32 * DX_ROWS; n0 < n_rows;
+       n0 += gridDim.y * 32 * DX_ROWS) {
+    float acc[DX_ROWS][8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-    int j = 0;
-    for (; j + 4 <= mr; j += 4) {
-      const float4 gv = *reinterpret_cast<const float4*>(gr + j);
-      const float gj[4] = {gv.x, gv.y, gv.z, gv.w};
+    for (int u = 0; u < DX_ROWS; ++u)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* ar = afs + (j + jj) * 64 + 4 * q;
+      for (int e = 0; e < 8; ++e) acc[u][e] = 0.f;
+    // the rows' g (a row past the array reads the last one, never stored)
+    const float* gr[DX_ROWS];
+#pragma unroll
+    for (int u = 0; u < DX_ROWS; ++u)
+      gr[u] = g + static_cast<size_t>(min(n0 + rr + 32 * u, n_rows - 1)) * gw;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int j0 = ch * DX_JC, jn = min(DX_JC, mr - j0);
+      if (chunks > 1 || n0 == static_cast<int>(blockIdx.y) * 32 * DX_ROWS) {
+        __syncthreads();  // the last chunk's readers are done
+        for (int i = t; i < jn * 64; i += DX_NT) {
+          const int c = i / jn, j = i % jn;
+          afs[j * 64 + (c & 4) * 8 + (c >> 3) * 4 + (c & 3)] =
+              c0 + c < d
+                  ? to_float(a[static_cast<size_t>(c0 + c) * mr + j0 + j])
+                  : 0.f;
+        }
+        __syncthreads();
+      }
+      if (!live) continue;
+      int j = 0;
+      for (; j + 4 <= jn; j += 4) {
+        float gj[DX_ROWS][4];
+#pragma unroll
+        for (int u = 0; u < DX_ROWS; ++u) {
+          const float4 gv =
+              *reinterpret_cast<const float4*>(gr[u] + j0 + j);
+          gj[u][0] = gv.x;
+          gj[u][1] = gv.y;
+          gj[u][2] = gv.z;
+          gj[u][3] = gv.w;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* ar = afs + (j + jj) * 64 + 4 * q;
+          const float4 a0 = *reinterpret_cast<const float4*>(ar);
+          const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int u = 0; u < DX_ROWS; ++u)
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              acc[u][e] = fmaf(gj[u][jj], av[e], acc[u][e]);
+        }
+      }
+      for (; j < jn; ++j) {
+        const float* ar = afs + j * 64 + 4 * q;
         const float4 a0 = *reinterpret_cast<const float4*>(ar);
         const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
         const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(gj[jj], av[e], acc[e]);
+        for (int u = 0; u < DX_ROWS; ++u) {
+          const float gu = gr[u][j0 + j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[u][e] = fmaf(gu, av[e], acc[u][e]);
+        }
       }
     }
-    for (; j < mr; ++j) {
-      const float* ar = afs + j * 64 + 4 * q;
-      const float4 a0 = *reinterpret_cast<const float4*>(ar);
-      const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float gu = gr[j];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = fmaf(gu, av[e], acc[e]);
-    }
+    if (!live) continue;
     // sum * (1/keep) where kept, +0 where dropped
-    T* o = dx + static_cast<size_t>(n) * d + c0 + 8 * q;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      from_float(w[e] < thresh ? acc[e] * inv_keep : 0.f, o + e);
+    for (int u = 0; u < DX_ROWS; ++u) {
+      const int n = n0 + rr + 32 * u;
+      if (n >= n_rows) continue;
+      uint32_t w[8];
+      words8<FORCED>(bits, n, c0 + 8 * q, n_rows, d, rk, w);
+      T* o = dx + static_cast<size_t>(n) * d + c0 + 8 * q;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        from_float(w[e] < thresh ? acc[u][e] * inv_keep : 0.f, o + e);
+    }
   }
 }
 
 // ------------------------------------------------------------ launches
 
-// the M * r the kernels take: ranks 1-64 times 1-4 modalities; d % 8 ==
-// 0 (TMA rows of 16-byte multiples; eight columns a thread)
-constexpr int MAX_MR = 256;
+// what the kernels take: every M * r (any rank, any number of
+// modalities); d % 8 == 0 (TMA rows of 16-byte multiples; eight columns a
+// thread)
 bool takes(int n, int d, int mr) {
-  return n > 0 && d > 0 && d % 8 == 0 && mr >= 1 && mr <= MAX_MR;
+  return n > 0 && d > 0 && d % 8 == 0 && mr >= 1;
 }
 
 // g's row width in memory: M*r up to a multiple of 4 (the wrapper pads g
 // with zero columns), so its TMA rows are 16-byte multiples
 int g_width(int mr) { return (mr + 3) / 4 * 4; }
 
-// the dx kernel's launch for M*r > 64: a CTA 64 columns, row groups for
-// about four CTAs an SM
+// the dx kernel's launch for M*r > 64: a CTA 64 columns, row blocks for
+// about three CTAs an SM (64 KB of A's rows each at M*r >= DX_JC)
 template <typename T, typename TA, bool FORCED>
 int launch_dx(const void* a, const void* bits, const void* g, void* dx,
               int n, int d, int mr, uint32_t thresh, float inv_keep,
               const RoundKeys& rk, cudaStream_t st) {
-  const int smem = 4 * 64 * mr;
+  const int smem = 4 * 64 * (mr < DX_JC ? mr : DX_JC);
   static const cudaError_t attr = cudaFuncSetAttribute(
       dropout_dx_kernel<T, TA, FORCED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * 64 * MAX_MR);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * 64 * DX_JC);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int cols = (d + 63) / 64, groups = (n + 31) / 32;
-  int gy = 4 * sm_count() / cols;
+  const int cols = (d + 63) / 64, groups = (n + 32 * DX_ROWS - 1) /
+                                           (32 * DX_ROWS);
+  int gy = 3 * sm_count() / cols;
   gy = gy < 1 ? 1 : gy > groups ? groups : gy;
   dropout_dx_kernel<T, TA, FORCED><<<dim3(cols, gy), DX_NT, smem, st>>>(
       static_cast<const TA*>(a), static_cast<const uint32_t*>(bits),
@@ -960,7 +1007,9 @@ int launch_fwd(const void* x, const void* a, const void* bits, void* out,
   const int rows = a_rows(mr);
   const int box_rows = rows < 64 ? rows : 64;  // a CTA's tile of A^T's rows
   __nv_bfloat16* at = static_cast<__nv_bfloat16*>(work);
-  transpose_a_kernel<TA><<<dim3((d / 2 + 255) / 256, rows), 256, 0, st>>>(
+  transpose_a_kernel<TA><<<dim3((d / 2 + 255) / 256, rows < 65535 ? rows
+                                                                   : 65535),
+                           256, 0, st>>>(
       static_cast<const TA*>(a), at, d, mr, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,8 +1,17 @@
 // Fused MokA adapter delta, forward, for Hopper (sm_90a), at every rank
-// from 1 to 64 with up to four modalities.  Built for ranks R = 4, 8, 16,
-// 32 and 64; a true rank r <= R runs in the rank-R instance with A's
-// columns and B's rows past r zero (ops/moka_pallas.py pads them; exact:
-// see takes()) and the attention scale 1/sqrt(r) of the true rank.
+// with up to four modalities.  Ranks 1-64: the persistent kernel below,
+// built for ranks R = 4, 8, 16, 32 and 64; a true rank r <= R runs in the
+// rank-R instance with A's columns and B's rows past r zero
+// (ops/moka_pallas.py pads them; exact: see takes()) and the attention
+// scale 1/sqrt(r) of the true rank.  Past 64 (the wide path, at the end of
+// this file) a chain of launches: a down-product kernel writes the
+// modalities' a_i and the question keys, R1 (flash_rank.cu at head_dim r)
+// attends for each attention stream, and an up-product kernel forms the
+// buffer and buf @ B; no array of the persistent kernel's grows with r
+// there.  Under context parallelism the keys come from outside: each
+// rank's key pass writes its own rows' keys (moka_delta_keys), the caller
+// gathers them over the sequence group, and the key pass compacts the
+// gathered rows for the main kernel (Args::ext).
 //
 // Replaces the TPU kernel moka_tpu/ops/moka_pallas.py::_kernel (:35,
 // launched by _fused_fwd :112).  For a tile of tokens of one batch row it
@@ -94,8 +103,8 @@ struct Args {
   const float* A;       // (M, d_in, R)
   const float* Bm;      // (R, d_out)
   void* out;            // (nb, L, d_out) in x's type
-  float* keys;          // (nb, ds, L, R): a row's n_q keys first, as ds
-                        // partial sums over KEY_DCH-wide chunks of d_in
+  float* keys;          // (nb, ds, kl, R): a row's n_q keys first, as ds
+                        // partial sums over dch-wide chunks of d_in
   int* nq;              // (nb,)
   __nv_bfloat16* at;    // (2*M*R, d_in): A's bf16 halves (bf16 path)
   __nv_bfloat16* bs;    // (KPAD, d_out): [hi(B); lo(B); hi(B); 0] (bf16 path)
@@ -105,6 +114,15 @@ struct Args {
   float pre_scale, attn_weight;
   int attn_bits, has_post;
   float post[MAXM];
+  int kl;               // key positions a row: L, or the whole sequence's
+                        // under a ring (ext)
+  const float* kmask;   // (nb, kl): where the keys sit (qmask, or the whole
+                        // sequence's question mask under a ring)
+  const float* ext;     // (nb, kl, R): keys from outside (a ring's gathered
+                        // keys; ds is 1), or null
+  float* dense;         // (nb, L, R): the key pass alone writes each
+                        // question row's keys here (moka_delta_keys), or null
+  int dch;              // d_in a key-pass unit sums over
 };
 
 __device__ __forceinline__ float bf16_hi(float v) {
@@ -216,7 +234,7 @@ __device__ void split_operands(const Args& a, int kpad) {
 // Grid (CTAs a row, nb).  Each CTA numbers its row's question positions
 // j = 0..n_q-1 (each thread counts KP_RUN adjacent positions of the mask,
 // one block-wide prefix sum per KP_NT * KP_RUN positions), then takes the
-// work units (group of KP_G question tokens, KEY_DCH-wide chunk of d_in)
+// work units (group of KP_G question tokens, dch-wide chunk of d_in)
 // whose index is its own modulo the CTAs a row: no CTA a token, and the
 // units spread evenly whatever the span's layout.  A thread owns 16 bytes
 // of x a pass (8 bf16 or 4 fp32 of d_in) and four of the r ranks (Q = r / 4
@@ -224,7 +242,9 @@ __device__ void split_operands(const Args& a, int kpad) {
 // 16 tokens x 4 fp32 sums; the sums are reduced over the warp by a
 // reduce-scatter and over the CTA in shared memory, and a unit writes its
 // chunk's partial keys: the main kernel sums the ds chunks as it stages
-// them.
+// them.  With keys from outside (a.ext) the CTAs only copy the question
+// rows of them, compacted; with a.dense (the keys alone, one chunk of all
+// of d_in) a unit writes its tokens' keys at their positions.
 template <typename T, int R>
 __global__ void __launch_bounds__(KP_NT)
     question_keys_kernel(const Args a, int kpad) {
@@ -240,14 +260,14 @@ __global__ void __launch_bounds__(KP_NT)
   const int k = blockIdx.x, ctas = gridDim.x, bi = blockIdx.y;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q = tid % Q, sl = tid / Q;  // rank quarter, d slice
-  const float* qrow = a.qmask + static_cast<long>(bi) * a.L;
+  const float* qrow = a.kmask + static_cast<long>(bi) * a.kl;
   int n_q = 0;
-  for (int p0 = 0; p0 < a.L; p0 += KP_NT * KP_RUN) {
+  for (int p0 = 0; p0 < a.kl; p0 += KP_NT * KP_RUN) {
     const int pb = p0 + tid * KP_RUN;
     unsigned bits = 0;
 #pragma unroll
     for (int e = 0; e < KP_RUN; ++e)
-      if (pb + e < a.L && qrow[pb + e] > 0.f) bits |= 1u << e;
+      if (pb + e < a.kl && qrow[pb + e] > 0.f) bits |= 1u << e;
     const int cnt = __popc(bits);
     int inc = cnt;
 #pragma unroll
@@ -270,7 +290,16 @@ __global__ void __launch_bounds__(KP_NT)
     n_q += total;
     __syncthreads();
   }
-  if (k == 0 && tid == 0) a.nq[bi] = n_q;
+  if (k == 0 && tid == 0 && a.nq != nullptr) a.nq[bi] = n_q;
+  if (a.ext != nullptr) {  // keys from outside: their question rows, in order
+    for (long e = static_cast<long>(k) * KP_NT + tid;
+         e < static_cast<long>(n_q) * R; e += static_cast<long>(ctas) * KP_NT) {
+      const int j = static_cast<int>(e / R), r = static_cast<int>(e % R);
+      a.keys[(static_cast<long>(bi) * a.kl + j) * R + r] =
+          a.ext[(static_cast<long>(bi) * a.kl + pos_list[j]) * R + r];
+    }
+    return;
+  }
   const T* xb = static_cast<const T*>(a.x) + static_cast<long>(bi) * a.L * a.d_in;
   const int units = (n_q + KP_G - 1) / KP_G * a.ds;
   for (int un = k; un < units; un += ctas) {
@@ -283,7 +312,7 @@ __global__ void __launch_bounds__(KP_NT)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 #pragma unroll 1
-    for (int d = c * KEY_DCH + sl * VEC; d < min(a.d_in, (c + 1) * KEY_DCH);
+    for (int d = c * a.dch + sl * VEC; d < min(a.d_in, (c + 1) * a.dch);
          d += DP) {
       uint4 xv[KP_G];
 #pragma unroll
@@ -317,8 +346,11 @@ __global__ void __launch_bounds__(KP_NT)
       for (int w = 0; w < WARPS; ++w) s += red[w][r / 4][4 * u + r % 4];
       const long row = static_cast<long>(bi) * a.L + pos_list[j0 + u];
       const float wgt = a.masks[row] * a.qmask[row];  // masks[0]: the text stream
-      a.keys[((static_cast<long>(bi) * a.ds + c) * a.L + j0 + u) * R + r] =
-          s * wgt * a.pre_scale;
+      if (a.dense != nullptr)
+        a.dense[row * R + r] = s * wgt * a.pre_scale;
+      else
+        a.keys[((static_cast<long>(bi) * a.ds + c) * a.kl + j0 + u) * R + r] =
+            s * wgt * a.pre_scale;
     }
     __syncthreads();
   }
@@ -540,7 +572,7 @@ __global__ void __launch_bounds__(NT, 1)
     // in exp2 for each attention stream the token belongs to (mostly one),
     // merged by a shuffle and added into the token's buf row
     const int n_q = na > 0 ? a.nq[bi] : 0;
-    const float* krow = a.keys + static_cast<long>(bi) * a.ds * a.L * R;
+    const float* krow = a.keys + static_cast<long>(bi) * a.ds * a.kl * R;
     const int at = tid >> 1, half = tid & 1;
     for (int jm = 0; jm < na; ++jm) {
       const float w = mk[amods[jm] * TOK + at];
@@ -560,7 +592,7 @@ __global__ void __launch_bounds__(NT, 1)
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
             for (int c = 0; c < a.ds; ++c) {
               const float4 p = reinterpret_cast<const float4*>(
-                  krow + (static_cast<long>(c) * a.L + c0) * R)[i];
+                  krow + (static_cast<long>(c) * a.kl + c0) * R)[i];
               v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
             }
             reinterpret_cast<float4*>(ks)[i] = v;
@@ -813,7 +845,7 @@ __global__ void __launch_bounds__(NT)
   // the true rank's scale (the ranks past it are zero columns)
   const float inv_sqrt_r = 1.0f / sqrtf(static_cast<float>(a.rank));
   const int n_q = a.nq[bi];
-  const float* krow = a.keys + static_cast<long>(bi) * a.ds * L * R;
+  const float* krow = a.keys + static_cast<long>(bi) * a.ds * a.kl * R;
   const int npairs = TOK * na;
   for (int pb = 0; pb < npairs; pb += NT / SPLIT) {
     const int pair = pb + tid / SPLIT, sub = tid % SPLIT;
@@ -833,7 +865,7 @@ __global__ void __launch_bounds__(NT)
       for (int i = tid; i < kend * R; i += NT) {  // the ds partial sums
         float v = 0.f;
         for (int c = 0; c < a.ds; ++c)
-          v += krow[(static_cast<long>(c) * L + k0) * R + i];
+          v += krow[(static_cast<long>(c) * a.kl + k0) * R + i];
         kbuf[i / R][i % R] = v;
       }
       __syncthreads();
@@ -932,7 +964,7 @@ int launch_keys(const Args& a, int kpad, cudaStream_t st) {
   // the static arrays of the reduction (8 KB at r 16, 32 KB at 64)
   constexpr int STATIC_BYTES = (KP_NT / 32) * (R / 4) * 64 * 4 + 4 * (KP_NT / 32);
   constexpr int LIST_LIMIT = SMEM_LIMIT - STATIC_BYTES - 8192;
-  const long list = 4L * a.L;
+  const long list = 4L * a.kl;
   if (static_cast<long>(a.L) * a.d_in >= (1L << 31) || list > LIST_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
   // CTAs an SM, asked once (a launch inside a CUDA graph capture makes no
@@ -948,7 +980,7 @@ int launch_keys(const Args& a, int kpad, cudaStream_t st) {
     if (occ != cudaSuccess) return static_cast<int>(occ);
     per_sm = per_sm > 0 ? per_sm : 1;
   }
-  const int units = (a.L + KP_G - 1) / KP_G * a.ds;  // at most
+  const int units = (a.kl + KP_G - 1) / KP_G * a.ds;  // at most
   int ctas = sm_count() * per_sm / a.nb;
   ctas = ctas < KP_CTAS ? ctas : KP_CTAS;
   ctas = ctas < units ? ctas : units;
@@ -1030,12 +1062,14 @@ int launch(const Args& a, int x_bf16, cudaStream_t st) {
 
 long align256(long n) { return (n + 255) / 256 * 256; }
 
-// the workspace's parts: keys (nb, ds, L, R) fp32, n_q (nb) int32 and, for bf16
-// x, A's halves (2*M*R, d_in) and B's rows (KPAD, d_out) bf16
-long workspace(int nb, int L, int d_in, int d_out, int M, int R, int x_bf16,
-               long* off) {
+// the workspace's parts: keys (nb, ds, kl, R) fp32 (ds 1 for keys from
+// outside), n_q (nb) int32 and, for bf16 x, A's halves (2*M*R, d_in) and
+// B's rows (KPAD, d_out) bf16
+long workspace(int nb, int kl, int d_in, int d_out, int M, int R, int x_bf16,
+               int ext, long* off) {
+  const int ds = ext ? 1 : (d_in + KEY_DCH - 1) / KEY_DCH;
   off[0] = 0;
-  off[1] = off[0] + align256(4L * nb * ((d_in + KEY_DCH - 1) / KEY_DCH) * L * R);
+  off[1] = off[0] + align256(4L * nb * ds * kl * R);
   off[2] = off[1] + align256(4L * nb);
   if (!x_bf16) return off[2];
   off[3] = off[2] + align256(2L * 2 * M * R * d_in);
@@ -1053,55 +1087,267 @@ bool takes(int nb, int L, int d_in, int d_out, int M, int R) {
          (R == 4 || R == 8 || R == 16 || R == 32 || R == 64);
 }
 
+// ------------------------------------------------------- the wide path
+
+// Past rank 64 kernel 5 is a chain of launches, with rp = r padded to a
+// multiple of 64 (A's columns and B's rows past r zero, the wrapper's):
+//   1. the down product (UP false): a_i = (x @ A_i) * mask_i * pre_scale
+//      for every modality, (M, T, rp) fp32 over the T = nb * L tokens, and
+//      the question keys a_0 * qmask, (T, rp);
+//   2. R1 (flash_rank.cu, head_dim rp, the scale of the true rank) for
+//      each attention stream: its a_i against the keys under the question
+//      mask (the whole sequence's under a ring), (na, T, rp);
+//   3. the up product (UP true): buf = sum_i a_i + sum_j mask_j *
+//      attn_weight * attn_j, formed as its tiles are loaded, then
+//      delta = (buf @ B) * post, in x's type.
+// Both products are fp32 FMAs on the ordinary cores (bf16 x widened as it
+// is loaded, A and B fp32 as given: A keeps its fp32 effect exactly), a
+// CTA 64 tokens x 64 columns of the output, a thread 4 x 4 of them, the
+// depth walked 16 at a time through shared memory in order, so every
+// output is one FMA chain over k.  Bound: the products' operations, 2 T
+// (d_in M rp + rp d_out) at 67 TFLOP/s (PERF.md has the measured times).
+namespace wide {
+
+constexpr int NT = 256;
+constexpr int TT = 64;  // tokens a CTA
+constexpr int TN = 64;  // output columns a CTA
+constexpr int TK = 16;  // depth a step
+
+struct Args {
+  const void* x;          // (T, d_in) bf16 or fp32 (down)
+  const float* A;         // (M, d_in, rp) (down)
+  const float* masks;     // (M, T)
+  const float* qmask;     // (T) (down)
+  float* a_all;           // (M, T, rp): written (down), read (up)
+  float* keys;            // (T, rp) (down)
+  const float* attn;      // (na, T, rp) (up)
+  const float* Bm;        // (rp, d_out) (up)
+  void* out;              // (T, d_out) in x's type (up)
+  int T, d_in, d_out, M, rp;
+  float pre_scale, attn_weight;
+  int attn_bits, has_post;
+  float post[MAXM];
+};
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(a.x << 16);
+  v[1] = __uint_as_float(a.x & 0xffff0000u);
+  v[2] = __uint_as_float(a.y << 16);
+  v[3] = __uint_as_float(a.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// Grid (output columns / 64, T / 64).  UP false: X = x, W = A_m with m the
+// modality of the CTA's 64 columns (rp is a multiple of 64); UP true: X =
+// buf (formed from a_all, attn and the masks as it is loaded), W = B.
+template <typename T, bool UP>
+__global__ void __launch_bounds__(NT) moka_wide_kernel(const Args w) {
+  __shared__ __align__(16) float xs[TK][TT + 4];  // X's tile, k-major
+  __shared__ __align__(16) float ws[TK][TN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int t0 = blockIdx.y * TT, n0 = blockIdx.x * TN;
+  const int K = UP ? w.rp : w.d_in;
+  // the loads: X's token lt, depth quad lk; W's depth row wk, column quad wn
+  const int lt = tid >> 2, lk = (tid & 3) * 4, wk = tid >> 4, wn = (tid & 15) * 4;
+  const int xt = t0 + lt;
+  const int mw = UP ? 0 : n0 / w.rp, rw = UP ? 0 : n0 - mw * w.rp;
+  int amods[MAXM], na = 0;
+  for (int m = 0; m < w.M; ++m)
+    if ((w.attn_bits >> m) & 1) amods[na++] = m;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += TK) {
+    float xv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (xt < w.T && k0 + lk < K) {
+      if (UP) {
+        const long at = static_cast<long>(xt) * w.rp + k0 + lk;
+        load4(w.a_all + at, xv);
+        for (int m = 1; m < w.M; ++m) {
+          float v[4];
+          load4(w.a_all + static_cast<long>(m) * w.T * w.rp + at, v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xv[e] += v[e];
+        }
+        for (int j = 0; j < na; ++j) {
+          const float mk = w.masks[static_cast<long>(amods[j]) * w.T + xt];
+          float v[4];
+          load4(w.attn + static_cast<long>(j) * w.T * w.rp + at, v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xv[e] += mk * (w.attn_weight * v[e]);
+        }
+      } else {
+        load4(static_cast<const T*>(w.x) +
+                  static_cast<long>(xt) * w.d_in + k0 + lk, xv);
+      }
+    }
+    float wv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (k0 + wk < K) {
+      if (UP) {
+        if (n0 + wn < w.d_out)
+          load4(w.Bm + static_cast<long>(k0 + wk) * w.d_out + n0 + wn, wv);
+      } else {
+        load4(w.A + (static_cast<long>(mw) * w.d_in + k0 + wk) * w.rp + rw + wn,
+              wv);
+      }
+    }
+    __syncthreads();  // the last step's tiles are read
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xs[lk + e][lt] = xv[e];
+    store4(&ws[wk][wn], wv);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      float a[4], b[4];
+      load4(&xs[kk][4 * ty], a);
+      load4(&ws[kk][4 * tx], b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + 4 * ty + i;
+    if (t >= w.T) continue;
+    float v[4];
+    if (UP) {
+      const int o = n0 + 4 * tx;
+      if (o >= w.d_out) continue;
+      float ts = 1.f;
+      if (w.has_post) {
+        ts = 0.f;
+        for (int m = 0; m < w.M; ++m)
+          ts += w.masks[static_cast<long>(m) * w.T + t] * w.post[m];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = acc[i][j] * ts;
+      store4(static_cast<T*>(w.out) + static_cast<long>(t) * w.d_out + o, v);
+    } else {
+      const float mk = w.masks[static_cast<long>(mw) * w.T + t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = acc[i][j] * mk * w.pre_scale;
+      const int r = rw + 4 * tx;
+      store4(w.a_all + (static_cast<long>(mw) * w.T + t) * w.rp + r, v);
+      if (mw == 0) {
+        const float qm = w.qmask[t];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] *= qm;
+        store4(w.keys + static_cast<long>(t) * w.rp + r, v);
+      }
+    }
+  }
+}
+
+template <typename T, bool UP>
+int launch(const Args& w, cudaStream_t st) {
+  const int cols = UP ? (w.d_out + TN - 1) / TN : w.M * w.rp / TN;
+  const int rows = (w.T + TT - 1) / TT;
+  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  moka_wide_kernel<T, UP><<<dim3(cols, rows), NT, 0, st>>>(w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool takes(int T, int d_in, int d_out, int M, int rp) {
+  return T > 0 && M > 0 && M <= MAXM && d_in % 8 == 0 && d_out % 8 == 0 &&
+         rp > 0 && rp % TN == 0;
+}
+
+}  // namespace wide
+
 }  // namespace
 
-// Bytes of scratch moka_delta_fwd needs (0 for a shape it does not take).
-extern "C" long moka_delta_workspace(int nb, int L, int d_in, int d_out,
-                                     int M, int R, int x_bf16) {
+// Bytes of scratch moka_delta_fwd needs (0 for a shape it does not take);
+// kl the key positions a row (L, or the gathered sequence's with ext 1).
+extern "C" long moka_delta_workspace(int nb, int L, int kl, int d_in,
+                                     int d_out, int M, int R, int x_bf16,
+                                     int ext) {
   long off[4];
   return takes(nb, L, d_in, d_out, M, R)
-             ? workspace(nb, L, d_in, d_out, M, R, x_bf16, off) : 0;
+             ? workspace(nb, kl, d_in, d_out, M, R, x_bf16, ext, off) : 0;
 }
+
+namespace {
+
+Args make_args(const void* x, const void* masks, const void* qmask,
+               const void* A, int nb, int L, int d_in, int M, int R,
+               float pre_scale) {
+  Args a = {};
+  a.x = x;
+  a.masks = static_cast<const float*>(masks);
+  a.qmask = static_cast<const float*>(qmask);
+  a.A = static_cast<const float*>(A);
+  a.nb = nb;
+  a.L = L;
+  a.d_in = d_in;
+  a.M = M;
+  a.pre_scale = pre_scale;
+  a.kl = L;
+  a.kmask = a.qmask;
+  a.ds = (d_in + KEY_DCH - 1) / KEY_DCH;
+  a.dch = KEY_DCH;
+  return a;
+}
+
+}  // namespace
 
 // x (nb, L, d_in) bf16 (x_bf16 = 1) or fp32; masks (M, nb, L), qmask (nb,
 // L), A (M, d_in, R), B (R, d_out) fp32; out (nb, L, d_out) in x's type;
 // work: moka_delta_workspace's bytes; all contiguous and 16-byte aligned
 // (work 256-byte), R in {4, 8, 16, 32, 64}, the true rank 1 <= rank <= R
 // (A's columns and B's rows past it zero; the attention scale is
-// 1/sqrt(rank)), M <= 4, d_in % 8 == 0, d_out % 8 == 0.  Launches the key
-// pass, then the main kernel.  Returns cudaGetLastError() (or the error
-// of setting up a launch).
+// 1/sqrt(rank)), M <= 4, d_in % 8 == 0, d_out % 8 == 0.  ext: null, or
+// keys from outside (nb, kl, R) fp32 at the positions where kmask (nb, kl)
+// is > 0 (a ring's gathered keys and the whole sequence's question mask),
+// which the attention takes instead of the keys of x's rows.  Launches the
+// key pass, then the main kernel.  Returns cudaGetLastError() (or the
+// error of setting up a launch).
 extern "C" int moka_delta_fwd(const void* x, int x_bf16, const void* masks,
                               const void* qmask, const void* A, const void* Bm,
                               void* out, void* work, int nb, int L, int d_in,
                               int d_out, int M, int R, int rank,
                               float pre_scale, float attn_weight,
                               int attn_bits, float p0, float p1, float p2,
-                              float p3, int has_post, void* stream) {
-  if (!takes(nb, L, d_in, d_out, M, R) || rank < 1 || rank > R)
+                              float p3, int has_post, const void* ext,
+                              const void* kmask, int kl, void* stream) {
+  if (!takes(nb, L, d_in, d_out, M, R) || rank < 1 || rank > R ||
+      (ext != nullptr && (kmask == nullptr || kl < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, masks, qmask, A, nb, L, d_in, M, R, pre_scale);
+  if (ext != nullptr) {
+    a.ext = static_cast<const float*>(ext);
+    a.kmask = static_cast<const float*>(kmask);
+    a.kl = kl;
+    a.ds = 1;
+  }
   long off[4];
-  workspace(nb, L, d_in, d_out, M, R, x_bf16, off);
+  workspace(nb, a.kl, d_in, d_out, M, R, x_bf16, ext != nullptr, off);
   uint8_t* w = static_cast<uint8_t*>(work);
-  Args a;
-  a.x = x;
-  a.masks = static_cast<const float*>(masks);
-  a.qmask = static_cast<const float*>(qmask);
-  a.A = static_cast<const float*>(A);
   a.Bm = static_cast<const float*>(Bm);
   a.out = out;
   a.keys = reinterpret_cast<float*>(w + off[0]);
   a.nq = reinterpret_cast<int*>(w + off[1]);
   a.at = x_bf16 ? reinterpret_cast<__nv_bfloat16*>(w + off[2]) : nullptr;
   a.bs = x_bf16 ? reinterpret_cast<__nv_bfloat16*>(w + off[3]) : nullptr;
-  a.nb = nb;
-  a.L = L;
-  a.d_in = d_in;
   a.d_out = d_out;
-  a.M = M;
   a.rank = rank;
-  a.ds = (d_in + KEY_DCH - 1) / KEY_DCH;
-  a.pre_scale = pre_scale;
   a.attn_weight = attn_weight;
   a.attn_bits = attn_bits;
   a.has_post = has_post;
@@ -1117,4 +1363,90 @@ extern "C" int moka_delta_fwd(const void* x, int x_bf16, const void* masks,
     case 32: return launch<32>(a, x_bf16, st);
     default: return launch<64>(a, x_bf16, st);
   }
+}
+
+// The key pass alone, for a ring: dense (nb, L, R) fp32 gets the question
+// keys (x @ A_0) * mask_0 * qmask * pre_scale of x's rows at the positions
+// where qmask > 0 (the caller zeroes the rest), each a sum over all of d_in
+// (one chunk).  The rest as moka_delta_fwd.
+extern "C" int moka_delta_keys(const void* x, int x_bf16, const void* masks,
+                               const void* qmask, const void* A, void* dense,
+                               int nb, int L, int d_in, int M, int R,
+                               float pre_scale, void* stream) {
+  if (!takes(nb, L, d_in, 8, M, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, masks, qmask, A, nb, L, d_in, M, R, pre_scale);
+  a.dense = static_cast<float*>(dense);
+  a.ds = 1;
+  a.dch = (d_in + KEY_DCH - 1) / KEY_DCH * KEY_DCH;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bf = x_bf16 != 0;
+  switch (R) {
+    case 4: return bf ? launch_keys<__nv_bfloat16, 4>(a, 0, st) : launch_keys<float, 4>(a, 0, st);
+    case 8: return bf ? launch_keys<__nv_bfloat16, 8>(a, 0, st) : launch_keys<float, 8>(a, 0, st);
+    case 16: return bf ? launch_keys<__nv_bfloat16, 16>(a, 0, st) : launch_keys<float, 16>(a, 0, st);
+    case 32: return bf ? launch_keys<__nv_bfloat16, 32>(a, 0, st) : launch_keys<float, 32>(a, 0, st);
+    default: return bf ? launch_keys<__nv_bfloat16, 64>(a, 0, st) : launch_keys<float, 64>(a, 0, st);
+  }
+}
+
+// The wide path's down product: x (T, d_in) bf16 or fp32, A (M, d_in, rp)
+// fp32 (rp a multiple of 64, columns past the true rank zero), masks (M,
+// T), qmask (T) fp32 -> a_all (M, T, rp) and keys (T, rp) fp32; all
+// contiguous and 16-byte aligned.
+extern "C" int moka_delta_wide_down(const void* x, int x_bf16, const void* A,
+                                    const void* masks, const void* qmask,
+                                    void* a_all, void* keys, int T, int d_in,
+                                    int M, int rp, float pre_scale,
+                                    void* stream) {
+  if (!wide::takes(T, d_in, 8, M, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wide::Args w = {};
+  w.x = x;
+  w.A = static_cast<const float*>(A);
+  w.masks = static_cast<const float*>(masks);
+  w.qmask = static_cast<const float*>(qmask);
+  w.a_all = static_cast<float*>(a_all);
+  w.keys = static_cast<float*>(keys);
+  w.T = T;
+  w.d_in = d_in;
+  w.M = M;
+  w.rp = rp;
+  w.pre_scale = pre_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? wide::launch<__nv_bfloat16, false>(w, st)
+                : wide::launch<float, false>(w, st);
+}
+
+// The wide path's up product: a_all (M, T, rp), attn (na, T, rp) (the
+// attention streams' R1 outputs, in the order of attn_bits), masks (M, T),
+// B (rp, d_out) fp32 -> out (T, d_out) in x's type (x_bf16).
+extern "C" int moka_delta_wide_up(const void* a_all, const void* attn,
+                                  const void* masks, const void* Bm, void* out,
+                                  int x_bf16, int T, int d_out, int M, int rp,
+                                  float attn_weight, int attn_bits, float p0,
+                                  float p1, float p2, float p3, int has_post,
+                                  void* stream) {
+  if (!wide::takes(T, 8, d_out, M, rp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wide::Args w = {};
+  w.a_all = static_cast<float*>(const_cast<void*>(a_all));
+  w.attn = static_cast<const float*>(attn);
+  w.masks = static_cast<const float*>(masks);
+  w.Bm = static_cast<const float*>(Bm);
+  w.out = out;
+  w.T = T;
+  w.d_out = d_out;
+  w.M = M;
+  w.rp = rp;
+  w.attn_weight = attn_weight;
+  w.attn_bits = attn_bits;
+  w.has_post = has_post;
+  w.post[0] = p0;
+  w.post[1] = p1;
+  w.post[2] = p2;
+  w.post[3] = p3;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? wide::launch<__nv_bfloat16, true>(w, st)
+                : wide::launch<float, true>(w, st);
 }

@@ -433,14 +433,13 @@ def _adapter_delta(name, x, adapter, spec, masks, dropout_rng, fused,
                                   spec.dropout_shared_masks else
                                   _PROJ_INDEX[name])
     if fused and layout != "row":
-        if masks.gather_keys is not None:
-            raise ValueError("the fused MokA kernel attends within one "
-                             "sequence: it takes no context parallelism")
         # dropout applies to the adapter's input only: outside the kernel,
-        # the base matmul keeps the clean x
+        # the base matmul keeps the clean x; under a ring the kernel attends
+        # to every shard's question keys (``gather_keys``)
         x_d = x if rng is None else lora_dropout(x, rng, spec.dropout_rate)
         return moka_delta_fused(x_d, a, b, masks.modality, masks.question,
-                                spec)
+                                spec, key_question=masks.key_question,
+                                gather_keys=masks.gather_keys)
     if fused:  # the fused route's dropout: lora_dropout on x
         spec = dataclasses.replace(spec, fused_dropout=False)
     return moka_delta(x, a, b, masks.modality, masks.question, spec,

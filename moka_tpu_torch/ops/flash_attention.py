@@ -16,14 +16,15 @@ torch.  ``flash_mha`` is the differentiable
 entry point (a ``torch.autograd.Function``) and dispatches the backward
 as the JAX custom VJP does (``use_fused_bwd``).
 
-The rank route: fp32 tensors with one head (H = KH = 1) and head_dim <=
-64, MokA's rank-space cross-attention (``ops.moka``, ``flash_rank_attn``),
+The rank route: fp32 tensors with one head (H = KH = 1) at any head_dim,
+MokA's rank-space cross-attention (``ops.moka``, ``flash_rank_attn``),
 run on their own kernels (``kernels/csrc/flash_rank.cu``: a forward, a dq
-and a dk/dv kernel, fp32 SIMT, built for head_dim 4, 8, 16, 32 and 64; any
+and a dk/dv kernel, fp32 SIMT, built for head_dim 4, 8, 16, 32 and 64,
+and past 64 wide kernels over 64-column chunks of any multiple of 64; any
 other head_dim is padded with zero columns to the next, exactly, and runs
-with the scales of its own) through the wrappers ``flash_rank_fwd``, ``flash_rank_bwd_dq`` and
-``flash_rank_bwd_dkv``, with the same contract and the same plain
-versions.  Its backward is always the dq + dk/dv pair.  bf16 at head_dim
+with the scales of its own) through the wrappers ``flash_rank_fwd``,
+``flash_rank_bwd_dq`` and ``flash_rank_bwd_dkv``, with the same contract
+and the same plain versions.  Its backward is always the dq + dk/dv pair.  bf16 at head_dim
 128 keeps the kernels above, and the forward also takes head_dim 64 (the
 frozen CLIP tower, non-causal); anything else on the card raises.
 
@@ -333,7 +334,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if is_rank_route(q, k):
         return flash_rank_fwd(q, k, v, attn_mask, q_offset, causal)
     if on_card(q, "flash attention"):
-        _refuse_wide_rank(q, k)
         return _launch_fwd(q, k, v, attn_mask, q_offset, causal)
     return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
 
@@ -385,29 +385,22 @@ def flash_bwd_dkv(q, k, v, attn_mask, dout, lse, delta, q_offset: int = 0,
 
 # ------------------------------------------------------------ rank route
 
-RANK_HEAD_DIMS = (4, 8, 16, 32, 64)  # the head dims flash_rank.cu is built
-RANK_MAX_HEAD_DIM = RANK_HEAD_DIMS[-1]  # for; any r up to the last is padded
+RANK_HEAD_DIMS = (4, 8, 16, 32, 64)  # flash_rank.cu's instances; past 64
+RANK_WIDE_CHUNK = 64  # its wide kernels take multiples of 64
 
 
 def is_rank_route(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """MokA's rank-space attention: fp32, one head (H = KH = 1),
-    head_dim <= 64."""
-    return q.dtype == torch.float32 and q.shape[2] == 1 and \
-        k.shape[2] == 1 and q.shape[-1] <= RANK_MAX_HEAD_DIM
-
-
-def _refuse_wide_rank(q: torch.Tensor, k: torch.Tensor) -> None:
-    """Rank-space attention past the widest head dim the rank kernels take
-    raises on the card (the bf16 kernels take no fp32 either)."""
-    if q.dtype == torch.float32 and q.shape[2] == 1 and k.shape[2] == 1:
-        raise ValueError(f"the rank flash kernels take head_dim 1-"
-                         f"{RANK_MAX_HEAD_DIM} (MokA ranks up to "
-                         f"{RANK_MAX_HEAD_DIM}), not {q.shape[-1]}")
+    """MokA's rank-space attention: fp32, one head (H = KH = 1), any
+    head_dim."""
+    return q.dtype == torch.float32 and q.shape[2] == 1 and k.shape[2] == 1
 
 
 def rank_built_dim(hd: int) -> int:
-    """The head dim of the rank kernels' instance that runs head_dim
-    ``hd``: the smallest built one at least as wide."""
+    """The head dim the rank kernels run head_dim ``hd`` at: the smallest
+    built instance at least as wide up to 64, past it the next multiple of
+    64 (the wide kernels, a grid axis over 64-column chunks)."""
+    if hd > RANK_HEAD_DIMS[-1]:
+        return -(-hd // RANK_WIDE_CHUNK) * RANK_WIDE_CHUNK
     return next(h for h in RANK_HEAD_DIMS if h >= hd)
 
 
@@ -420,9 +413,10 @@ def _rank_pad(t: torch.Tensor, hd: int) -> torch.Tensor:
 
 
 def _rank_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
-    """Check what the rank kernels take (fp32, one head of head_dim 1 to
-    64, one device, 16-byte aligned) and return the tensors contiguous and
-    padded to the built head dim (``rank_built_dim``), the mask as int32.
+    """Check what the rank kernels take (fp32, one head of any head_dim,
+    one device, 16-byte aligned) and return the tensors contiguous and
+    padded to the head dim they run at (``rank_built_dim``), the mask as
+    int32.
     The checks run on every call, a wrapper runs three times a rank
     attention and 1,792 times a training step, so they are written out: a
     tensor that already passes is neither copied nor cast, and the loops
@@ -443,11 +437,10 @@ def _rank_inputs(q, k, v, attn_mask, dout=None, lse=None, delta=None):
         name, t = next((n, t) for n, t in zip("q k v dout".split(), ts)
                        if t.device != dev)
         raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if not 1 <= hd <= RANK_MAX_HEAD_DIM or H != 1 or \
-            k.shape != (b, S, 1, hd) or v.shape != k.shape:
-        raise ValueError(f"rank flash kernel takes one head of head_dim "
-                         f"1-{RANK_MAX_HEAD_DIM}: q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if hd < 1 or H != 1 or k.shape != (b, S, 1, hd) or v.shape != k.shape:
+        raise ValueError(f"rank flash kernel takes one head: q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)}")
     if attn_mask.shape != (b, S):
         raise ValueError(f"attn_mask {tuple(attn_mask.shape)} != {(b, S)}")
     if dout is not None and dout.shape != q.shape:
@@ -489,18 +482,29 @@ def flash_rank_fwd(q, k, v, attn_mask, q_offset: int = 0,
         return flash_fwd_plain(q, k, v, attn_mask, q_offset, causal)
     r = q.shape[-1]
     q, k, v, mask = _rank_inputs(q, k, v, attn_mask)
-    b, L, _, hd = q.shape
+    b, L = q.shape[:2]
     out = torch.empty_like(q)
     lse = torch.empty((b, 1, L), dtype=torch.float32, device=q.device)
-    # the q scale of the true head dim goes as a c_float, rounded to fp32
-    # as ``_prescaled`` folds it for fp32 q
+    flash_rank_fwd_into(q, k, v, mask, out, lse, r, q_offset, causal)
+    return out[..., :r], lse
+
+
+def flash_rank_fwd_into(q, k, v, mask, out, lse, true_hd: int,
+                        q_offset: int = 0, causal: bool = True) -> None:
+    """R1's launch, counted here: ``out`` (b, L, 1, hd) and ``lse``
+    (b, 1, L) written from q, k, v and the int32 key mask, all on the card
+    and as ``_rank_inputs`` returns them (contiguous, padded to a built
+    head dim hd), with the q scale of the true head dim ``true_hd``.
+    ``flash_rank_fwd`` and kernel 5's wide path launch it."""
+    b, L, _, hd = q.shape
+    # the q scale goes as a c_float, rounded to fp32 as ``_prescaled``
+    # folds it for fp32 q
     _rank_check(_library("flash_rank").moka_flash_rank_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, L, k.shape[1], hd, int(q_offset),
-        int(bool(causal)), LOG2E / math.sqrt(r), raw_stream(q.device)),
+        int(bool(causal)), LOG2E / math.sqrt(true_hd), raw_stream(q.device)),
         "fwd")
     flash_rank_fwd.launches += 1
-    return out[..., :r], lse
 
 
 def flash_rank_bwd_dq(q, k, v, attn_mask, dout, lse, delta,

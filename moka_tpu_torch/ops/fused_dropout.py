@@ -10,11 +10,11 @@ and writes dx and dA.  On a CUDA tensor ``dropout_a_fwd`` and
 ``dropout_a_bwd`` launch the kernels of ``kernels/csrc/fused_dropout.cu``
 (TPU kernels 6 and 7) or raise; on a CPU tensor they run
 ``dropout_a_fwd_plain`` / ``dropout_a_bwd_plain``, the same arithmetic in
-plain torch.  The kernels take every M*r from 1 to 256 (ranks 1-64 with
-one to four modalities) and d a multiple of 8 (``fused_dropout_supported``);
-the plain versions take any shape.  ``with_fused_dropout()`` is an explicit
-opt-in: on the card an M*r the kernels do not take raises, and nothing
-falls back to the unfused dropout, which draws other masks.
+plain torch.  The kernels take every M*r (any rank with any number of
+modalities) and d a multiple of 8 (``fused_dropout_supported``); the plain
+versions take any shape.  ``with_fused_dropout()`` is an explicit opt-in:
+on the card a width the kernels do not take raises, and nothing falls back
+to the unfused dropout, which draws other masks.
 
 The bits: 32-bit words compared with ``threshold(rate)``, as the JAX kernel
 compares them.  Element (n, c) of the (N, d) input takes word c % 4 of
@@ -51,15 +51,12 @@ import torch
 
 from moka_tpu_torch.core.device import on_card, raw_stream
 
-MAX_MR = 256  # the widest M * r the kernels take: rank 64 x 4 modalities
-
-
 def fused_dropout_supported(mr: int, d: int) -> bool:
     """Whether kernels 6-7 take an adapter of M*r ``mr`` on rows of width
-    ``d``: M*r from 1 to ``MAX_MR`` (ranks 1-64 with 1-4 modalities) and d
-    a multiple of 8 (the TMA rows' 16-byte strides).  The wrappers raise on
-    anything else on the card."""
-    return 1 <= mr <= MAX_MR and d > 0 and d % 8 == 0
+    ``d``: any M*r of at least 1 (past 64 the kernels loop over its 64-row
+    tiles) and d a multiple of 8 (the TMA rows' 16-byte strides).  The
+    wrappers raise on anything else on the card."""
+    return mr >= 1 and d > 0 and d % 8 == 0
 
 
 def threshold(rate: float) -> int:
@@ -152,9 +149,8 @@ def _kernel_inputs(x2d, a_flat, key, bits):
         raise ValueError(f"A {tuple(a_flat.shape)} on {a_flat.device} for x "
                          f"{tuple(x2d.shape)} on {x2d.device}")
     if not fused_dropout_supported(mr, d):
-        raise ValueError(f"fused dropout kernels take M*r 1-{MAX_MR} "
-                         f"(ranks 1-64 x 1-4 modalities) and d % 8 == 0, "
-                         f"got M*r {mr}, d {d}")
+        raise ValueError(f"fused dropout kernels take M*r >= 1 and d % 8 "
+                         f"== 0, got M*r {mr}, d {d}")
     x2d, a_flat = x2d.contiguous(), a_flat.contiguous()
     if bits is not None:
         if tuple(bits.shape) != (n, d):

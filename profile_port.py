@@ -18,6 +18,7 @@ encoders' pass of phase 12's batch), at chip_smoke's shapes.
     python3 profile_port.py rank_ablation rank_bwd_ablation
     python3 profile_port.py block_diag_ablation
     python3 profile_port.py moka_delta [--root DIR]
+    python3 profile_port.py moka_prefill [--root DIR]
     python3 profile_port.py moka_ablation
     python3 profile_port.py fused_dropout [--root DIR]
     python3 profile_port.py fused_dropout_ablation dropout_dx_order
@@ -63,7 +64,12 @@ delta (kernel 5) at the serving prefill (b 8, L 896, bf16, AVT) for each
 projection shape of LLaMA-2-7B at ranks 4, 8 and 16: the kernel alone in
 a CUDA graph, the host's µs a call and the wrapper back to back (with
 ``--root``, another checkout's; rank 4 alone where that kernel takes no
-other).  ``moka_ablation`` times kernel 5 with parts taken out
+other).  ``moka_prefill`` times the prefill of the serving batch
+(``greedy_generate`` for one new token, with its defaults) for a MokA AVT
+tree at MOKA_PREFILL_RANKS, untraced and traced, by device group: past
+rank 64 the defaults take kernel 5's wide path since its ranks were
+widened, the unfused delta before (``--root`` of a parent).
+``moka_ablation`` times kernel 5 with parts taken out
 (MOKA_ABLATIONS: edited copies of moka_delta_fwd.cu), twice in turn.
 ``fused_dropout`` times kernels 6 and 7 at the fused step's shape (N
 4096, bf16 x and A, Philox) for each projection width of LLaMA-2-7B at
@@ -154,7 +160,7 @@ def trace(fn) -> tuple[float, dict, dict]:
 GROUPS = (  # device entries by name, first match wins
     ("flash kernels (port)", ("flash_fwd_kernel", "flash_bwd_")),
     ("flash rank kernels (port)", ("flash_rank_",)),
-    ("fused MokA kernels (port)", ("moka_delta_kernel",
+    ("fused MokA kernels (port)", ("moka_delta_kernel", "moka_wide_kernel",
                                    "question_keys_kernel")),
     ("fused dropout kernels (port)", ("dropout_fwd_", "dropout_bwd_",
                                       "transpose_a_kernel")),
@@ -1303,6 +1309,50 @@ def moka_delta_window(host_calls: int = 50) -> dict:
     return {"moka_delta": out}
 
 
+MOKA_PREFILL_RANKS = (128, 512)
+
+
+def moka_prefill_window() -> dict:
+    """The serving prefill (``greedy_generate`` for one new token with its
+    defaults, chip_smoke's phase-4 batch: LLaMA-2-7B, b 8, L 896, bf16
+    base, random weights from a seed) for a MokA AVT tree at each of
+    MOKA_PREFILL_RANKS (B seeded non-zero): the wall untraced and traced,
+    the device busy time and its groups, and which delta route the
+    defaults took (``fused_moka_route``)."""
+    import torch
+    from chip_smoke import build_model, generate, main_path_inputs
+    from moka_tpu_torch.core.config import LlamaConfig
+    from moka_tpu_torch.eval.decode import fused_moka_route
+    from moka_tpu_torch.models import llama
+    from moka_tpu_torch.ops.moka import MokaSpec
+    cfg = LlamaConfig.llama2_7b()
+    base, _ = build_model(cfg, MokaSpec.avt(rank=4, dropout_rate=0.0))
+    inputs = main_path_inputs(cfg, base, BATCH, PROMPT)
+    out = {"package": llama.__file__}
+    for rank in MOKA_PREFILL_RANKS:
+        spec = MokaSpec.avt(rank=rank, dropout_rate=0.0)
+        g = torch.Generator(device="cuda").manual_seed(rank)
+        adapters = llama.init_moka_adapters(g, cfg, spec, device="cuda")
+        for p in adapters["layers"].values():
+            p["b"].normal_(0.0, 0.02, generator=g)
+        fused = fused_moka_route(torch.device("cuda"), None, cfg, spec)
+
+        def gen():
+            generate(cfg, spec, base, adapters, inputs, 1)
+
+        with torch.inference_mode():
+            wall = wall_ms(gen)
+            traced, ops, _ = trace(gen)
+        out[f"r{rank}"] = summary(
+            f"prefill, MokA AVT r{rank} (b {BATCH}, L {PROMPT}; delta "
+            f"{'kernel 5' if fused else 'unfused'})", wall, traced, ops)
+        out[f"r{rank}"]["kernel_5"] = bool(fused)
+        del adapters
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"moka_prefill": out}
+
+
 _MOKA_NO_DOWN = ("        for (int kk = 0; kk < 4; ++kk)\n"
                  "          wgmma_m64nN_ss<C::NP>(",
                  "        for (int kk = 0; kk < 0; ++kk)\n"
@@ -1414,7 +1464,9 @@ def fused_dropout_window(host_calls: int = 50) -> dict:
     host's µs a call and the wrapper back to back; a layer sums the seven
     projections."""
     from moka_tpu_torch.ops import fused_dropout as fd
-    ranks = DROP_MRS if hasattr(fd, "MAX_MR") else \
+    wide = hasattr(fd, "fused_dropout_supported") and \
+        fd.fused_dropout_supported(96, 4096)
+    ranks = DROP_MRS if wide else \
         {r: m for r, m in DROP_MRS.items() if r in (4, 8, 16)} \
         if hasattr(fd, "fused_dropout_supported") else {4: 12}
     out = {"package": fd.__file__}
@@ -1965,6 +2017,7 @@ def main(argv=None) -> int:
                       "block_diag_ablation": block_diag_ablation_window,
                       "moka_delta": moka_delta_window,
                       "moka_ablation": moka_ablation_window,
+                      "moka_prefill": moka_prefill_window,
                       "fused_dropout": fused_dropout_window,
                       "fused_dropout_ablation":
                           fused_dropout_ablation_window,

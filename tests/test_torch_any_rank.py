@@ -1,12 +1,15 @@
 """Port parity at MokA ranks beyond 4, 8 and 16: kernel 5's wrapper, kernels
 6-7's plain versions and the rank route against the JAX package on the CPU,
-and a decoder forward and a fine-tune step's gradients at ranks 6 and 32.
+and a decoder forward at ranks 6, 32 and 128 and a fine-tune step's
+gradients at ranks 6 and 32.
 
-JAX's kernels take any rank; the port's CUDA kernels are built for ranks 4,
-8, 16, 32 and 64 (kernel 5, the rank route's head dims) and every M*r up to
-256 (kernels 6-7), and a rank between runs padded with zero columns.  On
-the CPU each wrapper runs its plain version, at any rank, as JAX's kernel
-does; the card's checks live in chip_smoke.py's phase 19.
+JAX's kernels take any rank, and so do the port's: kernel 5 and the rank
+route are built for ranks (head dims) 4, 8, 16, 32 and 64, a rank between
+runs padded with zero columns, and past 64 they run at the next multiple
+of 64 (kernel 5's wide path, the rank kernels' wide instances); kernels
+6-7 take every M*r.  On the CPU each wrapper runs its plain version, at
+any rank, as JAX's kernel does; the card's checks live in chip_smoke.py's
+phases 19 (ranks up to 64) and 20 (past 64).
 
 Tolerances: fp32 on both sides in other summation orders.  Kernel 5 to
 3e-5 relative + absolute, as ``tests/test_moka_pallas.py`` holds JAX's
@@ -48,12 +51,12 @@ GRAD = dict(rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("flavour", ["avt", "vt"])
-@pytest.mark.parametrize("rank", [1, 2, 3, 6, 12, 32, 64])
+@pytest.mark.parametrize("rank", [1, 2, 3, 6, 12, 32, 64, 65, 128])
 def test_fused_delta_matches_jax_kernel(flavour, rank):
     """The port's ``moka_delta_fused`` on CPU tensors (its plain version)
     against JAX's kernel in interpret mode (block 8: L 13 leaves a ragged
     block), where the port's wrapper used to refuse every rank but 4, 8
-    and 16."""
+    and 16, then every rank past 64."""
     js, ts = _specs(flavour, rank=rank)
     ins = _inputs(rank, 2, 13, 16, 12, js.num_modalities, rank=rank)
     want = j_fused(*map(jnp.asarray, ins), js, 8, True)
@@ -82,11 +85,13 @@ def test_fused_delta_grads_match_jax(rank):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
 
 
-@pytest.mark.parametrize("M,r", [(1, 3), (3, 2), (3, 6), (3, 32), (3, 64)])
+@pytest.mark.parametrize("M,r", [(1, 3), (3, 2), (3, 6), (3, 32), (3, 64),
+                                 (3, 96), (3, 128)])
 def test_dropout_a_proj_matches_jax_at_any_width(M, r):
     """Kernels 6-7's plain versions with forced words (the words the CUDA
     kernels also take) against JAX's kernels in interpret mode at M*r 3,
-    6, 18, 96 and 192: out, dx and dA; dropped inputs get no gradient."""
+    6, 18, 96, 192, 288 and 384: out, dx and dA; dropped inputs get no
+    gradient."""
     b, L, d, rate = 2, 13, 32, 0.3
     rng = np.random.default_rng(M * r)
     x = rng.standard_normal((b, L, d)).astype(np.float32)
@@ -117,7 +122,7 @@ def test_dropout_a_proj_matches_jax_at_any_width(M, r):
     assert np.all(xt.grad.numpy()[dropped] == 0)
 
 
-@pytest.mark.parametrize("hd", [1, 2, 6, 32, 64])
+@pytest.mark.parametrize("hd", [1, 2, 6, 32, 64, 65, 128, 256])
 def test_rank_route_matches_jax(hd):
     """The rank route (``flash_rank_space_cross_attention``: one fp32 head
     of head_dim r through ``flash_mha``) against JAX's (its flash kernels
@@ -185,11 +190,11 @@ def _tiny_world(rank, seed):
     return as_numpy(base), as_numpy(ad), batch
 
 
-@pytest.mark.parametrize("rank", [6, 32])
+@pytest.mark.parametrize("rank", [6, 32, 128])
 def test_decoder_fused_moka_matches_jax(rank):
     """``llama.forward(use_fused_moka=True)`` (kernel 5's wrapper on CPU
-    tensors) against JAX's decoder at ranks 6 and 32, where the port used
-    to raise (``LlamaConfig.tiny()`` at one layer)."""
+    tensors) against JAX's decoder at ranks 6, 32 and 128, where the port
+    used to raise (``LlamaConfig.tiny()`` at one layer)."""
     base, ad, batch = _tiny_world(rank, rank)
     js = jm.MokaSpec.avt(rank=rank, dropout_rate=0.0)
     ts = tm.MokaSpec.avt(rank=rank, dropout_rate=0.0)

@@ -166,21 +166,21 @@ def test_dropout_a_proj_draws_the_keys_words():
 
 def test_kernel_wrappers_check_their_inputs():
     """What the CUDA wrappers refuse (checked before any launch): other
-    dtypes, rows not a multiple of 8 wide, an M*r the kernels do not take
-    (257: rank 65 x 4 modalities, or 0), a mismatched A or bits; every M*r
-    from 1 to 256 passes, and the backward takes no workspace (one (N, d)
-    dx and one (d, M*r) dA)."""
+    dtypes, rows not a multiple of 8 wide, M*r 0 (the only width they
+    refuse), a mismatched A or bits; every M*r from 1 to 256 passes, and
+    257, 260 and 1536 (rank 65 and 128 with four and three modalities, no
+    largest width), and the backward takes no workspace (one (N, d) dx and
+    one (d, M*r) dA)."""
     x = torch.zeros((8, 64))
     a = torch.zeros((64, 12))
     key = DropoutKey(0)
     for bad in ((x.half(), a), (x, a.half()), (x[:, :60], a[:60]),
-                (x, torch.zeros((64, 257))), (x, torch.zeros((64, 0))),
-                (x, torch.zeros((60, 12)))):
+                (x, torch.zeros((64, 0))), (x, torch.zeros((60, 12)))):
         with pytest.raises((TypeError, ValueError)):
             fd._kernel_inputs(*bad, key, None)
-    with pytest.raises(ValueError, match="M\\*r 1-256"):
-        fd._kernel_inputs(x, torch.zeros((64, 260)), key, None)
-    for mr in range(1, fd.MAX_MR + 1):
+    with pytest.raises(ValueError, match="M\\*r >= 1"):
+        fd._kernel_inputs(x, torch.zeros((64, 0)), key, None)
+    for mr in (*range(1, 257), 257, 260, 1536):
         assert fd._kernel_inputs(x, torch.zeros((64, mr)), key, None)[1] \
             .shape == (64, mr)
     with pytest.raises(ValueError, match="bits"):
@@ -195,20 +195,22 @@ def test_kernel_wrappers_check_their_inputs():
 
 
 def test_fused_dropout_supported():
-    """The one predicate of what kernels 6-7 take: every M*r from 1 to 256
-    (so every one of ranks 1-64 with one to four modalities) and d a
-    multiple of 8; M*r 0 and 257 and a misaligned d are refused."""
-    want = {m * r for m in range(1, 5) for r in range(1, 65)}
-    assert max(want) == fd.MAX_MR == 256
+    """The one predicate of what kernels 6-7 take: every M*r of at least 1
+    (so every rank with any number of modalities: 257, 384 and 1536 too)
+    and d a multiple of 8; M*r 0 and a misaligned d are refused."""
+    want = {m * r for m in range(1, 5) for r in (*range(1, 65), 128, 512)}
+    assert not hasattr(fd, "MAX_MR")
     for mr in range(0, 300):
-        assert fd.fused_dropout_supported(mr, 4096) == (1 <= mr <= 256)
+        assert fd.fused_dropout_supported(mr, 4096) == (mr >= 1)
     assert all(fd.fused_dropout_supported(mr, 4096) for mr in want)
     assert fd.fused_dropout_supported(12, 11008)
     assert fd.fused_dropout_supported(64, 200)
     assert fd.fused_dropout_supported(18, 11008)
     for d in (4092, 4100, 12, 0):
         assert not fd.fused_dropout_supported(12, d)
-    assert not fd.fused_dropout_supported(257, 4096)
+        assert not fd.fused_dropout_supported(1536, d)
+    assert fd.fused_dropout_supported(257, 4096)
+    assert fd.fused_dropout_supported(1536, 11008)
 
 
 def _moka_inputs(seed, b=2, L=12, d=16, d_out=8, M=3):

@@ -192,38 +192,38 @@ def test_fused_plain_matches_jax_interpret_kernel(flavour, L, split, rank):
 
 
 def test_fused_route_follows_the_kernel_ranks():
-    """The kernel takes every rank from 1 to 64 with one to four modalities
-    and widths that are multiples of 8; the decode paths' default route
-    takes it for such a spec on the card and the unfused delta otherwise
-    (as JAX's decode, past rank 64); a forced fused delta on the CPU runs
-    the plain version at any rank, as JAX's kernel does, and the card's
-    wrapper refuses rank 65 before any launch, naming the limit."""
+    """The kernel takes every rank with one to four modalities and widths
+    that are multiples of 8 (ranks 1-64 in the persistent kernel's built
+    ranks, past 64 the wide path at the next multiple of 64); the decode
+    paths' default route takes it for such a spec on the card (65 and 128
+    too) and the unfused delta otherwise (five modalities, misaligned
+    widths); a forced fused delta on the CPU runs the plain version at any
+    rank, as JAX's kernel does, and the card's wrapper refuses five
+    modalities before any launch."""
     from moka_tpu_torch.core.config import LlamaConfig
     from moka_tpu_torch.eval.decode import fused_moka_route
     from moka_tpu_torch.ops import moka_pallas as mp
     from moka_tpu_torch.ops.moka_pallas import fused_moka_supported
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cfg = LlamaConfig.llama2_7b()
-    for r in (1, 2, 4, 6, 8, 12, 16, 32, 64):
+    for r in (1, 2, 4, 6, 8, 12, 16, 32, 64, 65, 128):
         for spec in (tm.MokaSpec.avt(rank=r), tm.MokaSpec.vt(rank=r)):
             assert fused_moka_supported(spec)
             assert fused_moka_supported(spec, 4096, 11008)
             assert fused_moka_route(cuda, None, cfg, spec)
             assert not fused_moka_route(cpu, None, cfg, spec)
-    assert [mp.kernel_rank(r) for r in (1, 4, 5, 6, 12, 17, 32, 33, 64)] == \
-        [4, 4, 8, 8, 16, 32, 32, 64, 64]
-    for r in (65, 128):
-        spec = tm.MokaSpec.avt(rank=r)
-        assert not fused_moka_supported(spec)
-        assert not fused_moka_route(cuda, None, cfg, spec)
-        assert fused_moka_route(cuda, True, cfg, spec)  # the caller's choice
+    assert [mp.kernel_rank(r) for r in (1, 4, 5, 6, 12, 17, 32, 33, 64, 65,
+                                        128, 200)] == \
+        [4, 4, 8, 8, 16, 32, 32, 64, 64, 128, 128, 256]
     five = dataclasses.replace(tm.MokaSpec.avt(rank=8), num_modalities=5)
+    assert not fused_moka_route(cuda, None, cfg, five)
+    assert fused_moka_route(cuda, True, cfg, five)  # the caller's choice
     assert not fused_moka_supported(five) and not fused_moka_supported(None)
     assert not fused_moka_supported(tm.MokaSpec.avt(rank=8), 4096, 4100)
     assert fused_moka_route(cuda, None, LlamaConfig.tiny(),
                             tm.MokaSpec.avt(rank=32))
-    assert not fused_moka_route(cuda, None, LlamaConfig.tiny(),
-                                tm.MokaSpec.avt(rank=65))
+    assert fused_moka_route(cuda, None, LlamaConfig.tiny(),
+                            tm.MokaSpec.avt(rank=65))
     js, ts = _specs("avt", rank=32)
     x, a, bm, mod, q = _inputs(9, 2, 12, 16, 8, 3, rank=32)
     np.testing.assert_allclose(  # the plain version on the CPU, any rank
@@ -232,8 +232,15 @@ def test_fused_route_follows_the_kernel_ranks():
         **TOL)
     js, ts = _specs("avt", rank=65)
     x, a, bm, mod, q = _inputs(9, 2, 16, 16, 8, 3, rank=65)
-    with pytest.raises(ValueError, match="ranks 1-64"):
-        mp._launch(*_t(x, a, bm, mod, q), ts)  # the card's checks
+    np.testing.assert_allclose(  # rank 65 too, and its card checks pass
+        moka_delta_fused(*_t(x, a, bm, mod, q), ts).numpy(),
+        np.asarray(jm.moka_delta(*map(jnp.asarray, (x, a, bm, mod, q)), js)),
+        **TOL)
+    five = dataclasses.replace(ts, num_modalities=5)
+    a5 = np.concatenate([a, a[1:]])
+    mod5 = np.concatenate([mod, np.zeros_like(mod[1:])])
+    with pytest.raises(ValueError, match="1-4 modalities"):
+        mp._checked(*_t(x, a5, bm, mod5, q), five)  # the card's checks
     np.testing.assert_allclose(  # the unfused delta takes any rank
         tm.moka_delta(*_t(x, a, bm, mod, q), ts).numpy(),
         np.asarray(jm.moka_delta(*map(jnp.asarray, (x, a, bm, mod, q)), js)),

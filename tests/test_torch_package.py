@@ -279,8 +279,12 @@ def test_fused_dropout_source_contract():
     assert "atomic" not in src and "work" not in bwd + entry
     assert "sum_tiles" not in src and src.count("<<<") == 8
     takes = src[src.index("bool takes("):src.index("uint32_t bf16_pair(")]
-    assert "mr <= MAX_MR" in takes and int(re.search(
-        r"constexpr int MAX_MR = (\d+);", src)[1]) == fd.MAX_MR
+    # no widest M*r: past 64 the kernels loop over tiles, dx over chunks
+    assert "mr >= 1" in takes and "MAX_MR" not in src
+    assert not hasattr(fd, "MAX_MR") and fd.fused_dropout_supported(1536, 8)
+    dx = src[src.index("dropout_dx_kernel(const TA*"):
+             src.index("bool takes(")]
+    assert "DX_JC" in dx and "for (int ch = 0; ch < chunks; ++ch)" in dx
 
 
 def test_moka_delta_source_contract():
@@ -290,7 +294,8 @@ def test_moka_delta_source_contract():
     question mask read in the main kernel); the key pass runs a fixed
     number of CTAs a row (at most KP_CTAS), not one a token; instances for
     ranks 4, 8, 16, 32 and 64 (``KERNEL_RANKS``), every rank up to 64
-    padded to one of them, as ``fused_moka_supported`` says."""
+    padded to one of them, and past 64 the wide path (down product, R1,
+    up product), no largest rank, as ``fused_moka_supported`` says."""
     import re
     from moka_tpu_torch import kernels
     from moka_tpu_torch.ops import moka_pallas as mp
@@ -308,7 +313,11 @@ def test_moka_delta_source_contract():
     assert "dim3(a.L" not in src and "dim3(L" not in src
     for r in mp.KERNEL_RANKS:
         assert f"launch<{r}>(a, x_bf16, st)" in src
-    assert mp.KERNEL_RANKS == (4, 8, 16, 32, 64) and mp.MAX_RANK == 64
+    assert mp.KERNEL_RANKS == (4, 8, 16, 32, 64) and \
+        not hasattr(mp, "MAX_RANK")
+    assert "moka_wide_kernel<T, UP>" in src and "moka_delta_keys" in src
+    assert [mp.kernel_rank(r) for r in (64, 65, 128, 129, 512)] == \
+        [64, 128, 128, 192, 512]
 
 
 def test_rank_and_block_diag_source_contract():
@@ -644,10 +653,11 @@ def test_moka_kernel_at_the_vt_prefill_on_card(card, tmp_path):
 
 @pytest.mark.cuda
 def test_fused_moka_route_on_card(card):
-    """A rank-8 adapter tree serves on the card through
-    ``greedy_generate``'s defaults, which take kernel 5; at rank 32 the
-    defaults take the unfused delta (no launch), and a forced fused delta
-    raises."""
+    """Adapter trees of ranks 8, 32 and 128 serve on the card through
+    ``greedy_generate``'s defaults, which take kernel 5 at every rank; a
+    forced fused delta raises only on a spec kernel 5 still refuses (five
+    modalities, or d_in not a multiple of 8)."""
+    import dataclasses
     from moka_tpu_torch.core.config import LlamaConfig
     from moka_tpu_torch.eval.decode import greedy_generate
     from moka_tpu_torch.models import llama
@@ -667,15 +677,26 @@ def test_fused_moka_route_on_card(card):
               prompt_mask=torch.ones((b, L), device=card),
               masks=llama.MaskBundle(mod, qm), max_new_tokens=3, eos_id=-1,
               use_flash=False)  # tiny head_dim 16: no flash kernel
-    for rank, fused in ((8, True), (32, False)):
+    for rank in (8, 32, 128):
         spec = MokaSpec.avt(rank=rank, dropout_rate=0.0)
         adapters = llama.init_moka_adapters(g, cfg, spec, device=card)
-        moka_delta_fused.launches = 0
+        counters = ("launches", "wide_down_launches", "wide_up_launches")
+        for name in counters:
+            setattr(moka_delta_fused, name, 0)
         toks = greedy_generate(base, adapters, spec=spec, **kw)
         assert toks.shape == (b, 3)
-        assert (moka_delta_fused.launches > 0) == fused
-    with pytest.raises(ValueError, match="ranks"):
-        greedy_generate(base, adapters, spec=spec, use_fused_moka=True, **kw)
+        calls = 7 * cfg.n_layers  # past rank 64: the wide path's two
+        want = (0, calls, calls) if rank > 64 else (calls, 0, 0)
+        assert tuple(getattr(moka_delta_fused, n) for n in counters) == want
+    five = dataclasses.replace(spec, num_modalities=5)
+    x = torch.randn((b, L, 12), device=card)
+    a5 = torch.zeros((5, 12, 128), device=card)
+    with pytest.raises(ValueError, match="modalities"):
+        moka_delta_fused(x, a5, torch.zeros((128, 8), device=card),
+                         torch.zeros((5, b, L), device=card), qm, five)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        moka_delta_fused(x, a5[:3], torch.zeros((128, 8), device=card),
+                         mod, qm, spec)
 
 
 @pytest.mark.cuda

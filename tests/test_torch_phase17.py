@@ -60,6 +60,13 @@ def test_phase17_rehearsal(chip_smoke, tmp_path):
                                 "all_gather": "device", "send": "host"}
     assert res["backend"] == "gloo"
     assert all(not any(c.values()) for c in res["ring"]["launches_by_rank"])
+    # phase 20 (d), kernel 5's wrapper under the ring (its plain version)
+    fused = res["ring_fused"][f"r{chip_smoke.P20_RING[2][-1]}"]
+    assert fused["loss_rel"] <= chip_smoke.P20_RING_TOL[0]
+    fault, tol = fused["fault"], chip_smoke.P20_RING_TOL
+    assert fault["loss_rel"] > tol[0] or \
+        max(fault["grad_rel_l2"].values()) > tol[1]
+    assert all(not any(c.values()) for c in fused["launches_by_rank"])
     assert set(res["ring"]["shallow"]) == {"flash", "dense"}
     for name in ("1,2,1", "2,1,1"):
         rec = res["mesh"][name]

@@ -59,30 +59,35 @@ RANK_CALLS = 14  # a layer: 7 projections x AVT's 2 attending modalities
 
 
 def test_rank_route_dispatch():
-    """fp32, one head, head_dim <= 64 take the rank route; bf16 at head_dim
-    128, multi-head fp32 and head_dim 65 do not; a head dim between the
-    built ones runs in the next one, padded with zero columns, and head_dim
-    65 is refused on the card with the limit named."""
+    """fp32 with one head takes the rank route at any head_dim (65, 128
+    and 512 too); bf16 and multi-head fp32 do not; a head dim between the
+    built ones runs in the next one, and one past 64 at the next multiple
+    of 64 (the wide kernels), padded with zero columns; what stays refused
+    is another head count, not a width."""
     def qk(dtype, H, hd):
         return (torch.zeros((1, 4, H, hd), dtype=dtype),
                 torch.zeros((1, 4, H, hd), dtype=dtype))
-    for hd in (1, 2, 4, 6, 16, 32, 64):
+    for hd in (1, 2, 4, 6, 16, 32, 64, 65, 128, 512):
         assert fa.is_rank_route(*qk(torch.float32, 1, hd))
-    assert not fa.is_rank_route(*qk(torch.float32, 1, 65))
     assert not fa.is_rank_route(*qk(torch.float32, 2, 4))
+    assert not fa.is_rank_route(*qk(torch.float32, 2, 128))
     assert not fa.is_rank_route(*qk(torch.bfloat16, 1, 4))
     assert not fa.is_rank_route(*qk(torch.bfloat16, 32, 128))
     assert fa.RANK_HEAD_DIMS == (4, 8, 16, 32, 64)
-    assert [fa.rank_built_dim(h) for h in (1, 3, 5, 6, 12, 20, 33, 64)] == \
-        [4, 4, 8, 8, 16, 32, 64, 64]
+    assert [fa.rank_built_dim(h) for h in (1, 3, 5, 6, 12, 20, 33, 64, 65,
+                                           96, 128, 129, 512)] == \
+        [4, 4, 8, 8, 16, 32, 64, 64, 128, 128, 128, 192, 512]
     q, k = qk(torch.float32, 1, 6)
     padded = fa._rank_inputs(q, k, k, torch.ones((1, 4)))
     assert [t.shape[-1] for t in padded[:3]] == [8, 8, 8]
     assert padded[3].dtype == torch.int32
-    with pytest.raises(ValueError, match="head_dim 1-64"):
-        fa._refuse_wide_rank(*qk(torch.float32, 1, 65))
-    with pytest.raises(ValueError, match="head_dim 1-64"):
-        q, k = qk(torch.float32, 1, 65)
+    assert not hasattr(fa, "_refuse_wide_rank") and \
+        not hasattr(fa, "RANK_MAX_HEAD_DIM")
+    q, k = qk(torch.float32, 1, 65)
+    padded = fa._rank_inputs(q, k, k, torch.ones((1, 4)))
+    assert [t.shape[-1] for t in padded[:3]] == [128, 128, 128]
+    with pytest.raises(ValueError, match="one head"):
+        q, k = qk(torch.float32, 2, 65)
         fa._rank_inputs(q, k, k, torch.ones((1, 4)))
 
 
@@ -289,8 +294,9 @@ def test_rank_inputs_pass_ready_tensors_through_and_check_the_rest():
     the three kernels): an fp32 q, k, v and an int32 contiguous mask on
     q's device come back as the same tensors, uncopied and uncast; a float
     or strided mask is cast once; head_dim 3 comes back padded to the
-    built head_dim 4; a wrong dtype, head count, head_dim (65), mask
-    shape, lse shape or a misaligned tensor raises."""
+    built head_dim 4 and head_dim 65 to 128 (the wide kernels'); a wrong
+    dtype, head count, head_dim (0), mask shape, lse shape or a misaligned
+    tensor raises."""
     rng = np.random.default_rng(12)
     q, k, v, dout = (torch.tensor(rng.standard_normal((2, 24, 1, 4)),
                                   dtype=torch.float32) for _ in range(4))
@@ -306,13 +312,16 @@ def test_rank_inputs_pass_ready_tensors_through_and_check_the_rest():
         assert torch.equal(m, mask)
     with pytest.raises(TypeError, match="v is torch.float64"):
         fa._rank_inputs(q, k, v.double(), mask)
-    with pytest.raises(ValueError, match="one head of head_dim"):
-        wide = torch.zeros((2, 24, 1, 65))
-        fa._rank_inputs(wide, wide, wide, mask)
+    wide = torch.zeros((2, 24, 1, 65))
+    assert [t.shape[-1] for t in fa._rank_inputs(wide, wide, wide,
+                                                 mask)[:3]] == [128] * 3
+    with pytest.raises(ValueError, match="one head"):
+        empty = torch.zeros((2, 24, 1, 0))
+        fa._rank_inputs(empty, empty, empty, mask)
     three = fa._rank_inputs(q[..., :3], k[..., :3], v[..., :3], mask)
     assert all(torch.equal(t[..., :3], u[..., :3]) and not t[..., 3].any()
                for t, u in zip(three, (q, k, v)))  # padded to head_dim 4
-    with pytest.raises(ValueError, match="one head of head_dim"):
+    with pytest.raises(ValueError, match="one head"):
         fa._rank_inputs(q.expand(2, 24, 2, 4), k, v, mask)
     with pytest.raises(ValueError, match="attn_mask"):
         fa._rank_inputs(q, k, v, mask[:, :-1])
