@@ -293,7 +293,11 @@ Phases, in order; any failed build, launch or check exits non-zero:
      (VT) through the wide path, with four modalities and on fp32 x,
      kernels 6-7 at P20_DROP_MRS (dx bit for bit, N 4096 and the ragged
      rows), R1-R3 at P20_RANK_DIMS, each against its plain version and
-     timed; (b) phase 4's base serving a rank-128 tree under phase 4's
+     timed (kernel 5 beside its bound, R1 beside SDPA), then kernel 5's
+     wide path launched as each MOKA_WIDE_MUTANTS fault and R1 past
+     head_dim 64 as each RANK_WIDE_MUTANTS fault, which must fail those
+     checks (``p20_wide_mutants``); (b) phase 4's base serving a rank-128
+     tree under phase 4's
      logits rule (``moka_launches``: 224 down and 224 up products and 448
      R1 launches a prefill); (c) the fused step at P20_STEP; (d) kernel 5
      under a ring of 2 ranks at 2 layers, held to one process
@@ -635,17 +639,18 @@ BD_SASS = ("block_diag", "block_diag_kernel", 4)  # kernel 10: library,
 RANK_BWD_SASS = (("flash_rank_dq_kernel", "flash_rank_dkv_kernel"), 5)
 # the rank backward (fp32 SIMT): function stems, instances each (hd 4, 8,
 # 16, 32, 64)
-RANK_WIDE_SASS = ("flash_rank_fwd_wide", "flash_rank_dq_wide",
-                  "flash_rank_dkv_wide")  # past head_dim 64: one each
+RANK_WIDE_SASS = {"flash_rank_fwd_wide": 3, "flash_rank_dq_wide": 1,
+                  "flash_rank_dkv_wide": 1}  # past head_dim 64: instances
+# (the forward's at 32, 16 and 8 query rows a CTA)
 
 
 def check_bd_rank_sass() -> dict:
     """Kernel 10 loads x by TMA: each of its four instances (bf16 and fp32
     x, b 8 and any b) shows UTMALDG; the rank backward sums in a fixed
     order: each instance of its dq and dk/dv kernels shows no atomic (ATOM,
-    RED), so repeats are bit-identical, and so does each of the three
-    kernels past head_dim 64 (``RANK_WIDE_SASS``, one instance each).
-    Raises otherwise."""
+    RED), so repeats are bit-identical, and so does each instance of the
+    three kernels past head_dim 64 (``RANK_WIDE_SASS``).  Raises
+    otherwise."""
     out = {}
     for lib in ("flash_rank", BD_SASS[0]):
         out[lib] = sass_counts(lib)
@@ -658,7 +663,7 @@ def check_bd_rank_sass() -> dict:
                              f"loads: {out[BD_SASS[0]]}")
     stems, n = RANK_BWD_SASS
     for stem, want in [(st, n) for st in stems] + \
-            [(st, 1) for st in RANK_WIDE_SASS]:
+            list(RANK_WIDE_SASS.items()):
         ks = [c for fn, c in out["flash_rank"].items() if stem in fn]
         if len(ks) != want or any(c["ATOM"] for c in ks):
             raise AssertionError(f"flash_rank SASS: {stem} has {len(ks)} "
@@ -671,17 +676,20 @@ def check_bd_rank_sass() -> dict:
 MOKA_SASS = ("moka_delta_fwd", "moka_delta_kernelILi", 20)  # kernel 5:
 # library, the bf16 kernel's mangled stem, instances (R 4/8/16/32/64 x M
 # 1-4)
-MOKA_WIDE_SASS = ("moka_wide_kernel", 4)  # its wide path's products: x or
-# buf bf16 / fp32 x down / up, fp32 SIMT
+MOKA_WIDE_SASS = {"gemm_kernel": 2, "moka_wide_kernel": 2}  # its wide
+# path's products: bf16 x down / up on wgmma and TMA; fp32 x down / up,
+# fp32 SIMT
 
 
 def check_moka_sass() -> dict:
     """Kernel 5's bf16 path runs its products on wgmma and moves x and the
     delta by TMA: each of its twenty instances shows HGMMA, UTMALDG and
-    UTMASTG and no HMMA; the wide path's four product kernels
-    (``MOKA_WIDE_SASS``, fp32 FMAs) are there, with no atomic and no
-    mma.sync; the key pass and the fp32 path (SIMT) are only printed.
-    Raises otherwise."""
+    UTMASTG and no HMMA; the wide path's bf16-x products (``gemm_kernel``,
+    down and up) show HGMMA and UTMALDG and no HMMA, the up product also
+    UTMASTG (the delta stored by TMA), its fp32-x products
+    (``moka_wide_kernel``, fp32 FMAs) are there, and none of the four has
+    an atomic; the key pass, the operand passes and the fp32 path (SIMT)
+    are only printed.  Raises otherwise."""
     out = sass_counts(MOKA_SASS[0])
     for fn, c in out.items():
         log(f"    {MOKA_SASS[0]} SASS {fn}: " +
@@ -692,13 +700,18 @@ def check_moka_sass() -> dict:
             c["HMMA"] for c in ks):
         raise AssertionError(f"moka_delta_fwd SASS: an instance of the bf16 "
                              f"kernel lacks wgmma or TMA: {out}")
-    wide = [c for fn, c in out.items() if MOKA_WIDE_SASS[0] in fn]
-    if len(wide) != MOKA_WIDE_SASS[1] or any(c["ATOM"] or c["HMMA"]
-                                             for c in wide):
-        raise AssertionError(f"moka_delta_fwd SASS: the wide path has "
-                             f"{len(wide)} product kernels, want "
-                             f"{MOKA_WIDE_SASS[1]}, or one has an atomic: "
-                             f"{out}")
+    gemm = {fn: c for fn, c in out.items() if "gemm_kernel" in fn}
+    simt = [c for fn, c in out.items() if "moka_wide_kernel" in fn]
+    if len(gemm) != MOKA_WIDE_SASS["gemm_kernel"] or \
+            len(simt) != MOKA_WIDE_SASS["moka_wide_kernel"] or any(
+                c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] or
+                ("ILb1E" in fn and c["UTMASTG"] == 0)
+                for fn, c in gemm.items()) or \
+            any(c["ATOM"] for c in [*gemm.values(), *simt]):
+        raise AssertionError(f"moka_delta_fwd SASS: the wide path's bf16 "
+                             f"products lack wgmma or TMA, keep mma.sync, "
+                             f"or a product kernel is missing or has an "
+                             f"atomic: {out}")
     return out
 
 
@@ -749,7 +762,12 @@ RANK_MUTANTS = {  # flash_rank.cu's forward
          "                      lo / 256 * 256 + 255);")],
     "gives 0 to a row that sees no key": [
         ("o[g * W + d] = vsum[d] / static_cast<float>(S);",
-         "o[g * W + d] = 0.f;")]}
+         "o[g * W + d] = 0.f;")],
+    "the wide forward walks only its first key tile": [
+        ("  const int tiles = kend < lo ? 0 : (kend - lo) / WKT + 1;",
+         "  const int tiles = kend < lo ? 0 : 1;")]}
+RANK_WIDE_MUTANTS = ("the wide forward walks only its first key tile",)
+# (faults of R1 past head_dim 64: phase 20 runs them, phase 3 the others)
 RANK_BWD_MUTANTS = {  # flash_rank.cu's dq (R2) and dk/dv (R3)
     "dq walks only the first 32 keys of the span": [
         ("  const int stop = causal ? min(last, row + q_offset) : last;",
@@ -770,13 +788,23 @@ BD_MUTANTS = {  # block_diag.cu
     "reads the block transposed": [
         ("w[i8][j] = __ldg(bp + i8 * 8 + j);",
          "w[i8][j] = __ldg(bp + j * 8 + i8);")]}
-MOKA_MUTANTS = {  # moka_delta_fwd.cu's bf16 kernel (the main path's)
+MOKA_MUTANTS = {  # moka_delta_fwd.cu's bf16 kernels (the main path's)
     "drops the attention term": [
         ("        if (add) buf[at * R + r] += w * (a.attn_weight * (o / l));",
          "        (void)o;")],
     "walks only the first key chunk": [
         ("      for (int c0 = 0; c0 < n_q; c0 += C::KCAP) {",
-         "      for (int c0 = 0; c0 < min(n_q, C::KCAP); c0 += C::KCAP) {")]}
+         "      for (int c0 = 0; c0 < min(n_q, C::KCAP); c0 += C::KCAP) {")],
+    "the wide down product skips its last d_in tile": [
+        ("  const int nkb = UP ? 3 * (w.rp / 64) : (w.d_in + 63) / 64;",
+         "  const int nkb = UP ? 3 * (w.rp / 64) : (w.d_in + 63) / 64 - 1;")],
+    "the wide up product drops the attention term": [
+        ("      v = make_float2(v.x + mk * (w.attn_weight * u.x),\n"
+         "                      v.y + mk * (w.attn_weight * u.y));",
+         "      (void)mk;\n      (void)u;")]}
+MOKA_WIDE_MUTANTS = ("the wide down product skips its last d_in tile",
+                     "the wide up product drops the attention term")
+# (faults of kernel 5's wide path, past rank 64: phase 20 runs them)
 DROP_MUTANTS = {  # fused_dropout.cu's bf16-x kernels (the path's)
     "the backward masks with the neighbouring counter (col // 4 + 1)": [
         ("        words8<FORCED>(bits, n0 + r, c0 + 8 * q, sh.n_rows, sh.d, "
@@ -1484,6 +1512,8 @@ def moka_record(b, L, dim, inter) -> dict:
             if dtype == torch.bfloat16:
                 err = max(err, d)
     for what, lib in MUTANTS["moka_delta_fwd"].items():
+        if what in MOKA_WIDE_MUTANTS:
+            continue  # phase 20's
         with swapped_library("moka_delta_fwd", lib):
             must_fail(f"kernel 5 mutant ({what})", lambda: check_moka(
                 f"mutant ({what}) r16 bf16 {MOKA_KCAP[16] + 44} question "
@@ -2286,6 +2316,8 @@ def rank_flash_records(b, L) -> list[dict]:
     errs = [check_rank(name, *ins, q_offset, causal)
             for name, ins, q_offset, causal in cases]
     for what, lib in MUTANTS["flash_rank"].items():
+        if what in RANK_WIDE_MUTANTS:
+            continue  # phase 20's
         with swapped_library("flash_rank", lib):
             must_fail(f"rank mutant ({what})",
                       lambda: [check_rank(name, *ins, q_offset, causal)
@@ -6951,7 +6983,7 @@ def p19_moka_records(cfg, b=8, L=896, ranks=P19_RANKS, vt_rank=P19_VT_RANK,
         log(f"  moka {flavour} r{rank} (instance r{kernel_rank(rank)}), a "
             f"layer's seven projections (b {b}, L {L}, bf16): kernel alone "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+            f"{bms:.4f} ms ({by}; the kernel {t['ms'] / bms:.2f}x it)")
         records.append({
             "name": f"moka_delta_fwd_{flavour}_r{rank}", "route": "cuda",
             "source": "moka_tpu_torch/kernels/csrc/moka_delta_fwd.cu",
@@ -7132,8 +7164,8 @@ def p19_rank_records(b=4, L=1024, dims=P19_RANK_DIMS,
                                (pairs, SFU_OPS))
             log(f"  rank flash {which} hd {hd} (b {b}, L {L}, {seen // b} "
                 f"question keys a sample): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms "
-                f"({by})")
+                f"{plain_ms:.4f} ms, sdpa {lib:.4f} ms (the kernel "
+                f"{ms / lib:.2f}x it), bound {bms:.5f} ms ({by})")
             records.append({
                 "name": f"flash_rank_{which}_hd{hd}", "route": "cuda",
                 "source": "moka_tpu_torch/kernels/csrc/flash_rank.cu",
@@ -7458,6 +7490,37 @@ def keys_kept_home():
         llama.moka_delta_fused = fused
 
 
+def p20_wide_mutants() -> None:
+    """Kernel 5's wide path launched as each MOKA_WIDE_MUTANTS fault must
+    fail ``check_moka`` at rank 512 (the question span [2, 130)) or on
+    ``p20_moka_shapes``' 700-key case at rank 128; R1 past head_dim 64
+    launched as each RANK_WIDE_MUTANTS fault must fail ``check_rank`` on
+    the key layouts (RANK_LAYOUTS: a span of 750 keys, six tiles) at head
+    dims 128 and 512, or kernel 5 on the 700-key case."""
+    import torch
+
+    def moka_cases(what):
+        check_moka(f"mutant ({what}) r512 bf16 1024->1024",
+                   *moka_inputs(2, 300, 1024, 1024, "avt", torch.bfloat16,
+                                26, 512))
+        check_moka(f"mutant ({what}) r128 bf16 1024->1024, 700 question "
+                   f"keys", *moka_inputs(2, 900, 1024, 1024, "avt",
+                                         torch.bfloat16, 25, 128,
+                                         qspans=((100, 800),)))
+
+    for what in MOKA_WIDE_MUTANTS:
+        with swapped_library("moka_delta_fwd", MUTANTS["moka_delta_fwd"][what]):
+            must_fail(f"kernel 5 wide-path mutant ({what})",
+                      lambda: moka_cases(what))
+    for what in RANK_WIDE_MUTANTS:
+        with swapped_library("flash_rank", MUTANTS["flash_rank"][what]):
+            must_fail(f"R1 wide mutant ({what})", lambda: (
+                [check_rank(f"mutant ({what}) hd {hd} key layouts",
+                            *rank_case(4, 1024, hd=hd, seed=3 + hd,
+                                       spans=RANK_LAYOUTS))
+                 for hd in (128, 512)], moka_cases(what)))
+
+
 def p20_ring(rank: int, device: str, tiny: bool) -> dict:
     """(d), in phase 17's world: kernel 5 under the context-parallel ring.
     ``make_llama_moka_loss(use_fused_moka=True, context_parallel=...)``
@@ -7572,6 +7635,8 @@ def phase20_here(cfg, base, inputs, new_tokens) -> dict:
     records = p19_moka_records(cfg, ranks=P20_RANKS, vt_rank=P20_VT_RANK,
                                more=p20_moka_shapes())
     lap("a_kernel5")
+    p20_wide_mutants()
+    lap("a_mutants")
     records += p19_dropout_records(cfg, mrs=P20_DROP_MRS)
     lap("a_kernels67")
     records += p19_rank_records(dims=P20_RANK_DIMS, layouts=True)

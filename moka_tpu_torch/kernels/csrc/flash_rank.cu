@@ -7,14 +7,19 @@
 // of the true r.  At 4-16 a lane holds a whole row of q, k, v or dO; at 32
 // and 64 two or four adjacent lanes share a row, 16 values each, their
 // partial dot products summed by shuffles within the group (Split,
-// group_sum), so a lane's registers are those of r 16.  Past 64 (the
-// *_wide kernels) a grid axis takes the 64-column chunks of the output
-// (out, dq, dk, dv): each chunk's CTA computes the scores' dot products
-// over the whole head dim, four lanes a row as at 64, reading q, k, v and
-// dO from L1 and L2 chunk by chunk, and keeps only its chunk's columns of
-// the weighted sums.  The scores are computed again in every chunk's CTA,
-// the same instructions on the same values, so each chunk sees the same
-// softmax; no register or shared array grows with the head dim.
+// group_sum), so a lane's registers are those of r 16.  Past 64 the
+// forward (flash_rank_fwd_wide, R1 in kernel 5's wide path) computes each
+// visible score once: a CTA of QT query rows stages q's rows and each
+// 128-key tile of the visible span in shared memory 64 columns at a time
+// (cp.async, two stages), sums register-tiled fp32 scores over the whole
+// head dim, takes an online softmax in exp2 a tile, and accumulates p v
+// in registers that do not grow with the head dim (QT shrinks as it
+// grows).  dq and dk/dv past 64 (the *_wide backward kernels) take a grid
+// axis over the 64-column chunks of their output: each chunk's CTA
+// computes the dot products over the whole head dim again, four lanes a
+// row as at 64, reading q, k, v and dO from L1 and L2 chunk by chunk, the
+// same instructions on the same values, so each chunk sees the same p; no
+// register or shared array grows with the head dim.
 //
 // Replaces the TPU kernels moka_tpu/ops/flash_attention.py::_fwd_kernel,
 // _bwd_fused_kernel, _bwd_dq_kernel and _bwd_dkv_kernel where
@@ -682,107 +687,326 @@ __device__ __forceinline__ float wide_dot(const float* a, const float* b,
   return s;
 }
 
-// The forward past head dim 64: grid (L / 8, B, ld / 64), a CTA of 8
-// warps serving 8 query rows, a warp a row, four lanes a key (8 keys at a
-// time), as flash_rank_fwd_kernel<64>; blockIdx.z is the chunk of the
-// output's columns this CTA writes, and chunk 0's CTA also writes lse.  A
-// row that sees no key takes the mean of V's chunk over all S keys.
-__global__ void __launch_bounds__(FWD_NT)
+// The forward past head dim 64 (flash_rank_fwd_wide): a CTA of 256
+// threads serves QT query rows of one sample and computes each visible
+// (query, key) score once.  The CTA walks its sample's visible span in
+// tiles of WKT keys; for a tile it
+//   1. stages q's rows and the tile's keys 64 columns at a time (cp.async
+//      into a ring of two stages, each row padded by 16 bytes so that the
+//      rows of a warp's loads fall in distinct banks) and sums each
+//      thread's TQ x 4 scores over the whole head dim, one FMA chain
+//      each (register tiles: q rows qg + 8 i, keys kg + 32 j);
+//   2. writes the masked scores to shared memory; WNT / QT threads a row
+//      take its max, rescale its running sum and turn the scores into p
+//      (online softmax in exp2, the row's max and sum kept in shared
+//      memory);
+//   3. stages the tile's values 64 columns at a time and adds p v into
+//      the output, which stays in registers: a warp owns QT / 8 rows and
+//      a lane two columns of every 64, so a thread holds WO = 64 outputs
+//      whatever the head dim (QT x CW = WNT x WO).
+// QT is 32 up to head dim 512, 16 up to 1024 and 8 past it; a pass
+// covers CW = 16384 / QT output columns, so up to head dim 2048 one pass
+// holds every column and no score is computed twice.  Past 2048 a grid
+// axis takes the passes, each computing the scores again (a rank past
+// half of LLaMA-2-7B's width).  q's rows are read from device memory once
+// a CTA: a span of at most WKT keys (MokA's question spans) is one tile,
+// and each further tile reads them again from L2.
+// Bound: operations, 4 hd fp32 flops (q.k and p v) and an exp2 a visible
+// pair; at kernel 5's serving prefill (hd 512, 128 question keys, b 8 x L
+// 896) 1.9 GFLOP, 28 us at 67 TFLOP/s, against ~30 MB of q, out and the
+// visible keys (9 us).  The score tiles take 8 shared-memory loads for 16
+// TQ FMAs, the p v tiles 4 + TQ for 8 TQ; no atomics, a fixed order of
+// every sum, so repeats are bit-identical.
+constexpr int WKT = 128;            // keys a tile
+constexpr int WPAD = WCH + 4;       // floats of a staged row
+constexpr int WNT = 256;            // threads of a CTA
+constexpr int WO = 64;              // output values a thread holds
+constexpr int PSTR = WKT + 4;       // floats of a row of p
+
+// 16 bytes from global to shared memory, asynchronously; zeros where `ok`
+// is false (nothing is read then)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's cp.async groups still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the shared memory of flash_rank_fwd_wide<QT>: two stages of QT + WKT
+// rows, p, the rows' running max, sum and rescale, V's column sums
+template <int QT>
+constexpr int fwd_wide_smem() {
+  return 4 * (2 * (QT + WKT) * WPAD + QT * PSTR + 3 * QT + WO * WNT / QT);
+}
+
+template <int QT>
+__global__ void __launch_bounds__(WNT, 1)
     flash_rank_fwd_wide(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ mask, float* __restrict__ out,
                         float* __restrict__ lse, int L, int S, int ld,
                         int q_offset, int causal, float qscale) {
-  constexpr int SLOTS = 32 / WG;
-  __shared__ float vsum_part[FWD_WARPS][WCH];
-  const int b = blockIdx.y, oc = blockIdx.z * WCH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane % WG, slot = lane / WG;
-  const unsigned gmask = group_mask<WG>(lane);
-  const int row0 = blockIdx.x * FWD_WARPS, row = row0 + warp;
-  const long r = static_cast<long>(b) * L + row;
+  constexpr int TQ = QT / 8;             // query rows a thread
+  constexpr int CW = WO * WNT / QT;      // output columns a pass
+  constexpr int NCH = CW / WCH;          // 64-column chunks a pass
+  constexpr int STAGE = (QT + WKT) * WPAD;
+  constexpr int RT = WNT / QT;           // threads a row in the softmax
+  extern __shared__ __align__(16) float wsm[];
+  float* ps = wsm + 2 * STAGE;
+  float* row_m = ps + QT * PSTR;  // running max (base 2), sum, rescale
+  float* row_l = row_m + QT;
+  float* row_a = row_l + QT;
+  float* vsum = row_a + QT;       // [CW]
+  const int b = blockIdx.y, row0 = blockIdx.x * QT, c0 = blockIdx.z * CW;
+  const int nch = min(CW, ld - c0) / WCH;  // this pass's chunks
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // scores: keys kg + 32 j, rows qg + 8 i; p v: rows warp + 8 i
+  const int kg = (warp & 3) * 8 + (lane & 7), qg = (warp >> 2) * 4 + (lane >> 3);
   const int* mrow = mask + b * static_cast<long>(S);
-  const int2 span = visible_span<FWD_NT>(mrow, S);
+  const long qb = static_cast<long>(b) * L, kb = static_cast<long>(b) * S;
+  const int2 span = visible_span<WNT>(mrow, S);
   const int lo = span.x;
   const int hi = span.y;
+  // the last key a row of the CTA may see
+  const int kend = causal ? min(hi, min(row0 + QT, L) - 1 + q_offset) : hi;
+  const int tiles = kend < lo ? 0 : (kend - lo) / WKT + 1;
+  const int nqk = ld / WCH;  // the scores' chunks: the whole head dim
 
-  // the sum of V's chunk over all S keys, for the rows that see no key
-  float vsum[WW];
-#pragma unroll
-  for (int d = 0; d < WW; ++d) vsum[d] = 0.f;
+  if (tid < QT) {
+    row_m[tid] = NEG_INF;
+    row_l[tid] = 0.f;
+  }
+  // the sum of V's columns over all S keys, for the rows that see no key;
+  // the CTA's first row has the earliest causal limit, so it is such a
+  // row if any is
   if (hi < 0 || (causal && row0 + q_offset < lo)) {
-    for (int j = threadIdx.x / WG; j < S; j += FWD_NT / WG) {
-      float vr[WW];
-      load_row<WW>(v + (static_cast<long>(b) * S + j) * ld + oc + g * WW, vr);
-#pragma unroll
-      for (int d = 0; d < WW; ++d) vsum[d] += vr[d];
+    for (int c = tid; c < nch * WCH; c += WNT) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < S; ++j) s += __ldg(v + (kb + j) * ld + c0 + c);
+      vsum[c] = s;
     }
+  }
+
+  // a stage: q's rows and the keys of the tile at k0, columns 64 c.. (the
+  // scores), or the values of the tile, columns c0 + 64 c.. (p v)
+  auto stage = [&](int n) { return wsm + (n & 1) * STAGE; };
+  auto load_qk = [&](int n, int k0, int c) {
+    float* dst = stage(n);
+    for (int e = tid; e < (QT + WKT) * (WCH / 4); e += WNT) {
+      const int r = e / (WCH / 4), f = (e % (WCH / 4)) * 4;
+      const bool is_q = r < QT;
+      const int idx = is_q ? row0 + r : k0 + r - QT;
+      const bool ok = idx < (is_q ? L : S);
+      const float* src = (is_q ? q + (qb + (ok ? idx : 0)) * ld
+                               : k + (kb + (ok ? idx : 0)) * ld) + WCH * c + f;
+      cp_async16(dst + r * WPAD + f, src, ok);
+    }
+    cp_async_commit();
+  };
+  auto load_v = [&](int n, int k0, int c) {
+    float* dst = stage(n);
+    for (int e = tid; e < WKT * (WCH / 4); e += WNT) {
+      const int r = e / (WCH / 4), f = (e % (WCH / 4)) * 4;
+      const bool ok = k0 + r < S;
+      cp_async16(dst + r * WPAD + f,
+                 v + (kb + (ok ? k0 + r : 0)) * ld + c0 + WCH * c + f, ok);
+    }
+    cp_async_commit();
+  };
+
+  float o[NCH][TQ][2];
 #pragma unroll
-    for (int d = 0; d < WW; ++d) {
-      vsum[d] = slice_sum<WG>(vsum[d]);
-      if (lane < WG) vsum_part[warp][g * WW + d] = vsum[d];
+  for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) o[cc][i][0] = o[cc][i][1] = 0.f;
+  int n = 0;  // stages consumed
+  if (tiles > 0) load_qk(0, lo, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = lo + t * WKT;
+    // ---- 1. the scores over the whole head dim
+    float s[TQ][4];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nqk; ++c, ++n) {
+      if (c + 1 < nqk)
+        load_qk(n + 1, k0, c + 1);
+      else
+        load_v(n + 1, k0, 0);
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* qs = stage(n);
+      const float* ks = qs + QT * WPAD;
+#pragma unroll 2
+      for (int d = 0; d < WCH; d += 4) {
+        float4 qv[TQ], kv[4];
+#pragma unroll
+        for (int i = 0; i < TQ; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (qg + 8 * i) * WPAD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(ks + (kg + 32 * j) * WPAD + d);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
+      __syncthreads();  // the stage is read before it is loaded again
+    }
+    // ---- 2. masked scores, then p and the rows' running max and sum
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + kg + 32 * j;
+      const bool on = key <= kend && __ldg(mrow + key) > 0;
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const int r = qg + 8 * i;
+        const bool vis = on && (!causal || key <= row0 + r + q_offset);
+        ps[r * PSTR + kg + 32 * j] = vis ? s[i][j] * qscale : NEG_INF;
+      }
     }
     __syncthreads();
+    {
+      const int r = tid / RT, part = tid % RT;
+      float* pr = ps + r * PSTR;
+      const float m_old = row_m[r];
+      float mx = NEG_INF;
+      for (int kk = part; kk < WKT; kk += RT) mx = fmaxf(mx, pr[kk]);
 #pragma unroll
-    for (int d = 0; d < WW; ++d) {
-      vsum[d] = 0.f;
+      for (int off = 1; off < RT; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int kk = part; kk < WKT; kk += RT) {
+        const float p = exp2f(pr[kk] - m_new);
+        pr[kk] = p;
+        sum += p;
+      }
 #pragma unroll
-      for (int w = 0; w < FWD_WARPS; ++w) vsum[d] += vsum_part[w][g * WW + d];
+      for (int off = 1; off < RT; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) {
+        const float a = exp2f(m_old - m_new);
+        row_a[r] = a;
+        row_l[r] = row_l[r] * a + sum;
+        row_m[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // ---- 3. out = out * rescale + p v, 64 columns at a time
+    const int nkv = (min(WKT, kend - k0 + 1) + 3) & ~3;  // p is 0 past kend
+    float alpha[TQ];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) alpha[i] = row_a[warp + 8 * i];
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      if (cc < nch) {
+        if (cc + 1 < nch)
+          load_v(n + 1, k0, cc + 1);
+        else if (t + 1 < tiles)
+          load_qk(n + 1, k0 + WKT, 0);
+        else
+          cp_async_commit();  // an empty group keeps the count
+        cp_async_wait<1>();
+        __syncthreads();
+        const float* vs = stage(n);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          o[cc][i][0] *= alpha[i];
+          o[cc][i][1] *= alpha[i];
+        }
+        for (int kk = 0; kk < nkv; kk += 4) {
+          float4 p[TQ];
+          float2 vv[4];
+#pragma unroll
+          for (int i = 0; i < TQ; ++i)
+            p[i] = *reinterpret_cast<const float4*>(ps + (warp + 8 * i) * PSTR + kk);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            vv[u] = *reinterpret_cast<const float2*>(vs + (kk + u) * WPAD + 2 * lane);
+#pragma unroll
+          for (int i = 0; i < TQ; ++i) {
+            const float pw[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              o[cc][i][0] = fmaf(pw[u], vv[u].x, o[cc][i][0]);
+              o[cc][i][1] = fmaf(pw[u], vv[u].y, o[cc][i][1]);
+            }
+          }
+        }
+        __syncthreads();  // the stage is read before it is loaded again
+        ++n;
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // vsum and the rows' sums are written
 
-  if (row >= L) return;
-  float* o = out + r * ld + oc;
-  const int end = causal ? min(row + q_offset, hi) : hi;
-  if (end < lo) {  // the row sees no key: every score is -1e30
-    if (lane < WG) {
+  // a row that sees no key (every score -1e30) takes the mean of V
 #pragma unroll
-      for (int d = 0; d < WW; ++d)
-        o[g * WW + d] = vsum[d] / static_cast<float>(S);
+  for (int i = 0; i < TQ; ++i) {
+    const int r = warp + 8 * i, row = row0 + r;
+    if (row >= L) continue;
+    const bool dead = (causal ? min(hi, row + q_offset) : hi) < lo;
+    const float l = row_l[r];
+    const float inv = dead ? 1.f / static_cast<float>(S) : 1.f / (l == 0.f ? 1.f : l);
+    float* orow = out + (qb + row) * ld + c0 + 2 * lane;
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      if (cc < nch) {
+        const float2 val =
+            dead ? make_float2(vsum[WCH * cc + 2 * lane] * inv,
+                               vsum[WCH * cc + 2 * lane + 1] * inv)
+                 : make_float2(o[cc][i][0] * inv, o[cc][i][1] * inv);
+        *reinterpret_cast<float2*>(orow + WCH * cc) = val;
+      }
     }
-    if (lane == 0 && oc == 0)
-      lse[r] = (NEG_INF + log2f(static_cast<float>(S))) * LN2;
-    return;
   }
-  const float* qrow = q + r * ld + g * WW;
-  float acc[WW];
-#pragma unroll
-  for (int d = 0; d < WW; ++d) acc[d] = 0.f;
-  float m = NEG_INF, l = 0.f;
-  for (int j = lo + slot; j <= end; j += SLOTS) {
-    const long kk = static_cast<long>(b) * S + j;
-    const float dqk =
-        group_sum<WG>(wide_dot(qrow, k + kk * ld + g * WW, ld, 0.f), gmask);
-    const float s = __ldg(mrow + j) > 0 ? dqk * qscale : NEG_INF;
-    if (s > m) {  // the running max moves: rescale what was summed
-      const float alpha = exp2f(m - s);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < WW; ++d) acc[d] *= alpha;
-      m = s;
-    }
-    const float p = exp2f(s - m);
-    l += p;
-    float vr[WW];
-    load_row<WW>(v + kk * ld + oc + g * WW, vr);
-#pragma unroll
-    for (int d = 0; d < WW; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+  if (blockIdx.z == 0 && tid < QT && row0 + tid < L) {
+    const int row = row0 + tid;
+    const bool dead = (causal ? min(hi, row + q_offset) : hi) < lo;
+    lse[qb + row] = dead ? (NEG_INF + log2f(static_cast<float>(S))) * LN2
+                         : (row_m[tid] + log2f(row_l[tid])) * LN2;
   }
-  // merge the key slots' partial softmaxes, as flash_rank_fwd_kernel
-  const float mm = warp_max(m);
-  const float sc = exp2f(m - mm);
-  l = slice_sum<WG>(l * sc);
-#pragma unroll
-  for (int d = 0; d < WW; ++d) acc[d] = slice_sum<WG>(acc[d] * sc);
-  const float safe = l == 0.f ? 1.f : l;
-  if (lane < WG) {
-    float res[WW];
-#pragma unroll
-    for (int d = 0; d < WW; ++d) res[d] = acc[d] / safe;
-    store_row<WW>(o + g * WW, res, 1.f);
-  }
-  if (lane == 0 && oc == 0) lse[r] = (mm + log2f(safe)) * LN2;
+}
+
+// R1 past head dim 64: flash_rank_fwd_wide at the rows a CTA of its head
+// dim takes (QT), a grid axis over its passes
+template <int QT>
+int launch_fwd_wide(const float* q, const float* k, const float* v,
+                    const int* mask, float* out, float* lse, int B, int L,
+                    int S, int hd, int q_offset, int causal, float qscale,
+                    cudaStream_t st) {
+  constexpr int smem = fwd_wide_smem<QT>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_rank_fwd_wide<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  constexpr int CW = WO * WNT / QT;
+  const dim3 grid((L + QT - 1) / QT, B, (hd + CW - 1) / CW);
+  flash_rank_fwd_wide<QT><<<grid, WNT, smem, st>>>(q, k, v, mask, out, lse,
+                                                   L, S, hd, q_offset, causal,
+                                                   qscale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dq past head dim 64: flash_rank_dq_kernel<64>'s shape with the output
@@ -1004,17 +1228,17 @@ extern "C" int moka_flash_rank_fwd(const void* q, const void* k, const void* v,
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   const auto* mp = static_cast<const int*>(mask);
+  auto* op = static_cast<float*>(out);
+  auto* lp = static_cast<float*>(lse);
   if (hd > 64) {
-    flash_rank_fwd_wide<<<dim3((L + FWD_WARPS - 1) / FWD_WARPS, B, hd / WCH),
-                          FWD_NT, 0, st>>>(
-        qp, kp, vp, mp, static_cast<float*>(out), static_cast<float*>(lse), L,
-        S, hd, q_offset, causal, qscale);
-    return static_cast<int>(cudaGetLastError());
+    const auto launch = hd <= 512 ? launch_fwd_wide<32>
+                        : hd <= 1024 ? launch_fwd_wide<16> : launch_fwd_wide<8>;
+    return launch(qp, kp, vp, mp, op, lp, B, L, S, hd, q_offset, causal,
+                  qscale, st);
   }
   const dim3 grid((L + FWD_WARPS - 1) / FWD_WARPS, B);
   const auto kernel = RANK_INSTANCE(flash_rank_fwd_kernel, hd);
-  kernel<<<grid, FWD_NT, 0, st>>>(qp, kp, vp, mp, static_cast<float*>(out),
-                                  static_cast<float*>(lse), L, S, q_offset,
+  kernel<<<grid, FWD_NT, 0, st>>>(qp, kp, vp, mp, op, lp, L, S, q_offset,
                                   causal, qscale);
   return static_cast<int>(cudaGetLastError());
 }

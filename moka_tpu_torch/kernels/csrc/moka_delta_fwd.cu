@@ -4,14 +4,16 @@
 // rank-R instance with A's columns and B's rows past r zero
 // (ops/moka_pallas.py pads them; exact: see takes()) and the attention
 // scale 1/sqrt(r) of the true rank.  Past 64 (the wide path, at the end of
-// this file) a chain of launches: a down-product kernel writes the
-// modalities' a_i and the question keys, R1 (flash_rank.cu at head_dim r)
-// attends for each attention stream, and an up-product kernel forms the
-// buffer and buf @ B; no array of the persistent kernel's grows with r
-// there.  Under context parallelism the keys come from outside: each
-// rank's key pass writes its own rows' keys (moka_delta_keys), the caller
-// gathers them over the sequence group, and the key pass compacts the
-// gathered rows for the main kernel (Args::ext).
+// this file) a chain of launches: a down product on the tensor cores
+// writes the modalities' a_i and the question keys, R1 (flash_rank.cu at
+// head_dim r) attends for each attention stream, and an up product on the
+// tensor cores forms the buffer and buf @ B (each product a TMA ring into
+// wgmma after a short pass that splits its operands into bf16 halves); no
+// array of the persistent kernel's grows with r there.  Under context
+// parallelism the keys come from outside: each rank's key pass writes its
+// own rows' keys (moka_delta_keys), the caller gathers them over the
+// sequence group, and the key pass compacts the gathered rows for the
+// main kernel (Args::ext).
 //
 // Replaces the TPU kernel moka_tpu/ops/moka_pallas.py::_kernel (:35,
 // launched by _fused_fwd :112).  For a tile of tokens of one batch row it
@@ -1091,21 +1093,47 @@ bool takes(int nb, int L, int d_in, int d_out, int M, int R) {
 
 // Past rank 64 kernel 5 is a chain of launches, with rp = r padded to a
 // multiple of 64 (A's columns and B's rows past r zero, the wrapper's):
-//   1. the down product (UP false): a_i = (x @ A_i) * mask_i * pre_scale
-//      for every modality, (M, T, rp) fp32 over the T = nb * L tokens, and
-//      the question keys a_0 * qmask, (T, rp);
+//   1. the down product: a_i = (x @ A_i) * mask_i * pre_scale for every
+//      modality, (M, T, rp) fp32 over the T = nb * L tokens, and the
+//      question keys a_0 * qmask, (T, rp);
 //   2. R1 (flash_rank.cu, head_dim rp, the scale of the true rank) for
 //      each attention stream: its a_i against the keys under the question
 //      mask (the whole sequence's under a ring), (na, T, rp);
-//   3. the up product (UP true): buf = sum_i a_i + sum_j mask_j *
-//      attn_weight * attn_j, formed as its tiles are loaded, then
-//      delta = (buf @ B) * post, in x's type.
-// Both products are fp32 FMAs on the ordinary cores (bf16 x widened as it
-// is loaded, A and B fp32 as given: A keeps its fp32 effect exactly), a
-// CTA 64 tokens x 64 columns of the output, a thread 4 x 4 of them, the
-// depth walked 16 at a time through shared memory in order, so every
-// output is one FMA chain over k.  Bound: the products' operations, 2 T
-// (d_in M rp + rp d_out) at 67 TFLOP/s (PERF.md has the measured times).
+//   3. the up product: buf = sum_i a_i + sum_j mask_j * attn_weight *
+//      attn_j, then delta = (buf @ B) * post, in x's type.
+// What bounds it: the products' operations, 2 T (d_in M r + r d_out) at
+// the tensor cores' bf16 rate (at rank 512, b 8 x L 896, 1.1 TFLOP a
+// layer of seven projections); the bytes of x, A, B and the delta, and
+// R1's fp32 attention, are far under that.  For bf16 x both products run
+// on the tensor cores (gemm_kernel), each a two-launch entry:
+//   * down (moka_delta_wide_down): a small pass (split_kernel) writes A's
+//     bf16 halves hi = bf16(A), lo = bf16(A - hi) interleaved column by
+//     column, as the persistent kernel's key pass does (2 M rp, d_in);
+//     then x (T, d_in) times them: CTAs of 128 tokens x 256 of the 2 M rp
+//     columns, a producer warp's TMA ring of four 48 KB stages (x's 128 x
+//     64 and the halves' 256 x 64, 128-byte swizzle) and two consumer
+//     warpgroups issuing wgmma m64n256k16 (bf16 in, fp32 accumulate); the
+//     epilogue sums each column pair's accumulators (|A - hi - lo| <=
+//     2^-16 |A|: A stays fp32 in effect), scales by the modality's mask and
+//     writes a_i and the keys.  The grid's fastest index walks a token
+//     tile's columns, so its x stays in L2 while they are walked;
+//   * up (moka_delta_wide_up): a short pass (prep_kernel) forms buf as it
+//     reads a_i and R1's outputs and writes its bf16 halves [hi(buf) |
+//     lo(buf)] (T, 2 rp) and B's [hi(B); lo(B)] (2 rp, d_out); then the
+//     same TMA -> shared memory -> wgmma product over K = 3 rp, the
+//     persistent kernel's three-way split [hi(buf), hi(buf), lo(buf)] x
+//     [hi(B); lo(B); hi(B)] (the product within 2^-16 of fp32): the
+//     producer walks the halves' 64-wide blocks in that order, B taken
+//     MN-major (four 64-column boxes a stage).  buf goes through device
+//     memory, not registers: past rank 64 its three copies of rp columns
+//     would not fit a thread's registers.  Each consumer warpgroup scales
+//     its 64 x 256 tile by the token's post scale, rounds it to x's bf16
+//     in 128-byte-swizzled staging tiles (the drained ring) and stores
+//     them by TMA.
+// fp32 x (no main path) keeps exact fp32 FMAs on the ordinary cores
+// (moka_wide_kernel: a CTA 64 tokens x 64 columns of the output, a thread
+// 4 x 4 of them, the depth walked 16 at a time through shared memory, one
+// FMA chain an output, A and B read as given).
 namespace wide {
 
 constexpr int NT = 256;
@@ -1114,7 +1142,7 @@ constexpr int TN = 64;  // output columns a CTA
 constexpr int TK = 16;  // depth a step
 
 struct Args {
-  const void* x;          // (T, d_in) bf16 or fp32 (down)
+  const float* x;         // (T, d_in) fp32 (down, fp32 x)
   const float* A;         // (M, d_in, rp) (down)
   const float* masks;     // (M, T)
   const float* qmask;     // (T) (down)
@@ -1134,27 +1162,23 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 a = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(a.x << 16);
-  v[1] = __uint_as_float(a.x & 0xffff0000u);
-  v[2] = __uint_as_float(a.y << 16);
-  v[3] = __uint_as_float(a.y & 0xffff0000u);
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+// the modalities attending (attn_bits), in order
+__device__ __forceinline__ int attending(const Args& w, int (&amods)[MAXM]) {
+  int na = 0;
+  for (int m = 0; m < w.M; ++m)
+    if ((w.attn_bits >> m) & 1) amods[na++] = m;
+  return na;
 }
 
-// Grid (output columns / 64, T / 64).  UP false: X = x, W = A_m with m the
-// modality of the CTA's 64 columns (rp is a multiple of 64); UP true: X =
-// buf (formed from a_all, attn and the masks as it is loaded), W = B.
-template <typename T, bool UP>
+// fp32 x.  Grid (output columns / 64, T / 64).  UP false: X = x, W = A_m
+// with m the modality of the CTA's 64 columns (rp is a multiple of 64); UP
+// true: X = buf (formed from a_all, attn and the masks as it is loaded),
+// W = B.
+template <bool UP>
 __global__ void __launch_bounds__(NT) moka_wide_kernel(const Args w) {
   __shared__ __align__(16) float xs[TK][TT + 4];  // X's tile, k-major
   __shared__ __align__(16) float ws[TK][TN];
@@ -1165,9 +1189,8 @@ __global__ void __launch_bounds__(NT) moka_wide_kernel(const Args w) {
   const int lt = tid >> 2, lk = (tid & 3) * 4, wk = tid >> 4, wn = (tid & 15) * 4;
   const int xt = t0 + lt;
   const int mw = UP ? 0 : n0 / w.rp, rw = UP ? 0 : n0 - mw * w.rp;
-  int amods[MAXM], na = 0;
-  for (int m = 0; m < w.M; ++m)
-    if ((w.attn_bits >> m) & 1) amods[na++] = m;
+  int amods[MAXM];
+  const int na = attending(w, amods);
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -1193,8 +1216,7 @@ __global__ void __launch_bounds__(NT) moka_wide_kernel(const Args w) {
           for (int e = 0; e < 4; ++e) xv[e] += mk * (w.attn_weight * v[e]);
         }
       } else {
-        load4(static_cast<const T*>(w.x) +
-                  static_cast<long>(xt) * w.d_in + k0 + lk, xv);
+        load4(w.x + static_cast<long>(xt) * w.d_in + k0 + lk, xv);
       }
     }
     float wv[4] = {0.f, 0.f, 0.f, 0.f};
@@ -1239,7 +1261,7 @@ __global__ void __launch_bounds__(NT) moka_wide_kernel(const Args w) {
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = acc[i][j] * ts;
-      store4(static_cast<T*>(w.out) + static_cast<long>(t) * w.d_out + o, v);
+      store4(static_cast<float*>(w.out) + static_cast<long>(t) * w.d_out + o, v);
     } else {
       const float mk = w.masks[static_cast<long>(mw) * w.T + t];
 #pragma unroll
@@ -1256,18 +1278,292 @@ __global__ void __launch_bounds__(NT) moka_wide_kernel(const Args w) {
   }
 }
 
-template <typename T, bool UP>
+template <bool UP>
 int launch(const Args& w, cudaStream_t st) {
   const int cols = UP ? (w.d_out + TN - 1) / TN : w.M * w.rp / TN;
   const int rows = (w.T + TT - 1) / TT;
   if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  moka_wide_kernel<T, UP><<<dim3(cols, rows), NT, 0, st>>>(w);
+  moka_wide_kernel<UP><<<dim3(cols, rows), NT, 0, st>>>(w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16 x: the products on the tensor cores
+
+constexpr int GM = 128;                 // tokens a CTA: two warpgroups of 64
+constexpr int GN = 256;                 // output columns a CTA
+constexpr int GCONS = 256;              // consumer threads
+constexpr int GNT = GCONS + 32;         // and a producer warp
+constexpr int GA = GM * 128;            // a stage's A tile: 128 x 64 bf16
+constexpr int GSTAGE = GA + GN * 128;   // and its B tile: 256 x 64
+constexpr int GSTAGES = 4;
+constexpr int GSMEM = 1024 + GSTAGES * GSTAGE + 16 * GSTAGES;
+
+// A (M, d_in, rp) fp32 -> at (2 M rp, d_in) bf16, row 2 (m rp + r) + h the
+// half h (0: hi = bf16(A), 1: lo = bf16(A - hi)) of A's column (m, r); a
+// CTA turns a 32 x 32 tile of (d, r) through shared memory, so both the
+// reads (along r) and the writes (along d) are coalesced.  Grid (rp / 32,
+// d_in / 32, M).
+__global__ void __launch_bounds__(256)
+    split_kernel(const float* __restrict__ A, __nv_bfloat16* __restrict__ at,
+                 int d_in, int rp) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.x * 32, d0 = blockIdx.y * 32, m = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int d = d0 + i;
+    tile[i][tx] = d < d_in ? A[(static_cast<long>(m) * d_in + d) * rp + r0 + tx]
+                           : 0.f;
+  }
+  __syncthreads();
+  const int d = d0 + tx;
+  if (d >= d_in) return;
+  for (int i = ty; i < 32; i += 8) {
+    const float v = tile[tx][i];
+    const float hi = bf16_hi(v);
+    const long n = 2L * (static_cast<long>(m) * rp + r0 + i);
+    at[n * d_in + d] = __float2bfloat16_rn(hi);
+    at[(n + 1) * d_in + d] = __float2bfloat16_rn(v - hi);
+  }
+}
+
+// the up product's operands: bufs (T, 2 rp) = [hi(buf) | lo(buf)] with buf
+// = sum_i a_i + sum_j mask_j * attn_weight * attn_j, and bs (2 rp, d_out)
+// = [hi(B); lo(B)]; a grid-stride loop, two elements a step
+__global__ void __launch_bounds__(256)
+    prep_kernel(const Args w, __nv_bfloat16* __restrict__ bufs,
+                __nv_bfloat16* __restrict__ bs) {
+  const long nt = static_cast<long>(gridDim.x) * 256;
+  const long first = static_cast<long>(blockIdx.x) * 256 + threadIdx.x;
+  int amods[MAXM];
+  const int na = attending(w, amods);
+  const int hr = w.rp / 2;
+  const long plane = static_cast<long>(w.T) * w.rp;
+  for (long i = first; i < static_cast<long>(w.T) * hr; i += nt) {
+    const int t = static_cast<int>(i / hr), r = static_cast<int>(i % hr) * 2;
+    const long at = static_cast<long>(t) * w.rp + r;
+    float2 v = *reinterpret_cast<const float2*>(w.a_all + at);
+    for (int m = 1; m < w.M; ++m) {
+      const float2 u = *reinterpret_cast<const float2*>(w.a_all + m * plane + at);
+      v = make_float2(v.x + u.x, v.y + u.y);
+    }
+    for (int j = 0; j < na; ++j) {
+      const float mk = w.masks[static_cast<long>(amods[j]) * w.T + t];
+      const float2 u = *reinterpret_cast<const float2*>(w.attn + j * plane + at);
+      v = make_float2(v.x + mk * (w.attn_weight * u.x),
+                      v.y + mk * (w.attn_weight * u.y));
+    }
+    const float hx = bf16_hi(v.x), hy = bf16_hi(v.y);
+    __nv_bfloat16* row = bufs + static_cast<long>(t) * 2 * w.rp + r;
+    *reinterpret_cast<uint32_t*>(row) = pack_bf16(hx, hy);
+    *reinterpret_cast<uint32_t*>(row + w.rp) = pack_bf16(v.x - hx, v.y - hy);
+  }
+  const int ho = w.d_out / 2;
+  for (long i = first; i < static_cast<long>(w.rp) * ho; i += nt) {
+    const int k = static_cast<int>(i / ho), o = static_cast<int>(i % ho) * 2;
+    const float2 v =
+        *reinterpret_cast<const float2*>(w.Bm + static_cast<long>(k) * w.d_out + o);
+    const float hx = bf16_hi(v.x), hy = bf16_hi(v.y);
+    *reinterpret_cast<uint32_t*>(bs + static_cast<long>(k) * w.d_out + o) =
+        pack_bf16(hx, hy);
+    *reinterpret_cast<uint32_t*>(bs + static_cast<long>(w.rp + k) * w.d_out + o) =
+        pack_bf16(v.x - hx, v.y - hy);
+  }
+}
+
+// C = A B^T over nkb 64-deep blocks, a CTA 128 tokens x 256 columns.  UP
+// false: A = x (T, d_in), B = at (2 M rp, d_in), both K-major; the
+// epilogue writes a_i and the keys.  UP true: A = bufs (T, 2 rp), B = bs
+// (2 rp, d_out), MN-major, over the K = 3 rp blocks of [hi(buf), hi(buf),
+// lo(buf)] x [hi(B); lo(B); hi(B)]; the epilogue stores the delta by TMA.
+// Grid (columns / 256, T / 128).
+template <bool UP>
+__global__ void __launch_bounds__(GNT, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_b,
+                const __grid_constant__ CUtensorMap tm_out, const Args w,
+                int nkb) {
+  extern __shared__ __align__(1024) uint8_t gsm_raw[];
+  uint8_t* sm = gsm_raw + ((1024 - (smem_addr(gsm_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_addr(sm);
+  const uint32_t full = ring + GSTAGES * GSTAGE, empty = full + 8 * GSTAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, GCONS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == GCONS / 32) {  // the producer
+    if (lane == 0) {
+      const int nr = w.rp / 64;
+      // UP: B's 64-column boxes that hold outputs (one wholly past d_out
+      // is not loaded: its products are clipped by the store)
+      const int boxes = UP ? min(GN / 64, (w.d_out - n0 + 63) / 64) : 0;
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % GSTAGES;
+        if (kb >= GSTAGES) mbar_wait(empty + 8 * s, ((kb / GSTAGES) - 1) & 1);
+        const uint32_t dst = ring + s * GSTAGE;
+        if constexpr (UP) {
+          // the K block's halves: buf's hi, hi, lo against B's hi, lo, hi
+          const int ka = kb < 2 * nr ? kb % nr : kb - nr;
+          const int kbb = kb < 2 * nr ? kb : kb - 2 * nr;
+          mbar_arrive_expect_tx(full + 8 * s, GA + boxes * BOX);
+          tma_load_4d(dst, &tm_a, full + 8 * s, 64 * ka, t0, 0, 0);
+          for (int q = 0; q < boxes; ++q)
+            tma_load_4d(dst + GA + q * BOX, &tm_b, full + 8 * s, n0 + 64 * q,
+                        64 * kbb, 0, 0);
+        } else {
+          mbar_arrive_expect_tx(full + 8 * s, GSTAGE);
+          tma_load_4d(dst, &tm_a, full + 8 * s, 64 * kb, t0, 0, 0);
+          tma_load_4d(dst + GA, &tm_b, full + 8 * s, 64 * kb, n0, 0, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups: warpgroup wg takes the tile's rows 64 wg..;
+  // thread tid holds rows r0 and r0 + 8 of its 64, columns 2 qd (+1) of
+  // each group of 8
+  const int wg = warp / 4, r0 = 16 * (warp % 4) + lane / 4, qd = lane % 4;
+  float acc[GN / 2];
+#pragma unroll
+  for (int i = 0; i < GN / 2; ++i) acc[i] = 0.f;
+  fence_operand(acc);
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int s = kb % GSTAGES;
+    mbar_wait(full + 8 * s, (kb / GSTAGES) & 1);
+    const uint32_t as = ring + s * GSTAGE + wg * BOX, bs = ring + s * GSTAGE + GA;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (UP)
+        wgmma_m64n256_ss<1>(acc, desc_sw128(as + 32 * kk),
+                            desc_sw128_mn(bs + 2048 * kk, BOX), 1);
+      else
+        wgmma_m64nN_ss<GN>(acc, desc_sw128(as + 32 * kk),
+                           desc_sw128(bs + 32 * kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the last block's products are done: free its stage
+    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % GSTAGES));
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+
+  const int row = t0 + 64 * wg + r0;  // this thread's rows: row, row + 8
+  if constexpr (!UP) {
+    // column pair (2 q, 2 q + 1) is A's column q (modality q / rp, rank
+    // q % rp), its hi and lo halves; the tile's 128 columns of A meet at
+    // most two modalities (rp >= 128)
+    const int q0 = n0 / 2, m0 = q0 / w.rp;
+    float mk[2][2], qm[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = row + 8 * u;
+      const bool in = t < w.T;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mk[u][e] = in && m0 + e < w.M
+            ? w.masks[static_cast<long>(m0 + e) * w.T + t] * w.pre_scale : 0.f;
+      qm[u] = in ? w.qmask[t] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j) {
+      const int q = q0 + 4 * j + qd, m = q / w.rp, r = q - m * w.rp;
+      if (m >= w.M) continue;  // past the last column of a ragged tile
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = row + 8 * u;
+        if (t >= w.T) continue;
+        const float v = (acc[4 * j + 2 * u] + acc[4 * j + 2 * u + 1]) *
+                        (m == m0 ? mk[u][0] : mk[u][1]);
+        w.a_all[(static_cast<long>(m) * w.T + t) * w.rp + r] = v;
+        if (m == 0) w.keys[static_cast<long>(t) * w.rp + r] = v * qm[u];
+      }
+    }
+  } else {
+    float ts[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = row + 8 * u;
+      ts[u] = 1.f;
+      if (w.has_post) {
+        ts[u] = 0.f;
+        for (int m = 0; m < w.M && t < w.T; ++m)
+          ts[u] += w.masks[static_cast<long>(m) * w.T + t] * w.post[m];
+      }
+    }
+    named_bar_sync(1, GCONS);  // both warpgroups' products are done: the
+                               // ring is free for the staging tiles
+    // the warpgroup's 64 x 256 outputs as four 64-column boxes, bf16 in
+    // the 128-byte-swizzled layout the stores read (row t's 16-byte chunk
+    // c at c ^ (t % 8))
+    uint8_t* stg = sm + wg * (GN / 64) * BOX;
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = r0 + 8 * u, c = j % 8;
+        *reinterpret_cast<uint32_t*>(stg + (j / 8) * BOX + t * 128 +
+                                     ((c ^ (t & 7)) << 4) + 4 * qd) =
+            pack_bf16(acc[4 * j + 2 * u] * ts[u], acc[4 * j + 2 * u + 1] * ts[u]);
+      }
+    fence_proxy_async_smem();
+    named_bar_sync(2 + wg, 128);
+    if (warp % 4 == 0 && lane == 0) {
+      const uint64_t first = l2_evict_first();
+      for (int n = 0; n < GN / 64; ++n)
+        if (n0 + 64 * n < w.d_out)
+          tma_store_4d(&tm_out, smem_addr(stg + n * BOX), n0 + 64 * n,
+                       t0 + 64 * wg, 0, 0, first);
+      bulk_commit();
+      bulk_wait_read<0>();  // the staging tiles are read: exit
+    }
+  }
+}
+
+// the product (gemm_kernel) on its operands: UP false a = x, b = at; UP
+// true a = bufs, b = bs
+template <bool UP>
+int launch_gemm(const Args& w, const void* a, const void* b, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_kernel<UP>, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_cols = UP ? w.d_out : 2 * w.M * w.rp;
+  // the 64-deep blocks: d_in's (down), the three halves' (up)
+  const int nkb = UP ? 3 * (w.rp / 64) : (w.d_in + 63) / 64;
+  const dim3 grid((n_cols + GN - 1) / GN, (w.T + GM - 1) / GM);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // A over (K, T) in boxes of 64 x 128 tokens; B over (d_in, 2 M rp) in
+  // boxes of 64 x 256 (down) or over (d_out, 2 rp) in boxes of 64 x 64
+  // (up); the delta over (d_out, T) in boxes of 64 x 64
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t a_dims[4] = {uint64_t(UP ? 2 * w.rp : w.d_in), uint64_t(w.T),
+                              1, 1};
+  const uint64_t b_dims[4] = {uint64_t(UP ? w.d_out : w.d_in),
+                              uint64_t(UP ? 2 * w.rp : n_cols), 1, 1};
+  const uint64_t o_dims[4] = {uint64_t(w.d_out), uint64_t(w.T), 1, 1};
+  const uint32_t a_box[4] = {64, GM, 1, 1};
+  const uint32_t b_box[4] = {64, UP ? 64u : uint32_t(GN), 1, 1};
+  const uint32_t o_box[4] = {64, 64, 1, 1};
+  CUtensorMap tm_a, tm_b, tm_out;
+  if (!swizzled_map(&tm_a, bf16, 2, 4, a, a_dims, a_box) ||
+      !swizzled_map(&tm_b, bf16, 2, 4, b, b_dims, b_box) ||
+      (UP && !swizzled_map(&tm_out, bf16, 2, 4, w.out, o_dims, o_box)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!UP) tm_out = tm_a;  // not read
+  gemm_kernel<UP><<<grid, GNT, GSMEM, st>>>(tm_a, tm_b, tm_out, w, nkb);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool takes(int T, int d_in, int d_out, int M, int rp) {
   return T > 0 && M > 0 && M <= MAXM && d_in % 8 == 0 && d_out % 8 == 0 &&
-         rp > 0 && rp % TN == 0;
+         rp > 64 && rp % TN == 0;
 }
 
 }  // namespace wide
@@ -1391,18 +1687,20 @@ extern "C" int moka_delta_keys(const void* x, int x_bf16, const void* masks,
 }
 
 // The wide path's down product: x (T, d_in) bf16 or fp32, A (M, d_in, rp)
-// fp32 (rp a multiple of 64, columns past the true rank zero), masks (M,
-// T), qmask (T) fp32 -> a_all (M, T, rp) and keys (T, rp) fp32; all
-// contiguous and 16-byte aligned.
+// fp32 (rp a multiple of 64 past 64, columns past the true rank zero),
+// masks (M, T), qmask (T) fp32 -> a_all (M, T, rp) and keys (T, rp) fp32;
+// at: (2 M rp, d_in) bf16 scratch for A's halves (bf16 x; unused for fp32
+// x); all contiguous and 16-byte aligned.  For bf16 x two launches: the
+// split of A, then the product.
 extern "C" int moka_delta_wide_down(const void* x, int x_bf16, const void* A,
                                     const void* masks, const void* qmask,
-                                    void* a_all, void* keys, int T, int d_in,
-                                    int M, int rp, float pre_scale,
+                                    void* a_all, void* keys, void* at, int T,
+                                    int d_in, int M, int rp, float pre_scale,
                                     void* stream) {
-  if (!wide::takes(T, d_in, 8, M, rp))
+  if (!wide::takes(T, d_in, 8, M, rp) || (x_bf16 && at == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   wide::Args w = {};
-  w.x = x;
+  w.x = static_cast<const float*>(x);
   w.A = static_cast<const float*>(A);
   w.masks = static_cast<const float*>(masks);
   w.qmask = static_cast<const float*>(qmask);
@@ -1414,20 +1712,29 @@ extern "C" int moka_delta_wide_down(const void* x, int x_bf16, const void* A,
   w.rp = rp;
   w.pre_scale = pre_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? wide::launch<__nv_bfloat16, false>(w, st)
-                : wide::launch<float, false>(w, st);
+  if (!x_bf16) return wide::launch<false>(w, st);
+  auto* halves = static_cast<__nv_bfloat16*>(at);
+  wide::split_kernel<<<dim3(rp / 32, (d_in + 31) / 32, M), 256, 0, st>>>(
+      w.A, halves, d_in, rp);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return wide::launch_gemm<false>(w, x, halves, st);
 }
 
 // The wide path's up product: a_all (M, T, rp), attn (na, T, rp) (the
 // attention streams' R1 outputs, in the order of attn_bits), masks (M, T),
-// B (rp, d_out) fp32 -> out (T, d_out) in x's type (x_bf16).
+// B (rp, d_out) fp32 -> out (T, d_out) in x's type (x_bf16); bufs (T, 2
+// rp) and bs (2 rp, d_out) bf16 scratch for buf's and B's halves (bf16 x;
+// unused for fp32 x).  For bf16 x two launches: the halves, then the
+// product.
 extern "C" int moka_delta_wide_up(const void* a_all, const void* attn,
                                   const void* masks, const void* Bm, void* out,
-                                  int x_bf16, int T, int d_out, int M, int rp,
-                                  float attn_weight, int attn_bits, float p0,
-                                  float p1, float p2, float p3, int has_post,
-                                  void* stream) {
-  if (!wide::takes(T, 8, d_out, M, rp))
+                                  int x_bf16, void* bufs, void* bs, int T,
+                                  int d_out, int M, int rp, float attn_weight,
+                                  int attn_bits, float p0, float p1, float p2,
+                                  float p3, int has_post, void* stream) {
+  if (!wide::takes(T, 8, d_out, M, rp) ||
+      (x_bf16 && (bufs == nullptr || bs == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   wide::Args w = {};
   w.a_all = static_cast<float*>(const_cast<void*>(a_all));
@@ -1447,6 +1754,15 @@ extern "C" int moka_delta_wide_up(const void* a_all, const void* attn,
   w.post[2] = p2;
   w.post[3] = p3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? wide::launch<__nv_bfloat16, true>(w, st)
-                : wide::launch<float, true>(w, st);
+  if (!x_bf16) return wide::launch<true>(w, st);
+  const long work = static_cast<long>(T) * rp > static_cast<long>(rp) * d_out
+                        ? static_cast<long>(T) * rp / 2
+                        : static_cast<long>(rp) * d_out / 2;
+  const long ctas = (work + 255) / 256;
+  const int grid = static_cast<int>(ctas < 8L * sm_count() ? ctas : 8L * sm_count());
+  wide::prep_kernel<<<grid, 256, 0, st>>>(
+      w, static_cast<__nv_bfloat16*>(bufs), static_cast<__nv_bfloat16*>(bs));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return wide::launch_gemm<true>(w, bufs, bs, st);
 }

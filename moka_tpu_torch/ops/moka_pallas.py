@@ -16,22 +16,23 @@ The kernel takes every rank with at most four modalities
 for ranks 4, 8, 16, 32 and 64: a rank between runs in the next built one
 with A's columns and B's rows past it zero (exact) and the attention scale
 of the true rank.  Past 64 kernel 5 is a chain of hand-written launches
-(``moka_delta_fwd.cu``'s wide path): a down-product kernel writes every
+(``moka_delta_fwd.cu``'s wide path): a down product writes every
 modality's a_i and the question keys, the rank flash forward R1
 (``flash_rank.cu`` at head_dim r) attends for each attention stream, and
-an up-product kernel forms the rank-space buffer and its product with B;
-the rank is padded to a multiple of 64 the same way.  On the card the
-wrapper raises on any other spec; on the CPU the plain version takes any
-spec, as the JAX kernel does.  It keeps A in fp32 in effect (bf16 x at
-ranks up to 64: A split into two bf16 halves on the tensor cores; fp32 x
-and ranks past 64: fp32 FMAs); it does not round A to bf16 as the TPU
-kernel does.  Under context parallelism (``gather_keys``) each rank computes
-its rows' question keys (the key pass alone, or the wide path's down
-product), gathers them over the sequence group and attends to all of them
-under the whole sequence's question mask (``key_question``), as
-``moka.moka_delta`` does.  Gradients: the backward is autograd through the
-plain ``moka_delta`` (with the same gathered keys), exact and without a
-backward kernel, as the JAX custom VJP does.
+an up product forms the rank-space buffer and its product with B (for
+bf16 x both products on the tensor cores); the rank is padded to a
+multiple of 64 the same way.  On the card the wrapper raises on any
+other spec; on the CPU the plain version takes any spec, as the JAX
+kernel does.  It keeps A in fp32 in effect (bf16 x: A split into two
+bf16 halves on the tensor cores, at every rank; fp32 x: fp32 FMAs); it
+does not round A to bf16 as the TPU kernel does.  Under context
+parallelism (``gather_keys``) each rank computes its rows' question keys
+(the key pass alone, or the wide path's down product), gathers them over
+the sequence group and attends to all of them under the whole sequence's
+question mask (``key_question``), as ``moka.moka_delta`` does.
+Gradients: the backward is autograd through the plain ``moka_delta``
+(with the same gathered keys), exact and without a backward kernel, as
+the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -128,11 +129,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.moka_delta_workspace.restype = n
     lib.moka_delta_keys.argtypes = [p, i, p, p, p, p, i, i, i, i, i, f, p]
     lib.moka_delta_keys.restype = i
-    lib.moka_delta_wide_down.argtypes = [p, i, p, p, p, p, p, i, i, i, i, f,
-                                         p]
+    lib.moka_delta_wide_down.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i,
+                                         f, p]
     lib.moka_delta_wide_down.restype = i
-    lib.moka_delta_wide_up.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, f,
-                                       f, f, f, i, p]
+    lib.moka_delta_wide_up.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, f,
+                                       i, f, f, f, f, i, p]
     lib.moka_delta_wide_up.restype = i
     return lib
 
@@ -247,7 +248,9 @@ def _launch_wide(x, masks, qmask, a, b_mat, spec: MokaSpec, key_question,
     """Kernel 5 past rank 64: the down product (every a_i and the question
     keys), R1 at head_dim ``kernel_rank(r)`` for each attention stream
     (the keys gathered over the sequence group under a ring), the up
-    product.  A and B come padded to that rank."""
+    product.  A and B come padded to that rank.  For bf16 x each product
+    entry also splits its operands into bf16 halves (A's; buf's and B's)
+    in scratch allocated here, for the tensor cores."""
     from moka_tpu_torch import kernels
     b, L, d_in = x.shape
     m, _, rp = a.shape
@@ -259,10 +262,20 @@ def _launch_wide(x, masks, qmask, a, b_mat, spec: MokaSpec, key_question,
     f32 = dict(device=dev, dtype=torch.float32)
     a_all = torch.empty((m, T, rp), **f32)
     keys = torch.empty((b, L, rp), **f32)
+
+    def halves(*shape):  # bf16 x: the products' operands' bf16 halves
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16) \
+            if bf16 else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    at = halves(2 * m * rp, d_in)
     kernels.check(lib.moka_delta_wide_down(
         x.data_ptr(), bf16, a.data_ptr(), masks.data_ptr(), qmask.data_ptr(),
-        a_all.data_ptr(), keys.data_ptr(), T, d_in, m, rp,
+        a_all.data_ptr(), keys.data_ptr(), ptr(at), T, d_in, m, rp,
         float(spec.pre_scale), stream), "moka_delta_wide_down")
+    del at
     moka_delta_fused.wide_down_launches += 1
     kmask = qmask
     if gather_keys is not None:
@@ -285,10 +298,11 @@ def _launch_wide(x, masks, qmask, a, b_mat, spec: MokaSpec, key_question,
                             causal=False)
     out = torch.empty((b, L, d_out), dtype=x.dtype, device=dev)
     attn_bits = sum(1 << i for i in streams)
+    bufs, bs = halves(T, 2 * rp), halves(2 * rp, d_out)
     kernels.check(lib.moka_delta_wide_up(
         a_all.data_ptr(), attn.data_ptr(), masks.data_ptr(),
-        b_mat.data_ptr(), out.data_ptr(), bf16, T, d_out, m, rp,
-        float(spec.attn_weight), attn_bits, *_post(spec), stream),
+        b_mat.data_ptr(), out.data_ptr(), bf16, ptr(bufs), ptr(bs), T, d_out,
+        m, rp, float(spec.attn_weight), attn_bits, *_post(spec), stream),
         "moka_delta_wide_up")
     moka_delta_fused.wide_up_launches += 1
     return out

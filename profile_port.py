@@ -65,10 +65,12 @@ projection shape of LLaMA-2-7B at ranks 4, 8 and 16: the kernel alone in
 a CUDA graph, the host's µs a call and the wrapper back to back (with
 ``--root``, another checkout's; rank 4 alone where that kernel takes no
 other).  ``moka_prefill`` times the prefill of the serving batch
-(``greedy_generate`` for one new token, with its defaults) for a MokA AVT
-tree at MOKA_PREFILL_RANKS, untraced and traced, by device group: past
-rank 64 the defaults take kernel 5's wide path since its ranks were
-widened, the unfused delta before (``--root`` of a parent).
+(``greedy_generate`` for one new token) for a MokA AVT tree at
+MOKA_PREFILL_RANKS, with its defaults and with the unfused delta in the
+same process, untraced and traced, by device group, and kernel 5's wide
+path (the defaults past rank 64) split into its down product, R1 and up
+product from the trace (``--root`` of a parent: its package under the
+same window).
 ``moka_ablation`` times kernel 5 with parts taken out
 (MOKA_ABLATIONS: edited copies of moka_delta_fwd.cu), twice in turn.
 ``fused_dropout`` times kernels 6 and 7 at the fused step's shape (N
@@ -160,7 +162,7 @@ def trace(fn) -> tuple[float, dict, dict]:
 GROUPS = (  # device entries by name, first match wins
     ("flash kernels (port)", ("flash_fwd_kernel", "flash_bwd_")),
     ("flash rank kernels (port)", ("flash_rank_",)),
-    ("fused MokA kernels (port)", ("moka_delta_kernel", "moka_wide_kernel",
+    ("fused MokA kernels (port)", ("moka_delta_kernel", "wide::",
                                    "question_keys_kernel")),
     ("fused dropout kernels (port)", ("dropout_fwd_", "dropout_bwd_",
                                       "transpose_a_kernel")),
@@ -1310,19 +1312,34 @@ def moka_delta_window(host_calls: int = 50) -> dict:
 
 
 MOKA_PREFILL_RANKS = (128, 512)
+WIDE_PARTS = ("down", "R1", "up")  # kernel 5's wide path, in launch order
+
+
+def wide_part(key: str) -> str | None:
+    """The part of kernel 5's wide path a device entry belongs to (its
+    down product with the split of A, R1 past head_dim 64, its up product
+    with the pass that forms buf), by kernel name; None for any other."""
+    if "flash_rank_fwd_wide" in key:
+        return "R1"
+    if "wide::" not in key:
+        return None
+    return "up" if "true>" in key or "prep_kernel" in key else "down"
 
 
 def moka_prefill_window() -> dict:
-    """The serving prefill (``greedy_generate`` for one new token with its
-    defaults, chip_smoke's phase-4 batch: LLaMA-2-7B, b 8, L 896, bf16
-    base, random weights from a seed) for a MokA AVT tree at each of
-    MOKA_PREFILL_RANKS (B seeded non-zero): the wall untraced and traced,
-    the device busy time and its groups, and which delta route the
-    defaults took (``fused_moka_route``)."""
+    """The serving prefill (``greedy_generate`` for one new token,
+    chip_smoke's phase-4 batch: LLaMA-2-7B, b 8, L 896, bf16 base, random
+    weights from a seed) for a MokA AVT tree at each of MOKA_PREFILL_RANKS
+    (B seeded non-zero), with the defaults (``fused_moka_route``: kernel 5
+    where it takes the spec) and with the unfused delta
+    (``use_fused_moka=False``) in the same process: the wall untraced and
+    traced, the device busy time and its groups, and kernel 5's wide path
+    split into its down product, R1 and up product (device ms and
+    launches, ``wide_part``)."""
     import torch
-    from chip_smoke import build_model, generate, main_path_inputs
+    from chip_smoke import build_model, main_path_inputs
     from moka_tpu_torch.core.config import LlamaConfig
-    from moka_tpu_torch.eval.decode import fused_moka_route
+    from moka_tpu_torch.eval.decode import fused_moka_route, greedy_generate
     from moka_tpu_torch.models import llama
     from moka_tpu_torch.ops.moka import MokaSpec
     cfg = LlamaConfig.llama2_7b()
@@ -1336,17 +1353,33 @@ def moka_prefill_window() -> dict:
         for p in adapters["layers"].values():
             p["b"].normal_(0.0, 0.02, generator=g)
         fused = fused_moka_route(torch.device("cuda"), None, cfg, spec)
+        for route, flag in (("defaults", None), ("unfused", False)):
+            def gen():
+                greedy_generate(base, adapters, cfg=cfg, spec=spec,
+                                max_new_tokens=1, eos_id=-1,
+                                use_fused_moka=flag, **inputs)
 
-        def gen():
-            generate(cfg, spec, base, adapters, inputs, 1)
-
-        with torch.inference_mode():
-            wall = wall_ms(gen)
-            traced, ops, _ = trace(gen)
-        out[f"r{rank}"] = summary(
-            f"prefill, MokA AVT r{rank} (b {BATCH}, L {PROMPT}; delta "
-            f"{'kernel 5' if fused else 'unfused'})", wall, traced, ops)
-        out[f"r{rank}"]["kernel_5"] = bool(fused)
+            with torch.inference_mode():
+                wall = wall_ms(gen)
+                traced, ops, _ = trace(gen)
+            kernel_5 = bool(fused) and flag is None
+            rec = summary(
+                f"prefill, MokA AVT r{rank} (b {BATCH}, L {PROMPT}; "
+                f"{route}: delta {'kernel 5' if kernel_5 else 'unfused'})",
+                wall, traced, ops)
+            rec["kernel_5"] = kernel_5
+            parts = {part: {"ms": 0.0, "launches": 0} for part in WIDE_PARTS}
+            for key, (count, us) in ops.items():
+                part = wide_part(key)
+                if part is not None:
+                    parts[part]["ms"] += us / 1e3
+                    parts[part]["launches"] += count
+            if kernel_5:
+                rec["wide_path"] = parts
+                print("  kernel 5's wide path: " + "; ".join(
+                    f"{part} {v['ms']:.3f} ms in {v['launches']} launches"
+                    for part, v in parts.items()), flush=True)
+            out[f"r{rank}" if flag is None else f"r{rank}_unfused"] = rec
         del adapters
         gc.collect()
         torch.cuda.empty_cache()

@@ -51,7 +51,7 @@ GRAD = dict(rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("flavour", ["avt", "vt"])
-@pytest.mark.parametrize("rank", [1, 2, 3, 6, 12, 32, 64, 65, 128])
+@pytest.mark.parametrize("rank", [1, 2, 3, 6, 12, 32, 64, 65, 128, 512])
 def test_fused_delta_matches_jax_kernel(flavour, rank):
     """The port's ``moka_delta_fused`` on CPU tensors (its plain version)
     against JAX's kernel in interpret mode (block 8: L 13 leaves a ragged
@@ -122,7 +122,7 @@ def test_dropout_a_proj_matches_jax_at_any_width(M, r):
     assert np.all(xt.grad.numpy()[dropped] == 0)
 
 
-@pytest.mark.parametrize("hd", [1, 2, 6, 32, 64, 65, 128, 256])
+@pytest.mark.parametrize("hd", [1, 2, 6, 32, 64, 65, 128, 256, 512])
 def test_rank_route_matches_jax(hd):
     """The rank route (``flash_rank_space_cross_attention``: one fp32 head
     of head_dim r through ``flash_mha``) against JAX's (its flash kernels

@@ -2,6 +2,7 @@
 card (marked ``cuda``: skipped where there is no card)."""
 
 import ast
+import dataclasses
 import math
 from pathlib import Path
 
@@ -190,6 +191,41 @@ def test_rank_and_block_diag_edits_apply(edits):
         assert chip_smoke.MUTANT_SOURCES["fused_ce"] == (src, table)
 
 
+def test_moka_prefill_splits_the_wide_path():
+    """profile_port.py's ``moka_prefill`` splits kernel 5's wide path by
+    kernel name into its down product (A's split and the product), R1
+    past head_dim 64 and its up product (the pass that forms buf and the
+    product), for this design's kernels and the first design's (a parent
+    checkout's), and leaves every other kernel out."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import profile_port
+    ns = "void (anonymous namespace)::"
+    names = {
+        "down": [ns + "wide::split_kernel(float const*, __nv_bfloat16*, int, "
+                 "int)", ns + "wide::gemm_kernel<false>(CUtensorMap_st, "
+                 "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::wide"
+                 "::Args, int)", ns + "wide::moka_wide_kernel<__nv_bfloat16, "
+                 "false>((anonymous namespace)::wide::Args)"],
+        "up": [ns + "wide::prep_kernel((anonymous namespace)::wide::Args, "
+               "__nv_bfloat16*, __nv_bfloat16*)", ns + "wide::gemm_kernel"
+               "<true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+               "(anonymous namespace)::wide::Args, int)", ns + "wide::"
+               "moka_wide_kernel<__nv_bfloat16, true>((anonymous namespace)"
+               "::wide::Args)"],
+        "R1": [ns + "flash_rank_fwd_wide<32>(float const*, float const*, "
+               "float const*, int const*, float*, float*, int, int, int, int, "
+               "int, float)", ns + "flash_rank_fwd_wide(float const*, float "
+               "const*, float const*, int const*, float*, float*, int, int, "
+               "int, int, int, float)"],
+        None: [ns + "moka_delta_kernel<64, 3>(CUtensorMap_st)",
+               ns + "flash_rank_fwd_kernel<64>(float const*)",
+               "nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NNT"]}
+    for part, keys in names.items():
+        assert [profile_port.wide_part(k) for k in keys] == [part] * len(keys)
+    assert profile_port.WIDE_PARTS == ("down", "R1", "up")
+
+
 @pytest.mark.parametrize("edits", ["MOKA_ABLATIONS", "MOKA_MUTANTS"])
 def test_moka_edits_apply(edits):
     """Kernel 5's edited copies (profile_port.py's ablations: the loads
@@ -295,7 +331,12 @@ def test_moka_delta_source_contract():
     number of CTAs a row (at most KP_CTAS), not one a token; instances for
     ranks 4, 8, 16, 32 and 64 (``KERNEL_RANKS``), every rank up to 64
     padded to one of them, and past 64 the wide path (down product, R1,
-    up product), no largest rank, as ``fused_moka_supported`` says."""
+    up product), no largest rank, as ``fused_moka_supported`` says; for
+    bf16 x its two products run on wgmma fed by a TMA mbarrier ring
+    (``gemm_kernel``: A's bf16 halves K-major for the down product, B's
+    MN-major for the up product, the delta stored by TMA) after passes
+    that split their operands into bf16 halves; fp32 x keeps the SIMT
+    kernel."""
     import re
     from moka_tpu_torch import kernels
     from moka_tpu_torch.ops import moka_pallas as mp
@@ -315,7 +356,15 @@ def test_moka_delta_source_contract():
         assert f"launch<{r}>(a, x_bf16, st)" in src
     assert mp.KERNEL_RANKS == (4, 8, 16, 32, 64) and \
         not hasattr(mp, "MAX_RANK")
-    assert "moka_wide_kernel<T, UP>" in src and "moka_delta_keys" in src
+    assert "moka_wide_kernel<UP>" in src and "moka_delta_keys" in src
+    wide = src[src.index("gemm_kernel(const __grid_constant__"):
+               src.index("int launch_gemm(")]
+    assert "wgmma_m64nN_ss<GN>" in wide and "wgmma_m64n256_ss<1>" in wide
+    assert "tma_load_4d(dst" in wide and "tma_store_4d(&tm_out" in wide
+    assert "mbar_wait(full" in wide and "mbar_wait(empty" in wide
+    assert "split_kernel<<<" in src and "prep_kernel<<<" in src
+    assert "launch_gemm<false>(w, x, halves, st)" in src and \
+        "launch_gemm<true>(w, bufs, bs, st)" in src
     assert [mp.kernel_rank(r) for r in (64, 65, 128, 129, 512)] == \
         [64, 128, 128, 192, 512]
 
@@ -911,6 +960,83 @@ def test_rank_flash_kernels_match_plain_on_card(card, hd, causal):
     seen = fa._valid(mask, L, L, *args)  # (b, L, S)
     assert not dq[~seen.any(dim=-1)].any()
     assert not dk[~seen.any(dim=1)].any() and not dv[~seen.any(dim=1)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [128, 512])
+def test_rank_wide_forward_matches_plain_on_card(card, hd, causal):
+    """R1 past head_dim 64 (each visible score once, the output in
+    registers) against the plain version: a span of 700 keys with a hole
+    (six 128-key tiles), a sample with a short span at the end and one
+    with no visible key (random keys: its rows are the plain mean of V),
+    a ragged L, also causal with a query offset (rows before the first
+    visible key see none): out and lse to 1e-5 of max|plain| (fp32 sums
+    in another order), and a second launch bit-identical."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=card).manual_seed(hd)
+    b, L = 3, 901
+    q, k, v = (torch.randn((b, L, 1, hd), generator=g, device=card)
+               for _ in range(3))
+    mask = torch.zeros((b, L), dtype=torch.int32, device=card)
+    mask[0, 100:800] = 1
+    mask[0, 300] = 0
+    mask[1, 850:901] = 1
+    args = (3, True) if causal else (0, False)  # (q_offset, causal)
+    before = fa.flash_rank_fwd.launches
+    out, lse = fa.flash_rank_fwd(q, k, v, mask, *args)
+    again = fa.flash_rank_fwd(q, k, v, mask, *args)
+    assert fa.flash_rank_fwd.launches == before + 2
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, mask, *args)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    live = ref_lse > -1e29  # a dead row's lse is about -6.9e29
+    assert (~live).any() and live.any()
+    assert (lse[live] - ref_lse[live]).abs().max() <= 1e-5 * \
+        ref_lse[live].abs().max()
+    assert torch.allclose(lse[~live], ref_lse[~live], rtol=1e-6, atol=0)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [128, 512])
+def test_moka_wide_path_matches_plain_on_card(card, rank):
+    """Kernel 5's wide path (past rank 64: the down product, R1 a stream,
+    the up product; bf16 x on the tensor cores) against its plain
+    version: AVT (three modalities) and four modalities with three
+    attending, a question span of 700 keys in the first row and none in
+    the second, d_out not a multiple of 64; 1e-2 of max|plain| (one bf16
+    ulp).  A call is one down and one up launch and R1 once a stream."""
+    from moka_tpu_torch.ops import flash_attention as fa
+    from moka_tpu_torch.ops.moka import MokaSpec
+    from moka_tpu_torch.ops.moka_pallas import (moka_delta_fused,
+                                                moka_delta_fused_plain)
+    g = torch.Generator(device=card).manual_seed(rank)
+    b, L, d_in, d_out = 2, 900, 1024, 1032
+    for bounds in ((0, 450, 675, 900), (0, 450, 600, 750, 900)):
+        M = len(bounds) - 1
+        spec = MokaSpec.avt(rank=rank, dropout_rate=0.0)
+        spec = dataclasses.replace(spec, num_modalities=M,
+                                   attn_modalities=tuple(range(1, M)))
+        x = torch.randn((b, L, d_in), generator=g, device=card).bfloat16()
+        a = (torch.rand((M, d_in, rank), generator=g, device=card) * 2 -
+             1) / math.sqrt(d_in)
+        bm = torch.randn((rank, d_out), generator=g, device=card) * 0.02
+        mod = torch.zeros((M, b, L), device=card)
+        for m in range(M):
+            mod[m, :, bounds[m]:bounds[m + 1]] = 1
+        qm = torch.zeros((b, L), device=card)
+        qm[0, 100:800] = 1  # row 1 has no question
+        counts = (moka_delta_fused.wide_down_launches,
+                  moka_delta_fused.wide_up_launches,
+                  fa.flash_rank_fwd.launches)
+        got = moka_delta_fused(x, a, bm, mod, qm, spec)
+        assert (moka_delta_fused.wide_down_launches,
+                moka_delta_fused.wide_up_launches,
+                fa.flash_rank_fwd.launches) == \
+            (counts[0] + 1, counts[1] + 1, counts[2] + M - 1)
+        ref = moka_delta_fused_plain(x, a, bm, mod, qm, spec)
+        assert (got.float() - ref.float()).abs().max() <= \
+            1e-2 * ref.float().abs().max()
 
 
 def test_decode_mutant_edits_apply():
